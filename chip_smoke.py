@@ -10,19 +10,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    power limit;
 2. build the CUDA kernels from ``heterofl_tpu_torch/csrc`` (nvcc, sm_90a);
 3. hold every kernel against its plain PyTorch version on the card, at the
-   shapes of ResNet-18's training step at batch 10: batch norm forward and
-   backward at the four site shapes with zero-weight rows and masked
-   channels; the fused masked-SGD epilogue over all 11,172,170 parameters
-   with the clip engaged and not, and ``has`` 0 and 1;
-4. time each kernel, its plain version and, for batch norm, one PyTorch
-   call computing the same function (CUDA events, warm-up, median);
-5. a small round on the card against the same round on the CPU (plain
-   versions), then the main path: ``heterofl_tpu_torch.entry.
-   train_classifier_fed`` with the paper's headline control on full-width
-   ResNet-18, synthetic CIFAR10 at its real 50,000-image train size,
-   ``pallas_norm=1``, ``fused_update=1``, two rounds -- with every kernel
-   launch counter set to 0 just before and read just after;
-6. the ``kernels`` JSON line, then the ``ok`` JSON line last.
+   shapes of ResNet-18's round at batch 10: batch norm forward and backward
+   at the four site shapes with zero-weight rows and masked channels; the
+   fused masked-SGD epilogue over all 11,172,170 parameters with the clip
+   engaged and not, and ``has`` 0 and 1; the int8 codec's quantise-and-pack
+   over all 11,172,170 parameters (grid steps from the model's params) at
+   (qmax, bias) = (127, 128) and (15, 16), and at an odd n for the tail;
+4. time each kernel, its plain version and, where one exists, one PyTorch
+   call computing the same function (CUDA events, warm-up, median), and the
+   int8 codec's whole step of a round;
+5. small rounds on the card against the same rounds on the CPU (plain
+   versions), dense and with the int8 codec, then the two main paths:
+   ``heterofl_tpu_torch.entry.train_classifier_fed`` with the paper's
+   headline control on full-width ResNet-18, synthetic CIFAR10 at its real
+   50,000-image train size, ``pallas_norm=1``, ``fused_update=1``, two
+   rounds, sBN and Local/Global evaluation after the second -- dense (its
+   local epochs cut to ``--dense-local-epochs``, default 1, to keep the
+   script's time), then with ``--wire_codec int8`` at the control's 5 local
+   epochs; every kernel launch counter is set to 0 just before each path
+   and read just after;
+6. the ``kernels`` JSON line (launches from the int8 path), then the ``ok``
+   JSON line last.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 Everything it measures is printed on standard output.
@@ -30,6 +38,7 @@ Everything it measures is printed on standard output.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -44,12 +53,15 @@ BATCH = 10
 # ResNet-18 on 32x32 CIFAR at batch 10: (rows M = N*H*W, channels C, BN
 # sites of that shape per training step) -- 17 sites per step
 BN_SHAPES = [(10240, 64, 5), (2560, 128, 4), (640, 256, 4), (160, 512, 4)]
-LOCAL_EPOCHS = 5  # the control's own; cut to 1 only if a round outgrows the budget
+LOCAL_EPOCHS = 5  # the control's own, on the int8 main path
 ROUNDS = 2
+QUANT_CASES = [(127, 128), (15, 16)]  # (qmax, bias): 1 and 8 participants' int8 grids
+QUANT_ODD_N = 1001
 # stated tolerances of kernel vs plain version (float32, sums in another order)
 TOL_BN = {"y": (1e-4, 1e-4), "dx": (1e-4, 1e-4), "dg": (1e-3, 1e-4), "db": (1e-3, 1e-4)}
 TOL_SGD_CLIP = (1e-6, 1e-5)   # (atol, rtol) with the clip engaged
 TOL_ROUND = 1e-3              # max |params| difference, card round vs CPU round
+SHARE_ROUND_INT8 = 0.02       # int8 round: share of entries allowed one grid step apart
 # published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device-memory rate and float32 rate outside the tensor cores; the card's
 # name and power limit are printed beside every number
@@ -200,21 +212,78 @@ def sgd_phase(torch, fused_update, mask_flat):
             "bytes": nbytes, "ops": 10 * n}
 
 
-def small_round_phase(torch):
+def quant_phase(torch, quant, codecs, spec, P):
+    """Phases 3 and 4 for the int8 codec's quantise-and-pack kernel: the
+    values to quantise are drawn around the grid that ``Int8Codec`` derives
+    from ``P`` (a cohort of 10), wide enough that some clip.  Also times the
+    whole one-GPU codec step of a round (``compressed_sum``: grid, encode
+    through the kernel, decode), the int8 round's cost over a dense one."""
+    dev = P.device
+    n = spec.total
+    gen = torch.Generator(device=dev).manual_seed(3)
+    u = torch.rand(n, generator=gen, device=dev)
+    z = torch.randn(n, generator=gen, device=dev)
+    say(f"quant_pack n={n}")
+    worst, timed = 0.0, None
+    for (qmax, bias), parts in zip(QUANT_CASES, (1, 8)):
+        codec = codecs.Int8Codec(spec, parts)
+        assert (codec.qmax, codec.bias) == (qmax, bias)
+        s = codec.scale_flat(P, 10)
+        x = z * s * (qmax / 2.0)
+        for m in (n, QUANT_ODD_N):
+            w_k, q_k = quant.quant_pack_cuda(x[:m], s[:m], u[:m], qmax, bias)
+            w_p, q_p = quant.quant_pack_plain(x[:m], s[:m], u[:m], qmax, bias)
+            torch.cuda.synchronize()
+            what = f"n={m} qmax={qmax}"
+            # an integer and float elementwise chain in the same order: equal bits
+            worst = max(worst, check_close(f"quant_pack q {what}", q_k, q_p, 0.0, 0.0),
+                        check_close(f"quant_pack words {what}", w_k, w_p, 0.0, 0.0))
+            if m == n:
+                clipped = float((q_k.abs() == qmax).float().mean())
+                say(f"  qmax={qmax}: {100 * clipped:.2f}% of the values clipped")
+        if timed is None:
+            timed = (x, s, qmax, bias)
+    x, s, qmax, bias = timed
+    ms = time_ms(lambda: quant.quant_pack_cuda(x, s, u, qmax, bias), reps=5, samples=21)
+    pms = time_ms(lambda: quant.quant_pack_plain(x, s, u, qmax, bias), reps=2, samples=11)
+    nbytes = 17 * n  # read x, s, u; write q and the words
+    nops = 10 * n
+    bound = max(nbytes / BW, nops / F32) * 1e3
+    say(f"  quant_pack: kernel {ms:.4f} ms  plain {pms:.4f} ms  bound {bound:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB)  library: no one PyTorch call")
+    codec = codecs.Int8Codec(spec, 1)
+    counts = torch.full((n,), 10.0, device=dev)
+    resid = torch.zeros((1, n), device=dev)
+    cms = time_ms(lambda: codecs.compressed_sum(codec, P, x, counts, resid, u, 10),
+                  reps=2, samples=11)
+    say(f"  int8 codec step of a round (compressed_sum, cohort of 10): {cms:.4f} ms")
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bound, "err": worst, "bytes": nbytes,
+            "ops": nops, "library_ms": None}
+
+
+def small_round_phase(torch, wire_codec):
     """One small round of the port on the card (kernels) against the same
     round on the CPU (plain versions): MNIST conv twin, epoch permutations
-    injected so both sides see the same batches."""
+    (and the int8 codec's noise) injected so both sides see the same draws.
+    Dense: params within ``TOL_ROUND``.  int8: the trained sums differ by
+    float rounding, so entries may land one grid step apart: params within
+    ``TOL_ROUND`` but a share ``SHARE_ROUND_INT8`` within one step
+    ``s / count``, the residual within ``4 x TOL_ROUND`` but that share
+    within one step ``s``."""
     import numpy as np
 
     from heterofl_tpu_torch import config as C
     from heterofl_tpu_torch.data import (fetch_dataset, label_split_masks, split_dataset,
                                          stack_client_shards)
+    from heterofl_tpu_torch.fed import to_width_rates
     from heterofl_tpu_torch.models import make_model
     from heterofl_tpu_torch.parallel import RoundEngine
+    from heterofl_tpu_torch.testing import assert_grid_close
 
     cfg = C.default_cfg()
     cfg["control"] = C.parse_control_name("1_4_1_iid_fix_a1-b1-c1-e1_bn_1_1")
     cfg["data_name"], cfg["model_name"], cfg["pallas_norm"] = "MNIST", "conv", True
+    cfg["wire_codec"] = wire_codec
     cfg["override"] = {"num_epochs": {"local": 2}, "conv": {"hidden_size": [16, 32]}}
     cfg = C.process_control(cfg)
     cfg["classes_size"] = 10
@@ -225,23 +294,91 @@ def small_round_phase(torch):
     rng = np.random.default_rng(2)
     perms = {u: np.stack([rng.permutation(arrays[0].shape[1]) for _ in range(2)])
              for u in range(4)}
-    out = {}
+    users = [0, 1, 2, 3]
+    out = []  # the card's round, then the CPU's
     for dev in (torch.device("cuda"), torch.device("cpu")):
         model = make_model(cfg).init_(torch.Generator().manual_seed(0)).to(dev)
         eng = RoundEngine(model, cfg, dev)
         data = tuple(torch.from_numpy(a).to(dev) for a in arrays)
-        new, ms = eng.train_round(eng.flatten(model.params()), 0.05, [0, 1, 2, 3], data, 0,
-                                  epoch_perms=perms)
-        out[dev.type] = (new.cpu(), ms["loss_sum"].cpu())
-    d = float((out["cuda"][0] - out["cpu"][0]).abs().max())
-    dl = float((out["cuda"][1] - out["cpu"][1]).abs().max())
-    say(f"small round, card vs CPU: max |params diff| {d:.3e}, max |loss_sum diff| {dl:.3e} "
-        f"(tolerance {TOL_ROUND:g})")
-    if not (d <= TOL_ROUND and math.isfinite(dl) and dl <= 100 * TOL_ROUND):
-        raise AssertionError("the round on the card disagrees with the round on the CPU")
+        P = eng.flatten(model.params())
+        noise = None
+        if eng.codec is not None:
+            noise = torch.rand(eng.spec.total, generator=torch.Generator().manual_seed(5))
+            noise = noise.to(dev)
+        new, ms = eng.train_round(P, 0.05, users, data, 0, epoch_perms=perms,
+                                  codec_noise=noise)
+        out.append((new.cpu(), ms["loss_sum"].cpu(), eng.wire_resid_host()))
+        if eng.codec is not None:
+            counts = sum(eng.count_mask_flat(float(wr), data[3][u]).cpu() for u, wr in
+                         zip(users, to_width_rates(eng.fix_rates[users], cfg)))
+            s = eng.codec.scale_flat(P, len(users)).cpu()
+    card, cpu = out
+    dl = float((card[1] - cpu[1]).abs().max())
+    what = f"small round ({wire_codec}), card vs CPU"
+    if wire_codec == "dense":
+        d = float((card[0] - cpu[0]).abs().max())
+        say(f"{what}: max |params diff| {d:.3e}, max |loss_sum diff| {dl:.3e} "
+            f"(tolerance {TOL_ROUND:g})")
+        ok = d <= TOL_ROUND
+    else:
+        assert_grid_close(f"{what}: params", card[0], cpu[0],
+                          torch.where(counts > 0, s / counts.clamp_min(1), 0.0),
+                          atol=TOL_ROUND, max_share=SHARE_ROUND_INT8)
+        assert_grid_close(f"{what}: residual", card[2], cpu[2], s,
+                          atol=len(users) * TOL_ROUND, max_share=SHARE_ROUND_INT8)
+        say(f"{what}: max |loss_sum diff| {dl:.3e}")
+        ok = bool(np.any(card[2] != 0))
+    if not (ok and math.isfinite(dl) and dl <= 100 * TOL_ROUND):
+        raise AssertionError(f"{what}: the round on the card disagrees with the round on the CPU")
+
+
+def main_path(torch, counters, codec: str, local_epochs: int):
+    """``train_classifier_fed`` on the headline control for ``ROUNDS``
+    rounds with evaluation after the last, the launch counters set to 0
+    just before and read just after -> (launches, result, seconds)."""
+    from heterofl_tpu_torch.entry import train_classifier_fed
+
+    argv = ["--control_name", HEADLINE, "--synthetic", "1",
+            "--synthetic_sizes", json.dumps({"train": 50000, "test": 10000}),
+            "--pallas_norm", "1", "--fused_update", "1", "--wire_codec", codec,
+            "--eval_interval", str(ROUNDS),
+            "--override", json.dumps({"num_epochs": {"global": ROUNDS, "local": local_epochs}})]
+    say(f"main path ({codec}): train_classifier_fed {' '.join(argv)}")
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+    t0 = time.time()
+    (result,) = train_classifier_fed.main(argv)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = {k: v for counts in counters for k, v in counts.items()}
+    say(f"main path ({codec}): {secs:.1f} s for {ROUNDS} rounds, local epochs {local_epochs}; "
+        f"launches {launches}")
+    hist = result["history"]
+    for r in hist:
+        say(f"  round {r['epoch']}: loss {r['loss']:.4f} accuracy {r['accuracy']:.2f}% "
+            f"{r['seconds']:.2f} s ({r['n']:.0f} samples)")
+    last = hist[-1] if hist else {}
+    names = ("Local-Loss", "Local-Accuracy", "Global-Loss", "Global-Accuracy", "eval_seconds")
+    if not all(k in last for k in names):
+        raise AssertionError(f"main path ({codec}): no evaluation after round {ROUNDS}: {last}")
+    say(f"  evaluation after round {last['epoch']}: Local loss {last['Local-Loss']:.4f} "
+        f"accuracy {last['Local-Accuracy']:.2f}%, Global loss {last['Global-Loss']:.4f} "
+        f"accuracy {last['Global-Accuracy']:.2f}%, {last['eval_seconds']:.2f} s "
+        f"(sBN over the train set, then Local, then Global)")
+    if len(hist) != ROUNDS or not all(math.isfinite(r["loss"]) for r in hist) \
+            or not all(math.isfinite(last[k]) for k in names):
+        raise AssertionError(f"main path ({codec}): expected {ROUNDS} finite round losses and "
+                             f"finite test metrics, got {hist}")
+    return launches, result, secs
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--dense-local-epochs", type=int, default=1,
+                        help="local epochs of the dense main path (the control's own is 5)")
+    args = parser.parse_args()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -250,8 +387,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from heterofl_tpu_torch import config as C
+    from heterofl_tpu_torch.compress import codecs
     from heterofl_tpu_torch.models import make_model, param_mask
-    from heterofl_tpu_torch.ops import _build, fused_norm, fused_update
+    from heterofl_tpu_torch.ops import _build, fused_norm, fused_update, quant
     from heterofl_tpu_torch.ops.fused_update import FlatSpec
 
     # 1. device
@@ -283,38 +421,31 @@ def main() -> int:
     bn = bn_phase(torch, fused_norm)
     sgd = sgd_phase(torch, fused_update, mask_flat)
     del mask_flat
+    P = spec.flatten(dict(model.init_(torch.Generator().manual_seed(0)).named_parameters()))
+    qp = quant_phase(torch, quant, codecs, spec, P.detach().cuda())
+    del P
     torch.cuda.empty_cache()
 
-    # 5. a small round against the CPU, then the main path, counted
-    small_round_phase(torch)
-    from heterofl_tpu_torch.entry import train_classifier_fed
-
-    argv = ["--control_name", HEADLINE, "--synthetic", "1",
-            "--synthetic_sizes", json.dumps({"train": 50000, "test": 10000}),
-            "--pallas_norm", "1", "--fused_update", "1",
-            "--override", json.dumps({"num_epochs": {"global": ROUNDS, "local": LOCAL_EPOCHS}})]
-    say(f"main path: train_classifier_fed {' '.join(argv)}")
-    for counts in (fused_norm.LAUNCHES, fused_update.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-    t0 = time.time()
-    (result,) = train_classifier_fed.main(argv)
-    torch.cuda.synchronize()
-    main_s = time.time() - t0
-    launches = {**fused_norm.LAUNCHES, **fused_update.LAUNCHES}
-    say(f"main path: {main_s:.1f} s for {ROUNDS} rounds, local epochs {LOCAL_EPOCHS}; "
-        f"launches {launches}")
-    hist = result["history"]
-    for r in hist:
-        say(f"  round {r['epoch']}: loss {r['loss']:.4f} accuracy {r['accuracy']:.2f}% "
-            f"{r['seconds']:.2f} s ({r['n']:.0f} samples)")
-    if len(hist) != ROUNDS or not all(math.isfinite(r["loss"]) for r in hist):
-        raise AssertionError(f"main path: expected {ROUNDS} finite round losses, got {hist}")
+    # 5. small rounds against the CPU, then the main paths, each counted
+    small_round_phase(torch, "dense")
+    small_round_phase(torch, "int8")
+    counters = (fused_norm.LAUNCHES, fused_update.LAUNCHES, quant.LAUNCHES)
+    dense, _, _ = main_path(torch, counters, "dense", args.dense_local_epochs)
+    if dense["quant_pack"] != 0 or min(dense[k] for k in ("bn_fwd", "bn_bwd", "fused_sgd")) <= 0:
+        raise AssertionError(f"dense main path: unexpected launches {dense}")
+    launches, result, _ = main_path(torch, counters, "int8", LOCAL_EPOCHS)
+    if launches["quant_pack"] != ROUNDS:
+        raise AssertionError(f"int8 main path: quant_pack launched {launches['quant_pack']} "
+                             f"times, expected one per round ({ROUNDS})")
     params = result["params"]
     if set(params) != set(spec.names) or any(
             tuple(v.shape) != spec.shapes[k] or not bool(torch.isfinite(v).all())
             for k, v in params.items()):
         raise AssertionError("main path: new global params are not finite at the model's shapes")
+    resid = result["wire_resid"]
+    if resid.shape != (1, spec.total) or not np.isfinite(resid).all() or not resid.any():
+        raise AssertionError("int8 main path: the error-feedback residual is not a finite, "
+                             "non-zero [1, n] carry")
 
     # 6. the kernels line
     kernels = []
@@ -324,7 +455,9 @@ def main() -> int:
             ("bn_bwd", bn["bn_bwd"], "heterofl_tpu_torch/csrc/bn.cu",
              "heterofl_tpu/ops/pallas_norm.py:140"),
             ("fused_sgd", sgd, "heterofl_tpu_torch/csrc/fused_sgd.cu",
-             "heterofl_tpu/ops/fused_update.py:207")):
+             "heterofl_tpu/ops/fused_update.py:207"),
+            ("quant_pack", qp, "heterofl_tpu_torch/csrc/quant.cu",
+             "heterofl_tpu/ops/quant.py:116")):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was never launched on the main path")
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,

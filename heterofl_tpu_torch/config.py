@@ -18,6 +18,8 @@ import copy
 import math
 from typing import Any, Dict, List
 
+from .compress import resolve_codec_cfg
+
 # Width multiplier per complexity level (ref src/utils.py:114).
 MODEL_SPLIT_RATE: Dict[str, float] = {"a": 1.0, "b": 0.5, "c": 0.25, "d": 0.125, "e": 0.0625}
 
@@ -56,6 +58,12 @@ DEFAULT_CFG: Dict[str, Any] = {
     # "cuda" = the kernel or raise; False = the unfused per-leaf chain
     "fused_update": True,
     "compute_dtype": "float32",
+    # compressed aggregation (compress/): dense | int8 | signsgd | topk, and
+    # the lossy codecs' error-feedback residual
+    "wire_codec": "dense",
+    "error_feedback": True,
+    # sBN + Local/Global evaluation every this many rounds, and after the last
+    "eval_interval": 1,
     "sampler": "perm",
     "data_dir": "./data",
     "output_dir": "./output",
@@ -76,7 +84,6 @@ UNPORTED: Dict[str, Any] = {
     "superstep_rounds": 1,
     "metrics_fetch_every": 1,
     "client_store": "eager",
-    "wire_codec": "dense",
     "schedule": None,
     "sample_horizon": None,
     "eval_cohort": None,
@@ -99,7 +106,9 @@ def default_cfg() -> Dict[str, Any]:
 
 def check_ported(cfg: Dict[str, Any]) -> None:
     """Raise ``NotImplementedError`` naming the first key whose value asks
-    for a feature this package does not port yet."""
+    for a feature this package does not port yet, and ``ValueError`` for a
+    wire codec setting that is not valid (:func:`~.compress.
+    resolve_codec_cfg`)."""
     for key, off in UNPORTED.items():
         if key in cfg and cfg[key] != off:
             raise NotImplementedError(
@@ -112,6 +121,7 @@ def check_ported(cfg: Dict[str, Any]) -> None:
             raise NotImplementedError(
                 f"cfg[{key!r}] = {cfg[key]!r} is not ported to heterofl_tpu_torch "
                 f"yet (only {ok[0]!r} is)")
+    resolve_codec_cfg(cfg)
 
 
 def parse_control_name(control_name: str) -> Dict[str, str]:

@@ -1,12 +1,14 @@
 """Experiment loop of the federated vision entry point.
 
-Port of the ``superstep_rounds=1`` training path of
-``heterofl_tpu/entry/common.py``: CLI flags generated from the cfg keys
-(common.py:75-111), then per seed :class:`FedExperiment` -- split the data,
-stage every user's shard on the device once, and per round sample the
+Port of the ``superstep_rounds=1`` path of ``heterofl_tpu/entry/common.py``:
+CLI flags generated from the cfg keys (common.py:75-111), then per seed
+:class:`FedExperiment` -- split the data, stage every user's train shard and
+the evaluation operands on the device once, and per round sample the
 cohort, train it (:class:`~..parallel.RoundEngine`) and log the round's
-train loss, accuracy and time.  Evaluation (sBN, Local/Global),
-checkpoints and the logger are not ported yet.
+train loss, accuracy and time; every ``eval_interval`` rounds and after the
+last, recalibrate BN (sBN) and evaluate Local and Global
+(:class:`~..parallel.Evaluator`).  Checkpoints and the logger are not
+ported yet.
 
 The numpy stream ``self.rng = np.random.default_rng(seed)`` feeds the data
 split first and then the per-round user permutation, as in the reference
@@ -20,7 +22,7 @@ import argparse
 import json
 import math
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,8 +31,8 @@ from .. import config as C
 from .. import resolve_device
 from ..data import fetch_dataset, label_split_masks, split_dataset, stack_client_shards
 from ..models import make_model
-from ..parallel import RoundEngine
-from ..utils import make_scheduler
+from ..parallel import Evaluator, RoundEngine
+from ..utils import make_scheduler, summarize_sums
 
 
 def build_cli(description: str) -> argparse.ArgumentParser:
@@ -74,6 +76,47 @@ def round_seed(seed: int, epoch: int) -> int:
     return int(np.random.SeedSequence([int(seed), int(epoch)]).generate_state(1)[0])
 
 
+def _batch_array(x: np.ndarray, b: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``[N, ...]`` -> ``([S, b, ...], weights [S, b])``, the tail padded
+    with zeros."""
+    n = x.shape[0]
+    s = math.ceil(n / b)
+    pad = s * b - n
+    w = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+    if pad:
+        x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+    return x.reshape((s, b) + x.shape[1:]), w.reshape(s, b)
+
+
+def stage_local_eval(xu: np.ndarray, yu: np.ndarray, mu: np.ndarray, batch_size: int
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-user test shards ``[U, N, ...]`` -> batched ``[U, S, B, ...]``,
+    the tail padded with zero-weight samples."""
+    u, n = xu.shape[0], xu.shape[1]
+    b = min(batch_size, n)
+    s = math.ceil(n / b)
+    pad = s * b - n
+    if pad:
+        xu = np.concatenate([xu, np.zeros((u, pad) + xu.shape[2:], xu.dtype)], 1)
+        yu = np.concatenate([yu, np.zeros((u, pad), yu.dtype)], 1)
+        mu = np.concatenate([mu, np.zeros((u, pad), np.float32)], 1)
+    return xu.reshape(u, s, b, *xu.shape[2:]), yu.reshape(u, s, b), mu.reshape(u, s, b)
+
+
+def stage_eval_operands(cfg, train_set, test_set, test_split, lm):
+    """The evaluation operands on the host: ``(sbn_batches (x, w),
+    local_eval (x, y, m, lm), global_eval (x, y, w))``."""
+    users = cfg["num_users"]
+    sbn = _batch_array(train_set.data, cfg["batch_size"]["train"])
+    b = cfg["batch_size"]["test"]
+    xg, wg = _batch_array(test_set.data, b)
+    yg, _ = _batch_array(test_set.target, b)
+    xu, yu, mu = stack_client_shards(test_set.data, test_set.target, test_split,
+                                     list(range(users)))
+    local = stage_local_eval(xu, yu, mu, b) + (lm,)
+    return sbn, local, (xg, yg, wg)
+
+
 class FedExperiment:
     """One federated experiment (one seed)."""
 
@@ -94,25 +137,36 @@ class FedExperiment:
         gen = torch.Generator().manual_seed(seed)
         self.model = make_model(cfg).init_(gen).to(self.device)
         self.engine = RoundEngine(self.model, cfg, self.device)
+        self.evaluator = Evaluator(self.model, cfg, self.device)
+        self.eval_interval = max(1, int(cfg.get("eval_interval", 1) or 1))
         self.scheduler = make_scheduler(cfg)
         self.num_active = int(math.ceil(cfg["frac"] * cfg["num_users"]))
         if not 0 < self.num_active <= cfg["num_users"]:
             raise ValueError(f"frac={cfg['frac']} draws num_active={self.num_active} "
                              f"outside [1, num_users={cfg['num_users']}]")
         self.history: List[Dict[str, float]] = []
+        self.bn_state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}  # the last sBN pass's
 
     def make_splits(self):
         return split_dataset(self.dataset, self.cfg["num_users"], self.cfg["data_split_mode"],
                              self.rng, classes_size=self.cfg["classes_size"])
 
+    def _to_device(self, arrays) -> Tuple[torch.Tensor, ...]:
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays)
+
     def stage(self, data_split, label_split) -> None:
-        """Every user's train shard onto the device, once."""
+        """Every user's train shard and the evaluation operands onto the
+        device, once."""
         cfg, tr = self.cfg, self.dataset["train"]
         users = cfg["num_users"]
         x, y, m = stack_client_shards(tr.data, tr.target, data_split["train"], list(range(users)))
         lm = label_split_masks(label_split, users, cfg["classes_size"])
-        self.train_data = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                                for a in (x, y, m, lm))
+        self.train_data = self._to_device((x, y, m, lm))
+        sbn, local, glob = stage_eval_operands(cfg, tr, self.dataset["test"],
+                                               data_split["test"], lm)
+        self.sbn_batches = self._to_device(sbn)
+        self.local_eval = self._to_device(local)
+        self.global_eval = self._to_device(glob)
 
     def sample_users(self, epoch: int) -> np.ndarray:
         return self.rng.permutation(self.cfg["num_users"])[: self.num_active].astype(np.int64)
@@ -135,15 +189,35 @@ class FedExperiment:
               f"Round time: {dt:.2f}s Rates: {rec['rates']}", flush=True)
         return P
 
+    def evaluate(self, P: torch.Tensor, epoch: int) -> Dict[str, float]:
+        """sBN, then Local, then Global, on the global flat params ``P``
+        (ref entry/common.py:1241-1272) -> the named test metrics."""
+        t0 = time.time()
+        params = self.engine.unflatten(P)
+        bn = self.evaluator.sbn_stats(params, *self.sbn_batches)
+        local = self.evaluator.eval_users(params, bn, *self.local_eval)
+        named = summarize_sums(local)
+        g = self.evaluator.eval_global(params, bn, *self.global_eval)
+        named.update(summarize_sums(g, prefix="Global-"))
+        named["eval_seconds"] = time.time() - t0
+        self.bn_state = bn
+        print(f"Model: {self.tag} Test Epoch: {epoch} "
+              + " ".join(f"{k}: {v:.4f}" for k, v in named.items()), flush=True)
+        return named
+
     def run(self) -> Dict[str, Any]:
         data_split, label_split = self.make_splits()
         self.stage(data_split, label_split)
         P = self.engine.flatten(self.model.params())
-        for epoch in range(1, self.cfg["num_epochs"]["global"] + 1):
+        last = self.cfg["num_epochs"]["global"]
+        for epoch in range(1, last + 1):
             P = self.train_round(P, epoch, self.scheduler(epoch))
+            if epoch % self.eval_interval == 0 or epoch == last:
+                self.history[-1].update(self.evaluate(P, epoch))
         return {"params": {k: v.clone() for k, v in self.engine.unflatten(P).items()},
                 "history": self.history, "data_split": data_split,
-                "label_split": label_split}
+                "label_split": label_split, "bn_state": self.bn_state,
+                "wire_resid": self.engine.wire_resid_host()}
 
 
 def run_main(description: str, model_default: str, data_default: str,

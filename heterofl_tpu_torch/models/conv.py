@@ -56,19 +56,27 @@ class ConvNet(FedModel):
         return super().fan_in(name, shape)
 
     def forward(self, img, label, *, params=None, width_rate: float = 1.0,
-                scaler_rate: float = 1.0, label_mask=None, sample_weight=None):
-        """Training forward on an NCHW (channels_last) batch ->
-        ``(score [N, classes], mean loss)``.  ``width_rate`` is carried for
-        the interface; bn/none need no channel mask (masked channels hold
-        ``g == b == 0``)."""
+                scaler_rate: float = 1.0, label_mask=None, sample_weight=None,
+                bn_mode: str = "batch", bn_state=None, bn_collect=None):
+        """Forward on an NCHW (channels_last) batch -> ``(score [N,
+        classes], mean loss)``.  ``width_rate`` is carried for the interface;
+        bn/none need no channel mask (masked channels hold ``g == b == 0``).
+        ``bn_mode``/``bn_state`` pick the BN sites' mode and running
+        statistics ``{site: (mean, var)}``; in ``"collect"`` mode each site's
+        ``(mean, unbiased var)`` goes into the dict ``bn_collect``."""
         P = params if params is not None else self.params()
         x = img
         for i in range(self.n_blocks):
             x = conv2d(x, P[f"block{i}.conv.w"], P[f"block{i}.conv.b"])
             if self.scale:
                 x = scaler(x, scaler_rate)
-            x = apply_norm(self.norm, x, P.get(f"block{i}.norm.g"), P.get(f"block{i}.norm.b"),
-                           sample_weight=sample_weight, use_fused=self.pallas_norm)
+            site = f"block{i}.norm"
+            x, st = apply_norm(self.norm, x, P.get(f"{site}.g"), P.get(f"{site}.b"),
+                               sample_weight=sample_weight, use_fused=self.pallas_norm,
+                               bn_mode=bn_mode,
+                               bn_running=None if bn_state is None else bn_state.get(site))
+            if st is not None and bn_collect is not None:
+                bn_collect[site] = st
             x = torch.relu(x)
             if i < self.n_blocks - 1:  # last pool dropped (ref conv.py:56)
                 x = max_pool2(x)

@@ -76,14 +76,21 @@ class ResNet(FedModel):
                      "classes_size": classes_size}
 
     def forward(self, img, label, *, params=None, width_rate: float = 1.0,
-                scaler_rate: float = 1.0, label_mask=None, sample_weight=None):
-        """Training forward on an NCHW (channels_last) batch ->
-        ``(score [N, classes], mean loss)``."""
+                scaler_rate: float = 1.0, label_mask=None, sample_weight=None,
+                bn_mode: str = "batch", bn_state=None, bn_collect=None):
+        """Forward on an NCHW (channels_last) batch -> ``(score [N,
+        classes], mean loss)``; ``bn_mode``, ``bn_state`` and ``bn_collect``
+        as in :meth:`~.conv.ConvNet.forward`."""
         P = params if params is not None else self.params()
 
         def norm_site(site, x):
-            return apply_norm(self.norm, x, P.get(f"{site}.g"), P.get(f"{site}.b"),
-                              sample_weight=sample_weight, use_fused=self.pallas_norm)
+            y, st = apply_norm(self.norm, x, P.get(f"{site}.g"), P.get(f"{site}.b"),
+                               sample_weight=sample_weight, use_fused=self.pallas_norm,
+                               bn_mode=bn_mode,
+                               bn_running=None if bn_state is None else bn_state.get(site))
+            if st is not None and bn_collect is not None:
+                bn_collect[site] = st
+            return y
 
         def sc(x):
             return scaler(x, scaler_rate) if self.scale else x

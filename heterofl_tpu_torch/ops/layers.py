@@ -13,7 +13,7 @@ linear weights are ``[out, in]``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,14 +57,32 @@ def _channel_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 def batch_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-               sample_weight: Optional[torch.Tensor] = None, eps: float = 1e-5) -> torch.Tensor:
-    """Batch-statistics normalisation (mode ``"batch"``) of an NCHW or NC
-    tensor, in the reference's two-pass form (layers.py:173-193): mean, then
-    the centred variance, both weighted by ``sample_weight`` when given.
+               sample_weight: Optional[torch.Tensor] = None, eps: float = 1e-5,
+               mode: str = "batch",
+               running: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Static batch norm (momentum=None, per channel) of an NCHW or NC
+    tensor -> ``(y, stats or None)``, the reference's ``mode``s
+    (layers.py:112-197):
+
+    * ``"batch"``: normalise with batch statistics in the two-pass form --
+      mean, then the centred variance, both weighted by ``sample_weight``
+      when given;
+    * ``"running"``: normalise with ``running = (mean, var)`` (evaluation
+      after sBN recalibration);
+    * ``"collect"``: as ``"batch"``, and return ``(mean, var * n / max(n -
+      1, 1))`` -- the unbiased variance, ``n`` the (weighted) count per
+      channel -- for the cumulative average of sBN.
 
     Zero-weight samples are excluded by multiplying, as in the reference, so
     a non-finite value there reaches the statistics; the fused kernel path
     (ops/fused_norm.py) excludes them with a select instead."""
+    if mode == "running":
+        mean, var = running
+        y = (x - _channel_view(mean, x.ndim)) / torch.sqrt(_channel_view(var, x.ndim) + eps)
+        return y * _channel_view(g, x.ndim) + _channel_view(b, x.ndim), None
+    if mode not in ("batch", "collect"):
+        raise ValueError(f"Not valid batch_norm mode: {mode!r} (batch | running | collect)")
     axes = (0,) + tuple(range(2, x.ndim))
     if sample_weight is None:
         n = float(x.numel() // x.shape[1])
@@ -76,7 +94,11 @@ def batch_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
         d = n.clamp_min(1e-6)  # all-padding batches: zero statistics, not NaN
         mean = (x * w).sum(dim=axes, keepdim=True) / d
         var = (w * (x - mean) ** 2).sum(dim=axes, keepdim=True) / d
-    return (x - mean) / torch.sqrt(var + eps) * _channel_view(g, x.ndim) + _channel_view(b, x.ndim)
+    y = (x - mean) / torch.sqrt(var + eps) * _channel_view(g, x.ndim) + _channel_view(b, x.ndim)
+    if mode == "collect":
+        unbiased = var * n / torch.clamp_min(torch.as_tensor(n) - 1, 1)
+        return y, (mean.reshape(-1), unbiased.reshape(-1))
+    return y, None
 
 
 def masked_logits(out: torch.Tensor, label_mask: Optional[torch.Tensor],

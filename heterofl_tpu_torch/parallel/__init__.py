@@ -1,3 +1,4 @@
-"""Round execution on one GPU."""
+"""Round execution and evaluation on one GPU."""
 
+from .evaluation import Evaluator  # noqa: F401
 from .round_engine import RoundEngine, client_seed  # noqa: F401

@@ -1,0 +1,103 @@
+"""sBN recalibration and Local/Global evaluation on one GPU.
+
+Port of the host-loop (``superstep_rounds=1``) path of
+``heterofl_tpu/parallel/evaluation.py::Evaluator``.  Federated training runs
+BN on batch statistics only; before an evaluation the global model makes
+one no-grad pass over the train set in ``"collect"`` mode and averages each
+BN site's per-batch ``(mean, unbiased var)`` (a cumulative average, the
+reference's momentum=None BN).  "Local" evaluates each user's test shard
+under that user's label mask; "Global" the whole test set without one.
+Both run the BN sites in ``"running"`` mode on the sBN statistics.
+
+The reference scans batches inside one XLA program (users under ``vmap``);
+here batches run one after another in a Python loop of no-grad forwards on
+the device, and the metric sums stay on the device until the one fetch at
+the end of each method.  Operands are device tensors staged once by the
+caller (``entry/common.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from ..data.datasets import DATASET_STATS
+from ..models.base import FedModel
+from ..ops.augment import normalize_image
+
+BnState = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+class Evaluator:
+    """Evaluation programs of one (model, cfg, device)."""
+
+    def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device):
+        self.model, self.device = model, device
+        stats = DATASET_STATS[cfg["data_name"]]
+        self.norm_mean = torch.tensor(stats[0], dtype=torch.float32, device=device)
+        self.norm_std = torch.tensor(stats[1], dtype=torch.float32, device=device)
+
+    def _img(self, x_u8: torch.Tensor) -> torch.Tensor:
+        """uint8 NHWC batch -> normalised NCHW view (channels_last memory)."""
+        return normalize_image(x_u8, self.norm_mean, self.norm_std).permute(0, 3, 1, 2)
+
+    @torch.no_grad()
+    def sbn_stats(self, params: Dict[str, torch.Tensor], x_batches: torch.Tensor,
+                  w_batches: torch.Tensor) -> BnState:
+        """Cumulative-average BN statistics over ``[S, B, H, W, C]`` uint8
+        train batches with sample weights ``[S, B]``: each batch with a
+        positive weight adds its sites' ``(mean, unbiased var)``, and the
+        sums are divided by ``max(batches, 1)`` -> ``{site: (mean, var)}``."""
+        if self.model.norm != "bn":
+            return {}
+        sums: Dict[str, list] = {}
+        n = torch.zeros((), dtype=torch.float32, device=self.device)
+        labels = torch.zeros(x_batches.shape[1], dtype=torch.int64, device=self.device)
+        for t in range(x_batches.shape[0]):
+            w = w_batches[t]
+            has = (w.sum() > 0).to(torch.float32)
+            col: BnState = {}
+            self.model(self._img(x_batches[t]), labels, params=params, bn_mode="collect",
+                       sample_weight=w, bn_collect=col)
+            for site, (m, v) in col.items():
+                if site not in sums:
+                    sums[site] = [torch.zeros_like(m), torch.zeros_like(v)]
+                sums[site][0] += m * has
+                sums[site][1] += v * has
+            n += has
+        d = n.clamp_min(1.0)
+        return {site: (m / d, v / d) for site, (m, v) in sums.items()}
+
+    def _batch_metrics(self, params, bn_state: BnState, x, y, w, lm=None) -> torch.Tensor:
+        """``[loss_sum, correct, n]`` of one batch, on the device."""
+        score, loss = self.model(self._img(x), y, params=params, bn_mode="running",
+                                 bn_state=bn_state, label_mask=lm, sample_weight=w)
+        n = w.sum()
+        correct = ((score.argmax(-1) == y).to(torch.float32) * w).sum()
+        return torch.stack([loss * n, correct, n])
+
+    @torch.no_grad()
+    def eval_users(self, params, bn_state: BnState, x: torch.Tensor, y: torch.Tensor,
+                   m: torch.Tensor, lm: torch.Tensor) -> Dict[str, np.ndarray]:
+        """"Local" metric sums per user: batched test shards ``x [U, S, B,
+        H, W, C]``, ``y``/``m`` ``[U, S, B]``, label masks ``lm [U,
+        classes]`` -> ``{loss_sum, score_sum, n}``, each ``[U]``."""
+        acc = torch.zeros((x.shape[0], 3), dtype=torch.float32, device=self.device)
+        for u in range(x.shape[0]):
+            for t in range(x.shape[1]):
+                acc[u] += self._batch_metrics(params, bn_state, x[u, t], y[u, t], m[u, t], lm[u])
+        host = acc.cpu().numpy()
+        return {"loss_sum": host[:, 0], "score_sum": host[:, 1], "n": host[:, 2]}
+
+    @torch.no_grad()
+    def eval_global(self, params, bn_state: BnState, x: torch.Tensor, y: torch.Tensor,
+                    w: torch.Tensor) -> Dict[str, float]:
+        """"Global" metric sums over the batched test set ``x [S, B, H, W,
+        C]``, ``y``/``w`` ``[S, B]`` -> ``{loss_sum, score_sum, n}``."""
+        acc = torch.zeros(3, dtype=torch.float32, device=self.device)
+        for t in range(x.shape[0]):
+            acc += self._batch_metrics(params, bn_state, x[t], y[t], w[t])
+        loss_sum, score_sum, n = acc.tolist()
+        return {"loss_sum": loss_sum, "score_sum": score_sum, "n": n}

@@ -18,6 +18,10 @@ Python loop (batching them is later work), each through:
   buffers;
 * aggregation in the flat domain: ``sum += trained * count_mask``,
   ``count += count_mask``, then the counted average with stale fallback.
+  With a lossy ``wire_codec`` the flat ``(sum, count)`` pair goes through
+  the codec first (compress/codecs.py: encode, the sum over participants,
+  decode), and the codec's error-feedback residual is carried on the device
+  from round to round (the reference's ``_WireCodecCarry``).
 
 The step loop never waits for the device: the batch weight sum, ``lr`` and
 ``has`` stay device tensors the kernel reads by pointer, and no value is
@@ -35,6 +39,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..compress import make_codec, resolve_codec_cfg
+from ..compress.codecs import compressed_sum
 from ..data.datasets import DATASET_STATS
 from ..fed.core import combine_counted, to_width_rates
 from ..models.base import FedModel
@@ -72,6 +78,11 @@ class RoundEngine:
         self.momentum = float(cfg.get("momentum", 0.0))
         self.weight_decay = float(cfg.get("weight_decay", 0.0))
         self.spec = FlatSpec.of(dict(model.named_parameters()))
+        # wire codec: one participant (one GPU); 'dense' builds no codec and
+        # no residual, and leaves the round as it was
+        name, ef = resolve_codec_cfg(cfg)
+        self.codec = make_codec(name, self.spec, 1, error_feedback=ef)
+        self._resid: Optional[torch.Tensor] = None  # [resid_slots, total] EF carry
         self._label_axes = [(k, s.label_axis) for k, s in model.specs.items()
                             if s.label_axis is not None]
         # flat width masks per width rate, built once on the host and moved
@@ -185,19 +196,52 @@ class RoundEngine:
             pt[k].copy_(torch.where(has, new_p[k], pt[k]))
             bt[k].copy_(torch.where(has, new_b[k], bt[k]))
 
+    # -- the wire codec's error-feedback carry ----------------------------
+
+    def _ensure_resid(self, device: torch.device) -> torch.Tensor:
+        """The residual carry, zeros on first use."""
+        if self._resid is None:
+            self._resid = torch.zeros((self.codec.resid_slots, self.spec.total),
+                                      dtype=torch.float32, device=device)
+        return self._resid
+
+    def wire_resid_host(self) -> Optional[np.ndarray]:
+        """Host copy of the residual carry ``[resid_slots, total]`` (for a
+        checkpoint); None under ``dense`` or before the first compressed
+        round."""
+        return None if self._resid is None else self._resid.cpu().numpy()
+
+    def set_wire_resid(self, arr) -> None:
+        """Restore the residual carry (from a checkpoint) onto the device."""
+        host = torch.as_tensor(np.asarray(arr, np.float32))
+        want = (self.codec.resid_slots, self.spec.total)
+        if tuple(host.shape) != want:
+            raise ValueError(f"wire residual of shape {tuple(host.shape)}, want {want}")
+        self._resid = host.to(self.device)
+
+    def reset_carries(self) -> None:
+        """Drop the residual carry; the next compressed round starts from
+        zeros unless one is restored first."""
+        self._resid = None
+
     # -- one round ---------------------------------------------------------
 
     def train_round(self, P: torch.Tensor, lr: float, user_idx: Sequence[int],
                     data: Tuple[torch.Tensor, ...], round_seed: int,
-                    epoch_perms: Optional[Dict[int, np.ndarray]] = None
+                    epoch_perms: Optional[Dict[int, np.ndarray]] = None,
+                    codec_noise: Optional[torch.Tensor] = None,
+                    topk_offset: Optional[int] = None
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One round from the global flat params ``P``.
 
         ``data``: device stacks ``(x [U, N, H, W, C] uint8, y [U, N],
         sample_mask [U, N], label_mask [U, classes])``.  Returns the new
         global flat params and per-client metric sums (device tensors
-        ``loss_sum``, ``score_sum``, ``n``; host ``rate``).
-        ``epoch_perms`` (test hook): ``{uid: [E, N]}`` raw permutations."""
+        ``loss_sum``, ``score_sum``, ``n``; host ``rate``).  Test hooks,
+        which replace a draw from the round seed: ``epoch_perms`` ``{uid:
+        [E, N]}`` raw permutations; ``codec_noise`` the int8 codec's
+        rounding noise ``[total]`` (flat layout of ``self.spec``);
+        ``topk_offset`` the topk codec's block offset."""
         x_all, y_all, sm_all, lm_all = data
         user_idx = np.asarray(user_idx, np.int64)
         rates_abs = self.fix_rates[user_idx]
@@ -220,4 +264,11 @@ class RoundEngine:
         acc = torch.stack(rows)
         ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
               "rate": rates_abs}
+        if self.codec is not None:
+            draw = {"int8": codec_noise, "topk": topk_offset}.get(self.codec.name)
+            if draw is None:
+                draw = self.codec.draw(round_seed, P.device)
+            summed, counts, self._resid = compressed_sum(
+                self.codec, P, summed, counts, self._ensure_resid(P.device), draw,
+                len(user_idx))
         return combine_counted(P, summed, counts), ms

@@ -43,3 +43,30 @@ def assert_close(what: str, actual, desired, *, rtol: float, atol: float
           f"(rtol {rtol:g}, atol {atol:g})", flush=True)
     np.testing.assert_allclose(a, d, rtol=rtol, atol=atol, err_msg=what)
     return max_abs, max_rel
+
+
+def assert_grid_close(what: str, actual, desired, step, *, atol: float, max_share: float
+                      ) -> Tuple[float, float]:
+    """The contract of a quantised result whose inputs differ by float
+    rounding: every entry within ``atol``, except at most a share
+    ``max_share`` of entries that landed one grid step apart, each within
+    ``step + atol`` (``step`` per entry, the grid's step).  Prints the
+    largest absolute difference and the share off by a step, and returns
+    them."""
+    a, d, st = _host(actual), _host(desired), np.broadcast_to(_host(step), _host(desired).shape)
+    if a.shape != d.shape:
+        raise AssertionError(f"{what}: shape {a.shape} != {d.shape}")
+    diff = np.abs(a - d)
+    off = ~(diff <= atol)
+    share = float(off.mean()) if off.size else 0.0
+    max_abs = float(diff.max()) if diff.size else 0.0
+    steps = float((diff[off] / np.maximum(st[off], 1e-30)).max()) if off.any() else 0.0
+    print(f"parity {what}: max_abs_err {max_abs:.3e} share_off_by_a_step {share:.3e} "
+          f"({int(off.sum())} of {off.size}, at most {steps:.3f} steps) "
+          f"(atol {atol:g}, max_share {max_share:g})", flush=True)
+    if share > max_share:
+        raise AssertionError(f"{what}: {share:.3e} of the entries differ by more than "
+                             f"{atol:g} (allowed {max_share:g})")
+    if not np.all(diff[off] <= st[off] + atol):
+        raise AssertionError(f"{what}: an entry differs by more than one grid step")
+    return max_abs, share

@@ -46,8 +46,9 @@ def test_process_control_matches_reference(control, data_name, model_name):
 def test_unported_keys_raise_naming_the_key():
     cfg = PC.default_cfg()
     cfg["control"] = PC.parse_control_name("1_100_0.1_iid_fix_a1_bn_1_1")
-    for key, value in (("superstep_rounds", 4), ("wire_codec", "int8"), ("telemetry", "on"),
-                       ("strategy", "grouped"), ("sampler", "prp"), ("quarantine", "on")):
+    for key, value in (("superstep_rounds", 4), ("wire_codec", {"1.0": "int8"}),
+                       ("telemetry", "on"), ("strategy", "grouped"), ("sampler", "prp"),
+                       ("quarantine", "on")):
         bad = dict(cfg, **{key: value})
         with pytest.raises(NotImplementedError, match=key):
             PC.process_control(bad)

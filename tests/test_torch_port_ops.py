@@ -107,8 +107,8 @@ def test_two_pass_batch_norm_matches_reference(weighted):
     sw = w if weighted else None
     ref, _ = r_layers.batch_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b), mode="batch",
                                  sample_weight=None if sw is None else jnp.asarray(sw))
-    out = layers.batch_norm(_nchw(x), torch.from_numpy(g), torch.from_numpy(b),
-                            sample_weight=None if sw is None else torch.from_numpy(sw))
+    out, _ = layers.batch_norm(_nchw(x), torch.from_numpy(g), torch.from_numpy(b),
+                               sample_weight=None if sw is None else torch.from_numpy(sw))
     assert_close(f"two-pass batch_norm vs reference (weighted={weighted})", _nhwc(out), ref,
                  rtol=1e-5, atol=1e-5)
 
