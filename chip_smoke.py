@@ -11,14 +11,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build the CUDA kernels from ``heterofl_tpu_torch/csrc`` (nvcc, sm_90a);
 3. hold every kernel against its plain PyTorch version on the card, at the
    shapes of ResNet-18's round at batch 10: batch norm forward and backward
-   at the four site shapes with zero-weight rows and masked channels; the
+   at the four site shapes with zero-weight rows and masked channels, and
+   at the MNIST conv twin's and ragged shapes (a NaN in a zero-weight row),
+   each call twice and equal bit for bit, with each shape's launch plan; the
    fused masked-SGD epilogue over all 11,172,170 parameters with the clip
    engaged and not, and ``has`` 0 and 1; the int8 codec's quantise-and-pack
    over all 11,172,170 parameters (grid steps from the model's params) at
    (qmax, bias) = (127, 128) and (15, 16), and at an odd n for the tail;
 4. time each kernel, its plain version and, where one exists, one PyTorch
    call computing the same function (CUDA events, warm-up, median), and the
-   int8 codec's whole step of a round;
+   int8 codec's whole step of a round; the batch-norm kernels and their
+   library calls also by device time (calls captured in a CUDA graph and
+   replayed, so no host work sits between the launches);
 5. small rounds on the card against the same rounds on the CPU (plain
    versions), dense and with the int8 codec, then the two main paths:
    ``heterofl_tpu_torch.entry.train_classifier_fed`` with the paper's
@@ -53,6 +57,14 @@ BATCH = 10
 # ResNet-18 on 32x32 CIFAR at batch 10: (rows M = N*H*W, channels C, BN
 # sites of that shape per training step) -- 17 sites per step
 BN_SHAPES = [(10240, 64, 5), (2560, 128, 4), (640, 256, 4), (160, 512, 4)]
+# BN shapes held against the plain version but not timed (M, C, P): the
+# MNIST conv twin of the small rounds (C = 16, 32 at 28x28 and 14x14, batch
+# 10); ragged ones (a channel tile cut short, C = 1 and 6 on the kernels'
+# scalar path, fewer rows than one block's lanes); and two whose rows do not
+# stay in shared memory (the backward's only, then both directions')
+BN_CHECK_SHAPES = [(7840, 16, 784), (1960, 32, 196), (999, 20, 111), (50, 1, 5),
+                   (37, 48, 37), (3000, 6, 300), (40960, 64, 4096), (131072, 64, 1024)]
+BN_GRAPH_CALLS = 20  # calls per CUDA graph when timing device time
 LOCAL_EPOCHS = 5  # the control's own, on the int8 main path
 ROUNDS = 2
 QUANT_CASES = [(127, 128), (15, 16)]  # (qmax, bias): 1 and 8 participants' int8 grids
@@ -102,69 +114,144 @@ def time_ms(fn, reps: int = 10, samples: int = 25, warmup: int = 3) -> float:
     return statistics.median(out)
 
 
+def graph_ms(fn, calls: int = BN_GRAPH_CALLS, samples: int = 25) -> float:
+    """Device time of one call: ``calls`` calls captured in one CUDA graph
+    (warmed up on a side stream first), the median over ``samples`` replays
+    on CUDA events, divided by ``calls``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(samples):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / calls)
+    return statistics.median(out)
+
+
+def same_bits(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def bn_check(torch, fused_norm, gen, M: int, C: int, P: int, nan_row: bool):
+    """Both batch-norm kernels at one shape against their plain versions
+    (``TOL_BN``) and against a second call on the same inputs (equal bits).
+    With ``nan_row``, a NaN in a zero-weight row of the forward's input must
+    stay out of the statistics.  -> (inputs, max errors)"""
+    dev = torch.device("cuda")
+    N = M // P
+    x2 = torch.randn(M, C, device=dev, generator=gen)
+    w = torch.ones(N, device=dev)
+    zeros = [3, 7] if N == BATCH else [N - 1] if N > 1 else []
+    if zeros:
+        w[zeros] = 0.0  # zero-weight samples (padding in a short last batch)
+    g = torch.randn(C, device=dev, generator=gen)
+    b = torch.randn(C, device=dev, generator=gen)
+    g[3 * C // 4:] = 0.0
+    b[3 * C // 4:] = 0.0  # masked channels of a narrower client
+    dy = torch.randn(M, C, device=dev, generator=gen)
+    pl = fused_norm.bn_plan(M, C)
+    say(f"BN M={M} C={C} P={P}: plan tile_c={pl.tile_c} tiles={pl.tiles} "
+        f"cluster={pl.cluster} rows={pl.rows} lanes={pl.lanes} iters={pl.iters} "
+        f"resident fwd/bwd={int(pl.resident_fwd)}/{int(pl.resident_bwd)} "
+        f"smem fwd/bwd={pl.smem_fwd}/{pl.smem_bwd} B -> {pl.cluster * pl.tiles} blocks")
+    xf = x2
+    if nan_row and zeros:
+        xf = x2.clone()
+        xf[zeros[0] * P] = float("nan")
+    y_k, st_k = fused_norm.bn_fwd_cuda(xf, w, P, g, b)
+    y_p, st_p = fused_norm.bn_fwd_plain(xf, w, P, g, b)
+    e_f = max(check_close("bn_fwd y", y_k, y_p, *TOL_BN["y"]),
+              check_close("bn_fwd stats", st_k, st_p, *TOL_BN["y"]))
+    if not bool(torch.isfinite(st_k).all()):
+        raise AssertionError(f"bn_fwd M={M} C={C}: non-finite statistics")
+    y_2, st_2 = fused_norm.bn_fwd_cuda(xf, w, P, g, b)
+    if xf is not x2:
+        st_p = fused_norm.bn_fwd_plain(x2, w, P, g, b)[1]
+    dx_k, dg_k, db_k = fused_norm.bn_bwd_cuda(x2, w, P, g, dy, st_p)
+    dx_p, dg_p, db_p = fused_norm.bn_bwd_plain(x2, w, P, g, dy, st_p)
+    e_b = max(check_close("bn_bwd dx", dx_k, dx_p, *TOL_BN["dx"]),
+              check_close("bn_bwd dg", dg_k, dg_p, *TOL_BN["dg"]),
+              check_close("bn_bwd db", db_k, db_p, *TOL_BN["db"]))
+    again = fused_norm.bn_bwd_cuda(x2, w, P, g, dy, st_p)
+    torch.cuda.synchronize()
+    if not all(same_bits(torch, a, b) for a, b in zip((y_k, st_k, dx_k, dg_k, db_k),
+                                                         (y_2, st_2) + again)):
+        raise AssertionError(f"BN M={M} C={C}: two calls on the same inputs differ in their bits")
+    say("  bit-identical across two calls: y, stats, dx, dg, db")
+    return (x2, w, g, b, dy, st_p), e_f, e_b
+
+
 def bn_phase(torch, fused_norm):
     """Phases 3 and 4 for the two batch-norm kernels."""
     import torch.nn.functional as F
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
-               "bytes": 0.0, "ops": 0.0} for k in ("bn_fwd", "bn_bwd")}
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms", "bound_ms")
+    tot = {k: dict.fromkeys(keys + ("err", "bytes", "ops"), 0.0) for k in ("bn_fwd", "bn_bwd")}
     for M, C, sites in BN_SHAPES:
         P = M // BATCH
-        x2 = torch.randn(M, C, device=dev, generator=gen)
-        w = torch.ones(BATCH, device=dev)
-        w[3] = 0.0
-        w[7] = 0.0  # two zero-weight samples (padding in a short last batch)
-        g = torch.randn(C, device=dev, generator=gen)
-        b = torch.randn(C, device=dev, generator=gen)
-        g[3 * C // 4:] = 0.0
-        b[3 * C // 4:] = 0.0  # masked channels of a narrower client
-        dy = torch.randn(M, C, device=dev, generator=gen)
-        say(f"BN M={M} C={C} ({sites} sites per step)")
-        y_k, st_k = fused_norm.bn_fwd_cuda(x2, w, P, g, b)
-        y_p, st_p = fused_norm.bn_fwd_plain(x2, w, P, g, b)
-        e_f = max(check_close("bn_fwd y", y_k, y_p, *TOL_BN["y"]),
-                  check_close("bn_fwd stats", st_k, st_p, *TOL_BN["y"]))
-        dx_k, dg_k, db_k = fused_norm.bn_bwd_cuda(x2, w, P, g, dy, st_p)
-        dx_p, dg_p, db_p = fused_norm.bn_bwd_plain(x2, w, P, g, dy, st_p)
-        e_b = max(check_close("bn_bwd dx", dx_k, dx_p, *TOL_BN["dx"]),
-                  check_close("bn_bwd dg", dg_k, dg_p, *TOL_BN["dg"]),
-                  check_close("bn_bwd db", db_k, db_p, *TOL_BN["db"]))
-        torch.cuda.synchronize()
+        (x2, w, g, b, dy, st_p), e_f, e_b = bn_check(torch, fused_norm, gen, M, C, P, False)
+        say(f"  {sites} sites per step")
         # yardstick: PyTorch's own batch norm, all weights 1 (it has no
         # per-sample weight), on the channels_last NCHW view of the rows
         x4 = x2.view(BATCH, 1, P, C).permute(0, 3, 1, 2)
         dy4 = dy.view(BATCH, 1, P, C).permute(0, 3, 1, 2)
         _, s_mean, s_inv = torch.ops.aten.native_batch_norm(x4, g, b, None, None, True, 0.0, 1e-5)
-        t = {
-            "bn_fwd": (time_ms(lambda: fused_norm.bn_fwd_cuda(x2, w, P, g, b)),
-                       time_ms(lambda: fused_norm.bn_fwd_plain(x2, w, P, g, b)),
-                       time_ms(lambda: F.batch_norm(x4, None, None, g, b, training=True,
-                                                    momentum=0.0, eps=1e-5))),
-            "bn_bwd": (time_ms(lambda: fused_norm.bn_bwd_cuda(x2, w, P, g, dy, st_p)),
-                       time_ms(lambda: fused_norm.bn_bwd_plain(x2, w, P, g, dy, st_p)),
-                       time_ms(lambda: torch.ops.aten.native_batch_norm_backward(
+        calls = {
+            "bn_fwd": (lambda: fused_norm.bn_fwd_cuda(x2, w, P, g, b),
+                       lambda: fused_norm.bn_fwd_plain(x2, w, P, g, b),
+                       lambda: F.batch_norm(x4, None, None, g, b, training=True, momentum=0.0,
+                                            eps=1e-5)),
+            "bn_bwd": (lambda: fused_norm.bn_bwd_cuda(x2, w, P, g, dy, st_p),
+                       lambda: fused_norm.bn_bwd_plain(x2, w, P, g, dy, st_p),
+                       lambda: torch.ops.aten.native_batch_norm_backward(
                            dy4, x4, g, None, None, s_mean, s_inv, True, 1e-5,
-                           [True, True, True]))),
+                           [True, True, True])),
         }
         # least bytes: each input read once, each output written once
         nbytes = {"bn_fwd": 4 * (2 * M * C + BATCH + 2 * C + 3 * C),
                   "bn_bwd": 4 * (3 * M * C + BATCH + C + 3 * C + 2 * C)}
         nops = {"bn_fwd": 9 * M * C, "bn_bwd": 14 * M * C}
-        for k, (ms, pms, lms) in t.items():
-            bound = max(nbytes[k] / BW, nops[k] / F32) * 1e3
-            say(f"  {k}: kernel {ms:.4f} ms  plain {pms:.4f} ms  library {lms:.4f} ms  "
-                f"bound {bound * 1e3:.2f} us")
+        for k, (kern, plain, lib) in calls.items():
+            t = {"ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+                 "device_ms": graph_ms(kern), "library_device_ms": graph_ms(lib),
+                 "bound_ms": max(nbytes[k] / BW, nops[k] / F32) * 1e3}
+            say(f"  {k}: call {t['ms'] * 1e3:.2f} us (library {t['library_ms'] * 1e3:.2f}, "
+                f"plain {t['plain_ms'] * 1e3:.2f}); device {t['device_ms'] * 1e3:.2f} us "
+                f"(library {t['library_device_ms'] * 1e3:.2f}); bound {t['bound_ms'] * 1e3:.2f} us")
             r = tot[k]
-            r["ms"] += sites * ms
-            r["plain_ms"] += sites * pms
-            r["library_ms"] += sites * lms
-            r["bound_ms"] += sites * bound
+            for key in keys:
+                r[key] += sites * t[key]
             r["bytes"] += sites * nbytes[k]
             r["ops"] += sites * nops[k]
         tot["bn_fwd"]["err"] = max(tot["bn_fwd"]["err"], e_f)
         tot["bn_bwd"]["err"] = max(tot["bn_bwd"]["err"], e_b)
+    for M, C, P in BN_CHECK_SHAPES:
+        _, e_f, e_b = bn_check(torch, fused_norm, gen, M, C, P, True)
+        tot["bn_fwd"]["err"] = max(tot["bn_fwd"]["err"], e_f)
+        tot["bn_bwd"]["err"] = max(tot["bn_bwd"]["err"], e_b)
+    sites = sum(s for _, _, s in BN_SHAPES)
+    for k, r in tot.items():
+        say(f"{k}, a training step ({sites} sites): call {r['ms']:.4f} ms (library "
+            f"{r['library_ms']:.4f}), device {r['device_ms']:.4f} ms (library "
+            f"{r['library_device_ms']:.4f}), {r['device_ms'] / sites * 1e3:.2f} us a site; "
+            f"bound {r['bound_ms']:.4f} ms")
     return tot
 
 
@@ -466,6 +553,8 @@ def main() -> int:
                         "bound_by": "bytes" if r["bytes"] / BW >= r["ops"] / F32
                         else "operations",
                         "library_ms": r.get("library_ms")})
+        if name.startswith("bn_"):
+            kernels[-1].update(device_ms=r["device_ms"], library_device_ms=r["library_device_ms"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

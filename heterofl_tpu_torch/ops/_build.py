@@ -27,6 +27,8 @@ import threading
 import time
 from typing import Dict, Optional
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "heterofl_tpu_torch")
@@ -40,9 +42,8 @@ BUILD_INFO: Dict[str, object] = {}
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
-    "hfl_bn_scratch_floats": (_LL, [_I, _I]),
-    "hfl_bn_fwd": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P]),
-    "hfl_bn_bwd": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+    "hfl_bn_fwd": (_I, [_P, _P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _P]),
+    "hfl_bn_bwd": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "hfl_sgd_scratch_floats": (_LL, []),
     "hfl_fused_sgd": (_I, [_P, _P, _P, _P, _P, _P, _LL, _F, _F, _F, _P]),
     "hfl_quant_pack": (_I, [_P, _P, _P, _LL, _I, _I, _P, _P, _P]),
@@ -102,8 +103,12 @@ def _build(so_path: str, sources) -> None:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first call (raises where no ``nvcc``)."""
+    """The kernel library, built and its C entries bound (argument types
+    set) on the first call, which raises where no ``nvcc``; afterwards a
+    return without the lock, and ``load().<entry>`` an attribute lookup."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -130,20 +135,21 @@ def check(code: int, what: str) -> None:
 
 
 def stream_of(t) -> int:
-    """PyTorch's current CUDA stream on ``t``'s device, as an integer handle."""
-    import torch
-
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current CUDA stream on ``t``'s device, as an integer handle
+    (the raw-stream query Triton's launcher uses: no Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda(what: str, *tensors) -> None:
-    """The kernels take CUDA float32 contiguous tensors and nothing else."""
-    import torch
-
+    """The kernels take CUDA float32 contiguous tensors on one device and
+    nothing else."""
+    dev = tensors[0].get_device()
     for t in tensors:
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise RuntimeError(f"{what}: the CUDA kernel needs CUDA tensors, got {t.device}")
-        if t.dtype != torch.float32:
+        if t.dtype is not torch.float32:
             raise TypeError(f"{what}: float32 only, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: contiguous tensors only")
+        if t.get_device() != dev:
+            raise ValueError(f"{what}: tensors on cuda:{dev} and {t.device}")

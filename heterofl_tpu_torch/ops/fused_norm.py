@@ -2,10 +2,12 @@
 
 Port of ``heterofl_tpu/ops/pallas_norm.py`` (the Pallas TPU kernels
 ``_bn_fwd_kernel``/``_bn_bwd_kernel``, entry ``batch_norm_pallas``).  The
-kernels are ``csrc/bn.cu``; beside each is its plain PyTorch version
-(:func:`bn_fwd_plain`, :func:`bn_bwd_plain`) with the same arithmetic, and
-a launch counter (:data:`LAUNCHES`, one per wrapper call that launches the
-kernel pair).
+kernels are ``csrc/bn.cu``, one launch per direction: a thread-block cluster
+per channel tile reduces across its blocks through distributed shared
+memory, on the launch plan :func:`bn_plan` computes from ``(M, C)`` alone.
+Beside each kernel is its plain PyTorch version (:func:`bn_fwd_plain`,
+:func:`bn_bwd_plain`) with the same arithmetic, and a launch counter
+(:data:`LAUNCHES`, one per wrapper call, which is one device launch).
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel or raises -- there is no fallback on the
@@ -23,14 +25,93 @@ gradient is zero, as in the reference.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
-#: kernel-pair launches per wrapper (CUDA only; the plain versions do not count)
+#: kernel launches per wrapper (CUDA only; the plain versions do not count)
 LAUNCHES = {"bn_fwd": 0, "bn_bwd": 0}
+
+# the kernels' fixed shape (csrc/bn.cu): threads per block, row iterations
+# a thread keeps in registers, channels per cluster at most, blocks per
+# cluster at most (above 8 is non-portable), the shared memory a block may
+# use, and the static part of it (2 * 128 + 1 slots of sums for each warp
+# and for each block of a cluster, two coefficients per channel, and one
+# 8-byte barrier)
+BN_THREADS = 256
+BN_BATCH = 8
+BN_MAX_TILE_C = 128
+BN_MAX_CLUSTER = 16
+BN_SMEM_LIMIT = 232_448
+BN_STATIC_SMEM = 4 * ((BN_THREADS // 32 + BN_MAX_CLUSTER) * (2 * BN_MAX_TILE_C + 1)
+                      + 2 * BN_MAX_TILE_C) + 8
+# blocks per launch the plan aims at: on an H100 (132 SMs) more blocks in
+# clusters cost more than they gain at ResNet-18's sites
+# (scripts/bn_plan_sweep.py times every plan)
+_TARGET_BLOCKS = 64
+
+
+class BnPlan(NamedTuple):
+    """How one ``[M, C]`` batch norm is cut into a cluster launch."""
+    tile_c: int        # channels per cluster: a power of two, 4..128
+    tiles: int         # clusters: one per channel tile
+    cluster: int       # blocks per cluster, each over its own rows
+    rows: int          # rows per block (the last blocks may hold fewer)
+    lanes: int         # rows a block reads at once: 256 threads / (tile_c / 4)
+    iters: int         # row iterations per thread: rows / lanes, rounded up
+    resident_fwd: bool  # the forward keeps its x rows on chip (past 8 iterations:
+    resident_bwd: bool  # shared memory); the backward its x and dy rows
+    smem_fwd: int      # shared memory per block, bytes
+    smem_bwd: int
+
+    @property
+    def nonportable(self) -> bool:
+        """Clusters above 8 blocks need the kernel's non-portable opt-in."""
+        return self.cluster > 8
+
+
+def _pow2ceil(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def plan_for(M: int, C: int, tile_c: int, cluster: int) -> BnPlan:
+    """The plan at a given channel tile and cluster size: :func:`bn_plan`'s
+    choice, or one a sweep tries (``scripts/bn_plan_sweep.py``).  A thread
+    keeps its first 8 row iterations in registers and the rest in shared
+    memory when they fit; otherwise the direction's one launch reads those
+    rows twice."""
+    tiles = -(-C // tile_c)
+    lanes = BN_THREADS // (tile_c // 4)
+    rows = -(-M // cluster)
+    iters = -(-rows // lanes)
+    stash = max(0, iters - BN_BATCH) * BN_THREADS * 16  # one tensor's rows in shared memory
+    res_f = BN_STATIC_SMEM + stash <= BN_SMEM_LIMIT
+    res_b = BN_STATIC_SMEM + 2 * stash <= BN_SMEM_LIMIT
+    return BnPlan(tile_c, tiles, cluster, rows, lanes, iters, res_f, res_b,
+                  BN_STATIC_SMEM + (stash if res_f else 0),
+                  BN_STATIC_SMEM + (2 * stash if res_b else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def bn_plan(M: int, C: int) -> BnPlan:
+    """The launch plan of both kernels at ``[M, C]``, a pure function of
+    the shape, so the reduction order (and so the bits) is fixed per shape.
+
+    Channel tiles of at least 8 channels (a full 32-byte sector per row)
+    and about 8 tiles; then blocks per cluster, a power of two up to 16,
+    for about 64 blocks in all, but no more blocks than one row iteration
+    each needs."""
+    if M < 1 or C < 1:
+        raise ValueError(f"bn_plan: empty batch norm [{M}, {C}]")
+    tile_c = min(BN_MAX_TILE_C, max(8, _pow2ceil(-(-C // 8))), max(4, _pow2ceil(C)))
+    tiles = -(-C // tile_c)
+    lanes = BN_THREADS // (tile_c // 4)
+    cluster = 1 << (max(1, _TARGET_BLOCKS // tiles).bit_length() - 1)
+    cluster = min(cluster, BN_MAX_CLUSTER, _pow2ceil(-(-M // lanes)))
+    return plan_for(M, C, tile_c, cluster)
 
 
 def _row_weight(w: torch.Tensor, P: int) -> torch.Tensor:
@@ -66,33 +147,43 @@ def bn_bwd_plain(x2: torch.Tensor, w: torch.Tensor, P: int, g: torch.Tensor,
     return dx2, dg, db
 
 
+def _check_shapes(what, x2, w, P, C, *vecs):
+    if x2.dim() != 2 or w.numel() * P != x2.shape[0] or any(v.numel() != C for v in vecs):
+        raise ValueError(f"{what}: expected x2 [M, C] with M = len(w) * P and [C] vectors, got "
+                         f"{tuple(x2.shape)}, w {tuple(w.shape)}, P {P}")
+
+
 def bn_fwd_cuda(x2, w, P: int, g, b, eps: float = 1e-5):
-    """The forward kernel pair (``csrc/bn.cu``) on CUDA tensors."""
+    """The forward kernel (``csrc/bn.cu``) on CUDA tensors: one launch."""
     _build.require_cuda("bn_fwd", x2, w, g, b)
-    lib = _build.load()
     M, C = x2.shape
+    _check_shapes("bn_fwd", x2, w, P, C, g, b)
+    pl = bn_plan(M, C)
     y2 = torch.empty_like(x2)
-    stats = torch.empty((3, C), dtype=torch.float32, device=x2.device)
-    part = torch.empty(lib.hfl_bn_scratch_floats(M, C), dtype=torch.float32, device=x2.device)
-    _build.check(lib.hfl_bn_fwd(x2.data_ptr(), w.data_ptr(), P, g.data_ptr(), b.data_ptr(),
-                                y2.data_ptr(), stats.data_ptr(), part.data_ptr(), M, C,
-                                float(eps), _build.stream_of(x2)), "bn_fwd")
+    stats = x2.new_empty((3, C))
+    _build.check(_build.load().hfl_bn_fwd(
+        x2.data_ptr(), w.data_ptr(), P, g.data_ptr(), b.data_ptr(), y2.data_ptr(),
+        stats.data_ptr(), M, C, eps, pl.tile_c, pl.cluster, pl.rows, pl.iters,
+        pl.resident_fwd, _build.stream_of(x2)), "bn_fwd")
     LAUNCHES["bn_fwd"] += 1
     return y2, stats
 
 
 def bn_bwd_cuda(x2, w, P: int, g, dy2, stats):
-    """The backward kernel pair (``csrc/bn.cu``) on CUDA tensors."""
+    """The backward kernel (``csrc/bn.cu``) on CUDA tensors: one launch."""
     _build.require_cuda("bn_bwd", x2, w, g, dy2, stats)
-    lib = _build.load()
     M, C = x2.shape
+    _check_shapes("bn_bwd", x2, w, P, C, g)
+    if dy2.shape != x2.shape or stats.shape != (3, C):
+        raise ValueError(f"bn_bwd: dy2 {tuple(dy2.shape)} and stats {tuple(stats.shape)} "
+                         f"for x2 {tuple(x2.shape)}")
+    pl = bn_plan(M, C)
     dx2 = torch.empty_like(x2)
-    dg = torch.empty(C, dtype=torch.float32, device=x2.device)
-    db = torch.empty(C, dtype=torch.float32, device=x2.device)
-    part = torch.empty(lib.hfl_bn_scratch_floats(M, C), dtype=torch.float32, device=x2.device)
-    _build.check(lib.hfl_bn_bwd(x2.data_ptr(), w.data_ptr(), P, g.data_ptr(), dy2.data_ptr(),
-                                stats.data_ptr(), dx2.data_ptr(), dg.data_ptr(), db.data_ptr(),
-                                part.data_ptr(), M, C, _build.stream_of(x2)), "bn_bwd")
+    dg, db = x2.new_empty((2, C)).unbind(0)
+    _build.check(_build.load().hfl_bn_bwd(
+        x2.data_ptr(), w.data_ptr(), P, g.data_ptr(), dy2.data_ptr(), stats.data_ptr(),
+        dx2.data_ptr(), dg.data_ptr(), db.data_ptr(), M, C, pl.tile_c, pl.cluster, pl.rows,
+        pl.iters, pl.resident_bwd, _build.stream_of(x2)), "bn_bwd")
     LAUNCHES["bn_bwd"] += 1
     return dx2, dg, db
 

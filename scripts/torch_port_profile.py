@@ -12,8 +12,12 @@ shapes, 500 samples, batch 10, so 50 steps per local epoch) trains through
    host clock around ``synchronize``, one local epoch per sample, the
    routes in turns (ABCD DCBA ...), median per route;
 2. a ``torch.profiler`` trace of one local epoch of the all-kernel route:
-   device time by kernel name, kernel launches per step, and the device's
-   busy share of the window's wall time.
+   device time by kernel name, kernel launches per step, the device's busy
+   share of the window's wall time; then a second epoch traced with Python
+   stacks and shapes says where the copies come from (each ``aten::copy_``
+   by its nearest autograd node, or ``forward``, the ops that called it,
+   the shape it copied and the port's source line, where one is on the
+   stack).
 
 Run from the repository root on a machine with a CUDA device::
 
@@ -51,6 +55,44 @@ def bucket_of(name: str) -> str:
         if any(f in low for f in frags):
             return label
     return "other"
+
+
+def copy_sources(events, on_device: bool):
+    """``{source: {"copies": n, "device_ms": t}}`` for every ``aten::copy_``
+    in a profile (on the device: those that ran device work), keyed by the
+    nearest enclosing autograd node (``forward`` when there is none), the
+    ops that called the copy (innermost first), the shape copied and the
+    innermost frame of the port's package on the Python stack (a trace
+    taken ``with_stack`` and ``record_shapes``)."""
+    out = {}
+    for evt in events:
+        if evt.name != "aten::copy_":
+            continue
+        dev_us = getattr(evt, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "cuda_time_total", 0.0)
+        if on_device and dev_us <= 0:
+            continue
+        parents, p = [], evt.cpu_parent
+        while p is not None:
+            parents.append(p)
+            p = p.cpu_parent
+        chain = [e.name for e in parents]
+        node = next((n.split(": ", 1)[1] for n in chain
+                     if n.startswith("autograd::engine::evaluate_function: ")), "forward")
+        ops = [n for n in chain if n.startswith("aten::")]
+        shape = next((list(x) for x in getattr(evt, "input_shapes", None) or [] if x), [])
+        key = f"{node} <- {' < '.join(ops[:3]) or 'top level'} {shape}"
+        # the port's innermost frame: on the op or an enclosing one's stack,
+        # or an enclosing Python-function event
+        frames = [f for e in [evt] + parents for f in (getattr(e, "stack", None) or [])]
+        frame = next((f for f in frames + chain if "heterofl_tpu_torch" in f), None)
+        if frame:
+            key += " at " + frame[frame.index("heterofl_tpu_torch"):]
+        r = out.setdefault(key, {"copies": 0, "device_ms": 0.0})
+        r["copies"] += 1
+        r["device_ms"] += dev_us / 1e3
+    return out
 
 
 def main(argv=None) -> int:
@@ -157,11 +199,16 @@ def main(argv=None) -> int:
         b = buckets.setdefault(bucket_of(r["name"]), {"device_ms": 0.0, "launches": 0})
         b["device_ms"] += r["device_ms"]
         b["launches"] += r["calls"]
+    sync()
+    with profile(activities=acts, with_stack=True, record_shapes=True) as prof_stack:
+        epoch(label, 98)
+        sync()
+    copies = copy_sources(prof_stack.events(), dev.type == "cuda")
     out["profile"] = {"route": label, "steps": steps, "wall_ms": wall_ms,
                       "device_busy_ms": busy,
                       "device_busy_share": busy / wall_ms if wall_ms else 0.0,
                       "kernel_launches_per_step": sum(r["calls"] for r in rows) / steps,
-                      "buckets": buckets, "top": rows[:25]}
+                      "buckets": buckets, "top": rows[:25], "copy_sources": copies}
     print(f"profile ({label}, {steps} steps): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * out['profile']['device_busy_share']:.1f}%), "
           f"{out['profile']['kernel_launches_per_step']:.1f} kernel launches per step", flush=True)
@@ -171,6 +218,10 @@ def main(argv=None) -> int:
     for r in rows[:25]:
         print(f"  {r['device_ms'] / steps:8.4f} ms/step  {r['calls'] / steps:6.1f}/step  "
               f"{r['name'][:110]}", flush=True)
+    print("copies by source (aten::copy_; a second epoch, traced with stacks):", flush=True)
+    for k, v in sorted(copies.items(), key=lambda kv: -kv[1]["copies"]):
+        print(f"  {v['copies'] / steps:6.1f}/step  {v['device_ms'] / steps:8.4f} ms/step  {k}",
+              flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
