@@ -4,37 +4,47 @@ trains.  Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure (the script then exits non-zero):
+Phases, each of which raises on failure (the script then exits non-zero);
+each prints its seconds:
 
 1. the device: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
    power limit;
 2. build the CUDA kernels from ``heterofl_tpu_torch/csrc`` (nvcc, sm_90a);
 3. hold every kernel against its plain PyTorch version on the card, at the
-   shapes of ResNet-18's round at batch 10: batch norm forward and backward
-   at the four site shapes with zero-weight rows and masked channels, and
-   at the MNIST conv twin's and ragged shapes (a NaN in a zero-weight row),
-   each call twice and equal bit for bit, with each shape's launch plan; the
-   fused masked-SGD epilogue over all 11,172,170 parameters with the clip
-   engaged and not, and ``has`` 0 and 1; the int8 codec's quantise-and-pack
-   over all 11,172,170 parameters (grid steps from the model's params) at
-   (qmax, bias) = (127, 128) and (15, 16), and at an odd n for the tail;
+   shapes of ResNet-18's round at batch 10 and of its centralised epoch at
+   batch 100: batch norm forward and backward at the site shapes with
+   zero-weight rows and masked channels, and at the MNIST conv twin's and
+   ragged shapes (a NaN in a zero-weight row), each call twice and equal
+   bit for bit, with each shape's launch plan; the fused masked-SGD
+   epilogue over all 11,172,170 parameters with the clip engaged and not,
+   and ``has`` 0 and 1; the int8 codec's quantise-and-pack over all
+   11,172,170 parameters (grid steps from the model's params) at (qmax,
+   bias) = (127, 128) and (15, 16), and at an odd n for the tail;
 4. time each kernel, its plain version and, where one exists, one PyTorch
    call computing the same function (CUDA events, warm-up, median), and the
-   int8 codec's whole step of a round; the batch-norm kernels and their
+   int8 codec's whole step of a round; every kernel and the batch-norm
    library calls also by device time (calls captured in a CUDA graph and
    replayed, so no host work sits between the launches);
 5. small rounds on the card against the same rounds on the CPU (plain
-   versions), dense and with the int8 codec, then the two main paths:
+   versions), dense and with the int8 codec, then the main paths, each into
+   a fresh temporary ``output_dir``:
    ``heterofl_tpu_torch.entry.train_classifier_fed`` with the paper's
    headline control on full-width ResNet-18, synthetic CIFAR10 at its real
    50,000-image train size, ``pallas_norm=1``, ``fused_update=1``, two
-   rounds, sBN and Local/Global evaluation after the second -- dense (its
-   local epochs cut to ``--dense-local-epochs``, default 1, to keep the
-   script's time), then with ``--wire_codec int8`` at the control's 5 local
-   epochs; every kernel launch counter is set to 0 just before each path
-   and read just after;
-6. the ``kernels`` JSON line (launches from the int8 path), then the ``ok``
-   JSON line last.
+   rounds with a checkpoint each, sBN and Local/Global evaluation after the
+   second, local epochs cut to ``--local-epochs`` (default 1; the
+   control's own is 5) to keep the script's time -- dense, then with
+   ``--wire_codec int8``; after each, the same entry with one more
+   round and ``--resume_mode 1`` must train exactly that round, from params
+   (and the int8 residual) equal to the checkpoint's bit for bit; then
+   ``test_classifier_fed`` on the int8 path's best checkpoint must
+   reproduce the Global loss and accuracy its training log holds; then the
+   centralised baseline, ``train_classifier`` (one epoch at batch 100 on the
+   same data, ``pallas_norm=1``) and ``test_classifier``.  Every kernel
+   launch counter is set to 0 just before each path and read just after;
+   each checkpoint write and best copy prints its seconds and megabytes;
+6. the ``kernels`` JSON line (launches from the int8 path; per path in
+   ``launches_by_path``), then the ``ok`` JSON line last.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 Everything it measures is printed on standard output.
@@ -49,14 +59,24 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = "1_100_0.1_iid_fix_a1-b1-c1-d1-e1_bn_1_1"
+TAG = f"0_CIFAR10_label_resnet18_{HEADLINE}"
+CENTRAL = "1_1_1_none_fix_a1_bn_1_1"  # the centralised baseline, full width
+CENTRAL_TAG = f"0_CIFAR10_label_resnet18_{CENTRAL}"
+CENTRAL_EPOCHS = 1
+SIZES = {"train": 50000, "test": 10000}
 BATCH = 10
+CENTRAL_BATCH = 100
 # ResNet-18 on 32x32 CIFAR at batch 10: (rows M = N*H*W, channels C, BN
 # sites of that shape per training step) -- 17 sites per step
 BN_SHAPES = [(10240, 64, 5), (2560, 128, 4), (640, 256, 4), (160, 512, 4)]
+BN_SITES = sum(s for _, _, s in BN_SHAPES)
+# the same sites at the centralised baseline's batch 100
+BN_CENTRAL_SHAPES = [(10 * M, C, s) for M, C, s in BN_SHAPES]
 # BN shapes held against the plain version but not timed (M, C, P): the
 # MNIST conv twin of the small rounds (C = 16, 32 at 28x28 and 14x14, batch
 # 10); ragged ones (a channel tile cut short, C = 1 and 6 on the kernels'
@@ -65,7 +85,6 @@ BN_SHAPES = [(10240, 64, 5), (2560, 128, 4), (640, 256, 4), (160, 512, 4)]
 BN_CHECK_SHAPES = [(7840, 16, 784), (1960, 32, 196), (999, 20, 111), (50, 1, 5),
                    (37, 48, 37), (3000, 6, 300), (40960, 64, 4096), (131072, 64, 1024)]
 BN_GRAPH_CALLS = 20  # calls per CUDA graph when timing device time
-LOCAL_EPOCHS = 5  # the control's own, on the int8 main path
 ROUNDS = 2
 QUANT_CASES = [(127, 128), (15, 16)]  # (qmax, bias): 1 and 8 participants' int8 grids
 QUANT_ODD_N = 1001
@@ -74,6 +93,12 @@ TOL_BN = {"y": (1e-4, 1e-4), "dx": (1e-4, 1e-4), "dg": (1e-3, 1e-4), "db": (1e-3
 TOL_SGD_CLIP = (1e-6, 1e-5)   # (atol, rtol) with the clip engaged
 TOL_ROUND = 1e-3              # max |params| difference, card round vs CPU round
 SHARE_ROUND_INT8 = 0.02       # int8 round: share of entries allowed one grid step apart
+# a checkpoint evaluated again against the value its training log holds
+# (the same params and data; cuDNN may pick other algorithms in another
+# process): loss within 1e-4 relative, accuracy within 0.05 points (5 of
+# the 10,000 test images)
+TOL_EVAL_LOSS = 1e-4
+TOL_EVAL_ACC = 0.05
 # published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device-memory rate and float32 rate outside the tensor cores; the card's
 # name and power limit are printed beside every number
@@ -157,7 +182,7 @@ def bn_check(torch, fused_norm, gen, M: int, C: int, P: int, nan_row: bool):
     N = M // P
     x2 = torch.randn(M, C, device=dev, generator=gen)
     w = torch.ones(N, device=dev)
-    zeros = [3, 7] if N == BATCH else [N - 1] if N > 1 else []
+    zeros = [3, 7] if N in (BATCH, CENTRAL_BATCH) else [N - 1] if N > 1 else []
     if zeros:
         w[zeros] = 0.0  # zero-weight samples (padding in a short last batch)
     g = torch.randn(C, device=dev, generator=gen)
@@ -198,60 +223,68 @@ def bn_check(torch, fused_norm, gen, M: int, C: int, P: int, nan_row: bool):
 
 
 def bn_phase(torch, fused_norm):
-    """Phases 3 and 4 for the two batch-norm kernels."""
+    """Phases 3 and 4 for the two batch-norm kernels -> per kernel, the
+    totals of a training step at batch 10 (the federated round) and, under
+    ``central_*``, at batch 100 (the centralised epoch)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
     keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms", "bound_ms")
     tot = {k: dict.fromkeys(keys + ("err", "bytes", "ops"), 0.0) for k in ("bn_fwd", "bn_bwd")}
-    for M, C, sites in BN_SHAPES:
-        P = M // BATCH
-        (x2, w, g, b, dy, st_p), e_f, e_b = bn_check(torch, fused_norm, gen, M, C, P, False)
-        say(f"  {sites} sites per step")
-        # yardstick: PyTorch's own batch norm, all weights 1 (it has no
-        # per-sample weight), on the channels_last NCHW view of the rows
-        x4 = x2.view(BATCH, 1, P, C).permute(0, 3, 1, 2)
-        dy4 = dy.view(BATCH, 1, P, C).permute(0, 3, 1, 2)
-        _, s_mean, s_inv = torch.ops.aten.native_batch_norm(x4, g, b, None, None, True, 0.0, 1e-5)
-        calls = {
-            "bn_fwd": (lambda: fused_norm.bn_fwd_cuda(x2, w, P, g, b),
-                       lambda: fused_norm.bn_fwd_plain(x2, w, P, g, b),
-                       lambda: F.batch_norm(x4, None, None, g, b, training=True, momentum=0.0,
-                                            eps=1e-5)),
-            "bn_bwd": (lambda: fused_norm.bn_bwd_cuda(x2, w, P, g, dy, st_p),
-                       lambda: fused_norm.bn_bwd_plain(x2, w, P, g, dy, st_p),
-                       lambda: torch.ops.aten.native_batch_norm_backward(
-                           dy4, x4, g, None, None, s_mean, s_inv, True, 1e-5,
-                           [True, True, True])),
-        }
-        # least bytes: each input read once, each output written once
-        nbytes = {"bn_fwd": 4 * (2 * M * C + BATCH + 2 * C + 3 * C),
-                  "bn_bwd": 4 * (3 * M * C + BATCH + C + 3 * C + 2 * C)}
-        nops = {"bn_fwd": 9 * M * C, "bn_bwd": 14 * M * C}
-        for k, (kern, plain, lib) in calls.items():
-            t = {"ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
-                 "device_ms": graph_ms(kern), "library_device_ms": graph_ms(lib),
-                 "bound_ms": max(nbytes[k] / BW, nops[k] / F32) * 1e3}
-            say(f"  {k}: call {t['ms'] * 1e3:.2f} us (library {t['library_ms'] * 1e3:.2f}, "
-                f"plain {t['plain_ms'] * 1e3:.2f}); device {t['device_ms'] * 1e3:.2f} us "
-                f"(library {t['library_device_ms'] * 1e3:.2f}); bound {t['bound_ms'] * 1e3:.2f} us")
-            r = tot[k]
-            for key in keys:
-                r[key] += sites * t[key]
-            r["bytes"] += sites * nbytes[k]
-            r["ops"] += sites * nops[k]
-        tot["bn_fwd"]["err"] = max(tot["bn_fwd"]["err"], e_f)
-        tot["bn_bwd"]["err"] = max(tot["bn_bwd"]["err"], e_b)
+    for batch, shapes, pre in ((BATCH, BN_SHAPES, ""), (CENTRAL_BATCH, BN_CENTRAL_SHAPES,
+                                                          "central_")):
+        for k in tot:
+            tot[k].update({pre + key: 0.0 for key in keys + ("bytes", "ops")})
+        for M, C, sites in shapes:
+            P = M // batch
+            (x2, w, g, b, dy, st_p), e_f, e_b = bn_check(torch, fused_norm, gen, M, C, P, False)
+            say(f"  {sites} sites per step at batch {batch}")
+            # yardstick: PyTorch's own batch norm, all weights 1 (it has no
+            # per-sample weight), on the channels_last NCHW view of the rows
+            x4 = x2.view(batch, 1, P, C).permute(0, 3, 1, 2)
+            dy4 = dy.view(batch, 1, P, C).permute(0, 3, 1, 2)
+            _, s_mean, s_inv = torch.ops.aten.native_batch_norm(x4, g, b, None, None, True, 0.0,
+                                                                1e-5)
+            calls = {
+                "bn_fwd": (lambda: fused_norm.bn_fwd_cuda(x2, w, P, g, b),
+                           lambda: fused_norm.bn_fwd_plain(x2, w, P, g, b),
+                           lambda: F.batch_norm(x4, None, None, g, b, training=True,
+                                                momentum=0.0, eps=1e-5)),
+                "bn_bwd": (lambda: fused_norm.bn_bwd_cuda(x2, w, P, g, dy, st_p),
+                           lambda: fused_norm.bn_bwd_plain(x2, w, P, g, dy, st_p),
+                           lambda: torch.ops.aten.native_batch_norm_backward(
+                               dy4, x4, g, None, None, s_mean, s_inv, True, 1e-5,
+                               [True, True, True])),
+            }
+            # least bytes: each input read once, each output written once
+            nbytes = {"bn_fwd": 4 * (2 * M * C + batch + 2 * C + 3 * C),
+                      "bn_bwd": 4 * (3 * M * C + batch + C + 3 * C + 2 * C)}
+            nops = {"bn_fwd": 9 * M * C, "bn_bwd": 14 * M * C}
+            for k, (kern, plain, lib) in calls.items():
+                t = {"ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+                     "device_ms": graph_ms(kern), "library_device_ms": graph_ms(lib),
+                     "bound_ms": max(nbytes[k] / BW, nops[k] / F32) * 1e3}
+                say(f"  {k}: call {t['ms'] * 1e3:.2f} us (library {t['library_ms'] * 1e3:.2f}, "
+                    f"plain {t['plain_ms'] * 1e3:.2f}); device {t['device_ms'] * 1e3:.2f} us "
+                    f"(library {t['library_device_ms'] * 1e3:.2f}); bound "
+                    f"{t['bound_ms'] * 1e3:.2f} us")
+                r = tot[k]
+                for key in keys:
+                    r[pre + key] += sites * t[key]
+                r[pre + "bytes"] += sites * nbytes[k]
+                r[pre + "ops"] += sites * nops[k]
+            tot["bn_fwd"]["err"] = max(tot["bn_fwd"]["err"], e_f)
+            tot["bn_bwd"]["err"] = max(tot["bn_bwd"]["err"], e_b)
+        for k, r in tot.items():
+            say(f"{k}, a training step at batch {batch} ({BN_SITES} sites): call "
+                f"{r[pre + 'ms']:.4f} ms (library {r[pre + 'library_ms']:.4f}), device "
+                f"{r[pre + 'device_ms']:.4f} ms (library {r[pre + 'library_device_ms']:.4f}), "
+                f"{r[pre + 'device_ms'] / BN_SITES * 1e3:.2f} us a site; bound "
+                f"{r[pre + 'bound_ms']:.4f} ms")
     for M, C, P in BN_CHECK_SHAPES:
         _, e_f, e_b = bn_check(torch, fused_norm, gen, M, C, P, True)
         tot["bn_fwd"]["err"] = max(tot["bn_fwd"]["err"], e_f)
         tot["bn_bwd"]["err"] = max(tot["bn_bwd"]["err"], e_b)
-    sites = sum(s for _, _, s in BN_SHAPES)
-    for k, r in tot.items():
-        say(f"{k}, a training step ({sites} sites): call {r['ms']:.4f} ms (library "
-            f"{r['library_ms']:.4f}), device {r['device_ms']:.4f} ms (library "
-            f"{r['library_device_ms']:.4f}), {r['device_ms'] / sites * 1e3:.2f} us a site; "
-            f"bound {r['bound_ms']:.4f} ms")
     return tot
 
 
@@ -291,11 +324,13 @@ def sgd_phase(torch, fused_update, mask_flat):
                  reps=5, samples=21)
     pms = time_ms(lambda: fused_update.fused_sgd_plain(graw, p0, b0, mask_flat, scal, **kw),
                   reps=2, samples=21)
+    dms = graph_ms(lambda: fused_update.fused_sgd_cuda(graw, p_k, b_k, mask_flat, scal, **kw),
+                   calls=10, samples=11)
     nbytes = 6 * 4 * n
     bound = max(nbytes / BW, 10 * n / F32) * 1e3
-    say(f"  fused_sgd: kernel {ms:.4f} ms  plain {pms:.4f} ms  bound {bound:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB)")
-    return {"ms": ms, "plain_ms": pms, "bound_ms": bound, "err": worst,
+    say(f"  fused_sgd: kernel {ms:.4f} ms (device {dms:.4f})  plain {pms:.4f} ms  bound "
+        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB)")
+    return {"ms": ms, "device_ms": dms, "plain_ms": pms, "bound_ms": bound, "err": worst,
             "bytes": nbytes, "ops": 10 * n}
 
 
@@ -333,19 +368,20 @@ def quant_phase(torch, quant, codecs, spec, P):
     x, s, qmax, bias = timed
     ms = time_ms(lambda: quant.quant_pack_cuda(x, s, u, qmax, bias), reps=5, samples=21)
     pms = time_ms(lambda: quant.quant_pack_plain(x, s, u, qmax, bias), reps=2, samples=11)
+    dms = graph_ms(lambda: quant.quant_pack_cuda(x, s, u, qmax, bias), calls=10, samples=11)
     nbytes = 17 * n  # read x, s, u; write q and the words
     nops = 10 * n
     bound = max(nbytes / BW, nops / F32) * 1e3
-    say(f"  quant_pack: kernel {ms:.4f} ms  plain {pms:.4f} ms  bound {bound:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB)  library: no one PyTorch call")
+    say(f"  quant_pack: kernel {ms:.4f} ms (device {dms:.4f})  plain {pms:.4f} ms  bound "
+        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB)  library: no one PyTorch call")
     codec = codecs.Int8Codec(spec, 1)
     counts = torch.full((n,), 10.0, device=dev)
     resid = torch.zeros((1, n), device=dev)
     cms = time_ms(lambda: codecs.compressed_sum(codec, P, x, counts, resid, u, 10),
                   reps=2, samples=11)
     say(f"  int8 codec step of a round (compressed_sum, cohort of 10): {cms:.4f} ms")
-    return {"ms": ms, "plain_ms": pms, "bound_ms": bound, "err": worst, "bytes": nbytes,
-            "ops": nops, "library_ms": None}
+    return {"ms": ms, "device_ms": dms, "plain_ms": pms, "bound_ms": bound, "err": worst,
+            "bytes": nbytes, "ops": nops, "library_ms": None}
 
 
 def small_round_phase(torch, wire_codec):
@@ -419,51 +455,220 @@ def small_round_phase(torch, wire_codec):
         raise AssertionError(f"{what}: the round on the card disagrees with the round on the CPU")
 
 
-def main_path(torch, counters, codec: str, local_epochs: int):
-    """``train_classifier_fed`` on the headline control for ``ROUNDS``
-    rounds with evaluation after the last, the launch counters set to 0
-    just before and read just after -> (launches, result, seconds)."""
-    from heterofl_tpu_torch.entry import train_classifier_fed
-
-    argv = ["--control_name", HEADLINE, "--synthetic", "1",
-            "--synthetic_sizes", json.dumps({"train": 50000, "test": 10000}),
-            "--pallas_norm", "1", "--fused_update", "1", "--wire_codec", codec,
-            "--eval_interval", str(ROUNDS),
-            "--override", json.dumps({"num_epochs": {"global": ROUNDS, "local": local_epochs}})]
-    say(f"main path ({codec}): train_classifier_fed {' '.join(argv)}")
+def zero(counters) -> None:
     for counts in counters:
         for k in counts:
             counts[k] = 0
+
+
+def read(counters):
+    return {k: v for counts in counters for k, v in counts.items()}
+
+
+def fed_argv(out_dir: str, codec: str, local_epochs: int, rounds: int, *extra):
+    """The headline control's flags for the federated entries."""
+    return ["--control_name", HEADLINE, "--synthetic", "1", "--synthetic_sizes", json.dumps(SIZES),
+            "--pallas_norm", "1", "--fused_update", "1", "--wire_codec", codec,
+            "--eval_interval", str(ROUNDS), "--output_dir", out_dir,
+            "--override", json.dumps({"num_epochs": {"global": rounds, "local": local_epochs}}),
+            *extra]
+
+
+def say_checkpoints(what: str, hist, unit: str = "round") -> None:
+    """The seconds and megabytes of each round's (epoch's) checkpoint write
+    (the host copy of the params included) and best copy, and their share
+    of the round."""
+    for r in hist:
+        best = "no best copy" if r["best_seconds"] is None else \
+            f"best copy {r['best_seconds']:.3f} s"
+        say(f"  {what} {unit} {r['epoch']}: checkpoint {r['checkpoint_mb']:.1f} MB in "
+            f"{r['checkpoint_seconds']:.3f} s ({r['checkpoint_mb'] / r['checkpoint_seconds']:.0f} "
+            f"MB/s, {100 * r['checkpoint_seconds'] / r['seconds']:.2f}% of the {unit}'s "
+            f"{r['seconds']:.2f} s), {best}")
+
+
+def main_path(torch, counters, codec: str, local_epochs: int, out_dir: str, rounds: int,
+              *extra):
+    """``train_classifier_fed`` on the headline control up to round
+    ``rounds`` with evaluation after the last, the launch counters set to 0
+    just before and read just after -> (launches, result, seconds)."""
+    from heterofl_tpu_torch.entry import train_classifier_fed
+
+    argv = fed_argv(out_dir, codec, local_epochs, rounds, *extra)
+    say(f"main path ({codec}): train_classifier_fed {' '.join(argv)}")
+    zero(counters)
     t0 = time.time()
     (result,) = train_classifier_fed.main(argv)
     torch.cuda.synchronize()
     secs = time.time() - t0
-    launches = {k: v for counts in counters for k, v in counts.items()}
-    say(f"main path ({codec}): {secs:.1f} s for {ROUNDS} rounds, local epochs {local_epochs}; "
-        f"launches {launches}")
+    launches = read(counters)
     hist = result["history"]
+    say(f"main path ({codec}): {secs:.1f} s for {len(hist)} round(s), local epochs "
+        f"{local_epochs}; launches {launches}")
     for r in hist:
         say(f"  round {r['epoch']}: loss {r['loss']:.4f} accuracy {r['accuracy']:.2f}% "
             f"{r['seconds']:.2f} s ({r['n']:.0f} samples)")
+    say_checkpoints(f"main path ({codec})", hist)
     last = hist[-1] if hist else {}
     names = ("Local-Loss", "Local-Accuracy", "Global-Loss", "Global-Accuracy", "eval_seconds")
     if not all(k in last for k in names):
-        raise AssertionError(f"main path ({codec}): no evaluation after round {ROUNDS}: {last}")
+        raise AssertionError(f"main path ({codec}): no evaluation after round {rounds}: {last}")
     say(f"  evaluation after round {last['epoch']}: Local loss {last['Local-Loss']:.4f} "
         f"accuracy {last['Local-Accuracy']:.2f}%, Global loss {last['Global-Loss']:.4f} "
         f"accuracy {last['Global-Accuracy']:.2f}%, {last['eval_seconds']:.2f} s "
         f"(sBN over the train set, then Local, then Global)")
-    if len(hist) != ROUNDS or not all(math.isfinite(r["loss"]) for r in hist) \
+    if hist[-1]["epoch"] != rounds or not all(math.isfinite(r["loss"]) for r in hist) \
             or not all(math.isfinite(last[k]) for k in names):
-        raise AssertionError(f"main path ({codec}): expected {ROUNDS} finite round losses and "
-                             f"finite test metrics, got {hist}")
+        raise AssertionError(f"main path ({codec}): expected finite round losses up to round "
+                             f"{rounds} and finite test metrics, got {hist}")
     return launches, result, secs
+
+
+def resume_path(torch, counters, codec: str, local_epochs: int, out_dir: str):
+    """The same entry with one more round and ``--resume_mode 1``: it must
+    train exactly round ``ROUNDS + 1``, from params (and, int8, the
+    error-feedback residual) equal to the checkpoint's bit for bit, and its
+    log must hold ``ROUNDS + 1`` train entries -> (launches, result)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.convert import flat_to_jax, params_to_jax
+    from heterofl_tpu_torch.entry import common
+    from heterofl_tpu_torch.utils import checkpoint_path, load_checkpoint
+
+    blob = load_checkpoint(checkpoint_path(out_dir, TAG))
+    start = {}
+    train_round = common.FedExperiment.train_round
+
+    def first_round(self, P, epoch, lr):  # what the resumed run starts from
+        if not start:
+            start["params"] = params_to_jax(self.engine.unflatten(P))
+            resid = self.engine.wire_resid_host()
+            start["resid"] = None if resid is None else \
+                flat_to_jax(resid, self.engine.spec.shapes)[None]
+        return train_round(self, P, epoch, lr)
+
+    common.FedExperiment.train_round = first_round
+    try:
+        launches, result, _ = main_path(torch, counters, codec, local_epochs, out_dir,
+                                        ROUNDS + 1, "--resume_mode", "1")
+    finally:
+        common.FedExperiment.train_round = train_round
+    what = f"resumed path ({codec})"
+    epochs = [r["epoch"] for r in result["history"]]
+    if blob["epoch"] != ROUNDS + 1 or epochs != [ROUNDS + 1]:
+        raise AssertionError(f"{what}: checkpoint at epoch {blob['epoch']}, trained {epochs}; "
+                             f"expected exactly round {ROUNDS + 1}")
+    same = lambda a, b: a.shape == b.shape and np.array_equal(a.view(np.int32),  # noqa: E731
+                                                               b.view(np.int32))
+    if sorted(start["params"]) != sorted(blob["params"]) or not all(
+            same(v, blob["params"][k]) for k, v in start["params"].items()):
+        raise AssertionError(f"{what}: the params it started from differ from the checkpoint's")
+    n_params = sum(v.size for v in start["params"].values())
+    if codec == "dense":
+        if blob["wire_resid"] is not None or start["resid"] is not None:
+            raise AssertionError(f"{what}: a dense run carries no residual")
+        resid = "no residual (dense)"
+    else:
+        if start["resid"] is None or not same(start["resid"], blob["wire_resid"]) \
+                or not blob["wire_resid"].any():
+            raise AssertionError(f"{what}: the residual it restored differs from the checkpoint's")
+        resid = f"the residual {blob['wire_resid'].shape} equal bit for bit"
+    n_train = len(result["logger"].history["train/Local-Loss"])
+    if n_train != ROUNDS + 1:
+        raise AssertionError(f"{what}: the log holds {n_train} train entries, expected "
+                             f"{ROUNDS + 1}")
+    say(f"{what}: trained round {ROUNDS + 1} only, from {n_params} params equal to the "
+        f"checkpoint's bit for bit, {resid}; the log holds {n_train} train entries")
+    return launches, result
+
+
+def close_to_logged(what: str, loss: float, acc: float, logged_loss: float, logged_acc: float):
+    d_loss, d_acc = abs(loss - logged_loss), abs(acc - logged_acc)
+    say(f"{what}: loss {loss:.6f} (logged {logged_loss:.6f}, |diff| {d_loss:.3e}), accuracy "
+        f"{acc:.4f}% (logged {logged_acc:.4f}%, |diff| {d_acc:.4f}); tolerance "
+        f"{TOL_EVAL_LOSS:g} relative, {TOL_EVAL_ACC:g} points")
+    if not (d_loss <= TOL_EVAL_LOSS * max(1.0, abs(logged_loss)) and d_acc <= TOL_EVAL_ACC):
+        raise AssertionError(f"{what}: the evaluation does not reproduce the logged metrics")
+
+
+def test_entry_phase(out_dir: str, codec: str, local_epochs: int) -> None:
+    """``test_classifier_fed`` on the best checkpoint: its Global loss and
+    accuracy against the values the training log holds for that round."""
+    from heterofl_tpu_torch.entry import test_classifier_fed
+    from heterofl_tpu_torch.utils import checkpoint_path, load_checkpoint
+
+    best = load_checkpoint(checkpoint_path(out_dir, TAG, "best"))
+    hist = best["logger_history"]
+    (bundle,) = test_classifier_fed.main(fed_argv(out_dir, codec, local_epochs, ROUNDS + 1))
+    got = bundle["logger_history"]
+    close_to_logged(f"test_classifier_fed ({codec}) on the best checkpoint (round "
+                    f"{best['epoch'] - 1})", got["test/Global-Loss"][0],
+                    got["test/Global-Accuracy"][0], hist["test/Global-Loss"][-1],
+                    hist["test/Global-Accuracy"][-1])
+
+
+def central_phase(torch, counters, out_dir: str):
+    """``train_classifier`` (the centralised baseline at batch 100 on the
+    same synthetic CIFAR10, full-width ResNet-18, ``pallas_norm=1``) for
+    ``CENTRAL_EPOCHS``, the launch counters set to 0 just before and read
+    just after, then ``test_classifier`` on its best checkpoint ->
+    launches."""
+    from heterofl_tpu_torch.entry import test_classifier, train_classifier
+    from heterofl_tpu_torch.utils import checkpoint_path, load_checkpoint
+
+    argv = ["--control_name", CENTRAL, "--synthetic", "1", "--synthetic_sizes", json.dumps(SIZES),
+            "--pallas_norm", "1", "--output_dir", out_dir,
+            "--override", json.dumps({"num_epochs": CENTRAL_EPOCHS})]
+    say(f"centralised path: train_classifier {' '.join(argv)}")
+    zero(counters)
+    t0 = time.time()
+    (result,) = train_classifier.main(argv)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = read(counters)
+    steps = CENTRAL_EPOCHS * math.ceil(SIZES["train"] / CENTRAL_BATCH)
+    say(f"centralised path: {secs:.1f} s for {CENTRAL_EPOCHS} epoch(s) of {steps // CENTRAL_EPOCHS} "
+        f"steps at batch {CENTRAL_BATCH}; launches {launches}")
+    hist = result["history"]
+    for r in hist:
+        say(f"  epoch {r['epoch']}: loss {r['loss']:.4f} accuracy {r['accuracy']:.2f}% "
+            f"{r['seconds']:.2f} s ({1e3 * r['seconds'] / (steps // CENTRAL_EPOCHS):.2f} ms a "
+            f"step); test loss {r['Loss']:.4f} accuracy {r['Accuracy']:.2f}% after sBN, "
+            f"{r['eval_seconds']:.2f} s")
+    say_checkpoints("centralised path", hist, "epoch")
+    want = {"bn_fwd": BN_SITES * steps, "bn_bwd": BN_SITES * steps, "fused_sgd": 0,
+            "quant_pack": 0}
+    if launches != want:
+        raise AssertionError(f"centralised path: launches {launches}, expected {want}")
+    if len(hist) != CENTRAL_EPOCHS or not all(
+            math.isfinite(r[k]) for r in hist for k in ("loss", "Loss", "Accuracy")):
+        raise AssertionError(f"centralised path: expected finite losses, got {hist}")
+    best = load_checkpoint(checkpoint_path(out_dir, CENTRAL_TAG, "best"))["logger_history"]
+    (bundle,) = test_classifier.main(argv)
+    close_to_logged("test_classifier on the centralised best checkpoint",
+                    bundle["metrics"]["Loss"], bundle["metrics"]["Accuracy"],
+                    best["test/Loss"][-1], best["test/Accuracy"][-1])
+    return launches
+
+
+class Phases:
+    """Seconds of each phase, printed as each ends."""
+
+    def __init__(self):
+        self.t0 = self.last = time.time()
+        self.secs = {}
+
+    def done(self, name: str) -> None:
+        now = time.time()
+        self.secs[name] = now - self.last
+        self.last = now
+        say(f"phase {name}: {self.secs[name]:.1f} s")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--dense-local-epochs", type=int, default=1,
-                        help="local epochs of the dense main path (the control's own is 5)")
+    parser.add_argument("--local-epochs", type=int, default=1,
+                        help="local epochs of the main paths (the control's own is 5)")
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -479,6 +684,7 @@ def main() -> int:
     from heterofl_tpu_torch.ops import _build, fused_norm, fused_update, quant
     from heterofl_tpu_torch.ops.fused_update import FlatSpec
 
+    phases = Phases()
     # 1. device
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -495,6 +701,7 @@ def main() -> int:
     for line in str(_build.BUILD_INFO.get("ptxas", "")).splitlines():
         if "Used" in line or "Compiling entry" in line:
             say("  " + line.strip())
+    phases.done("build")
 
     # 3-4. kernels against their plain versions, then timed
     cfg = C.default_cfg()
@@ -506,33 +713,62 @@ def main() -> int:
     mask_flat = spec.flatten({k: param_mask(s, model.specs[k], model.groups, 0.25)
                               for k, s in spec.shapes.items()}).cuda()
     bn = bn_phase(torch, fused_norm)
+    phases.done("batch norm held and timed")
     sgd = sgd_phase(torch, fused_update, mask_flat)
     del mask_flat
     P = spec.flatten(dict(model.init_(torch.Generator().manual_seed(0)).named_parameters()))
     qp = quant_phase(torch, quant, codecs, spec, P.detach().cuda())
     del P
     torch.cuda.empty_cache()
+    phases.done("fused SGD and quant held and timed")
 
     # 5. small rounds against the CPU, then the main paths, each counted
     small_round_phase(torch, "dense")
     small_round_phase(torch, "int8")
+    phases.done("small rounds against the CPU")
     counters = (fused_norm.LAUNCHES, fused_update.LAUNCHES, quant.LAUNCHES)
-    dense, _, _ = main_path(torch, counters, "dense", args.dense_local_epochs)
-    if dense["quant_pack"] != 0 or min(dense[k] for k in ("bn_fwd", "bn_bwd", "fused_sgd")) <= 0:
-        raise AssertionError(f"dense main path: unexpected launches {dense}")
-    launches, result, _ = main_path(torch, counters, "int8", LOCAL_EPOCHS)
-    if launches["quant_pack"] != ROUNDS:
-        raise AssertionError(f"int8 main path: quant_pack launched {launches['quant_pack']} "
-                             f"times, expected one per round ({ROUNDS})")
-    params = result["params"]
-    if set(params) != set(spec.names) or any(
-            tuple(v.shape) != spec.shapes[k] or not bool(torch.isfinite(v).all())
-            for k, v in params.items()):
-        raise AssertionError("main path: new global params are not finite at the model's shapes")
-    resid = result["wire_resid"]
-    if resid.shape != (1, spec.total) or not np.isfinite(resid).all() or not resid.any():
-        raise AssertionError("int8 main path: the error-feedback residual is not a finite, "
-                             "non-zero [1, n] carry")
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        dense_dir, int8_dir = os.path.join(tmp, "dense"), os.path.join(tmp, "int8")
+        dense, _, _ = main_path(torch, counters, "dense", args.local_epochs, dense_dir,
+                                ROUNDS)
+        if dense["quant_pack"] != 0 or min(dense[k] for k in ("bn_fwd", "bn_bwd",
+                                                               "fused_sgd")) <= 0:
+            raise AssertionError(f"dense main path: unexpected launches {dense}")
+        by_path["dense"] = dense
+        phases.done("dense main path")
+        by_path["dense_resumed"], _ = resume_path(torch, counters, "dense",
+                                                  args.local_epochs, dense_dir)
+        phases.done("dense resumed round")
+        launches, result, _ = main_path(torch, counters, "int8", args.local_epochs,
+                                        int8_dir, ROUNDS)
+        if launches["quant_pack"] != ROUNDS:
+            raise AssertionError(f"int8 main path: quant_pack launched {launches['quant_pack']} "
+                                 f"times, expected one per round ({ROUNDS})")
+        by_path["int8"] = launches
+        params = result["params"]
+        if set(params) != set(spec.names) or any(
+                tuple(v.shape) != spec.shapes[k] or not bool(torch.isfinite(v).all())
+                for k, v in params.items()):
+            raise AssertionError("main path: new global params are not finite at the model's "
+                                 "shapes")
+        resid = result["wire_resid"]
+        if resid.shape != (1, spec.total) or not np.isfinite(resid).all() or not resid.any():
+            raise AssertionError("int8 main path: the error-feedback residual is not a finite, "
+                                 "non-zero [1, n] carry")
+        del result, params
+        phases.done("int8 main path")
+        by_path["int8_resumed"], _ = resume_path(torch, counters, "int8",
+                                                 args.local_epochs, int8_dir)
+        if by_path["int8_resumed"]["quant_pack"] != 1:
+            raise AssertionError(f"int8 resumed round: launches {by_path['int8_resumed']}")
+        phases.done("int8 resumed round")
+        test_entry_phase(int8_dir, "int8", args.local_epochs)
+        phases.done("test_classifier_fed")
+        by_path["central"] = central_phase(torch, counters, os.path.join(tmp, "central"))
+        phases.done("centralised baseline and test_classifier")
+    say("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phases.secs.items())
+        + f"; total {time.time() - phases.t0:.1f} s")
 
     # 6. the kernels line
     kernels = []
@@ -552,9 +788,15 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": "bytes" if r["bytes"] / BW >= r["ops"] / F32
                         else "operations",
-                        "library_ms": r.get("library_ms")})
+                        "library_ms": r.get("library_ms"), "device_ms": r["device_ms"],
+                        "launches_by_path": {p: n[name] for p, n in by_path.items()}})
         if name.startswith("bn_"):
-            kernels[-1].update(device_ms=r["device_ms"], library_device_ms=r["library_device_ms"])
+            kernels[-1].update(
+                library_device_ms=r["library_device_ms"], central_ms=r["central_ms"],
+                central_library_ms=r["central_library_ms"],
+                central_device_ms=r["central_device_ms"],
+                central_library_device_ms=r["central_library_device_ms"],
+                central_plain_ms=r["central_plain_ms"], central_bound_ms=r["central_bound_ms"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -11,10 +11,12 @@ reference package (``tests/test_torch_port_import.py`` holds it to that).
 Every TPU kernel on the ported path is a CUDA C++ kernel under ``csrc/``,
 built at first use by :mod:`.ops._build` and bound with ``ctypes``.
 
-Ported so far: one federated training round of the vision path (config,
-synthetic data, partition, masked conv / pre-activation ResNet-18/34 with
-batch norm, the fused masked-SGD epilogue, counted aggregation, the
-experiment loop without evaluation).
+Ported so far: the vision path's experiment lifecycle (config, synthetic
+data, partition, masked conv / pre-activation ResNet-18/34 with batch
+norm, the fused masked-SGD epilogue, counted aggregation, the wire codecs,
+sBN and Local/Global evaluation, the logger, checkpoints in the reference's
+format with resume and the best copy, the test entries, and the
+centralised baseline).
 """
 
 from __future__ import annotations

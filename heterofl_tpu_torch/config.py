@@ -69,6 +69,11 @@ DEFAULT_CFG: Dict[str, Any] = {
     "output_dir": "./output",
     "synthetic": False,
     "synthetic_sizes": None,
+    # 0 fresh, 1 full resume, 2 params and splits only (utils/checkpoint.py)
+    "resume_mode": 0,
+    # checkpoint generations kept (the live blob and keep - 1 older ones)
+    "checkpoint_keep": 3,
+    "use_tensorboard": False,
     "override": {},
 }
 
@@ -76,8 +81,6 @@ DEFAULT_CFG: Dict[str, Any] = {
 #: value that turns its feature off (heterofl_tpu/config.py:57-355)
 UNPORTED: Dict[str, Any] = {
     "world_size": 1,
-    "resume_mode": 0,
-    "use_tensorboard": False,
     "data_placement": "replicated",
     "conv_impl": None,
     "scan_unroll": 1,
@@ -204,31 +207,47 @@ def process_control(cfg: Dict[str, Any]) -> Dict[str, Any]:
     cfg["weight_decay"] = 5e-4
     cfg["scheduler_name"] = "MultiStepLR"
     cfg["factor"] = 0.1
+    # (global rounds, local epochs, milestones) per split kind; "none" is
+    # centralised training: epochs, not rounds, at batch 100 / 500
     if data_name in MNIST_LIKE:
         cfg["lr"] = 1e-2
-        table = {"iid": (200, 5, [100]), "non-iid": (400, 5, [200])}
+        table = {"iid": (200, 5, [100]), "non-iid": (400, 5, [200]), "none": (200, None, [100])}
     else:
         cfg["lr"] = 1e-1
-        table = {"iid": (400, 5, [150, 250]), "non-iid": (800, 5, [300, 500])}
+        table = {"iid": (400, 5, [150, 250]), "non-iid": (800, 5, [300, 500]),
+                 "none": (400, None, [150, 250])}
     kind = "non-iid" if "non-iid" in split else split
-    if kind in table:
-        glob, local, miles = table[kind]
+    if kind not in table:
+        raise ValueError("Not valid data_split_mode")
+    glob, local, cfg["milestones"] = table[kind]
+    if kind == "none":
+        cfg["num_epochs"] = glob
+        cfg["batch_size"] = {"train": 100, "test": 500}
+    else:
         cfg["num_epochs"] = {"global": glob, "local": local}
         cfg["batch_size"] = {"train": 10, "test": 50}
-        cfg["milestones"] = miles
-    elif split == "none":
-        raise NotImplementedError(
-            "data_split_mode='none' (centralised training) is not ported to "
-            "heterofl_tpu_torch yet")
-    else:
-        raise ValueError("Not valid data_split_mode")
     for k, v in (cfg.get("override") or {}).items():
         if isinstance(v, dict) and isinstance(cfg.get(k), dict):
             cfg[k] = {**cfg[k], **v}
         else:
             cfg[k] = v
     check_ported(cfg)
+    resolve_checkpoint_keep(cfg)
     return cfg
+
+
+def resolve_checkpoint_keep(cfg: Dict[str, Any]) -> int:
+    """Validate ``cfg['checkpoint_keep']`` and return it
+    (heterofl_tpu/config.py:742-755): ``process_control`` applies it and
+    the experiment loop again, so a malformed value fails at configuration
+    time, never as a silent single-generation fallback mid-run."""
+    keep = cfg.get("checkpoint_keep", 3)
+    if keep is None:
+        return 3
+    if not isinstance(keep, int) or isinstance(keep, bool) or keep < 1:
+        raise ValueError(f"Not valid checkpoint_keep: {keep!r} (an int >= 1 "
+                         f"checkpoint generations to retain)")
+    return keep
 
 
 def ceil_width(size: int, rate: float) -> int:

@@ -2,18 +2,26 @@
 
 Port of the ``superstep_rounds=1`` path of ``heterofl_tpu/entry/common.py``:
 CLI flags generated from the cfg keys (common.py:75-111), then per seed
-:class:`FedExperiment` -- split the data, stage every user's train shard and
-the evaluation operands on the device once, and per round sample the
-cohort, train it (:class:`~..parallel.RoundEngine`) and log the round's
-train loss, accuracy and time; every ``eval_interval`` rounds and after the
-last, recalibrate BN (sBN) and evaluate Local and Global
-(:class:`~..parallel.Evaluator`).  Checkpoints and the logger are not
-ported yet.
+:class:`FedExperiment.run` (common.py:1276-1349, 1501-1600):
+
+* :func:`~..utils.resume` first; a blob's data and label split replace the
+  split draw, and its params, error-feedback residual, epoch, best pivot,
+  logger state and scheduler state are restored;
+* every user's train shard and the evaluation operands go onto the device
+  once;
+* per round: sample the cohort, train it (:class:`~..parallel.RoundEngine`)
+  and log the round; every ``eval_interval`` rounds and after the last,
+  recalibrate BN (sBN) and evaluate Local and Global
+  (:class:`~..parallel.Evaluator`); then the best-pivot decision, a durable
+  checkpoint in ``output_dir/model/`` and, on a new best, its copy to
+  ``_best.pkl``.
 
 The numpy stream ``self.rng = np.random.default_rng(seed)`` feeds the data
 split first and then the per-round user permutation, as in the reference
 experiment loop (common.py:229, 578, 682-684), so cohorts match the
-reference's for the same seed under its ``sampler='perm'``.
+reference's for the same seed under its ``sampler='perm'``.  A resumed run
+skips the split draw, so its stream restarts without it -- as the
+reference's does; there is no checkpoint of the stream.
 """
 
 from __future__ import annotations
@@ -21,18 +29,21 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import config as C
 from .. import resolve_device
+from ..convert import flat_from_jax, flat_to_jax, params_from_jax, params_to_jax
 from ..data import fetch_dataset, label_split_masks, split_dataset, stack_client_shards
 from ..models import make_model
 from ..parallel import Evaluator, RoundEngine
-from ..utils import make_scheduler, summarize_sums
+from ..utils import (Logger, PlateauScheduler, checkpoint_path, copy_best, make_scheduler,
+                     resume, save_checkpoint, summarize_sums)
 
 
 def build_cli(description: str) -> argparse.ArgumentParser:
@@ -117,8 +128,36 @@ def stage_eval_operands(cfg, train_set, test_set, test_split, lm):
     return sbn, local, (xg, yg, wg)
 
 
+def pivot_improves(cur: Optional[float], pivot: float, pivot_mode: str) -> bool:
+    """Whether the logged pivot metric ``cur`` (None when the iteration did
+    not evaluate) beats the best so far."""
+    return cur is not None and (cur > pivot if pivot_mode == "max" else cur < pivot)
+
+
+def write_checkpoint(output_dir: str, tag: str, make_blob: Callable[[], Dict[str, Any]],
+                     keep: int, is_best: bool, rec: Dict[str, Any]) -> None:
+    """Durably write ``make_blob()`` as the live checkpoint (``keep``
+    generations) and, when ``is_best``, copy it to ``_best.pkl``; the
+    write's seconds (the blob's host copy included) and megabytes and the
+    copy's seconds go into the round's (epoch's) record ``rec``."""
+    t0 = time.time()
+    path = checkpoint_path(output_dir, tag)
+    save_checkpoint(path, make_blob(), keep=keep)
+    rec["checkpoint_seconds"] = time.time() - t0
+    rec["checkpoint_mb"] = os.path.getsize(path) / 1e6
+    rec["best_seconds"] = None
+    if is_best:
+        t0 = time.time()
+        copy_best(output_dir, tag)
+        rec["best_seconds"] = time.time() - t0
+    best = "" if rec["best_seconds"] is None else f", best copy {rec['best_seconds']:.3f}s"
+    print(f"Model: {tag}  Checkpoint Epoch: {rec['epoch']}  {rec['checkpoint_mb']:.1f} MB "
+          f"in {rec['checkpoint_seconds']:.3f}s{best}", flush=True)
+
+
 class FedExperiment:
-    """One federated experiment (one seed)."""
+    """One federated experiment (one seed): data staging, engine,
+    evaluator, logger and the checkpoint loop."""
 
     def __init__(self, cfg: Dict[str, Any], seed: int):
         C.check_ported(cfg)
@@ -139,12 +178,16 @@ class FedExperiment:
         self.engine = RoundEngine(self.model, cfg, self.device)
         self.evaluator = Evaluator(self.model, cfg, self.device)
         self.eval_interval = max(1, int(cfg.get("eval_interval", 1) or 1))
+        self.checkpoint_keep = C.resolve_checkpoint_keep(cfg)
         self.scheduler = make_scheduler(cfg)
         self.num_active = int(math.ceil(cfg["frac"] * cfg["num_users"]))
         if not 0 < self.num_active <= cfg["num_users"]:
             raise ValueError(f"frac={cfg['frac']} draws num_active={self.num_active} "
                              f"outside [1, num_users={cfg['num_users']}]")
-        self.history: List[Dict[str, float]] = []
+        # the training log (opens its files only inside a run's rounds)
+        self.logger = Logger(os.path.join(cfg["output_dir"], "runs", f"train_{self.tag}"),
+                             use_tensorboard=bool(cfg.get("use_tensorboard")))
+        self.history: List[Dict[str, Any]] = []  # one record per round this run trained
         self.bn_state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}  # the last sBN pass's
 
     def make_splits(self):
@@ -172,6 +215,9 @@ class FedExperiment:
         return self.rng.permutation(self.cfg["num_users"])[: self.num_active].astype(np.int64)
 
     def train_round(self, P: torch.Tensor, epoch: int, lr: float) -> torch.Tensor:
+        """One round from the global flat params ``P``; its train loss and
+        accuracy go to the experiment's logger as ``train/Local-*`` (ref
+        entry/common.py:1189-1225) and to :attr:`history`."""
         user_idx = self.sample_users(epoch)
         t0 = time.time()
         P, ms = self.engine.train_round(P, lr, user_idx, self.train_data,
@@ -184,56 +230,160 @@ class FedExperiment:
                "accuracy": 100.0 * float(sums["score_sum"].sum()) / max(n, 1e-12),
                "rates": sorted(set(sums["rate"].tolist()))}
         self.history.append(rec)
-        print(f"Model: {self.tag} Train Epoch: {epoch} Learning rate: {lr:g} "
-              f"Loss: {rec['loss']:.4f} Accuracy: {rec['accuracy']:.4f} "
-              f"Round time: {dt:.2f}s Rates: {rec['rates']}", flush=True)
+        named = summarize_sums(sums)
+        self.logger.append(named, "train", n=n)
+        self.logger.append({"info": [f"Model: {self.tag}", f"Train Epoch: {epoch}",
+                                     f"Learning rate: {lr:g}", f"Rates: {rec['rates']}",
+                                     f"Round time: {dt:.2f}s"]}, "train", mean=False)
+        self.logger.write("train", list(named))
         return P
 
-    def evaluate(self, P: torch.Tensor, epoch: int) -> Dict[str, float]:
+    def evaluate(self, P: torch.Tensor, epoch: int,
+                 logger: Optional[Logger] = None) -> Dict[str, float]:
         """sBN, then Local, then Global, on the global flat params ``P``
-        (ref entry/common.py:1241-1272) -> the named test metrics."""
+        (ref entry/common.py:1241-1272), logged under ``test/`` -> the named
+        test metrics and ``eval_seconds``."""
+        logger = self.logger if logger is None else logger
         t0 = time.time()
         params = self.engine.unflatten(P)
         bn = self.evaluator.sbn_stats(params, *self.sbn_batches)
         local = self.evaluator.eval_users(params, bn, *self.local_eval)
         named = summarize_sums(local)
+        logger.append(named, "test", n=float(np.sum(local["n"])))
         g = self.evaluator.eval_global(params, bn, *self.global_eval)
-        named.update(summarize_sums(g, prefix="Global-"))
+        named_global = summarize_sums(g, prefix="Global-")
+        logger.append(named_global, "test", n=g["n"])
+        named.update(named_global)
         named["eval_seconds"] = time.time() - t0
         self.bn_state = bn
-        print(f"Model: {self.tag} Test Epoch: {epoch} "
-              + " ".join(f"{k}: {v:.4f}" for k, v in named.items()), flush=True)
+        logger.append({"info": [f"Model: {self.tag}", f"Test Epoch: {epoch}",
+                                f"Eval time: {named['eval_seconds']:.2f}s"]}, "test", mean=False)
+        logger.write("test", [k.split("/", 1)[1] for k in logger.mean if k.startswith("test/")])
         return named
 
-    def run(self) -> Dict[str, Any]:
-        data_split, label_split = self.make_splits()
+    # -- the error-feedback residual in a blob: the reference's [clients,
+    # slots, total] carry in its flat layout, one participant here
+    def _resid_to_blob(self) -> Optional[np.ndarray]:
+        resid = self.engine.wire_resid_host()
+        return None if resid is None else flat_to_jax(resid, self.engine.spec.shapes)[None]
+
+    def _resid_from_blob(self, arr) -> np.ndarray:
+        arr = np.asarray(arr, np.float32)
+        if arr.ndim != 3 or arr.shape[0] != 1:
+            raise ValueError(f"checkpointed wire residual of shape {arr.shape}: the port runs "
+                             f"one participant and restores a [1, slots, total] carry")
+        return flat_from_jax(arr[0], self.engine.spec.shapes)
+
+    def run(self, pivot_metric: str = "Global-Accuracy", pivot_mode: str = "max"
+            ) -> Dict[str, Any]:
+        """Resume (per ``resume_mode``), then train to ``num_epochs.global``
+        with a checkpoint every round and a copy of the best by
+        ``test/{pivot_metric}``."""
+        cfg, logger = self.cfg, self.logger
+        blob = resume(cfg["output_dir"], self.tag, cfg["resume_mode"])
+        if blob and blob.get("data_split") is not None:
+            data_split, label_split = blob["data_split"], blob["label_split"]
+        else:
+            data_split, label_split = self.make_splits()
         self.stage(data_split, label_split)
         P = self.engine.flatten(self.model.params())
-        last = self.cfg["num_epochs"]["global"]
-        for epoch in range(1, last + 1):
-            P = self.train_round(P, epoch, self.scheduler(epoch))
-            if epoch % self.eval_interval == 0 or epoch == last:
-                self.history[-1].update(self.evaluate(P, epoch))
+        epoch = 1
+        pivot = -math.inf if pivot_mode == "max" else math.inf
+        if blob:
+            P = self.engine.flatten(params_from_jax(blob["params"]))
+            if blob.get("wire_resid") is not None and self.engine.codec is not None:
+                self.engine.set_wire_resid(self._resid_from_blob(blob["wire_resid"]))
+            if "epoch" in blob:
+                epoch = blob["epoch"]
+                pivot = blob.get("pivot", pivot)
+                logger.load_state_dict(blob.get("logger_state")
+                                       or {"history": blob.get("logger_history", {})})
+                if blob.get("scheduler_state") and hasattr(self.scheduler, "load_state_dict"):
+                    self.scheduler.load_state_dict(blob["scheduler_state"])
+        last = cfg["num_epochs"]["global"]
+        if epoch <= last:
+            # a restored logger state is the checkpointed round's, taken
+            # before its reset: the next round's running means start from
+            # zero, as in a run that was never interrupted (the reference's
+            # first resumed round averages its means with that round's)
+            logger.reset()
+        while epoch <= last:
+            P, pivot = self._run_iteration(P, epoch, last, pivot_metric, pivot_mode, pivot,
+                                           data_split, label_split)
+            epoch += 1
         return {"params": {k: v.clone() for k, v in self.engine.unflatten(P).items()},
-                "history": self.history, "data_split": data_split,
+                "history": self.history, "logger": logger, "data_split": data_split,
                 "label_split": label_split, "bn_state": self.bn_state,
                 "wire_resid": self.engine.wire_resid_host()}
 
+    def _run_iteration(self, P, epoch, last, pivot_metric, pivot_mode, pivot, data_split,
+                       label_split):
+        """One round, its evaluation when due, the best-pivot decision and
+        the durable checkpoint (ref entry/common.py:1501-1600) -> ``(P,
+        pivot)``.  The checkpoint's seconds and bytes (the host copy of the
+        params included) go into the round's :attr:`history` record."""
+        cfg, logger = self.cfg, self.logger
+        logger.safe(True)
+        P = self.train_round(P, epoch, self.scheduler(epoch))
+        if epoch % self.eval_interval == 0 or epoch == last:
+            self.history[-1].update(self.evaluate(P, epoch))
+            if isinstance(self.scheduler, PlateauScheduler):
+                # min-mode plateau on the test Global loss, on evaluated rounds
+                self.scheduler.step_metric(logger.mean.get("test/Global-Loss", 0.0))
+        logger.safe(False)
+        cur = logger.history.get(f"test/{pivot_metric}", [None])[-1]
+        is_best = pivot_improves(cur, pivot, pivot_mode)
+        if is_best:
+            pivot = cur  # before saving, so a resumed run keeps it
+        blob = lambda: {  # noqa: E731
+            "cfg": {k: v for k, v in cfg.items() if k != "vocab"},
+            "epoch": epoch + 1,
+            "data_split": data_split,
+            "label_split": label_split,
+            "params": params_to_jax(self.engine.unflatten(P)),
+            "bn_state": self.bn_state,
+            "wire_resid": self._resid_to_blob(),
+            "sched_buf": None,  # buffered-async aggregation: not ported
+            "ledger": None,     # population ledger: not ported
+            "pivot": pivot,
+            "logger_history": dict(logger.history),
+            "logger_state": logger.state_dict(),
+            "scheduler_state": self.scheduler.state_dict()
+            if hasattr(self.scheduler, "state_dict") else None,
+        }
+        write_checkpoint(cfg["output_dir"], self.tag, blob, self.checkpoint_keep, is_best,
+                         self.history[-1])
+        logger.reset()
+        return P, pivot
+
 
 def run_main(description: str, model_default: str, data_default: str,
+             pivot_metric: str = "Global-Accuracy", pivot_mode: str = "max",
              argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     """Parse flags, loop the seeds, run the experiments."""
+    cfg = parse_cfg(description, model_default, data_default, argv)
+    results = []
+    for i in range(cfg["num_experiments"]):
+        exp = FedExperiment(cfg, cfg["init_seed"] + i)
+        print(f"Experiment: {exp.tag}", flush=True)
+        results.append(exp.run(pivot_metric, pivot_mode))
+    return results
+
+
+def parse_cfg(description: str, model_default: str, data_default: str,
+              argv: Optional[List[str]] = None, data_split_mode: Optional[str] = None
+              ) -> Dict[str, Any]:
+    """The processed cfg of an entry point's flags (``data_split_mode``
+    forces the control's split, as the centralised entry does), checked
+    for its device before any data is made."""
     args = build_cli(description).parse_args(argv)
     cfg = cfg_from_args(args)
     if args.model_name is None:
         cfg["model_name"] = model_default
     if args.data_name is None:
         cfg["data_name"] = data_default
+    if data_split_mode is not None:
+        cfg["control"]["data_split_mode"] = data_split_mode
     cfg = C.process_control(cfg)
-    resolve_device(cfg)  # fail before any data is made
-    results = []
-    for i in range(cfg["num_experiments"]):
-        exp = FedExperiment(cfg, cfg["init_seed"] + i)
-        print(f"Experiment: {exp.tag}", flush=True)
-        results.append(exp.run())
-    return results
+    resolve_device(cfg)
+    return cfg

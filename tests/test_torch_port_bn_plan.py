@@ -5,7 +5,8 @@ The CUDA kernels of ``csrc/bn.cu`` run only on the card; what decides their
 reduction order, and so their bits, is the plan, a pure function of the
 shape computed here in Python.  These tests hold it to what the kernels
 need at the shapes the port runs -- ResNet-18's four batch-norm sites at
-batch 10, the MNIST conv twin's, ragged and oversized ones: every row and
+batch 10 (the federated round) and at batch 100 (the centralised
+baseline), the MNIST conv twin's, ragged and oversized ones: every row and
 channel owned by exactly one thread, clusters the card can launch, shared
 memory within a block's limit.  The row and channel ownership below is the
 kernels' (``Layout`` in ``bn.cu``).  A CPU tensor takes the plain version
@@ -24,7 +25,12 @@ SHAPES = [
     (7840, 16), (1960, 32),                            # MNIST conv twin, 28x28 and 14x14
     (999, 20), (50, 1), (37, 48), (3000, 6), (5, 3), (1, 1),  # ragged; fewer rows than lanes
     (81920, 64), (131072, 64), (1_000_000, 3),          # rows past shared memory
+    (102400, 64), (25600, 128), (6400, 256), (1600, 512),  # ResNet-18 at batch 100
 ]
+# the centralised baseline's sites: (M, C) -> whether each direction keeps
+# its rows on chip (forward, backward); the rest read them twice
+CENTRAL = {(102400, 64): (False, False), (25600, 128): (True, False),
+           (6400, 256): (True, True), (1600, 512): (True, True)}
 
 
 def _owners_of_rows(M, pl):
@@ -110,3 +116,16 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert all(torch.equal(a, r) for a, r in zip(out, ref))
     assert fused_norm.LAUNCHES == before
     assert "hfl_bn_scratch_floats" not in _build._SIGNATURES
+
+
+@pytest.mark.parametrize("M,C", list(CENTRAL))
+def test_central_shapes_plan_within_cluster_limits(M, C):
+    """ResNet-18 at batch 100: 64 blocks in 8 portable clusters of 8 at each
+    site, at most 12,800 rows a block; the largest site reads its rows twice
+    in both directions, the next in the backward -- the re-read path the
+    centralised epoch runs in training."""
+    pl = bn_plan(M, C)
+    assert pl.tiles * pl.cluster == 64 and pl.cluster == 8 and not pl.nonportable
+    assert pl.rows * pl.cluster == M and pl.rows <= 12800
+    assert (pl.resident_fwd, pl.resident_bwd) == CENTRAL[(M, C)]
+    assert max(pl.smem_fwd, pl.smem_bwd) <= BN_SMEM_LIMIT

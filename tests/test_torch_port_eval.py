@@ -183,19 +183,20 @@ SIZES = '{"train": 200, "test": 40}'
 TINY = '"conv": {"hidden_size": [8, 16]}'
 
 
-def _argv(rounds, extra=()):
-    return ["--device", "cpu", "--control_name", ENTRY_CONTROL, "--data_name", "MNIST",
+def _argv(out_dir, rounds, extra=()):
+    return ["--device", "cpu", "--output_dir", str(out_dir),
+            "--control_name", ENTRY_CONTROL, "--data_name", "MNIST",
             "--model_name", "conv", "--synthetic", "1", "--pallas_norm", "1",
             "--synthetic_sizes", SIZES,
             "--override", f'{{"num_epochs": {{"global": {rounds}, "local": 1}}, {TINY}}}',
             *extra]
 
 
-def test_entry_int8_with_evaluation_on_cpu():
+def test_entry_int8_with_evaluation_on_cpu(tmp_path):
     """``--wire_codec int8 --eval_interval 1``: two finite rounds, each
     followed by sBN and finite Local and Global metrics; the residual carry
     is non-zero after the first round and after the run."""
-    (res,) = train_classifier_fed.main(_argv(2, ["--wire_codec", "int8", "--eval_interval", "1"]))
+    (res,) = train_classifier_fed.main(_argv(tmp_path, 2, ["--wire_codec", "int8", "--eval_interval", "1"]))
     hist = res["history"]
     assert [r["epoch"] for r in hist] == [1, 2]
     for r in hist:
@@ -206,6 +207,7 @@ def test_entry_int8_with_evaluation_on_cpu():
     cfg = PC.default_cfg()
     cfg.update(control=PC.parse_control_name(ENTRY_CONTROL), data_name="MNIST",
                model_name="conv", device="cpu", synthetic=True, wire_codec="int8",
+               output_dir=str(tmp_path),
                synthetic_sizes={"train": 200, "test": 40},
                override={"num_epochs": {"local": 1}, "conv": {"hidden_size": [8, 16]}})
     exp = FedExperiment(PC.process_control(cfg), seed=0)
@@ -214,10 +216,10 @@ def test_entry_int8_with_evaluation_on_cpu():
     assert np.any(exp.engine.wire_resid_host() != 0)
 
 
-def test_entry_eval_cadence():
+def test_entry_eval_cadence(tmp_path):
     """Evaluation runs when ``epoch % eval_interval == 0`` and after the last
     round; the dense run carries no residual."""
-    (res,) = train_classifier_fed.main(_argv(3, ["--eval_interval", "2"]))
+    (res,) = train_classifier_fed.main(_argv(tmp_path, 3, ["--eval_interval", "2"]))
     evaluated = [r["epoch"] for r in res["history"] if "Global-Accuracy" in r]
     assert evaluated == [2, 3]
     assert res["wire_resid"] is None

@@ -209,18 +209,21 @@ def test_fused_sgd_plain_matches_port_tree_chain(gscale):
 
 
 def test_schedulers_match_reference():
-    """``make_scheduler`` for the kinds the vision controls use: the same LR
-    as the reference at every round of a 400-round run (exact)."""
+    """``make_scheduler`` for every stateless kind: the same LR as the
+    reference at every round of a 400-round run (exact); an unknown kind
+    raises as the reference's does."""
     from heterofl_tpu.utils.optim import make_scheduler as r_make_scheduler
     from heterofl_tpu_torch.utils import make_scheduler
 
-    for cfg in ({"scheduler_name": "None", "lr": 0.1},
-                {"scheduler_name": "MultiStepLR", "lr": 0.1, "factor": 0.1,
-                 "milestones": [150, 250]}):
+    base = {"lr": 0.1, "factor": 0.1, "milestones": [150, 250], "step_size": 30,
+            "num_epochs": {"global": 400, "local": 5}}
+    for name in ("None", "StepLR", "MultiStepLR", "ExponentialLR", "CosineAnnealingLR",
+                 "CyclicLR"):
+        cfg = dict(base, scheduler_name=name)
         port, ref = make_scheduler(cfg), r_make_scheduler(cfg)
-        assert [port(e) for e in range(1, 401)] == [ref(e) for e in range(1, 401)]
-    with pytest.raises(NotImplementedError, match="scheduler_name"):
-        make_scheduler({"scheduler_name": "CosineAnnealingLR", "lr": 0.1})
+        assert [port(e) for e in range(1, 401)] == [ref(e) for e in range(1, 401)], name
+    with pytest.raises(ValueError, match="scheduler"):
+        make_scheduler(dict(base, scheduler_name="LinearLR"))
 
 
 def test_fused_sgd_wrapper_updates_in_place_on_cpu():

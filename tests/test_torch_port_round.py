@@ -126,18 +126,19 @@ def test_experiment_cohorts_follow_reference_numpy_stream():
         np.testing.assert_array_equal(c, rng.permutation(4)[:2])
 
 
-def _argv(extra=()):
-    return ["--control_name", "1_4_0.5_iid_fix_a1-e1_bn_1_1", "--data_name", "MNIST",
+def _argv(out_dir, extra=()):
+    return ["--output_dir", str(out_dir),
+            "--control_name", "1_4_0.5_iid_fix_a1-e1_bn_1_1", "--data_name", "MNIST",
             "--model_name", "conv", "--synthetic", "1", "--pallas_norm", "1",
             "--synthetic_sizes", '{"train": 200, "test": 40}',
             "--override", '{"num_epochs": {"global": 2, "local": 1}, '
                           '"conv": {"hidden_size": [8, 16]}}', *extra]
 
 
-def test_entry_runs_two_rounds_on_cpu():
+def test_entry_runs_two_rounds_on_cpu(tmp_path):
     """``--device cpu``: two finite rounds through the port's entry point;
     the new params are finite and at the model's shapes."""
-    (res,) = train_classifier_fed.main(_argv(["--device", "cpu"]))
+    (res,) = train_classifier_fed.main(_argv(tmp_path, ["--device", "cpu"]))
     hist = res["history"]
     assert [r["epoch"] for r in hist] == [1, 2]
     assert all(math.isfinite(r["loss"]) and r["n"] > 0 for r in hist)
@@ -145,8 +146,8 @@ def test_entry_runs_two_rounds_on_cpu():
     assert res["params"]["block0.conv.w"].shape == (8, 1, 3, 3)
 
 
-def test_entry_raises_without_cuda_unless_cpu_is_asked():
+def test_entry_raises_without_cuda_unless_cpu_is_asked(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable here")
     with pytest.raises(RuntimeError, match="cuda"):
-        train_classifier_fed.main(_argv())
+        train_classifier_fed.main(_argv(tmp_path))
