@@ -29,12 +29,12 @@ each prints its seconds:
    versions), dense and with the int8 codec, then the main paths, each into
    a fresh temporary ``output_dir``:
    ``heterofl_tpu_torch.entry.train_classifier_fed`` with the paper's
-   headline control on full-width ResNet-18, synthetic CIFAR10 at its real
-   50,000-image train size, ``pallas_norm=1``, ``fused_update=1``, two
-   rounds with a checkpoint each, sBN and Local/Global evaluation after the
-   second, local epochs cut to ``--local-epochs`` (default 1; the
-   control's own is 5) to keep the script's time -- dense, then with
-   ``--wire_codec int8``; after each, the same entry with one more
+   headline control on full-width ResNet-18, synthetic CIFAR10 at half its
+   real 50,000-image train size, ``pallas_norm=1``, ``fused_update=1``, one
+   round (``ROUNDS``) with a checkpoint, sBN and Local/Global evaluation,
+   local epochs cut to ``--local-epochs`` (default 1; the control's own is
+   5) to keep the script's time -- dense, then with ``--wire_codec
+   int8``; after each, the same entry with one more
    round and ``--resume_mode 1`` must train exactly that round, from params
    (and the int8 residual) equal to the checkpoint's bit for bit; then
    ``test_classifier_fed`` on the int8 path's best checkpoint must
@@ -43,7 +43,23 @@ each prints its seconds:
    same data, ``pallas_norm=1``) and ``test_classifier``.  Every kernel
    launch counter is set to 0 just before each path and read just after;
    each checkpoint write and best copy prints its seconds and megabytes;
-6. the ``kernels`` JSON line (launches from the int8 path; per path in
+6. the masked LM: the fused masked-SGD epilogue and the
+   quantise-and-pack held and timed again at the full-width transformer's
+   2,454,528 parameters (the level-e per-head width mask); one LM round of
+   a level-a and a level-e client on the card against the same round on the
+   CPU (draws made on the CPU and injected); then
+   ``train_transformer_fed`` with ``LM_CONTROL`` at full width (E 256, 8
+   heads, FFN 512, 4 layers, bptt 64) on synthetic WikiText2 at its quoted
+   2,088,628 / 245,569 tokens -- three rounds of 327 local steps each, a
+   checkpoint and a Global evaluation (384 windows of [10, 64]) each
+   round; the same entry resumed for a fourth round (``--resume_mode 1``,
+   from the checkpoint's params bit for bit); ``test_transformer_fed``
+   reproducing the best checkpoint's logged Global-Perplexity; one int8
+   round; the centralised ``train_transformer`` (one epoch of 327 steps of
+   [100, 64]) and ``test_transformer``.  The ``<mask>`` row of the token
+   embedding must keep its initial value through every round, and no LM
+   path may launch a batch-norm kernel;
+7. the ``kernels`` JSON line (launches from the int8 path; per path in
    ``launches_by_path``), then the ``ok`` JSON line last.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
@@ -68,7 +84,10 @@ TAG = f"0_CIFAR10_label_resnet18_{HEADLINE}"
 CENTRAL = "1_1_1_none_fix_a1_bn_1_1"  # the centralised baseline, full width
 CENTRAL_TAG = f"0_CIFAR10_label_resnet18_{CENTRAL}"
 CENTRAL_EPOCHS = 1
-SIZES = {"train": 50000, "test": 10000}
+# the vision paths' synthetic CIFAR10: half the real 50,000-image train set
+# (250 steps a round, 2,500 sBN forwards; cut for the script's time),
+# the real 10,000-image test set
+SIZES = {"train": 25000, "test": 10000}
 BATCH = 10
 CENTRAL_BATCH = 100
 # ResNet-18 on 32x32 CIFAR at batch 10: (rows M = N*H*W, channels C, BN
@@ -85,7 +104,7 @@ BN_CENTRAL_SHAPES = [(10 * M, C, s) for M, C, s in BN_SHAPES]
 BN_CHECK_SHAPES = [(7840, 16, 784), (1960, 32, 196), (999, 20, 111), (50, 1, 5),
                    (37, 48, 37), (3000, 6, 300), (40960, 64, 4096), (131072, 64, 1024)]
 BN_GRAPH_CALLS = 20  # calls per CUDA graph when timing device time
-ROUNDS = 2
+ROUNDS = 1  # the vision main paths' rounds before the resumed one (cut from 2 for time)
 QUANT_CASES = [(127, 128), (15, 16)]  # (qmax, bias): 1 and 8 participants' int8 grids
 QUANT_ODD_N = 1001
 # stated tolerances of kernel vs plain version (float32, sums in another order)
@@ -99,6 +118,19 @@ SHARE_ROUND_INT8 = 0.02       # int8 round: share of entries allowed one grid st
 # the 10,000 test images)
 TOL_EVAL_LOSS = 1e-4
 TOL_EVAL_ACC = 0.05
+# the masked LM: the control of the paper's WikiText2 runs, full width;
+# synthetic WikiText2 at the token counts quoted for WikiText2
+LM_CONTROL = "1_100_0.01_iid_fix_a1-b1-c1-d1-e1_bn_1_1"
+LM_TAG = f"0_WikiText2_label_transformer_{LM_CONTROL}"
+LM_CENTRAL_TAG = f"0_WikiText2_label_transformer_{CENTRAL}"
+LM_SIZES = {"train": 2088628, "test": 245569}
+LM_N = 2454528          # the full-width transformer's parameters (vocabulary 512)
+LM_STEPS = 327          # ceil(20,886 tokens a user / bptt 64)
+LM_ROUNDS = 3
+# the card-vs-CPU LM rounds: (user, tokens of its row): level a over 10
+# windows, level e over 2 (lm_round_phase says why)
+LM_ROUND_CLIENTS = ((0, 640), (99, 128))
+TOL_LM_ROUND = 1e-3     # max |params| difference, card LM round vs CPU LM round
 # published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device-memory rate and float32 rate outside the tensor cores; the card's
 # name and power limit are printed beside every number
@@ -541,10 +573,10 @@ def resume_path(torch, counters, codec: str, local_epochs: int, out_dir: str):
 
     def first_round(self, P, epoch, lr):  # what the resumed run starts from
         if not start:
-            start["params"] = params_to_jax(self.engine.unflatten(P))
+            start["params"] = params_to_jax(self.engine.unflatten(P), self.perms)
             resid = self.engine.wire_resid_host()
             start["resid"] = None if resid is None else \
-                flat_to_jax(resid, self.engine.spec.shapes)[None]
+                flat_to_jax(resid, self.engine.spec.shapes, self.perms)[None]
         return train_round(self, P, epoch, lr)
 
     common.FedExperiment.train_round = first_round
@@ -651,6 +683,217 @@ def central_phase(torch, counters, out_dir: str):
     return launches
 
 
+# --- the masked LM -----------------------------------------------------------------
+
+def lm_cfg(control: str = LM_CONTROL):
+    """The LM control's processed cfg with the synthetic vocabulary's 512
+    tokens (what ``process_dataset`` sets from the data)."""
+    from heterofl_tpu_torch import config as C
+
+    cfg = C.default_cfg()
+    cfg.update(control=C.parse_control_name(control), data_name="WikiText2",
+               model_name="transformer")
+    cfg = C.process_control(cfg)
+    cfg["num_tokens"] = cfg["classes_size"] = 512
+    return cfg
+
+
+def lm_round_phase(torch):
+    """One LM round at full width on the card (the fused-SGD kernel)
+    against the same round on the CPU (its plain version), for a level-a
+    and a level-e client (one round each, on the first ``tokens`` of the
+    client's row), with the corruption and dropout draws made on the CPU
+    and injected; params within ``TOL_LM_ROUND``, the ``<mask>`` row
+    unchanged on both.  The level-e client trains 2 windows, not 10: at
+    1/16 width its Scaler multiplies q and k by 16, the attention
+    saturates, and a one-ulp change of the params grows about 30x a step
+    (5.6e-7, 3.0e-5, 9.2e-4 after 1-3 steps on the CPU), so over 10 steps
+    no tolerance tells float rounding from a fault."""
+    import numpy as np
+
+    from heterofl_tpu_torch.data import batchify, fetch_dataset
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.parallel import RoundEngine
+
+    cfg = lm_cfg()
+    t = cfg["transformer"]
+    E, F, L = t["embedding_size"], t["hidden_size"], t["num_layers"]
+    tok = fetch_dataset("WikiText2", synthetic=True, synthetic_sizes=LM_SIZES)["train"].token
+    rows = batchify(tok, 100)[:, None, :]  # [users, 1 row, tokens]
+    lm = np.ones((100, cfg["num_tokens"]), np.float32)
+    lm[99, ::3] = 0.0  # the level-e client misses a third of the vocabulary
+
+    def draws(uid, step):
+        g = torch.Generator().manual_seed(1000 * uid + step)
+        keep = {site: torch.rand((1, cfg["bptt"], F if site % 3 == 2 else E), generator=g)
+                < 1.0 - t["dropout"] for site in range(1 + 3 * L)}
+        return {"corrupt": torch.rand((1, cfg["bptt"]), generator=g) < cfg["mask_rate"],
+                "keep": keep}
+
+    for uid, tokens in LM_ROUND_CLIENTS:
+        out = []
+        for dev in (torch.device("cuda"), torch.device("cpu")):
+            model = make_model(cfg).init_(torch.Generator().manual_seed(0)).to(dev)
+            eng = RoundEngine(model, cfg, dev)
+            P = eng.flatten(model.params())
+            data = (torch.from_numpy(rows[:, :, :tokens]).to(dev), torch.from_numpy(lm).to(dev))
+            new, ms = eng.train_round(P, cfg["lr"], [uid], data, 0, lm_draws=draws)
+            tok_w = eng.spec.leaf(new, "embedding.tok.w")
+            if not torch.equal(tok_w[-1], eng.spec.leaf(P, "embedding.tok.w")[-1]):
+                raise AssertionError(f"LM round on {dev}: the <mask> embedding row moved")
+            out.append((new.cpu(), ms["loss_sum"].cpu(), ms["n"].cpu()))
+        (card, l_card, n_card), (cpu, l_cpu, n_cpu) = out
+        d, dl = float((card - cpu).abs().max()), float((l_card - l_cpu).abs().max())
+        say(f"LM round at full width, user {uid} (width {eng.fix_rates[uid]:g}, "
+            f"{tokens // cfg['bptt']} steps), card vs CPU: max |params diff| {d:.3e}, max "
+            f"|loss_sum diff| {dl:.3e} (tolerance {TOL_LM_ROUND:g}); n {n_card.tolist()}")
+        if not (d <= TOL_LM_ROUND and dl <= 100 * TOL_LM_ROUND
+                and torch.equal(n_card, n_cpu)):
+            raise AssertionError(f"LM round, user {uid}: the card disagrees with the CPU")
+
+
+def lm_argv(out_dir: str, rounds: int, *extra, control: str = LM_CONTROL):
+    """Flags of the LM entries at full width on synthetic WikiText2."""
+    epochs = rounds if control == CENTRAL else {"global": rounds, "local": 1}
+    return ["--control_name", control, "--synthetic", "1", "--synthetic_sizes",
+            json.dumps(LM_SIZES), "--fused_update", "1", "--eval_interval", "1",
+            "--output_dir", out_dir, "--override", json.dumps({"num_epochs": epochs}), *extra]
+
+
+def mask_row_kept(torch, params) -> None:
+    """The ``<mask>`` row of the token embedding still holds its initial
+    value (the experiment's model starts from seed 0)."""
+    from heterofl_tpu_torch.models import make_model
+
+    init = make_model(lm_cfg()).init_(torch.Generator().manual_seed(0))
+    row = params["embedding.tok.w"][-1].detach().cpu()
+    if not torch.equal(row, init.params()["embedding.tok.w"][-1].detach()):
+        raise AssertionError("the <mask> embedding row moved off its initial value")
+
+
+def lm_path(torch, counters, what: str, out_dir: str, rounds: int, *extra):
+    """``train_transformer_fed`` up to round ``rounds``, the launch
+    counters set to 0 just before and read just after -> (launches,
+    result).  Every round trains ``LM_STEPS`` steps (one fused-SGD call, a
+    kernel pair, each), launches no batch-norm kernel and keeps the
+    ``<mask>`` row; the params come out finite at their shapes."""
+    from heterofl_tpu_torch.entry import train_transformer_fed
+
+    argv = lm_argv(out_dir, rounds, *extra)
+    say(f"{what}: train_transformer_fed {' '.join(argv)}")
+    zero(counters)
+    t0 = time.time()
+    (result,) = train_transformer_fed.main(argv)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = read(counters)
+    hist = result["history"]
+    say(f"{what}: {secs:.1f} s for {len(hist)} round(s); launches {launches} "
+        f"({2 * launches['fused_sgd']} fused-SGD kernel launches, two a step)")
+    for r in hist:
+        say(f"  round {r['epoch']}: loss {r['loss']:.4f} perplexity {r['perplexity']:.2f} "
+            f"{r['seconds']:.2f} s ({1e3 * r['seconds'] / LM_STEPS:.2f} ms a step, "
+            f"{r['n']:.0f} rows); Global loss {r.get('Global-Loss', float('nan')):.4f} "
+            f"perplexity {r.get('Global-Perplexity', float('nan')):.2f} in "
+            f"{r.get('eval_seconds', float('nan')):.2f} s")
+    say_checkpoints(what, hist)
+    want = {"bn_fwd": 0, "bn_bwd": 0, "fused_sgd": LM_STEPS * len(hist),
+            "quant_pack": len(hist) if "int8" in argv else 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{what}: launches {launches}, expected {want} and the rest")
+    if not hist or not all(math.isfinite(r[k]) for r in hist
+                           for k in ("loss", "perplexity", "Global-Perplexity")):
+        raise AssertionError(f"{what}: expected finite losses and Global-Perplexity, got {hist}")
+    model_shapes = {k: tuple(v.shape) for k, v in result["params"].items()}
+    if sum(math.prod(s) for s in model_shapes.values()) != LM_N or not all(
+            bool(torch.isfinite(v).all()) for v in result["params"].values()):
+        raise AssertionError(f"{what}: the params are not finite at the model's {LM_N} entries")
+    mask_row_kept(torch, result["params"])
+    return launches, result
+
+
+def lm_phases(torch, counters, tmp: str, phases) -> dict:
+    """The LM main path, its resumed round, ``test_transformer_fed``, an
+    int8 round and the centralised LM -> launches by path."""
+    import numpy as np
+
+    from heterofl_tpu_torch.convert import params_to_jax
+    from heterofl_tpu_torch.entry import common, test_transformer, test_transformer_fed
+    from heterofl_tpu_torch.entry import train_transformer
+    from heterofl_tpu_torch.utils import checkpoint_path, load_checkpoint
+
+    by_path = {}
+    lm_dir = os.path.join(tmp, "lm")
+    by_path["lm"], _ = lm_path(torch, counters, "LM main path", lm_dir, LM_ROUNDS)
+    phases.done("LM main path")
+    blob = load_checkpoint(checkpoint_path(lm_dir, LM_TAG))
+    start = {}
+    train_round = common.FedExperiment.train_round
+
+    def first_round(self, P, epoch, lr):
+        start.setdefault("params", params_to_jax(self.engine.unflatten(P), self.perms))
+        return train_round(self, P, epoch, lr)
+
+    common.FedExperiment.train_round = first_round
+    try:
+        by_path["lm_resumed"], result = lm_path(torch, counters, "LM resumed path", lm_dir,
+                                                LM_ROUNDS + 1, "--resume_mode", "1")
+    finally:
+        common.FedExperiment.train_round = train_round
+    epochs = [r["epoch"] for r in result["history"]]
+    same = all(np.array_equal(v.view(np.int32), blob["params"][k].view(np.int32))
+               for k, v in start["params"].items())
+    if blob["epoch"] != LM_ROUNDS + 1 or epochs != [LM_ROUNDS + 1] or not same \
+            or sorted(start["params"]) != sorted(blob["params"]):
+        raise AssertionError(f"LM resumed path: trained {epochs} from params equal to the "
+                             f"checkpoint's: {same}")
+    say(f"LM resumed path: trained round {LM_ROUNDS + 1} only, from params equal to the "
+        f"checkpoint's bit for bit")
+    phases.done("LM resumed round")
+    best = load_checkpoint(checkpoint_path(lm_dir, LM_TAG, "best"))
+    (bundle,) = test_transformer_fed.main(lm_argv(lm_dir, LM_ROUNDS + 1))
+    got = bundle["logger_history"]["test/Global-Perplexity"][0]
+    logged = best["logger_history"]["test/Global-Perplexity"][-1]
+    say(f"test_transformer_fed on the best checkpoint (round {best['epoch'] - 1}): "
+        f"Global-Perplexity {got:.6f} (logged {logged:.6f}, relative |diff| "
+        f"{abs(got / logged - 1):.3e}; tolerance {TOL_EVAL_LOSS:g})")
+    if not abs(got - logged) <= TOL_EVAL_LOSS * abs(logged):
+        raise AssertionError("test_transformer_fed does not reproduce the logged perplexity")
+    phases.done("test_transformer_fed")
+    by_path["lm_int8"], result = lm_path(torch, counters, "LM int8 path",
+                                         os.path.join(tmp, "lm_int8"), 1, "--wire_codec", "int8")
+    if by_path["lm_int8"]["quant_pack"] != 1 or not np.any(result["wire_resid"]):
+        raise AssertionError(f"LM int8 round: launches {by_path['lm_int8']}, a residual is due")
+    phases.done("LM int8 round")
+    out = os.path.join(tmp, "lm_central")
+    argv = lm_argv(out, 1, control=CENTRAL)
+    say(f"centralised LM: train_transformer {' '.join(argv)}")
+    zero(counters)
+    t0 = time.time()
+    (result,) = train_transformer.main(argv)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    by_path["lm_central"] = launches = read(counters)
+    (r,) = result["history"]
+    say(f"centralised LM: {secs:.1f} s for one epoch of {LM_STEPS} steps of [100, 64]; "
+        f"launches {launches}; loss {r['loss']:.4f} perplexity {r['perplexity']:.2f} in "
+        f"{r['seconds']:.2f} s ({1e3 * r['seconds'] / LM_STEPS:.2f} ms a step); test "
+        f"perplexity {r['Perplexity']:.2f} in {r['eval_seconds']:.2f} s")
+    say_checkpoints("centralised LM", result["history"], "epoch")
+    if any(launches.values()) or not all(math.isfinite(r[k]) for k in
+                                         ("loss", "perplexity", "Perplexity")):
+        raise AssertionError(f"centralised LM: launches {launches} (none due), {r}")
+    best = load_checkpoint(checkpoint_path(out, LM_CENTRAL_TAG, "best"))["logger_history"]
+    (bundle,) = test_transformer.main(argv)
+    got, logged = bundle["metrics"]["Perplexity"], best["test/Perplexity"][-1]
+    say(f"test_transformer on the centralised best checkpoint: Perplexity {got:.6f} (logged "
+        f"{logged:.6f})")
+    if not abs(got - logged) <= TOL_EVAL_LOSS * abs(logged):
+        raise AssertionError("test_transformer does not reproduce the logged perplexity")
+    phases.done("centralised LM and test_transformer")
+    return by_path
+
+
 class Phases:
     """Seconds of each phase, printed as each ends."""
 
@@ -719,13 +962,28 @@ def main() -> int:
     P = spec.flatten(dict(model.init_(torch.Generator().manual_seed(0)).named_parameters()))
     qp = quant_phase(torch, quant, codecs, spec, P.detach().cuda())
     del P
+    # the same two kernels at the full-width transformer's n, the level-e
+    # (per-head) width mask
+    lm_model = make_model(lm_cfg())
+    lm_spec = FlatSpec.of(dict(lm_model.named_parameters()))
+    if lm_spec.total != LM_N:
+        raise AssertionError(f"the full-width transformer has {lm_spec.total} params, not {LM_N}")
+    lm_mask = lm_spec.flatten({k: param_mask(s, lm_model.specs[k], lm_model.groups, 0.0625)
+                               for k, s in lm_spec.shapes.items()}).cuda()
+    say(f"transformer at level e: {int(lm_mask.sum())} of {LM_N} params active")
+    sgd_lm = sgd_phase(torch, fused_update, lm_mask)
+    del lm_mask
+    P = lm_spec.flatten(dict(lm_model.init_(torch.Generator().manual_seed(0)).named_parameters()))
+    qp_lm = quant_phase(torch, quant, codecs, lm_spec, P.detach().cuda())
+    del P, lm_model
     torch.cuda.empty_cache()
     phases.done("fused SGD and quant held and timed")
 
     # 5. small rounds against the CPU, then the main paths, each counted
     small_round_phase(torch, "dense")
     small_round_phase(torch, "int8")
-    phases.done("small rounds against the CPU")
+    lm_round_phase(torch)
+    phases.done("small rounds and the LM round against the CPU")
     counters = (fused_norm.LAUNCHES, fused_update.LAUNCHES, quant.LAUNCHES)
     by_path = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -767,6 +1025,7 @@ def main() -> int:
         phases.done("test_classifier_fed")
         by_path["central"] = central_phase(torch, counters, os.path.join(tmp, "central"))
         phases.done("centralised baseline and test_classifier")
+        by_path.update(lm_phases(torch, counters, tmp, phases))
     say("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phases.secs.items())
         + f"; total {time.time() - phases.t0:.1f} s")
 
@@ -790,6 +1049,11 @@ def main() -> int:
                         else "operations",
                         "library_ms": r.get("library_ms"), "device_ms": r["device_ms"],
                         "launches_by_path": {p: n[name] for p, n in by_path.items()}})
+        if r is sgd or r is qp:  # and at the transformer's n
+            lm = sgd_lm if r is sgd else qp_lm
+            kernels[-1].update(max_abs_err=max(r["err"], lm["err"]), lm_n=LM_N, lm_ms=lm["ms"],
+                               lm_device_ms=lm["device_ms"], lm_plain_ms=lm["plain_ms"],
+                               lm_bound_ms=lm["bound_ms"], lm_max_abs_err=lm["err"])
         if name.startswith("bn_"):
             kernels[-1].update(
                 library_device_ms=r["library_device_ms"], central_ms=r["central_ms"],

@@ -16,7 +16,9 @@ data, partition, masked conv / pre-activation ResNet-18/34 with batch
 norm, the fused masked-SGD epilogue, counted aggregation, the wire codecs,
 sBN and Local/Global evaluation, the logger, checkpoints in the reference's
 format with resume and the best copy, the test entries, and the
-centralised baseline).
+centralised baseline), and the masked-LM path on top of it (token
+datasets, the transformer with per-head width slicing, Global-Perplexity
+evaluation, its federated, test and centralised entries).
 """
 
 from __future__ import annotations

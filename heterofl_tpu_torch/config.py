@@ -1,6 +1,6 @@
 """Configuration: defaults, control-string codec, derived hyperparameters.
 
-Port of ``heterofl_tpu/config.py`` for the vision path.  ``DEFAULT_CFG``
+Port of ``heterofl_tpu/config.py`` for the vision and masked-LM paths.  ``DEFAULT_CFG``
 holds the keys this package reads, plus the keys of features it does not
 port yet, pinned to the value that turns each feature off.  Setting any of
 those to another value raises ``NotImplementedError`` naming the key
@@ -29,6 +29,7 @@ CONTROL_KEYS = ("fed", "num_users", "frac", "data_split_mode", "model_split_mode
 MNIST_LIKE = ("MNIST", "FashionMNIST", "EMNIST")
 CIFAR_LIKE = ("CIFAR10", "CIFAR100")
 VISION_DATASETS = MNIST_LIKE + CIFAR_LIKE
+LM_DATASETS = ("PennTreebank", "WikiText2", "WikiText103")
 
 DEFAULT_CFG: Dict[str, Any] = {
     "control": {"fed": "1", "num_users": "100", "frac": "0.1", "data_split_mode": "iid",
@@ -165,7 +166,10 @@ def _fix_rate_vector(mode_rate: List[float], proportion: List[int], num_users: i
 
 def process_control(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """Expand ``cfg['control']`` into every derived hyperparameter the
-    vision path reads (heterofl_tpu/config.py:412-556).  Returns a new dict."""
+    vision and LM paths read (heterofl_tpu/config.py:412-556).  Returns a
+    new dict.  An LM dataset's ``num_tokens`` and ``classes_size`` come from
+    its vocabulary (:func:`~.data.process_dataset`).  ``pallas_norm`` has
+    no effect on the transformer: it has no batch norm."""
     cfg = copy.deepcopy(cfg)
     check_ported(cfg)
     ctl = cfg["control"]
@@ -196,36 +200,41 @@ def process_control(cfg: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError("Not valid model split mode")
     cfg["conv"] = {"hidden_size": [64, 128, 256, 512]}
     cfg["resnet"] = {"hidden_size": [64, 128, 256, 512]}
+    cfg["transformer"] = {"embedding_size": 256, "num_heads": 8, "hidden_size": 512,
+                          "num_layers": 4, "dropout": 0.2}
     data_name, split = cfg["data_name"], cfg["data_split_mode"]
-    if data_name not in VISION_DATASETS:
+    if data_name not in VISION_DATASETS + LM_DATASETS:
         raise NotImplementedError(
             f"data_name={data_name!r} is not ported to heterofl_tpu_torch yet "
-            f"(one of {VISION_DATASETS})")
-    cfg["data_shape"] = [28, 28, 1] if data_name in MNIST_LIKE else [32, 32, 3]  # NHWC
+            f"(one of {VISION_DATASETS + LM_DATASETS})")
     cfg["optimizer_name"] = "SGD"
     cfg["momentum"] = 0.9
     cfg["weight_decay"] = 5e-4
     cfg["scheduler_name"] = "MultiStepLR"
     cfg["factor"] = 0.1
-    # (global rounds, local epochs, milestones) per split kind; "none" is
-    # centralised training: epochs, not rounds, at batch 100 / 500
+    # (global rounds, local epochs, milestones, train batch, test batch) per
+    # split kind; "none" is centralised training: epochs, not rounds
     if data_name in MNIST_LIKE:
         cfg["lr"] = 1e-2
-        table = {"iid": (200, 5, [100]), "non-iid": (400, 5, [200]), "none": (200, None, [100])}
-    else:
+        table = {"iid": (200, 5, [100], 10, 50), "non-iid": (400, 5, [200], 10, 50),
+                 "none": (200, None, [100], 100, 500)}
+    elif data_name in CIFAR_LIKE:
         cfg["lr"] = 1e-1
-        table = {"iid": (400, 5, [150, 250]), "non-iid": (800, 5, [300, 500]),
-                 "none": (400, None, [150, 250])}
+        table = {"iid": (400, 5, [150, 250], 10, 50), "non-iid": (800, 5, [300, 500], 10, 50),
+                 "none": (400, None, [150, 250], 100, 500)}
+    else:  # LM: batch = rows of the batchified token stream
+        cfg["lr"] = 1e-1
+        cfg["bptt"] = 64
+        cfg["mask_rate"] = 0.15
+        table = {"iid": (200, 1, [50, 100], 100, 10), "none": (100, None, [25, 50], 100, 100)}
+    if data_name in VISION_DATASETS:
+        cfg["data_shape"] = [28, 28, 1] if data_name in MNIST_LIKE else [32, 32, 3]  # NHWC
     kind = "non-iid" if "non-iid" in split else split
     if kind not in table:
         raise ValueError("Not valid data_split_mode")
-    glob, local, cfg["milestones"] = table[kind]
-    if kind == "none":
-        cfg["num_epochs"] = glob
-        cfg["batch_size"] = {"train": 100, "test": 500}
-    else:
-        cfg["num_epochs"] = {"global": glob, "local": local}
-        cfg["batch_size"] = {"train": 10, "test": 50}
+    glob, local, cfg["milestones"], b_train, b_test = table[kind]
+    cfg["num_epochs"] = glob if kind == "none" else {"global": glob, "local": local}
+    cfg["batch_size"] = {"train": b_train, "test": b_test}
     for k, v in (cfg.get("override") or {}).items():
         if isinstance(v, dict) and isinstance(cfg.get(k), dict):
             cfg[k] = {**cfg[k], **v}

@@ -1,4 +1,5 @@
-"""Client data partitioning: iid equal shards and non-iid label shards.
+"""Client data partitioning: iid equal shards (of images or of token rows)
+and non-iid label shards.
 
 Port of ``heterofl_tpu/data/partition.py`` (iid, non_iid, split_dataset).
 Randomness comes from an explicit ``numpy.random.Generator``, consumed in
@@ -12,10 +13,18 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 
+def _labels_of(dataset) -> np.ndarray:
+    """A vision dataset's targets; an LM dataset's token rows (each row is
+    an example, its tokens the labels)."""
+    if hasattr(dataset, "target"):
+        return np.asarray(dataset.target)
+    return np.asarray(dataset.token)
+
+
 def iid(dataset, num_users: int, rng: np.random.Generator
         ) -> Tuple[Dict[int, List[int]], Dict[int, List[int]]]:
     """Random equal shards and the per-user observed label sets."""
-    label = np.asarray(dataset.target)
+    label = _labels_of(dataset)
     n = len(dataset)
     num_items = n // num_users
     perm = rng.permutation(n)

@@ -1,12 +1,16 @@
-"""Centralised (non-federated) vision baseline.
+"""Centralised (non-federated) baselines, vision and masked LM.
 
-Port of the vision path of ``heterofl_tpu/entry/central.py`` (the
-reference's ``src/train_classifier.py``): the global-rate model trained
-epoch by epoch on the whole train set with a persistent optimizer, then sBN
-recalibration and the test every epoch, a checkpoint every epoch and a copy
-of the best by test accuracy.  The reference splits each batch over the
-devices of its mesh; here one GPU takes the whole batch, so batch norm's
-batch statistics span all of it.
+Port of ``heterofl_tpu/entry/central.py`` (the reference's
+``src/train_classifier.py`` and ``src/train_transformer.py``): the
+global-rate model trained epoch by epoch on the whole train set with a
+persistent optimizer, then sBN recalibration (vision) and the test every
+epoch, a checkpoint every epoch and a copy of the best by test accuracy
+(the LM: the minimised Perplexity).  The LM trains on the train stream's
+bptt windows of 100 rows in order, without a shuffle, as the reference
+does (central.py:142-162), with the same per-step update; its per-step
+metrics are the window's ``CE * rows``, ``exp(CE) * rows`` and the rows.
+The reference splits each batch over the devices of its mesh; here one GPU
+takes the whole batch, so batch norm's batch statistics span all of it.
 
 One step (:meth:`CentralEngine.train_epoch`, ref central.py:51-79): the
 forward in BN ``batch`` mode (through the CUDA kernels of
@@ -39,7 +43,7 @@ import torch
 from .. import config as C
 from .. import resolve_device
 from ..convert import params_from_jax, params_to_jax
-from ..data import fetch_dataset
+from ..data import bptt_windows, fetch_dataset, process_dataset, stack_windows
 from ..data.datasets import DATASET_STATS
 from ..models import make_model
 from ..models.base import FedModel
@@ -47,6 +51,7 @@ from ..ops.augment import augment_cifar, normalize_image
 from ..parallel import Evaluator
 from ..utils import (Logger, clip_by_global_norm, make_optimizer, make_scheduler, resume,
                      summarize_sums)
+from ..utils.metrics import METRICS
 from .common import _batch_array, parse_cfg, pivot_improves, round_seed, write_checkpoint
 
 Params = Dict[str, torch.Tensor]
@@ -57,45 +62,61 @@ class CentralEngine:
 
     def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device):
         self.model, self.cfg, self.device = model, cfg, device
-        stats = DATASET_STATS.get(cfg["data_name"])
-        if stats is None:
-            raise NotImplementedError(
-                f"data_name={cfg['data_name']!r}: computed normalisation statistics "
-                f"are not ported to heterofl_tpu_torch yet")
-        self.norm_mean = torch.tensor(stats[0], dtype=torch.float32, device=device)
-        self.norm_std = torch.tensor(stats[1], dtype=torch.float32, device=device)
-        self.augment = cfg["data_name"].startswith("CIFAR")
+        self.is_lm = model.meta["kind"] == "transformer"
+        if not self.is_lm:
+            stats = DATASET_STATS.get(cfg["data_name"])
+            if stats is None:
+                raise NotImplementedError(
+                    f"data_name={cfg['data_name']!r}: computed normalisation statistics "
+                    f"are not ported to heterofl_tpu_torch yet")
+            self.norm_mean = torch.tensor(stats[0], dtype=torch.float32, device=device)
+            self.norm_std = torch.tensor(stats[1], dtype=torch.float32, device=device)
+            self.augment = cfg["data_name"].startswith("CIFAR")
         self._opt_init, self._opt_update = make_optimizer(cfg)
 
     def init_opt(self, params: Params) -> Dict[str, Any]:
         return self._opt_init(params)
 
-    def train_epoch(self, params: Params, opt: Dict[str, Any], lr: float, x: torch.Tensor,
-                    y: torch.Tensor, w: torch.Tensor, gen: Optional[torch.Generator] = None
+    def train_epoch(self, params: Params, opt: Dict[str, Any], lr: float, *data: torch.Tensor,
+                    gen: Optional[torch.Generator] = None,
+                    draws: Optional[Callable[[int], Dict[str, Any]]] = None
                     ) -> Tuple[Params, Dict[str, Any], torch.Tensor]:
-        """One epoch over batches ``x [S, B, H, W, C]`` uint8, ``y`` and
-        sample weights ``w`` ``[S, B]`` (device tensors) -> ``(params,
-        optimizer state, [loss_sum, correct_sum, n] on the device)``.  CIFAR
-        batches are augmented with draws from ``gen``.  No value is read
-        back per step."""
+        """One epoch over the batches ``data`` (device tensors): vision ``(x
+        [S, B, H, W, C] uint8, y [S, B], sample weights w [S, B])``, CIFAR
+        batches augmented with draws from ``gen``; LM ``(windows [S, B,
+        bptt], position weights [S, B, bptt])``, the corruption and dropout
+        drawn from ``gen`` (``draws(t)``, a test hook, gives step ``t``'s
+        instead) -> ``(params, optimizer state, [loss_sum, correct_sum |
+        perplexity_sum, n] on the device)``.  No value is read back per
+        step."""
         names = sorted(params)
         lr_t = torch.full((), float(lr), dtype=torch.float32, device=self.device)
         acc = torch.zeros(3, dtype=torch.float32, device=self.device)
-        for t in range(x.shape[0]):
-            xb, yb, wb = x[t], y[t], w[t]
-            if self.augment:
-                xb = augment_cifar(xb, gen)
-            img = normalize_image(xb, self.norm_mean, self.norm_std).permute(0, 3, 1, 2)
+        rows_n = torch.full((), float(data[0].shape[1]), dtype=torch.float32, device=self.device)
+        for t in range(data[0].shape[0]):
             leaves = {k: params[k].detach().requires_grad_() for k in names}
-            score, loss = self.model(img, yb, params=leaves, sample_weight=wb)
+            if self.is_lm:
+                wb = data[1][t]
+                _, loss = self.model(data[0][t], params=leaves, sample_weight=wb, train=True,
+                                     gen=gen, draws=None if draws is None else draws(t))
+            else:
+                xb, yb, wb = data[0][t], data[1][t], data[2][t]
+                if self.augment:
+                    xb = augment_cifar(xb, gen)
+                img = normalize_image(xb, self.norm_mean, self.norm_std).permute(0, 3, 1, 2)
+                score, loss = self.model(img, yb, params=leaves, sample_weight=wb)
             n = wb.sum()
             lsum = loss * n  # weighted-SUM form, as the reference
             grads = torch.autograd.grad(lsum, [leaves[k] for k in names])
             denom = n.clamp_min(1e-6)
             g, _ = clip_by_global_norm({k: gr / denom for k, gr in zip(names, grads)}, 1.0)
             params, opt = self._opt_update({k: leaves[k].detach() for k in names}, g, opt, lr_t)
-            correct = ((score.detach().argmax(-1) == yb).to(torch.float32) * wb).sum()
-            acc += torch.stack([lsum.detach(), correct, n])
+            if self.is_lm:
+                wl, rows = lsum.detach() / denom, rows_n * (n > 0).to(torch.float32)
+                acc += torch.stack([wl * rows, torch.exp(wl) * rows, rows])
+            else:
+                correct = ((score.detach().argmax(-1) == yb).to(torch.float32) * wb).sum()
+                acc += torch.stack([lsum.detach(), correct, n])
         return params, opt, acc
 
 
@@ -115,25 +136,30 @@ class CentralExperiment:
         self.seed = seed
         self.device = resolve_device(cfg)
         self.rng = np.random.default_rng(seed)
-        self.dataset = fetch_dataset(cfg["data_name"], cfg["data_dir"],
-                                     synthetic=cfg["synthetic"], seed=seed,
-                                     synthetic_sizes=cfg.get("synthetic_sizes"),
-                                     subset=cfg.get("subset", "label"))
-        cfg = dict(cfg)
-        cfg["classes_size"] = self.dataset["train"].classes_size
-        cfg["data_shape"] = list(self.dataset["train"].data.shape[1:])
-        self.cfg = cfg
+        dataset = fetch_dataset(cfg["data_name"], cfg["data_dir"], synthetic=cfg["synthetic"],
+                                seed=seed, synthetic_sizes=cfg.get("synthetic_sizes"),
+                                subset=cfg.get("subset", "label"))
+        self.cfg, self.dataset = process_dataset(cfg, dataset)
+        cfg = self.cfg
+        self.kind = "transformer" if cfg["model_name"] == "transformer" else "vision"
         self.tag = C.make_model_tag(seed, cfg)
         self.model = make_model(cfg).init_(torch.Generator().manual_seed(seed)).to(self.device)
+        self.perms = self.model.jax_perms()
         self.engine = CentralEngine(self.model, cfg, self.device)
-        self.evaluator = Evaluator(self.model, cfg, self.device)
+        self.evaluator = Evaluator(self.model, cfg, self.device, seed=seed)
         self.scheduler = make_scheduler(cfg)
         self.checkpoint_keep = C.resolve_checkpoint_keep(cfg)
         self.history: List[Dict[str, Any]] = []  # one record per epoch this run trained
-        # on the device once: the sBN batches over the train set (their rows
-        # are also what each epoch's shuffle gathers from) and the test set
         tr, te = self.dataset["train"], self.dataset["test"]
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
+        if self.kind == "transformer":
+            # on the device once: the train and test streams' bptt windows
+            bptt = cfg["bptt"]
+            self.train_windows = tuple(map(put, stack_windows(bptt_windows(tr.token, bptt), bptt)))
+            self.global_eval = tuple(map(put, stack_windows(bptt_windows(te.token, bptt), bptt)))
+            return
+        # on the device once: the sBN batches over the train set (their rows
+        # are also what each epoch's shuffle gathers from) and the test set
         self.sbn_batches = tuple(map(put, _batch_array(tr.data, cfg["batch_size"]["train"])))
         self.train_x = self.sbn_batches[0].reshape(-1, *tr.data.shape[1:])
         self.train_y = put(tr.target)
@@ -146,9 +172,12 @@ class CentralExperiment:
         """The epoch's shuffle of the train set (ref central.py:150)."""
         return self.rng.permutation(len(self.dataset["train"]))
 
-    def epoch_batches(self, epoch: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def epoch_batches(self, epoch: int) -> Tuple[torch.Tensor, ...]:
         """The shuffled train set as ``[S, B, ...]`` batches on the device,
-        the tail padded with zero images of weight 0 (ref central.py:142-153)."""
+        the tail padded with zero images of weight 0 (ref central.py:142-153);
+        an LM's train windows, in order."""
+        if self.kind == "transformer":
+            return self.train_windows
         b = self.cfg["batch_size"]["train"]
         perm = torch.from_numpy(self.epoch_permutation(epoch)).to(self.device)
         n = perm.numel()
@@ -159,20 +188,25 @@ class CentralExperiment:
         x[n:], y[n:], w[n:] = 0, 0, 0.0
         return x.view(s, b, *x.shape[1:]), y.view(s, b), w.view(s, b)
 
-    def evaluate(self, params: Params) -> Tuple[Dict[str, Any], Dict[str, float]]:
-        """sBN over the train set, then the test set -> ``(bn_state, sums)``."""
-        bn = self.evaluator.sbn_stats(params, *self.sbn_batches)
-        return bn, self.evaluator.eval_global(params, bn, *self.global_eval)
+    def evaluate(self, params: Params, epoch: int = 0
+                 ) -> Tuple[Dict[str, Any], Dict[str, float]]:
+        """sBN over the train set (vision), then the test set at ``epoch``
+        (the LM's draws are seeded from it) -> ``(bn_state, sums)``."""
+        bn = {} if self.kind == "transformer" else \
+            self.evaluator.sbn_stats(params, *self.sbn_batches)
+        return bn, self.evaluator.eval_global(params, bn, *self.global_eval, epoch=epoch)
 
     def _opt_to_blob(self, opt: Dict[str, Any]) -> Dict[str, Any]:
-        return {"step": int(opt["step"]), "slots": _map_param_dicts(opt["slots"], params_to_jax)}
+        to_jax = lambda d: params_to_jax(d, self.perms)  # noqa: E731
+        return {"step": int(opt["step"]), "slots": _map_param_dicts(opt["slots"], to_jax)}
 
     def _opt_from_blob(self, st) -> Dict[str, Any]:
         if not isinstance(st, dict):
             raise ValueError(f"checkpointed opt_state is a {type(st).__name__}, not the port's "
                              f"{{'step', 'slots'}} dict: centralised checkpoints of the JAX "
                              f"package do not resume here")
-        dev = lambda d: {k: v.to(self.device) for k, v in params_from_jax(d).items()}  # noqa: E731
+        dev = lambda d: {k: v.to(self.device)  # noqa: E731
+                         for k, v in params_from_jax(d, self.perms).items()}
         return {"step": int(st["step"]), "slots": _map_param_dicts(st["slots"], dev)}
 
     def run(self, pivot_metric: str = "Accuracy", pivot_mode: str = "max") -> Dict[str, Any]:
@@ -185,7 +219,8 @@ class CentralExperiment:
                         use_tensorboard=bool(cfg.get("use_tensorboard")))
         blob = resume(cfg["output_dir"], self.tag, cfg["resume_mode"])
         if blob and "params" in blob:
-            params = {k: v.to(self.device) for k, v in params_from_jax(blob["params"]).items()}
+            params = {k: v.to(self.device)
+                      for k, v in params_from_jax(blob["params"], self.perms).items()}
             if "epoch" in blob:
                 epoch0 = blob["epoch"]
                 pivot = blob.get("pivot", pivot)
@@ -203,18 +238,20 @@ class CentralExperiment:
                                                        gen=gen)
             lsum, csum, n = acc.tolist()  # waits for the epoch's last kernel
             dt = time.time() - t0
-            named = summarize_sums({"loss_sum": lsum, "score_sum": csum, "n": n}, prefix="")
+            named = summarize_sums({"loss_sum": lsum, "score_sum": csum, "n": n}, prefix="",
+                                   kind=self.kind)
             logger.append(named, "train", n=n)
             logger.append({"info": [f"Model: {self.tag}", f"Train Epoch: {epoch}",
                                     f"Learning rate: {lr:g}", f"Epoch time: {dt:.2f}s"]},
                           "train", mean=False)
             logger.write("train", list(named))
             t0 = time.time()
-            bn, g = self.evaluate(params)
-            named_g = summarize_sums(g, prefix="")
-            rec = {"epoch": epoch, "lr": lr, "seconds": dt, "n": n,
-                   "loss": named.get("Loss"), "accuracy": named.get("Accuracy"),
-                   **named_g, "eval_seconds": time.time() - t0}
+            bn, g = self.evaluate(params, epoch)
+            named_g = summarize_sums(g, prefix="", kind=self.kind)
+            score = METRICS[self.kind][1]  # Accuracy | Perplexity
+            rec = {"epoch": epoch, "lr": lr, "seconds": dt, "n": n, "loss": named.get("Loss"),
+                   score.lower(): named.get(score), **named_g,
+                   "eval_seconds": time.time() - t0}
             self.history.append(rec)
             logger.append(named_g, "test", n=g["n"])
             logger.append({"info": [f"Model: {self.tag}", f"Test Epoch: {epoch}",
@@ -228,7 +265,7 @@ class CentralExperiment:
                 pivot = cur  # before saving, so a resumed run keeps it
             blob = lambda: {  # noqa: E731
                 "cfg": {k: v for k, v in cfg.items() if k != "vocab"},
-                "epoch": epoch + 1, "params": params_to_jax(params), "bn_state": bn,
+                "epoch": epoch + 1, "params": params_to_jax(params, self.perms), "bn_state": bn,
                 "pivot": pivot, "logger_history": dict(logger.history),
                 "opt_state": self._opt_to_blob(opt)}
             write_checkpoint(cfg["output_dir"], self.tag, blob, self.checkpoint_keep, is_best, rec)

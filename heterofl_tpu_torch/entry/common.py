@@ -1,4 +1,4 @@
-"""Experiment loop of the federated vision entry point.
+"""Experiment loop of the federated entry points (vision and masked LM).
 
 Port of the ``superstep_rounds=1`` path of ``heterofl_tpu/entry/common.py``:
 CLI flags generated from the cfg keys (common.py:75-111), then per seed
@@ -8,13 +8,14 @@ CLI flags generated from the cfg keys (common.py:75-111), then per seed
   split draw, and its params, error-feedback residual, epoch, best pivot,
   logger state and scheduler state are restored;
 * every user's train shard and the evaluation operands go onto the device
-  once;
+  once (a masked LM: each user's batchified token rows, and the test
+  stream's bptt windows, common.py:622-629);
 * per round: sample the cohort, train it (:class:`~..parallel.RoundEngine`)
   and log the round; every ``eval_interval`` rounds and after the last,
   recalibrate BN (sBN) and evaluate Local and Global
-  (:class:`~..parallel.Evaluator`); then the best-pivot decision, a durable
-  checkpoint in ``output_dir/model/`` and, on a new best, its copy to
-  ``_best.pkl``.
+  (:class:`~..parallel.Evaluator`; a masked LM: Global only, no sBN,
+  common.py:1257-1259); then the best-pivot decision, a durable checkpoint
+  in ``output_dir/model/`` and, on a new best, its copy to ``_best.pkl``.
 
 The numpy stream ``self.rng = np.random.default_rng(seed)`` feeds the data
 split first and then the per-round user permutation, as in the reference
@@ -39,11 +40,13 @@ import torch
 from .. import config as C
 from .. import resolve_device
 from ..convert import flat_from_jax, flat_to_jax, params_from_jax, params_to_jax
-from ..data import fetch_dataset, label_split_masks, split_dataset, stack_client_shards
+from ..data import (bptt_windows, fetch_dataset, label_split_masks, process_dataset,
+                    split_dataset, stack_client_shards, stack_client_token_rows, stack_windows)
 from ..models import make_model
 from ..parallel import Evaluator, RoundEngine
 from ..utils import (Logger, PlateauScheduler, checkpoint_path, copy_best, make_scheduler,
                      resume, save_checkpoint, summarize_sums)
+from ..utils.metrics import METRICS
 
 
 def build_cli(description: str) -> argparse.ArgumentParser:
@@ -164,19 +167,18 @@ class FedExperiment:
         self.seed = seed
         self.device = resolve_device(cfg)
         self.rng = np.random.default_rng(seed)
-        self.dataset = fetch_dataset(cfg["data_name"], cfg["data_dir"],
-                                     synthetic=cfg["synthetic"], seed=seed,
-                                     synthetic_sizes=cfg.get("synthetic_sizes"),
-                                     subset=cfg.get("subset", "label"))
-        cfg = dict(cfg)
-        cfg["classes_size"] = self.dataset["train"].classes_size
-        cfg["data_shape"] = list(self.dataset["train"].data.shape[1:])
-        self.cfg = cfg
+        dataset = fetch_dataset(cfg["data_name"], cfg["data_dir"], synthetic=cfg["synthetic"],
+                                seed=seed, synthetic_sizes=cfg.get("synthetic_sizes"),
+                                subset=cfg.get("subset", "label"))
+        self.cfg, self.dataset = process_dataset(cfg, dataset)
+        cfg = self.cfg
+        self.kind = "transformer" if cfg["model_name"] == "transformer" else "vision"
         self.tag = C.make_model_tag(seed, cfg)
         gen = torch.Generator().manual_seed(seed)
         self.model = make_model(cfg).init_(gen).to(self.device)
+        self.perms = self.model.jax_perms()
         self.engine = RoundEngine(self.model, cfg, self.device)
-        self.evaluator = Evaluator(self.model, cfg, self.device)
+        self.evaluator = Evaluator(self.model, cfg, self.device, seed=seed)
         self.eval_interval = max(1, int(cfg.get("eval_interval", 1) or 1))
         self.checkpoint_keep = C.resolve_checkpoint_keep(cfg)
         self.scheduler = make_scheduler(cfg)
@@ -202,6 +204,14 @@ class FedExperiment:
         device, once."""
         cfg, tr = self.cfg, self.dataset["train"]
         users = cfg["num_users"]
+        if self.kind == "transformer":
+            rows = stack_client_token_rows(tr.token, data_split["train"], list(range(users)))
+            lm = label_split_masks(label_split, users, cfg["num_tokens"])
+            self.train_data = self._to_device((rows, lm))
+            te = self.dataset["test"]
+            self.global_eval = self._to_device(stack_windows(bptt_windows(te.token, cfg["bptt"]),
+                                                             cfg["bptt"]))
+            return
         x, y, m = stack_client_shards(tr.data, tr.target, data_split["train"], list(range(users)))
         lm = label_split_masks(label_split, users, cfg["classes_size"])
         self.train_data = self._to_device((x, y, m, lm))
@@ -216,7 +226,7 @@ class FedExperiment:
 
     def train_round(self, P: torch.Tensor, epoch: int, lr: float) -> torch.Tensor:
         """One round from the global flat params ``P``; its train loss and
-        accuracy go to the experiment's logger as ``train/Local-*`` (ref
+        accuracy (a masked LM: perplexity) go to the experiment's logger as ``train/Local-*`` (ref
         entry/common.py:1189-1225) and to :attr:`history`."""
         user_idx = self.sample_users(epoch)
         t0 = time.time()
@@ -225,12 +235,13 @@ class FedExperiment:
         sums = {k: v.cpu().numpy() if torch.is_tensor(v) else v for k, v in ms.items()}
         dt = time.time() - t0  # the fetch above waits for the round's last kernel
         n = float(sums["n"].sum())
+        named = summarize_sums(sums, kind=self.kind)
         rec = {"epoch": epoch, "lr": lr, "seconds": dt, "n": n,
-               "loss": float(sums["loss_sum"].sum()) / max(n, 1e-12),
-               "accuracy": 100.0 * float(sums["score_sum"].sum()) / max(n, 1e-12),
+               "loss": named.get("Local-Loss", 0.0),
                "rates": sorted(set(sums["rate"].tolist()))}
+        score = METRICS[self.kind][1]  # Accuracy | Perplexity
+        rec[score.lower()] = named.get(f"Local-{score}", 0.0)
         self.history.append(rec)
-        named = summarize_sums(sums)
         self.logger.append(named, "train", n=n)
         self.logger.append({"info": [f"Model: {self.tag}", f"Train Epoch: {epoch}",
                                      f"Learning rate: {lr:g}", f"Rates: {rec['rates']}",
@@ -242,16 +253,19 @@ class FedExperiment:
                  logger: Optional[Logger] = None) -> Dict[str, float]:
         """sBN, then Local, then Global, on the global flat params ``P``
         (ref entry/common.py:1241-1272), logged under ``test/`` -> the named
-        test metrics and ``eval_seconds``."""
+        test metrics and ``eval_seconds``.  A masked LM runs Global only,
+        its draws seeded from ``epoch``."""
         logger = self.logger if logger is None else logger
         t0 = time.time()
         params = self.engine.unflatten(P)
-        bn = self.evaluator.sbn_stats(params, *self.sbn_batches)
-        local = self.evaluator.eval_users(params, bn, *self.local_eval)
-        named = summarize_sums(local)
-        logger.append(named, "test", n=float(np.sum(local["n"])))
-        g = self.evaluator.eval_global(params, bn, *self.global_eval)
-        named_global = summarize_sums(g, prefix="Global-")
+        bn, named = {}, {}
+        if self.kind == "vision":
+            bn = self.evaluator.sbn_stats(params, *self.sbn_batches)
+            local = self.evaluator.eval_users(params, bn, *self.local_eval)
+            named = summarize_sums(local)
+            logger.append(named, "test", n=float(np.sum(local["n"])))
+        g = self.evaluator.eval_global(params, bn, *self.global_eval, epoch=epoch)
+        named_global = summarize_sums(g, prefix="Global-", kind=self.kind)
         logger.append(named_global, "test", n=g["n"])
         named.update(named_global)
         named["eval_seconds"] = time.time() - t0
@@ -265,14 +279,15 @@ class FedExperiment:
     # slots, total] carry in its flat layout, one participant here
     def _resid_to_blob(self) -> Optional[np.ndarray]:
         resid = self.engine.wire_resid_host()
-        return None if resid is None else flat_to_jax(resid, self.engine.spec.shapes)[None]
+        return None if resid is None else \
+            flat_to_jax(resid, self.engine.spec.shapes, self.perms)[None]
 
     def _resid_from_blob(self, arr) -> np.ndarray:
         arr = np.asarray(arr, np.float32)
         if arr.ndim != 3 or arr.shape[0] != 1:
             raise ValueError(f"checkpointed wire residual of shape {arr.shape}: the port runs "
                              f"one participant and restores a [1, slots, total] carry")
-        return flat_from_jax(arr[0], self.engine.spec.shapes)
+        return flat_from_jax(arr[0], self.engine.spec.shapes, self.perms)
 
     def run(self, pivot_metric: str = "Global-Accuracy", pivot_mode: str = "max"
             ) -> Dict[str, Any]:
@@ -290,7 +305,7 @@ class FedExperiment:
         epoch = 1
         pivot = -math.inf if pivot_mode == "max" else math.inf
         if blob:
-            P = self.engine.flatten(params_from_jax(blob["params"]))
+            P = self.engine.flatten(params_from_jax(blob["params"], self.perms))
             if blob.get("wire_resid") is not None and self.engine.codec is not None:
                 self.engine.set_wire_resid(self._resid_from_blob(blob["wire_resid"]))
             if "epoch" in blob:
@@ -340,7 +355,7 @@ class FedExperiment:
             "epoch": epoch + 1,
             "data_split": data_split,
             "label_split": label_split,
-            "params": params_to_jax(self.engine.unflatten(P)),
+            "params": params_to_jax(self.engine.unflatten(P), self.perms),
             "bn_state": self.bn_state,
             "wire_resid": self._resid_to_blob(),
             "sched_buf": None,  # buffered-async aggregation: not ported

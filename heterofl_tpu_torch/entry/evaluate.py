@@ -1,9 +1,12 @@
 """Evaluation entry points (the reference's ``test_*.py`` scripts).
 
-Port of the vision path of ``heterofl_tpu/entry/evaluate.py``: load the
-best checkpoint, stage the data split it holds, recalibrate BN (sBN) over
-the train set, evaluate Local and Global (the centralised baseline: the
-test set), and write the result bundle ``output_dir/result/{tag}.pkl``.
+Port of ``heterofl_tpu/entry/evaluate.py``: load the best checkpoint,
+stage the data split it holds, recalibrate BN (sBN) over the train set,
+evaluate Local and Global (the centralised baseline: the test set; a
+masked LM: Global only), and write the result bundle
+``output_dir/result/{tag}.pkl``.  A blob stores the epoch to resume at,
+so the evaluation runs at the one before, the epoch it was logged at: an
+LM's corruption draws are seeded from it and reproduce the logged value.
 The checkpoint may come from either package (federated blobs hold the
 reference's layout)."""
 
@@ -35,6 +38,11 @@ def _load(cfg: Dict[str, Any], tag: str, load_tag: str) -> Dict[str, Any]:
     return load_checkpoint(path)
 
 
+def _logged_epoch(blob: Dict[str, Any]) -> int:
+    """The epoch a blob was evaluated at: it stores the one to resume at."""
+    return max(int(blob.get("epoch") or 1) - 1, 0)
+
+
 def evaluate_experiment(cfg: Dict[str, Any], seed: int, load_tag: str = "best"
                         ) -> Dict[str, Any]:
     """sBN and Local/Global of one seed's ``load_tag`` checkpoint -> the
@@ -43,13 +51,13 @@ def evaluate_experiment(cfg: Dict[str, Any], seed: int, load_tag: str = "best"
         return _evaluate_central(cfg, seed, load_tag)
     exp = FedExperiment(cfg, seed)
     blob = _load(cfg, exp.tag, load_tag)
-    P = exp.engine.flatten(params_from_jax(blob["params"]))
+    P = exp.engine.flatten(params_from_jax(blob["params"], exp.perms))
     exp.stage(blob["data_split"], blob["label_split"])
     logger = Logger(os.path.join(cfg["output_dir"], "runs", f"test_{exp.tag}"),
                     use_tensorboard=bool(cfg.get("use_tensorboard")))
     logger.safe(True)
     # a blob stores the epoch to resume at; it was evaluated the one before
-    exp.evaluate(P, max(int(blob.get("epoch") or 1) - 1, 0), logger)
+    exp.evaluate(P, _logged_epoch(blob), logger)
     logger.safe(False)
     result = {"cfg": {k: v for k, v in exp.cfg.items() if k != "vocab"},
               "epoch": blob.get("epoch"),
@@ -60,13 +68,14 @@ def evaluate_experiment(cfg: Dict[str, Any], seed: int, load_tag: str = "best"
 
 
 def _evaluate_central(cfg: Dict[str, Any], seed: int, load_tag: str) -> Dict[str, Any]:
-    """The centralised baseline's checkpoint: sBN, then the test set ->
-    ``{cfg, epoch, metrics, train_history}``."""
+    """The centralised baseline's checkpoint: sBN (vision), then the test
+    set -> ``{cfg, epoch, metrics, train_history}``."""
     exp = CentralExperiment(cfg, seed)
     blob = _load(exp.cfg, exp.tag, load_tag)
-    params = {k: v.to(exp.device) for k, v in params_from_jax(blob["params"]).items()}
-    _, g = exp.evaluate(params)
-    named = summarize_sums(g, prefix="")
+    params = {k: v.to(exp.device)
+              for k, v in params_from_jax(blob["params"], exp.perms).items()}
+    _, g = exp.evaluate(params, _logged_epoch(blob))
+    named = summarize_sums(g, prefix="", kind=exp.kind)
     result = {"cfg": {k: v for k, v in exp.cfg.items() if k != "vocab"},
               "epoch": blob.get("epoch"), "metrics": named,
               "train_history": blob.get("logger_history", {})}

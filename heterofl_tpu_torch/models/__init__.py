@@ -1,7 +1,8 @@
 """Model factory.
 
-Port of ``heterofl_tpu/models/__init__.py`` for the conv net and the
-basic-block ResNets: constructed widths are ``ceil(model_rate * base)``.
+Port of ``heterofl_tpu/models/__init__.py`` for the conv net, the
+basic-block ResNets and the masked-LM transformer: constructed widths are
+``ceil(model_rate * base)``.
 Only the global model is built (the masked strategy).
 """
 
@@ -9,11 +10,12 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-from ..config import scaled_hidden
+from ..config import ceil_width, scaled_hidden
 from .base import FedModel  # noqa: F401
 from .conv import ConvNet
 from .resnet import ResNet
 from .spec import Group, ParamSpec, count_masks, mask_params, param_mask  # noqa: F401
+from .transformer import Transformer
 
 RESNET_BLOCKS = {"resnet18": [2, 2, 2, 2], "resnet34": [3, 4, 6, 3]}
 
@@ -22,6 +24,11 @@ def make_model(cfg: Dict[str, Any]) -> FedModel:
     """The global model of ``cfg``, parameters zero until ``init_``."""
     name = cfg["model_name"]
     rate = cfg["global_model_rate"]
+    if name == "transformer":
+        t = cfg["transformer"]
+        return Transformer(cfg["num_tokens"], ceil_width(t["embedding_size"], rate),
+                           t["num_heads"], ceil_width(t["hidden_size"], rate), t["num_layers"],
+                           t["dropout"], cfg["bptt"], cfg["mask_rate"], mask=cfg["mask"])
     kw = dict(norm=cfg["norm"], scale=cfg["scale"], mask=cfg["mask"],
               pallas_norm=bool(cfg.get("pallas_norm", False)))
     if name == "conv":
@@ -32,4 +39,4 @@ def make_model(cfg: Dict[str, Any]) -> FedModel:
                       RESNET_BLOCKS[name], cfg["classes_size"], **kw)
     raise NotImplementedError(
         f"model_name={name!r} is not ported to heterofl_tpu_torch yet "
-        f"(one of {('conv',) + tuple(RESNET_BLOCKS)})")
+        f"(one of {('conv',) + tuple(RESNET_BLOCKS) + ('transformer',)})")

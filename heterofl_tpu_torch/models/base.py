@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..convert import Perms, rank_perms
 from .spec import Group, ParamSpec
 
 
@@ -53,6 +54,12 @@ class FedModel(nn.Module):
                     bound = 1.0 / math.sqrt(fan_in)
                     p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
         return self
+
+    def jax_perms(self) -> Perms:
+        """Per leaf, the axis permutation from the port's layout to the
+        reference's (``convert``): every 4-D leaf of a vision model is a
+        conv kernel and every 2-D leaf a linear kernel."""
+        return rank_perms({k: tuple(p.shape) for k, p in self.named_parameters()})
 
     def fan_in(self, name: str, shape: Tuple[int, ...]) -> Optional[int]:
         """Fan-in of a uniformly initialised parameter, or None for a

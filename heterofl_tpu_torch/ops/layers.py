@@ -1,6 +1,7 @@
 """Masked primitive layers.
 
-Port of ``heterofl_tpu/ops/layers.py`` for the vision path.  A HeteroFL
+Port of ``heterofl_tpu/ops/layers.py`` for the vision and transformer
+paths.  A HeteroFL
 sub-model is a prefix slice of the global tensors, so running the full-width
 model with the suffix channels held at zero is the sliced sub-model's math;
 every op here is per channel or masks its statistics.
@@ -37,9 +38,19 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -
     return F.linear(x, w, b)
 
 
-def scaler(x: torch.Tensor, rate) -> torch.Tensor:
-    """HeteroFL Scaler at training time: ``x / rate``."""
-    return x / rate
+def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` at ``ids``."""
+    return table[ids]
+
+
+def scaler(x: torch.Tensor, rate, train: bool = True) -> torch.Tensor:
+    """HeteroFL Scaler: ``x / rate`` in training, identity in evaluation."""
+    return x / rate if train else x
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU."""
+    return F.gelu(x, approximate="none")
 
 
 def max_pool2(x: torch.Tensor) -> torch.Tensor:
@@ -101,6 +112,18 @@ def batch_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return y, None
 
 
+def masked_layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
+                      k: float, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis counting only the ``k = sum(mask)``
+    active dims (the biased variance, ``eps`` 1e-5: ``nn.LayerNorm`` at full
+    width).  ``g``/``b`` are zero at masked dims, which zeroes the output
+    there."""
+    xm = x * mask
+    mean = xm.sum(-1, keepdim=True) / k
+    var = (mask * (xm - mean) ** 2).sum(-1, keepdim=True) / k
+    return (xm - mean) / torch.sqrt(var + eps) * g + b
+
+
 def masked_logits(out: torch.Tensor, label_mask: Optional[torch.Tensor],
                   enabled: bool) -> torch.Tensor:
     """Zero-fill logits of classes outside the client's label set (zero, not
@@ -112,8 +135,10 @@ def masked_logits(out: torch.Tensor, label_mask: Optional[torch.Tensor],
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean cross entropy over the last axis; ``sample_weight`` makes it the
-    weighted mean ``sum(nll * w) / max(sum(w), 1e-12)``."""
+    """Mean cross entropy, the class axis last (``[N, C]`` or the
+    transformer's ``[N, S, C]``); ``sample_weight`` of the labels' shape
+    (per sample, or per position ``[N, S]``) makes it the weighted mean
+    ``sum(nll * w) / max(sum(w), 1e-12)``."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
     if sample_weight is None:

@@ -7,7 +7,13 @@ one no-grad pass over the train set in ``"collect"`` mode and averages each
 BN site's per-batch ``(mean, unbiased var)`` (a cumulative average, the
 reference's momentum=None BN).  "Local" evaluates each user's test shard
 under that user's label mask; "Global" the whole test set without one.
-Both run the BN sites in ``"running"`` mode on the sBN statistics.
+Both run the BN sites in ``"running"`` mode on the sBN statistics.  A
+masked LM (``evaluation.py:141-155, 230-250``) has no BN and no Local: its
+Global pass runs the test set's bptt windows, each window with a positive
+weight adding ``CE * R``, ``exp(CE) * R`` (Perplexity's sum) and ``R``
+rows; its corruption draws come from a generator seeded from (experiment
+seed, the global stream, epoch), so evaluating a checkpoint again at the
+epoch it was logged at reproduces the logged value on the same device.
 
 The reference scans batches inside one XLA program (users under ``vmap``);
 here batches run one after another in a Python loop of no-grad forwards on
@@ -18,7 +24,7 @@ caller (``entry/common.py``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,14 +36,30 @@ from ..ops.augment import normalize_image
 BnState = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 
-class Evaluator:
-    """Evaluation programs of one (model, cfg, device)."""
+#: stream id of the Global evaluation's draws (the reference's
+#: ``fold_in(key(seed), 1)``)
+GLOBAL_STREAM = 1
 
-    def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device):
-        self.model, self.device = model, device
-        stats = DATASET_STATS[cfg["data_name"]]
-        self.norm_mean = torch.tensor(stats[0], dtype=torch.float32, device=device)
-        self.norm_std = torch.tensor(stats[1], dtype=torch.float32, device=device)
+
+def eval_generator(seed: int, epoch: int, device: torch.device) -> torch.Generator:
+    """The generator of one Global evaluation's draws: seeded from the
+    experiment seed, the global stream and the epoch."""
+    state = np.random.SeedSequence([int(seed), GLOBAL_STREAM, int(epoch)]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+class Evaluator:
+    """Evaluation programs of one (model, cfg, device); ``seed`` is the
+    experiment's (the LM's corruption draws descend from it)."""
+
+    def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device,
+                 seed: int = 0):
+        self.model, self.device, self.seed = model, device, seed
+        self.is_lm = model.meta["kind"] == "transformer"
+        if not self.is_lm:
+            stats = DATASET_STATS[cfg["data_name"]]
+            self.norm_mean = torch.tensor(stats[0], dtype=torch.float32, device=device)
+            self.norm_std = torch.tensor(stats[1], dtype=torch.float32, device=device)
 
     def _img(self, x_u8: torch.Tensor) -> torch.Tensor:
         """uint8 NHWC batch -> normalised NCHW view (channels_last memory)."""
@@ -50,7 +72,7 @@ class Evaluator:
         train batches with sample weights ``[S, B]``: each batch with a
         positive weight adds its sites' ``(mean, unbiased var)``, and the
         sums are divided by ``max(batches, 1)`` -> ``{site: (mean, var)}``."""
-        if self.model.norm != "bn":
+        if self.is_lm or self.model.norm != "bn":
             return {}
         sums: Dict[str, list] = {}
         n = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -92,12 +114,28 @@ class Evaluator:
         return {"loss_sum": host[:, 0], "score_sum": host[:, 1], "n": host[:, 2]}
 
     @torch.no_grad()
-    def eval_global(self, params, bn_state: BnState, x: torch.Tensor, y: torch.Tensor,
-                    w: torch.Tensor) -> Dict[str, float]:
-        """"Global" metric sums over the batched test set ``x [S, B, H, W,
-        C]``, ``y``/``w`` ``[S, B]`` -> ``{loss_sum, score_sum, n}``."""
+    def eval_global(self, params, bn_state: BnState, *batched: torch.Tensor, epoch: int = 0,
+                    draws: Optional[Callable[[int], Dict[str, Any]]] = None
+                    ) -> Dict[str, float]:
+        """"Global" metric sums over the batched test set -> ``{loss_sum,
+        score_sum, n}``: vision ``(x [S, B, H, W, C], y [S, B], w [S,
+        B])``; LM ``(windows [S, R, bptt], position weights [S, R, bptt])``
+        with the corruption drawn from :func:`eval_generator` at ``epoch``
+        (``draws(t)``, a test hook, gives window ``t``'s instead)."""
         acc = torch.zeros(3, dtype=torch.float32, device=self.device)
-        for t in range(x.shape[0]):
-            acc += self._batch_metrics(params, bn_state, x[t], y[t], w[t])
+        if self.is_lm:
+            rows, w = batched
+            gen = eval_generator(self.seed, epoch, self.device)
+            rows_n = torch.full((), float(rows.shape[1]), dtype=torch.float32,
+                                device=self.device)
+            for t in range(rows.shape[0]):
+                _, loss = self.model(rows[t], params=params, sample_weight=w[t], train=False,
+                                     gen=gen, draws=None if draws is None else draws(t))
+                has = (w[t].sum() > 0).to(torch.float32)
+                acc += torch.stack([loss * rows_n, torch.exp(loss) * rows_n, rows_n]) * has
+        else:
+            x, y, w = batched
+            for t in range(x.shape[0]):
+                acc += self._batch_metrics(params, bn_state, x[t], y[t], w[t])
         loss_sum, score_sum, n = acc.tolist()
         return {"loss_sum": loss_sum, "score_sum": score_sum, "n": n}

@@ -1,10 +1,10 @@
 """The federated round engine on one GPU.
 
 Port of ``heterofl_tpu/parallel/round_engine.py`` (``train_round`` ->
-``_round_core`` -> ``_local_train_vision``, masked strategy, fix-mode
-rates, vision).  The reference runs a round as one XLA program with the
-clients under ``vmap``; here the clients train one after another in a
-Python loop (batching them is later work), each through:
+``_round_core`` -> ``_local_train_vision`` / ``_local_train_lm``, masked
+strategy, fix-mode rates).  The reference runs a round as one XLA program
+with the clients under ``vmap``; here the clients train one after another
+in a Python loop (batching them is later work), each through:
 
 * its width mask applied to the global params (distribute);
 * per local epoch a shuffle, then a stable sort that puts real samples
@@ -16,6 +16,10 @@ Python loop (batching them is later work), each through:
   gradient and hoisted width mask (ops/fused_update.py) -- or, with
   ``fused_update=False``, the per-leaf reference chain on views of the same
   buffers;
+* a masked-LM client (:meth:`RoundEngine.local_train_lm`) instead runs
+  ``E * ceil(T / bptt)`` steps over its token rows' bptt windows in order
+  (zero position weights on the padded tail), through the same fused
+  epilogue; its draws (token corruption, dropout) come from its generator;
 * aggregation in the flat domain: ``sum += trained * count_mask``,
   ``count += count_mask``, then the counted average with stale fallback.
   With a lossy ``wire_codec`` the flat ``(sum, count)`` pair goes through
@@ -28,13 +32,14 @@ The step loop never waits for the device: the batch weight sum, ``lr`` and
 read back per step.  Per-client randomness (epoch permutations,
 augmentation draws) comes from a ``torch.Generator`` on the device seeded
 from (round seed, user id); ``jax.random`` streams are not reproducible in
-torch, so tests hand in the reference's epoch permutations instead.
+torch, so tests hand in the reference's epoch permutations (and an LM
+client's corruption and dropout draws) instead.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +49,7 @@ from ..compress.codecs import compressed_sum
 from ..data.datasets import DATASET_STATS
 from ..fed.core import combine_counted, to_width_rates
 from ..models.base import FedModel
-from ..models.spec import param_mask
+from ..models.spec import label_vector, param_mask
 from ..ops.augment import augment_cifar, normalize_image
 from ..ops.fused_update import FlatSpec, fused_sgd_flat, make_scal, resolve_fused_mode
 from ..utils.optim import clip_by_global_norm, sgd_update
@@ -65,14 +70,18 @@ class RoundEngine:
         ne = cfg["num_epochs"]
         self.local_epochs = ne["local"] if isinstance(ne, dict) else 1
         self.batch_size = cfg["batch_size"]["train"]
-        stats = DATASET_STATS.get(cfg["data_name"])
-        if stats is None:
-            raise NotImplementedError(
-                f"data_name={cfg['data_name']!r}: computed normalisation statistics "
-                f"are not ported to heterofl_tpu_torch yet")
-        self.norm_mean = torch.tensor(stats[0], dtype=torch.float32, device=device)
-        self.norm_std = torch.tensor(stats[1], dtype=torch.float32, device=device)
-        self.augment = cfg["data_name"].startswith("CIFAR")
+        self.is_lm = model.meta["kind"] == "transformer"
+        if self.is_lm:
+            self.bptt = cfg["bptt"]
+        else:
+            stats = DATASET_STATS.get(cfg["data_name"])
+            if stats is None:
+                raise NotImplementedError(
+                    f"data_name={cfg['data_name']!r}: computed normalisation statistics "
+                    f"are not ported to heterofl_tpu_torch yet")
+            self.norm_mean = torch.tensor(stats[0], dtype=torch.float32, device=device)
+            self.norm_std = torch.tensor(stats[1], dtype=torch.float32, device=device)
+            self.augment = cfg["data_name"].startswith("CIFAR")
         self.fix_rates = np.asarray(cfg["model_rate"], np.float32)
         self.fused_mode = resolve_fused_mode(cfg, device)
         self.momentum = float(cfg.get("momentum", 0.0))
@@ -117,7 +126,7 @@ class RoundEngine:
             leaf = self.spec.leaf(cm, k)
             view = [1] * leaf.ndim
             view[axis] = leaf.shape[axis]
-            leaf.mul_(label_mask.reshape(view))
+            leaf.mul_(label_vector(label_mask, leaf.shape[axis]).reshape(view))
         return cm
 
     # -- one client --------------------------------------------------------
@@ -170,15 +179,68 @@ class RoundEngine:
             grads = torch.autograd.grad(lsum, [leaves[k] for k in spec.names])
             del leaves
             correct = ((score.detach().argmax(-1) == labels).to(torch.float32) * w).sum()
-            if self.fused_mode is None:
-                self._reference_step(p, buf, grads, mask, n_glob, lr)
-            else:
-                torch.cat([gr.reshape(-1) for gr in grads], out=g)
-                fused_sgd_flat(g, p, buf, mask, make_scal(n_glob, lr), momentum=self.momentum,
-                               weight_decay=self.weight_decay, max_norm=1.0)
+            self._step(p, buf, g, grads, mask, n_glob, lr)
             del grads
             acc += torch.stack([lsum.detach(), correct, n_glob])
         return p, acc
+
+    def local_train_lm(self, P: torch.Tensor, wr: float, rows: torch.Tensor, lm: torch.Tensor,
+                       gen: torch.Generator, lr: torch.Tensor,
+                       draws: Optional[Callable[[int], Dict[str, Any]]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Local SGD of one masked-LM client on its token rows ``[R, T]``
+        from the global flat params ``P`` -> ``(trained flat params,
+        [loss_sum, score_sum, n] device sums)``.
+
+        Step ``t`` trains on window ``t % S`` of the ``S = ceil(T / bptt)``
+        windows, the loss the weighted SUM over its positions; each step
+        adds ``R`` rows to ``n``, ``window CE * R`` to the loss and
+        ``exp(window CE) * R`` to the score (Perplexity's sum; ref
+        round_engine.py:740-815).  ``draws(t)`` (test hook) gives step
+        ``t``'s corruption and dropout draws instead of ``gen``."""
+        spec, model, bptt, E = self.spec, self.model, self.bptt, self.local_epochs
+        dev = P.device
+        R, T = rows.shape
+        S = math.ceil(T / bptt)
+        pad = S * bptt - T
+        rows_p = torch.nn.functional.pad(rows, (0, pad))
+        wpos = torch.ones((R, S * bptt), dtype=torch.float32, device=dev)
+        if pad:
+            wpos[:, T:] = 0.0
+        n_win = wpos.view(R, S, bptt).sum((0, 2))  # each window's weight sum
+        mask = self.param_mask_flat(wr)
+        p = P * mask
+        buf = torch.zeros_like(p)
+        g = torch.empty_like(p)
+        acc = torch.zeros(3, dtype=torch.float32, device=dev)
+        rows_n = torch.full((), float(R), dtype=torch.float32, device=dev)
+        for t in range(E * S):
+            s = t % S
+            lab, w = rows_p[:, s * bptt:(s + 1) * bptt], wpos[:, s * bptt:(s + 1) * bptt]
+            n_glob = n_win[s]
+            leaves = {k: v.requires_grad_() for k, v in spec.unflatten(p).items()}
+            _, loss = model(lab, params=leaves, width_rate=wr, scaler_rate=wr, label_mask=lm,
+                            sample_weight=w, train=True, gen=gen,
+                            draws=None if draws is None else draws(t))
+            lsum = loss * n_glob  # weighted-SUM form, as the reference
+            grads = torch.autograd.grad(lsum, [leaves[k] for k in spec.names])
+            del leaves
+            self._step(p, buf, g, grads, mask, n_glob, lr)
+            del grads
+            wl = lsum.detach() / n_glob.clamp_min(1e-6)
+            acc += torch.stack([wl * rows_n, torch.exp(wl) * rows_n, rows_n])
+        return p, acc
+
+    def _step(self, p, buf, g, grads, mask, n_glob, lr) -> None:
+        """The optimizer tail of one local step, in place on ``p`` and
+        ``buf``: the fused epilogue over the flat buffers (its gradient
+        packed into ``g``), or the per-leaf chain."""
+        if self.fused_mode is None:
+            self._reference_step(p, buf, grads, mask, n_glob, lr)
+        else:
+            torch.cat([gr.reshape(-1) for gr in grads], out=g)
+            fused_sgd_flat(g, p, buf, mask, make_scal(n_glob, lr), momentum=self.momentum,
+                           weight_decay=self.weight_decay, max_norm=1.0)
 
     def _reference_step(self, p, buf, grads, mask, n_glob, lr) -> None:
         """``fused_update=False``: the unfused per-leaf optimizer chain
@@ -230,19 +292,22 @@ class RoundEngine:
                     data: Tuple[torch.Tensor, ...], round_seed: int,
                     epoch_perms: Optional[Dict[int, np.ndarray]] = None,
                     codec_noise: Optional[torch.Tensor] = None,
-                    topk_offset: Optional[int] = None
+                    topk_offset: Optional[int] = None,
+                    lm_draws: Optional[Callable[[int, int], Dict[str, Any]]] = None
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One round from the global flat params ``P``.
 
         ``data``: device stacks ``(x [U, N, H, W, C] uint8, y [U, N],
-        sample_mask [U, N], label_mask [U, classes])``.  Returns the new
+        sample_mask [U, N], label_mask [U, classes])``, or for a masked LM
+        ``(token rows [U, R, T], label_mask [U, num_tokens])``.  Returns the new
         global flat params and per-client metric sums (device tensors
         ``loss_sum``, ``score_sum``, ``n``; host ``rate``).  Test hooks,
         which replace a draw from the round seed: ``epoch_perms`` ``{uid:
         [E, N]}`` raw permutations; ``codec_noise`` the int8 codec's
         rounding noise ``[total]`` (flat layout of ``self.spec``);
-        ``topk_offset`` the topk codec's block offset."""
-        x_all, y_all, sm_all, lm_all = data
+        ``topk_offset`` the topk codec's block offset; ``lm_draws(uid, t)``
+        an LM client's corruption and dropout draws of local step ``t``."""
+        lm_all = data[-1]
         user_idx = np.asarray(user_idx, np.int64)
         rates_abs = self.fix_rates[user_idx]
         wrs = to_width_rates(rates_abs, self.cfg)
@@ -254,9 +319,14 @@ class RoundEngine:
             gen = torch.Generator(device=P.device)
             gen.manual_seed(client_seed(round_seed, uid))
             wr = float(wrs[slot])
-            trained, acc = self.local_train(
-                P, wr, x_all[uid], y_all[uid], sm_all[uid], lm_all[uid], gen, lr_t,
-                None if epoch_perms is None else epoch_perms[uid])
+            if self.is_lm:
+                draws = None if lm_draws is None else (lambda t, u=uid: lm_draws(u, t))
+                trained, acc = self.local_train_lm(P, wr, data[0][uid], lm_all[uid], gen, lr_t,
+                                                   draws)
+            else:
+                trained, acc = self.local_train(
+                    P, wr, data[0][uid], data[1][uid], data[2][uid], lm_all[uid], gen, lr_t,
+                    None if epoch_perms is None else epoch_perms[uid])
             cm = self.count_mask_flat(wr, lm_all[uid])
             summed += trained * cm
             counts += cm

@@ -56,7 +56,7 @@ def test_unported_keys_raise_naming_the_key():
     with pytest.raises(NotImplementedError, match="dynamic"):
         PC.process_control(dyn)
     with pytest.raises(NotImplementedError, match="data_name"):
-        PC.process_control(dict(cfg, data_name="WikiText2"))
+        PC.process_control(dict(cfg, data_name="ImageNet"))
 
 
 @pytest.mark.parametrize("data_name,split_mode", [("CIFAR10", "iid"), ("MNIST", "iid"),

@@ -2,6 +2,7 @@
 reference package, so it runs on a GPU host that has neither."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -11,7 +12,11 @@ PORT = os.path.join(ROOT, "heterofl_tpu_torch")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "torch_port_profile.py")]
+    """Every port module, ``chip_smoke.py`` and the port's scripts
+    (``scripts/torch_port_*.py`` and ``scripts/bn_plan_sweep.py``)."""
+    scripts = os.path.join(ROOT, "scripts")
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(scripts, "bn_plan_sweep.py")]
+    out += glob.glob(os.path.join(scripts, "torch_port_*.py"))
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -46,8 +51,8 @@ def test_import_loads_no_jax_and_no_reference():
 
 
 def test_no_port_file_imports_jax_or_reference():
-    """AST scan of every port file, chip_smoke.py and the port's profile
-    script: no ``import jax`` / ``from heterofl_tpu...`` anywhere, not even
+    """AST scan of every port file, chip_smoke.py and the port's scripts:
+    no ``import jax`` / ``from heterofl_tpu...`` anywhere, not even
     inside a function."""
     offenders = []
     for f in _port_files():
@@ -62,3 +67,6 @@ def test_no_port_file_imports_jax_or_reference():
                 continue
             offenders += [(os.path.relpath(f, ROOT), n) for n in names if _forbidden(n)]
     assert offenders == []
+    scanned = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {"scripts/bn_plan_sweep.py", "scripts/torch_port_profile.py",
+            "scripts/torch_port_round_time.py"} <= scanned
