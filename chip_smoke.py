@@ -12,7 +12,9 @@ each prints its seconds:
 2. build the CUDA kernels from ``heterofl_tpu_torch/csrc`` (nvcc, sm_90a);
 3. hold every kernel against its plain PyTorch version on the card, at the
    shapes of ResNet-18's round at batch 10 and of its centralised epoch at
-   batch 100: batch norm forward and backward at the site shapes with
+   batch 100, and of a ResNet-50 step at batch 10 (its 11 distinct site
+   shapes, C up to 2048; the fused SGD at its 23,513,162 parameters):
+   batch norm forward and backward at the site shapes with
    zero-weight rows and masked channels, and at the MNIST conv twin's and
    ragged shapes (a NaN in a zero-weight row), each call twice and equal
    bit for bit, with each shape's launch plan; the fused masked-SGD
@@ -26,8 +28,10 @@ each prints its seconds:
    library calls also by device time (calls captured in a CUDA graph and
    replayed, so no host work sits between the launches);
 5. small rounds on the card against the same rounds on the CPU (plain
-   versions), dense and with the int8 codec, then the main paths, each into
-   a fresh temporary ``output_dir``:
+   versions), dense and with the int8 codec, and dense under the ``in``,
+   ``ln`` and ``gn`` norms; one ResNet-50 round at full width (levels a and
+   e, 2 steps each) against the CPU, and its local step timed; then the
+   main paths, each into a fresh temporary ``output_dir``:
    ``heterofl_tpu_torch.entry.train_classifier_fed`` with the paper's
    headline control on full-width ResNet-18, synthetic CIFAR10 at half its
    real 50,000-image train size, ``pallas_norm=1``, ``fused_update=1``, one
@@ -40,7 +44,18 @@ each prints its seconds:
    ``test_classifier_fed`` on the int8 path's best checkpoint must
    reproduce the Global loss and accuracy its training log holds; then the
    centralised baseline, ``train_classifier`` (one epoch at batch 100 on the
-   same data, ``pallas_norm=1``) and ``test_classifier``.  Every kernel
+   same data, ``pallas_norm=1``) and ``test_classifier``.  Then the sixth
+   slice's paths on dataset files written in their real formats into a
+   temporary ``data_dir`` from a seed: (a) CIFAR10 as python-pickle
+   batches and EMNIST balanced as gzip IDX, read back through
+   ``fetch_dataset`` and checked against what was written; (b)
+   ``train_classifier_fed`` with the ``dynamic`` control ``DYNAMIC`` on the
+   CIFAR10 files, full-width ResNet-18, two rounds (every drawn rate a mode
+   rate, each client's params zero outside its width, launches the steps
+   times the sites) and round 2 again from the round-1 checkpoint, drawing
+   the uninterrupted run's rates; (c) EMNIST on the conv net at full width
+   under ``gn`` with statistics computed, cached and read back (no BN
+   launch).  Every kernel
    launch counter is set to 0 just before each path and read just after;
    each checkpoint write and best copy prints its seconds and megabytes;
 6. the masked LM: the fused masked-SGD epilogue and the
@@ -131,6 +146,30 @@ LM_ROUNDS = 3
 # windows, level e over 2 (lm_round_phase says why)
 LM_ROUND_CLIENTS = ((0, 640), (99, 128))
 TOL_LM_ROUND = 1e-3     # max |params| difference, card LM round vs CPU LM round
+# the sixth slice: dynamic rates on data read from disk, the group norms and
+# the bottleneck ResNet.  The dataset files are written in their real
+# on-disk formats from a seed: CIFAR10 as the python-pickle batches, cut in
+# depth to the vision paths' 25,000 training images (five batches of 5,000)
+# and the real 10,000 test images; EMNIST balanced as gzip IDX, cut from
+# 112,800 / 18,800 images to EMNIST_SIZES.
+DYNAMIC = "1_100_0.1_iid_dynamic_a1-b1-c1-d1-e1_bn_1_1"
+DYN_TAG = f"0_CIFAR10_label_resnet18_{DYNAMIC}"
+DYN_ROUNDS = 2
+MODE_RATES = {1.0, 0.5, 0.25, 0.125, 0.0625}
+CIFAR_BATCH_ROWS = 5000
+EMNIST_CONTROL = "1_100_0.1_iid_fix_a1-b1-c1-d1-e1_gn_1_1"
+EMNIST_TAG = f"0_EMNIST_label_conv_{EMNIST_CONTROL}"
+EMNIST_SIZES = {"train": 24000, "test": 4000}
+SMALL_NORMS = ("in", "ln", "gn")
+# ResNet-50 at full width on CIFAR10 (23,513,162 parameters, 49 BN sites a
+# step); its card-vs-CPU round: a level-a and a level-e client of 20
+# samples, 2 steps each (level e is chaotic over more steps; a batch of
+# padding only is left out: its loss is not finite on either device)
+R50_CONTROL = "1_2_1_iid_fix_a1-e1_bn_1_1"
+R50_N = 23513162
+R50_SITES = 49
+R50_SHARD = 20
+R50_TIMED_STEPS = 10
 # published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
 # device-memory rate and float32 rate outside the tensor cores; the card's
 # name and power limit are printed beside every number
@@ -254,17 +293,24 @@ def bn_check(torch, fused_norm, gen, M: int, C: int, P: int, nan_row: bool):
     return (x2, w, g, b, dy, st_p), e_f, e_b
 
 
-def bn_phase(torch, fused_norm):
+def bn_phase(torch, fused_norm, r50_shapes):
     """Phases 3 and 4 for the two batch-norm kernels -> per kernel, the
-    totals of a training step at batch 10 (the federated round) and, under
-    ``central_*``, at batch 100 (the centralised epoch)."""
+    totals of a training step at batch 10 (the federated ResNet-18 round),
+    under ``central_*`` at batch 100 (the centralised epoch), and under
+    ``r50_*`` of a ResNet-50 step at batch 10 (``r50_shapes``: its distinct
+    ``(M, C, sites)``; each shape's times also under ``r50_by_shape``).  The
+    ResNet-50 shapes are timed on fewer samples."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
     keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms", "bound_ms")
     tot = {k: dict.fromkeys(keys + ("err", "bytes", "ops"), 0.0) for k in ("bn_fwd", "bn_bwd")}
+    for k in tot:
+        tot[k]["r50_by_shape"] = []
     for batch, shapes, pre in ((BATCH, BN_SHAPES, ""), (CENTRAL_BATCH, BN_CENTRAL_SHAPES,
-                                                          "central_")):
+                                                          "central_"), (BATCH, r50_shapes, "r50_")):
+        n_sites = sum(sites for _, _, sites in shapes)
+        few = {"samples": 9} if pre == "r50_" else {}
         for k in tot:
             tot[k].update({pre + key: 0.0 for key in keys + ("bytes", "ops")})
         for M, C, sites in shapes:
@@ -293,8 +339,9 @@ def bn_phase(torch, fused_norm):
                       "bn_bwd": 4 * (3 * M * C + batch + C + 3 * C + 2 * C)}
             nops = {"bn_fwd": 9 * M * C, "bn_bwd": 14 * M * C}
             for k, (kern, plain, lib) in calls.items():
-                t = {"ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
-                     "device_ms": graph_ms(kern), "library_device_ms": graph_ms(lib),
+                t = {"ms": time_ms(kern, **few), "plain_ms": time_ms(plain, **few),
+                     "library_ms": time_ms(lib, **few), "device_ms": graph_ms(kern, **few),
+                     "library_device_ms": graph_ms(lib, **few),
                      "bound_ms": max(nbytes[k] / BW, nops[k] / F32) * 1e3}
                 say(f"  {k}: call {t['ms'] * 1e3:.2f} us (library {t['library_ms'] * 1e3:.2f}, "
                     f"plain {t['plain_ms'] * 1e3:.2f}); device {t['device_ms'] * 1e3:.2f} us "
@@ -305,13 +352,16 @@ def bn_phase(torch, fused_norm):
                     r[pre + key] += sites * t[key]
                 r[pre + "bytes"] += sites * nbytes[k]
                 r[pre + "ops"] += sites * nops[k]
+                if pre == "r50_":
+                    r["r50_by_shape"].append({"M": M, "C": C, "sites": sites, **t})
             tot["bn_fwd"]["err"] = max(tot["bn_fwd"]["err"], e_f)
             tot["bn_bwd"]["err"] = max(tot["bn_bwd"]["err"], e_b)
+        what = "a ResNet-50 training step" if pre == "r50_" else "a training step"
         for k, r in tot.items():
-            say(f"{k}, a training step at batch {batch} ({BN_SITES} sites): call "
+            say(f"{k}, {what} at batch {batch} ({n_sites} sites): call "
                 f"{r[pre + 'ms']:.4f} ms (library {r[pre + 'library_ms']:.4f}), device "
                 f"{r[pre + 'device_ms']:.4f} ms (library {r[pre + 'library_device_ms']:.4f}), "
-                f"{r[pre + 'device_ms'] / BN_SITES * 1e3:.2f} us a site; bound "
+                f"{r[pre + 'device_ms'] / n_sites * 1e3:.2f} us a site; bound "
                 f"{r[pre + 'bound_ms']:.4f} ms")
     for M, C, P in BN_CHECK_SHAPES:
         _, e_f, e_b = bn_check(torch, fused_norm, gen, M, C, P, True)
@@ -416,10 +466,11 @@ def quant_phase(torch, quant, codecs, spec, P):
             "bytes": nbytes, "ops": nops, "library_ms": None}
 
 
-def small_round_phase(torch, wire_codec):
+def small_round_phase(torch, wire_codec, norm="bn"):
     """One small round of the port on the card (kernels) against the same
-    round on the CPU (plain versions): MNIST conv twin, epoch permutations
-    (and the int8 codec's noise) injected so both sides see the same draws.
+    round on the CPU (plain versions): MNIST conv twin under ``norm``, epoch
+    permutations (and the int8 codec's noise) injected so both sides see
+    the same draws.
     Dense: params within ``TOL_ROUND``.  int8: the trained sums differ by
     float rounding, so entries may land one grid step apart: params within
     ``TOL_ROUND`` but a share ``SHARE_ROUND_INT8`` within one step
@@ -436,7 +487,7 @@ def small_round_phase(torch, wire_codec):
     from heterofl_tpu_torch.testing import assert_grid_close
 
     cfg = C.default_cfg()
-    cfg["control"] = C.parse_control_name("1_4_1_iid_fix_a1-b1-c1-e1_bn_1_1")
+    cfg["control"] = C.parse_control_name(f"1_4_1_iid_fix_a1-b1-c1-e1_{norm}_1_1")
     cfg["data_name"], cfg["model_name"], cfg["pallas_norm"] = "MNIST", "conv", True
     cfg["wire_codec"] = wire_codec
     cfg["override"] = {"num_epochs": {"local": 2}, "conv": {"hidden_size": [16, 32]}}
@@ -469,7 +520,7 @@ def small_round_phase(torch, wire_codec):
             s = eng.codec.scale_flat(P, len(users)).cpu()
     card, cpu = out
     dl = float((card[1] - cpu[1]).abs().max())
-    what = f"small round ({wire_codec}), card vs CPU"
+    what = f"small round ({wire_codec}, {norm}), card vs CPU"
     if wire_codec == "dense":
         d = float((card[0] - cpu[0]).abs().max())
         say(f"{what}: max |params diff| {d:.3e}, max |loss_sum diff| {dl:.3e} "
@@ -681,6 +732,380 @@ def central_phase(torch, counters, out_dir: str):
                     bundle["metrics"]["Loss"], bundle["metrics"]["Accuracy"],
                     best["test/Loss"][-1], best["test/Accuracy"][-1])
     return launches
+
+
+# --- the sixth slice: files on disk, dynamic rates, group norms, ResNet-50 ---------
+
+def r50_cfg(control: str = R50_CONTROL):
+    """ResNet-50 at full width on CIFAR10, ``pallas_norm``, one local epoch."""
+    from heterofl_tpu_torch import config as C
+
+    cfg = C.default_cfg()
+    cfg.update(control=C.parse_control_name(control), model_name="resnet50", pallas_norm=True)
+    cfg["override"] = {"num_epochs": {"global": 1, "local": 1}}
+    cfg = C.process_control(cfg)
+    cfg["classes_size"] = 10
+    return cfg
+
+
+def r50_bn_shapes(torch):
+    """The distinct ``(M, C, sites)`` of ResNet-50's BN sites at batch 10:
+    the rows and channels each site hands the fused route, recorded from
+    one forward at batch 1 on the CPU (M scales with the batch)."""
+    from heterofl_tpu_torch.models import make_model, norms
+
+    model = make_model(r50_cfg())
+    seen = []
+    fused = norms.batch_norm_fused
+
+    def record(x, g, b, sample_weight=None):
+        seen.append((BATCH * x.shape[2] * x.shape[3], x.shape[1]))
+        return fused(x, g, b, sample_weight=sample_weight)
+
+    norms.batch_norm_fused = record
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 3, 32, 32), torch.zeros(1, dtype=torch.int64))
+    finally:
+        norms.batch_norm_fused = fused
+    if len(seen) != R50_SITES:
+        raise AssertionError(f"ResNet-50 has {len(seen)} BN sites, not {R50_SITES}")
+    shapes = [(M, C, seen.count((M, C))) for M, C in sorted(set(seen), key=lambda s: (-s[0], s[1]))]
+    say(f"ResNet-50 BN sites at batch {BATCH}: {len(seen)} in {len(shapes)} shapes "
+        f"(M, C, sites) {shapes}")
+    return shapes
+
+
+def resnet50_phase(torch, counters, card=None):
+    """One ResNet-50 round at full width on the card (the BN and fused-SGD
+    kernels) against the same round on the CPU (plain versions): a level-a
+    and a level-e client of ``R50_SHARD`` samples each, epoch
+    permutations and augmentation draws made on the CPU and injected;
+    params within ``TOL_ROUND``.  The card round's launches must be 49 BN
+    sites and one fused-SGD call a step.  Then the step time: a level-a
+    client of ``R50_TIMED_STEPS`` steps, timed after a warm-up epoch ->
+    (launches of the card round, ms a step)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.data import synthetic_vision
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.parallel import RoundEngine
+
+    card = card or torch.device("cuda")
+    cfg = r50_cfg()
+    ds = synthetic_vision("CIFAR10", "train", n=2 * R50_SHARD, seed=4)
+    x = ds.data.reshape(2, R50_SHARD, 32, 32, 3)
+    y = ds.target.reshape(2, R50_SHARD)
+    sm = np.ones((2, R50_SHARD), np.float32)
+    lm = np.ones((2, 10), np.float32)
+    lm[1, ::4] = 0.0
+    rng = np.random.default_rng(6)
+    perms = {u: rng.permutation(R50_SHARD)[None] for u in range(2)}
+    g = torch.Generator().manual_seed(7)
+    steps = -(-R50_SHARD // BATCH)
+    aug = {(u, t): (torch.randint(0, 9, (BATCH, 2), generator=g),
+                    torch.rand(BATCH, generator=g) < 0.5) for u in range(2) for t in range(steps)}
+    out = []
+    for dev in (card, torch.device("cpu")):
+        model = make_model(cfg).init_(torch.Generator().manual_seed(0)).to(dev)
+        eng = RoundEngine(model, cfg, dev)
+        data = tuple(torch.from_numpy(a).to(dev) for a in (x, y, sm, lm))
+        P = eng.flatten(model.params())
+        if eng.spec.total != R50_N:
+            raise AssertionError(f"ResNet-50 has {eng.spec.total} params, not {R50_N}")
+        zero(counters)
+        new, ms = eng.train_round(P, 0.05, [0, 1], data, 0, epoch_perms=perms,
+                                  aug_draws=lambda u, t: aug[u, t])
+        launches = read(counters)
+        out.append((new.cpu(), ms["loss_sum"].cpu(), launches))
+    (c_new, c_loss, launches), (p_new, p_loss, _) = out
+    d, dl = float((c_new - p_new).abs().max()), float((c_loss - p_loss).abs().max())
+    say(f"ResNet-50 round at full width (levels a and e, {steps} steps each), card vs CPU: "
+        f"max |params diff| {d:.3e}, max |loss_sum diff| {dl:.3e} (tolerance {TOL_ROUND:g}); "
+        f"launches {launches}")
+    want = {"bn_fwd": R50_SITES * 2 * steps, "bn_bwd": R50_SITES * 2 * steps,
+            "fused_sgd": 2 * steps, "quant_pack": 0}
+    if card.type == "cuda" and launches != want:
+        raise AssertionError(f"ResNet-50 round: launches {launches}, expected {want}")
+    if not (d <= TOL_ROUND and math.isfinite(dl) and dl <= 100 * TOL_ROUND):
+        raise AssertionError("ResNet-50 round: the card disagrees with the CPU")
+    # the step time of a level-a client on the card
+    model = make_model(cfg).init_(torch.Generator().manual_seed(0)).to(card)
+    eng = RoundEngine(model, cfg, card)
+    n = R50_TIMED_STEPS * BATCH
+    big = synthetic_vision("CIFAR10", "train", n=n, seed=5)
+    xb, yb = torch.from_numpy(big.data).to(card), torch.from_numpy(big.target).to(card)
+    smb = torch.ones(n, device=card)
+    lmb = torch.ones(10, device=card)
+    lr = torch.full((), 0.05, device=card)
+    P = eng.flatten(model.params())
+    times = []
+    for rep_ in range(3):  # the first is the warm-up
+        if card.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        zero(counters)
+        _, acc = eng.local_train(P, 1.0, xb, yb, smb, lmb,
+                                 torch.Generator(device=card).manual_seed(rep_), lr)
+        float(acc[0])
+        times.append((time.perf_counter() - t0) * 1e3 / R50_TIMED_STEPS)
+    per_step = read(counters)
+    say(f"ResNet-50 local step at full width, batch {BATCH}, level a: "
+        f"{statistics.median(times[1:]):.2f} ms (epochs of {R50_TIMED_STEPS} steps: "
+        f"{[round(t, 2) for t in times]} ms a step, the first the warm-up); port kernel "
+        f"launches an epoch {per_step}")
+    return launches, statistics.median(times[1:])
+
+
+def write_cifar10_pickles(root: str, seed: int = 0):
+    """CIFAR10 as the python-pickle batches under ``root/CIFAR10``:
+    ``data_batch_1..5`` of ``CIFAR_BATCH_ROWS`` images and ``test_batch``,
+    each ``{b'data': uint8 [n, 3072] (CHW rows), b'labels': [...]}``, the
+    images class-conditional from a seed -> (train, test) as written."""
+    import pickle
+
+    import numpy as np
+
+    from heterofl_tpu_torch.data import synthetic_vision
+
+    base = os.path.join(root, "CIFAR10", "cifar-10-batches-py")
+    os.makedirs(base)
+    sets = {split: synthetic_vision("CIFAR10", split, n=SIZES[split], seed=seed)
+            for split in ("train", "test")}
+    files = [(f"data_batch_{i + 1}", "train", i * CIFAR_BATCH_ROWS, (i + 1) * CIFAR_BATCH_ROWS)
+             for i in range(SIZES["train"] // CIFAR_BATCH_ROWS)]
+    files.append(("test_batch", "test", 0, SIZES["test"]))
+    for name, split, a, b in files:
+        ds = sets[split]
+        rows = np.ascontiguousarray(ds.data[a:b].transpose(0, 3, 1, 2).reshape(b - a, 3072))
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({b"batch_label": name.encode(), b"labels": ds.target[a:b].tolist(),
+                         b"data": rows}, f, protocol=2)
+    return sets["train"], sets["test"]
+
+
+def write_emnist_idx(root: str, seed: int = 0):
+    """EMNIST balanced as gzip IDX files under ``root/EMNIST/raw``, the
+    images stored transposed (column-major, as EMNIST ships them) ->
+    (train, test) as the reader must return them."""
+    import gzip
+    import struct
+
+    import numpy as np
+
+    from heterofl_tpu_torch.data import synthetic_vision
+
+    base = os.path.join(root, "EMNIST", "raw")
+    os.makedirs(base)
+    out = []
+    for split in ("train", "test"):
+        ds = synthetic_vision("EMNIST", split, n=EMNIST_SIZES[split], seed=seed, subset="balanced")
+        for kind, arr in (("images-idx3", ds.data[..., 0].transpose(0, 2, 1)),
+                          ("labels-idx1", ds.target.astype(np.uint8))):
+            head = struct.pack(">I", 0x0800 | arr.ndim) + struct.pack(
+                ">" + "I" * arr.ndim, *arr.shape)
+            with gzip.open(os.path.join(base, f"emnist-balanced-{split}-{kind}-ubyte.gz"), "wb",
+                           compresslevel=1) as f:
+                f.write(head + np.ascontiguousarray(arr, np.uint8).tobytes())
+        out.append(ds)
+    return out
+
+
+def readers_phase(data_dir: str) -> None:
+    """Phase a: CIFAR10 (pickle batches) and EMNIST balanced (gzip IDX)
+    written into ``data_dir`` and read back through ``fetch_dataset``
+    (``synthetic=False``): the images and labels equal what was written."""
+    import numpy as np
+
+    from heterofl_tpu_torch.data import fetch_dataset
+
+    for name, write, kw in (("CIFAR10", write_cifar10_pickles, {}),
+                            ("EMNIST", write_emnist_idx, {"subset": "balanced"})):
+        t0 = time.time()
+        written = write(data_dir)
+        t_write = time.time() - t0
+        t0 = time.time()
+        got = fetch_dataset(name, data_dir=data_dir, synthetic=False, **kw)
+        t_read = time.time() - t0
+        for ds, split in zip(written, ("train", "test")):
+            if not (np.array_equal(got[split].data, ds.data)
+                    and np.array_equal(got[split].target, ds.target)
+                    and got[split].classes_size == ds.classes_size):
+                raise AssertionError(f"{name} {split}: the reader's arrays differ from the files'")
+        mb = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                 os.walk(os.path.join(data_dir, name)) for f in fs) / 1e6
+        say(f"readers: {name} {len(got['train'])} train and {len(got['test'])} test images, "
+            f"{mb:.1f} MB of files written in {t_write:.2f} s, read back in {t_read:.2f} s, "
+            f"equal to what was written")
+
+
+def dynamic_path(torch, counters, data_dir: str, tmp: str, *extra):
+    """Phase b: ``train_classifier_fed`` with the dynamic control on the
+    CIFAR10 files (``--synthetic 0``), full-width ResNet-18, ``pallas_norm``
+    and ``fused_update``, ``DYN_ROUNDS`` rounds of 1 local epoch, evaluated
+    after the last.  Every drawn rate is a mode rate, the rounds draw
+    different levels, every client's trained params are zero outside its
+    width, the losses are finite and the BN and SGD launches are the steps
+    times their sites.  Then round 2 again from the round-1 checkpoint
+    (``--resume_mode 1``): from its params bit for bit, drawing the rates
+    of the uninterrupted run's draw (both cohorts' rates are one population
+    draw at round 2's seed) -> launches by path."""
+    import shutil
+
+    import numpy as np
+
+    from heterofl_tpu_torch import config as C
+    from heterofl_tpu_torch.convert import params_to_jax
+    from heterofl_tpu_torch.entry import common, train_classifier_fed
+    from heterofl_tpu_torch.fed import round_rates
+    from heterofl_tpu_torch.parallel import RoundEngine
+    from heterofl_tpu_torch.utils import checkpoint_path, load_checkpoint
+    from heterofl_tpu_torch.utils.checkpoint import generation_path
+
+    out = os.path.join(tmp, "dynamic")
+
+    def argv(out_dir, *more):
+        return ["--control_name", DYNAMIC, "--data_dir", data_dir, "--synthetic", "0",
+                "--pallas_norm", "1", "--fused_update", "1", "--eval_interval", str(DYN_ROUNDS),
+                "--output_dir", out_dir, "--override",
+                json.dumps({"num_epochs": {"global": DYN_ROUNDS, "local": 1}}), *more, *extra]
+
+    local_train = RoundEngine.local_train
+    suffix = []
+
+    def checked(self, P, wr, *a, **k):  # each client's params outside its width
+        p, acc = local_train(self, P, wr, *a, **k)
+        suffix.append((wr, (p * (1.0 - self.param_mask_flat(wr))).abs().max()))
+        return p, acc
+
+    by_path = {}
+    RoundEngine.local_train = checked
+    try:
+        say(f"dynamic path: train_classifier_fed {' '.join(argv(out))}")
+        zero(counters)
+        t0 = time.time()
+        (result,) = train_classifier_fed.main(argv(out))
+        by_path["dynamic"] = launches = read(counters)
+    finally:
+        RoundEngine.local_train = local_train
+    hist = result["history"]
+    steps = sum(len(r["users"]) for r in hist) * (SIZES["train"] // 100 // BATCH)
+    say(f"dynamic path: {time.time() - t0:.1f} s for {len(hist)} rounds; launches {launches}")
+    for r in hist:
+        say(f"  round {r['epoch']}: users {r['users']} rates {r['user_rates']}; loss "
+            f"{r['loss']:.4f} accuracy {r['accuracy']:.2f}% in {r['seconds']:.2f} s")
+    say_checkpoints("dynamic path", hist)
+    last = hist[-1]
+    say(f"  evaluation after round {last['epoch']}: Local accuracy {last['Local-Accuracy']:.2f}%, "
+        f"Global loss {last['Global-Loss']:.4f} accuracy {last['Global-Accuracy']:.2f}% in "
+        f"{last['eval_seconds']:.2f} s")
+    bad = [(wr, float(m)) for wr, m in suffix if float(m) != 0.0]
+    say(f"  {len(suffix)} clients trained; params outside each client's width all zero: "
+        f"{not bad}")
+    want = {"bn_fwd": BN_SITES * steps, "bn_bwd": BN_SITES * steps, "fused_sgd": steps,
+            "quant_pack": 0}
+    drawn = [r["user_rates"] for r in hist]
+    if not (len(hist) == DYN_ROUNDS and all(set(d) <= MODE_RATES for d in drawn)
+            and drawn[0] != drawn[1] and not bad and len(suffix) == len(drawn) * 10
+            and launches == want and all(math.isfinite(r["loss"]) for r in hist)
+            and math.isfinite(last["Global-Loss"])):
+        raise AssertionError(f"dynamic path: rates {drawn}, launches {launches} (expected "
+                             f"{want}), suffixes {bad}, history {hist}")
+    # round 2 again, from the round-1 checkpoint
+    res_dir = os.path.join(tmp, "dynamic_resumed")
+    live = checkpoint_path(out, DYN_TAG)
+    os.makedirs(os.path.dirname(checkpoint_path(res_dir, DYN_TAG)))
+    shutil.copy(generation_path(live, 1), checkpoint_path(res_dir, DYN_TAG))
+    blob = load_checkpoint(checkpoint_path(res_dir, DYN_TAG))
+    start = {}
+    train_round = common.FedExperiment.train_round
+
+    def first_round(self, P, epoch, lr):
+        start.setdefault("params", params_to_jax(self.engine.unflatten(P), self.perms))
+        return train_round(self, P, epoch, lr)
+
+    common.FedExperiment.train_round = first_round
+    try:
+        zero(counters)
+        (res,) = train_classifier_fed.main(argv(res_dir, "--resume_mode", "1"))
+        by_path["dynamic_resumed"] = launches = read(counters)
+    finally:
+        common.FedExperiment.train_round = train_round
+    (rec,) = res["history"]
+    cfg = C.process_control(dict(C.default_cfg(), control=C.parse_control_name(DYNAMIC)))
+    pop = round_rates(common.round_seed(0, DYN_ROUNDS), cfg)
+    same = sorted(start["params"]) == sorted(blob["params"]) and all(
+        np.array_equal(v.view(np.int32), blob["params"][k].view(np.int32))
+        for k, v in start["params"].items())
+    say(f"dynamic resumed round: trained round {rec['epoch']} from the round-1 checkpoint "
+        f"(params equal bit for bit: {same}); users {rec['users']} rates {rec['user_rates']}; "
+        f"the uninterrupted round {DYN_ROUNDS}'s users {hist[-1]['users']} rates "
+        f"{hist[-1]['user_rates']}; both the population draw at its seed: "
+        f"{rec['user_rates'] == pop[rec['users']].tolist()} / "
+        f"{hist[-1]['user_rates'] == pop[hist[-1]['users']].tolist()}; launches {launches}")
+    if not (blob["epoch"] == DYN_ROUNDS and rec["epoch"] == DYN_ROUNDS and same
+            and rec["user_rates"] == pop[rec["users"]].tolist()
+            and hist[-1]["user_rates"] == pop[hist[-1]["users"]].tolist()
+            and launches["bn_fwd"] == BN_SITES * launches["fused_sgd"] > 0
+            and math.isfinite(rec["loss"])):
+        raise AssertionError("dynamic resumed round: it does not resume the run it came from")
+    return by_path
+
+
+def emnist_path(torch, counters, data_dir: str, tmp: str, *extra):
+    """Phase c: ``train_classifier_fed`` on the EMNIST files, the conv net at
+    full width under ``gn``, 1 round of 1 local epoch: its normalisation
+    statistics are computed from the train split and cached in
+    ``data_dir/stats/EMNIST.npz``, the checkpoint's cfg holds them, no BN
+    kernel runs and the fused-SGD kernel runs once a step.  Then the
+    statistics computed again (equal to the cache bit for bit) and read
+    from the cache, each timed -> launches."""
+    import numpy as np
+
+    from heterofl_tpu_torch.data import fetch_dataset
+    from heterofl_tpu_torch.data import stats as S
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.utils import checkpoint_path, load_checkpoint
+
+    out = os.path.join(tmp, "emnist")
+    argv = ["--control_name", EMNIST_CONTROL, "--data_name", "EMNIST", "--model_name", "conv",
+            "--data_dir", data_dir, "--synthetic", "0", "--pallas_norm", "1",
+            "--fused_update", "1", "--output_dir", out, "--override",
+            json.dumps({"num_epochs": {"global": 1, "local": 1}}), *extra]
+    cache = S.stats_path("EMNIST", data_dir)
+    if os.path.exists(cache):
+        raise AssertionError(f"{cache} exists before the run")
+    say(f"EMNIST path: train_classifier_fed {' '.join(argv)}")
+    zero(counters)
+    t0 = time.time()
+    (result,) = train_classifier_fed.main(argv)
+    launches = read(counters)
+    (r,) = result["history"]
+    steps = len(r["users"]) * (EMNIST_SIZES["train"] // 100 // BATCH)
+    say(f"EMNIST path: {time.time() - t0:.1f} s; launches {launches}; round loss "
+        f"{r['loss']:.4f} accuracy {r['accuracy']:.2f}% in {r['seconds']:.2f} s; Global "
+        f"accuracy {r['Global-Accuracy']:.2f}% in {r['eval_seconds']:.2f} s")
+    blob = load_checkpoint(checkpoint_path(out, EMNIST_TAG))
+    z = np.load(cache)
+    stats = blob["cfg"].get("norm_stats")
+    want = {"bn_fwd": 0, "bn_bwd": 0, "fused_sgd": steps, "quant_pack": 0}
+    if not (stats is not None and np.array_equal(np.float32(stats[0]), z["mean"])
+            and np.array_equal(np.float32(stats[1]), z["std"]) and launches == want
+            and math.isfinite(r["loss"]) and math.isfinite(r["Global-Loss"])):
+        raise AssertionError(f"EMNIST path: stats {stats} vs cache {dict(z)}, launches "
+                             f"{launches} (expected {want})")
+    train = fetch_dataset("EMNIST", data_dir=data_dir, synthetic=False)["train"].data
+    t0 = time.time()
+    mean, std = S.compute_stats(train)
+    t_compute = time.time() - t0
+    t0 = time.time()
+    S.dataset_stats("EMNIST", train, data_dir)
+    t_read = time.time() - t0
+    if not (np.array_equal(mean, z["mean"]) and np.array_equal(std, z["std"])):
+        raise AssertionError("EMNIST statistics computed again differ from the cache")
+    say(f"EMNIST statistics over {len(train)} images: mean {mean.tolist()} std {std.tolist()}; "
+        f"computed in {t_compute:.3f} s, read from the cache in {t_read * 1e3:.2f} ms")
+    return launches, t_compute, t_read
 
 
 # --- the masked LM -----------------------------------------------------------------
@@ -955,10 +1380,19 @@ def main() -> int:
     spec = FlatSpec.of(dict(model.named_parameters()))
     mask_flat = spec.flatten({k: param_mask(s, model.specs[k], model.groups, 0.25)
                               for k, s in spec.shapes.items()}).cuda()
-    bn = bn_phase(torch, fused_norm)
+    bn = bn_phase(torch, fused_norm, r50_bn_shapes(torch))
     phases.done("batch norm held and timed")
     sgd = sgd_phase(torch, fused_update, mask_flat)
     del mask_flat
+    # and at ResNet-50's n, its level-c width mask
+    r50_model = make_model(r50_cfg())
+    r50_spec = FlatSpec.of(dict(r50_model.named_parameters()))
+    if r50_spec.total != R50_N:
+        raise AssertionError(f"ResNet-50 has {r50_spec.total} params, not {R50_N}")
+    r50_mask = r50_spec.flatten({k: param_mask(s, r50_model.specs[k], r50_model.groups, 0.25)
+                                 for k, s in r50_spec.shapes.items()}).cuda()
+    sgd_r50 = sgd_phase(torch, fused_update, r50_mask)
+    del r50_mask, r50_model
     P = spec.flatten(dict(model.init_(torch.Generator().manual_seed(0)).named_parameters()))
     qp = quant_phase(torch, quant, codecs, spec, P.detach().cuda())
     del P
@@ -980,12 +1414,16 @@ def main() -> int:
     phases.done("fused SGD and quant held and timed")
 
     # 5. small rounds against the CPU, then the main paths, each counted
+    counters = (fused_norm.LAUNCHES, fused_update.LAUNCHES, quant.LAUNCHES)
     small_round_phase(torch, "dense")
     small_round_phase(torch, "int8")
+    for norm in SMALL_NORMS:
+        small_round_phase(torch, "dense", norm)
     lm_round_phase(torch)
     phases.done("small rounds and the LM round against the CPU")
-    counters = (fused_norm.LAUNCHES, fused_update.LAUNCHES, quant.LAUNCHES)
     by_path = {}
+    by_path["resnet50_round"], r50_step_ms = resnet50_phase(torch, counters)
+    phases.done("ResNet-50 round against the CPU, and its step")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         dense_dir, int8_dir = os.path.join(tmp, "dense"), os.path.join(tmp, "int8")
         dense, _, _ = main_path(torch, counters, "dense", args.local_epochs, dense_dir,
@@ -1025,6 +1463,13 @@ def main() -> int:
         phases.done("test_classifier_fed")
         by_path["central"] = central_phase(torch, counters, os.path.join(tmp, "central"))
         phases.done("centralised baseline and test_classifier")
+        data_dir = os.path.join(tmp, "data")
+        readers_phase(data_dir)
+        phases.done("readers: CIFAR10 and EMNIST files")
+        by_path.update(dynamic_path(torch, counters, data_dir, tmp))
+        phases.done("dynamic path on the CIFAR10 files, and its resumed round")
+        by_path["emnist_gn"], t_stats, t_stats_read = emnist_path(torch, counters, data_dir, tmp)
+        phases.done("EMNIST path (gn, computed statistics)")
         by_path.update(lm_phases(torch, counters, tmp, phases))
     say("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phases.secs.items())
         + f"; total {time.time() - phases.t0:.1f} s")
@@ -1054,13 +1499,26 @@ def main() -> int:
             kernels[-1].update(max_abs_err=max(r["err"], lm["err"]), lm_n=LM_N, lm_ms=lm["ms"],
                                lm_device_ms=lm["device_ms"], lm_plain_ms=lm["plain_ms"],
                                lm_bound_ms=lm["bound_ms"], lm_max_abs_err=lm["err"])
+        if r is sgd:  # and at ResNet-50's n
+            kernels[-1].update(max_abs_err=max(kernels[-1]["max_abs_err"], sgd_r50["err"]),
+                               r50_n=R50_N, r50_ms=sgd_r50["ms"],
+                               r50_device_ms=sgd_r50["device_ms"],
+                               r50_plain_ms=sgd_r50["plain_ms"], r50_bound_ms=sgd_r50["bound_ms"],
+                               r50_max_abs_err=sgd_r50["err"], r50_step_ms=r50_step_ms)
         if name.startswith("bn_"):
             kernels[-1].update(
                 library_device_ms=r["library_device_ms"], central_ms=r["central_ms"],
                 central_library_ms=r["central_library_ms"],
                 central_device_ms=r["central_device_ms"],
                 central_library_device_ms=r["central_library_device_ms"],
-                central_plain_ms=r["central_plain_ms"], central_bound_ms=r["central_bound_ms"])
+                central_plain_ms=r["central_plain_ms"], central_bound_ms=r["central_bound_ms"],
+                r50_ms=r["r50_ms"], r50_device_ms=r["r50_device_ms"],
+                r50_plain_ms=r["r50_plain_ms"], r50_library_ms=r["r50_library_ms"],
+                r50_library_device_ms=r["r50_library_device_ms"],
+                r50_bound_ms=r["r50_bound_ms"], r50_sites=R50_SITES,
+                r50_by_shape=r["r50_by_shape"])
+    say(f"EMNIST statistics: computed in {t_stats:.3f} s, read in {t_stats_read * 1e3:.2f} ms; "
+        f"ResNet-50 step {r50_step_ms:.2f} ms")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -11,14 +11,18 @@ reference package (``tests/test_torch_port_import.py`` holds it to that).
 Every TPU kernel on the ported path is a CUDA C++ kernel under ``csrc/``,
 built at first use by :mod:`.ops._build` and bound with ``ctypes``.
 
-Ported so far: the vision path's experiment lifecycle (config, synthetic
-data, partition, masked conv / pre-activation ResNet-18/34 with batch
-norm, the fused masked-SGD epilogue, counted aggregation, the wire codecs,
-sBN and Local/Global evaluation, the logger, checkpoints in the reference's
-format with resume and the best copy, the test entries, and the
-centralised baseline), and the masked-LM path on top of it (token
-datasets, the transformer with per-head width slicing, Global-Perplexity
-evaluation, its federated, test and centralised entries).
+Ported so far: the vision path's experiment lifecycle (config in both
+rate modes, ``fix`` and ``dynamic``; synthetic data and the on-disk
+MNIST/FashionMNIST/EMNIST/CIFAR readers with computed normalisation
+statistics; partition; masked conv / pre-activation ResNet-18/34 and the
+bottleneck ResNet-50/101/152 under the ``bn``, ``in``, ``ln``, ``gn`` and
+``none`` norms; the fused masked-SGD epilogue, counted aggregation, the
+wire codecs, sBN and Local/Global evaluation, the logger, checkpoints in
+the reference's format with resume and the best copy, the test entries,
+and the centralised baseline), and the masked-LM path on top of it (token
+datasets, the transformer with per-head width slicing and the
+width-geometry check, Global-Perplexity evaluation, its federated, test
+and centralised entries).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Configuration: defaults, control-string codec, derived hyperparameters.
 
-Port of ``heterofl_tpu/config.py`` for the vision and masked-LM paths.  ``DEFAULT_CFG``
+Port of ``heterofl_tpu/config.py`` for the vision and masked-LM paths, in
+both rate modes (``fix`` and ``dynamic``).  ``DEFAULT_CFG``
 holds the keys this package reads, plus the keys of features it does not
 port yet, pinned to the value that turns each feature off.  Setting any of
 those to another value raises ``NotImplementedError`` naming the key
@@ -17,6 +18,8 @@ from __future__ import annotations
 import copy
 import math
 from typing import Any, Dict, List
+
+import numpy as np
 
 from .compress import resolve_codec_cfg
 
@@ -193,9 +196,10 @@ def process_control(cfg: Dict[str, Any]) -> Dict[str, Any]:
     if cfg["model_split_mode"] == "fix":
         cfg["model_rate"] = _fix_rate_vector(mode_rate, proportion, cfg["num_users"])
     elif cfg["model_split_mode"] == "dynamic":
-        raise NotImplementedError(
-            "model_split_mode='dynamic' (control field 5) is not ported to "
-            "heterofl_tpu_torch yet: its per-round rate stream is a jax.random stream")
+        # the mode rates and their normalised weights: every user's rate is
+        # drawn anew each round (fed.core.round_rates)
+        cfg["model_rate"] = mode_rate
+        cfg["proportion"] = (np.array(proportion) / sum(proportion)).tolist()
     else:
         raise ValueError("Not valid model split mode")
     cfg["conv"] = {"hidden_size": [64, 128, 256, 512]}

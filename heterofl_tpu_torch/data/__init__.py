@@ -1,5 +1,5 @@
-"""Data: synthetic and on-disk datasets, client partitioning, shard and
-token-row stacking."""
+"""Data: synthetic and on-disk datasets, their normalisation statistics,
+client partitioning, shard and token-row stacking."""
 
 from .datasets import (DATASET_STATS, ArrayDataset, TokenDataset, Vocab,  # noqa: F401
                        fetch_dataset, synthetic_lm, synthetic_vision)

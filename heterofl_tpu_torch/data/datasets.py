@@ -1,26 +1,35 @@
-"""Datasets: the deterministic synthetic generators, the on-disk token
-files of the language-model datasets, and per-dataset normalisation
+"""Datasets: the deterministic synthetic generators, the on-disk readers of
+the vision and language-model datasets, and per-dataset normalisation
 statistics.
 
-Port of ``heterofl_tpu/data/datasets.py`` (the synthetic branch, :405-501,
-and the LM reader, :342-400) and ``heterofl_tpu/data/vocab.py``.  The numpy
-RNG calls are the reference's, in the same order, so the arrays are
-identical for the same seed.  The on-disk vision readers are not ported
-yet: a vision ``fetch_dataset`` needs ``synthetic=True``.  An LM dataset
-without ``synthetic`` reads its token files and raises when they are absent
-(the reference falls back to the synthetic twin there).
+Port of ``heterofl_tpu/data/datasets.py`` (the IDX and CIFAR readers,
+:78-235, the synthetic branch, :405-501, and the LM reader, :342-400) and
+``heterofl_tpu/data/vocab.py``.  The numpy RNG calls are the reference's,
+in the same order, so the synthetic arrays are identical for the same seed;
+the readers parse the same files into the same arrays.  The readers are
+numpy only (the reference's optional C++ parser reads the same records).
+The folder datasets (Omniglot, ImageNet, ImageFolder) are not ported.
+
+Without ``synthetic`` a dataset is read from ``{data_dir}/{data_name}``, and
+when its files are absent ``fetch_dataset`` raises ``FileNotFoundError``
+naming them: the reference falls back to the synthetic twin there, which
+would swap the user's data for random images without a word.
 """
 
 from __future__ import annotations
 
+import gzip
 import os
+import pickle
+import struct
+import tarfile
 import zipfile
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import numpy as np
 
-from ..config import LM_DATASETS, MNIST_LIKE
+from ..config import LM_DATASETS, MNIST_LIKE, VISION_DATASETS
 
 DATASET_STATS = {
     "MNIST": ((0.1307,), (0.3081,)),
@@ -92,6 +101,149 @@ def _emnist_subset(subset) -> str:
     if subset not in _EMNIST_CLASSES:
         raise ValueError(f"Not valid EMNIST subset: {subset!r} (one of {sorted(_EMNIST_CLASSES)})")
     return subset
+
+
+# -- on-disk vision readers ------------------------------------------------------------
+
+def _read_idx(path: str) -> np.ndarray:
+    """An IDX (ubyte) file, raw or gzip: a big-endian magic whose low byte is
+    the rank, the dimensions, then the uint8 payload."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        ndim = struct.unpack(">I", f.read(4))[0] & 0xFF
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        data = np.frombuffer(f.read(), dtype=np.uint8)
+    return data.reshape(dims)
+
+
+_MNIST_FILES = {
+    "train": ("train-images-idx3-ubyte", "train-labels-idx1-ubyte"),
+    "test": ("t10k-images-idx3-ubyte", "t10k-labels-idx1-ubyte"),
+}
+
+
+def _find(root: str, name: str) -> Optional[str]:
+    """``name`` or ``name.gz``, in ``root`` or ``root/raw``."""
+    for cand in (name, name + ".gz"):
+        for sub in ("", "raw"):
+            p = os.path.join(root, sub, cand)
+            if os.path.exists(p):
+                return p
+    return None
+
+
+def _load_mnist_like(root: str, split: str, data_name: str) -> Optional[ArrayDataset]:
+    img_p, lbl_p = (_find(root, n) for n in _MNIST_FILES[split])
+    if img_p is None or lbl_p is None:
+        return None
+    return ArrayDataset(_read_idx(img_p)[..., None], _read_idx(lbl_p).astype(np.int64), 10,
+                        data_name)
+
+
+def _load_emnist(root: str, split: str, subset: str) -> Optional[ArrayDataset]:
+    """One EMNIST subset's IDX files.  EMNIST ships its images transposed
+    (column-major), so they are transposed back; ``letters`` labels start
+    at 1 and are shifted to 0."""
+    subset = _emnist_subset(subset)
+    img_p = _find(root, f"emnist-{subset}-{split}-images-idx3-ubyte")
+    lbl_p = _find(root, f"emnist-{subset}-{split}-labels-idx1-ubyte")
+    if img_p is None or lbl_p is None:
+        return None
+    imgs = _read_idx(img_p).transpose(0, 2, 1)[..., None]
+    labels = _read_idx(lbl_p).astype(np.int64)
+    if subset == "letters":
+        labels = labels - 1
+    return ArrayDataset(imgs, labels, _EMNIST_CLASSES[subset], "EMNIST")
+
+
+def _cifar_layout(data_name: str, split: str) -> Dict[str, Any]:
+    """File names of both CIFAR distributions for one split."""
+    if data_name == "CIFAR10":
+        return {"bin_dir": "cifar-10-batches-bin", "label_bytes": 1, "classes": 10,
+                "bin": [f"data_batch_{i}.bin" for i in range(1, 6)] if split == "train"
+                else ["test_batch.bin"],
+                "archive": "cifar-10-python.tar.gz", "py_dir": "cifar-10-batches-py",
+                "py": [f"data_batch_{i}" for i in range(1, 6)] if split == "train"
+                else ["test_batch"], "label_key": b"labels"}
+    return {"bin_dir": "cifar-100-binary", "label_bytes": 2, "classes": 100,
+            "bin": ["train.bin"] if split == "train" else ["test.bin"],
+            "archive": "cifar-100-python.tar.gz", "py_dir": "cifar-100-python",
+            "py": ["train"] if split == "train" else ["test"], "label_key": b"fine_labels"}
+
+
+def _load_cifar_bin(root: str, split: str, data_name: str) -> Optional[ArrayDataset]:
+    """The binary distribution: records of the label byte(s) (CIFAR100: the
+    coarse then the fine label) and 3,072 bytes of CHW pixels."""
+    lay = _cifar_layout(data_name, split)
+    base = next((p for sub in ("", "raw")
+                 if os.path.isdir(p := os.path.join(root, sub, lay["bin_dir"]))), None)
+    if base is None:
+        return None
+    lb = lay["label_bytes"]
+    imgs, labels = [], []
+    for fn in lay["bin"]:
+        path = os.path.join(base, fn)
+        if not os.path.exists(path):
+            return None
+        n = os.path.getsize(path) // (lb + 3072)
+        rec = np.fromfile(path, np.uint8, n * (lb + 3072)).reshape(n, lb + 3072)
+        labels.append(rec[:, lb - 1].astype(np.int64))
+        imgs.append(np.ascontiguousarray(rec[:, lb:].reshape(n, 3, 32, 32).transpose(0, 2, 3, 1)))
+    return ArrayDataset(np.concatenate(imgs), np.concatenate(labels), lay["classes"],
+                        data_name, augment=(split == "train"))
+
+
+def _load_cifar(root: str, split: str, data_name: str) -> Optional[ArrayDataset]:
+    """CIFAR10/100: the binary distribution first, then the python-pickle
+    batches in their directory under ``root``, then the ``.tar.gz`` archive
+    (in ``root`` or ``root/raw``)."""
+    ds = _load_cifar_bin(root, split, data_name)
+    if ds is not None:
+        return ds
+    lay = _cifar_layout(data_name, split)
+
+    def read_entry(raw: bytes):
+        entry = pickle.loads(raw, encoding="bytes")
+        data = entry[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)  # -> NHWC
+        return data, np.array(entry[lay["label_key"]], dtype=np.int64)
+
+    base = os.path.join(root, lay["py_dir"])
+    if os.path.isdir(base):
+        parts = []
+        for fn in lay["py"]:
+            with open(os.path.join(base, fn), "rb") as f:
+                parts.append(read_entry(f.read()))
+    else:
+        tar_p = next((p for sub in ("", "raw")
+                      if os.path.exists(p := os.path.join(root, sub, lay["archive"]))), None)
+        if tar_p is None:
+            return None
+        with tarfile.open(tar_p, "r:gz") as tf:
+            parts = [read_entry(tf.extractfile(tf.getmember(f"{lay['py_dir']}/{fn}")).read())
+                     for fn in lay["py"]]
+    return ArrayDataset(np.concatenate([p[0] for p in parts]),
+                        np.concatenate([p[1] for p in parts]), lay["classes"], data_name,
+                        augment=(split == "train"))
+
+
+def _vision_files(data_name: str, subset: str) -> str:
+    """What the vision reader looks for, for the error message."""
+    if data_name == "EMNIST":
+        s = _emnist_subset(subset)
+        return f"emnist-{s}-{{train,test}}-{{images-idx3,labels-idx1}}-ubyte[.gz]"
+    if data_name in MNIST_LIKE:
+        return "{train,t10k}-{images-idx3,labels-idx1}-ubyte[.gz]"
+    lay = _cifar_layout(data_name, "train")
+    return f"{lay['bin_dir']}/, {lay['py_dir']}/ or {lay['archive']}"
+
+
+def _load_vision(root: str, split: str, data_name: str, subset: str
+                 ) -> Optional[ArrayDataset]:
+    if data_name == "EMNIST":
+        return _load_emnist(root, split, subset)
+    if data_name in MNIST_LIKE:
+        return _load_mnist_like(root, split, data_name)
+    return _load_cifar(root, split, data_name)
 
 
 def synthetic_vision(data_name: str, split: str, n: Optional[int] = None, seed: int = 0,
@@ -212,7 +364,8 @@ def fetch_dataset(data_name: str, data_dir: str = "./data", synthetic: bool = Fa
                   seed: int = 0, synthetic_sizes: Optional[Dict[str, int]] = None,
                   subset: str = "label") -> Dict[str, Any]:
     """``{'train': dataset, 'test': dataset}``: the synthetic generators,
-    or an LM dataset's token files under ``{data_dir}/{data_name}``."""
+    or the dataset's files under ``{data_dir}/{data_name}`` (raises
+    ``FileNotFoundError`` when they are absent)."""
     sizes = synthetic_sizes or {}
     if data_name in LM_DATASETS:
         if synthetic:
@@ -227,10 +380,16 @@ def fetch_dataset(data_name: str, data_dir: str = "./data", synthetic: bool = Fa
                 f"{_LM_FILES[data_name]['test']!r} under {root}; pass synthetic=1 for the "
                 f"synthetic twin")
         return {"train": train, "test": test}
-    if not synthetic:
-        raise NotImplementedError(
-            "on-disk vision datasets (synthetic=False, data_dir) are not ported to "
-            "heterofl_tpu_torch yet; pass synthetic=1")
-    return {split: synthetic_vision(data_name, split, n=sizes.get(split), seed=seed,
-                                    subset=subset)
-            for split in ("train", "test")}
+    if synthetic:
+        return {split: synthetic_vision(data_name, split, n=sizes.get(split), seed=seed,
+                                        subset=subset)
+                for split in ("train", "test")}
+    if data_name not in VISION_DATASETS:
+        raise ValueError(f"Not valid dataset name: {data_name!r}")
+    root = os.path.join(data_dir, data_name)
+    out = {split: _load_vision(root, split, data_name, subset) for split in ("train", "test")}
+    if any(ds is None for ds in out.values()):
+        raise FileNotFoundError(
+            f"{data_name}: no {_vision_files(data_name, subset)} under {root} (or its raw/); "
+            f"pass synthetic=1 for the synthetic twin")
+    return out

@@ -10,7 +10,9 @@ bptt windows of 100 rows in order, without a shuffle, as the reference
 does (central.py:142-162), with the same per-step update; its per-step
 metrics are the window's ``CE * rows``, ``exp(CE) * rows`` and the rows.
 The reference splits each batch over the devices of its mesh; here one GPU
-takes the whole batch, so batch norm's batch statistics span all of it.
+takes the whole batch, so batch norm's batch statistics span all of it.  A
+dataset without a ``DATASET_STATS`` entry is normalised with statistics
+computed from its train split (``common._maybe_compute_norm_stats``).
 
 One step (:meth:`CentralEngine.train_epoch`, ref central.py:51-79): the
 forward in BN ``batch`` mode (through the CUDA kernels of
@@ -44,15 +46,17 @@ from .. import config as C
 from .. import resolve_device
 from ..convert import params_from_jax, params_to_jax
 from ..data import bptt_windows, fetch_dataset, process_dataset, stack_windows
-from ..data.datasets import DATASET_STATS
+from ..fed.core import validate_width_geometry
 from ..models import make_model
 from ..models.base import FedModel
-from ..ops.augment import augment_cifar, normalize_image
+from ..ops.augment import augment_cifar
 from ..parallel import Evaluator
+from ..parallel.round_engine import norm_stats_tensors, prep_image
 from ..utils import (Logger, clip_by_global_norm, make_optimizer, make_scheduler, resume,
                      summarize_sums)
 from ..utils.metrics import METRICS
-from .common import _batch_array, parse_cfg, pivot_improves, round_seed, write_checkpoint
+from .common import (_batch_array, _maybe_compute_norm_stats, parse_cfg, pivot_improves,
+                     round_seed, write_checkpoint)
 
 Params = Dict[str, torch.Tensor]
 
@@ -64,13 +68,7 @@ class CentralEngine:
         self.model, self.cfg, self.device = model, cfg, device
         self.is_lm = model.meta["kind"] == "transformer"
         if not self.is_lm:
-            stats = DATASET_STATS.get(cfg["data_name"])
-            if stats is None:
-                raise NotImplementedError(
-                    f"data_name={cfg['data_name']!r}: computed normalisation statistics "
-                    f"are not ported to heterofl_tpu_torch yet")
-            self.norm_mean = torch.tensor(stats[0], dtype=torch.float32, device=device)
-            self.norm_std = torch.tensor(stats[1], dtype=torch.float32, device=device)
+            self.norm = norm_stats_tensors(cfg, device)
             self.augment = cfg["data_name"].startswith("CIFAR")
         self._opt_init, self._opt_update = make_optimizer(cfg)
 
@@ -103,7 +101,7 @@ class CentralEngine:
                 xb, yb, wb = data[0][t], data[1][t], data[2][t]
                 if self.augment:
                     xb = augment_cifar(xb, gen)
-                img = normalize_image(xb, self.norm_mean, self.norm_std).permute(0, 3, 1, 2)
+                img = prep_image(xb, self.norm)
                 score, loss = self.model(img, yb, params=leaves, sample_weight=wb)
             n = wb.sum()
             lsum = loss * n  # weighted-SUM form, as the reference
@@ -141,9 +139,11 @@ class CentralExperiment:
                                 subset=cfg.get("subset", "label"))
         self.cfg, self.dataset = process_dataset(cfg, dataset)
         cfg = self.cfg
+        _maybe_compute_norm_stats(cfg, self.dataset)
         self.kind = "transformer" if cfg["model_name"] == "transformer" else "vision"
         self.tag = C.make_model_tag(seed, cfg)
         self.model = make_model(cfg).init_(torch.Generator().manual_seed(seed)).to(self.device)
+        validate_width_geometry(self.model, cfg)
         self.perms = self.model.jax_perms()
         self.engine = CentralEngine(self.model, cfg, self.device)
         self.evaluator = Evaluator(self.model, cfg, self.device, seed=seed)

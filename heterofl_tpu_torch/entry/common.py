@@ -4,15 +4,21 @@ Port of the ``superstep_rounds=1`` path of ``heterofl_tpu/entry/common.py``:
 CLI flags generated from the cfg keys (common.py:75-111), then per seed
 :class:`FedExperiment.run` (common.py:1276-1349, 1501-1600):
 
+* the dataset (computed normalisation statistics for one without a
+  ``DATASET_STATS`` entry, :func:`_maybe_compute_norm_stats`), the model
+  and its width-geometry check (``fed.core.validate_width_geometry``);
 * :func:`~..utils.resume` first; a blob's data and label split replace the
   split draw, and its params, error-feedback residual, epoch, best pivot,
   logger state and scheduler state are restored;
 * every user's train shard and the evaluation operands go onto the device
   once (a masked LM: each user's batchified token rows, and the test
   stream's bptt windows, common.py:622-629);
-* per round: sample the cohort, train it (:class:`~..parallel.RoundEngine`)
-  and log the round; every ``eval_interval`` rounds and after the last,
-  recalibrate BN (sBN) and evaluate Local and Global
+* per round: sample the cohort, train it (:class:`~..parallel.RoundEngine`,
+  which in ``dynamic`` mode draws the cohort's rates from the round seed
+  alone, so a resumed run draws what an uninterrupted one drew; a cohort of
+  0 clients leaves the params as they are) and log the round; every
+  ``eval_interval`` rounds and after the last, recalibrate BN (sBN) and
+  evaluate Local and Global
   (:class:`~..parallel.Evaluator`; a masked LM: Global only, no sBN,
   common.py:1257-1259); then the best-pivot decision, a durable checkpoint
   in ``output_dir/model/`` and, on a new best, its copy to ``_best.pkl``.
@@ -42,6 +48,9 @@ from .. import resolve_device
 from ..convert import flat_from_jax, flat_to_jax, params_from_jax, params_to_jax
 from ..data import (bptt_windows, fetch_dataset, label_split_masks, process_dataset,
                     split_dataset, stack_client_shards, stack_client_token_rows, stack_windows)
+from ..data.datasets import DATASET_STATS
+from ..data.stats import dataset_stats
+from ..fed.core import validate_width_geometry
 from ..models import make_model
 from ..parallel import Evaluator, RoundEngine
 from ..utils import (Logger, PlateauScheduler, checkpoint_path, copy_best, make_scheduler,
@@ -131,6 +140,19 @@ def stage_eval_operands(cfg, train_set, test_set, test_split, lm):
     return sbn, local, (xg, yg, wg)
 
 
+def _maybe_compute_norm_stats(cfg: Dict[str, Any], dataset: Dict[str, Any]) -> None:
+    """A vision dataset without a ``DATASET_STATS`` entry (EMNIST) gets
+    per-channel statistics computed from its train split, cached under
+    ``data_dir/stats``, into ``cfg['norm_stats']`` (ref
+    entry/common.py:200-212)."""
+    if cfg.get("norm_stats") or cfg["data_name"] in DATASET_STATS:
+        return
+    if not hasattr(dataset["train"], "data"):
+        return
+    mean, std = dataset_stats(cfg["data_name"], dataset["train"].data, cfg["data_dir"])
+    cfg["norm_stats"] = (tuple(float(x) for x in mean), tuple(float(x) for x in std))
+
+
 def pivot_improves(cur: Optional[float], pivot: float, pivot_mode: str) -> bool:
     """Whether the logged pivot metric ``cur`` (None when the iteration did
     not evaluate) beats the best so far."""
@@ -172,10 +194,12 @@ class FedExperiment:
                                 subset=cfg.get("subset", "label"))
         self.cfg, self.dataset = process_dataset(cfg, dataset)
         cfg = self.cfg
+        _maybe_compute_norm_stats(cfg, self.dataset)
         self.kind = "transformer" if cfg["model_name"] == "transformer" else "vision"
         self.tag = C.make_model_tag(seed, cfg)
         gen = torch.Generator().manual_seed(seed)
         self.model = make_model(cfg).init_(gen).to(self.device)
+        validate_width_geometry(self.model, cfg)
         self.perms = self.model.jax_perms()
         self.engine = RoundEngine(self.model, cfg, self.device)
         self.evaluator = Evaluator(self.model, cfg, self.device, seed=seed)
@@ -183,9 +207,9 @@ class FedExperiment:
         self.checkpoint_keep = C.resolve_checkpoint_keep(cfg)
         self.scheduler = make_scheduler(cfg)
         self.num_active = int(math.ceil(cfg["frac"] * cfg["num_users"]))
-        if not 0 < self.num_active <= cfg["num_users"]:
+        if not 0 <= self.num_active <= cfg["num_users"]:
             raise ValueError(f"frac={cfg['frac']} draws num_active={self.num_active} "
-                             f"outside [1, num_users={cfg['num_users']}]")
+                             f"outside [0, num_users={cfg['num_users']}]")
         # the training log (opens its files only inside a run's rounds)
         self.logger = Logger(os.path.join(cfg["output_dir"], "runs", f"train_{self.tag}"),
                              use_tensorboard=bool(cfg.get("use_tensorboard")))
@@ -225,9 +249,14 @@ class FedExperiment:
         return self.rng.permutation(self.cfg["num_users"])[: self.num_active].astype(np.int64)
 
     def train_round(self, P: torch.Tensor, epoch: int, lr: float) -> torch.Tensor:
-        """One round from the global flat params ``P``; its train loss and
-        accuracy (a masked LM: perplexity) go to the experiment's logger as ``train/Local-*`` (ref
-        entry/common.py:1189-1225) and to :attr:`history`."""
+        """One round from the global flat params ``P``: the cohort, then
+        local training and aggregation, the engine drawing the cohort's
+        rates in ``dynamic`` mode as the reference's masked engine does
+        (ref entry/common.py:700-712).  Its train loss and accuracy (a
+        masked LM: perplexity) go to the experiment's logger as
+        ``train/Local-*`` (ref entry/common.py:1189-1225), and the record
+        with the cohort (``users``) and its rates (``user_rates``) to
+        :attr:`history`."""
         user_idx = self.sample_users(epoch)
         t0 = time.time()
         P, ms = self.engine.train_round(P, lr, user_idx, self.train_data,
@@ -238,7 +267,8 @@ class FedExperiment:
         named = summarize_sums(sums, kind=self.kind)
         rec = {"epoch": epoch, "lr": lr, "seconds": dt, "n": n,
                "loss": named.get("Local-Loss", 0.0),
-               "rates": sorted(set(sums["rate"].tolist()))}
+               "rates": sorted(set(sums["rate"][sums["n"] > 0].tolist())),
+               "users": user_idx.tolist(), "user_rates": sums["rate"].tolist()}
         score = METRICS[self.kind][1]  # Accuracy | Perplexity
         rec[score.lower()] = named.get(f"Local-{score}", 0.0)
         self.history.append(rec)

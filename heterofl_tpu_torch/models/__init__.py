@@ -1,8 +1,9 @@
 """Model factory.
 
 Port of ``heterofl_tpu/models/__init__.py`` for the conv net, the
-basic-block ResNets and the masked-LM transformer: constructed widths are
-``ceil(model_rate * base)``.
+pre-activation ResNets (basic block: 18, 34; bottleneck: 50, 101, 152) and
+the masked-LM transformer: constructed widths are ``ceil(model_rate *
+base)``.
 Only the global model is built (the masked strategy).
 """
 
@@ -17,7 +18,14 @@ from .resnet import ResNet
 from .spec import Group, ParamSpec, count_masks, mask_params, param_mask  # noqa: F401
 from .transformer import Transformer
 
-RESNET_BLOCKS = {"resnet18": [2, 2, 2, 2], "resnet34": [3, 4, 6, 3]}
+#: blocks per stage, and whether the block is the bottleneck
+RESNET_BLOCKS = {
+    "resnet18": ([2, 2, 2, 2], False),
+    "resnet34": ([3, 4, 6, 3], False),
+    "resnet50": ([3, 4, 6, 3], True),
+    "resnet101": ([3, 4, 23, 3], True),
+    "resnet152": ([3, 8, 36, 3], True),
+}
 
 
 def make_model(cfg: Dict[str, Any]) -> FedModel:
@@ -35,8 +43,8 @@ def make_model(cfg: Dict[str, Any]) -> FedModel:
         return ConvNet(cfg["data_shape"], scaled_hidden(cfg["conv"]["hidden_size"], rate),
                        cfg["classes_size"], **kw)
     if name in RESNET_BLOCKS:
+        blocks, bottleneck = RESNET_BLOCKS[name]
         return ResNet(cfg["data_shape"], scaled_hidden(cfg["resnet"]["hidden_size"], rate),
-                      RESNET_BLOCKS[name], cfg["classes_size"], **kw)
-    raise NotImplementedError(
-        f"model_name={name!r} is not ported to heterofl_tpu_torch yet "
-        f"(one of {('conv',) + tuple(RESNET_BLOCKS) + ('transformer',)})")
+                      blocks, cfg["classes_size"], bottleneck=bottleneck, **kw)
+    raise ValueError(f"Not valid model_name: {name!r} (one of "
+                     f"{('conv',) + tuple(RESNET_BLOCKS) + ('transformer',)})")

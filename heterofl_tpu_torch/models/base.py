@@ -18,6 +18,8 @@ import torch
 from torch import nn
 
 from ..convert import Perms, rank_perms
+from ..ops.layers import group_onehot
+from .norms import NUM_GROUPS
 from .spec import Group, ParamSpec
 
 
@@ -39,6 +41,31 @@ class FedModel(nn.Module):
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.named_parameters())
+
+    def group_ops(self, group: str, width_rate: float, device: torch.device
+                  ) -> Optional[Tuple[torch.Tensor, int, torch.Tensor]]:
+        """``(mask [C], k, onehot [C, G])`` of width group ``group`` at
+        ``width_rate`` on ``device``, for the masked group norms (``ln``,
+        ``gn``; None for the other norms).  Built once per (group, active
+        count, device) and kept, so a round copies no mask to the device
+        after its first step at that width (the round engine builds every
+        width's before the first round, :meth:`prepare_width`)."""
+        groups = NUM_GROUPS.get(getattr(self, "norm", None))
+        if groups is None:
+            return None
+        grp = self.groups[group]
+        k = grp.active_count(width_rate)
+        key = (group, k, str(device))
+        cache = self.__dict__.setdefault("_group_ops", {})
+        if key not in cache:
+            mask = grp.mask(width_rate).to(device)
+            cache[key] = (mask, k, group_onehot(grp.size, groups, mask, k))
+        return cache[key]
+
+    def prepare_width(self, width_rate: float, device: torch.device) -> None:
+        """Build every width group's :meth:`group_ops` at ``width_rate``."""
+        for name in self.groups:
+            self.group_ops(name, width_rate, device)
 
     def init_(self, generator: torch.Generator) -> "FedModel":
         """Fill every parameter from ``generator`` (sorted-name order):

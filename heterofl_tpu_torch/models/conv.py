@@ -59,8 +59,9 @@ class ConvNet(FedModel):
                 scaler_rate: float = 1.0, label_mask=None, sample_weight=None,
                 bn_mode: str = "batch", bn_state=None, bn_collect=None):
         """Forward on an NCHW (channels_last) batch -> ``(score [N,
-        classes], mean loss)``.  ``width_rate`` is carried for the interface;
-        bn/none need no channel mask (masked channels hold ``g == b == 0``).
+        classes], mean loss)``.  ``width_rate`` gives the ``ln``/``gn`` sites
+        their active channels; bn/in/none need no channel mask (masked
+        channels hold ``g == b == 0``).
         ``bn_mode``/``bn_state`` pick the BN sites' mode and running
         statistics ``{site: (mean, var)}``; in ``"collect"`` mode each site's
         ``(mean, unbiased var)`` goes into the dict ``bn_collect``."""
@@ -74,7 +75,8 @@ class ConvNet(FedModel):
             x, st = apply_norm(self.norm, x, P.get(f"{site}.g"), P.get(f"{site}.b"),
                                sample_weight=sample_weight, use_fused=self.pallas_norm,
                                bn_mode=bn_mode,
-                               bn_running=None if bn_state is None else bn_state.get(site))
+                               bn_running=None if bn_state is None else bn_state.get(site),
+                               group_ops=self.group_ops(f"h{i}", width_rate, x.device))
             if st is not None and bn_collect is not None:
                 bn_collect[site] = st
             x = torch.relu(x)

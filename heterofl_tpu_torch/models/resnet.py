@@ -1,11 +1,15 @@
-"""Pre-activation ResNet with the basic block (ResNet-18/34).
+"""Pre-activation ResNets: the basic block (ResNet-18/34) and the
+bottleneck (ResNet-50/101/152).
 
 Port of ``heterofl_tpu/models/resnet.py``: scaler -> norm -> relu before
 each conv, a bare 1x1 conv shortcut, final norm -> relu -> avgpool ->
 linear with zero-fill label masking.  Slicing: stage channels are
 prefix-sliced and chained, the shortcut's input follows conv1's input, the
-classifier keeps its full output width.  The bottleneck block
-(ResNet-50/101/152) is not ported yet.
+classifier keeps its full output width.  A bottleneck block (expansion 4)
+runs 1x1 -> 3x3 (the stride) -> 1x1; its stage's output group ``s{stage}``
+is ``4 * hidden`` wide and its two inner widths form their own group
+``m{stage}`` of ``hidden`` channels (the reference's rule, which the
+original HeteroFL lacks for ``conv3``).
 """
 
 from __future__ import annotations
@@ -22,20 +26,25 @@ from .spec import Group, ParamSpec
 
 class ResNet(FedModel):
     def __init__(self, data_shape, hidden_size, num_blocks: List[int], classes_size: int, *,
-                 norm: str = "bn", scale: bool = True, mask: bool = True,
-                 pallas_norm: bool = False):
+                 bottleneck: bool = False, norm: str = "bn", scale: bool = True,
+                 mask: bool = True, pallas_norm: bool = False):
         super().__init__()
         check_norm(norm)
         in_ch = data_shape[-1]
         n_stages = len(hidden_size)
+        exp = 4 if bottleneck else 1
+        self.bottleneck = bottleneck
         self.norm, self.scale, self.mask, self.pallas_norm = norm, scale, mask, pallas_norm
-        self.groups: Dict[str, Group] = {f"s{s}": Group(f"s{s}", hidden_size[s])
+        self.groups: Dict[str, Group] = {f"s{s}": Group(f"s{s}", hidden_size[s] * exp)
                                          for s in range(n_stages)}
+        if bottleneck:
+            self.groups.update({f"m{s}": Group(f"m{s}", hidden_size[s])
+                                for s in range(n_stages)})
         self.groups["classes"] = Group("classes", classes_size, kind="full")
         self.groups["s0_stem"] = Group("s0_stem", hidden_size[0])
         self.specs: Dict[str, ParamSpec] = {}
         self.norm_sites: Dict[str, str] = {}  # site -> group
-        # (prefix, stride, has_shortcut, in_group, out_group)
+        # (prefix, stride, has_shortcut)
         self.blocks = []
 
         def add_norm(module, attr, site, group, size):
@@ -45,49 +54,60 @@ class ResNet(FedModel):
                 self.specs[f"{site}.b"] = ParamSpec({0: group})
             self.norm_sites[site] = group
 
+        def add_conv(module, attr, name, out_c, in_c, ksize, out_g, in_g):
+            setattr(module, attr, Holder(w=(out_c, in_c, ksize, ksize)))
+            self.specs[f"{name}.w"] = ParamSpec({0: out_g, 1: in_g})
+
         self.conv1 = Holder(w=(hidden_size[0], in_ch, 3, 3))
         self.specs["conv1.w"] = ParamSpec({0: "s0_stem"})
         in_planes, in_group = hidden_size[0], "s0_stem"
         for s in range(n_stages):
             layer = torch.nn.ModuleList()
-            planes, out_g = hidden_size[s], f"s{s}"
+            planes, out_g, mid_g = hidden_size[s], f"s{s}", f"m{s}"
             for bi, stride in enumerate([1 if s == 0 else 2] + [1] * (num_blocks[s] - 1)):
                 pfx = f"layer{s}.{bi}"
-                has_short = stride != 1 or in_planes != planes
+                has_short = stride != 1 or in_planes != planes * exp
                 blk = torch.nn.Module()
                 add_norm(blk, "n1", f"{pfx}.n1", in_group, in_planes)
-                blk.conv1 = Holder(w=(planes, in_planes, 3, 3))
-                self.specs[f"{pfx}.conv1.w"] = ParamSpec({0: out_g, 1: in_group})
-                add_norm(blk, "n2", f"{pfx}.n2", out_g, planes)
-                blk.conv2 = Holder(w=(planes, planes, 3, 3))
-                self.specs[f"{pfx}.conv2.w"] = ParamSpec({0: out_g, 1: out_g})
+                if bottleneck:
+                    add_conv(blk, "conv1", f"{pfx}.conv1", planes, in_planes, 1, mid_g, in_group)
+                    add_norm(blk, "n2", f"{pfx}.n2", mid_g, planes)
+                    add_conv(blk, "conv2", f"{pfx}.conv2", planes, planes, 3, mid_g, mid_g)
+                    add_norm(blk, "n3", f"{pfx}.n3", mid_g, planes)
+                    add_conv(blk, "conv3", f"{pfx}.conv3", planes * exp, planes, 1, out_g, mid_g)
+                else:
+                    add_conv(blk, "conv1", f"{pfx}.conv1", planes, in_planes, 3, out_g, in_group)
+                    add_norm(blk, "n2", f"{pfx}.n2", out_g, planes)
+                    add_conv(blk, "conv2", f"{pfx}.conv2", planes, planes, 3, out_g, out_g)
                 if has_short:
-                    blk.shortcut = Holder(w=(planes, in_planes, 1, 1))
-                    self.specs[f"{pfx}.shortcut.w"] = ParamSpec({0: out_g, 1: in_group})
+                    add_conv(blk, "shortcut", f"{pfx}.shortcut", planes * exp, in_planes, 1,
+                             out_g, in_group)
                 layer.append(blk)
                 self.blocks.append((pfx, stride, has_short))
-                in_planes, in_group = planes, out_g
+                in_planes, in_group = planes * exp, out_g
             self.add_module(f"layer{s}", layer)
-        add_norm(self, "n4", "n4", f"s{n_stages-1}", hidden_size[-1])
-        self.linear = Holder(w=(classes_size, hidden_size[-1]), b=(classes_size,))
+        add_norm(self, "n4", "n4", f"s{n_stages-1}", in_planes)
+        self.linear = Holder(w=(classes_size, in_planes), b=(classes_size,))
         self.specs["linear.w"] = ParamSpec({1: f"s{n_stages-1}"}, label_axis=0)
         self.specs["linear.b"] = ParamSpec({}, label_axis=0)
         self.meta = {"kind": "resnet", "hidden_size": list(hidden_size),
-                     "classes_size": classes_size}
+                     "classes_size": classes_size, "expansion": exp}
 
     def forward(self, img, label, *, params=None, width_rate: float = 1.0,
                 scaler_rate: float = 1.0, label_mask=None, sample_weight=None,
                 bn_mode: str = "batch", bn_state=None, bn_collect=None):
         """Forward on an NCHW (channels_last) batch -> ``(score [N,
-        classes], mean loss)``; ``bn_mode``, ``bn_state`` and ``bn_collect``
-        as in :meth:`~.conv.ConvNet.forward`."""
+        classes], mean loss)``; ``width_rate``, ``bn_mode``, ``bn_state`` and
+        ``bn_collect`` as in :meth:`~.conv.ConvNet.forward`."""
         P = params if params is not None else self.params()
 
         def norm_site(site, x):
             y, st = apply_norm(self.norm, x, P.get(f"{site}.g"), P.get(f"{site}.b"),
                                sample_weight=sample_weight, use_fused=self.pallas_norm,
                                bn_mode=bn_mode,
-                               bn_running=None if bn_state is None else bn_state.get(site))
+                               bn_running=None if bn_state is None else bn_state.get(site),
+                               group_ops=self.group_ops(self.norm_sites[site], width_rate,
+                                                        x.device))
             if st is not None and bn_collect is not None:
                 bn_collect[site] = st
             return y
@@ -100,9 +120,16 @@ class ResNet(FedModel):
             out = torch.relu(norm_site(f"{pfx}.n1", sc(x)))
             short = conv2d(out, P[f"{pfx}.shortcut.w"], stride=stride, padding=0) \
                 if has_short else x
-            out = conv2d(out, P[f"{pfx}.conv1.w"], stride=stride, padding=1)
-            out = conv2d(torch.relu(norm_site(f"{pfx}.n2", sc(out))), P[f"{pfx}.conv2.w"],
-                         stride=1, padding=1)
+            if self.bottleneck:
+                out = conv2d(out, P[f"{pfx}.conv1.w"], stride=1, padding=0)
+                out = torch.relu(norm_site(f"{pfx}.n2", sc(out)))
+                out = conv2d(out, P[f"{pfx}.conv2.w"], stride=stride, padding=1)
+                out = torch.relu(norm_site(f"{pfx}.n3", sc(out)))
+                out = conv2d(out, P[f"{pfx}.conv3.w"], stride=1, padding=0)
+            else:
+                out = conv2d(out, P[f"{pfx}.conv1.w"], stride=stride, padding=1)
+                out = conv2d(torch.relu(norm_site(f"{pfx}.n2", sc(out))), P[f"{pfx}.conv2.w"],
+                             stride=1, padding=1)
             x = out + short
         x = torch.relu(norm_site("n4", sc(x)))
         out = linear(global_avg_pool(x), P["linear.w"], P["linear.b"])

@@ -1,7 +1,7 @@
 """Masked primitive layers.
 
 Port of ``heterofl_tpu/ops/layers.py`` for the vision and transformer
-paths.  A HeteroFL
+paths (and of the instance norm of ``heterofl_tpu/models/norms.py``).  A HeteroFL
 sub-model is a prefix slice of the global tensors, so running the full-width
 model with the suffix channels held at zero is the sliced sub-model's math;
 every op here is per channel or masks its statistics.
@@ -110,6 +110,53 @@ def batch_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
         unbiased = var * n / torch.clamp_min(torch.as_tensor(n) - 1, 1)
         return y, (mean.reshape(-1), unbiased.reshape(-1))
     return y, None
+
+
+def instance_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5
+                  ) -> torch.Tensor:
+    """GroupNorm(C, C) of an NCHW tensor: per sample and channel, the mean
+    and biased variance over the spatial axes (ref models/norms.py:51-56).
+    Unmasked: a masked channel is zero in ``x``, ``g`` and ``b``, so it
+    stays zero."""
+    mean = x.mean(dim=(2, 3), keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    return (x - mean) / torch.sqrt(var + eps) * _channel_view(g, 4) + _channel_view(b, 4)
+
+
+def group_onehot(C: int, num_groups: int, mask: torch.Tensor, k: int) -> torch.Tensor:
+    """``[C, G]`` channel-to-group assignment of :func:`dynamic_group_norm`
+    at ``k`` active channels: channel ``c`` to group ``min(c * G // k, G -
+    1)``, masked channels to none."""
+    gid = ((torch.arange(C, device=mask.device) * num_groups) // max(int(k), 1)
+           ).clamp(0, num_groups - 1)
+    return F.one_hot(gid, num_groups).to(torch.float32) * mask[:, None]
+
+
+def dynamic_group_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, num_groups: int,
+                       mask: torch.Tensor, k: int, eps: float = 1e-5,
+                       onehot: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GroupNorm(G) of an NCHW tensor whose group boundaries follow the
+    ``k`` active channels (ref ops/layers.py:216-249): a sliced sub-model
+    with ``k`` channels splits them into G contiguous groups of ``k / G``,
+    so the full-width op assigns channel ``c`` to group ``floor(c G / k)``
+    and takes masked statistics per sample and group over (channels, H,
+    W).  ``num_groups=1`` is the layer norm over CHW.  ``mask`` is the
+    channels' 0/1 activity ``[C]`` on ``x``'s device; ``onehot`` the
+    :func:`group_onehot` of (C, G, mask, k), when the caller keeps it."""
+    C = x.shape[1]
+    if onehot is None:
+        onehot = group_onehot(C, num_groups, mask, k)
+    spatial = x.shape[2] * x.shape[3]
+    n_per_group = (onehot.sum(0) * spatial).clamp_min(1.0)           # [G]
+    mc = _channel_view(mask, 4)
+    xm = x * mc
+    mean_g = torch.einsum("nchw,cg->ng", xm, onehot) / n_per_group    # [N, G]
+    mean_c = (mean_g @ onehot.t())[:, :, None, None]                  # [N, C, 1, 1]
+    d = (xm - mean_c) * mc
+    var_g = torch.einsum("nchw,cg->ng", d * d, onehot) / n_per_group
+    var_c = (var_g @ onehot.t())[:, :, None, None]
+    y = d / torch.sqrt(var_c + eps) * _channel_view(g, 4) + _channel_view(b, 4)
+    return y * mc
 
 
 def masked_layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,

@@ -29,9 +29,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..data.datasets import DATASET_STATS
 from ..models.base import FedModel
-from ..ops.augment import normalize_image
+from .round_engine import norm_stats_tensors, prep_image
 
 BnState = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -57,13 +56,11 @@ class Evaluator:
         self.model, self.device, self.seed = model, device, seed
         self.is_lm = model.meta["kind"] == "transformer"
         if not self.is_lm:
-            stats = DATASET_STATS[cfg["data_name"]]
-            self.norm_mean = torch.tensor(stats[0], dtype=torch.float32, device=device)
-            self.norm_std = torch.tensor(stats[1], dtype=torch.float32, device=device)
+            self.norm = norm_stats_tensors(cfg, device)
 
     def _img(self, x_u8: torch.Tensor) -> torch.Tensor:
         """uint8 NHWC batch -> normalised NCHW view (channels_last memory)."""
-        return normalize_image(x_u8, self.norm_mean, self.norm_std).permute(0, 3, 1, 2)
+        return prep_image(x_u8, self.norm)
 
     @torch.no_grad()
     def sbn_stats(self, params: Dict[str, torch.Tensor], x_batches: torch.Tensor,

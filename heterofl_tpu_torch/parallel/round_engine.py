@@ -2,8 +2,8 @@
 
 Port of ``heterofl_tpu/parallel/round_engine.py`` (``train_round`` ->
 ``_round_core`` -> ``_local_train_vision`` / ``_local_train_lm``, masked
-strategy, fix-mode rates).  The reference runs a round as one XLA program
-with the clients under ``vmap``; here the clients train one after another
+strategy, ``fix`` and ``dynamic`` rates).  The reference runs a round as one
+XLA program with the clients under ``vmap``; here the clients train one after another
 in a Python loop (batching them is later work), each through:
 
 * its width mask applied to the global params (distribute);
@@ -31,9 +31,12 @@ The step loop never waits for the device: the batch weight sum, ``lr`` and
 ``has`` stay device tensors the kernel reads by pointer, and no value is
 read back per step.  Per-client randomness (epoch permutations,
 augmentation draws) comes from a ``torch.Generator`` on the device seeded
-from (round seed, user id); ``jax.random`` streams are not reproducible in
-torch, so tests hand in the reference's epoch permutations (and an LM
-client's corruption and dropout draws) instead.
+from (round seed, user id), and a ``dynamic`` round's rates from
+``fed.core.round_rates`` on the host; ``jax.random`` streams are not
+reproducible in torch, so tests hand in the reference's rates, epoch
+permutations and augmentation draws (and an LM client's corruption and
+dropout draws) instead.  Every width mask a round can need is on the device
+before the first round.
 """
 
 from __future__ import annotations
@@ -47,12 +50,31 @@ import torch
 from ..compress import make_codec, resolve_codec_cfg
 from ..compress.codecs import compressed_sum
 from ..data.datasets import DATASET_STATS
-from ..fed.core import combine_counted, to_width_rates
+from ..fed.core import combine_counted, round_rates, to_width_rates
 from ..models.base import FedModel
 from ..models.spec import label_vector, param_mask
 from ..ops.augment import augment_cifar, normalize_image
 from ..ops.fused_update import FlatSpec, fused_sgd_flat, make_scal, resolve_fused_mode
 from ..utils.optim import clip_by_global_norm, sgd_update
+
+
+def norm_stats_tensors(cfg: Dict[str, Any], device: torch.device
+                       ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The vision normalisation ``(mean, std)`` on the device, in the
+    reference's order: the computed statistics (``cfg['norm_stats']``,
+    ``entry.common._maybe_compute_norm_stats``), else the dataset's
+    ``DATASET_STATS`` entry, else None (the images go in as floats of
+    their bytes, as in the reference)."""
+    stats = cfg.get("norm_stats") or DATASET_STATS.get(cfg["data_name"])
+    if stats is None:
+        return None
+    return tuple(torch.tensor(v, dtype=torch.float32, device=device) for v in stats)
+
+
+def prep_image(x_u8: torch.Tensor, norm) -> torch.Tensor:
+    """uint8 NHWC batch -> normalised NCHW view (channels_last memory)."""
+    x = normalize_image(x_u8, *norm) if norm is not None else x_u8.to(torch.float32)
+    return x.permute(0, 3, 1, 2)
 
 
 def client_seed(round_seed: int, uid: int) -> int:
@@ -74,15 +96,11 @@ class RoundEngine:
         if self.is_lm:
             self.bptt = cfg["bptt"]
         else:
-            stats = DATASET_STATS.get(cfg["data_name"])
-            if stats is None:
-                raise NotImplementedError(
-                    f"data_name={cfg['data_name']!r}: computed normalisation statistics "
-                    f"are not ported to heterofl_tpu_torch yet")
-            self.norm_mean = torch.tensor(stats[0], dtype=torch.float32, device=device)
-            self.norm_std = torch.tensor(stats[1], dtype=torch.float32, device=device)
+            self.norm = norm_stats_tensors(cfg, device)
             self.augment = cfg["data_name"].startswith("CIFAR")
-        self.fix_rates = np.asarray(cfg["model_rate"], np.float32)
+        # fix mode: every user's rate; dynamic: the rates are drawn per round
+        self.fix_rates = np.asarray(cfg["model_rate"], np.float32) \
+            if cfg["model_split_mode"] == "fix" else None
         self.fused_mode = resolve_fused_mode(cfg, device)
         self.momentum = float(cfg.get("momentum", 0.0))
         self.weight_decay = float(cfg.get("weight_decay", 0.0))
@@ -94,12 +112,15 @@ class RoundEngine:
         self._resid: Optional[torch.Tensor] = None  # [resid_slots, total] EF carry
         self._label_axes = [(k, s.label_axis) for k, s in model.specs.items()
                             if s.label_axis is not None]
-        # flat width masks per width rate, built once on the host and moved
-        # to the device before any round starts (a copy mid-round would wait
-        # for the device)
+        # flat width masks (and the group norms' channel masks) per width
+        # rate a round can draw -- every user's in fix mode, every mode
+        # rate in dynamic mode -- built once on the host and moved to the
+        # device before any round starts (a copy mid-round would wait for
+        # the device)
         self._masks: Dict[float, torch.Tensor] = {}
-        for wr in sorted(set(to_width_rates(self.fix_rates, cfg).tolist())):
+        for wr in sorted(set(to_width_rates(cfg["model_rate"], cfg).tolist())):
             self.param_mask_flat(wr)
+            model.prepare_width(wr, device)
 
     # -- flat buffers ----------------------------------------------------
 
@@ -131,20 +152,24 @@ class RoundEngine:
 
     # -- one client --------------------------------------------------------
 
-    def _prep(self, x_u8: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-        """uint8 NHWC batch -> normalised NCHW view (channels_last memory)."""
+    def _prep(self, x_u8: torch.Tensor, gen: torch.Generator, draw=None) -> torch.Tensor:
+        """uint8 NHWC batch -> normalised NCHW view (channels_last memory);
+        ``draw``, when given, the augmentation's ``(offsets, flips)``."""
         if self.augment:
-            x_u8 = augment_cifar(x_u8, gen)
-        return normalize_image(x_u8, self.norm_mean, self.norm_std).permute(0, 3, 1, 2)
+            x_u8 = augment_cifar(x_u8, gen, *(draw or (None, None)))
+        return prep_image(x_u8, self.norm)
 
     def local_train(self, P: torch.Tensor, wr: float, x, y, sm, lm, gen: torch.Generator,
-                    lr: torch.Tensor, raw_perms: Optional[np.ndarray] = None
+                    lr: torch.Tensor, raw_perms: Optional[np.ndarray] = None,
+                    aug: Optional[Callable[[int], Tuple[Any, Any]]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Local SGD of one client from the global flat params ``P`` ->
         ``(trained flat params, [loss_sum, correct_sum, n] device sums)``.
 
-        ``raw_perms`` (``[E, N]``, test hook) replaces the generator's epoch
-        permutations; the real-first sort still runs on them."""
+        Test hooks: ``raw_perms`` (``[E, N]``) replaces the generator's epoch
+        permutations (the real-first sort still runs on them); ``aug(t)``
+        gives local step ``t``'s augmentation ``(offsets [B, 2], flips
+        [B])`` instead of the generator."""
         spec, model, B, E = self.spec, self.model, self.batch_size, self.local_epochs
         dev = P.device
         N = x.shape[0]
@@ -171,7 +196,8 @@ class RoundEngine:
             w = wpad[s * B:(s + 1) * B] * sm[ids]
             n_glob = w.sum()
             labels = y[ids]
-            img = self._prep(x[ids], gen)
+            img = self._prep(x[ids], gen, None if aug is None else
+                             tuple(torch.as_tensor(np.array(a)).to(dev) for a in aug(t)))
             leaves = {k: v.requires_grad_() for k, v in spec.unflatten(p).items()}
             score, loss = model(img, labels, params=leaves, width_rate=wr, scaler_rate=wr,
                                 label_mask=lm, sample_weight=w)
@@ -293,7 +319,9 @@ class RoundEngine:
                     epoch_perms: Optional[Dict[int, np.ndarray]] = None,
                     codec_noise: Optional[torch.Tensor] = None,
                     topk_offset: Optional[int] = None,
-                    lm_draws: Optional[Callable[[int, int], Dict[str, Any]]] = None
+                    lm_draws: Optional[Callable[[int, int], Dict[str, Any]]] = None,
+                    rates: Optional[Sequence[float]] = None,
+                    aug_draws: Optional[Callable[[int, int], Tuple[Any, Any]]] = None
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One round from the global flat params ``P``.
 
@@ -301,15 +329,29 @@ class RoundEngine:
         sample_mask [U, N], label_mask [U, classes])``, or for a masked LM
         ``(token rows [U, R, T], label_mask [U, num_tokens])``.  Returns the new
         global flat params and per-client metric sums (device tensors
-        ``loss_sum``, ``score_sum``, ``n``; host ``rate``).  Test hooks,
-        which replace a draw from the round seed: ``epoch_perms`` ``{uid:
-        [E, N]}`` raw permutations; ``codec_noise`` the int8 codec's
-        rounding noise ``[total]`` (flat layout of ``self.spec``);
-        ``topk_offset`` the topk codec's block offset; ``lm_draws(uid, t)``
-        an LM client's corruption and dropout draws of local step ``t``."""
+        ``loss_sum``, ``score_sum``, ``n``; host ``rate``, the users'
+        absolute rates).  ``rates``: the users' absolute rates; without
+        them a ``dynamic`` round draws them (``fed.core.round_rates`` at
+        ``round_seed``) and a ``fix`` round takes each user's own.  An empty
+        cohort leaves ``P`` as it is (the stale-value fallback everywhere)
+        and sends nothing through a wire codec.  Test hooks, which replace
+        a draw from the round seed: ``epoch_perms`` ``{uid: [E, N]}`` raw
+        permutations; ``aug_draws(uid, t)`` a CIFAR client's augmentation
+        ``(offsets [B, 2], flips [B])`` of local step ``t``; ``codec_noise``
+        the int8 codec's rounding noise ``[total]`` (flat layout of
+        ``self.spec``); ``topk_offset`` the topk codec's block offset;
+        ``lm_draws(uid, t)`` an LM client's corruption and dropout draws of
+        local step ``t``."""
         lm_all = data[-1]
-        user_idx = np.asarray(user_idx, np.int64)
-        rates_abs = self.fix_rates[user_idx]
+        user_idx = np.asarray(user_idx, np.int64).reshape(-1)
+        if rates is not None:
+            rates_abs = np.asarray(rates, np.float32).reshape(-1)
+        elif self.fix_rates is not None:
+            rates_abs = self.fix_rates[user_idx]
+        else:
+            rates_abs = round_rates(round_seed, self.cfg, user_idx)
+        if rates_abs.shape != user_idx.shape:
+            raise ValueError(f"{rates_abs.size} rates for {user_idx.size} users")
         wrs = to_width_rates(rates_abs, self.cfg)
         lr_t = torch.full((), float(lr), dtype=torch.float32, device=P.device)
         summed = torch.zeros_like(P)
@@ -326,15 +368,16 @@ class RoundEngine:
             else:
                 trained, acc = self.local_train(
                     P, wr, data[0][uid], data[1][uid], data[2][uid], lm_all[uid], gen, lr_t,
-                    None if epoch_perms is None else epoch_perms[uid])
+                    None if epoch_perms is None else epoch_perms[uid],
+                    None if aug_draws is None else (lambda t, u=uid: aug_draws(u, t)))
             cm = self.count_mask_flat(wr, lm_all[uid])
             summed += trained * cm
             counts += cm
             rows.append(acc)
-        acc = torch.stack(rows)
+        acc = torch.stack(rows) if rows else P.new_zeros((0, 3))
         ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
               "rate": rates_abs}
-        if self.codec is not None:
+        if self.codec is not None and rows:
             draw = {"int8": codec_noise, "topk": topk_offset}.get(self.codec.name)
             if draw is None:
                 draw = self.codec.draw(round_seed, P.device)

@@ -23,6 +23,10 @@ Run from the repository root on a machine with a CUDA device::
 
     python3 scripts/torch_port_profile.py --out torch_port_profile.json
 
+``--model resnet50`` profiles the bottleneck ResNet-50 instead, and
+``--width 0.0625`` a client of a narrower level (the width rate; a dynamic
+round mixes the levels' steps).
+
 ``--device cpu --samples 20`` rehearses the control flow on the CPU (no
 device numbers come out of that).
 """
@@ -100,6 +104,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--samples", type=int, default=500, help="the client's samples (500: headline)")
     ap.add_argument("--repeats", type=int, default=10, help="timed epochs per route")
+    ap.add_argument("--model", default="resnet18", help="resnet18 (headline) or resnet50")
+    ap.add_argument("--width", type=float, default=1.0, help="the client's width rate")
     ap.add_argument("--out", default=None, help="write the results here as JSON")
     args = ap.parse_args(argv)
 
@@ -113,7 +119,7 @@ def main(argv=None) -> int:
     from heterofl_tpu_torch.parallel import RoundEngine
 
     dev = resolve_device({"device": args.device})
-    out = {"device": str(dev)}
+    out = {"device": str(dev), "model": args.model, "width": args.width}
     if dev.type == "cuda":
         out["card"] = torch.cuda.get_device_name(0)
         out["nvidia_smi"] = subprocess.run(
@@ -136,6 +142,7 @@ def main(argv=None) -> int:
     for label, bn_kernel, sgd_kernel in ROUTES:
         cfg = C.default_cfg()
         cfg["control"] = C.parse_control_name(HEADLINE)
+        cfg["model_name"] = args.model
         cfg["pallas_norm"] = bn_kernel
         cfg["fused_update"] = sgd_kernel
         cfg["override"] = {"num_epochs": {"global": 1, "local": 1}}
@@ -152,7 +159,7 @@ def main(argv=None) -> int:
 
     def epoch(label, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        p, acc = engines[label].local_train(P, 1.0, x, y, sm, lm, gen, lr)
+        p, acc = engines[label].local_train(P, args.width, x, y, sm, lm, gen, lr)
         return acc
 
     for label, _, _ in ROUTES:  # warm-up: kernel build, cuDNN plans, allocator

@@ -52,11 +52,14 @@ def test_unported_keys_raise_naming_the_key():
         bad = dict(cfg, **{key: value})
         with pytest.raises(NotImplementedError, match=key):
             PC.process_control(bad)
-    dyn = dict(cfg, control=PC.parse_control_name("1_100_0.1_iid_dynamic_a1_bn_1_1"))
-    with pytest.raises(NotImplementedError, match="dynamic"):
-        PC.process_control(dyn)
-    with pytest.raises(NotImplementedError, match="data_name"):
-        PC.process_control(dict(cfg, data_name="ImageNet"))
+    # the dynamic rate mode is ported: the mode rates and their weights
+    dyn = dict(cfg, control=PC.parse_control_name("1_100_0.1_iid_dynamic_a1-e3_bn_1_1"))
+    dyn = PC.process_control(dyn)
+    assert dyn["model_rate"] == [1.0, 0.0625] and dyn["proportion"] == [0.25, 0.75]
+    # the folder datasets are not
+    for data_name in ("ImageNet", "Omniglot", "ImageFolder"):
+        with pytest.raises(NotImplementedError, match="data_name"):
+            PC.process_control(dict(cfg, data_name=data_name))
 
 
 @pytest.mark.parametrize("data_name,split_mode", [("CIFAR10", "iid"), ("MNIST", "iid"),
@@ -85,6 +88,15 @@ def test_data_pipeline_identical(data_name, split_mode):
     np.testing.assert_array_equal(label_split_masks(p_ls, users, 10), r_lsm(r_ls, users, 10))
 
 
-def test_on_disk_data_is_not_silently_synthetic():
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        fetch_dataset("CIFAR10", synthetic=False)
+def test_on_disk_data_is_not_silently_synthetic(tmp_path):
+    """Without ``synthetic`` absent files raise, naming what was looked for
+    and the flag that asks for the synthetic twin (the reference falls back
+    to synthetic data there)."""
+    for data_name, looked_for in (("CIFAR10", "cifar-10-python.tar.gz"),
+                                  ("CIFAR100", "cifar-100-binary"),
+                                  ("MNIST", "train,t10k"), ("FashionMNIST", "images-idx3"),
+                                  ("EMNIST", "emnist-balanced"),
+                                  ("WikiText2", "wiki.train.tokens")):
+        with pytest.raises(FileNotFoundError, match="synthetic=1") as err:
+            fetch_dataset(data_name, data_dir=str(tmp_path), synthetic=False)
+        assert looked_for in str(err.value) and str(tmp_path) in str(err.value)

@@ -140,12 +140,17 @@ def test_conversion_round_trip_and_masks(reference_runs, model_name):
 
 
 def test_unported_model_options_raise():
+    """Every norm and model of the reference builds (``gn``, ResNet-50);
+    a norm or model the reference does not have raises, naming it."""
     cfg = PC.default_cfg()
     cfg["control"] = PC.parse_control_name("1_10_0.5_iid_fix_a1_gn_1_1")
+    cfg["override"] = {"resnet": {"hidden_size": [8, 16, 16, 16]}}
     cfg = PC.process_control(cfg)
     cfg["classes_size"] = 10
-    with pytest.raises(NotImplementedError, match="norm"):
-        make_model(cfg)
-    cfg["norm"] = "bn"
-    with pytest.raises(NotImplementedError, match="model_name"):
-        make_model(dict(cfg, model_name="resnet50"))
+    assert make_model(cfg).norm == "gn"
+    assert "layer3.2.conv3.w" in dict(make_model(dict(cfg, model_name="resnet50"))
+                                      .named_parameters())
+    with pytest.raises(ValueError, match="norm"):
+        make_model(dict(cfg, norm="batch"))
+    with pytest.raises(ValueError, match="model_name"):
+        make_model(dict(cfg, model_name="resnet200"))
