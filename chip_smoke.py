@@ -74,8 +74,24 @@ each prints its seconds:
    [100, 64]) and ``test_transformer``.  The ``<mask>`` row of the token
    embedding must keep its initial value through every round, and no LM
    path may launch a batch-norm kernel;
-7. the ``kernels`` JSON line (launches from the int8 path; per path in
-   ``launches_by_path``), then the ``ok`` JSON line last.
+7. the grouped engine (``--strategy grouped``): the batched batch-norm
+   kernels held against their plain version at ResNet-18's site shapes for
+   every level and G in {1, 2, 4} (at level e a channel tile holds several
+   clients; a padding sample with a NaN) and timed over a step at G = 2,
+   levels a and e; the batched fused SGD at ``[G, n_l]`` for levels a and e,
+   each row bit for bit the one-client kernel's; small grouped rounds (conv
+   net, ResNet-18 at 8/16/16/16) on the card against the CPU, the sliced
+   twin and the masked engine, and a full-width grouped LM round of two
+   level-b clients against the CPU and, at dropout 0, the masked engine;
+   the headline control's first ``TIMED_ROUNDS`` rounds under the masked
+   and the grouped engine in turns, on the control's own cohorts;
+   ``train_classifier_fed --strategy grouped`` on the headline control,
+   ``GROUPED_ROUNDS`` rounds of two clients a level (the batched kernels'
+   launches asserted, no one-client kernel), its last round resumed equal
+   bit for bit as the entry runs it; one grouped LM round of the entry;
+8. the ``kernels`` JSON line (launches from the int8 path, the batched
+   kernels' from the grouped path; per path in ``launches_by_path``), then
+   the ``ok`` JSON line last.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 Everything it measures is printed on standard output.
@@ -161,6 +177,19 @@ EMNIST_CONTROL = "1_100_0.1_iid_fix_a1-b1-c1-d1-e1_gn_1_1"
 EMNIST_TAG = f"0_EMNIST_label_conv_{EMNIST_CONTROL}"
 EMNIST_SIZES = {"train": 24000, "test": 4000}
 SMALL_NORMS = ("in", "ln", "gn")
+# the grouped engine (seventh slice): the batched kernels' counters, zero on
+# every other path
+NO_BATCHED = {"bn_fwd_batched": 0, "bn_bwd_batched": 0, "fused_sgd_batched": 0}
+LEVELS = (1.0, 0.5, 0.25, 0.125, 0.0625)
+GROUPED_G = (1, 2, 4)                           # clients batched, held at every level
+GROUPED_TIMED = ((2, 1.0), (2, 0.0625))          # (G, rate) of the timed batched steps
+GROUPED_ROUNDS = 2  # pinned cohorts: round 1, then round 2, which is resumed
+TIMED_ROUNDS = 8    # masked and grouped rounds in turns, the control's own cohorts
+# the grouped LM round on the card: two level-b clients of the LM control
+# (users 20 l .. 20 l + 19 are at level l), 4 windows of bptt 64 each
+GROUPED_LM_USERS = (20, 21)
+GROUPED_LM_TOKENS = 256
+TOL_GROUPED = (5e-4, 5e-5)  # (rtol, atol): grouped vs masked and vs sliced (tests/test_grouped.py)
 # ResNet-50 at full width on CIFAR10 (23,513,162 parameters, 49 BN sites a
 # step); its card-vs-CPU round: a level-a and a level-e client of 20
 # samples, 2 steps each (level e is chaotic over more steps; a batch of
@@ -720,7 +749,7 @@ def central_phase(torch, counters, out_dir: str):
             f"{r['eval_seconds']:.2f} s")
     say_checkpoints("centralised path", hist, "epoch")
     want = {"bn_fwd": BN_SITES * steps, "bn_bwd": BN_SITES * steps, "fused_sgd": 0,
-            "quant_pack": 0}
+            "quant_pack": 0, **NO_BATCHED}
     if launches != want:
         raise AssertionError(f"centralised path: launches {launches}, expected {want}")
     if len(hist) != CENTRAL_EPOCHS or not all(
@@ -824,7 +853,7 @@ def resnet50_phase(torch, counters, card=None):
         f"max |params diff| {d:.3e}, max |loss_sum diff| {dl:.3e} (tolerance {TOL_ROUND:g}); "
         f"launches {launches}")
     want = {"bn_fwd": R50_SITES * 2 * steps, "bn_bwd": R50_SITES * 2 * steps,
-            "fused_sgd": 2 * steps, "quant_pack": 0}
+            "fused_sgd": 2 * steps, "quant_pack": 0, **NO_BATCHED}
     if card.type == "cuda" and launches != want:
         raise AssertionError(f"ResNet-50 round: launches {launches}, expected {want}")
     if not (d <= TOL_ROUND and math.isfinite(dl) and dl <= 100 * TOL_ROUND):
@@ -1003,7 +1032,7 @@ def dynamic_path(torch, counters, data_dir: str, tmp: str, *extra):
     say(f"  {len(suffix)} clients trained; params outside each client's width all zero: "
         f"{not bad}")
     want = {"bn_fwd": BN_SITES * steps, "bn_bwd": BN_SITES * steps, "fused_sgd": steps,
-            "quant_pack": 0}
+            "quant_pack": 0, **NO_BATCHED}
     drawn = [r["user_rates"] for r in hist]
     if not (len(hist) == DYN_ROUNDS and all(set(d) <= MODE_RATES for d in drawn)
             and drawn[0] != drawn[1] and not bad and len(suffix) == len(drawn) * 10
@@ -1088,7 +1117,7 @@ def emnist_path(torch, counters, data_dir: str, tmp: str, *extra):
     blob = load_checkpoint(checkpoint_path(out, EMNIST_TAG))
     z = np.load(cache)
     stats = blob["cfg"].get("norm_stats")
-    want = {"bn_fwd": 0, "bn_bwd": 0, "fused_sgd": steps, "quant_pack": 0}
+    want = {"bn_fwd": 0, "bn_bwd": 0, "fused_sgd": steps, "quant_pack": 0, **NO_BATCHED}
     if not (stats is not None and np.array_equal(np.float32(stats[0]), z["mean"])
             and np.array_equal(np.float32(stats[1]), z["std"]) and launches == want
             and math.isfinite(r["loss"]) and math.isfinite(r["Global-Loss"])):
@@ -1223,7 +1252,7 @@ def lm_path(torch, counters, what: str, out_dir: str, rounds: int, *extra):
             f"{r.get('eval_seconds', float('nan')):.2f} s")
     say_checkpoints(what, hist)
     want = {"bn_fwd": 0, "bn_bwd": 0, "fused_sgd": LM_STEPS * len(hist),
-            "quant_pack": len(hist) if "int8" in argv else 0}
+            "quant_pack": len(hist) if "int8" in argv else 0, **NO_BATCHED}
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"{what}: launches {launches}, expected {want} and the rest")
     if not hist or not all(math.isfinite(r[k]) for r in hist
@@ -1319,6 +1348,475 @@ def lm_phases(torch, counters, tmp: str, phases) -> dict:
     return by_path
 
 
+# -- the grouped engine (seventh slice) ---------------------------------------
+
+
+def level_width(C: int, rate: float) -> int:
+    return int(math.ceil(C * rate))
+
+
+def bn_batched_check(torch, fused_norm, gen, M: int, C: int, P: int, G: int):
+    """Both batched batch-norm kernels (1b/2b) at ``x2 [M, G*C]`` against
+    their plain versions (``TOL_BN``) and against a second call (equal
+    bits).  The last client has a zero-weight (padding) sample whose row
+    holds a NaN in that client's columns, which must stay out of its
+    statistics -> (inputs, max errors)."""
+    dev = torch.device("cuda")
+    B = M // P
+    GC = G * C
+    x2 = torch.randn(M, GC, device=dev, generator=gen)
+    w = torch.ones(G, B, device=dev)
+    w[G - 1, B - 1] = 0.0
+    g = torch.randn(GC, device=dev, generator=gen)
+    b = torch.randn(GC, device=dev, generator=gen)
+    dy = torch.randn(M, GC, device=dev, generator=gen)
+    xf = x2.clone()
+    xf[(B - 1) * P, (G - 1) * C:] = float("nan")
+    y_k, st_k = fused_norm.bn_fwd_batched_cuda(xf, w, P, g, b)
+    y_p, st_p = fused_norm.bn_fwd_batched_plain(xf, w, P, g, b)
+    what = f"G={G} M={M} C={C}"
+    e_f = max(check_close(f"bn_fwd_batched y {what}", y_k, y_p, *TOL_BN["y"]),
+              check_close(f"bn_fwd_batched stats {what}", st_k, st_p, *TOL_BN["y"]))
+    if not bool(torch.isfinite(st_k).all()):
+        raise AssertionError(f"bn_fwd_batched {what}: non-finite statistics")
+    y_2, st_2 = fused_norm.bn_fwd_batched_cuda(xf, w, P, g, b)
+    st_p = fused_norm.bn_fwd_batched_plain(x2, w, P, g, b)[1]
+    dx_k, dg_k, db_k = fused_norm.bn_bwd_batched_cuda(x2, w, P, g, dy, st_p)
+    dx_p, dg_p, db_p = fused_norm.bn_bwd_batched_plain(x2, w, P, g, dy, st_p)
+    e_b = max(check_close(f"bn_bwd_batched dx {what}", dx_k, dx_p, *TOL_BN["dx"]),
+              check_close(f"bn_bwd_batched dg {what}", dg_k, dg_p, *TOL_BN["dg"]),
+              check_close(f"bn_bwd_batched db {what}", db_k, db_p, *TOL_BN["db"]))
+    again = fused_norm.bn_bwd_batched_cuda(x2, w, P, g, dy, st_p)
+    torch.cuda.synchronize()
+    if not all(same_bits(torch, a, c) for a, c in zip((y_k, st_k, dx_k, dg_k, db_k),
+                                                         (y_2, st_2) + again)):
+        raise AssertionError(f"batched BN {what}: two calls on the same inputs differ")
+    return (x2, w, g, b, dy, st_p), e_f, e_b
+
+
+def bn_batched_phase(torch, fused_norm):
+    """Kernels 1b/2b held at ResNet-18's site shapes at batch 10 for every
+    level (C from 64 r to 512 r) and G in ``GROUPED_G`` -- at level e a
+    channel tile of the plan holds several clients -- and timed over a
+    step's 17 sites for ``GROUPED_TIMED`` -> per kernel, the totals of the
+    first timed (G, level) and ``by_level`` for each."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(7)
+    tot = {k: {"err": 0.0, "by_level": []} for k in ("bn_fwd_batched", "bn_bwd_batched")}
+    straddle = 0
+    for rate in LEVELS:
+        for G in GROUPED_G:
+            for M, C0, _ in BN_SHAPES:
+                C = level_width(C0, rate)
+                pl = fused_norm.bn_plan(M, G * C, True)
+                straddle += int(G > 1 and (pl.tile_c > C or C % pl.tile_c != 0))
+                _, e_f, e_b = bn_batched_check(torch, fused_norm, gen, M, C, M // BATCH, G)
+                tot["bn_fwd_batched"]["err"] = max(tot["bn_fwd_batched"]["err"], e_f)
+                tot["bn_bwd_batched"]["err"] = max(tot["bn_bwd_batched"]["err"], e_b)
+    say(f"batched BN held at {len(LEVELS) * len(GROUPED_G) * len(BN_SHAPES)} (level, G, site) "
+        f"shapes, {straddle} of them with channel tiles holding more than one client; bit-"
+        f"identical across two calls")
+    for G, rate in GROUPED_TIMED:
+        t_all = {k: dict.fromkeys(("ms", "plain_ms", "device_ms", "bound_ms", "bytes", "ops"),
+                                  0.0) for k in tot}
+        for M, C0, sites in BN_SHAPES:
+            C = level_width(C0, rate)
+            P = M // BATCH
+            (x2, w, g, b, dy, st), _, _ = bn_batched_check(torch, fused_norm, gen, M, C, P, G)
+            GC = G * C
+            calls = {"bn_fwd_batched": (lambda: fused_norm.bn_fwd_batched_cuda(x2, w, P, g, b),
+                                        lambda: fused_norm.bn_fwd_batched_plain(x2, w, P, g, b)),
+                     "bn_bwd_batched": (lambda: fused_norm.bn_bwd_batched_cuda(x2, w, P, g, dy, st),
+                                        lambda: fused_norm.bn_bwd_batched_plain(x2, w, P, g, dy,
+                                                                                st))}
+            nbytes = {"bn_fwd_batched": 4 * (2 * M * GC + G * BATCH + 2 * GC + 3 * GC),
+                      "bn_bwd_batched": 4 * (3 * M * GC + G * BATCH + GC + 3 * GC + 2 * GC)}
+            nops = {"bn_fwd_batched": 9 * M * GC, "bn_bwd_batched": 14 * M * GC}
+            for k, (kern, plain) in calls.items():
+                t = {"ms": time_ms(kern, samples=9), "plain_ms": time_ms(plain, samples=9),
+                     "device_ms": graph_ms(kern, samples=9),
+                     "bound_ms": max(nbytes[k] / BW, nops[k] / F32) * 1e3}
+                for key in ("ms", "plain_ms", "device_ms", "bound_ms"):
+                    t_all[k][key] += sites * t[key]
+                t_all[k]["bytes"] += sites * nbytes[k]
+                t_all[k]["ops"] += sites * nops[k]
+        for k, r in t_all.items():
+            say(f"{k}, a training step of G={G} clients at level {rate:g} (17 sites): call "
+                f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms; library: none (no PyTorch call takes a weight "
+                f"per client and sample)")
+            tot[k]["by_level"].append({"G": G, "rate": rate, **r})
+    for k in tot:
+        tot[k].update(tot[k]["by_level"][0])
+    return tot
+
+
+def sgd_batched_phase(torch, fused_update, n_by_rate):
+    """Kernel 3b at ``[G, n_l]`` for levels a (G 2) and e (G 4): against its
+    plain version (the clipped rows within ``TOL_SGD_CLIP``, the rest
+    equal), against G launches of the one-client kernel on each row (equal
+    bits), and against a second call (equal bits); row 0 clips, row 1 has
+    ``has`` 0.  Timed at level a -> results, ``by_level``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    kw = dict(momentum=0.9, weight_decay=5e-4, max_norm=1.0)
+    out = {"err": 0.0, "by_level": []}
+    for rate, G in ((1.0, 2), (0.0625, 4)):
+        n = n_by_rate[rate]
+        mask = (torch.rand(n, device=dev, generator=gen) < 0.9).to(torch.float32)
+        p0 = torch.randn(G, n, device=dev, generator=gen)
+        b0 = torch.randn(G, n, device=dev, generator=gen) * 0.1
+        g = torch.randn(G, n, device=dev, generator=gen)
+        clip = [i % 3 == 0 for i in range(G)]  # rows 0 and 3 clip, the rest not
+        g[[i for i in range(G) if not clip[i]]] *= 1e-5
+        scal = torch.tensor([[7.0, 0.1, 0.0 if i == 1 else 1.0] for i in range(G)], device=dev)
+        p_k, b_k = p0.clone(), b0.clone()
+        fused_update.fused_sgd_batched_cuda(g, p_k, b_k, mask, scal, **kw)
+        p_2, b_2 = p0.clone(), b0.clone()
+        fused_update.fused_sgd_batched_cuda(g, p_2, b_2, mask, scal, **kw)
+        p_r, b_r = fused_update.fused_sgd_batched_plain(g, p0, b0, mask, scal, **kw)
+        bitwise = same_bits(torch, p_k, p_2) and same_bits(torch, b_k, b_2)
+        for i in range(G):
+            pu, bu = p0[i].clone(), b0[i].clone()
+            fused_update.fused_sgd_cuda(g[i].clone(), pu, bu, mask, scal[i].clone(),
+                                        **kw)
+            bitwise = bitwise and same_bits(torch, pu, p_k[i]) and same_bits(torch, bu, b_k[i])
+            tol = TOL_SGD_CLIP if clip[i] and scal[i, 2] > 0 else (0.0, 0.0)
+            what = f"n={n} G={G} row {i} (clip={'on' if clip[i] else 'off'}, has=" \
+                   f"{int(scal[i, 2])})"
+            out["err"] = max(out["err"],
+                             check_close(f"fused_sgd_batched p {what}", p_k[i], p_r[i], *tol),
+                             check_close(f"fused_sgd_batched buf {what}", b_k[i], b_r[i], *tol))
+        torch.cuda.synchronize()
+        if not bitwise:
+            raise AssertionError(f"fused_sgd_batched n={n} G={G}: a row differs from the "
+                                 f"one-client kernel on it, or two calls differ")
+        say(f"fused_sgd_batched n={n} G={G}: every row bit for bit the one-client kernel's, "
+            f"two calls equal")
+        p_t, b_t = p0.clone(), b0.clone()
+        scal1 = scal.clone()
+        scal1[:, 2] = 1.0
+        ms = time_ms(lambda: fused_update.fused_sgd_batched_cuda(g, p_t, b_t, mask, scal1, **kw),
+                     reps=5, samples=15)
+        pms = time_ms(lambda: fused_update.fused_sgd_batched_plain(g, p0, b0, mask, scal1, **kw),
+                      reps=2, samples=9)
+        dms = graph_ms(lambda: fused_update.fused_sgd_batched_cuda(g, p_t, b_t, mask, scal1,
+                                                                   **kw), calls=10, samples=11)
+        nbytes = 4 * ((5 * G + 1) * n + 3 * G)  # read g, p, buf, mask, scal; write p, buf
+        bound = max(nbytes / BW, 10 * G * n / F32) * 1e3
+        say(f"  fused_sgd_batched n={n} G={G}: kernel {ms:.4f} ms (device {dms:.4f}), plain "
+            f"{pms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB); library: none")
+        out["by_level"].append({"G": G, "rate": rate, "n": n, "ms": ms, "device_ms": dms,
+                                "plain_ms": pms, "bound_ms": bound, "bytes": nbytes,
+                                "ops": 10 * G * n})
+        del p0, b0, g, p_k, b_k, p_2, b_2, p_r, b_r, p_t, b_t
+        torch.cuda.empty_cache()
+    out.update({k: v for k, v in out["by_level"][0].items() if k not in ("G", "rate", "n")})
+    return out
+
+
+def grouped_small_round_phase(torch, model_name: str):
+    """One small round of the grouped engine on the card (the batched
+    kernels) against the same round on the CPU (plain versions) within
+    ``TOL_ROUND``, and on the card against the sliced twin (the one-client
+    kernels) and the masked engine within ``TOL_GROUPED``: levels a (two
+    clients), b, c and e, draws injected.  The conv net (16/32, MNIST, 2
+    local epochs) and ResNet-18 (8/16/16/16, CIFAR10 with augmentation, 2
+    steps a client: level e is chaotic over more)."""
+    import numpy as np
+
+    from heterofl_tpu_torch import config as C
+    from heterofl_tpu_torch.data import (fetch_dataset, label_split_masks, split_dataset,
+                                         stack_client_shards)
+    from heterofl_tpu_torch.fed.sliced import SlicedFederation
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.parallel import GroupedRoundEngine, RoundEngine
+    from heterofl_tpu_torch.testing import assert_close
+
+    conv = model_name == "conv"
+    data_name = "MNIST" if conv else "CIFAR10"
+    cfg = C.default_cfg()
+    cfg["control"] = C.parse_control_name("1_5_1_iid_fix_a2-b1-c1-e1_bn_1_1")
+    cfg["data_name"], cfg["model_name"], cfg["pallas_norm"] = data_name, model_name, True
+    cfg["override"] = {"num_epochs": {"local": 2 if conv else 1},
+                       "conv": {"hidden_size": [16, 32]},
+                       "resnet": {"hidden_size": [8, 16, 16, 16]}}
+    cfg = C.process_control(cfg)
+    cfg["classes_size"] = 10
+    U = 5
+    ds = fetch_dataset(data_name, synthetic=True,
+                       synthetic_sizes={"train": 500 if conv else 100, "test": 40})
+    split, lsplit = split_dataset(ds, U, "iid", np.random.default_rng(0), classes_size=10)
+    arrays = stack_client_shards(ds["train"].data, ds["train"].target, split["train"],
+                                 list(range(U))) + (label_split_masks(lsplit, U, 10),)
+    N, E, B = arrays[0].shape[1], cfg["num_epochs"]["local"], cfg["batch_size"]["train"]
+    rng = np.random.default_rng(2)
+    perms = {u: np.stack([rng.permutation(N) for _ in range(E)]) for u in range(U)}
+    aug = {(u, t): (rng.integers(0, 9, (B, 2)), rng.random(B) < 0.5)
+           for u in range(U) for t in range(E * math.ceil(N / B))}
+    hooks = {"epoch_perms": perms}
+    if not conv:
+        hooks["aug_draws"] = lambda u, t: aug[u, t]
+    users = list(range(U))
+    out = {}
+    for name, engine, dev in (("grouped card", GroupedRoundEngine, "cuda"),
+                              ("grouped CPU", GroupedRoundEngine, "cpu"),
+                              ("sliced card", SlicedFederation, "cuda"),
+                              ("masked card", RoundEngine, "cuda")):
+        dev = torch.device(dev)
+        model = make_model(cfg).init_(torch.Generator().manual_seed(0)).to(dev)
+        eng = engine(model, cfg, dev)
+        data = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        new, ms = eng.train_round(eng.flatten(model.params()), 0.05, users, data, 0, **hooks)
+        out[name] = (new.cpu(), ms["loss_sum"].cpu(), ms["n"].cpu())
+    card = out["grouped card"]
+    d = float((card[0] - out["grouped CPU"][0]).abs().max())
+    dl = float((card[1] - out["grouped CPU"][1]).abs().max())
+    say(f"grouped small round ({model_name}), card vs CPU: max |params diff| {d:.3e}, max "
+        f"|loss_sum diff| {dl:.3e} (tolerance {TOL_ROUND:g})")
+    if not (d <= TOL_ROUND and dl <= 100 * TOL_ROUND
+            and torch.equal(card[2], out["grouped CPU"][2])):
+        raise AssertionError(f"grouped small round ({model_name}): the card disagrees with the "
+                             f"CPU")
+    for other in ("sliced card", "masked card"):
+        assert_close(f"grouped small round ({model_name}) vs {other}: params", card[0],
+                     out[other][0], rtol=TOL_GROUPED[0], atol=TOL_GROUPED[1])
+        if not torch.equal(card[2], out[other][2]):
+            raise AssertionError(f"grouped small round ({model_name}): n differs from {other}")
+
+
+def grouped_lm_round_phase(torch) -> None:
+    """The grouped engine's LM round at full width with two clients at one
+    level (``GROUPED_LM_USERS``, level b, ``GROUPED_LM_TOKENS`` tokens of
+    their rows): on the card (the batched fused SGD, the batched
+    transformer's per-client products, gathers and dropout) against the
+    same round on the CPU within ``TOL_LM_ROUND``, the corruption and
+    dropout draws made on the CPU at the level's widths and injected; then,
+    at dropout 0, against the masked engine on the card within
+    ``TOL_GROUPED`` (the only draws left are the corruption's, whose shape
+    has no width, so both engines draw the same from the clients'
+    generators)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.data import batchify, fetch_dataset
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.parallel import GroupedRoundEngine, RoundEngine
+    from heterofl_tpu_torch.testing import assert_close
+
+    cfg = lm_cfg()
+    t = cfg["transformer"]
+    no_dropout = dict(cfg, transformer=dict(t, dropout=0.0))
+    rate = float(cfg["model_rate"][GROUPED_LM_USERS[0]])
+    if {float(cfg["model_rate"][u]) for u in GROUPED_LM_USERS} != {0.5}:
+        raise AssertionError(f"grouped LM round: users {GROUPED_LM_USERS} are not at level b")
+    E, F = level_width(t["embedding_size"], rate), level_width(t["hidden_size"], rate)
+    tok = fetch_dataset("WikiText2", synthetic=True, synthetic_sizes=LM_SIZES)["train"].token
+    rows = batchify(tok, 100)[:, None, :GROUPED_LM_TOKENS]  # [users, 1 row, tokens]
+    lm = np.ones((100, cfg["num_tokens"]), np.float32)
+    lm[GROUPED_LM_USERS[1], ::3] = 0.0  # the second client misses a third of the vocabulary
+
+    def draws(uid, step):  # at the level's widths
+        g = torch.Generator().manual_seed(1000 * uid + step)
+        keep = {site: torch.rand((1, cfg["bptt"], F if site % 3 == 2 else E), generator=g)
+                < 1.0 - t["dropout"] for site in range(1 + 3 * t["num_layers"])}
+        return {"corrupt": torch.rand((1, cfg["bptt"]), generator=g) < cfg["mask_rate"],
+                "keep": keep}
+
+    out = {}
+    for name, c, engine, dev, hook in (
+            ("grouped card", cfg, GroupedRoundEngine, "cuda", draws),
+            ("grouped CPU", cfg, GroupedRoundEngine, "cpu", draws),
+            ("grouped card, dropout 0", no_dropout, GroupedRoundEngine, "cuda", None),
+            ("masked card, dropout 0", no_dropout, RoundEngine, "cuda", None)):
+        dev = torch.device(dev)
+        model = make_model(c).init_(torch.Generator().manual_seed(0)).to(dev)
+        eng = engine(model, c, dev)
+        P = eng.flatten(model.params())
+        data = (torch.from_numpy(rows).to(dev), torch.from_numpy(lm).to(dev))
+        new, ms = eng.train_round(P, c["lr"], list(GROUPED_LM_USERS), data, 0, lm_draws=hook)
+        if not torch.equal(eng.spec.leaf(new, "embedding.tok.w")[-1],
+                           eng.spec.leaf(P, "embedding.tok.w")[-1]):
+            raise AssertionError(f"grouped LM round ({name}): the <mask> embedding row moved")
+        out[name] = (new.cpu(), ms["loss_sum"].cpu(), ms["n"].cpu())
+    card, cpu = out["grouped card"], out["grouped CPU"]
+    d, dl = float((card[0] - cpu[0]).abs().max()), float((card[1] - cpu[1]).abs().max())
+    say(f"grouped LM round at full width, users {list(GROUPED_LM_USERS)} (level b, G = 2, "
+        f"{GROUPED_LM_TOKENS // cfg['bptt']} steps), card vs CPU: max |params diff| {d:.3e}, "
+        f"max |loss_sum diff| {dl:.3e} (tolerance {TOL_LM_ROUND:g}); n {card[2].tolist()}")
+    if not (d <= TOL_LM_ROUND and dl <= 100 * TOL_LM_ROUND and torch.equal(card[2], cpu[2])):
+        raise AssertionError("grouped LM round: the card disagrees with the CPU")
+    g0, m0 = out["grouped card, dropout 0"], out["masked card, dropout 0"]
+    assert_close("grouped LM round vs masked on the card, dropout 0: params", g0[0], m0[0],
+                 rtol=TOL_GROUPED[0], atol=TOL_GROUPED[1])
+    if not torch.equal(g0[2], m0[2]):
+        raise AssertionError("grouped LM round, dropout 0: n differs from the masked engine's")
+
+
+def round_time_phase(torch, out_dir: str, local_epochs: int) -> None:
+    """The headline control's first ``TIMED_ROUNDS`` rounds under the masked
+    and the grouped engine in one process, through
+    ``FedExperiment.train_round`` (the round the entry runs; its evaluation
+    and checkpoint, which do not depend on the engine, left out) with the
+    control's own sampler: the two experiments draw from the same seed, so
+    they train the same cohorts (asserted).  Rounds are taken in turns
+    (masked first on odd rounds, grouped first on even ones).  Each grouped
+    round's (level, G) shapes are printed with how many this process meets
+    for the first time (a cold shape pays cuDNN's plan and the gather map);
+    the totals over all rounds and over rounds 2 on are compared."""
+    from heterofl_tpu_torch.entry.common import FedExperiment, parse_cfg
+
+    exps, P = {}, {}
+    for strategy in ("masked", "grouped"):
+        cfg = parse_cfg("round time", "resnet18", "CIFAR10", fed_argv(
+            os.path.join(out_dir, strategy), "dense", local_epochs, TIMED_ROUNDS,
+            "--strategy", strategy))
+        exp = FedExperiment(cfg, cfg["init_seed"])
+        exp.stage(*exp.make_splits())
+        exps[strategy], P[strategy] = exp, exp.engine.flatten(exp.model.params())
+    secs = {"masked": [], "grouped": []}
+    seen = set()
+    for epoch in range(1, TIMED_ROUNDS + 1):
+        for strategy in ("masked", "grouped") if epoch % 2 else ("grouped", "masked"):
+            exp = exps[strategy]
+            exp.logger.safe(True)
+            P[strategy] = exp.train_round(P[strategy], epoch, exp.scheduler(epoch))
+            exp.logger.safe(False)
+            exp.logger.reset()
+            secs[strategy].append(exp.history[-1]["seconds"])
+        m, g = exps["masked"].history[-1], exps["grouped"].history[-1]
+        if m["users"] != g["users"] or m["user_rates"] != g["user_rates"] or not all(
+                math.isfinite(r["loss"]) for r in (m, g)):
+            raise AssertionError(f"round {epoch}: the two engines trained other cohorts or a "
+                                 f"loss is not finite: {m}, {g}")
+        shapes = sorted({(r, g["user_rates"].count(r)) for r in g["user_rates"]}, reverse=True)
+        new = [sh for sh in shapes if sh not in seen]
+        seen.update(shapes)
+        say(f"timed round {epoch}: masked {secs['masked'][-1]:.3f} s, grouped "
+            f"{secs['grouped'][-1]:.3f} s ({secs['grouped'][-1] / secs['masked'][-1]:.3f}x); "
+            f"levels (rate, G) {shapes}, {len(new)} met for the first time; loss masked "
+            f"{m['loss']:.4f} grouped {g['loss']:.4f}")
+    for first, what in ((0, "all rounds"), (1, "rounds 2 on")):
+        tm, tg = sum(secs["masked"][first:]), sum(secs["grouped"][first:])
+        say(f"timed rounds, {what}: masked {tm:.3f} s, grouped {tg:.3f} s, grouped / masked "
+            f"{tg / tm:.3f} (the control's own cohorts, one process)")
+    del exps, P
+    torch.cuda.empty_cache()
+
+
+def grouped_path(torch, counters, out_dir: str, local_epochs: int):
+    """``train_classifier_fed --strategy grouped`` on the headline control at
+    full width: ``GROUPED_ROUNDS`` rounds of pinned cohorts (two clients a
+    level, so every level runs G = 2), evaluated after the last, a
+    checkpoint each; the batched kernels' launches are the steps times the
+    sites times the levels present (BN) and the steps times the levels
+    present (SGD), and no one-client kernel runs.  Then the last round
+    again from the checkpoint generation before it (``--resume_mode 1``),
+    equal to the uninterrupted last round bit for bit, as the entry runs
+    it (the engine selects cuDNN's deterministic algorithms for its rounds
+    and puts the setting back after) -> (launches, launches of the resumed
+    round).  The pinned cohorts fix the launch counts; the round time on
+    the control's own cohorts is ``round_time_phase``'s."""
+    import shutil
+
+    import numpy as np
+
+    from heterofl_tpu_torch.entry import common, train_classifier_fed
+    from heterofl_tpu_torch.utils import checkpoint_path
+    from heterofl_tpu_torch.utils.checkpoint import generation_path
+
+    # two clients at each of the five levels (users 20 l .. 20 l + 19 are at
+    # level l), other ones each round
+    cohorts = {e: np.array([20 * lvl + 2 * (e - 1) + i for lvl in range(5) for i in (0, 1)],
+                           np.int64) for e in range(1, GROUPED_ROUNDS + 1)}
+    sample_users = common.FedExperiment.sample_users
+    common.FedExperiment.sample_users = lambda self, epoch: cohorts[epoch]
+    steps = local_epochs * (SIZES["train"] // 100 // BATCH)
+    extra = ("--strategy", "grouped", "--eval_interval", str(GROUPED_ROUNDS))
+    try:
+        argv = fed_argv(out_dir, "dense", local_epochs, GROUPED_ROUNDS, *extra)
+        say(f"grouped path: train_classifier_fed {' '.join(argv)}")
+        zero(counters)
+        t0 = time.time()
+        (result,) = train_classifier_fed.main(argv)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = read(counters)
+        hist = result["history"]
+        levels = [len(set(r["user_rates"])) for r in hist]
+        say(f"grouped path: {secs:.1f} s for {len(hist)} rounds; launches {launches}")
+        for r, nl in zip(hist, levels):
+            say(f"  round {r['epoch']}: users {r['users']} rates {r['user_rates']} ({nl} levels "
+                f"present, {nl * steps} batched steps); loss {r['loss']:.4f} accuracy "
+                f"{r['accuracy']:.2f}% in {r['seconds']:.2f} s")
+        say_checkpoints("grouped path", hist)
+        last = hist[-1]
+        say(f"  evaluation after round {last['epoch']}: Local accuracy "
+            f"{last['Local-Accuracy']:.2f}%, Global loss {last['Global-Loss']:.4f} accuracy "
+            f"{last['Global-Accuracy']:.2f}% in {last['eval_seconds']:.2f} s")
+        want = {"bn_fwd_batched": BN_SITES * steps * sum(levels),
+                "bn_bwd_batched": BN_SITES * steps * sum(levels),
+                "fused_sgd_batched": steps * sum(levels), "bn_fwd": 0, "bn_bwd": 0,
+                "fused_sgd": 0, "quant_pack": 0}
+        if launches != want or len(hist) != GROUPED_ROUNDS or not all(
+                math.isfinite(r["loss"]) for r in hist) or not math.isfinite(last["Global-Loss"]):
+            raise AssertionError(f"grouped path: launches {launches} (expected {want}), "
+                                 f"history {hist}")
+        full = {k: v.detach().cpu() for k, v in result["params"].items()}
+        del result
+        res_dir = out_dir + "_resumed"
+        live = checkpoint_path(out_dir, TAG)
+        os.makedirs(os.path.dirname(checkpoint_path(res_dir, TAG)))
+        shutil.copy(generation_path(live, 1), checkpoint_path(res_dir, TAG))
+        zero(counters)
+        (res,) = train_classifier_fed.main(
+            fed_argv(res_dir, "dense", local_epochs, GROUPED_ROUNDS, *extra, "--resume_mode", "1"))
+        torch.cuda.synchronize()
+        resumed = read(counters)
+    finally:
+        common.FedExperiment.sample_users = sample_users
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError("grouped path: cuDNN's deterministic setting was left on")
+    (rec,) = res["history"]
+    diff = max(float((res["params"][k].detach().cpu() - v).abs().max()) for k, v in full.items())
+    bits = all(torch.equal(res["params"][k].detach().cpu(), v) for k, v in full.items())
+    say(f"grouped resumed round: trained round {rec['epoch']} from the round-"
+        f"{GROUPED_ROUNDS - 1} checkpoint in "
+        f"{rec['seconds']:.2f} s; against the uninterrupted round {GROUPED_ROUNDS}: max |params "
+        f"diff| {diff:.3e}, equal bit for bit: {bits}; launches "
+        f"{resumed}")
+    if not (rec["epoch"] == GROUPED_ROUNDS and bits
+            and resumed["fused_sgd_batched"] == steps * levels[-1]):
+        raise AssertionError("grouped resumed round: it does not equal the uninterrupted run")
+    return launches, resumed
+
+
+def grouped_lm_path(torch, counters, out_dir: str):
+    """One round of ``train_transformer_fed --strategy grouped`` on the LM
+    control at full width: its one client a round trains ``LM_STEPS``
+    batched steps (one batched fused-SGD call each, no one-client kernel,
+    no BN), the ``<mask>`` row kept -> launches."""
+    from heterofl_tpu_torch.entry import train_transformer_fed
+
+    argv = lm_argv(out_dir, 1, "--strategy", "grouped")
+    say(f"grouped LM path: train_transformer_fed {' '.join(argv)}")
+    zero(counters)
+    t0 = time.time()
+    (result,) = train_transformer_fed.main(argv)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    (r,) = result["history"]
+    say(f"grouped LM path: {time.time() - t0:.1f} s; launches {launches}; round 1 loss "
+        f"{r['loss']:.4f} perplexity {r['perplexity']:.2f} in {r['seconds']:.2f} s "
+        f"({1e3 * r['seconds'] / LM_STEPS:.2f} ms a step); Global perplexity "
+        f"{r['Global-Perplexity']:.2f}")
+    want = {"bn_fwd": 0, "bn_bwd": 0, "fused_sgd": 0, "quant_pack": 0, "bn_fwd_batched": 0,
+            "bn_bwd_batched": 0, "fused_sgd_batched": LM_STEPS}
+    if launches != want or not all(math.isfinite(r[k]) for k in
+                                   ("loss", "perplexity", "Global-Perplexity")):
+        raise AssertionError(f"grouped LM path: launches {launches} (expected {want}), {r}")
+    mask_row_kept(torch, result["params"])
+    return launches
+
+
 class Phases:
     """Seconds of each phase, printed as each ends."""
 
@@ -1412,6 +1910,10 @@ def main() -> int:
     del P, lm_model
     torch.cuda.empty_cache()
     phases.done("fused SGD and quant held and timed")
+    bn_b = bn_batched_phase(torch, fused_norm)
+    level_e = FlatSpec.of(dict(make_model(cfg, 0.0625).named_parameters())).total
+    sgd_b = sgd_batched_phase(torch, fused_update, {1.0: spec.total, 0.0625: level_e})
+    phases.done("batched kernels held and timed")
 
     # 5. small rounds against the CPU, then the main paths, each counted
     counters = (fused_norm.LAUNCHES, fused_update.LAUNCHES, quant.LAUNCHES)
@@ -1421,13 +1923,18 @@ def main() -> int:
         small_round_phase(torch, "dense", norm)
     lm_round_phase(torch)
     phases.done("small rounds and the LM round against the CPU")
+    for model_name in ("conv", "resnet18"):
+        grouped_small_round_phase(torch, model_name)
+    grouped_lm_round_phase(torch)
+    phases.done("grouped small rounds and LM round against the CPU, sliced and masked")
     by_path = {}
     by_path["resnet50_round"], r50_step_ms = resnet50_phase(torch, counters)
     phases.done("ResNet-50 round against the CPU, and its step")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         dense_dir, int8_dir = os.path.join(tmp, "dense"), os.path.join(tmp, "int8")
-        dense, _, _ = main_path(torch, counters, "dense", args.local_epochs, dense_dir,
-                                ROUNDS)
+        dense, dense_res, _ = main_path(torch, counters, "dense", args.local_epochs, dense_dir,
+                                        ROUNDS)
+        del dense_res
         if dense["quant_pack"] != 0 or min(dense[k] for k in ("bn_fwd", "bn_bwd",
                                                                "fused_sgd")) <= 0:
             raise AssertionError(f"dense main path: unexpected launches {dense}")
@@ -1436,6 +1943,11 @@ def main() -> int:
         by_path["dense_resumed"], _ = resume_path(torch, counters, "dense",
                                                   args.local_epochs, dense_dir)
         phases.done("dense resumed round")
+        round_time_phase(torch, os.path.join(tmp, "timed"), args.local_epochs)
+        phases.done("masked and grouped rounds timed in turns")
+        by_path["grouped"], by_path["grouped_resumed"] = grouped_path(
+            torch, counters, os.path.join(tmp, "grouped"), args.local_epochs)
+        phases.done("grouped path and its resumed round")
         launches, result, _ = main_path(torch, counters, "int8", args.local_epochs,
                                         int8_dir, ROUNDS)
         if launches["quant_pack"] != ROUNDS:
@@ -1471,6 +1983,8 @@ def main() -> int:
         by_path["emnist_gn"], t_stats, t_stats_read = emnist_path(torch, counters, data_dir, tmp)
         phases.done("EMNIST path (gn, computed statistics)")
         by_path.update(lm_phases(torch, counters, tmp, phases))
+        by_path["lm_grouped"] = grouped_lm_path(torch, counters, os.path.join(tmp, "lm_grouped"))
+        phases.done("grouped LM round")
     say("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phases.secs.items())
         + f"; total {time.time() - phases.t0:.1f} s")
 
@@ -1517,6 +2031,24 @@ def main() -> int:
                 r50_library_device_ms=r["r50_library_device_ms"],
                 r50_bound_ms=r["r50_bound_ms"], r50_sites=R50_SITES,
                 r50_by_shape=r["r50_by_shape"])
+    for name, r, src, repl in (
+            ("bn_fwd_batched", bn_b["bn_fwd_batched"], "heterofl_tpu_torch/csrc/bn.cu",
+             "heterofl_tpu/ops/pallas_norm.py:115"),
+            ("bn_bwd_batched", bn_b["bn_bwd_batched"], "heterofl_tpu_torch/csrc/bn.cu",
+             "heterofl_tpu/ops/pallas_norm.py:140"),
+            ("fused_sgd_batched", sgd_b, "heterofl_tpu_torch/csrc/fused_sgd.cu",
+             "heterofl_tpu/ops/fused_update.py:207")):
+        n = by_path["grouped"][name]
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the grouped path")
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
+                        "launches": n, "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": "bytes" if r["bytes"] / BW >= r["ops"] / F32
+                        else "operations",
+                        "library_ms": None, "device_ms": r["device_ms"],
+                        "by_level": r["by_level"],
+                        "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     say(f"EMNIST statistics: computed in {t_stats:.3f} s, read in {t_stats_read * 1e3:.2f} ms; "
         f"ResNet-50 step {r50_step_ms:.2f} ms")
     print(json.dumps({"kernels": kernels}))

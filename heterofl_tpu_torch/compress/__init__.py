@@ -15,9 +15,12 @@ no import of the reference).  The codecs themselves are in
   update per round, values and counts as float32: 25% of dense.
 
 The lossy codecs carry an error-feedback residual across rounds
-(``cfg['error_feedback']``, default True).  A per-level codec map and the
-grouped strategy need the grouped engine, which is not ported: they raise
-``NotImplementedError``.
+(``cfg['error_feedback']``, default True).  Only the ``masked`` strategy
+compresses: the reference compresses the grouped strategy's round only in
+its fused K-round superstep, which is not ported, so the grouped K=1 round,
+the sliced twin and a per-level ``{rate: codec}`` map refuse a lossy codec
+with the reference experiment loop's ``ValueError``s
+(heterofl_tpu/entry/common.py:288-335).
 """
 
 from __future__ import annotations
@@ -68,33 +71,70 @@ def codec_payload_bytes(name: str, n_elems: int, n_leaves: int = 0,
     raise ValueError(f"Not valid wire_codec: {name!r} (one of {CODEC_NAMES})")
 
 
-def resolve_codec_cfg(cfg: Dict[str, Any]) -> Tuple[str, bool]:
+def normalize_codec_map(raw: Dict[Any, Any]) -> Dict[float, str]:
+    """A per-level codec map with float rate keys (heterofl_tpu/compress/
+    __init__.py:101-127): keys are rates or their string forms, values
+    codec names; a bad key or name, a level named twice or an empty map
+    raises ``ValueError``."""
+    out: Dict[float, str] = {}
+    for k, v in raw.items():
+        try:
+            rate = float(k)
+        except (TypeError, ValueError):
+            raise ValueError(f"Not valid wire_codec level key: {k!r} (a rate level, e.g. 1.0 "
+                             f"or '0.0625')")
+        if v not in CODEC_NAMES:
+            raise ValueError(f"Not valid wire_codec for level {rate:g}: {v!r} (one of "
+                             f"{CODEC_NAMES})")
+        if rate in out:
+            raise ValueError(f"Not valid wire_codec map: level {rate:g} assigned twice "
+                             f"(duplicate keys coerce to the same rate)")
+        out[rate] = v
+    if not out:
+        raise ValueError("Not valid wire_codec: an empty per-level map")
+    return out
+
+
+def resolve_codec_cfg(cfg: Dict[str, Any]) -> Tuple[Any, bool]:
     """Validate ``cfg['wire_codec']`` and ``cfg['error_feedback']`` ->
-    ``(codec name, error_feedback)``.  An unknown codec or a non-bool
+    ``(codec, error_feedback)``.  An unknown codec or a non-bool
     ``error_feedback`` raises ``ValueError`` (never a silent dense run); a
-    per-level map, or a lossy codec under a strategy other than ``masked``,
-    raises ``NotImplementedError``.  A codec with the ``sliced`` strategy is
-    invalid in the reference too (``ValueError``)."""
+    per-level map whose levels are all ``dense`` is ``dense``.
+
+    The codec is also checked against ``cfg['strategy']``, with the
+    reference experiment loop's ``ValueError``s (heterofl_tpu/entry/
+    common.py:307-335): a per-level map outside ``grouped``, a lossy codec
+    with ``sliced``, and a lossy codec (or map) with ``grouped`` -- the port
+    runs only its K=1 round, which reduces per level and has no single sum
+    to compress.  The grouped engine and the sliced twin refuse through
+    this function, with their own strategy."""
     name = cfg.get("wire_codec", "dense") or "dense"
     if isinstance(name, dict):
-        raise NotImplementedError(
-            "a per-level wire_codec map is not ported to heterofl_tpu_torch yet: it needs "
-            "the grouped engine's fused superstep")
-    if name not in CODEC_NAMES:
+        name = normalize_codec_map(name)
+        if all(v == "dense" for v in name.values()):
+            name = "dense"
+    elif name not in CODEC_NAMES:
         raise ValueError(f"Not valid wire_codec: {name!r} (one of {CODEC_NAMES})")
     ef = cfg.get("error_feedback", True)
     if not isinstance(ef, bool):
         raise ValueError(f"Not valid error_feedback: {ef!r} (must be a bool; it gates the "
                          f"residual re-injection of lossy wire codecs)")
     strategy = cfg.get("strategy", "masked") or "masked"
-    if name != "dense" and strategy == "sliced":
-        raise ValueError(f"Not valid wire_codec={name!r} with strategy='sliced': the sliced "
-                         f"debug twin aggregates on the host, there is no reduction to "
-                         f"compress")
-    if name != "dense" and strategy != "masked":
-        raise NotImplementedError(
-            f"wire_codec={name!r} with strategy={strategy!r} is not ported to "
-            f"heterofl_tpu_torch yet (the masked strategy is)")
+    if isinstance(name, dict) and strategy != "grouped":
+        raise ValueError(
+            "a per-level wire_codec map needs strategy='grouped' (its fused superstep "
+            "compresses each level's sliced payload under that level's codec); the other "
+            "strategies have no levels to assign codecs to")
+    if name != "dense":
+        if strategy == "sliced":
+            raise ValueError(
+                f"wire_codec={name!r} needs a mesh-native strategy ('masked' or 'grouped'): "
+                f"the sliced debug twin aggregates on the host, there is no psum to compress")
+        if strategy == "grouped":
+            raise ValueError(
+                f"wire_codec={name!r} with the grouped strategy needs the fused superstep "
+                f"(superstep_rounds > 1 or client_store='stream'): the K=1 host-orchestrated "
+                f"path reduces per level and has no single global psum to compress")
     return name, ef
 
 

@@ -29,6 +29,9 @@ MODEL_SPLIT_RATE: Dict[str, float] = {"a": 1.0, "b": 0.5, "c": 0.25, "d": 0.125,
 CONTROL_KEYS = ("fed", "num_users", "frac", "data_split_mode", "model_split_mode",
                 "model_mode", "norm", "scale", "mask")
 
+#: the round engines (heterofl_tpu/config.py:47)
+STRATEGIES = ("masked", "grouped", "sliced")
+
 MNIST_LIKE = ("MNIST", "FashionMNIST", "EMNIST")
 CIFAR_LIKE = ("CIFAR10", "CIFAR100")
 VISION_DATASETS = MNIST_LIKE + CIFAR_LIKE
@@ -54,6 +57,9 @@ DEFAULT_CFG: Dict[str, Any] = {
     "num_experiments": 1,
     "num_epochs": 200,
     "device": "cuda",
+    # masked: every client at full width with masks (parallel/round_engine.py);
+    # grouped: each level's clients batched through its dense sub-model
+    # (parallel/grouped.py); sliced: the host-orchestrated twin (fed/sliced.py)
     "strategy": "masked",
     # train-time BN through the hand-written CUDA kernels (ops/fused_norm.py)
     "pallas_norm": False,
@@ -101,6 +107,8 @@ UNPORTED: Dict[str, Any] = {
     "quarantine": "off",
     "chaos_poison": None,
     "client_failure_rate": 0.0,
+    # the grouped engine's per-level device partition needs several GPUs
+    "level_placement": "span",
     "trace_dir": None,
     "profile_dir": None,
 }
@@ -111,17 +119,27 @@ def default_cfg() -> Dict[str, Any]:
     return copy.deepcopy(DEFAULT_CFG)
 
 
+def resolve_strategy_cfg(cfg: Dict[str, Any]) -> str:
+    """Validate ``cfg['strategy']`` and return it (heterofl_tpu/config.py:
+    598-606): an unknown strategy raises ``ValueError``."""
+    strategy = cfg.get("strategy", "masked") or "masked"
+    if strategy not in STRATEGIES:
+        raise ValueError(f"Not valid strategy: {strategy!r} (one of {STRATEGIES})")
+    return strategy
+
+
 def check_ported(cfg: Dict[str, Any]) -> None:
     """Raise ``NotImplementedError`` naming the first key whose value asks
     for a feature this package does not port yet, and ``ValueError`` for a
-    wire codec setting that is not valid (:func:`~.compress.
-    resolve_codec_cfg`)."""
+    strategy or wire codec setting that is not valid (:func:`resolve_strategy_cfg`,
+    :func:`~.compress.resolve_codec_cfg`)."""
+    resolve_strategy_cfg(cfg)
     for key, off in UNPORTED.items():
         if key in cfg and cfg[key] != off:
             raise NotImplementedError(
                 f"cfg[{key!r}] = {cfg[key]!r} is not ported to heterofl_tpu_torch "
                 f"yet (only {off!r} is)")
-    checks = (("strategy", ("masked",)), ("sampler", ("perm",)),
+    checks = (("sampler", ("perm",)),
               ("compute_dtype", ("float32", None)))
     for key, ok in checks:
         if cfg.get(key, ok[0]) not in ok:

@@ -42,6 +42,17 @@
 //
 // The weight is per sample: row r has weight w[r / P], P = pixels per
 // sample, so the [M] expansion is never materialised.
+//
+// The batched kernels (kCol; the Pallas kernels under jax.vmap over a
+// level's G clients, the grouped engine) take x [M, G*Cg], a grouped
+// convolution's clients-in-channels output: column c belongs to client
+// c / Cg and takes that client's weight of its sample, w[(c / Cg) * B + r /
+// P] with w [G, B].  Each column then has its own count, so the sums are
+// three per channel (s1, s2, n), and stats' n row is per channel.  A
+// channel tile may straddle two clients (at level e ResNet-18's stages are
+// 4 to 32 channels wide, the tiles at least 8): each thread resolves the
+// weight of each of its four columns, never one per tile.  The plan, the
+// exchange and the order of every sum are the one-client kernels'.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -56,6 +67,7 @@ constexpr int kThreads = 256;              // threads per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTileC = 128;             // channels per cluster: 32 lanes of 4
 constexpr int kSlots = 2 * kMaxTileC + 1;  // two sums per channel, then the count
+constexpr int kSlotsCol = 3 * kMaxTileC;   // batched: three sums per channel
 constexpr int kBatch = 8;                  // row iterations with their loads in flight together
 constexpr int kSmemLimit = 232448;         // shared memory one block may use on Hopper
 constexpr int kMaxCluster = 16;            // blocks per cluster (above 8: non-portable)
@@ -199,6 +211,7 @@ struct SampleWalk {
 // its channel lane in a fixed order -- a butterfly over the warp's row lanes,
 // then the warps in order -- (slots [0, tile_c) take v[0..3], [tile_c,
 // 2*tile_c) v[4..7], slot 2*tile_c v[8], the count, the same in every lane)
+// (batched: slots [2*tile_c, 3*tile_c) take v[8..11], a count per channel)
 // and, once every peer runs, pushes the block's row into gather[rank] of
 // every block of the cluster; the readers (t < tile_c) return when all nb
 // rows have landed.  After the block has its rows it arrives again (done),
@@ -215,9 +228,9 @@ struct Exchange {
       cluster_arrive_relaxed();
     }
   }
-  template <int kN>
+  template <int kN, int kS>
   __device__ __forceinline__ void sum(float (&v)[kN], int tile_c, const Layout& L,
-                                      float (*wsum)[kSlots], float (*gather)[kSlots]) {
+                                      float (*wsum)[kS], float (*gather)[kS]) {
     const int groups = tile_c >> 2;
     for (int off = groups; off < 32; off <<= 1) {
 #pragma unroll
@@ -227,7 +240,7 @@ struct Exchange {
     if (lane < groups) {
 #pragma unroll
       for (int j = 0; j < kN; ++j) {
-        if (j < 8) wsum[warp][(j >> 2) * tile_c + 4 * L.grp + (j & 3)] = v[j];
+        if (kN != 9 || j < 8) wsum[warp][(j >> 2) * tile_c + 4 * L.grp + (j & 3)] = v[j];
         else if (L.grp == 0) wsum[warp][2 * tile_c] = v[j];
       }
     }
@@ -254,32 +267,61 @@ struct Exchange {
   }
 };
 
-template <bool kVec4>
+// Where a thread's weights start: one-client, w + 0 for all four columns;
+// batched, w + (c / Cg) * B for column c (client 0's for a column past C,
+// which is never written).
+template <bool kCol>
+__device__ __forceinline__ void weight_bases(int (&wb)[4], int c, int C, int B, int Cg) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wb[j] = kCol && c + j < C ? ((c + j) / Cg) * B : 0;
+}
+
+// The weights of sample s for a thread's four columns.
+template <bool kCol>
+__device__ __forceinline__ void weights4(float (&wv)[4], const float* __restrict__ w,
+                                         const int (&wb)[4], int s, bool in) {
+  if (kCol) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wv[j] = in ? w[wb[j] + s] : 0.f;
+  } else {
+    const float one = in ? w[s] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wv[j] = one;
+  }
+}
+
+template <bool kVec4, bool kCol>
 __global__ void __launch_bounds__(kThreads)
-bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
+bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, int B, int Cg,
               const float* __restrict__ g, const float* __restrict__ b,
               float* __restrict__ y, float* __restrict__ stats, int M, int C, float eps,
               int tile_c, int rows, int iters, int resident) {
+  constexpr int kS = kCol ? kSlotsCol : kSlots;
+  constexpr int kN = kCol ? 12 : 9;  // s1[4], s2[4], then n (batched: n[4])
   extern __shared__ float4 stash[];  // [iters - kBatch][kThreads] of x when resident
-  __shared__ float wsum[kWarps][kSlots];
-  __shared__ float gather[kMaxCluster][kSlots];  // every cluster block's sums, by rank
+  __shared__ float wsum[kWarps][kS];
+  __shared__ float gather[kMaxCluster][kS];  // every cluster block's sums, by rank
   __shared__ float coef[2][kMaxTileC];
   __shared__ uint64_t bar;
   cg::cluster_group cluster = cg::this_cluster();
-  Exchange ex(cluster, &bar, 2 * tile_c + 1, threadIdx.x);
+  Exchange ex(cluster, &bar, kCol ? 3 * tile_c : 2 * tile_c + 1, threadIdx.x);
   const Layout L(cluster.block_rank(), tile_c, rows, M, iters);
   float gg[4], bb[4];
   channel4(gg, g, L.c, C);
   channel4(bb, b, L.c, C);
+  int wb[4];
+  weight_bases<kCol>(wb, L.c, C, B, Cg);
   SampleWalk sw(L, P);
-  float v[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // s1[4], s2[4], n
+  float v[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) v[j] = 0.f;
 
   // kBatch row iterations from k0: loads all in flight, then the sums in order
-  auto load = [&](int k0, F4 (&xv)[kBatch], float (&wv)[kBatch]) {
+  auto load = [&](int k0, F4 (&xv)[kBatch], float (&wv)[kBatch][4]) {
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const bool in = L.has(k0 + u);
-      wv[u] = in ? w[sw.s] : 0.f;
+      weights4<kCol>(wv[u], w, wb, sw.s, in);
       sw.next();
       xv[u] = in ? load4<kVec4>(x, (size_t)L.row(k0 + u) * C + L.c, L.c, C) : F4{};
     }
@@ -288,11 +330,12 @@ bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
       if (!L.has(k0 + u)) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float xs = wv[u] > 0.f ? xv[u].v[j] : 0.f;
-        v[j] += xs * wv[u];
-        v[4 + j] += xs * xs * wv[u];
+        const float xs = wv[u][j] > 0.f ? xv[u].v[j] : 0.f;
+        v[j] += xs * wv[u][j];
+        v[4 + j] += xs * xs * wv[u][j];
+        if constexpr (kCol) v[8 + j] += wv[u][j];
       }
-      v[8] += wv[u];
+      if constexpr (!kCol) v[8] += wv[u][0];
     }
   };
   auto normalise = [&](int k0, const F4 (&xv)[kBatch], const float (&mu)[4],
@@ -311,12 +354,12 @@ bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
   // registers, the rest in shared memory when resident
   F4 xr[kBatch];
   {
-    float wv[kBatch];
+    float wv[kBatch][4];
     load(0, xr, wv);
   }
   for (int k0 = kBatch; k0 < iters; k0 += kBatch) {
     F4 xv[kBatch];
-    float wv[kBatch];
+    float wv[kBatch][4];
     load(k0, xv, wv);
     if (resident) {
 #pragma unroll
@@ -326,15 +369,16 @@ bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
   }
 
   // 2. the cluster's sums, ranks in order, then the channel statistics
-  ex.sum<9>(v, tile_c, L, wsum, gather);
+  ex.sum<kN, kS>(v, tile_c, L, wsum, gather);
   if (L.t < tile_c) {
     float s1 = 0.f, s2 = 0.f, n = 0.f;
+    const int n_slot = kCol ? 2 * tile_c + L.t : 2 * tile_c;
 #pragma unroll
     for (int q = 0; q < kMaxCluster; ++q) {  // unrolled: every load issued before the sums
       if (q < static_cast<int>(ex.nb)) {
         s1 += gather[q][L.t];
         s2 += gather[q][tile_c + L.t];
-        n += gather[q][2 * tile_c];
+        n += gather[q][n_slot];
       }
     }
     n = fmaxf(n, 1e-6f);
@@ -374,17 +418,18 @@ bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
   ex.finish();
 }
 
-template <bool kVec4>
+template <bool kVec4, bool kCol>
 __global__ void __launch_bounds__(kThreads)
-bn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
+bn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, int B, int Cg,
               const float* __restrict__ g, const float* __restrict__ dy,
               const float* __restrict__ stats, float* __restrict__ dx,
               float* __restrict__ dg, float* __restrict__ db, int M, int C, int tile_c,
               int rows, int iters, int resident) {
+  constexpr int kS = kCol ? kSlotsCol : kSlots;
   // [2][iters - kBatch][kThreads]: x, then dy, when resident
   extern __shared__ float4 stash[];
-  __shared__ float wsum[kWarps][kSlots];
-  __shared__ float gather[kMaxCluster][kSlots];
+  __shared__ float wsum[kWarps][kS];
+  __shared__ float gather[kMaxCluster][kS];
   __shared__ float coef[2][kMaxTileC];
   __shared__ uint64_t bar;
   cg::cluster_group cluster = cg::this_cluster();
@@ -420,13 +465,15 @@ bn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
       }
     }
   };
+  int wb[4];
+  weight_bases<kCol>(wb, L.c, C, B, Cg);
   SampleWalk sw(L, P);
   auto grad = [&](int k0, const F4 (&xv)[kBatch], const F4 (&dv)[kBatch], const float (&a1)[4],
                   const float (&a2)[4]) {
-    float wv[kBatch];
+    float wv[kBatch][4];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      wv[u] = L.has(k0 + u) ? w[sw.s] : 0.f;
+      weights4<kCol>(wv[u], w, wb, sw.s, L.has(k0 + u));
       sw.next();
     }
 #pragma unroll
@@ -437,8 +484,8 @@ bn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
       for (int j = 0; j < 4; ++j) {
         const float xhat = (xv[u].v[j] - mu[j]) * iv[j];
         // dx_k = inv*g*dy_k - w_k*inv/n*(g*db) - w_k*xhat_k*inv/n*(g*dg)
-        o.v[j] = iv[j] * gg[j] * dv[u].v[j] - wv[u] * (iv[j] / nn[j]) * (gg[j] * a1[j])
-                 - wv[u] * xhat * (iv[j] / nn[j]) * (gg[j] * a2[j]);
+        o.v[j] = iv[j] * gg[j] * dv[u].v[j] - wv[u][j] * (iv[j] / nn[j]) * (gg[j] * a1[j])
+                 - wv[u][j] * xhat * (iv[j] / nn[j]) * (gg[j] * a2[j]);
       }
       store4<kVec4>(dx, (size_t)L.row(k0 + u) * C + L.c, L.c, C, o);
     }
@@ -462,7 +509,7 @@ bn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
   }
 
   // 2. the cluster's sums, ranks in order
-  ex.sum<8>(v, tile_c, L, wsum, gather);
+  ex.sum<8, kS>(v, tile_c, L, wsum, gather);
   if (L.t < tile_c) {
     float a1 = 0.f, a2 = 0.f;
 #pragma unroll
@@ -563,7 +610,44 @@ int launch(Kernel* kernel, bool& ready, int cluster, int C, int tile_c, size_t s
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
-bool g_ready[4];  // fwd vec4, fwd scalar, bwd vec4, bwd scalar
+bool g_ready[8];  // fwd vec4, fwd scalar, bwd vec4, bwd scalar; then the batched four
+
+inline int fwd(bool col, const float* x, const float* w, int P, int B, int Cg, const float* g,
+               const float* b, float* y, float* stats, int M, int C, float eps, int tile_c,
+               int cluster, int rows, int iters, int resident, void* stream) {
+  if (!plan_ok(M, C, tile_c, cluster, rows, iters) || P < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = resident ? stash_bytes(iters) : 0;
+  const bool v4 = C % 4 == 0 && aligned16(x) && aligned16(y);
+  auto go = [&](auto kernel, bool& ready) {
+    return launch(kernel, ready, cluster, C, tile_c, smem, stream, x, w, P, B, Cg, g, b, y,
+                  stats, M, C, eps, tile_c, rows, iters, resident);
+  };
+  if (col) return v4 ? go(bn_fwd_kernel<true, true>, g_ready[4])
+                     : go(bn_fwd_kernel<false, true>, g_ready[5]);
+  return v4 ? go(bn_fwd_kernel<true, false>, g_ready[0]) : go(bn_fwd_kernel<false, false>, g_ready[1]);
+}
+
+inline int bwd(bool col, const float* x, const float* w, int P, int B, int Cg, const float* g,
+               const float* dy, const float* stats, float* dx, float* dg, float* db, int M,
+               int C, int tile_c, int cluster, int rows, int iters, int resident, void* stream) {
+  if (!plan_ok(M, C, tile_c, cluster, rows, iters) || P < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = resident ? 2 * stash_bytes(iters) : 0;
+  const bool v4 = C % 4 == 0 && aligned16(x) && aligned16(dy) && aligned16(dx);
+  auto go = [&](auto kernel, bool& ready) {
+    return launch(kernel, ready, cluster, C, tile_c, smem, stream, x, w, P, B, Cg, g, dy,
+                  stats, dx, dg, db, M, C, tile_c, rows, iters, resident);
+  };
+  if (col) return v4 ? go(bn_bwd_kernel<true, true>, g_ready[6])
+                     : go(bn_bwd_kernel<false, true>, g_ready[7]);
+  return v4 ? go(bn_bwd_kernel<true, false>, g_ready[2]) : go(bn_bwd_kernel<false, false>, g_ready[3]);
+}
+
+// The batched kernels' client layout: C = G * Cg columns, M = B * P rows.
+inline bool clients_ok(int M, int C, int P, int B, int Cg) {
+  return B >= 1 && Cg >= 1 && C % Cg == 0 && (long long)B * P == M;
+}
 
 }  // namespace
 
@@ -574,14 +658,8 @@ extern "C" {
 int hfl_bn_fwd(const float* x, const float* w, int P, const float* g, const float* b,
                float* y, float* stats, int M, int C, float eps, int tile_c, int cluster,
                int rows, int iters, int resident, void* stream) {
-  if (!plan_ok(M, C, tile_c, cluster, rows, iters) || P < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = resident ? stash_bytes(iters) : 0;
-  if (C % 4 == 0 && aligned16(x) && aligned16(y))
-    return launch(bn_fwd_kernel<true>, g_ready[0], cluster, C, tile_c, smem, stream, x, w, P,
-                  g, b, y, stats, M, C, eps, tile_c, rows, iters, resident);
-  return launch(bn_fwd_kernel<false>, g_ready[1], cluster, C, tile_c, smem, stream, x, w, P,
-                g, b, y, stats, M, C, eps, tile_c, rows, iters, resident);
+  return fwd(false, x, w, P, 0, 1, g, b, y, stats, M, C, eps, tile_c, cluster, rows, iters,
+             resident, stream);
 }
 
 // Backward: dx [M, C], dg, db [C] from x, dy [M, C], w, g and the forward's
@@ -589,14 +667,30 @@ int hfl_bn_fwd(const float* x, const float* w, int P, const float* g, const floa
 int hfl_bn_bwd(const float* x, const float* w, int P, const float* g, const float* dy,
                const float* stats, float* dx, float* dg, float* db, int M, int C, int tile_c,
                int cluster, int rows, int iters, int resident, void* stream) {
-  if (!plan_ok(M, C, tile_c, cluster, rows, iters) || P < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = resident ? 2 * stash_bytes(iters) : 0;
-  if (C % 4 == 0 && aligned16(x) && aligned16(dy) && aligned16(dx))
-    return launch(bn_bwd_kernel<true>, g_ready[2], cluster, C, tile_c, smem, stream, x, w, P,
-                  g, dy, stats, dx, dg, db, M, C, tile_c, rows, iters, resident);
-  return launch(bn_bwd_kernel<false>, g_ready[3], cluster, C, tile_c, smem, stream, x, w, P,
-                g, dy, stats, dx, dg, db, M, C, tile_c, rows, iters, resident);
+  return bwd(false, x, w, P, 0, 1, g, dy, stats, dx, dg, db, M, C, tile_c, cluster, rows, iters,
+             resident, stream);
+}
+
+// Batched forward: x [M, G * Cg] of G clients, w [G, B] (B = M / P), g, b
+// [G * Cg] -> y, stats [3, G * Cg], on fused_norm.bn_plan(M, C, batched=True).
+int hfl_bn_fwd_batched(const float* x, const float* w, int P, int B, int Cg, const float* g,
+                       const float* b, float* y, float* stats, int M, int C, float eps,
+                       int tile_c, int cluster, int rows, int iters, int resident,
+                       void* stream) {
+  if (!clients_ok(M, C, P, B, Cg)) return static_cast<int>(cudaErrorInvalidValue);
+  return fwd(true, x, w, P, B, Cg, g, b, y, stats, M, C, eps, tile_c, cluster, rows, iters,
+             resident, stream);
+}
+
+// Batched backward: dx, dg, db from x, dy, w [G, B], g and the batched
+// forward's stats, on the same plan.
+int hfl_bn_bwd_batched(const float* x, const float* w, int P, int B, int Cg, const float* g,
+                       const float* dy, const float* stats, float* dx, float* dg, float* db,
+                       int M, int C, int tile_c, int cluster, int rows, int iters, int resident,
+                       void* stream) {
+  if (!clients_ok(M, C, P, B, Cg)) return static_cast<int>(cudaErrorInvalidValue);
+  return bwd(true, x, w, P, B, Cg, g, dy, stats, dx, dg, db, M, C, tile_c, cluster, rows, iters,
+             resident, stream);
 }
 
 }  // extern "C"

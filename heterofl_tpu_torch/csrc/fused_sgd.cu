@@ -5,9 +5,23 @@
 // over the lane-packed [rows, 128] buffers and carries the global-norm sum
 // of squares from phase 0 to phase 1 in a VMEM scalar.  CUDA blocks run in
 // parallel, so the reduction is two launches here: launch A writes one
-// partial sum of gm^2 per block (a fixed grid of kParts blocks), launch B
-// reduces the kParts partials in a fixed order in every block -- no
-// atomics, the same bits run to run -- and applies the update.
+// partial sum of gm^2 per block (parts(n) blocks, a function of n alone, at
+// most kParts), launch B reduces the parts(n) partials in a fixed order in
+// every block -- no atomics, the same bits run to run -- and applies the
+// update.
+//
+// The batched pair (the kernel under jax.vmap over a level's G clients, the
+// grouped engine) runs the same two launches over g, p, buf [G, n]
+// client-major with a shared mask [n] and scal [G, 3]: grid (parts(n), G)
+// for launch A, each block one part of one client's row, and (blocks, G)
+// for launch B, each block reducing its own client's partials.  A row is
+// cut into the same parts as the one-client kernel's buffer of n entries,
+// each thread walking the same 4-element chunks in the same order, so row
+// g equals the one-client kernel on client g bit for bit.  Rows start at
+// g*n floats, so with n % 4 != 0 they are not 16-byte aligned: the chunks
+// are then read as four scalars (the same values in the same order).
+// parts(n) keeps about 4 chunks a thread, so a level-e row (n about 44k at
+// ResNet-18) takes 11 blocks, not 1,024 mostly idle ones.
 //
 // Bound on an H100 SXM (3.35 TB/s): the function reads g, p, buf and mask
 // and writes p and buf, 6 * 4 * n bytes = 268 MB at ResNet-18
@@ -31,11 +45,24 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kParts = 1024;       // blocks of launch A == partial sums
-constexpr int kApplyBlocks = 2048; // blocks of launch B (grid-stride)
+constexpr int kParts = 1024;       // blocks of launch A (partial sums), at most
+constexpr int kApplyBlocks = 2048; // blocks of launch B (grid-stride), at most
+
+// Blocks of launch A and of launch B for a row of n entries.
+inline int parts_for(long long n) {
+  const long long chunks = n / 4, per = 4LL * kThreads;
+  const long long p = (chunks + per - 1) / per;
+  return static_cast<int>(p < 1 ? 1 : (p > kParts ? kParts : p));
+}
+inline int apply_blocks_for(long long n) {
+  const long long p = (n / 4 + kThreads - 1) / kThreads;
+  return static_cast<int>(p < 1 ? 1 : (p > kApplyBlocks ? kApplyBlocks : p));
+}
 
 __device__ __forceinline__ float block_sum(float v, float* sh) {
   const int t = threadIdx.x;
@@ -55,17 +82,37 @@ __device__ __forceinline__ float sq_masked(float g, float m, float denom) {
   return gm * gm;
 }
 
+// Chunk i (entries 4i..4i+3) of p: one 16-byte load, or four scalar ones.
+template <bool kVec4>
+__device__ __forceinline__ float4 chunk(const float* __restrict__ p, long long i) {
+  if (kVec4) return reinterpret_cast<const float4*>(p)[i];
+  return make_float4(p[4 * i], p[4 * i + 1], p[4 * i + 2], p[4 * i + 3]);
+}
+template <bool kVec4>
+__device__ __forceinline__ void put_chunk(float* __restrict__ p, long long i, const float4& v) {
+  if (kVec4) {
+    reinterpret_cast<float4*>(p)[i] = v;
+  } else {
+    p[4 * i] = v.x;
+    p[4 * i + 1] = v.y;
+    p[4 * i + 2] = v.z;
+    p[4 * i + 3] = v.w;
+  }
+}
+
+// Row blockIdx.y: g and scal at that client's row, part at its kParts slots.
+template <bool kVec4>
 __global__ void sgd_norm_partial(const float* __restrict__ g, const float* __restrict__ mask,
                                  const float* __restrict__ scal, long long n,
                                  float* __restrict__ part) {
-  const float denom = scal[0];
+  const long long row = blockIdx.y;
+  g += row * n;
+  const float denom = scal[3 * row];
   const long long n4 = n / 4;
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  const float4* m4 = reinterpret_cast<const float4*>(mask);
   float acc = 0.f;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4; i += stride) {
-    const float4 gv = g4[i], mv = m4[i];
+    const float4 gv = chunk<kVec4>(g, i), mv = chunk<kVec4>(mask, i);
     acc += sq_masked(gv.x, mv.x, denom);
     acc += sq_masked(gv.y, mv.y, denom);
     acc += sq_masked(gv.z, mv.z, denom);
@@ -77,7 +124,7 @@ __global__ void sgd_norm_partial(const float* __restrict__ g, const float* __res
   }
   __shared__ float sh[kThreads];
   const float tot = block_sum(acc, sh);
-  if (threadIdx.x == 0) part[blockIdx.x] = tot;
+  if (threadIdx.x == 0) part[row * kParts + blockIdx.x] = tot;
 }
 
 __device__ __forceinline__ void update_one(float gv, float mv, float& pv, float& bv,
@@ -89,33 +136,36 @@ __device__ __forceinline__ void update_one(float gv, float mv, float& pv, float&
   bv = nb;
 }
 
+template <bool kVec4>
 __global__ void sgd_apply(const float* __restrict__ g, float* __restrict__ p,
                           float* __restrict__ buf, const float* __restrict__ mask,
                           const float* __restrict__ scal, long long n, float momentum,
-                          float wd, float max_norm, const float* __restrict__ part) {
-  // every block reduces the kParts partials in the same fixed order
+                          float wd, float max_norm, const float* __restrict__ part, int parts) {
+  const long long row = blockIdx.y;
+  g += row * n;
+  p += row * n;
+  buf += row * n;
+  scal += 3 * row;
+  part += row * kParts;
+  // every block of the row reduces its parts partials in the same fixed order
   float acc = 0.f;
-  for (int i = threadIdx.x; i < kParts; i += kThreads) acc += part[i];
+  for (int i = threadIdx.x; i < parts; i += kThreads) acc += part[i];
   __shared__ float sh[kThreads];
   const float total = sqrtf(block_sum(acc, sh));
   const float scale = fminf(1.f, max_norm / (total + 1e-6f));
   const float denom = scal[0], lr = scal[1], has = scal[2];
   if (!(has > 0.f)) return;  // all-padding batch: p and buf stay as they are
   const long long n4 = n / 4;
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  const float4* m4 = reinterpret_cast<const float4*>(mask);
-  float4* p4 = reinterpret_cast<float4*>(p);
-  float4* b4 = reinterpret_cast<float4*>(buf);
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4; i += stride) {
-    const float4 gv = g4[i], mv = m4[i];
-    float4 pv = p4[i], bv = b4[i];
+    const float4 gv = chunk<kVec4>(g, i), mv = chunk<kVec4>(mask, i);
+    float4 pv = chunk<kVec4>(p, i), bv = chunk<kVec4>(buf, i);
     update_one(gv.x, mv.x, pv.x, bv.x, denom, lr, scale, momentum, wd);
     update_one(gv.y, mv.y, pv.y, bv.y, denom, lr, scale, momentum, wd);
     update_one(gv.z, mv.z, pv.z, bv.z, denom, lr, scale, momentum, wd);
     update_one(gv.w, mv.w, pv.w, bv.w, denom, lr, scale, momentum, wd);
-    p4[i] = pv;
-    b4[i] = bv;
+    put_chunk<kVec4>(p, i, pv);
+    put_chunk<kVec4>(buf, i, bv);
   }
   if (blockIdx.x == 0) {
     const long long i = 4 * n4 + threadIdx.x;
@@ -128,22 +178,50 @@ __global__ void sgd_apply(const float* __restrict__ g, float* __restrict__ p,
   }
 }
 
+inline bool aligned16(const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; }
+
+// rows of n entries each: the two launches
+int run(const float* g, float* p, float* buf, const float* mask, const float* scal,
+        float* part, long long n, int rows, float momentum, float wd, float max_norm,
+        void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int parts = parts_for(n);
+  const dim3 grid_a(parts, rows), grid_b(apply_blocks_for(n), rows);
+  const bool vec4 = (rows == 1 || n % 4 == 0) && aligned16(g) && aligned16(p) &&
+                    aligned16(buf) && aligned16(mask);
+  if (vec4) {
+    sgd_norm_partial<true><<<grid_a, kThreads, 0, s>>>(g, mask, scal, n, part);
+    sgd_apply<true><<<grid_b, kThreads, 0, s>>>(g, p, buf, mask, scal, n, momentum, wd,
+                                                max_norm, part, parts);
+  } else {
+    sgd_norm_partial<false><<<grid_a, kThreads, 0, s>>>(g, mask, scal, n, part);
+    sgd_apply<false><<<grid_b, kThreads, 0, s>>>(g, p, buf, mask, scal, n, momentum, wd,
+                                                 max_norm, part, parts);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch (partial sums) one call needs.
+// Floats of scratch (partial sums) one row of a call needs.
 long long hfl_sgd_scratch_floats() { return kParts; }
 
-// In place on p and buf.  All four buffers must be 16-byte aligned.
+// In place on p and buf [n].  All four buffers must be 16-byte aligned.
 int hfl_fused_sgd(const float* g, float* p, float* buf, const float* mask, const float* scal,
                   float* part, long long n, float momentum, float wd, float max_norm,
                   void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sgd_norm_partial<<<kParts, kThreads, 0, s>>>(g, mask, scal, n, part);
-  sgd_apply<<<kApplyBlocks, kThreads, 0, s>>>(g, p, buf, mask, scal, n, momentum, wd,
-                                              max_norm, part);
-  return static_cast<int>(cudaGetLastError());
+  return run(g, p, buf, mask, scal, part, n, 1, momentum, wd, max_norm, stream);
+}
+
+// Batched: in place on p and buf [G, n] client-major; mask [n] shared, scal
+// [G, 3], part G * kParts floats.
+int hfl_fused_sgd_batched(const float* g, float* p, float* buf, const float* mask,
+                          const float* scal, float* part, long long n, int G, float momentum,
+                          float wd, float max_norm, void* stream) {
+  if (G < 1 || G > 65535 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return run(g, p, buf, mask, scal, part, n, G, momentum, wd, max_norm, stream);
 }
 
 }  // extern "C"

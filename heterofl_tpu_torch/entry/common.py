@@ -13,10 +13,13 @@ CLI flags generated from the cfg keys (common.py:75-111), then per seed
 * every user's train shard and the evaluation operands go onto the device
   once (a masked LM: each user's batchified token rows, and the test
   stream's bptt windows, common.py:622-629);
-* per round: sample the cohort, train it (:class:`~..parallel.RoundEngine`,
-  which in ``dynamic`` mode draws the cohort's rates from the round seed
-  alone, so a resumed run draws what an uninterrupted one drew; a cohort of
-  0 clients leaves the params as they are) and log the round; every
+* per round: sample the cohort, train it (the engine of ``cfg['strategy']``,
+  as common.py:711-723: :class:`~..parallel.RoundEngine` for ``masked``,
+  :class:`~..parallel.GroupedRoundEngine` for ``grouped``,
+  :class:`~..fed.sliced.SlicedFederation` for ``sliced``; each in
+  ``dynamic`` mode draws the cohort's rates from the round seed alone, so a
+  resumed run draws what an uninterrupted one drew; a cohort of 0 clients
+  leaves the params as they are) and log the round; every
   ``eval_interval`` rounds and after the last, recalibrate BN (sBN) and
   evaluate Local and Global
   (:class:`~..parallel.Evaluator`; a masked LM: Global only, no sBN,
@@ -52,7 +55,8 @@ from ..data.datasets import DATASET_STATS
 from ..data.stats import dataset_stats
 from ..fed.core import validate_width_geometry
 from ..models import make_model
-from ..parallel import Evaluator, RoundEngine
+from ..fed.sliced import SlicedFederation
+from ..parallel import Evaluator, GroupedRoundEngine, RoundEngine
 from ..utils import (Logger, PlateauScheduler, checkpoint_path, copy_best, make_scheduler,
                      resume, save_checkpoint, summarize_sums)
 from ..utils.metrics import METRICS
@@ -201,7 +205,9 @@ class FedExperiment:
         self.model = make_model(cfg).init_(gen).to(self.device)
         validate_width_geometry(self.model, cfg)
         self.perms = self.model.jax_perms()
-        self.engine = RoundEngine(self.model, cfg, self.device)
+        engine = {"masked": RoundEngine, "grouped": GroupedRoundEngine,
+                  "sliced": SlicedFederation}[C.resolve_strategy_cfg(cfg)]
+        self.engine = engine(self.model, cfg, self.device)
         self.evaluator = Evaluator(self.model, cfg, self.device, seed=seed)
         self.eval_interval = max(1, int(cfg.get("eval_interval", 1) or 1))
         self.checkpoint_keep = C.resolve_checkpoint_keep(cfg)

@@ -1,13 +1,18 @@
 """Federation algebra: per-round rates, width rates, the width-geometry
 check and counted aggregation.
 
-Port of the masked-strategy part of ``heterofl_tpu/fed/core.py``
-(``sample_model_rates``/``round_rates``, core.py:33-58 and :145;
-``validate_width_geometry``, :63-85; ``to_width_rates``,
-``combine_counted``, :442-473).  The round engine works in the flat domain
-(one buffer per tree, ops/fused_update.FlatSpec), so the counted average
-takes flat buffers; the count masks are built by the engine from
-``models.spec.param_mask``.
+Port of ``heterofl_tpu/fed/core.py``: ``sample_model_rates``/
+``round_rates`` (core.py:33-58, :145), ``validate_width_geometry``
+(:63-85), ``snap_to_levels`` (:254-281), ``to_width_rates`` and
+``combine_counted`` (:442-473), and the sliced strategy's
+``active_indices``/``extract_sliced``/``embed_sliced`` (:555-607) on the
+port's tensor axes (OIHW conv, ``[out, in]`` linear).  The round engines
+work in the flat domain (one buffer per tree, ops/fused_update.FlatSpec),
+so the counted average takes flat buffers.  The torch form of the extract
+and embed is one int64 map per level (:func:`level_index_map`): the
+level's flat entries at their places in the global flat layout, so
+extract is ``P.index_select(0, idx)`` and embed adds at ``idx`` (the
+entries are unique, so the embed is exact).
 
 The ``dynamic`` rate draw comes from a ``torch.Generator`` on the host,
 seeded from the round seed and :data:`ROUND_RATE_SALT`, so a round's rates
@@ -19,7 +24,7 @@ reproduce: tests hand the reference's draws to the round engine instead.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -95,3 +100,84 @@ def combine_counted(global_flat: torch.Tensor, summed: torch.Tensor,
     """Counted average with stale fallback: ``sum / count`` where some client
     held the entry, the previous global value elsewhere (ref fed.py:217-218)."""
     return torch.where(counts > 0, summed / counts.clamp_min(1.0), global_flat)
+
+
+def snap_to_levels(rates, levels, rtol: float = 1e-5, atol: float = 1e-8) -> np.ndarray:
+    """Snap absolute model rates onto a level table (ref core.py:254-281):
+    each rate to its nearest level, which must be ``isclose`` to it; a
+    rate near no level raises ``ValueError`` naming it, before any client
+    trains."""
+    table = np.asarray(sorted({float(r) for r in levels}, reverse=True), np.float64)
+    r = np.asarray(rates, np.float64).reshape(-1)
+    if r.size == 0:
+        return r
+    snapped = table[np.argmin(np.abs(r[:, None] - table[None, :]), axis=1)]
+    ok = np.isclose(r, snapped, rtol=rtol, atol=atol)
+    if not ok.all():
+        bad = sorted(set(np.round(r[~ok], 6).tolist()))
+        raise ValueError(
+            f"model rates {bad} are not in the engine's level table {table.tolist()}: every "
+            f"sampled rate must match a level built at engine construction (fix "
+            f"cfg['model_rate'] or the incoming rate stream)")
+    return snapped
+
+
+def active_indices(group, width_rate: float) -> np.ndarray:
+    """The active entries of a width group at ``width_rate`` (host side;
+    ref core.py:555-567): all of them (``full``), the first ``ceil(size *
+    rate)`` (``prefix``) or the first ``ceil(head_dim * rate)`` of each
+    head (``per_head``)."""
+    if group.kind == "full":
+        return np.arange(group.size)
+    if group.kind == "prefix":
+        return np.arange(int(math.ceil(group.size * width_rate)))
+    if group.kind == "per_head":
+        hd = group.size // group.num_heads
+        kh = int(math.ceil(hd * width_rate))
+        return np.arange(group.size).reshape(group.num_heads, hd)[:, :kh].reshape(-1)
+    raise ValueError(group.kind)
+
+
+def extract_sliced(params: Dict[str, np.ndarray], specs, groups, width_rate: float
+                   ) -> Dict[str, np.ndarray]:
+    """The sub-model at ``width_rate``: every axis of every leaf cut to its
+    group's active entries (ref core.py:570-580, the reference's
+    ``v[torch.meshgrid(idx)]``)."""
+    out = {}
+    for k, v in params.items():
+        v = np.asarray(v)
+        for axis, gname in sorted(specs[k].axis_groups.items()):
+            v = np.take(v, active_indices(groups[gname], width_rate), axis=axis)
+        out[k] = v.copy()
+    return out
+
+
+def embed_sliced(sliced: Dict[str, np.ndarray], specs, groups, width_rate: float,
+                 full_shapes: Dict[str, Tuple[int, ...]]) -> Dict[str, np.ndarray]:
+    """A sub-model's leaves scattered into zero leaves of ``full_shapes``
+    (the inverse of :func:`extract_sliced`; ref core.py:583-596)."""
+    out = {}
+    for k, small in sliced.items():
+        small = np.asarray(small)
+        full = np.zeros(full_shapes[k], dtype=small.dtype)
+        idx = [slice(None)] * full.ndim
+        for axis, gname in specs[k].axis_groups.items():
+            idx[axis] = active_indices(groups[gname], width_rate)
+        full[np.ix_(*[np.arange(n) if isinstance(i, slice) else i
+                      for n, i in zip(full.shape, idx)])] = small
+        out[k] = full
+    return out
+
+
+def level_index_map(spec, level_spec, specs, groups, width_rate: float) -> np.ndarray:
+    """int64 ``[level_spec.total]``: for each entry of the sub-model's flat
+    layout (``level_spec``, the level model's leaves in sorted-key order),
+    its place in the global flat layout ``spec``."""
+    ids = {k: np.arange(spec.offsets[k], spec.offsets[k] + spec.sizes[k],
+                        dtype=np.int64).reshape(spec.shapes[k]) for k in spec.names}
+    sub = extract_sliced(ids, specs, groups, width_rate)
+    for k in level_spec.names:
+        if sub[k].shape != level_spec.shapes[k]:
+            raise ValueError(f"level leaf {k}: the slice at rate {width_rate:g} is "
+                             f"{sub[k].shape}, the level model's {level_spec.shapes[k]}")
+    return np.concatenate([sub[k].reshape(-1) for k in level_spec.names])

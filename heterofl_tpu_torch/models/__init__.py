@@ -3,13 +3,16 @@
 Port of ``heterofl_tpu/models/__init__.py`` for the conv net, the
 pre-activation ResNets (basic block: 18, 34; bottleneck: 50, 101, 152) and
 the masked-LM transformer: constructed widths are ``ceil(model_rate *
-base)``.
-Only the global model is built (the masked strategy).
+base)``.  ``make_model(cfg)`` builds the global model; ``make_model(cfg,
+rate)`` the dense sub-model of a level, whose parameter names are the
+global model's and whose shapes are the global model's sliced at ``rate /
+global_model_rate`` (the grouped engine and the sliced twin train it, with
+the Scaler at that ratio, ``meta['scaler_rate']``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from ..config import ceil_width, scaled_hidden
 from .base import FedModel  # noqa: F401
@@ -28,10 +31,17 @@ RESNET_BLOCKS = {
 }
 
 
-def make_model(cfg: Dict[str, Any]) -> FedModel:
-    """The global model of ``cfg``, parameters zero until ``init_``."""
+def make_model(cfg: Dict[str, Any], model_rate: Optional[float] = None) -> FedModel:
+    """The model of ``cfg`` at ``model_rate`` (default: the global model's),
+    parameters zero until ``init_``."""
+    model = _build(cfg, cfg["global_model_rate"] if model_rate is None else model_rate)
+    model.meta["model_rate"] = cfg["global_model_rate"] if model_rate is None else model_rate
+    model.meta["scaler_rate"] = model.meta["model_rate"] / cfg["global_model_rate"]
+    return model
+
+
+def _build(cfg: Dict[str, Any], rate: float) -> FedModel:
     name = cfg["model_name"]
-    rate = cfg["global_model_rate"]
     if name == "transformer":
         t = cfg["transformer"]
         return Transformer(cfg["num_tokens"], ceil_width(t["embedding_size"], rate),

@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from ..convert import Perms, rank_perms
-from ..ops.layers import group_onehot
+from ..ops.layers import group_onehot, group_onehot_clients
 from .norms import NUM_GROUPS
 from .spec import Group, ParamSpec
 
@@ -60,6 +60,19 @@ class FedModel(nn.Module):
         if key not in cache:
             mask = grp.mask(width_rate).to(device)
             cache[key] = (mask, k, group_onehot(grp.size, groups, mask, k))
+        return cache[key]
+
+    def clients_onehot(self, C: int, G: int, device: torch.device) -> Optional[torch.Tensor]:
+        """The ``ln``/``gn`` block-diagonal channel-to-group map of G
+        clients of ``C`` channels (None for the other norms), made once per
+        (C, G, device) and kept."""
+        groups = NUM_GROUPS.get(getattr(self, "norm", None))
+        if groups is None:
+            return None
+        key = (C, G, str(device))
+        cache = self.__dict__.setdefault("_clients_onehot", {})
+        if key not in cache:
+            cache[key] = group_onehot_clients(C, groups, G, device)
         return cache[key]
 
     def prepare_width(self, width_rate: float, device: torch.device) -> None:

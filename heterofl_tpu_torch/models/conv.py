@@ -3,7 +3,9 @@
 
 Port of ``heterofl_tpu/models/conv.py``.  Width slicing: hidden channels are
 prefix-sliced and chained; the classifier keeps its full output width and
-is label-restricted at aggregation time only.
+is label-restricted at aggregation time only.  :meth:`ConvNet.
+forward_clients` is the training forward of G clients of one dense level
+model at once (the grouped engine; ``ops/layers.py``'s clients axis).
 """
 
 from __future__ import annotations
@@ -12,10 +14,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..ops.layers import (conv2d, cross_entropy, global_avg_pool, linear, masked_logits,
-                          max_pool2, scaler)
+from ..ops.layers import (channels_to_clients, conv2d, conv2d_clients, cross_entropy,
+                          cross_entropy_clients, global_avg_pool, linear, linear_clients,
+                          masked_logits, masked_logits_clients, max_pool2, scaler)
 from .base import FedModel, Holder
-from .norms import apply_norm, check_norm, norm_has_params
+from .norms import apply_norm, apply_norm_clients, check_norm, norm_has_params
 from .spec import Group, ParamSpec
 
 
@@ -85,3 +88,27 @@ class ConvNet(FedModel):
         out = linear(global_avg_pool(x), P["linear.w"], P["linear.b"])
         out = masked_logits(out, label_mask, self.mask)
         return out, cross_entropy(out, label, sample_weight)
+
+    def forward_clients(self, img, label, G: int, *, params, scaler_rate: float = 1.0,
+                        label_mask=None, sample_weight=None):
+        """Training forward of G clients at once: ``img [B, G*C_in, H, W]``
+        clients-in-channels, ``label``/``sample_weight [G, B]``,
+        ``label_mask [G, classes]``, ``params`` leaves ``[G, *shape]`` ->
+        ``(scores [G, B, classes], per-client mean loss [G])``."""
+        P = params
+        x = img
+        for i in range(self.n_blocks):
+            x = conv2d_clients(x, P[f"block{i}.conv.w"], P[f"block{i}.conv.b"], G)
+            if self.scale:
+                x = scaler(x, scaler_rate)
+            site = f"block{i}.norm"
+            x = apply_norm_clients(self.norm, x, P.get(f"{site}.g"), P.get(f"{site}.b"), G,
+                                   sample_weight, self.pallas_norm,
+                                   self.clients_onehot(x.shape[1] // G, G, x.device))
+            x = torch.relu(x)
+            if i < self.n_blocks - 1:
+                x = max_pool2(x)
+        out = linear_clients(channels_to_clients(global_avg_pool(x), G), P["linear.w"],
+                             P["linear.b"])
+        out = masked_logits_clients(out, label_mask, self.mask)
+        return out, cross_entropy_clients(out, label, sample_weight)

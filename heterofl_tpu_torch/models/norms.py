@@ -12,6 +12,14 @@ counterpart of the reference's Pallas route, which takes only that mode and
 only ``bn``, norms.py:44-48); otherwise, in the other modes and for the
 other norms, plain PyTorch runs, the counterpart of the XLA path (the
 reference has no Pallas kernel for them).
+
+:func:`apply_norm_clients` is a site of a level's G clients on the
+clients-in-channels activation ``[B, G*C, H, W]`` (the grouped engine):
+``bn`` through the batched kernels (or its plain two-pass form per client
+when ``pallas_norm`` is off), ``in`` as is (per sample and channel), and
+``ln``/``gn`` over a block-diagonal channel-to-group map, so a group never
+straddles two clients.  The sub-models are dense, so every channel is
+active.
 """
 
 from __future__ import annotations
@@ -20,8 +28,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.fused_norm import batch_norm_fused
-from ..ops.layers import batch_norm, dynamic_group_norm, instance_norm
+from ..ops.fused_norm import batch_norm_fused, batch_norm_fused_clients
+from ..ops.layers import (batch_norm, batch_norm_clients, dynamic_group_norm,
+                          group_onehot_clients, instance_norm)
 
 NORM_TYPES = ("bn", "in", "ln", "gn", "none")
 #: groups of the masked group norms
@@ -59,3 +68,27 @@ def apply_norm(norm_type: str, x: torch.Tensor, g: Optional[torch.Tensor],
         return instance_norm(x, g, b), None
     mask, k, onehot = group_ops
     return dynamic_group_norm(x, g, b, NUM_GROUPS[norm_type], mask, k, onehot=onehot), None
+
+
+def apply_norm_clients(norm_type: str, x: torch.Tensor, g: Optional[torch.Tensor],
+                       b: Optional[torch.Tensor], G: int, sample_weight: torch.Tensor,
+                       use_fused: bool = False,
+                       onehot: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One norm site of G clients: ``x [B, G*C, H, W]``, ``g``/``b [G, C]``,
+    ``sample_weight [G, B]``; ``onehot`` the ``ln``/``gn`` block-diagonal
+    map (:func:`~..ops.layers.group_onehot_clients`, made when not given)."""
+    check_norm(norm_type)
+    if norm_type == "none":
+        return x
+    if norm_type == "bn":
+        if use_fused:
+            return batch_norm_fused_clients(x, g, b, sample_weight)
+        return batch_norm_clients(x, g, b, sample_weight)
+    if norm_type == "in":
+        return instance_norm(x, g.reshape(-1), b.reshape(-1))
+    groups = NUM_GROUPS[norm_type]
+    if onehot is None:
+        onehot = group_onehot_clients(x.shape[1] // G, groups, G, x.device)
+    mask = torch.ones(x.shape[1], dtype=x.dtype, device=x.device)
+    return dynamic_group_norm(x, g.reshape(-1), b.reshape(-1), groups * G, mask, x.shape[1],
+                              onehot=onehot)

@@ -9,7 +9,9 @@ classifier keeps its full output width.  A bottleneck block (expansion 4)
 runs 1x1 -> 3x3 (the stride) -> 1x1; its stage's output group ``s{stage}``
 is ``4 * hidden`` wide and its two inner widths form their own group
 ``m{stage}`` of ``hidden`` channels (the reference's rule, which the
-original HeteroFL lacks for ``conv3``).
+original HeteroFL lacks for ``conv3``).  :meth:`ResNet.forward_clients` is
+the training forward of G clients of one dense level model at once (the
+grouped engine).
 """
 
 from __future__ import annotations
@@ -18,9 +20,11 @@ from typing import Dict, List
 
 import torch
 
-from ..ops.layers import conv2d, cross_entropy, global_avg_pool, linear, masked_logits, scaler
+from ..ops.layers import (channels_to_clients, conv2d, conv2d_clients, cross_entropy,
+                          cross_entropy_clients, global_avg_pool, linear, linear_clients,
+                          masked_logits, masked_logits_clients, scaler)
 from .base import FedModel, Holder
-from .norms import apply_norm, check_norm, norm_has_params
+from .norms import apply_norm, apply_norm_clients, check_norm, norm_has_params
 from .spec import Group, ParamSpec
 
 
@@ -135,3 +139,40 @@ class ResNet(FedModel):
         out = linear(global_avg_pool(x), P["linear.w"], P["linear.b"])
         out = masked_logits(out, label_mask, self.mask)
         return out, cross_entropy(out, label, sample_weight)
+
+    def forward_clients(self, img, label, G: int, *, params, scaler_rate: float = 1.0,
+                        label_mask=None, sample_weight=None):
+        """Training forward of G clients at once; arguments and results as
+        in :meth:`~.conv.ConvNet.forward_clients`."""
+        P = params
+
+        def norm_site(site, x):
+            return apply_norm_clients(self.norm, x, P.get(f"{site}.g"), P.get(f"{site}.b"), G,
+                                      sample_weight, self.pallas_norm,
+                                      self.clients_onehot(x.shape[1] // G, G, x.device))
+
+        def sc(x):
+            return scaler(x, scaler_rate) if self.scale else x
+
+        def conv(x, name, stride, padding):
+            return conv2d_clients(x, P[f"{name}.w"], None, G, stride=stride, padding=padding)
+
+        x = conv(img, "conv1", 1, 1)
+        for pfx, stride, has_short in self.blocks:
+            out = torch.relu(norm_site(f"{pfx}.n1", sc(x)))
+            short = conv(out, f"{pfx}.shortcut", stride, 0) if has_short else x
+            if self.bottleneck:
+                out = conv(out, f"{pfx}.conv1", 1, 0)
+                out = torch.relu(norm_site(f"{pfx}.n2", sc(out)))
+                out = conv(out, f"{pfx}.conv2", stride, 1)
+                out = torch.relu(norm_site(f"{pfx}.n3", sc(out)))
+                out = conv(out, f"{pfx}.conv3", 1, 0)
+            else:
+                out = conv(out, f"{pfx}.conv1", stride, 1)
+                out = conv(torch.relu(norm_site(f"{pfx}.n2", sc(out))), f"{pfx}.conv2", 1, 1)
+            x = out + short
+        x = torch.relu(norm_site("n4", sc(x)))
+        out = linear_clients(channels_to_clients(global_avg_pool(x), G), P["linear.w"],
+                             P["linear.b"])
+        out = masked_logits_clients(out, label_mask, self.mask)
+        return out, cross_entropy_clients(out, label, sample_weight)

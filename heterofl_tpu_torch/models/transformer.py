@@ -30,17 +30,24 @@ handed in through ``draws`` (``{"corrupt": [N, S] bool, "keep": {site:
 bool}}``), which is how tests give it the reference's ``jax.random``
 draws.  Attention is the reference's plain chain (matmul, divide by the
 temperature, softmax, matmul); no TPU kernel sits behind it.
+
+:meth:`Transformer.forward_clients` is the training forward of a level's G
+clients of one dense level model at once (the grouped engine): the
+embedding as a per-client gather, every linear layer and the attention as
+per-client batched products, each client's draws from its own generator
+(in the order of :meth:`Transformer.forward`) at the level's widths.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..convert import Perms
-from ..ops.layers import (cross_entropy, embed, gelu, linear, masked_layer_norm, masked_logits,
+from ..ops.layers import (cross_entropy, cross_entropy_clients, embed, gelu, linear,
+                          linear_clients, masked_layer_norm, masked_logits, masked_logits_clients,
                           scaler)
 from .base import FedModel, Holder
 from .spec import Group, ParamSpec
@@ -196,3 +203,69 @@ class Transformer(FedModel):
         d = ln("dec.norm", gelu(sc(lin("dec.l1", x))))
         out = masked_logits(lin("dec.l2", d), label_mask, self.mask)
         return out, cross_entropy(out, label, sample_weight)
+
+    def forward_clients(self, label: torch.Tensor, G: int, *, params, scaler_rate: float = 1.0,
+                        label_mask=None, sample_weight=None,
+                        gens: Optional[List[torch.Generator]] = None,
+                        draws: Optional[List[Draws]] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Training forward of G clients at once at full width of this
+        (dense level) model: ``label [G, N, S]``, ``sample_weight [G, N,
+        S]``, ``label_mask [G, V]``, ``params`` leaves ``[G, *shape]``;
+        client g's draws come from ``draws[g]`` where given, else from
+        ``gens[g]`` -> ``(scores [G, N, S, V], per-client mean loss [G])``."""
+        P = params
+        _, N, S = label.shape
+        H, dev = self.num_heads, label.device
+        E = self.groups["emb"].size
+        hd = E // H
+        emb_mask = self._emb_mask(1.0, dev)
+        temp = math.sqrt(math.floor(float(E) / H))
+        keeps = [d.get("keep", {}) for d in draws] if draws is not None else None
+
+        def rand_mask(shape, p_true: float) -> torch.Tensor:
+            return torch.stack([torch.rand(shape, generator=gen, device=dev) < p_true
+                                for gen in gens])
+
+        def dropout(x: torch.Tensor, site: int) -> torch.Tensor:
+            if self.dropout == 0.0:
+                return x
+            keep = rand_mask(x.shape[1:], 1.0 - self.dropout) if keeps is None else \
+                torch.stack([k[site] for k in keeps]).to(dev)
+            return torch.where(keep, x / (1.0 - self.dropout), 0.0)
+
+        def sc(x: torch.Tensor) -> torch.Tensor:
+            return scaler(x, scaler_rate)
+
+        def vec(name: str) -> torch.Tensor:  # [G, E] -> [G, 1, 1, E]
+            return P[name][:, None, None, :]
+
+        def ln(site: str, x: torch.Tensor) -> torch.Tensor:
+            return masked_layer_norm(x, vec(f"{site}.g"), vec(f"{site}.b"), emb_mask, float(E))
+
+        def lin(name: str, x: torch.Tensor) -> torch.Tensor:
+            return linear_clients(x, P[f"{name}.w"], P[f"{name}.b"])
+
+        corrupt = rand_mask((N, S), self.mask_rate) if draws is None else \
+            torch.stack([d["corrupt"] for d in draws]).to(dev)
+        src = torch.where(corrupt, self.num_tokens, label)
+        tok = P["embedding.tok.w"][torch.arange(G, device=dev)[:, None, None], src]
+        x = sc(tok) + sc(P["embedding.pos.w"][:, :S])[:, None]
+        x = dropout(ln("embedding.norm", x), 0)
+
+        def heads(t: torch.Tensor) -> torch.Tensor:  # [G, N, S, E] -> [G, N, H, S, hd]
+            return t.reshape(G, N, S, H, hd).transpose(2, 3)
+
+        for i in range(self.num_layers):
+            p = f"enc{i}"
+            q, k, v = (heads(sc(lin(f"{p}.mha.{h}", x))) for h in ("q", "k", "v"))
+            attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / temp, dim=-1)
+            o = torch.matmul(attn, v).transpose(2, 3).reshape(G, N, S, E)
+            o = sc(lin(f"{p}.mha.o", o))
+            x = ln(f"{p}.norm1", x + dropout(o, 1 + 3 * i))
+            h = dropout(gelu(sc(lin(f"{p}.ff.l1", x))), 2 + 3 * i)
+            h = sc(lin(f"{p}.ff.l2", h))
+            x = ln(f"{p}.norm2", x + dropout(h, 3 + 3 * i))
+        d = ln("dec.norm", gelu(sc(lin("dec.l1", x))))
+        out = masked_logits_clients(lin("dec.l2", d), label_mask, self.mask)
+        return out, cross_entropy_clients(out, label, sample_weight)

@@ -46,6 +46,11 @@ _SIGNATURES = {
     "hfl_bn_bwd": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "hfl_sgd_scratch_floats": (_LL, []),
     "hfl_fused_sgd": (_I, [_P, _P, _P, _P, _P, _P, _LL, _F, _F, _F, _P]),
+    "hfl_fused_sgd_batched": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _F, _P]),
+    "hfl_bn_fwd_batched": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
+                                _I, _P]),
+    "hfl_bn_bwd_batched": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _P]),
     "hfl_quant_pack": (_I, [_P, _P, _P, _LL, _I, _I, _P, _P, _P]),
 }
 

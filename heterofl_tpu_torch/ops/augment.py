@@ -5,6 +5,8 @@ RandomCrop(32, padding=4) + RandomHorizontalFlip on the device, from raw
 uint8 NHWC shards.  Draws come from an explicit ``torch.Generator`` on the
 batch's device; ``offsets``/``flips`` inject them instead (tests hand in the
 reference's draws, which ``jax.random`` makes and torch cannot reproduce).
+A level's G clients (the grouped engine) go through one call over their
+``G * B`` images, each client's draws made by its own generator.
 """
 
 from __future__ import annotations

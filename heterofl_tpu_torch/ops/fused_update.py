@@ -22,6 +22,17 @@ not engaged the kernel's elementwise tail equals the plain chain bit for
 bit; with it engaged the norm is summed in another order (per block, not
 per leaf), so the scale may differ in the last ulp.  The per-leaf chain
 that ``fused_update=False`` runs instead is ``utils/optim.py``'s.
+
+The batched pair (:func:`fused_sgd_batched`; the kernel under ``jax.vmap``
+over a level's clients, the grouped engine) takes ``g, p, buf [G, n]``
+client-major (each client's flat buffer one contiguous row), the mask
+``[n]`` shared by the rows, and ``scal [G, 3]`` (each client's denom, lr,
+has): launch A writes per-client partial sums of squares on a ``(parts,
+G)`` grid, launch B reduces each client's partials in a fixed order and
+applies that client's clip scale -- two launches a step whatever G is.
+Both kernels cut a row of n entries into the same ``parts(n)`` blocks
+(sized by n, csrc/fused_sgd.cu), so row g equals the one-client kernel on
+client g bit for bit.
 """
 
 from __future__ import annotations
@@ -33,7 +44,7 @@ import torch
 from . import _build
 
 #: kernel-pair launches of :func:`fused_sgd_cuda`
-LAUNCHES = {"fused_sgd": 0}
+LAUNCHES = {"fused_sgd": 0, "fused_sgd_batched": 0}
 
 
 class FlatSpec:
@@ -143,6 +154,58 @@ def fused_sgd_flat(g, p, buf, mask, scal, *, momentum: float, weight_decay: floa
                               weight_decay=weight_decay, max_norm=max_norm)
     pn, bn = fused_sgd_plain(g, p, buf, mask, scal, momentum=momentum,
                              weight_decay=weight_decay, max_norm=max_norm)
+    p.copy_(pn)
+    buf.copy_(bn)
+    return p, buf
+
+
+def fused_sgd_batched_plain(g: torch.Tensor, p: torch.Tensor, buf: torch.Tensor,
+                            mask: torch.Tensor, scal: torch.Tensor, *, momentum: float,
+                            weight_decay: float, max_norm: float = 1.0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the batched kernel: :func:`fused_sgd_plain`
+    on each row of ``g, p, buf [G, n]`` with that row's ``scal [G, 3]``;
+    returns new ``(p, buf)``, each row bit for bit the one-client version's
+    (each row's norm is summed as a flat buffer's)."""
+    denom, lr, has = scal[:, 0:1], scal[:, 1:2], scal[:, 2:3]
+    gm = (g / denom) * mask
+    total = torch.sqrt(torch.stack([(r * r).sum() for r in gm]))[:, None]
+    scale = torch.minimum(total.new_full((), max_norm) / (total + 1e-6), total.new_ones(()))
+    nb = momentum * buf + gm * scale + weight_decay * p
+    pn = p - lr * nb
+    keep = has > 0
+    return torch.where(keep, pn, p), torch.where(keep, nb, buf)
+
+
+def fused_sgd_batched_cuda(g, p, buf, mask, scal, *, momentum: float, weight_decay: float,
+                           max_norm: float = 1.0):
+    """The batched kernel pair (``csrc/fused_sgd.cu``), in place on ``p``
+    and ``buf``."""
+    _build.require_cuda("fused_sgd_batched", g, p, buf, mask, scal)
+    if p.dim() != 2 or g.shape != p.shape or buf.shape != p.shape \
+            or mask.numel() != p.shape[1] or tuple(scal.shape) != (p.shape[0], 3):
+        raise ValueError("fused_sgd_batched: g, p, buf [G, n], mask [n] and scal [G, 3]")
+    G, n = p.shape
+    lib = _build.load()
+    part = torch.empty(G * lib.hfl_sgd_scratch_floats(), dtype=torch.float32, device=p.device)
+    _build.check(lib.hfl_fused_sgd_batched(
+        g.data_ptr(), p.data_ptr(), buf.data_ptr(), mask.data_ptr(), scal.data_ptr(),
+        part.data_ptr(), n, G, float(momentum), float(weight_decay), float(max_norm),
+        _build.stream_of(p)), "fused_sgd_batched")
+    LAUNCHES["fused_sgd_batched"] += 1
+    return p, buf
+
+
+def fused_sgd_batched(g, p, buf, mask, scal, *, momentum: float, weight_decay: float,
+                      max_norm: float = 1.0):
+    """One fused masked-SGD step of G clients, IN PLACE on ``p`` and
+    ``buf`` ``[G, n]`` (returned): the plain version for CPU tensors, the
+    kernel for any other (which raises rather than fall back)."""
+    if p.device.type != "cpu":
+        return fused_sgd_batched_cuda(g, p, buf, mask, scal, momentum=momentum,
+                                      weight_decay=weight_decay, max_norm=max_norm)
+    pn, bn = fused_sgd_batched_plain(g, p, buf, mask, scal, momentum=momentum,
+                                     weight_decay=weight_decay, max_norm=max_norm)
     p.copy_(pn)
     buf.copy_(bn)
     return p, buf

@@ -191,3 +191,96 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if sample_weight is None:
         return nll.mean()
     return (nll * sample_weight).sum() / sample_weight.sum().clamp_min(1e-12)
+
+
+# -- the clients axis: a level's G clients batched through one dense model ---
+#
+# Activations hold the clients in the channels, ``[B, G*C, H, W]``
+# channels_last (client g's channels are ``[g*C, (g+1)*C)``), so a batch norm
+# site views them as rows ``[B*H*W, G*C]``; a parameter leaf holds the G
+# clients' copies contiguously, ``[G, *shape]``.
+
+
+def clients_in_channels(x: torch.Tensor) -> torch.Tensor:
+    """``[G, B, H, W, C]`` channels-last images of G clients -> the
+    clients-in-channels NCHW view ``[B, G*C, H, W]`` (channels_last memory)."""
+    G, B, H, W, C = x.shape
+    return x.permute(1, 2, 3, 0, 4).reshape(B, H, W, G * C).permute(0, 3, 1, 2)
+
+
+def conv2d_clients(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], G: int,
+                   stride: int = 1, padding: int = 1) -> torch.Tensor:
+    """Each client's convolution at once: ``x [B, G*I, H, W]``, ``w [G, O,
+    I, k, k]``, ``b [G, O]`` -> ``[B, G*O, H', W']``, one grouped
+    convolution (``groups=G``) whose group g is client g."""
+    if x.device.type == "cpu":
+        x = x.contiguous()
+    return F.conv2d(x, w.reshape((-1,) + tuple(w.shape[2:])),
+                    None if b is None else b.reshape(-1), stride=stride, padding=padding,
+                    groups=G)
+
+
+def linear_clients(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """Each client's linear layer: ``x [G, ..., I]``, ``w [G, O, I]``, ``b
+    [G, O]`` -> ``[G, ..., O]`` (one batched product)."""
+    G, lead = x.shape[0], x.shape[1:-1]
+    x3 = x.reshape(G, -1, x.shape[-1])
+    if b is None:
+        out = torch.bmm(x3, w.transpose(1, 2))
+    else:
+        out = torch.baddbmm(b.unsqueeze(1), x3, w.transpose(1, 2))
+    return out.reshape((G,) + tuple(lead) + (w.shape[1],))
+
+
+def channels_to_clients(x: torch.Tensor, G: int) -> torch.Tensor:
+    """``[B, G*C]`` features -> ``[G, B, C]``."""
+    B = x.shape[0]
+    return x.reshape(B, G, -1).transpose(0, 1)
+
+
+def masked_logits_clients(out: torch.Tensor, label_mask: Optional[torch.Tensor],
+                          enabled: bool) -> torch.Tensor:
+    """:func:`masked_logits` per client: ``out [G, ..., K]``, ``label_mask
+    [G, K]``."""
+    if label_mask is None or not enabled:
+        return out
+    lm = label_mask.reshape((label_mask.shape[0],) + (1,) * (out.ndim - 2) + (-1,))
+    return torch.where(lm == 0, torch.zeros((), dtype=out.dtype, device=out.device), out)
+
+
+def cross_entropy_clients(logits: torch.Tensor, labels: torch.Tensor,
+                          sample_weight: torch.Tensor) -> torch.Tensor:
+    """:func:`cross_entropy` per client -> ``[G]``: ``logits [G, ..., K]``,
+    ``labels`` and ``sample_weight [G, ...]``; client g's weighted mean
+    over its own samples (or positions)."""
+    G = logits.shape[0]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    w = sample_weight.reshape(G, -1)
+    return (nll.reshape(G, -1) * w).sum(1) / w.sum(1).clamp_min(1e-12)
+
+
+def batch_norm_clients(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                       sample_weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`batch_norm`'s ``"batch"`` mode per client (the two-pass
+    form): ``x [B, G*C, H, W]``, ``g``/``b [G, C]``, ``sample_weight [G,
+    B]``; client g's statistics over its own weighted samples."""
+    G, B = sample_weight.shape
+    xv = x.reshape(B, G, -1, *x.shape[2:])
+    view = (1, G, -1) + (1,) * (x.ndim - 2)
+    w = sample_weight.t().reshape((B, G) + (1,) * (x.ndim - 1)).expand(xv.shape)
+    axes = (0,) + tuple(range(3, xv.ndim))
+    n = w.sum(dim=axes, keepdim=True)
+    d = n.clamp_min(1e-6)
+    mean = (xv * w).sum(dim=axes, keepdim=True) / d
+    var = (w * (xv - mean) ** 2).sum(dim=axes, keepdim=True) / d
+    y = (xv - mean) / torch.sqrt(var + eps) * g.reshape(view) + b.reshape(view)
+    return y.reshape(x.shape)
+
+
+def group_onehot_clients(C: int, num_groups: int, G: int, device) -> torch.Tensor:
+    """Block-diagonal ``[G*C, G*num_groups]`` channel-to-group map of G
+    clients of ``C`` channels each, all active: client g's channels go to
+    its own groups only, so no group straddles two clients."""
+    one = group_onehot(C, num_groups, torch.ones(C, device=device), C)
+    return torch.block_diag(*([one] * G))

@@ -77,12 +77,47 @@ def prep_image(x_u8: torch.Tensor, norm) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def cohort_rates(cfg: Dict[str, Any], user_idx: np.ndarray, round_seed: int,
+                 rates: Optional[Sequence[float]] = None) -> np.ndarray:
+    """The cohort's absolute rates (float32): ``rates`` when given, else each
+    user's own in ``fix`` mode and the round's draw (``fed.core.round_rates``
+    at ``round_seed``) in ``dynamic`` mode."""
+    if rates is not None:
+        out = np.asarray(rates, np.float32).reshape(-1)
+    elif cfg["model_split_mode"] == "fix":
+        out = np.asarray(cfg["model_rate"], np.float32)[user_idx]
+    else:
+        out = round_rates(round_seed, cfg, user_idx)
+    if out.shape != user_idx.shape:
+        raise ValueError(f"{out.size} rates for {user_idx.size} users")
+    return out
+
+
 def client_seed(round_seed: int, uid: int) -> int:
     """Seed of one client's generator in one round."""
     return int(np.random.SeedSequence([int(round_seed), 13, int(uid)]).generate_state(1)[0])
 
 
-class RoundEngine:
+class FlatParams:
+    """What the experiment loop reads of a round engine: the global params
+    as one flat buffer (``spec``, on ``device``) and the wire codec's
+    residual carry (none without a codec)."""
+
+    spec: FlatSpec
+    device: torch.device
+    codec = None
+
+    def flatten(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.spec.flatten({k: v.detach() for k, v in params.items()}).to(self.device)
+
+    def unflatten(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.spec.unflatten(flat)
+
+    def wire_resid_host(self) -> Optional[np.ndarray]:
+        return None
+
+
+class RoundEngine(FlatParams):
     """Local training and counted aggregation of one round, for one
     (model, cfg, device)."""
 
@@ -124,12 +159,6 @@ class RoundEngine:
 
     # -- flat buffers ----------------------------------------------------
 
-    def flatten(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.spec.flatten({k: v.detach() for k, v in params.items()}).to(self.device)
-
-    def unflatten(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.spec.unflatten(flat)
-
     def param_mask_flat(self, wr: float) -> torch.Tensor:
         """Flat width mask of a client at width rate ``wr`` (the distribute
         mask and the gradient mask)."""
@@ -161,10 +190,14 @@ class RoundEngine:
 
     def local_train(self, P: torch.Tensor, wr: float, x, y, sm, lm, gen: torch.Generator,
                     lr: torch.Tensor, raw_perms: Optional[np.ndarray] = None,
-                    aug: Optional[Callable[[int], Tuple[Any, Any]]] = None
+                    aug: Optional[Callable[[int], Tuple[Any, Any]]] = None,
+                    scaler_rate: Optional[float] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Local SGD of one client from the global flat params ``P`` ->
         ``(trained flat params, [loss_sum, correct_sum, n] device sums)``.
+        ``scaler_rate`` (default ``wr``): the Scaler's rate, which a dense
+        level sub-model trained at ``wr = 1`` takes from its level (the
+        sliced twin).
 
         Test hooks: ``raw_perms`` (``[E, N]``) replaces the generator's epoch
         permutations (the real-first sort still runs on them); ``aug(t)``
@@ -199,7 +232,8 @@ class RoundEngine:
             img = self._prep(x[ids], gen, None if aug is None else
                              tuple(torch.as_tensor(np.array(a)).to(dev) for a in aug(t)))
             leaves = {k: v.requires_grad_() for k, v in spec.unflatten(p).items()}
-            score, loss = model(img, labels, params=leaves, width_rate=wr, scaler_rate=wr,
+            score, loss = model(img, labels, params=leaves, width_rate=wr,
+                                scaler_rate=wr if scaler_rate is None else scaler_rate,
                                 label_mask=lm, sample_weight=w)
             lsum = loss * n_glob  # weighted-SUM form, as the reference
             grads = torch.autograd.grad(lsum, [leaves[k] for k in spec.names])
@@ -212,7 +246,8 @@ class RoundEngine:
 
     def local_train_lm(self, P: torch.Tensor, wr: float, rows: torch.Tensor, lm: torch.Tensor,
                        gen: torch.Generator, lr: torch.Tensor,
-                       draws: Optional[Callable[[int], Dict[str, Any]]] = None
+                       draws: Optional[Callable[[int], Dict[str, Any]]] = None,
+                       scaler_rate: Optional[float] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Local SGD of one masked-LM client on its token rows ``[R, T]``
         from the global flat params ``P`` -> ``(trained flat params,
@@ -223,7 +258,8 @@ class RoundEngine:
         adds ``R`` rows to ``n``, ``window CE * R`` to the loss and
         ``exp(window CE) * R`` to the score (Perplexity's sum; ref
         round_engine.py:740-815).  ``draws(t)`` (test hook) gives step
-        ``t``'s corruption and dropout draws instead of ``gen``."""
+        ``t``'s corruption and dropout draws instead of ``gen``;
+        ``scaler_rate`` as in :meth:`local_train`."""
         spec, model, bptt, E = self.spec, self.model, self.bptt, self.local_epochs
         dev = P.device
         R, T = rows.shape
@@ -245,7 +281,8 @@ class RoundEngine:
             lab, w = rows_p[:, s * bptt:(s + 1) * bptt], wpos[:, s * bptt:(s + 1) * bptt]
             n_glob = n_win[s]
             leaves = {k: v.requires_grad_() for k, v in spec.unflatten(p).items()}
-            _, loss = model(lab, params=leaves, width_rate=wr, scaler_rate=wr, label_mask=lm,
+            _, loss = model(lab, params=leaves, width_rate=wr,
+                            scaler_rate=wr if scaler_rate is None else scaler_rate, label_mask=lm,
                             sample_weight=w, train=True, gen=gen,
                             draws=None if draws is None else draws(t))
             lsum = loss * n_glob  # weighted-SUM form, as the reference
@@ -344,14 +381,7 @@ class RoundEngine:
         local step ``t``."""
         lm_all = data[-1]
         user_idx = np.asarray(user_idx, np.int64).reshape(-1)
-        if rates is not None:
-            rates_abs = np.asarray(rates, np.float32).reshape(-1)
-        elif self.fix_rates is not None:
-            rates_abs = self.fix_rates[user_idx]
-        else:
-            rates_abs = round_rates(round_seed, self.cfg, user_idx)
-        if rates_abs.shape != user_idx.shape:
-            raise ValueError(f"{rates_abs.size} rates for {user_idx.size} users")
+        rates_abs = cohort_rates(self.cfg, user_idx, round_seed, rates)
         wrs = to_width_rates(rates_abs, self.cfg)
         lr_t = torch.full((), float(lr), dtype=torch.float32, device=P.device)
         summed = torch.zeros_like(P)

@@ -25,7 +25,13 @@ Run from the repository root on a machine with a CUDA device::
 
 ``--model resnet50`` profiles the bottleneck ResNet-50 instead, and
 ``--width 0.0625`` a client of a narrower level (the width rate; a dynamic
-round mixes the levels' steps).
+round mixes the levels' steps).  ``--clients G`` profiles the grouped
+engine instead: a step of G clients of the level ``--width`` batched
+through its dense sub-model (``GroupedRoundEngine.local_train_level``, the
+batched kernels, under cuDNN's deterministic algorithms as the grouped
+round runs), timed in turns against the same G clients trained one after
+another by the masked engine (both kernel routes); times are per batched
+step, that is per G masked steps.
 
 ``--device cpu --samples 20`` rehearses the control flow on the CPU (no
 device numbers come out of that).
@@ -106,6 +112,8 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=10, help="timed epochs per route")
     ap.add_argument("--model", default="resnet18", help="resnet18 (headline) or resnet50")
     ap.add_argument("--width", type=float, default=1.0, help="the client's width rate")
+    ap.add_argument("--clients", type=int, default=0,
+                    help="G > 0: the grouped engine's step of G clients at --width")
     ap.add_argument("--out", default=None, help="write the results here as JSON")
     args = ap.parse_args(argv)
 
@@ -116,7 +124,7 @@ def main(argv=None) -> int:
     from heterofl_tpu_torch import resolve_device
     from heterofl_tpu_torch.data import synthetic_vision
     from heterofl_tpu_torch.models import make_model
-    from heterofl_tpu_torch.parallel import RoundEngine
+    from heterofl_tpu_torch.parallel import GroupedRoundEngine, RoundEngine
 
     dev = resolve_device({"device": args.device})
     out = {"device": str(dev), "model": args.model, "width": args.width}
@@ -162,11 +170,32 @@ def main(argv=None) -> int:
         p, acc = engines[label].local_train(P, args.width, x, y, sm, lm, gen, lr)
         return acc
 
-    for label, _, _ in ROUTES:  # warm-up: kernel build, cuDNN plans, allocator
+    order = [r[0] for r in ROUTES]
+    if args.clients:
+        G = args.clients
+        kernels = ROUTES[0][0]
+        grouped = GroupedRoundEngine(engines[kernels].model, engines[kernels].cfg, dev)
+        level = grouped.levels[args.width * grouped.cfg["global_model_rate"]]
+        data = (x.expand(G, *x.shape), y.expand(G, -1), sm.expand(G, -1), lm.expand(G, -1))
+        uids = torch.arange(G, device=dev)
+        masked = f"masked, {G} clients one after another"
+
+        def epoch(label, seed):  # noqa: F811 -- the grouped step and its masked twin
+            # each engine's cuDNN setting: the grouped round's deterministic algorithms
+            torch.backends.cudnn.deterministic = label != masked
+            if label == masked:
+                return torch.stack([engines[kernels].local_train(
+                    P, args.width, x, y, sm, lm, torch.Generator(device=dev).manual_seed(
+                        seed + i), lr)[1] for i in range(G)])
+            gens = [torch.Generator(device=dev).manual_seed(seed + i) for i in range(G)]
+            return grouped.local_train_level(level, P, uids, data, gens, lr)[1]
+
+        order = [f"grouped, {G} clients batched", masked]
+        out["clients"] = G
+    for label in order:  # warm-up: kernel build, cuDNN plans, allocator
         epoch(label, 0)
     sync()
-    times = {label: [] for label, _, _ in ROUTES}
-    order = [r[0] for r in ROUTES]
+    times = {label: [] for label in order}
     for rep in range(args.repeats):
         for label in (order if rep % 2 == 0 else order[::-1]):
             sync()
@@ -185,7 +214,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    label = ROUTES[0][0]
+    label = order[0]
     sync()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()

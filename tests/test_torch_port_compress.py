@@ -231,7 +231,7 @@ def test_codec_config_accepts_and_rejects():
                             ({"error_feedback": 1}, ValueError, "Not valid error_feedback"),
                             ({"error_feedback": "off"}, ValueError, "Not valid error_feedback"),
                             ({"wire_codec": {"1.0": "int8", "0.5": "dense"}},
-                             NotImplementedError, "per-level"),
+                             ValueError, "per-level"),
                             ):
         with pytest.raises(exc, match=match):
             resolve_codec_cfg(bad)

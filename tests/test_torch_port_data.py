@@ -46,12 +46,20 @@ def test_process_control_matches_reference(control, data_name, model_name):
 def test_unported_keys_raise_naming_the_key():
     cfg = PC.default_cfg()
     cfg["control"] = PC.parse_control_name("1_100_0.1_iid_fix_a1_bn_1_1")
-    for key, value in (("superstep_rounds", 4), ("wire_codec", {"1.0": "int8"}),
-                       ("telemetry", "on"), ("strategy", "grouped"), ("sampler", "prp"),
+    for key, value in (("superstep_rounds", 4), ("telemetry", "on"),
+                       ("level_placement", "slices"), ("sampler", "prp"),
                        ("quarantine", "on")):
         bad = dict(cfg, **{key: value})
         with pytest.raises(NotImplementedError, match=key):
             PC.process_control(bad)
+    # the grouped and sliced strategies are ported; a per-level codec map
+    # outside grouped, and an unknown strategy, are refused as in the reference
+    for strategy in ("grouped", "sliced"):
+        assert PC.process_control(dict(cfg, strategy=strategy))["strategy"] == strategy
+    with pytest.raises(ValueError, match="wire_codec"):
+        PC.process_control(dict(cfg, wire_codec={"1.0": "int8"}))
+    with pytest.raises(ValueError, match="strategy"):
+        PC.process_control(dict(cfg, strategy="vmapped"))
     # the dynamic rate mode is ported: the mode rates and their weights
     dyn = dict(cfg, control=PC.parse_control_name("1_100_0.1_iid_dynamic_a1-e3_bn_1_1"))
     dyn = PC.process_control(dyn)

@@ -71,4 +71,5 @@ def test_no_port_file_imports_jax_or_reference():
     assert {"scripts/bn_plan_sweep.py", "scripts/torch_port_profile.py",
             "scripts/torch_port_round_time.py", "heterofl_tpu_torch/data/stats.py",
             "heterofl_tpu_torch/data/datasets.py", "heterofl_tpu_torch/fed/core.py",
-            "heterofl_tpu_torch/models/resnet.py", "heterofl_tpu_torch/models/norms.py"} <= scanned
+            "heterofl_tpu_torch/models/resnet.py", "heterofl_tpu_torch/models/norms.py",
+            "heterofl_tpu_torch/parallel/grouped.py", "heterofl_tpu_torch/fed/sliced.py"} <= scanned

@@ -258,8 +258,19 @@ def test_cuda_mode_wrappers_raise_without_cuda():
     assert fused_update.resolve_fused_mode({"fused_update": False}, cpu) is None
     with pytest.raises(ValueError, match="fused_update"):
         fused_update.resolve_fused_mode({"fused_update": "plain"}, cpu)
-    assert fused_norm.LAUNCHES == {"bn_fwd": 0, "bn_bwd": 0}
-    assert fused_update.LAUNCHES == {"fused_sgd": 0}
+    # and the batched kernels of the grouped engine
+    wg = torch.ones(2, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused_norm.bn_fwd_batched_cuda(x, wg, 10, g, b)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused_norm.bn_bwd_batched_cuda(x, wg, 10, g, x, torch.ones(3, 8))
+    vv = torch.randn(2, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused_update.fused_sgd_batched_cuda(vv, vv.clone(), vv.clone(), v.clone(),
+                                            torch.ones(2, 3), momentum=0.9, weight_decay=0.0)
+    assert fused_norm.LAUNCHES == {"bn_fwd": 0, "bn_bwd": 0, "bn_fwd_batched": 0,
+                                   "bn_bwd_batched": 0}
+    assert fused_update.LAUNCHES == {"fused_sgd": 0, "fused_sgd_batched": 0}
 
 
 # --- layers and augmentation ---------------------------------------------------
