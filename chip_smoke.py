@@ -77,8 +77,11 @@ each prints its seconds:
 7. the grouped engine (``--strategy grouped``): the batched batch-norm
    kernels held against their plain version at ResNet-18's site shapes for
    every level and G in {1, 2, 4} (at level e a channel tile holds several
-   clients; a padding sample with a NaN) and timed over a step at G = 2,
-   levels a and e; the batched fused SGD at ``[G, n_l]`` for levels a and e,
+   clients; a padding sample with a NaN) and at ragged shapes whose tiles
+   straddle clients of 1, 3, 4 and 6 channels, and timed over a step at
+   G = 2, levels a and e, beside the step's launch floor (the empty kernel
+   on each site's plan) and ``F.batch_norm`` on the same activations (a
+   yardstick, not the same function: no weights, one count); the batched fused SGD at ``[G, n_l]`` for levels a and e,
    each row bit for bit the one-client kernel's; small grouped rounds (conv
    net, ResNet-18 at 8/16/16/16) on the card against the CPU, the sliced
    twin and the masked engine, and a full-width grouped LM round of two
@@ -183,6 +186,10 @@ NO_BATCHED = {"bn_fwd_batched": 0, "bn_bwd_batched": 0, "fused_sgd_batched": 0}
 LEVELS = (1.0, 0.5, 0.25, 0.125, 0.0625)
 GROUPED_G = (1, 2, 4)                           # clients batched, held at every level
 GROUPED_TIMED = ((2, 1.0), (2, 0.0625))          # (G, rate) of the timed batched steps
+# batched BN at ragged shapes, (M, C a client, P, G): clients of 1, 3, 4 and 6
+# channels, so channel tiles straddle clients; odd widths take the scalar path
+BN_BATCHED_RAGGED = [(999, 1, 111, 5), (3000, 3, 300, 4), (1960, 4, 196, 3), (490, 6, 49, 5),
+                     (7840, 6, 784, 2)]
 GROUPED_ROUNDS = 2  # pinned cohorts: round 1, then round 2, which is resumed
 TIMED_ROUNDS = 8    # masked and grouped rounds in turns, the control's own cohorts
 # the grouped LM round on the card: two level-b clients of the LM control
@@ -267,6 +274,44 @@ def graph_ms(fn, calls: int = BN_GRAPH_CALLS, samples: int = 25) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b) / calls)
     return statistics.median(out)
+
+
+def queued_ms(fn, calls: int = BN_GRAPH_CALLS, samples: int = 25) -> float:
+    """Device time of one call launched eagerly: ``calls`` calls issued
+    behind a sleeping kernel long enough that they all wait in the stream's
+    queue, then timed on CUDA events from the sleep's end to the last
+    call's; the median over ``samples``, divided by ``calls``.  The launches
+    are the program's own, not a graph's, and the host's time between them
+    is hidden."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    out = []
+    for _ in range(samples):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)  # about 2 ms at the card's clock: longer than the launches
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / calls)
+    return statistics.median(out)
+
+
+def floor_call(torch, tiles: int, cluster: int, smem: int, pdl: bool = False):
+    """A launcher of the empty kernel on a plan's grid (``tiles`` clusters of
+    ``cluster`` blocks, ``smem`` bytes of shared memory; ``hfl_bn_floor``):
+    timed, the plan's launch floor.  A measuring aid, on no path."""
+    from heterofl_tpu_torch.ops import _build
+
+    lib = _build.load()
+
+    def run():
+        _build.check(lib.hfl_bn_floor(tiles, cluster, smem, int(pdl),
+                                      torch.cuda.current_stream().cuda_stream), "bn_floor")
+    return run
 
 
 def same_bits(torch, a, b) -> bool:
@@ -1397,53 +1442,79 @@ def bn_batched_check(torch, fused_norm, gen, M: int, C: int, P: int, G: int):
 def bn_batched_phase(torch, fused_norm):
     """Kernels 1b/2b held at ResNet-18's site shapes at batch 10 for every
     level (C from 64 r to 512 r) and G in ``GROUPED_G`` -- at level e a
-    channel tile of the plan holds several clients -- and timed over a
-    step's 17 sites for ``GROUPED_TIMED`` -> per kernel, the totals of the
-    first timed (G, level) and ``by_level`` for each."""
+    channel tile of the plan holds several clients -- and at
+    ``BN_BATCHED_RAGGED``, then timed over a step's 17 sites for
+    ``GROUPED_TIMED``, beside each step's bound, its launch floor (the empty
+    kernel on each site's plan, ``floor_call``) and ``F.batch_norm`` on the
+    channels_last ``[B, G*C, H, W]`` view with unit weights, a yardstick
+    that is not the same function (one count for all columns, no weight) ->
+    per kernel, the totals of the first timed (G, level) and ``by_level``
+    for each."""
+    import torch.nn.functional as F
+
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(7)
     tot = {k: {"err": 0.0, "by_level": []} for k in ("bn_fwd_batched", "bn_bwd_batched")}
     straddle = 0
-    for rate in LEVELS:
-        for G in GROUPED_G:
-            for M, C0, _ in BN_SHAPES:
-                C = level_width(C0, rate)
-                pl = fused_norm.bn_plan(M, G * C, True)
-                straddle += int(G > 1 and (pl.tile_c > C or C % pl.tile_c != 0))
-                _, e_f, e_b = bn_batched_check(torch, fused_norm, gen, M, C, M // BATCH, G)
-                tot["bn_fwd_batched"]["err"] = max(tot["bn_fwd_batched"]["err"], e_f)
-                tot["bn_bwd_batched"]["err"] = max(tot["bn_bwd_batched"]["err"], e_b)
-    say(f"batched BN held at {len(LEVELS) * len(GROUPED_G) * len(BN_SHAPES)} (level, G, site) "
-        f"shapes, {straddle} of them with channel tiles holding more than one client; bit-"
-        f"identical across two calls")
+    shapes = [(M, level_width(C0, rate), M // BATCH, G)
+              for rate in LEVELS for G in GROUPED_G for M, C0, _ in BN_SHAPES]
+    for M, C, P, G in shapes + BN_BATCHED_RAGGED:
+        pl = fused_norm.bn_plan_batched(M, G * C, C, P)
+        straddle += int(G > 1 and (pl.tile_c > C or C % pl.tile_c != 0))
+        _, e_f, e_b = bn_batched_check(torch, fused_norm, gen, M, C, P, G)
+        tot["bn_fwd_batched"]["err"] = max(tot["bn_fwd_batched"]["err"], e_f)
+        tot["bn_bwd_batched"]["err"] = max(tot["bn_bwd_batched"]["err"], e_b)
+    say(f"batched BN held at {len(shapes)} (level, G, site) shapes and "
+        f"{len(BN_BATCHED_RAGGED)} ragged ones, {straddle} of them with channel tiles holding "
+        f"more than one client; bit-identical across two calls")
+    pdl = fused_norm.BN_BATCHED_PDL
+    keys = ("ms", "plain_ms", "device_ms", "bound_ms", "floor_ms", "yardstick_ms",
+            "yardstick_device_ms")
     for G, rate in GROUPED_TIMED:
-        t_all = {k: dict.fromkeys(("ms", "plain_ms", "device_ms", "bound_ms", "bytes", "ops"),
-                                  0.0) for k in tot}
+        t_all = {k: dict.fromkeys(keys + ("bytes", "ops"), 0.0) for k in tot}
         for M, C0, sites in BN_SHAPES:
             C = level_width(C0, rate)
             P = M // BATCH
             (x2, w, g, b, dy, st), _, _ = bn_batched_check(torch, fused_norm, gen, M, C, P, G)
             GC = G * C
-            calls = {"bn_fwd_batched": (lambda: fused_norm.bn_fwd_batched_cuda(x2, w, P, g, b),
-                                        lambda: fused_norm.bn_fwd_batched_plain(x2, w, P, g, b)),
-                     "bn_bwd_batched": (lambda: fused_norm.bn_bwd_batched_cuda(x2, w, P, g, dy, st),
-                                        lambda: fused_norm.bn_bwd_batched_plain(x2, w, P, g, dy,
-                                                                                st))}
+            pl = fused_norm.bn_plan_batched(M, GC, C, P)
+            x4 = x2.view(BATCH, 1, P, GC).permute(0, 3, 1, 2)
+            dy4 = dy.view(BATCH, 1, P, GC).permute(0, 3, 1, 2)
+            _, s_mean, s_inv = torch.ops.aten.native_batch_norm(x4, g, b, None, None, True, 0.0,
+                                                                1e-5)
+            calls = {"bn_fwd_batched": (
+                lambda: fused_norm.bn_fwd_batched_cuda(x2, w, P, g, b),
+                lambda: fused_norm.bn_fwd_batched_plain(x2, w, P, g, b),
+                floor_call(torch, pl.tiles, pl.cluster, pl.smem_fwd, pdl),
+                lambda: F.batch_norm(x4, None, None, g, b, training=True, momentum=0.0,
+                                     eps=1e-5)),
+                     "bn_bwd_batched": (
+                lambda: fused_norm.bn_bwd_batched_cuda(x2, w, P, g, dy, st),
+                lambda: fused_norm.bn_bwd_batched_plain(x2, w, P, g, dy, st),
+                floor_call(torch, pl.tiles, pl.cluster, pl.smem_bwd, pdl),
+                lambda: torch.ops.aten.native_batch_norm_backward(
+                    dy4, x4, g, None, None, s_mean, s_inv, True, 1e-5, [True, True, True]))}
             nbytes = {"bn_fwd_batched": 4 * (2 * M * GC + G * BATCH + 2 * GC + 3 * GC),
                       "bn_bwd_batched": 4 * (3 * M * GC + G * BATCH + GC + 3 * GC + 2 * GC)}
             nops = {"bn_fwd_batched": 9 * M * GC, "bn_bwd_batched": 14 * M * GC}
-            for k, (kern, plain) in calls.items():
+            for k, (kern, plain, floor, yard) in calls.items():
                 t = {"ms": time_ms(kern, samples=9), "plain_ms": time_ms(plain, samples=9),
                      "device_ms": graph_ms(kern, samples=9),
-                     "bound_ms": max(nbytes[k] / BW, nops[k] / F32) * 1e3}
-                for key in ("ms", "plain_ms", "device_ms", "bound_ms"):
+                     "bound_ms": max(nbytes[k] / BW, nops[k] / F32) * 1e3,
+                     "floor_ms": graph_ms(floor, samples=9),
+                     "yardstick_ms": time_ms(yard, samples=9),
+                     "yardstick_device_ms": graph_ms(yard, samples=9)}
+                for key in keys:
                     t_all[k][key] += sites * t[key]
                 t_all[k]["bytes"] += sites * nbytes[k]
                 t_all[k]["ops"] += sites * nops[k]
         for k, r in t_all.items():
             say(f"{k}, a training step of G={G} clients at level {rate:g} (17 sites): call "
                 f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ms; library: none (no PyTorch call takes a weight "
-                f"per client and sample)")
+                f"bound {r['bound_ms']:.4f} ms, launch floor {r['floor_ms']:.4f} ms (dependent "
+                f"launches {'on' if pdl else 'off'}); library: none (no PyTorch call takes a "
+                f"weight per client and sample); yardstick, not the same function: "
+                f"F.batch_norm{' backward' if 'bwd' in k else ''} on [B, G*C, H, W] call "
+                f"{r['yardstick_ms']:.4f} ms, device {r['yardstick_device_ms']:.4f} ms")
             tot[k]["by_level"].append({"G": G, "rate": rate, **r})
     for k in tot:
         tot[k].update(tot[k]["by_level"][0])

@@ -43,20 +43,29 @@
 // The weight is per sample: row r has weight w[r / P], P = pixels per
 // sample, so the [M] expansion is never materialised.
 //
-// The batched kernels (kCol; the Pallas kernels under jax.vmap over a
+// The batched kernels (1b, 2b: the Pallas kernels under jax.vmap over a
 // level's G clients, the grouped engine) take x [M, G*Cg], a grouped
 // convolution's clients-in-channels output: column c belongs to client
 // c / Cg and takes that client's weight of its sample, w[(c / Cg) * B + r /
-// P] with w [G, B].  Each column then has its own count, so the sums are
-// three per channel (s1, s2, n), and stats' n row is per channel.  A
-// channel tile may straddle two clients (at level e ResNet-18's stages are
-// 4 to 32 channels wide, the tiles at least 8): each thread resolves the
-// weight of each of its four columns, never one per tile.  The plan, the
-// exchange and the order of every sum are the one-client kernels'.
+// P] with w [G, B].  Each column then has its own count, so the forward's
+// sums are three per channel (s1, s2, n), and stats' n row is per channel.
+// A channel tile may straddle clients (at level e ResNet-18's stages are 4 to
+// 32 channels wide, the tiles at least 8), so each thread resolves the
+// weight of each of its four columns.  The rows, the exchange and the order
+// of every sum are the one-client kernels'; the plan is
+// fused_norm.bn_plan_batched.  What differs is where the weights come from:
+// each block first copies the few it needs -- for each client its tile
+// touches, the samples its rows span -- into its shared memory (Stage),
+// with its loads in flight beside the first rows', so no row loop reads a
+// weight from device memory and the backward reads none after its exchange.
+// They go out as programmatic dependent launches (fused_norm.BN_BATCHED_PDL):
+// a launch may start while the kernel before it on the stream ends, and
+// reads no input before griddep_wait.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace cg = cooperative_groups;
@@ -69,6 +78,12 @@ constexpr int kMaxTileC = 128;             // channels per cluster: 32 lanes of 
 constexpr int kSlots = 2 * kMaxTileC + 1;  // two sums per channel, then the count
 constexpr int kSlotsCol = 3 * kMaxTileC;   // batched: three sums per channel
 constexpr int kBatch = 8;                  // row iterations with their loads in flight together
+// the batched kernels' row iterations in flight: fewer, for a shorter kernel
+// (its unrolled batches are most of its instructions), the same bytes in
+// flight a thread each way -- 4 rows of x forward, 2 of x and dy backward
+// (scripts/bn_plan_sweep.py --roots timed 2, 4 and 8 against each other)
+constexpr int kBatchFwdB = 4;
+constexpr int kBatchBwdB = 2;
 constexpr int kSmemLimit = 232448;         // shared memory one block may use on Hopper
 constexpr int kMaxCluster = 16;            // blocks per cluster (above 8: non-portable)
 
@@ -130,6 +145,13 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Wait until the grids this one depends on have ended and their writes are
+// visible: a programmatic dependent launch's first read of what they may have
+// written comes after it.  Without that launch attribute it returns at once.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // A transaction barrier in this block's shared memory: one arrival (thread
@@ -267,61 +289,32 @@ struct Exchange {
   }
 };
 
-// Where a thread's weights start: one-client, w + 0 for all four columns;
-// batched, w + (c / Cg) * B for column c (client 0's for a column past C,
-// which is never written).
-template <bool kCol>
-__device__ __forceinline__ void weight_bases(int (&wb)[4], int c, int C, int B, int Cg) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wb[j] = kCol && c + j < C ? ((c + j) / Cg) * B : 0;
-}
-
-// The weights of sample s for a thread's four columns.
-template <bool kCol>
-__device__ __forceinline__ void weights4(float (&wv)[4], const float* __restrict__ w,
-                                         const int (&wb)[4], int s, bool in) {
-  if (kCol) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wv[j] = in ? w[wb[j] + s] : 0.f;
-  } else {
-    const float one = in ? w[s] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wv[j] = one;
-  }
-}
-
-template <bool kVec4, bool kCol>
+template <bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, int B, int Cg,
+bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
               const float* __restrict__ g, const float* __restrict__ b,
               float* __restrict__ y, float* __restrict__ stats, int M, int C, float eps,
               int tile_c, int rows, int iters, int resident) {
-  constexpr int kS = kCol ? kSlotsCol : kSlots;
-  constexpr int kN = kCol ? 12 : 9;  // s1[4], s2[4], then n (batched: n[4])
   extern __shared__ float4 stash[];  // [iters - kBatch][kThreads] of x when resident
-  __shared__ float wsum[kWarps][kS];
-  __shared__ float gather[kMaxCluster][kS];  // every cluster block's sums, by rank
+  __shared__ float wsum[kWarps][kSlots];
+  __shared__ float gather[kMaxCluster][kSlots];  // every cluster block's sums, by rank
   __shared__ float coef[2][kMaxTileC];
   __shared__ uint64_t bar;
   cg::cluster_group cluster = cg::this_cluster();
-  Exchange ex(cluster, &bar, kCol ? 3 * tile_c : 2 * tile_c + 1, threadIdx.x);
+  Exchange ex(cluster, &bar, 2 * tile_c + 1, threadIdx.x);
   const Layout L(cluster.block_rank(), tile_c, rows, M, iters);
   float gg[4], bb[4];
   channel4(gg, g, L.c, C);
   channel4(bb, b, L.c, C);
-  int wb[4];
-  weight_bases<kCol>(wb, L.c, C, B, Cg);
   SampleWalk sw(L, P);
-  float v[kN];
-#pragma unroll
-  for (int j = 0; j < kN; ++j) v[j] = 0.f;
+  float v[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // s1[4], s2[4], n
 
   // kBatch row iterations from k0: loads all in flight, then the sums in order
-  auto load = [&](int k0, F4 (&xv)[kBatch], float (&wv)[kBatch][4]) {
+  auto load = [&](int k0, F4 (&xv)[kBatch], float (&wv)[kBatch]) {
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const bool in = L.has(k0 + u);
-      weights4<kCol>(wv[u], w, wb, sw.s, in);
+      wv[u] = in ? w[sw.s] : 0.f;
       sw.next();
       xv[u] = in ? load4<kVec4>(x, (size_t)L.row(k0 + u) * C + L.c, L.c, C) : F4{};
     }
@@ -330,12 +323,11 @@ bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, i
       if (!L.has(k0 + u)) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float xs = wv[u][j] > 0.f ? xv[u].v[j] : 0.f;
-        v[j] += xs * wv[u][j];
-        v[4 + j] += xs * xs * wv[u][j];
-        if constexpr (kCol) v[8 + j] += wv[u][j];
+        const float xs = wv[u] > 0.f ? xv[u].v[j] : 0.f;
+        v[j] += xs * wv[u];
+        v[4 + j] += xs * xs * wv[u];
       }
-      if constexpr (!kCol) v[8] += wv[u][0];
+      v[8] += wv[u];
     }
   };
   auto normalise = [&](int k0, const F4 (&xv)[kBatch], const float (&mu)[4],
@@ -354,12 +346,12 @@ bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, i
   // registers, the rest in shared memory when resident
   F4 xr[kBatch];
   {
-    float wv[kBatch][4];
+    float wv[kBatch];
     load(0, xr, wv);
   }
   for (int k0 = kBatch; k0 < iters; k0 += kBatch) {
     F4 xv[kBatch];
-    float wv[kBatch][4];
+    float wv[kBatch];
     load(k0, xv, wv);
     if (resident) {
 #pragma unroll
@@ -369,16 +361,15 @@ bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, i
   }
 
   // 2. the cluster's sums, ranks in order, then the channel statistics
-  ex.sum<kN, kS>(v, tile_c, L, wsum, gather);
+  ex.sum<9, kSlots>(v, tile_c, L, wsum, gather);
   if (L.t < tile_c) {
     float s1 = 0.f, s2 = 0.f, n = 0.f;
-    const int n_slot = kCol ? 2 * tile_c + L.t : 2 * tile_c;
 #pragma unroll
     for (int q = 0; q < kMaxCluster; ++q) {  // unrolled: every load issued before the sums
       if (q < static_cast<int>(ex.nb)) {
         s1 += gather[q][L.t];
         s2 += gather[q][tile_c + L.t];
-        n += gather[q][n_slot];
+        n += gather[q][2 * tile_c];
       }
     }
     n = fmaxf(n, 1e-6f);
@@ -418,18 +409,17 @@ bn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, i
   ex.finish();
 }
 
-template <bool kVec4, bool kCol>
+template <bool kVec4>
 __global__ void __launch_bounds__(kThreads)
-bn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, int B, int Cg,
+bn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
               const float* __restrict__ g, const float* __restrict__ dy,
               const float* __restrict__ stats, float* __restrict__ dx,
               float* __restrict__ dg, float* __restrict__ db, int M, int C, int tile_c,
               int rows, int iters, int resident) {
-  constexpr int kS = kCol ? kSlotsCol : kSlots;
   // [2][iters - kBatch][kThreads]: x, then dy, when resident
   extern __shared__ float4 stash[];
-  __shared__ float wsum[kWarps][kS];
-  __shared__ float gather[kMaxCluster][kS];
+  __shared__ float wsum[kWarps][kSlots];
+  __shared__ float gather[kMaxCluster][kSlots];
   __shared__ float coef[2][kMaxTileC];
   __shared__ uint64_t bar;
   cg::cluster_group cluster = cg::this_cluster();
@@ -465,15 +455,13 @@ bn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, i
       }
     }
   };
-  int wb[4];
-  weight_bases<kCol>(wb, L.c, C, B, Cg);
   SampleWalk sw(L, P);
   auto grad = [&](int k0, const F4 (&xv)[kBatch], const F4 (&dv)[kBatch], const float (&a1)[4],
                   const float (&a2)[4]) {
-    float wv[kBatch][4];
+    float wv[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      weights4<kCol>(wv[u], w, wb, sw.s, L.has(k0 + u));
+      wv[u] = L.has(k0 + u) ? w[sw.s] : 0.f;
       sw.next();
     }
 #pragma unroll
@@ -484,8 +472,8 @@ bn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, i
       for (int j = 0; j < 4; ++j) {
         const float xhat = (xv[u].v[j] - mu[j]) * iv[j];
         // dx_k = inv*g*dy_k - w_k*inv/n*(g*db) - w_k*xhat_k*inv/n*(g*dg)
-        o.v[j] = iv[j] * gg[j] * dv[u].v[j] - wv[u][j] * (iv[j] / nn[j]) * (gg[j] * a1[j])
-                 - wv[u][j] * xhat * (iv[j] / nn[j]) * (gg[j] * a2[j]);
+        o.v[j] = iv[j] * gg[j] * dv[u].v[j] - wv[u] * (iv[j] / nn[j]) * (gg[j] * a1[j])
+                 - wv[u] * xhat * (iv[j] / nn[j]) * (gg[j] * a2[j]);
       }
       store4<kVec4>(dx, (size_t)L.row(k0 + u) * C + L.c, L.c, C, o);
     }
@@ -509,7 +497,7 @@ bn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, i
   }
 
   // 2. the cluster's sums, ranks in order
-  ex.sum<8, kS>(v, tile_c, L, wsum, gather);
+  ex.sum<8, kSlots>(v, tile_c, L, wsum, gather);
   if (L.t < tile_c) {
     float a1 = 0.f, a2 = 0.f;
 #pragma unroll
@@ -554,9 +542,343 @@ bn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, i
   ex.finish();
 }
 
-// Bytes of one tensor's rows past the first kBatch iterations, per block.
-inline size_t stash_bytes(int iters) {
-  return (size_t)(iters > kBatch ? iters - kBatch : 0) * kThreads * sizeof(float4);
+// -- the batched kernels (1b, 2b) ----------------------------------------------
+
+// The weights a block of a batched kernel reads, staged in its shared memory
+// once: for each client its channel tile touches (c_lo..c_lo + nc - 1), the
+// samples its rows span (s_lo..s_lo + ns - 1), stage[(client - c_lo) * ns +
+// sample - s_lo] = w[client * B + sample].
+// Its integer divisions come before the kernel's first load: a warp issues
+// in order, and a division's chain would hold the loads behind it.
+struct Stage {
+  int c_lo, s_lo, ns, n, i0;  // i0: where thread t's first element lies in w
+  __device__ Stage(const Layout& L, int tile_c, int C, int Cg, int P, int B) {
+    const int c0 = blockIdx.y * tile_c;
+    c_lo = c0 / Cg;
+    s_lo = L.r0 / P;
+    ns = L.r0 < L.r1 ? (L.r1 - 1) / P - s_lo + 1 : 0;
+    n = ((min(C, c0 + tile_c) - 1) / Cg - c_lo + 1) * ns;
+    i0 = L.t < n ? (c_lo + L.t / ns) * B + s_lo + L.t % ns : 0;
+  }
+  __device__ __forceinline__ float fetch(const float* __restrict__ w, int i, int B) const {
+    return w[(c_lo + i / ns) * B + s_lo + i % ns];
+  }
+  // where a thread's four columns find sample s: stage[wb[j] + s] (a column
+  // past C reads a weight of the block's, and is never written)
+  __device__ __forceinline__ void bases(int (&wb)[4], int c, int C, int Cg) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wb[j] = (c + j < C ? ((c + j) / Cg - c_lo) * ns : 0) - s_lo;
+  }
+  // thread t's first element, loaded with the first rows; the rest, if any, after
+  __device__ __forceinline__ float first(const float* __restrict__ w, int t) const {
+    return t < n ? w[i0] : 0.f;
+  }
+  __device__ __forceinline__ void store(float* stage, const float* __restrict__ w, int t, int B,
+                                        float w0) const {
+    if (t < n) stage[t] = w0;
+    for (int i = t + kThreads; i < n; i += kThreads) stage[i] = fetch(w, i, B);
+  }
+};
+
+__device__ __forceinline__ void stage_weights4(float (&wv)[4], const float* stage,
+                                               const int (&wb)[4], int s, bool in) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) wv[j] = in ? stage[wb[j] + s] : 0.f;
+}
+
+// The batched forward: the one-client forward's rows, exchange and order, with
+// a count per channel (three sums a channel) and each column's weight read
+// from the block's stage.  Every read of an input follows griddep_wait; the
+// first batch of x loads is in flight while the stage is written.
+template <bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+bn_fwd_batched_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, int B,
+                      int Cg, const float* __restrict__ g, const float* __restrict__ b,
+                      float* __restrict__ y, float* __restrict__ stats, int M, int C, float eps,
+                      int tile_c, int rows, int iters, int resident) {
+  constexpr int kB = kBatchFwdB;
+  // [iters - kB][kThreads] of x when resident, then the stage
+  extern __shared__ float4 stash[];
+  __shared__ float wsum[kWarps][kSlotsCol];
+  __shared__ float gather[kMaxCluster][kSlotsCol];
+  __shared__ float coef[2][kMaxTileC];
+  __shared__ uint64_t bar;
+  cg::cluster_group cluster = cg::this_cluster();
+  Exchange ex(cluster, &bar, 3 * tile_c, threadIdx.x);
+  const Layout L(cluster.block_rank(), tile_c, rows, M, iters);
+  const Stage st(L, tile_c, C, Cg, P, B);
+  float* const stage =
+      reinterpret_cast<float*>(stash + (resident ? (size_t)max(iters - kB, 0) * kThreads : 0));
+  int wb[4];
+  st.bases(wb, L.c, C, Cg);
+  SampleWalk sw(L, P);
+  float gg[4], bb[4];
+  float v[12];  // s1[4], s2[4], n[4]
+#pragma unroll
+  for (int j = 0; j < 12; ++j) v[j] = 0.f;
+
+  auto load_rows = [&](int k0, F4 (&xv)[kB]) {
+#pragma unroll
+    for (int u = 0; u < kB; ++u)
+      xv[u] = L.has(k0 + u) ? load4<kVec4>(x, (size_t)L.row(k0 + u) * C + L.c, L.c, C) : F4{};
+  };
+  // the sums of kB row iterations from k0, in order
+  auto accumulate = [&](int k0, const F4 (&xv)[kB]) {
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const bool in = L.has(k0 + u);
+      float wv[4];
+      stage_weights4(wv, stage, wb, sw.s, in);
+      sw.next();
+      if (!in) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float xs = wv[j] > 0.f ? xv[u].v[j] : 0.f;
+        v[j] += xs * wv[j];
+        v[4 + j] += xs * xs * wv[j];
+        v[8 + j] += wv[j];
+      }
+    }
+  };
+  auto normalise = [&](int k0, const F4 (&xv)[kB], const float (&mu)[4],
+                       const float (&iv)[4]) {
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      if (!L.has(k0 + u)) continue;
+      F4 o;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o.v[j] = (xv[u].v[j] - mu[j]) * iv[j] * gg[j] + bb[j];
+      store4<kVec4>(y, (size_t)L.row(k0 + u) * C + L.c, L.c, C, o);
+    }
+  };
+
+  // 1. this block's rows: the first kB iterations' loads go out, the
+  // stage is written, then the weighted sums; the first kB iterations
+  // stay in registers, the rest in shared memory when resident
+  griddep_wait();
+  F4 xr[kB];
+  load_rows(0, xr);
+  const float w0 = st.first(w, L.t);
+  channel4(gg, g, L.c, C);
+  channel4(bb, b, L.c, C);
+  st.store(stage, w, L.t, B, w0);
+  __syncthreads();
+  accumulate(0, xr);
+  for (int k0 = kB; k0 < iters; k0 += kB) {
+    F4 xv[kB];
+    load_rows(k0, xv);
+    accumulate(k0, xv);
+    if (resident) {
+#pragma unroll
+      for (int u = 0; u < kB; ++u)
+        if (L.has(k0 + u)) stash[(k0 + u - kB) * kThreads + L.t] = pack(xv[u]);
+    }
+  }
+
+  // 2. the cluster's sums, ranks in order, then the channel statistics
+  ex.sum<12, kSlotsCol>(v, tile_c, L, wsum, gather);
+  if (L.t < tile_c) {
+    float s1 = 0.f, s2 = 0.f, n = 0.f;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < static_cast<int>(ex.nb)) {
+        s1 += gather[q][L.t];
+        s2 += gather[q][tile_c + L.t];
+        n += gather[q][2 * tile_c + L.t];
+      }
+    }
+    n = fmaxf(n, 1e-6f);
+    const float mean = s1 / n;
+    const float var = fmaxf(s2 / n - mean * mean, 0.f);
+    const float inv = 1.0f / sqrtf(var + eps);
+    coef[0][L.t] = mean;
+    coef[1][L.t] = inv;
+    const int ch = blockIdx.y * tile_c + L.t;
+    if (ex.rank == 0 && ch < C) {
+      stats[ch] = mean;
+      stats[C + ch] = inv;
+      stats[2 * C + ch] = n;
+    }
+  }
+  __syncthreads();
+  ex.done();
+
+  // 3. normalise the rows this block holds
+  float mu[4], iv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    mu[j] = coef[0][4 * L.grp + j];
+    iv[j] = coef[1][4 * L.grp + j];
+  }
+  normalise(0, xr, mu, iv);
+  for (int k0 = kB; k0 < iters; k0 += kB) {
+    F4 xv[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      if (!L.has(k0 + u)) continue;
+      xv[u] = resident ? unpack(stash[(k0 + u - kB) * kThreads + L.t])
+                       : load4<kVec4>(x, (size_t)L.row(k0 + u) * C + L.c, L.c, C);
+    }
+    normalise(k0, xv, mu, iv);
+  }
+  ex.finish();
+}
+
+// The batched backward: the one-client backward with each column's weight
+// read from the block's stage, which is written before the exchange (its
+// loads in flight with the first rows'), so no weight is read from device
+// memory after it.
+template <bool kVec4>
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_batched_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, int B,
+                      int Cg, const float* __restrict__ g, const float* __restrict__ dy,
+                      const float* __restrict__ stats, float* __restrict__ dx,
+                      float* __restrict__ dg, float* __restrict__ db, int M, int C, int tile_c,
+                      int rows, int iters, int resident) {
+  constexpr int kB = kBatchBwdB;
+  // [2][iters - kB][kThreads]: x, then dy, when resident; then the stage
+  extern __shared__ float4 stash[];
+  __shared__ float wsum[kWarps][kSlots];
+  __shared__ float gather[kMaxCluster][kSlots];
+  __shared__ float coef[2][kMaxTileC];
+  __shared__ uint64_t bar;
+  cg::cluster_group cluster = cg::this_cluster();
+  Exchange ex(cluster, &bar, 2 * tile_c, threadIdx.x);
+  const Layout L(cluster.block_rank(), tile_c, rows, M, iters);
+  const Stage st(L, tile_c, C, Cg, P, B);
+  const size_t held = resident ? (size_t)max(iters - kB, 0) * kThreads : 0;
+  float4* const stash_dy = stash + held;
+  float* const stage = reinterpret_cast<float*>(stash + 2 * held);
+  int wb[4];
+  st.bases(wb, L.c, C, Cg);
+  SampleWalk sw(L, P);
+  griddep_wait();
+  const float w0 = st.first(w, L.t);
+  float mu[4], iv[4], nn[4], gg[4];
+  channel4(mu, stats, L.c, C);
+  channel4(iv, stats + C, L.c, C);
+  channel4(nn, stats + 2 * C, L.c, C);
+  channel4(gg, g, L.c, C);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) nn[j] = fmaxf(nn[j], 1e-6f);
+  float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // db[4], dg[4]
+
+  // kB row iterations from k0: loads all in flight, then the sums in order
+  auto load = [&](int k0, F4 (&xv)[kB], F4 (&dv)[kB]) {
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const bool in = L.has(k0 + u);
+      const size_t i = (size_t)L.row(k0 + u) * C + L.c;
+      xv[u] = in ? load4<kVec4>(x, i, L.c, C) : F4{};
+      dv[u] = in ? load4<kVec4>(dy, i, L.c, C) : F4{};
+    }
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      if (!L.has(k0 + u)) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float xhat = (xv[u].v[j] - mu[j]) * iv[j];
+        v[j] += dv[u].v[j];
+        v[4 + j] += dv[u].v[j] * xhat;
+      }
+    }
+  };
+  auto grad = [&](int k0, const F4 (&xv)[kB], const F4 (&dv)[kB], const float (&a1)[4],
+                  const float (&a2)[4]) {
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      const bool in = L.has(k0 + u);
+      float wv[4];
+      stage_weights4(wv, stage, wb, sw.s, in);
+      sw.next();
+      if (!in) continue;
+      F4 o;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float xhat = (xv[u].v[j] - mu[j]) * iv[j];
+        // dx_k = inv*g*dy_k - w_k*inv/n*(g*db) - w_k*xhat_k*inv/n*(g*dg)
+        o.v[j] = iv[j] * gg[j] * dv[u].v[j] - wv[j] * (iv[j] / nn[j]) * (gg[j] * a1[j])
+                 - wv[j] * xhat * (iv[j] / nn[j]) * (gg[j] * a2[j]);
+      }
+      store4<kVec4>(dx, (size_t)L.row(k0 + u) * C + L.c, L.c, C, o);
+    }
+  };
+
+  // 1. this block's rows: db = sum dy, dg = sum dy * xhat; the first kB
+  // iterations stay in registers, the rest in shared memory when resident;
+  // the stage is written after the first loads (the exchange's barrier
+  // publishes it)
+  F4 xr[kB], dr[kB];
+  load(0, xr, dr);
+  st.store(stage, w, L.t, B, w0);
+  for (int k0 = kB; k0 < iters; k0 += kB) {
+    F4 xv[kB], dv[kB];
+    load(k0, xv, dv);
+    if (resident) {
+#pragma unroll
+      for (int u = 0; u < kB; ++u) {
+        if (!L.has(k0 + u)) continue;
+        stash[(k0 + u - kB) * kThreads + L.t] = pack(xv[u]);
+        stash_dy[(k0 + u - kB) * kThreads + L.t] = pack(dv[u]);
+      }
+    }
+  }
+
+  // 2. the cluster's sums, ranks in order
+  ex.sum<8, kSlots>(v, tile_c, L, wsum, gather);
+  if (L.t < tile_c) {
+    float a1 = 0.f, a2 = 0.f;
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q) {
+      if (q < static_cast<int>(ex.nb)) {
+        a1 += gather[q][L.t];
+        a2 += gather[q][tile_c + L.t];
+      }
+    }
+    coef[0][L.t] = a1;
+    coef[1][L.t] = a2;
+    const int ch = blockIdx.y * tile_c + L.t;
+    if (ex.rank == 0 && ch < C) {
+      db[ch] = a1;
+      dg[ch] = a2;
+    }
+  }
+  __syncthreads();
+  ex.done();
+
+  // 3. dx for the rows this block holds
+  float a1[4], a2[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a1[j] = coef[0][4 * L.grp + j];
+    a2[j] = coef[1][4 * L.grp + j];
+  }
+  grad(0, xr, dr, a1, a2);
+  for (int k0 = kB; k0 < iters; k0 += kB) {
+    F4 xv[kB], dv[kB];
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      if (!L.has(k0 + u)) continue;
+      const size_t i = (size_t)L.row(k0 + u) * C + L.c;
+      xv[u] = resident ? unpack(stash[(k0 + u - kB) * kThreads + L.t])
+                       : load4<kVec4>(x, i, L.c, C);
+      dv[u] = resident ? unpack(stash_dy[(k0 + u - kB) * kThreads + L.t])
+                       : load4<kVec4>(dy, i, L.c, C);
+    }
+    grad(k0, xv, dv, a1, a2);
+  }
+  ex.finish();
+}
+
+// A measuring aid, on no path (chip_smoke.py and scripts/bn_plan_sweep.py call
+// it): an empty kernel launched as a plan's kernel is -- the same grid,
+// cluster and shared memory, and the same dependent-launch wait -- so its time
+// is that plan's launch floor.
+__global__ void __launch_bounds__(kThreads) bn_floor_kernel() { griddep_wait(); }
+
+// Bytes of one tensor's rows past the first `batch` iterations, per block.
+inline size_t stash_bytes(int iters, int batch = kBatch) {
+  return (size_t)(iters > batch ? iters - batch : 0) * kThreads * sizeof(float4);
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -586,9 +908,11 @@ cudaError_t prepare(Kernel* kernel, bool& ready) {
   return e;
 }
 
-// One cluster launch: grid (cluster, channel tiles), clusters of (cluster, 1, 1).
+// One cluster launch: grid (cluster, channel tiles), clusters of (cluster, 1, 1);
+// with pdl, a programmatic dependent launch (the kernel may start before the
+// one before it on the stream ends, and waits for it in griddep_wait).
 template <typename Kernel, typename... Args>
-int launch(Kernel* kernel, bool& ready, int cluster, int C, int tile_c, size_t smem,
+int launch(Kernel* kernel, bool& ready, int cluster, int C, int tile_c, size_t smem, bool pdl,
            void* stream, Args... args) {
   cudaError_t e = prepare(kernel, ready);
   if (e == cudaSuccess) {
@@ -597,56 +921,102 @@ int launch(Kernel* kernel, bool& ready, int cluster, int C, int tile_c, size_t s
     cfg.blockDim = dim3(kThreads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = static_cast<cudaStream_t>(stream);
-    cudaLaunchAttribute attr[1];
+    cudaLaunchAttribute attr[2];
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = cluster;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[1].val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    cfg.numAttrs = pdl ? 2 : 1;
     e = cudaLaunchKernelEx(&cfg, kernel, args...);
   }
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
-bool g_ready[8];  // fwd vec4, fwd scalar, bwd vec4, bwd scalar; then the batched four
+bool g_ready[9];  // fwd vec4, fwd scalar, bwd vec4, bwd scalar; the batched four; floor
 
-inline int fwd(bool col, const float* x, const float* w, int P, int B, int Cg, const float* g,
-               const float* b, float* y, float* stats, int M, int C, float eps, int tile_c,
-               int cluster, int rows, int iters, int resident, void* stream) {
+inline int fwd(const float* x, const float* w, int P, const float* g, const float* b, float* y,
+               float* stats, int M, int C, float eps, int tile_c, int cluster, int rows,
+               int iters, int resident, void* stream) {
   if (!plan_ok(M, C, tile_c, cluster, rows, iters) || P < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = resident ? stash_bytes(iters) : 0;
   const bool v4 = C % 4 == 0 && aligned16(x) && aligned16(y);
   auto go = [&](auto kernel, bool& ready) {
-    return launch(kernel, ready, cluster, C, tile_c, smem, stream, x, w, P, B, Cg, g, b, y,
+    return launch(kernel, ready, cluster, C, tile_c, smem, false, stream, x, w, P, g, b, y,
                   stats, M, C, eps, tile_c, rows, iters, resident);
   };
-  if (col) return v4 ? go(bn_fwd_kernel<true, true>, g_ready[4])
-                     : go(bn_fwd_kernel<false, true>, g_ready[5]);
-  return v4 ? go(bn_fwd_kernel<true, false>, g_ready[0]) : go(bn_fwd_kernel<false, false>, g_ready[1]);
+  return v4 ? go(bn_fwd_kernel<true>, g_ready[0]) : go(bn_fwd_kernel<false>, g_ready[1]);
 }
 
-inline int bwd(bool col, const float* x, const float* w, int P, int B, int Cg, const float* g,
-               const float* dy, const float* stats, float* dx, float* dg, float* db, int M,
-               int C, int tile_c, int cluster, int rows, int iters, int resident, void* stream) {
+inline int bwd(const float* x, const float* w, int P, const float* g, const float* dy,
+               const float* stats, float* dx, float* dg, float* db, int M, int C, int tile_c,
+               int cluster, int rows, int iters, int resident, void* stream) {
   if (!plan_ok(M, C, tile_c, cluster, rows, iters) || P < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = resident ? 2 * stash_bytes(iters) : 0;
   const bool v4 = C % 4 == 0 && aligned16(x) && aligned16(dy) && aligned16(dx);
   auto go = [&](auto kernel, bool& ready) {
-    return launch(kernel, ready, cluster, C, tile_c, smem, stream, x, w, P, B, Cg, g, dy,
+    return launch(kernel, ready, cluster, C, tile_c, smem, false, stream, x, w, P, g, dy,
                   stats, dx, dg, db, M, C, tile_c, rows, iters, resident);
   };
-  if (col) return v4 ? go(bn_bwd_kernel<true, true>, g_ready[6])
-                     : go(bn_bwd_kernel<false, true>, g_ready[7]);
-  return v4 ? go(bn_bwd_kernel<true, false>, g_ready[2]) : go(bn_bwd_kernel<false, false>, g_ready[3]);
+  return v4 ? go(bn_bwd_kernel<true>, g_ready[2]) : go(bn_bwd_kernel<false>, g_ready[3]);
 }
 
 // The batched kernels' client layout: C = G * Cg columns, M = B * P rows.
 inline bool clients_ok(int M, int C, int P, int B, int Cg) {
-  return B >= 1 && Cg >= 1 && C % Cg == 0 && (long long)B * P == M;
+  return P >= 1 && B >= 1 && Cg >= 1 && C % Cg == 0 && (long long)B * P == M;
+}
+
+// Bytes of a batched block's weight stage (Stage), the largest over the
+// plan's blocks, in whole 16-byte units: the clients of the widest channel
+// tile times the samples of the widest row range.
+inline size_t stage_bytes(int M, int C, int P, int Cg, int tile_c, int cluster, int rows) {
+  long long nc = 0, ns = 0;
+  for (int c0 = 0; c0 < C; c0 += tile_c)
+    nc = std::max<long long>(nc, (std::min(C, c0 + tile_c) - 1) / Cg - c0 / Cg + 1);
+  for (int q = 0; q < cluster && (long long)q * rows < M; ++q) {
+    const int r0 = q * rows;
+    ns = std::max<long long>(ns, (std::min(M, r0 + rows) - 1) / P - r0 / P + 1);
+  }
+  return (size_t)((nc * ns + 3) / 4) * 16;
+}
+
+inline int fwd_batched(const float* x, const float* w, int P, int B, int Cg, const float* g,
+                       const float* b, float* y, float* stats, int M, int C, float eps,
+                       int tile_c, int cluster, int rows, int iters, int resident, bool pdl,
+                       void* stream) {
+  if (!plan_ok(M, C, tile_c, cluster, rows, iters) || !clients_ok(M, C, P, B, Cg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (resident ? stash_bytes(iters, kBatchFwdB) : 0) +
+                      stage_bytes(M, C, P, Cg, tile_c, cluster, rows);
+  const bool v4 = C % 4 == 0 && aligned16(x) && aligned16(y);
+  auto go = [&](auto kernel, bool& ready) {
+    return launch(kernel, ready, cluster, C, tile_c, smem, pdl, stream, x, w, P, B, Cg, g, b, y,
+                  stats, M, C, eps, tile_c, rows, iters, resident);
+  };
+  return v4 ? go(bn_fwd_batched_kernel<true>, g_ready[4])
+            : go(bn_fwd_batched_kernel<false>, g_ready[5]);
+}
+
+inline int bwd_batched(const float* x, const float* w, int P, int B, int Cg, const float* g,
+                       const float* dy, const float* stats, float* dx, float* dg, float* db,
+                       int M, int C, int tile_c, int cluster, int rows, int iters, int resident,
+                       bool pdl, void* stream) {
+  if (!plan_ok(M, C, tile_c, cluster, rows, iters) || !clients_ok(M, C, P, B, Cg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (resident ? 2 * stash_bytes(iters, kBatchBwdB) : 0) +
+                      stage_bytes(M, C, P, Cg, tile_c, cluster, rows);
+  const bool v4 = C % 4 == 0 && aligned16(x) && aligned16(dy) && aligned16(dx);
+  auto go = [&](auto kernel, bool& ready) {
+    return launch(kernel, ready, cluster, C, tile_c, smem, pdl, stream, x, w, P, B, Cg, g, dy,
+                  stats, dx, dg, db, M, C, tile_c, rows, iters, resident);
+  };
+  return v4 ? go(bn_bwd_batched_kernel<true>, g_ready[6])
+            : go(bn_bwd_batched_kernel<false>, g_ready[7]);
 }
 
 }  // namespace
@@ -658,8 +1028,7 @@ extern "C" {
 int hfl_bn_fwd(const float* x, const float* w, int P, const float* g, const float* b,
                float* y, float* stats, int M, int C, float eps, int tile_c, int cluster,
                int rows, int iters, int resident, void* stream) {
-  return fwd(false, x, w, P, 0, 1, g, b, y, stats, M, C, eps, tile_c, cluster, rows, iters,
-             resident, stream);
+  return fwd(x, w, P, g, b, y, stats, M, C, eps, tile_c, cluster, rows, iters, resident, stream);
 }
 
 // Backward: dx [M, C], dg, db [C] from x, dy [M, C], w, g and the forward's
@@ -667,19 +1036,19 @@ int hfl_bn_fwd(const float* x, const float* w, int P, const float* g, const floa
 int hfl_bn_bwd(const float* x, const float* w, int P, const float* g, const float* dy,
                const float* stats, float* dx, float* dg, float* db, int M, int C, int tile_c,
                int cluster, int rows, int iters, int resident, void* stream) {
-  return bwd(false, x, w, P, 0, 1, g, dy, stats, dx, dg, db, M, C, tile_c, cluster, rows, iters,
-             resident, stream);
+  return bwd(x, w, P, g, dy, stats, dx, dg, db, M, C, tile_c, cluster, rows, iters, resident,
+             stream);
 }
 
 // Batched forward: x [M, G * Cg] of G clients, w [G, B] (B = M / P), g, b
-// [G * Cg] -> y, stats [3, G * Cg], on fused_norm.bn_plan(M, C, batched=True).
+// [G * Cg] -> y, stats [3, G * Cg], on fused_norm.bn_plan_batched(M, C, Cg,
+// P); a programmatic dependent launch when pdl.
 int hfl_bn_fwd_batched(const float* x, const float* w, int P, int B, int Cg, const float* g,
                        const float* b, float* y, float* stats, int M, int C, float eps,
-                       int tile_c, int cluster, int rows, int iters, int resident,
+                       int tile_c, int cluster, int rows, int iters, int resident, int pdl,
                        void* stream) {
-  if (!clients_ok(M, C, P, B, Cg)) return static_cast<int>(cudaErrorInvalidValue);
-  return fwd(true, x, w, P, B, Cg, g, b, y, stats, M, C, eps, tile_c, cluster, rows, iters,
-             resident, stream);
+  return fwd_batched(x, w, P, B, Cg, g, b, y, stats, M, C, eps, tile_c, cluster, rows, iters,
+                     resident, pdl != 0, stream);
 }
 
 // Batched backward: dx, dg, db from x, dy, w [G, B], g and the batched
@@ -687,10 +1056,18 @@ int hfl_bn_fwd_batched(const float* x, const float* w, int P, int B, int Cg, con
 int hfl_bn_bwd_batched(const float* x, const float* w, int P, int B, int Cg, const float* g,
                        const float* dy, const float* stats, float* dx, float* dg, float* db,
                        int M, int C, int tile_c, int cluster, int rows, int iters, int resident,
-                       void* stream) {
-  if (!clients_ok(M, C, P, B, Cg)) return static_cast<int>(cudaErrorInvalidValue);
-  return bwd(true, x, w, P, B, Cg, g, dy, stats, dx, dg, db, M, C, tile_c, cluster, rows, iters,
-             resident, stream);
+                       int pdl, void* stream) {
+  return bwd_batched(x, w, P, B, Cg, g, dy, stats, dx, dg, db, M, C, tile_c, cluster, rows,
+                     iters, resident, pdl != 0, stream);
+}
+
+// The launch floor of a plan: the empty kernel on grid (cluster, tiles),
+// clusters of `cluster`, with smem bytes of dynamic shared memory (the
+// plan's static and dynamic together), a dependent launch when pdl.
+int hfl_bn_floor(int tiles, int cluster, int smem, int pdl, void* stream) {
+  if (tiles < 1 || cluster < 1 || cluster > kMaxCluster || smem < 0 || smem > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(bn_floor_kernel, g_ready[8], cluster, tiles, 1, smem, pdl != 0, stream);
 }
 
 }  // extern "C"

@@ -23,7 +23,10 @@ B]``.  Each column's mean, variance and count come from its client's
 weighted rows only, so ``stats`` holds a count per column.  A channel tile
 of the launch plan may straddle two clients (at level e ResNet-18's stages
 are 4 to 32 channels wide and tiles at least 8): the weight is resolved per
-column, never per tile.  One launch a direction replaces G.
+column, never per tile.  One launch a direction replaces G, on the plan
+:func:`bn_plan_batched` computes from the shape; each block stages the
+weights it needs in shared memory, and each launch is a programmatic
+dependent launch (:data:`BN_BATCHED_PDL`).
 
 Semantics (pallas_norm.py:45-109): per-channel weighted moments over all
 rows in the ONE-pass form ``var = max(s2/n - mean^2, 0)``; rows whose
@@ -54,18 +57,27 @@ LAUNCHES = {"bn_fwd": 0, "bn_bwd": 0, "bn_fwd_batched": 0, "bn_bwd_batched": 0}
 # 8-byte barrier)
 BN_THREADS = 256
 BN_BATCH = 8
+# the batched kernels' row iterations in registers, forward and backward
+# (kBatchFwdB, kBatchBwdB in csrc/bn.cu)
+BN_BATCH_BATCHED = (4, 2)
 BN_MAX_TILE_C = 128
 BN_MAX_CLUSTER = 16
 BN_SMEM_LIMIT = 232_448
 BN_STATIC_SMEM = 4 * ((BN_THREADS // 32 + BN_MAX_CLUSTER) * (2 * BN_MAX_TILE_C + 1)
                       + 2 * BN_MAX_TILE_C) + 8
-# the batched kernels sum a count per channel: 3 * 128 slots
+# the batched forward sums a count per channel: 3 * 128 slots (the batched
+# backward's static shared memory is the one-client kernels')
 BN_STATIC_SMEM_BATCHED = 4 * ((BN_THREADS // 32 + BN_MAX_CLUSTER) * (3 * BN_MAX_TILE_C)
                               + 2 * BN_MAX_TILE_C) + 8
 # blocks per launch the plan aims at: on an H100 (132 SMs) more blocks in
-# clusters cost more than they gain at ResNet-18's sites
-# (scripts/bn_plan_sweep.py times every plan)
+# clusters cost more than they gain at ResNet-18's sites, one-client and
+# batched (scripts/bn_plan_sweep.py times every plan, --batched the batched)
 _TARGET_BLOCKS = 64
+# the batched plan's rows at most for a launch without clusters: two row
+# iterations of a tile of 8 channels (128 lanes)
+_SMALL_M = 256
+#: the batched kernels go out as programmatic dependent launches
+BN_BATCHED_PDL = True
 
 
 class BnPlan(NamedTuple):
@@ -91,30 +103,52 @@ def _pow2ceil(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
-def plan_for(M: int, C: int, tile_c: int, cluster: int, batched: bool = False) -> BnPlan:
-    """The plan at a given channel tile and cluster size: :func:`bn_plan`'s
-    choice, or one a sweep tries (``scripts/bn_plan_sweep.py``).  A thread
-    keeps its first 8 row iterations in registers and the rest in shared
-    memory when they fit; otherwise the direction's one launch reads those
-    rows twice."""
+def _plan(M: int, C: int, tile_c: int, cluster: int, static_fwd: int, static_bwd: int,
+          stage: int, batch: Tuple[int, int] = (BN_BATCH, BN_BATCH)) -> BnPlan:
     tiles = -(-C // tile_c)
     lanes = BN_THREADS // (tile_c // 4)
     rows = -(-M // cluster)
     iters = -(-rows // lanes)
-    static = BN_STATIC_SMEM_BATCHED if batched else BN_STATIC_SMEM
-    stash = max(0, iters - BN_BATCH) * BN_THREADS * 16  # one tensor's rows in shared memory
-    res_f = static + stash <= BN_SMEM_LIMIT
-    res_b = static + 2 * stash <= BN_SMEM_LIMIT
+    # one tensor's rows past the registers, in shared memory, each direction
+    stash_f, stash_b = (max(0, iters - k) * BN_THREADS * 16 for k in batch)
+    res_f = static_fwd + stash_f + stage <= BN_SMEM_LIMIT
+    res_b = static_bwd + 2 * stash_b + stage <= BN_SMEM_LIMIT
     return BnPlan(tile_c, tiles, cluster, rows, lanes, iters, res_f, res_b,
-                  static + (stash if res_f else 0), static + (2 * stash if res_b else 0))
+                  static_fwd + (stash_f if res_f else 0) + stage,
+                  static_bwd + (2 * stash_b if res_b else 0) + stage)
 
 
-@functools.lru_cache(maxsize=None)
-def bn_plan(M: int, C: int, batched: bool = False) -> BnPlan:
-    """The launch plan of both kernels at ``[M, C]``, a pure function of
-    the shape, so the reduction order (and so the bits) is fixed per shape.
+def plan_for(M: int, C: int, tile_c: int, cluster: int) -> BnPlan:
+    """The one-client plan at a given channel tile and cluster size:
+    :func:`bn_plan`'s choice, or one a sweep tries
+    (``scripts/bn_plan_sweep.py``).  A thread keeps its first 8 row
+    iterations in registers and the rest in shared memory when they fit;
+    otherwise the direction's one launch reads those rows twice."""
+    return _plan(M, C, tile_c, cluster, BN_STATIC_SMEM, BN_STATIC_SMEM, 0)
 
-    Channel tiles of at least 8 channels (a full 32-byte sector per row)
+
+def stage_bytes(M: int, C: int, Cg: int, P: int, tile_c: int, cluster: int) -> int:
+    """Shared memory of a batched block's weight stage (``Stage`` in
+    ``bn.cu``), the largest over the plan's blocks, in whole 16-byte units:
+    the clients of the widest channel tile (``Cg`` columns a client) times
+    the samples of the widest row range (``P`` rows a sample)."""
+    rows = -(-M // cluster)
+    nc = max((min(C, c0 + tile_c) - 1) // Cg - c0 // Cg + 1 for c0 in range(0, C, tile_c))
+    ns = max((min(M, r0 + rows) - 1) // P - r0 // P + 1 for r0 in range(0, M, rows))
+    return -(-nc * ns // 4) * 16
+
+
+def plan_for_batched(M: int, C: int, Cg: int, P: int, tile_c: int, cluster: int) -> BnPlan:
+    """The batched plan at a given channel tile and cluster size: the
+    one-client geometry, with the weight stage in each block's shared memory
+    (the forward's static part holds a count per channel) and the batched
+    kernels' own row iterations in registers (:data:`BN_BATCH_BATCHED`)."""
+    return _plan(M, C, tile_c, cluster, BN_STATIC_SMEM_BATCHED, BN_STATIC_SMEM,
+                 stage_bytes(M, C, Cg, P, tile_c, cluster), BN_BATCH_BATCHED)
+
+
+def _tile_and_cluster(M: int, C: int) -> Tuple[int, int]:
+    """Channel tiles of at least 8 channels (a full 32-byte sector per row)
     and about 8 tiles; then blocks per cluster, a power of two up to 16,
     for about 64 blocks in all, but no more blocks than one row iteration
     each needs."""
@@ -124,8 +158,43 @@ def bn_plan(M: int, C: int, batched: bool = False) -> BnPlan:
     tiles = -(-C // tile_c)
     lanes = BN_THREADS // (tile_c // 4)
     cluster = 1 << (max(1, _TARGET_BLOCKS // tiles).bit_length() - 1)
-    cluster = min(cluster, BN_MAX_CLUSTER, _pow2ceil(-(-M // lanes)))
-    return plan_for(M, C, tile_c, cluster, batched)
+    return tile_c, min(cluster, BN_MAX_CLUSTER, _pow2ceil(-(-M // lanes)))
+
+
+@functools.lru_cache(maxsize=None)
+def bn_plan(M: int, C: int) -> BnPlan:
+    """The launch plan of both one-client kernels at ``[M, C]``, a pure
+    function of the shape, so the reduction order (and so the bits) is
+    fixed per shape."""
+    return plan_for(M, C, *_tile_and_cluster(M, C))
+
+
+@functools.lru_cache(maxsize=None)
+def bn_plan_batched(M: int, C: int, Cg: int, P: int) -> BnPlan:
+    """The launch plan of both batched kernels at ``[M, C]`` (clients of
+    ``Cg`` columns, samples of ``P`` rows), a pure function of the shape.
+
+    The one-client rule, except where a tile of 8 channels reads all the
+    rows in two row iterations (``M <= 256``): there no cluster, and tiles
+    of C / 128 channels (at least 8), so up to 128 blocks of one.  On an
+    H100 that beat the one-client rule at every such shape of the grouped
+    engine (a site of ResNet-18's last stage), and no simple rule beat it
+    elsewhere (``scripts/bn_plan_sweep.py --batched``).  Raises where a
+    block's weight stage cannot fit in shared memory."""
+    if M < 1 or C < 1:
+        raise ValueError(f"bn_plan_batched: empty batch norm [{M}, {C}]")
+    if Cg < 1 or P < 1 or C % Cg or M % P:
+        raise ValueError(f"bn_plan_batched: [{M}, {C}] is not clients of {Cg} columns "
+                         f"and samples of {P} rows")
+    if M <= _SMALL_M:
+        tile_c = min(BN_MAX_TILE_C, max(8, _pow2ceil(-(-C // 128))), max(4, _pow2ceil(C)))
+        pl = plan_for_batched(M, C, Cg, P, tile_c, 1)
+    else:
+        pl = plan_for_batched(M, C, Cg, P, *_tile_and_cluster(M, C))
+    if max(pl.smem_fwd, pl.smem_bwd) > BN_SMEM_LIMIT:
+        raise ValueError(f"bn_plan_batched: the weight stage of [{M}, {C}] (Cg {Cg}, P {P}) "
+                         f"does not fit in a block's shared memory")
+    return pl
 
 
 def _row_weight(w: torch.Tensor, P: int) -> torch.Tensor:
@@ -300,25 +369,27 @@ def _check_batched(what, x2, w, P, *vecs):
                          f"vectors, got {tuple(x2.shape)}, w {tuple(w.shape)}, P {P}")
 
 
-def bn_fwd_batched_cuda(x2, w, P: int, g, b, eps: float = 1e-5):
-    """The batched forward kernel (``csrc/bn.cu``) on CUDA tensors: one launch."""
+def bn_fwd_batched_cuda(x2, w, P: int, g, b, eps: float = 1e-5, plan: Optional[BnPlan] = None):
+    """The batched forward kernel (``csrc/bn.cu``) on CUDA tensors: one
+    launch, on ``plan`` (a sweep's) or the shape's own."""
     _build.require_cuda("bn_fwd_batched", x2, w, g, b)
     _check_batched("bn_fwd_batched", x2, w, P, g, b)
     M, C = x2.shape
     G, B = w.shape
-    pl = bn_plan(M, C, True)
+    pl = plan or bn_plan_batched(M, C, C // G, P)
     y2 = torch.empty_like(x2)
     stats = x2.new_empty((3, C))
     _build.check(_build.load().hfl_bn_fwd_batched(
         x2.data_ptr(), w.data_ptr(), P, B, C // G, g.data_ptr(), b.data_ptr(), y2.data_ptr(),
         stats.data_ptr(), M, C, eps, pl.tile_c, pl.cluster, pl.rows, pl.iters,
-        pl.resident_fwd, _build.stream_of(x2)), "bn_fwd_batched")
+        pl.resident_fwd, BN_BATCHED_PDL, _build.stream_of(x2)), "bn_fwd_batched")
     LAUNCHES["bn_fwd_batched"] += 1
     return y2, stats
 
 
-def bn_bwd_batched_cuda(x2, w, P: int, g, dy2, stats):
-    """The batched backward kernel (``csrc/bn.cu``) on CUDA tensors: one launch."""
+def bn_bwd_batched_cuda(x2, w, P: int, g, dy2, stats, plan: Optional[BnPlan] = None):
+    """The batched backward kernel (``csrc/bn.cu``) on CUDA tensors: one
+    launch, on ``plan`` or the shape's own."""
     _build.require_cuda("bn_bwd_batched", x2, w, g, dy2, stats)
     _check_batched("bn_bwd_batched", x2, w, P, g)
     M, C = x2.shape
@@ -326,13 +397,13 @@ def bn_bwd_batched_cuda(x2, w, P: int, g, dy2, stats):
     if dy2.shape != x2.shape or stats.shape != (3, C):
         raise ValueError(f"bn_bwd_batched: dy2 {tuple(dy2.shape)} and stats "
                          f"{tuple(stats.shape)} for x2 {tuple(x2.shape)}")
-    pl = bn_plan(M, C, True)
+    pl = plan or bn_plan_batched(M, C, C // G, P)
     dx2 = torch.empty_like(x2)
     dg, db = x2.new_empty((2, C)).unbind(0)
     _build.check(_build.load().hfl_bn_bwd_batched(
         x2.data_ptr(), w.data_ptr(), P, B, C // G, g.data_ptr(), dy2.data_ptr(),
         stats.data_ptr(), dx2.data_ptr(), dg.data_ptr(), db.data_ptr(), M, C, pl.tile_c,
-        pl.cluster, pl.rows, pl.iters, pl.resident_bwd, _build.stream_of(x2)),
+        pl.cluster, pl.rows, pl.iters, pl.resident_bwd, BN_BATCHED_PDL, _build.stream_of(x2)),
         "bn_bwd_batched")
     LAUNCHES["bn_bwd_batched"] += 1
     return dx2, dg, db
