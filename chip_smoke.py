@@ -81,10 +81,17 @@ each prints its seconds:
    straddle clients of 1, 3, 4 and 6 channels, and timed over a step at
    G = 2, levels a and e, beside the step's launch floor (the empty kernel
    on each site's plan) and ``F.batch_norm`` on the same activations (a
-   yardstick, not the same function: no weights, one count); the batched fused SGD at ``[G, n_l]`` for levels a and e,
-   each row bit for bit the one-client kernel's; small grouped rounds (conv
-   net, ResNet-18 at 8/16/16/16) on the card against the CPU, the sliced
-   twin and the masked engine, and a full-width grouped LM round of two
+   yardstick, not the same function: no weights, one count); the batched
+   fused SGD (one launch) in the grouped engine's padded ``[G, n_l]`` rows
+   at ResNet-18's n at every level for G in {1, 2, 3, 4, 6}, the LM's
+   levels a and e and an odd n (also unpadded), on both routes where a row
+   has at most 16 parts -- each row bit for bit the one-client kernel's, two
+   calls equal -- and timed at level a G 2, level e G 4 and the LM's level a
+   G 2 beside its launch floor and ``torch._fused_sgd_`` (a yardstick, not
+   the same function: no mask, no clip), its kernels a call counted in a
+   ``torch.profiler`` trace (one, or the phase fails; row 3's too); small
+   grouped rounds (conv net, ResNet-18 at 8/16/16/16) on the card against
+   the CPU, the sliced twin and the masked engine, and a full-width grouped LM round of two
    level-b clients against the CPU and, at dropout 0, the masked engine;
    the headline control's first ``TIMED_ROUNDS`` rounds under the masked
    and the grouped engine in turns, on the control's own cohorts;
@@ -186,6 +193,9 @@ NO_BATCHED = {"bn_fwd_batched": 0, "bn_bwd_batched": 0, "fused_sgd_batched": 0}
 LEVELS = (1.0, 0.5, 0.25, 0.125, 0.0625)
 GROUPED_G = (1, 2, 4)                           # clients batched, held at every level
 GROUPED_TIMED = ((2, 1.0), (2, 0.0625))          # (G, rate) of the timed batched steps
+SGD_BATCHED_G = (1, 2, 3, 4, 6)                  # kernel 3b held at every level with these G
+SGD_BATCHED_TIMED = ((1.0, 2), (0.0625, 4))      # (rate, G) of its timed ResNet-18 shapes
+SGD_ODD_N = 10_001                               # an odd n (3 parts: both routes)
 # batched BN at ragged shapes, (M, C a client, P, G): clients of 1, 3, 4 and 6
 # channels, so channel tiles straddle clients; odd widths take the scalar path
 BN_BATCHED_RAGGED = [(999, 1, 111, 5), (3000, 3, 300, 4), (1960, 4, 196, 3), (490, 6, 49, 5),
@@ -274,6 +284,29 @@ def graph_ms(fn, calls: int = BN_GRAPH_CALLS, samples: int = 25) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b) / calls)
     return statistics.median(out)
+
+
+def kernels_per_call(fn, calls: int = 20):
+    """Kernels one call of ``fn`` runs on the card, counted in a
+    ``torch.profiler`` trace of ``calls`` calls after a warm-up one (copies
+    and fills not counted) and rounded: the profiler may drop an event or
+    two at a trace's start -> (kernels a call, their names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "CUDA" in str(e.device_type)
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    per_call = round(len(names) / calls)
+    if per_call < 1 or abs(len(names) - per_call * calls) > 2:
+        raise AssertionError(f"the profiler saw {len(names)} kernels in {calls} calls: "
+                             f"{sorted(set(names))}")
+    return per_call, sorted(set(names))
 
 
 def queued_ms(fn, calls: int = BN_GRAPH_CALLS, samples: int = 25) -> float:
@@ -482,12 +515,15 @@ def sgd_phase(torch, fused_update, mask_flat):
                   reps=2, samples=21)
     dms = graph_ms(lambda: fused_update.fused_sgd_cuda(graw, p_k, b_k, mask_flat, scal, **kw),
                    calls=10, samples=11)
+    per_call, names = kernels_per_call(
+        lambda: fused_update.fused_sgd_cuda(graw, p_k, b_k, mask_flat, scal, **kw))
     nbytes = 6 * 4 * n
     bound = max(nbytes / BW, 10 * n / F32) * 1e3
     say(f"  fused_sgd: kernel {ms:.4f} ms (device {dms:.4f})  plain {pms:.4f} ms  bound "
-        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB)")
+        f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB); {per_call} kernels a call in a profiler "
+        f"trace ({', '.join(names)})")
     return {"ms": ms, "device_ms": dms, "plain_ms": pms, "bound_ms": bound, "err": worst,
-            "bytes": nbytes, "ops": 10 * n}
+            "bytes": nbytes, "ops": 10 * n, "kernels_per_call": per_call}
 
 
 def quant_phase(torch, quant, codecs, spec, P):
@@ -1521,67 +1557,198 @@ def bn_batched_phase(torch, fused_norm):
     return tot
 
 
-def sgd_batched_phase(torch, fused_update, n_by_rate):
-    """Kernel 3b at ``[G, n_l]`` for levels a (G 2) and e (G 4): against its
-    plain version (the clipped rows within ``TOL_SGD_CLIP``, the rest
-    equal), against G launches of the one-client kernel on each row (equal
-    bits), and against a second call (equal bits); row 0 clips, row 1 has
-    ``has`` 0.  Timed at level a -> results, ``by_level``."""
+def sgd_floor_call(torch, fused_update, plan, n: int, G: int, sync: bool = False):
+    """A launcher of the empty kernel ``hfl_sgd_floor`` on the grid, cluster
+    and attributes kernel 3b takes on ``plan`` for G rows of n (with
+    ``sync``, and the route's barrier) -> (the launcher, its grid): timed,
+    the plan's launch floor.  A measuring aid, on no path."""
+    import ctypes
+
+    from heterofl_tpu_torch.ops import _build
+
+    lib = _build.load()
+    route = 0 if plan.route == "persistent" else 1
+    grid = ctypes.c_int(0)
+
+    def run():
+        _build.check(lib.hfl_sgd_floor(route, plan.vec, plan.rows, n, G, int(sync),
+                                       ctypes.byref(grid),
+                                       torch.cuda.current_stream().cuda_stream), "sgd_floor")
+    run()
+    torch.cuda.synchronize()
+    return run, grid.value
+
+
+def padded_copy(torch, v, ld: int):
+    """A copy of ``v [G, n]`` in rows ``ld`` apart, the pad filled with 7s
+    -> (the ``[G, ld]`` rows, the ``[G, n]`` view)."""
+    full = torch.full((v.shape[0], ld), 7.0, device=v.device)
+    full[:, :v.shape[1]] = v
+    return full, full[:, :v.shape[1]]
+
+
+def sgd_batched_inputs(torch, gen, n: int, G: int, ld: int):
+    """Inputs of kernel 3b: ``g, p, buf [G, n]`` views of ``[G, ld]`` rows
+    (the pad filled with 7s), a mask with 10% zeros, and ``scal`` in which
+    rows 0, 3, ... clip (the rest scaled by 1e-5) and row 1 has ``has`` 0
+    -> (g, p, buf, mask, scal, clip)."""
+    dev = torch.device("cuda")
+    g, p, buf = (padded_copy(torch, torch.randn(G, n, device=dev, generator=gen), ld)[1]
+                 for _ in range(3))
+    buf.mul_(0.1)
+    mask = (torch.rand(n, device=dev, generator=gen) < 0.9).to(torch.float32)
+    clip = [i % 3 == 0 for i in range(G)]
+    for i in range(G):
+        if not clip[i]:
+            g[i] *= 1e-5
+    scal = torch.tensor([[7.0, 0.1, 0.0 if i == 1 else 1.0] for i in range(G)], device=dev)
+    return g, p, buf, mask, scal, clip
+
+
+def sgd_batched_check(torch, fused_update, gen, n: int, G: int, ld: int) -> float:
+    """Kernel 3b at ``[G, n]`` rows ``ld`` apart, on every route its plan
+    allows: each row bit for bit the one-client kernel on it, two calls
+    equal, the ``has`` 0 row and the pad untouched, the clipped rows within
+    ``TOL_SGD_CLIP`` of the plain version and the rest equal to it -> the
+    largest difference from the plain version."""
+    kw = dict(momentum=0.9, weight_decay=5e-4, max_norm=1.0)
+    g, p0, b0, mask, scal, clip = sgd_batched_inputs(torch, gen, n, G, ld)
+    p_r, b_r = fused_update.fused_sgd_batched_plain(g, p0, b0, mask, scal, **kw)
+    one = []
+    for i in range(G):  # the one-client kernel on each row
+        pu, bu = p0[i].clone(), b0[i].clone()
+        fused_update.fused_sgd_cuda(g[i].clone(), pu, bu, mask, scal[i].clone(), **kw)
+        one.append((pu, bu))
+    plan = fused_update.sgd_plan_batched(n, G, ld)
+    routes = ["persistent"] + (["cluster"] if plan.parts <= fused_update.SGD_CLUSTER_PARTS
+                               else [])
+    worst = 0.0
+    for route in routes:
+        pl = fused_update.sgd_plan_batched(n, G, ld, route=route)
+        outs = []
+        for _ in range(2):
+            (p_full, p_k), (b_full, b_k) = padded_copy(torch, p0, ld), padded_copy(torch, b0, ld)
+            fused_update.fused_sgd_batched_cuda(g, p_k, b_k, mask, scal, plan=pl, **kw)
+            outs.append((p_k, b_k))
+        torch.cuda.synchronize()
+        (p_k, b_k), (p_2, b_2) = outs
+        what = f"n={n} G={G} ld={ld} {route} (vec {pl.vec}, {pl.parts} parts, rows {pl.rows})"
+        if not (same_bits(torch, p_k, p_2) and same_bits(torch, b_k, b_2)):
+            raise AssertionError(f"fused_sgd_batched {what}: two calls differ")
+        if not all(same_bits(torch, pu, p_k[i]) and same_bits(torch, bu, b_k[i])
+                   for i, (pu, bu) in enumerate(one)):
+            raise AssertionError(f"fused_sgd_batched {what}: a row differs from the one-client "
+                                 f"kernel on it")
+        if G > 1 and not (same_bits(torch, p_k[1], p0[1]) and same_bits(torch, b_k[1], b0[1])):
+            raise AssertionError(f"fused_sgd_batched {what}: the has-0 row moved")
+        if ld > n and not (bool((p_full[:, n:] == 7.0).all())
+                           and bool((b_full[:, n:] == 7.0).all())):
+            raise AssertionError(f"fused_sgd_batched {what}: the pad columns moved")
+        clipped = [i for i in range(G) if clip[i] and scal[i, 2] > 0]
+        exact = [i for i in range(G) if i not in clipped]
+        if not (same_bits(torch, p_k[exact], p_r[exact])
+                and same_bits(torch, b_k[exact], b_r[exact])):
+            raise AssertionError(f"fused_sgd_batched {what}: a row that does not clip differs "
+                                 f"from the plain version")
+        if clipped:  # the norm summed in another order than the plain version's
+            atol, rtol = TOL_SGD_CLIP
+            for k_, r_ in ((p_k, p_r), (b_k, b_r)):
+                torch.testing.assert_close(k_[clipped], r_[clipped], atol=atol, rtol=rtol)
+                worst = max(worst, float((k_[clipped] - r_[clipped]).abs().max()))
+    say(f"  fused_sgd_batched n={n} G={G} ld={ld}, {' and '.join(routes)}: every row bit for "
+        f"bit the one-client kernel's, two calls equal, the has-0 row and the pad untouched; "
+        f"clipped rows {worst:.3e} from the plain version, the rest equal")
+    return worst
+
+
+def sgd_batched_phase(torch, fused_update, n_by_rate, lm_n_by_rate=None):
+    """Kernel 3b held by :func:`sgd_batched_check` at ResNet-18's n at every
+    level (``n_by_rate``) for G in ``SGD_BATCHED_G``, at the LM's level-a and
+    level-e n (``lm_n_by_rate``) with G = 2 and at an odd n, each in the
+    grouped engine's padded rows (and the odd n unpadded too); then timed at
+    ``SGD_BATCHED_TIMED`` beside its bound, the launch floor of its plan (the
+    empty kernel alone and with the plan's barrier) and ``torch._fused_sgd_``
+    over the G rows (a yardstick, not the same function: no mask, no clip)
+    -> results, ``by_level``."""
+    from heterofl_tpu_torch.parallel.grouped import row_stride
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     kw = dict(momentum=0.9, weight_decay=5e-4, max_norm=1.0)
+    lm_n_by_rate = lm_n_by_rate or {}
+    shapes = [(n_by_rate[rate], G) for rate in LEVELS for G in SGD_BATCHED_G]
+    shapes += [(n, 2) for n in lm_n_by_rate.values()]
     out = {"err": 0.0, "by_level": []}
-    for rate, G in ((1.0, 2), (0.0625, 4)):
-        n = n_by_rate[rate]
-        mask = (torch.rand(n, device=dev, generator=gen) < 0.9).to(torch.float32)
-        p0 = torch.randn(G, n, device=dev, generator=gen)
-        b0 = torch.randn(G, n, device=dev, generator=gen) * 0.1
-        g = torch.randn(G, n, device=dev, generator=gen)
-        clip = [i % 3 == 0 for i in range(G)]  # rows 0 and 3 clip, the rest not
-        g[[i for i in range(G) if not clip[i]]] *= 1e-5
-        scal = torch.tensor([[7.0, 0.1, 0.0 if i == 1 else 1.0] for i in range(G)], device=dev)
-        p_k, b_k = p0.clone(), b0.clone()
-        fused_update.fused_sgd_batched_cuda(g, p_k, b_k, mask, scal, **kw)
-        p_2, b_2 = p0.clone(), b0.clone()
-        fused_update.fused_sgd_batched_cuda(g, p_2, b_2, mask, scal, **kw)
-        p_r, b_r = fused_update.fused_sgd_batched_plain(g, p0, b0, mask, scal, **kw)
-        bitwise = same_bits(torch, p_k, p_2) and same_bits(torch, b_k, b_2)
-        for i in range(G):
-            pu, bu = p0[i].clone(), b0[i].clone()
-            fused_update.fused_sgd_cuda(g[i].clone(), pu, bu, mask, scal[i].clone(),
-                                        **kw)
-            bitwise = bitwise and same_bits(torch, pu, p_k[i]) and same_bits(torch, bu, b_k[i])
-            tol = TOL_SGD_CLIP if clip[i] and scal[i, 2] > 0 else (0.0, 0.0)
-            what = f"n={n} G={G} row {i} (clip={'on' if clip[i] else 'off'}, has=" \
-                   f"{int(scal[i, 2])})"
-            out["err"] = max(out["err"],
-                             check_close(f"fused_sgd_batched p {what}", p_k[i], p_r[i], *tol),
-                             check_close(f"fused_sgd_batched buf {what}", b_k[i], b_r[i], *tol))
-        torch.cuda.synchronize()
-        if not bitwise:
-            raise AssertionError(f"fused_sgd_batched n={n} G={G}: a row differs from the "
-                                 f"one-client kernel on it, or two calls differ")
-        say(f"fused_sgd_batched n={n} G={G}: every row bit for bit the one-client kernel's, "
-            f"two calls equal")
-        p_t, b_t = p0.clone(), b0.clone()
-        scal1 = scal.clone()
-        scal1[:, 2] = 1.0
-        ms = time_ms(lambda: fused_update.fused_sgd_batched_cuda(g, p_t, b_t, mask, scal1, **kw),
-                     reps=5, samples=15)
-        pms = time_ms(lambda: fused_update.fused_sgd_batched_plain(g, p0, b0, mask, scal1, **kw),
-                      reps=2, samples=9)
-        dms = graph_ms(lambda: fused_update.fused_sgd_batched_cuda(g, p_t, b_t, mask, scal1,
-                                                                   **kw), calls=10, samples=11)
-        nbytes = 4 * ((5 * G + 1) * n + 3 * G)  # read g, p, buf, mask, scal; write p, buf
-        bound = max(nbytes / BW, 10 * G * n / F32) * 1e3
-        say(f"  fused_sgd_batched n={n} G={G}: kernel {ms:.4f} ms (device {dms:.4f}), plain "
-            f"{pms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB); library: none")
-        out["by_level"].append({"G": G, "rate": rate, "n": n, "ms": ms, "device_ms": dms,
-                                "plain_ms": pms, "bound_ms": bound, "bytes": nbytes,
-                                "ops": 10 * G * n})
-        del p0, b0, g, p_k, b_k, p_2, b_2, p_r, b_r, p_t, b_t
+    for n, G in shapes + [(SGD_ODD_N, 3)]:
+        out["err"] = max(out["err"], sgd_batched_check(torch, fused_update, gen, n, G,
+                                                       row_stride(n)))
         torch.cuda.empty_cache()
-    out.update({k: v for k, v in out["by_level"][0].items() if k not in ("G", "rate", "n")})
+    for n, G in ((SGD_ODD_N, 3), (n_by_rate[0.0625], 4)):  # unpadded rows: scalar loads
+        out["err"] = max(out["err"], sgd_batched_check(torch, fused_update, gen, n, G, n))
+    say(f"fused_sgd_batched held at {len(shapes) + 3} shapes, both routes where a row has at "
+        f"most {fused_update.SGD_CLUSTER_PARTS} parts: every row bit for bit the one-client "
+        f"kernel's, two calls equal")
+    timed = [("resnet18", rate, G, n_by_rate[rate]) for rate, G in SGD_BATCHED_TIMED]
+    timed += [("transformer", 1.0, 2, lm_n_by_rate[1.0])] if 1.0 in lm_n_by_rate else []
+    for model, rate, G, n in timed:
+        ld = row_stride(n)
+        g, p0, b0, mask, scal, _ = sgd_batched_inputs(torch, gen, n, G, ld)
+        scal[:, 2] = 1.0
+        p_t, b_t = padded_copy(torch, p0, ld)[1], padded_copy(torch, b0, ld)[1]
+        plan = fused_update.sgd_plan_batched(n, G, ld)
+        nbytes = 4 * ((5 * G + 1) * n + 3 * G)  # read g, p, buf, mask, scal; write p, buf
+        r = {"model": model, "G": G, "rate": rate, "n": n, "ld": ld, "route": plan.route,
+             "parts": plan.parts, "rows": plan.rows, "vec": plan.vec, "bytes": nbytes,
+             "ops": 10 * G * n, "bound_ms": max(nbytes / BW, 10 * G * n / F32) * 1e3}
+        for route in ("persistent", "cluster"):
+            if route == "cluster" and plan.parts > fused_update.SGD_CLUSTER_PARTS:
+                continue
+            pl = fused_update.sgd_plan_batched(n, G, ld, route=route)
+
+            def kern(pl=pl):
+                fused_update.fused_sgd_batched_cuda(g, p_t, b_t, mask, scal, plan=pl, **kw)
+            key = "" if route == plan.route else f"{route}_"
+            r[f"{key}kernels_per_call"], names = kernels_per_call(kern)
+            r[f"{key}kernel_names"] = names
+            if r[f"{key}kernels_per_call"] != 1:
+                raise AssertionError(f"fused_sgd_batched {model} n={n} G={G} {route}: "
+                                     f"{r[key + 'kernels_per_call']} kernels a call ({names})")
+            r[f"{key}ms"] = time_ms(kern, reps=5, samples=15)
+            r[f"{key}device_ms"] = graph_ms(kern, calls=10, samples=11)
+            floor, r[f"{key}grid"] = sgd_floor_call(torch, fused_update, pl, n, G)
+            r[f"{key}floor_ms"] = graph_ms(floor, calls=10, samples=11)
+            r[f"{key}floor_sync_ms"] = graph_ms(sgd_floor_call(
+                torch, fused_update, pl, n, G, True)[0], calls=10, samples=11)
+        r["plain_ms"] = time_ms(lambda: fused_update.fused_sgd_batched_plain(
+            g, p0, b0, mask, scal, **kw), reps=2, samples=9)
+        ps, gs, bs = list(p_t.unbind(0)), list(g.unbind(0)), list(b_t.unbind(0))
+
+        def yard():
+            torch._fused_sgd_(ps, gs, bs, weight_decay=5e-4, momentum=0.9, lr=0.1,
+                              dampening=0.0, nesterov=False, maximize=False, is_first_step=False)
+        r["yardstick_ms"] = time_ms(yard, reps=5, samples=15)
+        r["yardstick_device_ms"] = graph_ms(yard, calls=10, samples=11)
+        alt = "cluster" if plan.route == "persistent" else "persistent"
+        other = (f"; {alt} route device {r[alt + '_device_ms']:.4f} ms (floor "
+                 f"{r[alt + '_floor_ms']:.4f}, with its barrier {r[alt + '_floor_sync_ms']:.4f})"
+                 if f"{alt}_device_ms" in r else "")
+        say(f"  fused_sgd_batched {model} n={n} G={G} ({plan.route}, {plan.parts} parts, "
+            f"rows {plan.rows}, vec {plan.vec}{', grid ' + str(r['grid']) if 'grid' in r else ''}"
+            f"): {r['kernels_per_call']} kernel(s) a call in a profiler trace "
+            f"({', '.join(r['kernel_names'])}), call {r['ms']:.4f} ms, device "
+            f"{r['device_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB), "
+            f"launch floor {r['floor_ms']:.4f} ms (with its barrier {r['floor_sync_ms']:.4f}){other}; "
+            f"library: none; yardstick, not the same function: torch._fused_sgd_ over the "
+            f"{G} rows (no mask, no clip) call {r['yardstick_ms']:.4f} ms, device "
+            f"{r['yardstick_device_ms']:.4f} ms")
+        out["by_level"].append(r)
+        del g, p0, b0, p_t, b_t, ps, gs, bs
+        torch.cuda.empty_cache()
+    out.update({k: v for k, v in out["by_level"][0].items()
+                if k in ("ms", "device_ms", "plain_ms", "bound_ms", "bytes", "ops")})
+    out["kernels_per_call"] = max(v for r in out["by_level"] for k, v in r.items()
+                                  if k.endswith("kernels_per_call"))
     return out
 
 
@@ -1982,8 +2149,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.done("fused SGD and quant held and timed")
     bn_b = bn_batched_phase(torch, fused_norm)
-    level_e = FlatSpec.of(dict(make_model(cfg, 0.0625).named_parameters())).total
-    sgd_b = sgd_batched_phase(torch, fused_update, {1.0: spec.total, 0.0625: level_e})
+    level_n = {rate: FlatSpec.of(dict(make_model(cfg, rate).named_parameters())).total
+               for rate in LEVELS}
+    lm_level_n = {rate: FlatSpec.of(dict(make_model(lm_cfg(), rate).named_parameters())).total
+                  for rate in (1.0, 0.0625)}
+    sgd_b = sgd_batched_phase(torch, fused_update, level_n, lm_level_n)
     phases.done("batched kernels held and timed")
 
     # 5. small rounds against the CPU, then the main paths, each counted
@@ -2084,8 +2254,9 @@ def main() -> int:
             kernels[-1].update(max_abs_err=max(r["err"], lm["err"]), lm_n=LM_N, lm_ms=lm["ms"],
                                lm_device_ms=lm["device_ms"], lm_plain_ms=lm["plain_ms"],
                                lm_bound_ms=lm["bound_ms"], lm_max_abs_err=lm["err"])
-        if r is sgd:  # and at ResNet-50's n
-            kernels[-1].update(max_abs_err=max(kernels[-1]["max_abs_err"], sgd_r50["err"]),
+        if r is sgd:  # and at ResNet-50's n; kernels a call from a profiler trace
+            kernels[-1].update(kernels_per_call=sgd["kernels_per_call"],
+                               max_abs_err=max(kernels[-1]["max_abs_err"], sgd_r50["err"]),
                                r50_n=R50_N, r50_ms=sgd_r50["ms"],
                                r50_device_ms=sgd_r50["device_ms"],
                                r50_plain_ms=sgd_r50["plain_ms"], r50_bound_ms=sgd_r50["bound_ms"],
@@ -2120,6 +2291,8 @@ def main() -> int:
                         "library_ms": None, "device_ms": r["device_ms"],
                         "by_level": r["by_level"],
                         "launches_by_path": {p: c[name] for p, c in by_path.items()}})
+        if r is sgd_b:
+            kernels[-1]["kernels_per_call"] = sgd_b["kernels_per_call"]
     say(f"EMNIST statistics: computed in {t_stats:.3f} s, read in {t_stats_read * 1e3:.2f} ms; "
         f"ResNet-50 step {r50_step_ms:.2f} ms")
     print(json.dumps({"kernels": kernels}))

@@ -46,7 +46,9 @@ _SIGNATURES = {
     "hfl_bn_bwd": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "hfl_sgd_scratch_floats": (_LL, []),
     "hfl_fused_sgd": (_I, [_P, _P, _P, _P, _P, _P, _LL, _F, _F, _F, _P]),
-    "hfl_fused_sgd_batched": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _F, _F, _F, _P]),
+    "hfl_fused_sgd_batched": (_I, [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _F, _F, _F, _I, _I,
+                                   _I, _I, _P]),
+    "hfl_sgd_floor": (_I, [_I, _I, _I, _LL, _I, _I, _P, _P]),
     "hfl_bn_fwd_batched": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
                                 _I, _I, _P]),
     "hfl_bn_bwd_batched": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -146,16 +148,18 @@ def stream_of(t) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def require_cuda(what: str, *tensors) -> None:
+def require_cuda(what: str, *tensors, rows: int = 0) -> None:
     """The kernels take CUDA float32 contiguous tensors on one device and
-    nothing else."""
+    nothing else; the first ``rows`` may instead be 2-D with unit-stride
+    rows (views of wider rows)."""
     dev = tensors[0].get_device()
-    for t in tensors:
+    for i, t in enumerate(tensors):
         if not t.is_cuda:
             raise RuntimeError(f"{what}: the CUDA kernel needs CUDA tensors, got {t.device}")
         if t.dtype is not torch.float32:
             raise TypeError(f"{what}: float32 only, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: contiguous tensors only")
+        if not (t.is_contiguous() or (i < rows and t.dim() == 2 and t.stride(1) == 1)):
+            raise ValueError(f"{what}: contiguous tensors only"
+                             + (" (or unit-stride rows)" if i < rows else ""))
         if t.get_device() != dev:
             raise ValueError(f"{what}: tensors on cuda:{dev} and {t.device}")

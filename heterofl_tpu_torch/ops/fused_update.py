@@ -23,28 +23,94 @@ bit; with it engaged the norm is summed in another order (per block, not
 per leaf), so the scale may differ in the last ulp.  The per-leaf chain
 that ``fused_update=False`` runs instead is ``utils/optim.py``'s.
 
-The batched pair (:func:`fused_sgd_batched`; the kernel under ``jax.vmap``
-over a level's clients, the grouped engine) takes ``g, p, buf [G, n]``
-client-major (each client's flat buffer one contiguous row), the mask
-``[n]`` shared by the rows, and ``scal [G, 3]`` (each client's denom, lr,
-has): launch A writes per-client partial sums of squares on a ``(parts,
-G)`` grid, launch B reduces each client's partials in a fixed order and
-applies that client's clip scale -- two launches a step whatever G is.
-Both kernels cut a row of n entries into the same ``parts(n)`` blocks
-(sized by n, csrc/fused_sgd.cu), so row g equals the one-client kernel on
-client g bit for bit.
+The batched kernel (3b; :func:`fused_sgd_batched`, the kernel under
+``jax.vmap`` over a level's clients, the grouped engine) takes ``g, p, buf
+[G, n]`` client-major (each client's flat buffer one row; rows ``ld >= n``
+floats apart, so the grouped engine's rows padded to a multiple of 4 start
+16-byte aligned), the mask ``[n]`` shared by the rows, and ``scal [G, 3]``
+(each client's denom, lr, has), in ONE launch a step whatever G is.  Each
+row's norm is summed over the one-client kernel's parts in its order, so
+row g equals the one-client kernel on client g bit for bit; the launch plan
+(:func:`sgd_plan_batched`, a pure function of the shape) picks the route:
+a persistent grid that sums a group of rows' parts together, a barrier
+across the grid (a cooperative launch), then the update; or, for rows of
+at most :data:`SGD_CLUSTER_PARTS` parts, one thread-block cluster a row
+(csrc/fused_sgd.cu).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
-#: kernel-pair launches of :func:`fused_sgd_cuda`
+#: calls of :func:`fused_sgd_cuda` (two kernel launches each) and of
+#: :func:`fused_sgd_batched_cuda` (one launch each)
 LAUNCHES = {"fused_sgd": 0, "fused_sgd_batched": 0}
+
+# the kernels' fixed shape (csrc/fused_sgd.cu): threads a block, a row's
+# parts at most (each part about 4 chunks of 4 entries a thread), rows a
+# pass of the batched persistent route at most, and the most parts a row
+# may have to take the cluster route (a cluster of up to 16 blocks,
+# non-portable above 8)
+SGD_THREADS = 256
+SGD_MAX_PARTS = 1024
+SGD_MAX_ROWS = 8
+SGD_CLUSTER_PARTS = 16
+# rows a pass: all of them (up to SGD_MAX_ROWS) where that still leaves at
+# least this many work items, about the blocks of the persistent kernel an
+# H100 holds at once (4 of 256 threads on each of 132 SMs); else one, so a
+# row of few parts spreads over more blocks
+SGD_WIDE_ITEMS = 512
+_ROUTES = {"persistent": 0, "cluster": 1}
+
+
+class SgdPlan(NamedTuple):
+    """Launch plan of the batched kernel for ``[G, n]`` rows ``ld`` apart."""
+    parts: int   # virtual parts of a row: the one-client kernel's blocks of launch A
+    route: str   # "persistent" (a grid-wide barrier) or "cluster" (a cluster a row)
+    rows: int    # rows a pass of the persistent route (each part of them summed together)
+    groups: int  # row groups, ceil(G / rows); work items = parts * groups
+    vec: int     # bytes / 4 of a chunk's loads: 4 (one 16-byte load) or 1 (four scalars)
+
+
+def sgd_parts(n: int) -> int:
+    """``parts_for(n)`` of csrc/fused_sgd.cu: the blocks of the one-client
+    kernel's launch A, about 4 chunks of 4 entries a thread, 1 to
+    :data:`SGD_MAX_PARTS`."""
+    per = 4 * SGD_THREADS
+    return max(1, min(SGD_MAX_PARTS, -(-(n // 4) // per)))
+
+
+@functools.lru_cache(maxsize=None)
+def sgd_plan_batched(n: int, G: int, ld: int, route: Optional[str] = None,
+                     rows: Optional[int] = None) -> SgdPlan:
+    """The batched kernel's plan for ``G`` rows of ``n`` entries ``ld``
+    floats apart: the one-client kernel's parts; the cluster route where a
+    row has at most :data:`SGD_CLUSTER_PARTS` parts, else the persistent
+    one; rows a pass balanced over the fewest groups of at most
+    :data:`SGD_MAX_ROWS` where that leaves :data:`SGD_WIDE_ITEMS` work items
+    (parts x groups), else one; 16-byte loads where every row starts 16-byte
+    aligned with its buffer (``ld % 4 == 0``, or a single row), else
+    scalars.  ``route`` and ``rows`` override the choice (a measuring
+    aid)."""
+    if n < 1 or G < 1 or ld < n:
+        raise ValueError(f"sgd_plan_batched: n={n}, G={G}, ld={ld}")
+    parts = sgd_parts(n)
+    if route is None:
+        route = "cluster" if parts <= SGD_CLUSTER_PARTS else "persistent"
+    if route not in _ROUTES or (route == "cluster" and parts > SGD_CLUSTER_PARTS):
+        raise ValueError(f"sgd_plan_batched: route {route!r} for {parts} parts")
+    if rows is None:
+        rows = -(-G // -(-G // SGD_MAX_ROWS))
+        rows = rows if parts * -(-G // rows) >= SGD_WIDE_ITEMS else 1
+    if not 1 <= rows <= SGD_MAX_ROWS:
+        raise ValueError(f"sgd_plan_batched: rows {rows} (1 to {SGD_MAX_ROWS})")
+    vec = 4 if G == 1 or ld % 4 == 0 else 1
+    return SgdPlan(parts, route, rows, -(-G // rows), vec)
 
 
 class FlatSpec:
@@ -127,7 +193,8 @@ def fused_sgd_plain(g: torch.Tensor, p: torch.Tensor, buf: torch.Tensor, mask: t
 
 def fused_sgd_cuda(g, p, buf, mask, scal, *, momentum: float, weight_decay: float,
                    max_norm: float = 1.0):
-    """The kernel pair (``csrc/fused_sgd.cu``), in place on ``p`` and ``buf``."""
+    """The one-client kernel pair (``csrc/fused_sgd.cu``), in place on ``p``
+    and ``buf``."""
     _build.require_cuda("fused_sgd", g, p, buf, mask, scal)
     n = p.numel()
     if any(t.numel() != n for t in (g, buf, mask)) or scal.numel() != 3:
@@ -178,19 +245,29 @@ def fused_sgd_batched_plain(g: torch.Tensor, p: torch.Tensor, buf: torch.Tensor,
 
 
 def fused_sgd_batched_cuda(g, p, buf, mask, scal, *, momentum: float, weight_decay: float,
-                           max_norm: float = 1.0):
-    """The batched kernel pair (``csrc/fused_sgd.cu``), in place on ``p``
-    and ``buf``."""
-    _build.require_cuda("fused_sgd_batched", g, p, buf, mask, scal)
+                           max_norm: float = 1.0, plan: Optional[SgdPlan] = None):
+    """The batched kernel (``csrc/fused_sgd.cu``), one launch, in place on
+    ``p`` and ``buf``: ``g, p, buf [G, n]`` with unit-stride rows one stride
+    apart, on ``plan`` (default :func:`sgd_plan_batched`)."""
+    _build.require_cuda("fused_sgd_batched", g, p, buf, mask, scal, rows=3)
     if p.dim() != 2 or g.shape != p.shape or buf.shape != p.shape \
             or mask.numel() != p.shape[1] or tuple(scal.shape) != (p.shape[0], 3):
         raise ValueError("fused_sgd_batched: g, p, buf [G, n], mask [n] and scal [G, 3]")
     G, n = p.shape
+    ld = p.stride(0) if G > 1 else n
+    if G > 1 and (ld < n or g.stride(0) != ld or buf.stride(0) != ld):
+        raise ValueError("fused_sgd_batched: g, p and buf need one row stride, at least n")
+    pl = plan or sgd_plan_batched(n, G, ld)
+    if any(t.data_ptr() % (4 * pl.vec) for t in (g, p, buf, mask)):
+        raise ValueError(f"fused_sgd_batched: rows must start {4 * pl.vec}-byte aligned")
     lib = _build.load()
-    part = torch.empty(G * lib.hfl_sgd_scratch_floats(), dtype=torch.float32, device=p.device)
+    part = None  # the cluster route keeps its partials on chip
+    if pl.route == "persistent":
+        part = torch.empty(G * pl.parts, dtype=torch.float32, device=p.device)
     _build.check(lib.hfl_fused_sgd_batched(
         g.data_ptr(), p.data_ptr(), buf.data_ptr(), mask.data_ptr(), scal.data_ptr(),
-        part.data_ptr(), n, G, float(momentum), float(weight_decay), float(max_norm),
+        None if part is None else part.data_ptr(), n, ld, G, float(momentum),
+        float(weight_decay), float(max_norm), pl.parts, _ROUTES[pl.route], pl.rows, pl.vec,
         _build.stream_of(p)), "fused_sgd_batched")
     LAUNCHES["fused_sgd_batched"] += 1
     return p, buf
@@ -199,8 +276,9 @@ def fused_sgd_batched_cuda(g, p, buf, mask, scal, *, momentum: float, weight_dec
 def fused_sgd_batched(g, p, buf, mask, scal, *, momentum: float, weight_decay: float,
                       max_norm: float = 1.0):
     """One fused masked-SGD step of G clients, IN PLACE on ``p`` and
-    ``buf`` ``[G, n]`` (returned): the plain version for CPU tensors, the
-    kernel for any other (which raises rather than fall back)."""
+    ``buf`` ``[G, n]`` (returned; rows may be views one stride apart): the
+    plain version for CPU tensors, the kernel for any other (which raises
+    rather than fall back)."""
     if p.device.type != "cpu":
         return fused_sgd_batched_cuda(g, p, buf, mask, scal, momentum=momentum,
                                       weight_decay=weight_decay, max_norm=max_norm)

@@ -34,9 +34,12 @@ port has no compile cache and runs exactly the level's clients -- the
 reference's padded slots add exact zeros, so the numbers are the same.
 
 **Layout, and what it costs a step.**  A level's params, momentum and
-gradient are client-major ``[G, n_l]`` buffers (each client's flat buffer
-one contiguous row), which the batched fused SGD (ops/fused_update.py,
-kernel 3b) needs for its per-client norm.  The batched forward needs each
+gradient are client-major ``[G, ld]`` buffers (each client's flat buffer of
+n_l entries one contiguous row, rows padded to ``ld``, a multiple of 4, so
+each starts 16-byte aligned: ResNet-18's n_l are 2 mod 4), which the
+batched fused SGD (ops/fused_update.py, kernel 3b) needs for its
+per-client norm; it and the aggregation take the ``[:, :n_l]`` views, and
+no pad entry is read.  The batched forward needs each
 leaf's G copies contiguous (a grouped convolution takes ``[G*O, I, k,
 k]``), so a step first gathers the client-major params into a leaf-major
 copy (one ``index_select`` over a precomputed map), and the gradients,
@@ -45,11 +48,10 @@ the ``torch.cat`` along the rows that packs them (the masked engine's
 pack).  Over the masked engine's step that is one launch more (the
 gather) and ``G * n_l * 12`` bytes more (the map is int32); against it the
 step makes one pass of the model for G clients, one BN launch a site a
-direction for G clients (kernels 1b/2b, ops/fused_norm.py) and one SGD pair
+direction for G clients (kernels 1b/2b, ops/fused_norm.py) and one SGD launch
 for G clients.  A leaf-major layout would save the gather but cut each
 client's row into a segment per leaf, so the SGD kernel's per-client norm
-would read strided segments; the client-major one keeps 3b a plain
-``(parts, G)`` grid.
+would read strided segments; the client-major one keeps 3b's rows whole.
 
 The engine takes the masked engine's test hooks (``rates``,
 ``epoch_perms``, ``aug_draws``, ``lm_draws``) and returns the per-client
@@ -87,6 +89,12 @@ from ..ops.layers import clients_in_channels
 from .round_engine import FlatParams, RoundEngine, client_seed, cohort_rates
 
 
+def row_stride(n: int) -> int:
+    """The row stride of a level's ``[G, ld]`` buffers: ``n`` rounded up to
+    a multiple of 4, so every client's row starts 16-byte aligned."""
+    return -(-n // 4) * 4
+
+
 class Level:
     """One level of the engine: its dense sub-model, the one-client engine
     of that sub-model (its width mask, and the per-leaf chain that
@@ -101,6 +109,7 @@ class Level:
         level_cfg = dict(cfg, model_rate=[cfg["global_model_rate"]], model_split_mode="fix")
         self.engine = RoundEngine(self.model, level_cfg, device)
         self.spec = self.engine.spec
+        self.ld = row_stride(self.spec.total)
         self.mask = self.engine.param_mask_flat(1.0)
         self.idx = torch.from_numpy(level_index_map(
             global_spec, self.spec, global_model.specs, global_model.groups,
@@ -108,15 +117,33 @@ class Level:
         self._label_axes = [(k, s.label_axis) for k, s in self.model.specs.items()
                             if s.label_axis is not None]
         self._leaf_major: Dict[int, torch.Tensor] = {}
+        self._pad: Dict[int, List[torch.Tensor]] = {}
+
+    def buffers(self, P: torch.Tensor, G: int) -> Tuple[torch.Tensor, ...]:
+        """G clients' params (the global ``P`` at the level's entries),
+        momentum (zeros) and gradient buffers, each ``[G, ld]``; the pad
+        columns of params and momentum are zero."""
+        p = torch.zeros((G, self.ld), dtype=P.dtype, device=P.device)
+        p[:, :self.spec.total] = P.index_select(0, self.idx)
+        return p, torch.zeros_like(p), torch.empty_like(p)
+
+    def pad(self, G: int) -> List[torch.Tensor]:
+        """The zeros that fill a ``[G, ld]`` gradient buffer's pad columns
+        when the gradients are packed into it (none where ``ld == n_l``)."""
+        if G not in self._pad:
+            w = self.ld - self.spec.total
+            self._pad[G] = [torch.zeros((G, w), dtype=torch.float32,
+                                        device=self.idx.device)] if w else []
+        return self._pad[G]
 
     def leaf_major(self, G: int) -> torch.Tensor:
         """``[G * n_l]`` (int32; int64 past 2**31): for each entry of the
         leaf-major layout (leaf k's G copies contiguous, ``[G, *shape_k]``,
-        leaves in order), its place in the client-major ``[G, n_l]`` buffer."""
+        leaves in order), its place in the client-major ``[G, ld]`` buffer."""
         if G not in self._leaf_major:  # made on the device: G * n_l entries
-            dev, n = self.idx.device, self.spec.total
-            dt = torch.int32 if G * n < 2 ** 31 else torch.int64
-            rows = torch.arange(G, dtype=dt, device=dev)[:, None] * n
+            dev = self.idx.device
+            dt = torch.int32 if G * self.ld < 2 ** 31 else torch.int64
+            rows = torch.arange(G, dtype=dt, device=dev)[:, None] * self.ld
             self._leaf_major[G] = torch.cat([
                 (rows + torch.arange(self.spec.offsets[k], self.spec.offsets[k]
                                      + self.spec.sizes[k], dtype=dt,
@@ -169,18 +196,19 @@ class GroupedRoundEngine(FlatParams):
 
     def _step(self, lv: Level, p, buf, g, grads, n_glob, lr) -> None:
         """The optimizer tail of one step of G clients, in place on ``p``
-        and ``buf`` ``[G, n_l]``: the batched fused epilogue (gradients packed
-        client-major into ``g``), or each client's per-leaf chain."""
+        and ``buf`` ``[G, n_l]`` (views of ``[G, ld]`` rows): the batched
+        fused epilogue (gradients packed client-major into ``g [G, ld]``),
+        or each client's per-leaf chain."""
         G = p.shape[0]
         if self.fused_mode is None:
             for i in range(G):
                 lv.engine._reference_step(p[i], buf[i], [gr[i] for gr in grads], lv.mask,
                                           n_glob[i], lr)
             return
-        torch.cat([gr.reshape(G, -1) for gr in grads], dim=1, out=g)
+        torch.cat([gr.reshape(G, -1) for gr in grads] + lv.pad(G), dim=1, out=g)
         scal = torch.stack([n_glob.clamp_min(1e-6), lr.expand(G),
                             (n_glob > 0).to(torch.float32)], dim=1)
-        fused_sgd_batched(g, p, buf, lv.mask, scal, momentum=self.momentum,
+        fused_sgd_batched(g[:, :lv.spec.total], p, buf, lv.mask, scal, momentum=self.momentum,
                           weight_decay=self.weight_decay, max_norm=1.0)
 
     def local_train_level(self, lv: Level, P: torch.Tensor, uids: torch.Tensor, data,
@@ -199,9 +227,8 @@ class GroupedRoundEngine(FlatParams):
         N = x_all.shape[1]
         S = math.ceil(N / B)
         SB = S * B
-        p = P.index_select(0, lv.idx).expand(G, -1).contiguous()
-        buf = torch.zeros_like(p)
-        g = torch.empty_like(p)
+        p_rows, buf_rows, g = lv.buffers(P, G)
+        p, buf = p_rows[:, :lv.spec.total], buf_rows[:, :lv.spec.total]
         if raw_perms is None:
             perms = torch.stack([torch.stack([torch.randperm(N, generator=gen, device=dev)
                                               for _ in range(E)]) for gen in gens])
@@ -236,7 +263,7 @@ class GroupedRoundEngine(FlatParams):
                                    torch.cat([d[1] for d in draws])).view(xb.shape)
             img = normalize_image(xb, *self.norm) if self.norm is not None \
                 else xb.to(torch.float32)
-            leaves = lv.leaves(p.view(-1).index_select(0, leaf_idx), G)
+            leaves = lv.leaves(p_rows.view(-1).index_select(0, leaf_idx), G)
             score, loss = lv.model.forward_clients(
                 clients_in_channels(img), labels, G, params=leaves,
                 scaler_rate=lv.scaler_rate, label_mask=lmu, sample_weight=w)
@@ -269,9 +296,8 @@ class GroupedRoundEngine(FlatParams):
         if pad:
             wpos[:, T:] = 0.0
         n_win = wpos.view(R, S, bptt).sum((0, 2))
-        p = P.index_select(0, lv.idx).expand(G, -1).contiguous()
-        buf = torch.zeros_like(p)
-        g = torch.empty_like(p)
+        p_rows, buf_rows, g = lv.buffers(P, G)
+        p, buf = p_rows[:, :lv.spec.total], buf_rows[:, :lv.spec.total]
         lmu = lm_all[uids]
         leaf_idx = lv.leaf_major(G)
         acc = torch.zeros((G, 3), dtype=torch.float32, device=dev)
@@ -281,7 +307,7 @@ class GroupedRoundEngine(FlatParams):
             lab = rows_p[:, :, s * bptt:(s + 1) * bptt]
             w = wpos[:, s * bptt:(s + 1) * bptt].expand(G, R, bptt)
             n_glob = n_win[s].expand(G)
-            leaves = lv.leaves(p.view(-1).index_select(0, leaf_idx), G)
+            leaves = lv.leaves(p_rows.view(-1).index_select(0, leaf_idx), G)
             _, loss = lv.model.forward_clients(
                 lab, G, params=leaves, scaler_rate=lv.scaler_rate, label_mask=lmu,
                 sample_weight=w, gens=gens, draws=None if draws is None else draws(t))

@@ -13,7 +13,9 @@ shapes, 500 samples, batch 10, so 50 steps per local epoch) trains through
    routes in turns (ABCD DCBA ...), median per route;
 2. a ``torch.profiler`` trace of one local epoch of the all-kernel route:
    device time by kernel name, kernel launches per step, the device's busy
-   share of the window's wall time; then a second epoch traced with Python
+   share of the window's wall time (the grouped step's gradient pack, the
+   ``torch.cat`` of ``GroupedRoundEngine._step``, from the second epoch's
+   shapes); then a second epoch traced with Python
    stacks and shapes says where the copies come from (each ``aten::copy_``
    by its nearest autograd node, or ``forward``, the ops that called it,
    the shape it copied and the port's source line, where one is on the
@@ -53,7 +55,7 @@ ROUTES = [("bn kernel + sgd kernel", True, True), ("bn two-pass + sgd kernel", F
           ("bn kernel + sgd chain", True, False), ("bn two-pass + sgd chain", False, False)]
 # kernel-name fragments of each bucket of device time, checked in order
 BUCKETS = [("port bn kernels", ("bn_fwd_", "bn_bwd_")),
-           ("port sgd kernel", ("sgd_norm_partial", "sgd_apply")),
+           ("port sgd kernel", ("sgd_norm_partial", "sgd_apply", "sgd_batched")),
            ("cudnn layout transposes", ("nhwctonchw", "nchwtonhwc")),
            ("convolution", ("conv", "cudnn", "gemm", "xmma", "sm90_", "implicit", "winograd",
                             "dgrad", "wgrad", "fprop"))]
@@ -65,6 +67,26 @@ def bucket_of(name: str) -> str:
         if any(f in low for f in frags):
             return label
     return "other"
+
+
+def pack_time(events, on_device: bool):
+    """Device ms and calls of the grouped step's gradient pack (the
+    ``torch.cat(..., out=g)`` of ``GroupedRoundEngine._step``,
+    parallel/grouped.py: the step's one ``aten::cat`` given an output) in a
+    profile taken with ``record_shapes`` -> ``{"device_ms": t, "calls": n}``."""
+    out = {"device_ms": 0.0, "calls": 0}
+    for evt in events:
+        shapes = getattr(evt, "input_shapes", None) or []
+        if evt.name != "aten::cat" or len(shapes) != 3 or not shapes[2]:
+            continue
+        dev_us = getattr(evt, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "cuda_time_total", 0.0)
+        if on_device and dev_us <= 0:
+            continue
+        out["device_ms"] += dev_us / 1e3
+        out["calls"] += 1
+    return out
 
 
 def copy_sources(events, on_device: bool):
@@ -240,17 +262,23 @@ def main(argv=None) -> int:
         epoch(label, 98)
         sync()
     copies = copy_sources(prof_stack.events(), dev.type == "cuda")
+    pack = pack_time(prof_stack.events(), dev.type == "cuda") if args.clients else None
     out["profile"] = {"route": label, "steps": steps, "wall_ms": wall_ms,
                       "device_busy_ms": busy,
                       "device_busy_share": busy / wall_ms if wall_ms else 0.0,
                       "kernel_launches_per_step": sum(r["calls"] for r in rows) / steps,
-                      "buckets": buckets, "top": rows[:25], "copy_sources": copies}
+                      "buckets": buckets, "top": rows[:25], "copy_sources": copies,
+                      "gradient_pack": pack}
     print(f"profile ({label}, {steps} steps): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * out['profile']['device_busy_share']:.1f}%), "
           f"{out['profile']['kernel_launches_per_step']:.1f} kernel launches per step", flush=True)
     for b, v in sorted(buckets.items(), key=lambda kv: -kv[1]["device_ms"]):
         print(f"  {b}: {v['device_ms'] / steps:.3f} ms/step device, "
               f"{v['launches'] / steps:.1f} launches/step", flush=True)
+    if pack is not None:  # from the second epoch, traced with shapes
+        print(f"  gradient pack (torch.cat in GroupedRoundEngine._step, within 'other'): "
+              f"{pack['device_ms'] / steps:.3f} ms/step device, {pack['calls'] / steps:.1f} "
+              f"calls/step", flush=True)
     for r in rows[:25]:
         print(f"  {r['device_ms'] / steps:8.4f} ms/step  {r['calls'] / steps:6.1f}/step  "
               f"{r['name'][:110]}", flush=True)

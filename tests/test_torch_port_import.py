@@ -13,9 +13,11 @@ PORT = os.path.join(ROOT, "heterofl_tpu_torch")
 
 def _port_files():
     """Every port module, ``chip_smoke.py`` and the port's scripts
-    (``scripts/torch_port_*.py`` and ``scripts/bn_plan_sweep.py``)."""
+    (``scripts/torch_port_*.py``, ``scripts/bn_plan_sweep.py`` and
+    ``scripts/sgd_plan_sweep.py``)."""
     scripts = os.path.join(ROOT, "scripts")
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(scripts, "bn_plan_sweep.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(scripts, "bn_plan_sweep.py"),
+           os.path.join(scripts, "sgd_plan_sweep.py")]
     out += glob.glob(os.path.join(scripts, "torch_port_*.py"))
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
@@ -68,7 +70,8 @@ def test_no_port_file_imports_jax_or_reference():
             offenders += [(os.path.relpath(f, ROOT), n) for n in names if _forbidden(n)]
     assert offenders == []
     scanned = {os.path.relpath(f, ROOT) for f in _port_files()}
-    assert {"scripts/bn_plan_sweep.py", "scripts/torch_port_profile.py",
+    assert {"scripts/bn_plan_sweep.py", "scripts/sgd_plan_sweep.py",
+            "scripts/torch_port_profile.py",
             "scripts/torch_port_round_time.py", "heterofl_tpu_torch/data/stats.py",
             "heterofl_tpu_torch/data/datasets.py", "heterofl_tpu_torch/fed/core.py",
             "heterofl_tpu_torch/models/resnet.py", "heterofl_tpu_torch/models/norms.py",
