@@ -65,9 +65,9 @@ each prints its seconds:
    CPU (draws made on the CPU and injected); then
    ``train_transformer_fed`` with ``LM_CONTROL`` at full width (E 256, 8
    heads, FFN 512, 4 layers, bptt 64) on synthetic WikiText2 at its quoted
-   2,088,628 / 245,569 tokens -- three rounds of 327 local steps each, a
-   checkpoint and a Global evaluation (384 windows of [10, 64]) each
-   round; the same entry resumed for a fourth round (``--resume_mode 1``,
+   2,088,628 / 245,569 tokens -- two rounds (``LM_ROUNDS``) of 327 local
+   steps each, a checkpoint and a Global evaluation (384 windows of [10,
+   64]) each round; the same entry resumed for a third round (``--resume_mode 1``,
    from the checkpoint's params bit for bit); ``test_transformer_fed``
    reproducing the best checkpoint's logged Global-Perplexity; one int8
    round; the centralised ``train_transformer`` (one epoch of 327 steps of
@@ -99,9 +99,32 @@ each prints its seconds:
    ``GROUPED_ROUNDS`` rounds of two clients a level (the batched kernels'
    launches asserted, no one-client kernel), its last round resumed equal
    bit for bit as the entry runs it; one grouped LM round of the entry;
-8. the ``kernels`` JSON line (launches from the int8 path, the batched
-   kernels' from the grouped path; per path in ``launches_by_path``), then
-   the ``ok`` JSON line last.
+8. the superstep (``superstep_rounds``): a captured
+   augmentation draw replayed three times draws fresh numbers each time,
+   equal to eager draws from the same seed; a level-a client's local epoch
+   eager against its steps replayed from their captured CUDA graph (bit for
+   bit, timed in turns, kernels a replayed step and the device's busy share
+   from a ``torch.profiler`` trace, where the hand-written kernels counted
+   by name must equal the step's captured launches times its replays, and
+   the same count for a grouped level-a step of two clients);
+   ``train_classifier_fed`` on the
+   headline control at full width for two rounds evaluated after the
+   second, eagerly and as one superstep (``--superstep_rounds 2``), equal
+   bit for bit under cuDNN's deterministic algorithms -- cohorts, params,
+   round metrics, the fused evaluation's Local and Global metrics -- with
+   the two runs' host-clock seconds, the rounds' and evaluation's seconds
+   (host clock eager, device clock in the superstep), the captures, the
+   graph pools' megabytes and the launches a step under replay; the
+   grouped engine's superstep with ``--wire_codec int8`` at full width for
+   three rounds (a superstep of two and the tail of one), and round 3
+   again resumed from the superstep boundary, equal bit for bit; the LM
+   control's superstep of two rounds at full width against the LM main
+   path's eager rounds;
+9. the ``kernels`` JSON line (launches from the int8 path, the batched
+   kernels' from the grouped path; per path in ``launches_by_path``, and
+   the superstep's launches from replays -- a graph's captured launches
+   times its replays -- in ``replayed_launches_by_path``), then the ``ok``
+   JSON line last.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 Everything it measures is printed on standard output.
@@ -113,6 +136,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -167,7 +191,7 @@ LM_CENTRAL_TAG = f"0_WikiText2_label_transformer_{CENTRAL}"
 LM_SIZES = {"train": 2088628, "test": 245569}
 LM_N = 2454528          # the full-width transformer's parameters (vocabulary 512)
 LM_STEPS = 327          # ceil(20,886 tokens a user / bptt 64)
-LM_ROUNDS = 3
+LM_ROUNDS = 2  # cut from 3 for the superstep paths' time
 # the card-vs-CPU LM rounds: (user, tokens of its row): level a over 10
 # windows, level e over 2 (lm_round_phase says why)
 LM_ROUND_CLIENTS = ((0, 640), (99, 128))
@@ -201,12 +225,15 @@ SGD_ODD_N = 10_001                               # an odd n (3 parts: both route
 BN_BATCHED_RAGGED = [(999, 1, 111, 5), (3000, 3, 300, 4), (1960, 4, 196, 3), (490, 6, 49, 5),
                      (7840, 6, 784, 2)]
 GROUPED_ROUNDS = 2  # pinned cohorts: round 1, then round 2, which is resumed
-TIMED_ROUNDS = 8    # masked and grouped rounds in turns, the control's own cohorts
+# masked and grouped rounds in turns, the control's own cohorts (cut from 8 for
+# the superstep paths' time)
+TIMED_ROUNDS = 4
 # the grouped LM round on the card: two level-b clients of the LM control
 # (users 20 l .. 20 l + 19 are at level l), 4 windows of bptt 64 each
 GROUPED_LM_USERS = (20, 21)
 GROUPED_LM_TOKENS = 256
 TOL_GROUPED = (5e-4, 5e-5)  # (rtol, atol): grouped vs masked and vs sliced (tests/test_grouped.py)
+SS_ROUNDS = 2  # the superstep paths: one superstep of two rounds
 # ResNet-50 at full width on CIFAR10 (23,513,162 parameters, 49 BN sites a
 # step); its card-vs-CPU round: a level-a and a level-e client of 20
 # samples, 2 steps each (level e is chaotic over more steps; a batch of
@@ -307,6 +334,21 @@ def kernels_per_call(fn, calls: int = 20):
         raise AssertionError(f"the profiler saw {len(names)} kernels in {calls} calls: "
                              f"{sorted(set(names))}")
     return per_call, sorted(set(names))
+
+
+#: the device kernel that each launch counter counts, one a counted call
+KERNEL_OF = {"bn_fwd": "bn_fwd_kernel", "bn_bwd": "bn_bwd_kernel",
+             "bn_fwd_batched": "bn_fwd_batched_kernel", "bn_bwd_batched": "bn_bwd_batched_kernel",
+             "fused_sgd": "sgd_apply", "fused_sgd_batched": "sgd_batched_(?:persistent|cluster)",
+             "quant_pack": "quant_pack"}
+
+
+def traced_kernels(prof) -> dict:
+    """The hand-written kernels in a ``torch.profiler`` trace, counted by
+    name, by launch counter (:data:`KERNEL_OF`)."""
+    names = [e.name for e in prof.events() if "CUDA" in str(e.device_type)]
+    return {k: sum(1 for n in names if re.search(rf"\b{pat}\b", n))
+            for k, pat in KERNEL_OF.items()}
 
 
 def queued_ms(fn, calls: int = BN_GRAPH_CALLS, samples: int = 25) -> float:
@@ -2055,6 +2097,349 @@ def grouped_lm_path(torch, counters, out_dir: str):
     return launches
 
 
+
+# -- the superstep ----------------------------------------------------------------
+
+
+def graph_check_phase(torch, tmp: str, local_epochs: int) -> dict:
+    """The superstep's captured steps on the headline experiment at full
+    width, directly on its masked engine and on a grouped engine of the same
+    model: (a) a replayed draw -- the augmentation draws of a step captured
+    with the engine's step generator registered -- gives fresh numbers at
+    each replay, equal to the eager draws from the same seed bit for bit;
+    (b) a level-a client's local epoch timed eagerly (``local_train``) and
+    replayed from its captured step (``RoundEngine.client_step``) in turns,
+    and the two equal bit for bit under cuDNN's deterministic algorithms;
+    (c) a ``torch.profiler`` trace of a replayed epoch: kernels a step under
+    replay, the device's busy share, and the hand-written kernels counted
+    by name, which must equal the step's captured launches times the
+    replays; (d) the same count for a grouped (level a, G 2) epoch replayed
+    from its captured batched step -> the numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from heterofl_tpu_torch.entry.common import FedExperiment, parse_cfg
+    from heterofl_tpu_torch.fed.core import round_seed
+    from heterofl_tpu_torch.ops.augment import augment_draws
+    from heterofl_tpu_torch.parallel import GroupedRoundEngine, client_seed
+    from heterofl_tpu_torch.parallel.step_graph import StepGraphs
+
+    dev = torch.device("cuda")
+    cfg = parse_cfg("graph checks", "resnet18", "CIFAR10", fed_argv(
+        os.path.join(tmp, "graphs"), "dense", local_epochs, SS_ROUNDS, "--superstep_rounds",
+        str(SS_ROUNDS)))
+    exp = FedExperiment(cfg, cfg["init_seed"])
+    exp.stage(*exp.make_splits())
+    eng, data = exp.engine, exp.train_data
+    P = eng.flatten(exp.model.params())
+    # (a) replayed draws
+    gen = torch.Generator(device=dev)
+    offs = torch.zeros((BATCH, 2), dtype=torch.int64, device=dev)
+    flips = torch.zeros(BATCH, dtype=torch.bool, device=dev)
+
+    def draw():
+        o, f = augment_draws(BATCH, gen, dev)
+        offs.copy_(o)
+        flips.copy_(f)
+
+    step = StepGraphs(dev).get("draws", draw, lambda: None, [gen])
+    gen.manual_seed(1234)
+    replays = []
+    for _ in range(3):
+        step.replay()
+        replays.append((offs.clone(), flips.clone()))
+    gen.manual_seed(1234)
+    eager = [augment_draws(BATCH, gen, dev) for _ in range(3)]
+    fresh = not torch.equal(replays[0][0], replays[1][0]) and not torch.equal(
+        replays[1][0], replays[2][0])
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(replays, eager))
+    say(f"graph draws: three replays of a captured augmentation draw differ from each other: "
+        f"{fresh}; equal to three eager draws from the same seed bit for bit: {same}")
+    if not (fresh and same):
+        raise AssertionError("a replayed step does not draw fresh numbers equal to eager's")
+    # (b) a level-a client's epoch: eager against replayed, in turns
+    uid = 0  # users 0-19 are at level a
+    cseed = client_seed(round_seed(0, 1), uid)
+    lr = torch.full((), 0.1, dtype=torch.float32, device=dev)
+    steps = -(-data[0].shape[1] // BATCH) * local_epochs
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        def eager_epoch():
+            g = torch.Generator(device=dev).manual_seed(cseed)
+            return eng.local_train(P, 1.0, data[0][uid], data[1][uid], data[2][uid],
+                                   data[3][uid], g, lr)
+
+        def replayed_epoch():
+            step, st = eng.client_step(1.0, P, data)
+            eng.stage_client(st, P, 1.0, uid, data, cseed)
+            st["lr"].copy_(lr)
+            for _ in range(st["steps"]):
+                step.replay()
+            return st["p"], st["acc"]
+
+        p_e, acc_e = eager_epoch()
+        p_r, acc_r = replayed_epoch()
+        bits = torch.equal(p_e, p_r) and torch.equal(acc_e, acc_r)
+        times = {"eager": [], "replayed": []}
+        for rep in range(6):
+            for what in (("eager", "replayed") if rep % 2 == 0 else ("replayed", "eager")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (eager_epoch if what == "eager" else replayed_epoch)()
+                torch.cuda.synchronize()
+                times[what].append((time.perf_counter() - t0) * 1e3 / steps)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            replayed_epoch()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        traced = {"masked": traced_kernels(prof)}
+        want = {"masked": {k: v * steps for c in eng.client_step(1.0, P, data)[0].launches
+                           for k, v in c.items()}}
+        # (d) a grouped engine of the same model: two level-a clients' epoch
+        # replayed from the captured batched step of (level a, G 2)
+        geng = GroupedRoundEngine(exp.model, dict(exp.cfg, strategy="grouped"), dev)
+        lv, users = geng.levels[1.0], [0, 1]
+        gstep, gst, gens = geng.level_step(lv, len(users), P, data)
+        geng.stage_level(lv, gst, gens, P, torch.tensor(users, device=dev), users, data,
+                         round_seed(0, 1))
+        geng._lr.copy_(lr)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
+            for _ in range(gst["steps"]):
+                gstep.replay()
+            torch.cuda.synchronize()
+        traced["grouped"] = traced_kernels(gprof)
+        want["grouped"] = {k: v * gst["steps"] for c in gstep.launches for k, v in c.items()}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    kernels, busy = 0, 0.0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        if dev_us > 0 and evt.device_type is not None and "CUDA" in str(evt.device_type):
+            kernels += evt.count
+            busy += dev_us / 1e3
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    out = {"eager_ms": ms["eager"], "replayed_ms": ms["replayed"], "steps": steps,
+           "kernels_per_step": kernels / steps, "busy_share": busy / wall if wall else 0.0,
+           "bits": bits, "traced": traced, "captured_x_replays": want}
+    say(f"graph step (level a, {steps} steps, host clock a step, median of 6 in turns): eager "
+        f"{ms['eager']:.3f} ms, replayed {ms['replayed']:.3f} ms "
+        f"({ms['eager'] / ms['replayed']:.2f}x); replayed equals eager bit for bit under cuDNN's "
+        f"deterministic algorithms: {bits}; a replayed epoch in a torch.profiler trace: "
+        f"{kernels / steps:.1f} kernels a step, device busy {busy:.1f} of {wall:.1f} ms "
+        f"({100 * out['busy_share']:.1f}%)")
+    for what in ("masked", "grouped"):
+        say(f"graph launches ({what} level-a epoch replayed): hand-written kernels counted by "
+            f"name in the trace {traced[what]}; the step's captured launches x replays "
+            f"{want[what]}")
+    if not bits or kernels == 0:
+        raise AssertionError("the replayed epoch differs from the eager one, or the trace "
+                             "holds no kernel")
+    for what in ("masked", "grouped"):
+        if not want[what] or any(traced[what][k] != want[what].get(k, 0) for k in KERNEL_OF):
+            raise AssertionError(f"{what}: the kernels a replayed epoch ran {traced[what]} are "
+                                 f"not its captured launches x replays {want[what]}")
+    del exp, eng, geng, data, P
+    torch.cuda.empty_cache()
+    return out
+
+
+def superstep_path(torch, counters, out_dir: str, local_epochs: int):
+    """``train_classifier_fed`` on the headline control at full width, two
+    rounds evaluated after the second: first eagerly (``superstep_rounds``
+    1), then as one superstep (``--superstep_rounds 2``: each client's
+    steps replayed from the captured step of its level, the evaluation's
+    forwards from one captured batch a shape, one metric fetch), both under
+    cuDNN's deterministic algorithms (the masked engine's default
+    algorithms sum convolution gradients in an order that changes run to
+    run).  The superstep's cohorts, params, per-round metrics and fused
+    Local and Global metrics must equal the eager run's bit for bit, and
+    its batch-norm and fused-SGD launches come from replays, one step's
+    captured launches a replay -> (launches, replayed launches, numbers)."""
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.parallel import step_graph
+
+    steps = local_epochs * (SIZES["train"] // 100 // BATCH)
+    extra = ("--eval_interval", str(SS_ROUNDS))
+    runs, launches, secs = {}, {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for what, more in (("eager", ()), ("superstep", ("--superstep_rounds", str(SS_ROUNDS)))):
+            argv = fed_argv(os.path.join(out_dir, what), "dense", local_epochs, SS_ROUNDS,
+                            *extra, *more)
+            say(f"superstep path ({what}): train_classifier_fed {' '.join(argv)}")
+            step_graph.reset_stats()
+            zero(counters)
+            t0 = time.time()
+            (runs[what],) = train_classifier_fed.main(argv)
+            torch.cuda.synchronize()
+            secs[what] = time.time() - t0
+            launches[what] = read(counters)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    replayed, stats = dict(step_graph.REPLAYED), dict(step_graph.STATS)
+    eager, ss = runs["eager"]["history"], runs["superstep"]["history"]
+    total = 10 * steps * SS_ROUNDS  # 10 clients a round
+    for r_e, r_s in zip(eager, ss):
+        say(f"  round {r_e['epoch']}: eager {r_e['seconds']:.3f} s (host clock, "
+            f"{1e3 * r_e['seconds'] / (10 * steps):.2f} ms a step), superstep "
+            f"{r_s['seconds']:.3f} s (device clock between the round's marks, "
+            f"{1e3 * r_s['seconds'] / (10 * steps):.2f} ms a step); loss {r_e['loss']:.6f} / "
+            f"{r_s['loss']:.6f}")
+    names = ("Local-Loss", "Local-Accuracy", "Global-Loss", "Global-Accuracy")
+    say(f"  evaluation after round {SS_ROUNDS}: eager {eager[-1]['eval_seconds']:.2f} s (host "
+        f"clock), fused {ss[-1]['eval_seconds']:.2f} s (device clock); "
+        + ", ".join(f"{k} {eager[-1][k]:.6f} / {ss[-1][k]:.6f}" for k in names))
+    say(f"superstep path (host clock, the whole run with staging, evaluation and checkpoints): "
+        f"eager run {secs['eager']:.3f} s, superstep run {secs['superstep']:.3f} s; "
+        f"{stats['captures']} captures in "
+        f"{stats['capture_seconds']:.2f} s (warm-up included), {stats['replays']} replays, "
+        f"graph pools {stats['pool_bytes'] / 1e6:.1f} MB; launches {launches['superstep']}, "
+        f"from replays {replayed} (the captured count times the replays): "
+        f"{replayed.get('bn_fwd', 0) / total:.1f} bn_fwd, {replayed.get('bn_bwd', 0) / total:.1f} "
+        f"bn_bwd, {replayed.get('fused_sgd', 0) / total:.1f} fused_sgd calls a step under replay")
+    same_users = [r["users"] for r in eager] == [r["users"] for r in ss]
+    bits = all(torch.equal(runs["superstep"]["params"][k], v)
+               for k, v in runs["eager"]["params"].items())
+    same_metrics = all(a[k] == b[k] for a, b in zip(eager, ss) for k in ("loss", "accuracy", "n")) \
+        and all(eager[-1][k] == ss[-1][k] for k in names)
+    say(f"superstep path against eager: the same cohorts {same_users}; params equal bit for bit "
+        f"{bits}; round and fused-evaluation metrics equal {same_metrics}")
+    want = {"bn_fwd": BN_SITES * total, "bn_bwd": BN_SITES * total, "fused_sgd": total}
+    if not (same_users and bits and same_metrics and len(ss) == SS_ROUNDS) or any(
+            replayed.get(k) != v or launches["superstep"][k] < v for k, v in want.items()):
+        raise AssertionError(f"superstep path: it does not equal the eager run, or its replayed "
+                             f"launches {replayed} are not {want}")
+    numbers = {"eager_run_s": secs["eager"], "superstep_run_s": secs["superstep"],
+               "eager_round_s": [r["seconds"] for r in eager],
+               "superstep_round_s": [r["seconds"] for r in ss],
+               "eager_eval_s": eager[-1]["eval_seconds"], "fused_eval_s": ss[-1]["eval_seconds"],
+               "captures": stats["captures"], "capture_s": stats["capture_seconds"],
+               "pool_mb": stats["pool_bytes"] / 1e6}
+    return launches["superstep"], replayed, numbers
+
+
+def grouped_superstep_path(torch, counters, out_dir: str, local_epochs: int):
+    """``train_classifier_fed --strategy grouped --wire_codec int8
+    --superstep_rounds 2`` on the headline control at full width (the
+    control's own cohorts, the levels' G as they fall): three rounds, a
+    superstep of two and the clamped tail of one, evaluated after the last;
+    then two rounds and round 3 resumed from their checkpoint at the
+    superstep boundary, which must equal the uninterrupted run bit for bit
+    -- params and the int8 residual -- and draw its cohort (the codec's grid
+    is sized for a superstep's slots, so a run resumes only at a superstep
+    boundary).  The batched kernels run from replays, one quantise-and-pack
+    a round, no one-client kernel -> (launches, launches of the resumed
+    round, launches from replays)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.parallel import step_graph
+
+    rounds = SS_ROUNDS + 1
+    extra = ("--strategy", "grouped", "--superstep_rounds", str(SS_ROUNDS), "--eval_interval",
+             str(rounds))
+    argv = fed_argv(os.path.join(out_dir, "full"), "int8", local_epochs, rounds, *extra)
+    say(f"grouped superstep path: train_classifier_fed {' '.join(argv)}")
+    step_graph.reset_stats()
+    zero(counters)
+    t0 = time.time()
+    (full,) = train_classifier_fed.main(argv)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches, replayed = read(counters), dict(step_graph.REPLAYED)
+    stats = dict(step_graph.STATS)
+    for r in full["history"]:
+        say(f"  round {r['epoch']}: rates {sorted(r['user_rates'])}; loss {r['loss']:.4f} in "
+            f"{r['seconds']:.3f} s (device clock)")
+    last = full["history"][-1]
+    say(f"grouped superstep path: {secs:.1f} s host clock, the whole run; {stats['captures']} "
+        f"captures in {stats['capture_seconds']:.2f} s, graph pools "
+        f"{stats['pool_bytes'] / 1e6:.1f} MB; launches {launches}, from replays {replayed}; "
+        f"fused evaluation after round {rounds}: Global loss {last['Global-Loss']:.4f} "
+        f"accuracy {last['Global-Accuracy']:.2f}% in {last['eval_seconds']:.2f} s")
+    cut = os.path.join(out_dir, "cut")
+    train_classifier_fed.main(fed_argv(cut, "int8", local_epochs, SS_ROUNDS, *extra))
+    zero(counters)
+    (res,) = train_classifier_fed.main(fed_argv(cut, "int8", local_epochs, rounds, *extra,
+                                                "--resume_mode", "1"))
+    torch.cuda.synchronize()
+    resumed = read(counters)
+    (rec,) = res["history"]
+    bits = all(torch.equal(res["params"][k], v) for k, v in full["params"].items())
+    resid = np.array_equal(res["wire_resid"], full["wire_resid"])
+    say(f"grouped superstep resumed round: trained round {rec['epoch']} (users {rec['users']}, "
+        f"the uninterrupted run's {full['history'][-1]['users']}); params equal bit for bit "
+        f"{bits}, int8 residual equal {resid}; launches {resumed}")
+    one_client = sum(launches[k] for k in ("bn_fwd", "bn_bwd", "fused_sgd"))
+    if not (bits and resid and rec["epoch"] == rounds
+            and rec["users"] == full["history"][-1]["users"]) or one_client \
+            or launches["quant_pack"] != rounds or resumed["quant_pack"] != 1 or not all(
+                replayed.get(k, 0) > 0 for k in NO_BATCHED) or not all(
+                math.isfinite(r["loss"]) for r in full["history"]):
+        raise AssertionError("grouped superstep path: it does not resume bit for bit, or its "
+                             f"launches {launches} / {replayed} are not the batched kernels'")
+    return launches, resumed, replayed
+
+
+def lm_superstep_path(torch, counters, out_dir: str, lm_dir: str):
+    """``train_transformer_fed --superstep_rounds 2`` on the LM control at
+    full width: two rounds of ``LM_STEPS`` steps as one superstep, each
+    evaluated by the fused Global pass (a captured window forward, its
+    corruption drawn from the evaluation's registered generator), against
+    the LM main path's eager rounds 1 and 2 (its round-2 checkpoint
+    generation and its log) -> (launches, launches from replays)."""
+    from heterofl_tpu_torch.convert import params_to_jax
+    from heterofl_tpu_torch.entry import train_transformer_fed
+    from heterofl_tpu_torch.parallel import step_graph
+    from heterofl_tpu_torch.utils import checkpoint_path, load_checkpoint
+    from heterofl_tpu_torch.utils.checkpoint import generation_paths
+
+    argv = lm_argv(out_dir, SS_ROUNDS, "--superstep_rounds", str(SS_ROUNDS))
+    say(f"LM superstep path: train_transformer_fed {' '.join(argv)}")
+    step_graph.reset_stats()
+    zero(counters)
+    t0 = time.time()
+    (result,) = train_transformer_fed.main(argv)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches, replayed = read(counters), dict(step_graph.REPLAYED)
+    hist = result["history"]
+    (eager,) = [b for b in map(load_checkpoint, generation_paths(checkpoint_path(lm_dir, LM_TAG)))
+                if b["epoch"] == SS_ROUNDS + 1]
+    mine = params_to_jax({k: v.detach() for k, v in result["params"].items()},
+                         make_lm_perms(torch))
+    diff = max(float(abs(mine[k].astype("float64") - eager["params"][k]).max()) for k in mine)
+    bits = all((mine[k] == eager["params"][k]).all() for k in mine)
+    logged = eager["logger_history"]["test/Global-Perplexity"][:SS_ROUNDS]
+    for r, ppl in zip(hist, logged):
+        say(f"  round {r['epoch']}: loss {r['loss']:.4f} in {r['seconds']:.3f} s (device clock, "
+            f"{1e3 * r['seconds'] / LM_STEPS:.2f} ms a step); fused Global perplexity "
+            f"{r['Global-Perplexity']:.4f} (eager {ppl:.4f}) in {r['eval_seconds']:.3f} s")
+    say(f"LM superstep path: {secs:.1f} s; launches {launches}, from replays {replayed}; "
+        f"against the eager rounds: max |params diff| {diff:.3e}, bit for bit {bits} "
+        f"(tolerance {TOL_LM_ROUND:g})")
+    if not (diff <= TOL_LM_ROUND and replayed.get("fused_sgd") == SS_ROUNDS * LM_STEPS
+            and launches["bn_fwd"] == 0 and len(hist) == SS_ROUNDS) or not all(
+            math.isfinite(r[k]) for r in hist for k in ("loss", "Global-Perplexity")):
+        raise AssertionError(f"LM superstep path: launches {launches} / {replayed}, diff {diff}")
+    mask_row_kept(torch, result["params"])
+    return launches, replayed
+
+
+def make_lm_perms(torch):
+    """The transformer's leaf permutations to the checkpoint's layout."""
+    from heterofl_tpu_torch.models import make_model
+
+    return make_model(lm_cfg()).jax_perms()
+
+
 class Phases:
     """Seconds of each phase, printed as each ends."""
 
@@ -2226,6 +2611,19 @@ def main() -> int:
         by_path.update(lm_phases(torch, counters, tmp, phases))
         by_path["lm_grouped"] = grouped_lm_path(torch, counters, os.path.join(tmp, "lm_grouped"))
         phases.done("grouped LM round")
+        graph_nums = graph_check_phase(torch, tmp, args.local_epochs)
+        phases.done("CUDA graph checks: replayed draws, a replayed epoch against eager")
+        by_path["superstep"], replayed, ss_nums = superstep_path(
+            torch, counters, os.path.join(tmp, "superstep"), args.local_epochs)
+        replayed_by_path = {"superstep": replayed}
+        phases.done("superstep path against the eager rounds")
+        (by_path["grouped_superstep_int8"], by_path["grouped_superstep_resumed"],
+         replayed_by_path["grouped_superstep_int8"]) = grouped_superstep_path(
+            torch, counters, os.path.join(tmp, "grouped_superstep"), args.local_epochs)
+        phases.done("grouped int8 superstep and its resumed round")
+        by_path["lm_superstep"], replayed_by_path["lm_superstep"] = lm_superstep_path(
+            torch, counters, os.path.join(tmp, "lm_superstep"), os.path.join(tmp, "lm"))
+        phases.done("LM superstep")
     say("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phases.secs.items())
         + f"; total {time.time() - phases.t0:.1f} s")
 
@@ -2293,8 +2691,22 @@ def main() -> int:
                         "launches_by_path": {p: c[name] for p, c in by_path.items()}})
         if r is sgd_b:
             kernels[-1]["kernels_per_call"] = sgd_b["kernels_per_call"]
+    for k in kernels:
+        k["replayed_launches_by_path"] = {p: n.get(k["name"], 0)
+                                          for p, n in replayed_by_path.items()}
     say(f"EMNIST statistics: computed in {t_stats:.3f} s, read in {t_stats_read * 1e3:.2f} ms; "
         f"ResNet-50 step {r50_step_ms:.2f} ms")
+    say(f"superstep: a level-a step {graph_nums['eager_ms']:.3f} ms eager, "
+        f"{graph_nums['replayed_ms']:.3f} ms replayed (host clock), "
+        f"{graph_nums['kernels_per_step']:.1f} kernels a replayed step, device busy "
+        f"{100 * graph_nums['busy_share']:.1f}%; two headline rounds, the whole run on the host "
+        f"clock: eager {ss_nums['eager_run_s']:.3f} s, superstep {ss_nums['superstep_run_s']:.3f} "
+        f"s; rounds eager {ss_nums['eager_round_s']} s (host clock), superstep "
+        f"{ss_nums['superstep_round_s']} s (device clock); evaluation eager "
+        f"{ss_nums['eager_eval_s']:.3f} s (host clock), fused {ss_nums['fused_eval_s']:.3f} s "
+        f"(device clock); "
+        f"{ss_nums['captures']} captures in {ss_nums['capture_s']:.2f} s, pools "
+        f"{ss_nums['pool_mb']:.1f} MB")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -15,12 +15,12 @@ no import of the reference).  The codecs themselves are in
   update per round, values and counts as float32: 25% of dense.
 
 The lossy codecs carry an error-feedback residual across rounds
-(``cfg['error_feedback']``, default True).  Only the ``masked`` strategy
-compresses: the reference compresses the grouped strategy's round only in
-its fused K-round superstep, which is not ported, so the grouped K=1 round,
-the sliced twin and a per-level ``{rate: codec}`` map refuse a lossy codec
-with the reference experiment loop's ``ValueError``s
-(heterofl_tpu/entry/common.py:288-335).
+(``cfg['error_feedback']``, default True).  The ``masked`` strategy
+compresses at any ``superstep_rounds``; the ``grouped`` one, as in the
+reference, only in its K-round superstep (``superstep_rounds > 1``): its
+K=1 round and the sliced twin refuse a lossy codec with the reference
+experiment loop's ``ValueError``s (heterofl_tpu/entry/common.py:288-335).
+A per-level ``{rate: codec}`` map with a lossy level is not ported.
 """
 
 from __future__ import annotations
@@ -104,10 +104,11 @@ def resolve_codec_cfg(cfg: Dict[str, Any]) -> Tuple[Any, bool]:
     The codec is also checked against ``cfg['strategy']``, with the
     reference experiment loop's ``ValueError``s (heterofl_tpu/entry/
     common.py:307-335): a per-level map outside ``grouped``, a lossy codec
-    with ``sliced``, and a lossy codec (or map) with ``grouped`` -- the port
-    runs only its K=1 round, which reduces per level and has no single sum
-    to compress.  The grouped engine and the sliced twin refuse through
-    this function, with their own strategy."""
+    with ``sliced``, and a lossy codec (or map) with ``grouped`` at
+    ``superstep_rounds`` 1 -- its K=1 round reduces per level and has no
+    single sum to compress.  A lossy per-level map at K > 1 raises
+    ``NotImplementedError``.  The grouped engine and the sliced twin refuse
+    through this function, with their own strategy."""
     name = cfg.get("wire_codec", "dense") or "dense"
     if isinstance(name, dict):
         name = normalize_codec_map(name)
@@ -130,11 +131,15 @@ def resolve_codec_cfg(cfg: Dict[str, Any]) -> Tuple[Any, bool]:
             raise ValueError(
                 f"wire_codec={name!r} needs a mesh-native strategy ('masked' or 'grouped'): "
                 f"the sliced debug twin aggregates on the host, there is no psum to compress")
-        if strategy == "grouped":
+        if strategy == "grouped" and int(cfg.get("superstep_rounds", 1) or 1) <= 1:
             raise ValueError(
                 f"wire_codec={name!r} with the grouped strategy needs the fused superstep "
                 f"(superstep_rounds > 1 or client_store='stream'): the K=1 host-orchestrated "
                 f"path reduces per level and has no single global psum to compress")
+        if isinstance(name, dict):
+            raise NotImplementedError(
+                "cfg['wire_codec'] = a per-level map with a lossy level is not ported to "
+                "heterofl_tpu_torch yet (only one codec for every level is)")
     return name, ef
 
 

@@ -68,9 +68,11 @@ class WireCodec:
     def _leaf_expand(self, per_leaf: torch.Tensor) -> torch.Tensor:
         """``[n_leaves]`` -> flat ``[total]``, each leaf's value over its
         segment."""
-        sizes = torch.tensor([self.spec.sizes[k] for k in self.spec.names],
-                             device=per_leaf.device)
-        return torch.repeat_interleave(per_leaf, sizes, output_size=self.spec.total)
+        dev = per_leaf.device
+        if getattr(self, "_sizes", None) is None or self._sizes.device != dev:
+            # made once: a copy to the card per round would wait for it
+            self._sizes = torch.tensor([self.spec.sizes[k] for k in self.spec.names], device=dev)
+        return torch.repeat_interleave(per_leaf, self._sizes, output_size=self.spec.total)
 
     def _check_count_capacity(self, cmax: int, lane_bits: int) -> None:
         """Counts ride exact integer lanes: the lane sum over participants

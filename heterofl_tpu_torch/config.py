@@ -10,18 +10,29 @@ those to another value raises ``NotImplementedError`` naming the key
 Differences from the reference's defaults: ``device`` is ``"cuda"`` (the
 reference's is ``"tpu"``), and ``sampler`` is ``"perm"`` -- the numpy
 permutation stream of the reference's experiment loop, the one cohort draw
-that does not need ``jax.random``.
+that does not need ``jax.random``, which keeps a K=1 run's cohorts equal to
+the reference's bit for bit.  ``sampler='prp'`` (the reference's default,
+``fed/sampling.py``) is accepted: its Feistel round keys come from the
+port's own per-round seed, so its cohorts are the reference's map under
+other keys.
+
+``superstep_rounds`` K > 1 runs K rounds a dispatch, their local steps and
+evaluation forwards replayed from CUDA graphs (``parallel/step_graph.py``),
+and ``metrics_fetch_every`` defers the host's metric fetch
+(:func:`resolve_superstep_cfg` holds the cross-field checks of
+heterofl_tpu/entry/common.py:336-416).
 """
 
 from __future__ import annotations
 
 import copy
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
 from .compress import resolve_codec_cfg
+from .fed.sampling import resolve_sampler_cfg
 
 # Width multiplier per complexity level (ref src/utils.py:114).
 MODEL_SPLIT_RATE: Dict[str, float] = {"a": 1.0, "b": 0.5, "c": 0.25, "d": 0.125, "e": 0.0625}
@@ -75,6 +86,10 @@ DEFAULT_CFG: Dict[str, Any] = {
     # sBN + Local/Global evaluation every this many rounds, and after the last
     "eval_interval": 1,
     "sampler": "perm",
+    # K rounds a dispatch (the superstep; 1: one round a dispatch, eager),
+    # and the host's metric fetch every this many rounds (1 or K at K > 1)
+    "superstep_rounds": 1,
+    "metrics_fetch_every": 1,
     "data_dir": "./data",
     "output_dir": "./output",
     "synthetic": False,
@@ -94,8 +109,6 @@ UNPORTED: Dict[str, Any] = {
     "data_placement": "replicated",
     "conv_impl": None,
     "scan_unroll": 1,
-    "superstep_rounds": 1,
-    "metrics_fetch_every": 1,
     "client_store": "eager",
     "schedule": None,
     "sample_horizon": None,
@@ -139,14 +152,61 @@ def check_ported(cfg: Dict[str, Any]) -> None:
             raise NotImplementedError(
                 f"cfg[{key!r}] = {cfg[key]!r} is not ported to heterofl_tpu_torch "
                 f"yet (only {off!r} is)")
-    checks = (("sampler", ("perm",)),
-              ("compute_dtype", ("float32", None)))
-    for key, ok in checks:
-        if cfg.get(key, ok[0]) not in ok:
-            raise NotImplementedError(
-                f"cfg[{key!r}] = {cfg[key]!r} is not ported to heterofl_tpu_torch "
-                f"yet (only {ok[0]!r} is)")
+    if cfg.get("compute_dtype", "float32") not in ("float32", None):
+        raise NotImplementedError(
+            f"cfg['compute_dtype'] = {cfg['compute_dtype']!r} is not ported to "
+            f"heterofl_tpu_torch yet (only 'float32' is)")
+    resolve_sampler_cfg(cfg)
     resolve_codec_cfg(cfg)
+
+
+def resolve_superstep_cfg(cfg: Dict[str, Any], plateau: bool = False) -> Tuple[int, int]:
+    """``(K, fetch_every)``: the rounds a dispatch and the metrics
+    pipeline's fetch interval in dispatches (``metrics_fetch_every // K`` at
+    K > 1), after the reference experiment loop's cross-field checks
+    (heterofl_tpu/entry/common.py:336-395), which raise ``ValueError`` with
+    its messages: K > 1 with ``sliced``; a ``metrics_fetch_every`` other
+    than 1 that K does not divide, or above K; ReduceLROnPlateau
+    (``plateau``) with an ``eval_interval`` that K does not divide."""
+    K = max(1, int(cfg.get("superstep_rounds", 1) or 1))
+    fetch_every = int(cfg.get("metrics_fetch_every", 1) or 1)
+    eval_iv = max(1, int(cfg.get("eval_interval", 1) or 1))
+    if K == 1:
+        return 1, max(1, fetch_every)
+    if (cfg.get("strategy") or "masked") == "sliced":
+        raise ValueError(
+            "superstep_rounds>1 needs a mesh-native engine "
+            "(strategy 'masked' or 'grouped'); 'sliced' is the "
+            "host-orchestrated debug twin")
+    if fetch_every != 1 and fetch_every % K:
+        raise ValueError(
+            f"metrics_fetch_every={fetch_every} conflicts with "
+            f"superstep_rounds={K}: a superstep fetches its metrics "
+            f"exactly once per K rounds (use 1 for synchronous fetch "
+            f"or exactly {K}; larger multiples would defer metrics "
+            f"past the superstep's checkpoint)")
+    if plateau:
+        if eval_iv % K:
+            raise ValueError(
+                f"ReduceLROnPlateau with superstep_rounds={K} needs "
+                f"eval boundaries on superstep boundaries "
+                f"(eval_interval % superstep_rounds == 0, got "
+                f"eval_interval={eval_iv}): a mid-superstep eval "
+                f"would require an LR step inside the compiled scan")
+        if fetch_every > K:
+            raise ValueError(
+                f"ReduceLROnPlateau feeds on each superstep's eval "
+                f"metrics before the next superstep dispatches; "
+                f"metrics_fetch_every={fetch_every} would defer them "
+                f"(use 1 or {K})")
+    if fetch_every > K:
+        raise ValueError(
+            f"metrics_fetch_every={fetch_every} exceeds "
+            f"superstep_rounds={K}: each superstep's eval metrics "
+            f"would be deferred past its checkpoint, silently "
+            f"disabling best-checkpoint tracking (pivot never "
+            f"fresh); use 1 or {K}")
+    return K, max(1, fetch_every // K)
 
 
 def parse_control_name(control_name: str) -> Dict[str, str]:

@@ -29,9 +29,24 @@ CLI flags generated from the cfg keys (common.py:75-111), then per seed
 The numpy stream ``self.rng = np.random.default_rng(seed)`` feeds the data
 split first and then the per-round user permutation, as in the reference
 experiment loop (common.py:229, 578, 682-684), so cohorts match the
-reference's for the same seed under its ``sampler='perm'``.  A resumed run
-skips the split draw, so its stream restarts without it -- as the
-reference's does; there is no checkpoint of the stream.
+reference's for the same seed under its ``sampler='perm'``.  A resumed K=1
+run skips the split draw, so its stream restarts without it -- as the
+reference's does.  ``sampler='prp'`` draws each round's cohort from the
+round seed alone (``fed.core.round_users``).
+
+``superstep_rounds`` K > 1 (:meth:`FedExperiment.train_superstep`, ref
+common.py:941-1024 and the superstep branch of :meth:`_run_iteration`,
+:1501-1540): K rounds a dispatch through the engine's ``train_superstep``
+(each client's local steps replayed from CUDA graphs), its cohorts and
+rates the next K draws of the K=1 stream, the evaluations that fall inside
+it fused into it (``Evaluator.fused``), its metrics fetched once through
+the :class:`~..parallel.staging.MetricsPipeline` and logged round by round
+as the K=1 loop logs them; the checkpoint lands on the superstep boundary
+and holds the permutation stream's state, so a resumed superstep run draws
+what the uninterrupted one drew; the end of the run clamps the last
+superstep to the rounds left.  ``superstep_rounds=1`` is the eager loop
+above, its train metrics deferred ``metrics_fetch_every`` rounds (flushed
+before each evaluation and at the end).
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ import json
 import math
 import os
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -53,13 +69,17 @@ from ..data import (bptt_windows, fetch_dataset, label_split_masks, process_data
                     split_dataset, stack_client_shards, stack_client_token_rows, stack_windows)
 from ..data.datasets import DATASET_STATS
 from ..data.stats import dataset_stats
-from ..fed.core import validate_width_geometry
+from ..fed.core import (round_seed, round_users, superstep_rate_schedule,  # noqa: F401
+                        superstep_user_schedule, validate_width_geometry)
+from ..fed.sampling import resolve_sampler_cfg
 from ..models import make_model
 from ..fed.sliced import SlicedFederation
 from ..parallel import Evaluator, GroupedRoundEngine, RoundEngine
+from ..parallel.staging import MetricsPipeline, PendingMetrics
 from ..utils import (Logger, PlateauScheduler, checkpoint_path, copy_best, make_scheduler,
                      resume, save_checkpoint, summarize_sums)
 from ..utils.metrics import METRICS
+from ..utils.optim import superstep_lrs
 
 
 def build_cli(description: str) -> argparse.ArgumentParser:
@@ -97,10 +117,6 @@ def cfg_from_args(args: argparse.Namespace) -> Dict[str, Any]:
     if getattr(args, "control_name", None) and args.control_name != "None":
         cfg["control"] = C.parse_control_name(args.control_name)
     return cfg
-
-
-def round_seed(seed: int, epoch: int) -> int:
-    return int(np.random.SeedSequence([int(seed), int(epoch)]).generate_state(1)[0])
 
 
 def _batch_array(x: np.ndarray, b: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -212,6 +228,18 @@ class FedExperiment:
         self.eval_interval = max(1, int(cfg.get("eval_interval", 1) or 1))
         self.checkpoint_keep = C.resolve_checkpoint_keep(cfg)
         self.scheduler = make_scheduler(cfg)
+        self.sampler = resolve_sampler_cfg(cfg).kind
+        self.superstep_rounds, fetch_every = C.resolve_superstep_cfg(
+            cfg, isinstance(self.scheduler, PlateauScheduler))
+        self.metrics_pipe = MetricsPipeline(fetch_every)
+        if self.superstep_rounds == 1 and fetch_every > self.eval_interval:
+            # evaluate() drains the pipeline, so batches never grow past it
+            warnings.warn(
+                f"metrics_fetch_every={fetch_every} exceeds "
+                f"eval_interval={self.eval_interval}: each eval boundary flushes the metric "
+                f"pipeline, so the effective fetch batch is eval_interval rounds")
+        self._fused = None  # the superstep's evaluation, made at its first use
+        self._checkpoint_recs: Dict[int, Dict[str, Any]] = {}  # of rounds not yet logged
         self.num_active = int(math.ceil(cfg["frac"] * cfg["num_users"]))
         if not 0 <= self.num_active <= cfg["num_users"]:
             raise ValueError(f"frac={cfg['frac']} draws num_active={self.num_active} "
@@ -252,23 +280,44 @@ class FedExperiment:
         self.global_eval = self._to_device(glob)
 
     def sample_users(self, epoch: int) -> np.ndarray:
-        return self.rng.permutation(self.cfg["num_users"])[: self.num_active].astype(np.int64)
+        """The K=1 round's cohort: the next permutation of the numpy stream
+        (``perm``) or the round seed's PRP image (``prp``)."""
+        return round_users(round_seed(self.seed, epoch), self.cfg["num_users"],
+                           self.num_active, self.sampler, self.rng)
 
     def train_round(self, P: torch.Tensor, epoch: int, lr: float) -> torch.Tensor:
         """One round from the global flat params ``P``: the cohort, then
         local training and aggregation, the engine drawing the cohort's
         rates in ``dynamic`` mode as the reference's masked engine does
-        (ref entry/common.py:700-712).  Its train loss and accuracy (a
-        masked LM: perplexity) go to the experiment's logger as
-        ``train/Local-*`` (ref entry/common.py:1189-1225), and the record
-        with the cohort (``users``) and its rates (``user_rates``) to
-        :attr:`history`."""
+        (ref entry/common.py:700-712).  Its metric sums go through the
+        metrics pipeline (fetched now at ``metrics_fetch_every`` 1) and are
+        logged when fetched (:meth:`_log_round`)."""
         user_idx = self.sample_users(epoch)
         t0 = time.time()
         P, ms = self.engine.train_round(P, lr, user_idx, self.train_data,
                                         round_seed(self.seed, epoch))
-        sums = {k: v.cpu().numpy() if torch.is_tensor(v) else v for k, v in ms.items()}
-        dt = time.time() - t0  # the fetch above waits for the round's last kernel
+        pending = PendingMetrics({k: v for k, v in ms.items() if torch.is_tensor(v)},
+                                 lambda host, rate=ms["rate"]: dict(host, rate=rate))
+        tag = {"epoch": epoch, "lr": lr, "users": user_idx, "t0": t0}
+        for tag, sums in self.metrics_pipe.push(tag, pending):
+            # the fetch waits for the round's last kernel
+            self._log_round(tag["epoch"], tag["lr"], time.time() - tag["t0"], tag["users"],
+                            sums)
+        return P
+
+    def _drain_metrics(self) -> None:
+        """Log every round whose metrics the pipeline still holds."""
+        for tag, sums in self.metrics_pipe.flush():
+            self._log_round(tag["epoch"], tag["lr"], time.time() - tag["t0"], tag["users"],
+                            sums)
+
+    def _log_round(self, epoch: int, lr: float, dt: float, user_idx, sums) -> None:
+        """Log one round's fetched sums: its train loss and accuracy (a
+        masked LM: perplexity) to the experiment's logger as
+        ``train/Local-*`` (ref entry/common.py:1189-1225), and the record
+        with the cohort (``users``) and its rates (``user_rates``) to
+        :attr:`history`."""
+        user_idx = np.asarray(user_idx, np.int64)
         n = float(sums["n"].sum())
         named = summarize_sums(sums, kind=self.kind)
         rec = {"epoch": epoch, "lr": lr, "seconds": dt, "n": n,
@@ -277,20 +326,22 @@ class FedExperiment:
                "users": user_idx.tolist(), "user_rates": sums["rate"].tolist()}
         score = METRICS[self.kind][1]  # Accuracy | Perplexity
         rec[score.lower()] = named.get(f"Local-{score}", 0.0)
+        rec.update(self._checkpoint_recs.pop(epoch, {}))
         self.history.append(rec)
         self.logger.append(named, "train", n=n)
         self.logger.append({"info": [f"Model: {self.tag}", f"Train Epoch: {epoch}",
                                      f"Learning rate: {lr:g}", f"Rates: {rec['rates']}",
                                      f"Round time: {dt:.2f}s"]}, "train", mean=False)
         self.logger.write("train", list(named))
-        return P
 
     def evaluate(self, P: torch.Tensor, epoch: int,
                  logger: Optional[Logger] = None) -> Dict[str, float]:
         """sBN, then Local, then Global, on the global flat params ``P``
         (ref entry/common.py:1241-1272), logged under ``test/`` -> the named
         test metrics and ``eval_seconds``.  A masked LM runs Global only,
-        its draws seeded from ``epoch``."""
+        its draws seeded from ``epoch``.  Rounds whose metrics the pipeline
+        still holds are logged first."""
+        self._drain_metrics()
         logger = self.logger if logger is None else logger
         t0 = time.time()
         params = self.engine.unflatten(P)
@@ -308,6 +359,89 @@ class FedExperiment:
         self.bn_state = bn
         logger.append({"info": [f"Model: {self.tag}", f"Test Epoch: {epoch}",
                                 f"Eval time: {named['eval_seconds']:.2f}s"]}, "test", mean=False)
+        logger.write("test", [k.split("/", 1)[1] for k in logger.mean if k.startswith("test/")])
+        return named
+
+    # -- the superstep ---------------------------------------------------------
+
+    def _fused_eval(self):
+        """The superstep's evaluation over the staged operands (made once)."""
+        if self._fused is None:
+            spec = self.engine.spec
+            if self.kind == "vision":
+                self._fused = self.evaluator.fused(spec, self.sbn_batches, self.local_eval,
+                                                   self.global_eval)
+            else:
+                self._fused = self.evaluator.fused(spec, global_eval=self.global_eval)
+        return self._fused
+
+    def train_superstep(self, P: torch.Tensor, epoch0: int, k: int) -> torch.Tensor:
+        """Rounds ``epoch0 .. epoch0 + k - 1`` as one dispatch (ref
+        entry/common.py:941-1024): the ``[k, A]`` cohorts and rates of the
+        K=1 stream, the k learning rates, the eval mask (a round evaluates
+        when ``eval_interval`` divides it, and the run's last), then the
+        engine's ``train_superstep``; its metrics go through the pipeline
+        and are logged round by round when fetched (:meth:`_log_superstep`)."""
+        cfg = self.cfg
+        last = cfg["num_epochs"]["global"]
+        users = superstep_user_schedule(self.seed, epoch0, k, cfg["num_users"], self.num_active,
+                                        self.sampler, self.rng)
+        rates = superstep_rate_schedule(self.seed, epoch0, k, cfg, users)
+        lrs = superstep_lrs(self.scheduler, epoch0, k)
+        mask = [(epoch0 + r) % self.eval_interval == 0 or epoch0 + r == last for r in range(k)]
+        fused = self._fused_eval() if any(mask) else None
+        t0 = time.time()
+        P, pending = self.engine.train_superstep(P, self.seed, epoch0, k, self.train_data, users,
+                                                 rates, lrs, mask if fused else None, fused)
+        tag = {"epoch0": epoch0, "k": k, "users": users, "lrs": lrs, "t0": t0,
+               "pending": pending}
+        for tag, out in self.metrics_pipe.push(tag, pending):
+            self._log_superstep(tag, out)
+        return P
+
+    def _log_superstep(self, tag: Dict[str, Any], out) -> None:
+        """Log a fetched superstep as the K=1 loop logs its rounds (ref
+        entry/common.py:1134-1188): each round's train metrics, its fused
+        evaluation after it, the Plateau feed; every round but the last is
+        closed into the logger's history and reset as a K=1 iteration
+        closes its round, so the log equals a K=1 run's.  A round's
+        ``seconds`` (and ``eval_seconds``) are the device's, between marks
+        recorded on its stream around the round (and the evaluation)."""
+        rounds = out["train"] if isinstance(out, dict) else out
+        evals = {e["epoch"]: e for e in out.get("eval", [])} if isinstance(out, dict) else {}
+        secs = tag["pending"].seconds
+        logger, j = self.logger, 0
+        for r in range(tag["k"]):
+            epoch = tag["epoch0"] + r
+            if r:
+                for name in logger.mean:  # close the previous round, as safe(False) does
+                    logger.history[name].append(logger.mean[name])
+                logger.reset()
+            self._log_round(epoch, float(tag["lrs"][r]), secs["train"][r], tag["users"][r],
+                            rounds[r])
+            ev = evals.get(epoch)
+            if ev is not None:
+                self.history[-1].update(self._log_fused_eval(epoch, ev, secs["eval"][j]))
+                j += 1
+                if isinstance(self.scheduler, PlateauScheduler):
+                    self.scheduler.step_metric(logger.mean.get("test/Global-Loss", 0.0))
+
+    def _log_fused_eval(self, epoch: int, ev: Dict[str, Any], seconds: float
+                        ) -> Dict[str, float]:
+        """Log one fused evaluation as :meth:`evaluate` logs its own."""
+        logger, named = self.logger, {}
+        if self.kind == "vision" and ev["local"]:
+            local = ev["local"]
+            named = summarize_sums(local)
+            logger.append(named, "test", n=float(np.sum(local["n"])))
+        g = ev["global"]
+        named_global = summarize_sums(g, prefix="Global-", kind=self.kind)
+        logger.append(named_global, "test", n=g["n"])
+        named.update(named_global)
+        named["eval_seconds"] = seconds
+        self.bn_state = ev["bn"]
+        logger.append({"info": [f"Model: {self.tag}", f"Test Epoch: {epoch}",
+                                f"Eval time: {seconds:.2f}s"]}, "test", mean=False)
         logger.write("test", [k.split("/", 1)[1] for k in logger.mean if k.startswith("test/")])
         return named
 
@@ -342,6 +476,9 @@ class FedExperiment:
         pivot = -math.inf if pivot_mode == "max" else math.inf
         if blob:
             P = self.engine.flatten(params_from_jax(blob["params"], self.perms))
+            if self.superstep_rounds > 1 and blob.get("sampler_state") is not None:
+                # the permutation stream at the superstep boundary
+                self.rng.bit_generator.state = blob["sampler_state"]
             if blob.get("wire_resid") is not None and self.engine.codec is not None:
                 self.engine.set_wire_resid(self._resid_from_blob(blob["wire_resid"]))
             if "epoch" in blob:
@@ -359,9 +496,9 @@ class FedExperiment:
             # first resumed round averages its means with that round's)
             logger.reset()
         while epoch <= last:
-            P, pivot = self._run_iteration(P, epoch, last, pivot_metric, pivot_mode, pivot,
-                                           data_split, label_split)
-            epoch += 1
+            P, pivot, epoch = self._run_iteration(P, epoch, last, pivot_metric, pivot_mode,
+                                                  pivot, data_split, label_split)
+        self._drain_metrics()
         return {"params": {k: v.clone() for k, v in self.engine.unflatten(P).items()},
                 "history": self.history, "logger": logger, "data_split": data_split,
                 "label_split": label_split, "bn_state": self.bn_state,
@@ -369,21 +506,34 @@ class FedExperiment:
 
     def _run_iteration(self, P, epoch, last, pivot_metric, pivot_mode, pivot, data_split,
                        label_split):
-        """One round, its evaluation when due, the best-pivot decision and
-        the durable checkpoint (ref entry/common.py:1501-1600) -> ``(P,
-        pivot)``.  The checkpoint's seconds and bytes (the host copy of the
-        params included) go into the round's :attr:`history` record."""
+        """One round and its evaluation when due -- or, at
+        ``superstep_rounds`` K > 1, a superstep of ``min(K, rounds left)``
+        rounds -- then the best-pivot decision and the durable checkpoint
+        (ref entry/common.py:1501-1600) -> ``(P, pivot, next epoch)``.  The
+        checkpoint's seconds and bytes (the host copy of the params
+        included) go into the last round's :attr:`history` record."""
         cfg, logger = self.cfg, self.logger
         logger.safe(True)
-        P = self.train_round(P, epoch, self.scheduler(epoch))
-        if epoch % self.eval_interval == 0 or epoch == last:
-            self.history[-1].update(self.evaluate(P, epoch))
-            if isinstance(self.scheduler, PlateauScheduler):
-                # min-mode plateau on the test Global loss, on evaluated rounds
-                self.scheduler.step_metric(logger.mean.get("test/Global-Loss", 0.0))
+        if self.superstep_rounds > 1:
+            k = min(self.superstep_rounds, last - epoch + 1)
+            P = self.train_superstep(P, epoch, k)
+            epoch = epoch + k - 1  # the last round this iteration covered
+            # the checkpoint holds end-of-superstep params: only an
+            # evaluation of that round, fetched now, may move the pivot
+            pivot_fresh = (self.metrics_pipe.fetch_every == 1
+                           and (epoch % self.eval_interval == 0 or epoch == last))
+        else:
+            pivot_fresh = True
+            P = self.train_round(P, epoch, self.scheduler(epoch))
+            if epoch % self.eval_interval == 0 or epoch == last:
+                named = self.evaluate(P, epoch)  # first: it logs the rounds still pending
+                self.history[-1].update(named)
+                if isinstance(self.scheduler, PlateauScheduler):
+                    # min-mode plateau on the test Global loss, on evaluated rounds
+                    self.scheduler.step_metric(logger.mean.get("test/Global-Loss", 0.0))
         logger.safe(False)
         cur = logger.history.get(f"test/{pivot_metric}", [None])[-1]
-        is_best = pivot_improves(cur, pivot, pivot_mode)
+        is_best = pivot_fresh and pivot_improves(cur, pivot, pivot_mode)
         if is_best:
             pivot = cur  # before saving, so a resumed run keeps it
         blob = lambda: {  # noqa: E731
@@ -401,11 +551,16 @@ class FedExperiment:
             "logger_state": logger.state_dict(),
             "scheduler_state": self.scheduler.state_dict()
             if hasattr(self.scheduler, "state_dict") else None,
+            **({"sampler_state": self.rng.bit_generator.state}
+               if self.superstep_rounds > 1 else {}),
         }
-        write_checkpoint(cfg["output_dir"], self.tag, blob, self.checkpoint_keep, is_best,
-                         self.history[-1])
+        if self.history and self.history[-1]["epoch"] == epoch:
+            rec = self.history[-1]
+        else:  # the round's metrics are still in the pipeline: its record takes this later
+            rec = self._checkpoint_recs.setdefault(epoch, {"epoch": epoch})
+        write_checkpoint(cfg["output_dir"], self.tag, blob, self.checkpoint_keep, is_best, rec)
         logger.reset()
-        return P, pivot
+        return P, pivot, epoch + 1
 
 
 def run_main(description: str, model_default: str, data_default: str,

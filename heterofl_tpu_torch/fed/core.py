@@ -2,7 +2,8 @@
 check and counted aggregation.
 
 Port of ``heterofl_tpu/fed/core.py``: ``sample_model_rates``/
-``round_rates`` (core.py:33-58, :145), ``validate_width_geometry``
+``round_rates`` (core.py:33-58, :145), the cohort draw ``round_users`` and
+the superstep's ``[k, A]`` schedules (:155-251), ``validate_width_geometry``
 (:63-85), ``snap_to_levels`` (:254-281), ``to_width_rates`` and
 ``combine_counted`` (:442-473), and the sliced strategy's
 ``active_indices``/``extract_sliced``/``embed_sliced`` (:555-607) on the
@@ -19,6 +20,14 @@ seeded from the round seed and :data:`ROUND_RATE_SALT`, so a round's rates
 depend on (seed, round) alone and a resumed run draws what an uninterrupted
 one drew.  The reference draws from ``jax.random``, which torch does not
 reproduce: tests hand the reference's draws to the round engine instead.
+
+Every per-round draw descends from :func:`round_seed` ``(seed, epoch)``,
+one stream for the K=1 round and the K-round superstep: a run at
+``superstep_rounds=K`` trains the cohorts and rates a K=1 run trains.
+Under ``sampler='perm'`` the cohorts come from the experiment's numpy
+permutation stream (reference parity at K=1), and the superstep's schedule
+takes the next k draws of that same stream; the reference's superstep draws
+``jax.random.permutation`` there instead, which torch cannot reproduce.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .sampling import prp_round_keys, prp_round_users
 
 #: salt of the per-round rate stream (the reference's ``fold_in(round_key,
 #: ROUND_RATE_SALT)``)
@@ -65,6 +76,65 @@ def round_rates(round_seed: int, cfg: Dict[str, Any],
     the one definition of the rate stream, used by the experiment loop and
     by the round engine when it is handed no rates."""
     return sample_model_rates(rate_generator(round_seed), cfg, user_idx)
+
+
+def round_seed(seed: int, epoch: int) -> int:
+    """The seed of round ``epoch`` of the experiment with seed ``seed``: the
+    root of the round's cohort (``prp``), rate, client and codec draws."""
+    return int(np.random.SeedSequence([int(seed), int(epoch)]).generate_state(1)[0])
+
+
+def round_users(rseed: int, num_users: int, num_active: int, sampler: str = "perm",
+                rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """The cohort of the round with seed ``rseed`` (int64 ``[num_active]``;
+    ref core.py:155-207): ``'prp'`` the image of ``[0, num_active)`` under
+    the round's keyed permutation; ``'perm'`` the next full permutation of
+    the experiment's numpy stream ``rng``, cut to ``num_active``.  A
+    ``num_active`` outside ``[0, num_users]`` raises ``ValueError`` with the
+    reference's message."""
+    if not 0 <= num_active <= num_users:
+        raise ValueError(
+            f"round_users: num_active={num_active} must be in [0, "
+            f"num_users={num_users}] -- the legacy permutation draw would "
+            f"silently short the cohort (and a negative count silently "
+            f"wrap); fix cfg['frac']/num_active")
+    if sampler == "prp":
+        return prp_round_users(prp_round_keys(rseed, num_users), num_users,
+                               num_active).astype(np.int64)
+    if sampler == "perm":
+        if rng is None:
+            raise ValueError("round_users: sampler='perm' draws from the experiment's "
+                             "numpy stream; pass rng")
+        return rng.permutation(num_users)[:num_active].astype(np.int64)
+    raise ValueError(f"Not valid sampler: {sampler!r} (one of ('perm', 'prp'))")
+
+
+def superstep_user_schedule(seed: int, epoch0: int, k: int, num_users: int, num_active: int,
+                            sampler: str = "perm",
+                            rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """``[k, A]`` cohorts of rounds ``epoch0 .. epoch0 + k - 1`` (ref
+    core.py:210-239): :func:`round_users` at each round's seed, in round
+    order, so the schedule is what k K=1 rounds draw."""
+    if epoch0 < 0:
+        raise ValueError(f"superstep_user_schedule: epoch0={epoch0} must be non-negative")
+    if k < 0:
+        raise ValueError(f"superstep_user_schedule: k={k} must be non-negative")
+    if not k:
+        return np.zeros((0, num_active), np.int64)
+    return np.stack([round_users(round_seed(seed, epoch0 + r), num_users, num_active, sampler,
+                                 rng) for r in range(k)])
+
+
+def superstep_rate_schedule(seed: int, epoch0: int, k: int, cfg: Dict[str, Any],
+                            user_schedule) -> np.ndarray:
+    """``[k, A]`` absolute rates (float32) of the schedule's cohorts (ref
+    core.py:242-251): each user's own in ``fix`` mode, each round's draw
+    (:func:`round_rates` at the round's seed) in ``dynamic`` mode."""
+    users = np.asarray(user_schedule, np.int64)
+    if cfg["model_split_mode"] == "fix":
+        return np.asarray(cfg["model_rate"], np.float32)[users].reshape(users.shape)
+    return np.stack([round_rates(round_seed(seed, epoch0 + r), cfg, users[r])
+                     for r in range(k)]).reshape(users.shape).astype(np.float32)
 
 
 def validate_width_geometry(model, cfg: Dict[str, Any]) -> None:

@@ -1,0 +1,136 @@
+"""Population sampler: O(active) cohort draws.
+
+Port of ``heterofl_tpu/fed/sampling.py`` (its own copy, no import of the
+reference): the sampler registry and config check (:class:`SamplerSpec`,
+:func:`resolve_sampler_cfg`), and the keyed pseudorandom-permutation index
+map of ``sampler='prp'`` -- a balanced Feistel network over the smallest
+even-bit binary domain covering ``[0, num_users)``, made an exact
+bijection on ``[0, num_users)`` by cycle-walking (re-encrypt until the
+image lands back in range).  A round's cohort is the image of ``[0,
+num_active)``: O(active) work and memory, never a ``[num_users]`` buffer.
+
+The arithmetic is the reference's on the uint32 lattice (numpy ``uint32``
+arrays wrap modulo 2**32, as ``jnp.uint32`` does), and the cycle walk runs
+on the host: it is O(active) integer work once a round, and a data-dependent
+loop has no place in a CUDA graph.  The Feistel round keys ``rk`` are an
+argument of :func:`prp_map`: the reference draws them with ``jax.random``,
+which torch does not reproduce, so the port derives its own from the round
+seed (:func:`prp_round_keys`) and a test hands in the reference's to hold
+the map bit for bit.
+
+``sampler='perm'`` is the numpy permutation stream of the experiment loop
+(``entry/common.py``), the port's default.  The availability filter
+(``schedule``) and the schedule commitment (``sample_horizon``) are not
+ported (``config.UNPORTED``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+#: the sampler registry (``cfg['sampler']``)
+SAMPLER_KINDS = ("perm", "prp")
+
+#: salt of the per-round cohort draw (the reference's ``USER_SAMPLE_SALT``)
+USER_SAMPLE_SALT = 11
+
+#: salt of the Feistel key schedule (the reference's ``PRP_KEY_SALT``)
+PRP_KEY_SALT = 23
+
+
+class SamplerSpec:
+    """The resolved sampler configuration: ``kind`` (``'perm'`` or
+    ``'prp'``) and ``horizon`` (None: a stateless sampler; the committed
+    schedule is not ported)."""
+
+    def __init__(self, kind: str = "perm", horizon: Optional[int] = None):
+        self.kind = kind
+        self.horizon = horizon
+
+
+def resolve_sampler_cfg(cfg: Dict[str, Any]) -> SamplerSpec:
+    """Validate ``cfg['sampler']`` / ``cfg['sample_horizon']`` and return the
+    :class:`SamplerSpec`; an unknown value raises ``ValueError`` with the
+    reference's message.  The port's default is ``'perm'``."""
+    kind = cfg.get("sampler", "perm") or "perm"
+    if kind not in SAMPLER_KINDS:
+        raise ValueError(f"Not valid sampler: {kind!r} (one of "
+                         f"{SAMPLER_KINDS}; 'prp' is the O(active) "
+                         f"index-map draw, 'perm' the legacy full "
+                         f"permutation)")
+    horizon = cfg.get("sample_horizon")
+    if horizon is not None:
+        if not isinstance(horizon, int) or isinstance(horizon, bool) or horizon < 0:
+            raise ValueError(f"Not valid sample_horizon: {horizon!r} (an "
+                             f"int >= 0 -- superstep N+1's cohort draws "
+                             f"from superstep N-horizon's committed state "
+                             f"-- or None for a stateless sampler)")
+    return SamplerSpec(kind=kind, horizon=horizon)
+
+
+def _feistel_geometry(num_users: int):
+    """Half-width ``b`` of the balanced domain (``4**b >= num_users``) and
+    the round count: small domains mix poorly a round, so they get more."""
+    b = 1
+    while (1 << (2 * b)) < num_users:
+        b += 1
+    rounds = 24 if b <= 4 else (16 if b <= 8 else 10)
+    return b, rounds
+
+
+def _mix32(v: np.ndarray, k) -> np.ndarray:
+    """murmur3-style 32-bit finalizer of ``v`` keyed by ``k`` (uint32
+    arrays, wrapping): the Feistel round function."""
+    h = v ^ np.uint32(k)
+    h = (h ^ (h >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+    h = (h ^ (h >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def prp_round_keys(round_seed: int, num_users: int) -> np.ndarray:
+    """The Feistel round keys (uint32 ``[rounds]``) of the round with seed
+    ``round_seed``: the port's own stream, salted as the reference salts its
+    key (cohort draw, then key schedule)."""
+    _, rounds = _feistel_geometry(max(int(num_users), 2))
+    return np.random.SeedSequence([int(round_seed), USER_SAMPLE_SALT, PRP_KEY_SALT]) \
+        .generate_state(rounds, np.uint32)
+
+
+def prp_map(rk, x, num_users: int) -> np.ndarray:
+    """Apply the keyed PRP over ``[0, num_users)`` to the in-range indices
+    ``x`` (ref fed/sampling.py:193-237) -> int32: the balanced Feistel
+    network under round keys ``rk`` (uint32 ``[rounds]``), then the cycle
+    walk, which ends because it follows the permutation's own cycle from an
+    in-range start."""
+    if num_users < 1:
+        raise ValueError(f"prp_map needs num_users >= 1, got {num_users}")
+    x = np.atleast_1d(np.asarray(x))
+    if num_users == 1:
+        return np.zeros(x.shape, np.int32)
+    b, rounds = _feistel_geometry(num_users)
+    rk = np.asarray(rk, np.uint32).reshape(-1)
+    if rk.size != rounds:
+        raise ValueError(f"prp_map over {num_users} users takes {rounds} round keys, "
+                         f"got {rk.size}")
+    mask, sh = np.uint32((1 << b) - 1), np.uint32(b)
+
+    def enc(v):
+        lo, hi = v & mask, v >> sh
+        for r in range(rounds):
+            hi, lo = lo, hi ^ (_mix32(lo, rk[r]) & mask)
+        return (hi << sh) | lo
+
+    y = enc(x.astype(np.uint32))
+    out = y >= np.uint32(num_users)
+    while out.any():
+        y[out] = enc(y[out])
+        out = y >= np.uint32(num_users)
+    return y.astype(np.int32)
+
+
+def prp_round_users(rk, num_users: int, num_active: int) -> np.ndarray:
+    """One round's cohort under the PRP sampler: the image of ``[0,
+    num_active)`` (ref fed/sampling.py:240-289, without ``avail``)."""
+    return prp_map(rk, np.arange(num_active, dtype=np.int32), num_users)

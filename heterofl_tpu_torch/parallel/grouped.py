@@ -56,9 +56,17 @@ would read strided segments; the client-major one keeps 3b's rows whole.
 The engine takes the masked engine's test hooks (``rates``,
 ``epoch_perms``, ``aug_draws``, ``lm_draws``) and returns the per-client
 metric sums in user order (ref ``_assemble``, grouped.py:775-787).  A lossy
-wire codec is refused, as the reference's K=1 round refuses it
-(grouped.py:690-695): the reference compresses the grouped round only in
-its fused superstep.
+wire codec is refused by its K=1 round, as the reference's K=1 round
+refuses it (grouped.py:690-695); the superstep (:meth:`GroupedRoundEngine.
+train_superstep`, ref grouped.py:1416-1617) compresses the merged global
+sums with it, as the reference's superstep does, on the grid the
+reference sizes for its slots (:meth:`GroupedRoundEngine.codec_slots`), so
+such a run resumes bit for bit at a superstep boundary.  There the clients of
+each round are grouped by level from the ``[k, A]`` schedules, and a
+level's G clients replay one captured batched step a (level, G)
+(``parallel/step_graph.py``), cached: a capture costs about three eager
+steps, a level's round replays E x S of them, so G is not bucketed (the
+reference buckets it to powers of two to bound its compiles, grouped.py:743).
 
 **Determinism.**  A round runs under cuDNN's deterministic algorithms
 (``torch.backends.cudnn.deterministic``, set for the round and put back
@@ -78,15 +86,18 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..compress import resolve_codec_cfg
-from ..fed.core import combine_counted, level_index_map, snap_to_levels
+from ..compress import make_codec, resolve_codec_cfg
+from ..fed.core import level_index_map, round_seed, snap_to_levels
 from ..models import make_model
 from ..models.base import FedModel
 from ..models.spec import label_vector
 from ..ops.augment import augment_cifar, augment_draws, normalize_image
 from ..ops.fused_update import FlatSpec, fused_sgd_batched
 from ..ops.layers import clients_in_channels
-from .round_engine import FlatParams, RoundEngine, client_seed, cohort_rates
+from .round_engine import (FlatParams, RoundEngine, client_seed, cohort_rates,
+                           superstep_schedules)
+from .staging import PendingMetrics
+from .step_graph import StepGraphs, device_counter
 
 
 def row_stride(n: int) -> int:
@@ -176,10 +187,19 @@ class GroupedRoundEngine(FlatParams):
     clients batched, for one (global model, cfg, device)."""
 
     def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device):
-        resolve_codec_cfg(dict(cfg, strategy="grouped"))  # a lossy codec is refused
+        # a lossy codec is refused at superstep_rounds 1
+        name, ef = resolve_codec_cfg(dict(cfg, strategy="grouped"))
         self.model, self.cfg, self.device = model, cfg, device
         self.is_lm = model.meta["kind"] == "transformer"
         self.spec = FlatSpec.of(dict(model.named_parameters()))
+        self.codec = make_codec(name, self.spec, 1, error_feedback=ef)
+        self._resid = None
+        # the superstep's captured batched steps, one a (level, G) met, their
+        # static buffers and generators
+        self.graphs = StepGraphs(device)
+        self._st: Dict[Tuple[float, int], Dict[str, torch.Tensor]] = {}
+        self._ggens: List[torch.Generator] = []
+        self._lr = torch.zeros((), dtype=torch.float32, device=device)
         self.levels: Dict[float, Level] = {
             rate: Level(cfg, rate, model, self.spec, device)
             for rate in sorted({float(r) for r in cfg["model_rate"]}, reverse=True)}
@@ -221,60 +241,24 @@ class GroupedRoundEngine(FlatParams):
         correct, n)``.  Hooks as in ``RoundEngine.local_train``, one entry a
         client: ``raw_perms`` their ``[E, N]`` permutations, ``aug(t)`` their
         step-``t`` ``(offsets, flips)``."""
-        B, E, G = self.batch_size, self.local_epochs, len(gens)
+        B, G, dev = self.batch_size, len(gens), P.device
         x_all, y_all, sm_all, lm_all = data
-        dev = P.device
-        N = x_all.shape[1]
-        S = math.ceil(N / B)
-        SB = S * B
+        S = math.ceil(x_all.shape[1] / B)
         p_rows, buf_rows, g = lv.buffers(P, G)
-        p, buf = p_rows[:, :lv.spec.total], buf_rows[:, :lv.spec.total]
-        if raw_perms is None:
-            perms = torch.stack([torch.stack([torch.randperm(N, generator=gen, device=dev)
-                                              for _ in range(E)]) for gen in gens])
-        else:
-            perms = torch.as_tensor(np.stack(raw_perms), dtype=torch.int64).to(dev)
-        smu, lmu = sm_all[uids], lm_all[uids]
-        order = torch.sort(-torch.gather(smu[:, None, :].expand(G, E, N), 2, perms), dim=2,
-                           stable=True).indices
-        perms = torch.gather(perms, 2, order)
-        wpad = torch.ones(SB, dtype=torch.float32, device=dev)
-        if SB > N:
-            perms = perms.repeat(1, 1, math.ceil(SB / N))[:, :, :SB]
-            wpad[N:] = 0.0
-        leaf_idx = lv.leaf_major(G)
+        smu = sm_all[uids]
+        st = {"p": p_rows, "buf": buf_rows, "g": g, "lr": lr, "lm": lm_all[uids],
+              "acc": torch.zeros((G, 3), dtype=torch.float32, device=dev)}
+        perms = self._level_perms(gens, smu, raw_perms)
+        wpad = lv.engine._pad_weights(x_all.shape[1], dev)
         rows = uids[:, None]
-        acc = torch.zeros((G, 3), dtype=torch.float32, device=dev)
-        for t in range(E * S):
+        for t in range(self.local_epochs * S):
             e, s = divmod(t, S)
             ids = perms[:, e, s * B:(s + 1) * B]
-            w = wpad[s * B:(s + 1) * B] * torch.gather(smu, 1, ids)
-            n_glob = w.sum(1)
-            labels = y_all[rows, ids]
-            xb = x_all[rows, ids]
-            if self.augment:
-                if aug is None:
-                    draws = [augment_draws(B, gen, dev) for gen in gens]
-                else:
-                    draws = [tuple(torch.as_tensor(np.array(a)).to(dev) for a in d)
-                             for d in aug(t)]
-                xb = augment_cifar(xb.reshape((G * B,) + tuple(xb.shape[2:])), None,
-                                   torch.cat([d[0] for d in draws]),
-                                   torch.cat([d[1] for d in draws])).view(xb.shape)
-            img = normalize_image(xb, *self.norm) if self.norm is not None \
-                else xb.to(torch.float32)
-            leaves = lv.leaves(p_rows.view(-1).index_select(0, leaf_idx), G)
-            score, loss = lv.model.forward_clients(
-                clients_in_channels(img), labels, G, params=leaves,
-                scaler_rate=lv.scaler_rate, label_mask=lmu, sample_weight=w)
-            lsum = loss * n_glob  # weighted-SUM form, each client's own
-            grads = torch.autograd.grad(lsum.sum(), [leaves[k] for k in lv.spec.names])
-            del leaves
-            correct = ((score.detach().argmax(-1) == labels).to(torch.float32) * w).sum(1)
-            self._step(lv, p, buf, g, grads, n_glob, lr)
-            del grads
-            acc += torch.stack([lsum.detach(), correct, n_glob], dim=1)
-        return p, acc
+            draws = None if aug is None else [
+                tuple(torch.as_tensor(np.array(a)).to(dev) for a in d) for d in aug(t)]
+            self._level_vision_step(lv, st, gens, x_all[rows, ids], y_all[rows, ids],
+                                    wpad[s * B:(s + 1) * B] * torch.gather(smu, 1, ids), draws)
+        return p_rows[:, :lv.spec.total], st["acc"]
 
     def local_train_level_lm(self, lv: Level, P: torch.Tensor, uids: torch.Tensor, data,
                              gens: List[torch.Generator], lr: torch.Tensor,
@@ -284,41 +268,93 @@ class GroupedRoundEngine(FlatParams):
         -> ``(trained [G, n_l], [G, 3] sums of loss, score, n)``, as
         ``RoundEngine.local_train_lm``; ``draws(t)`` (test hook) gives each
         client's step-``t`` corruption and dropout draws."""
-        bptt, E, G = self.bptt, self.local_epochs, len(gens)
+        bptt, G, dev = self.bptt, len(gens), P.device
         rows_all, lm_all = data
-        dev = P.device
         rows = rows_all[uids]
         R, T = rows.shape[1], rows.shape[2]
-        S = math.ceil(T / bptt)
-        pad = S * bptt - T
-        rows_p = torch.nn.functional.pad(rows, (0, pad))
-        wpos = torch.ones((R, S * bptt), dtype=torch.float32, device=dev)
-        if pad:
-            wpos[:, T:] = 0.0
-        n_win = wpos.view(R, S, bptt).sum((0, 2))
+        wpos, n_win = lv.engine._window_weights(R, T, dev)
+        S = n_win.numel()
+        rows_p = torch.nn.functional.pad(rows, (0, S * bptt - T))
         p_rows, buf_rows, g = lv.buffers(P, G)
-        p, buf = p_rows[:, :lv.spec.total], buf_rows[:, :lv.spec.total]
-        lmu = lm_all[uids]
-        leaf_idx = lv.leaf_major(G)
-        acc = torch.zeros((G, 3), dtype=torch.float32, device=dev)
-        rows_n = torch.full((G,), float(R), dtype=torch.float32, device=dev)
-        for t in range(E * S):
+        st = {"p": p_rows, "buf": buf_rows, "g": g, "lr": lr, "lm": lm_all[uids],
+              "acc": torch.zeros((G, 3), dtype=torch.float32, device=dev),
+              "rows_n": torch.full((G,), float(R), dtype=torch.float32, device=dev)}
+        for t in range(self.local_epochs * S):
             s = t % S
-            lab = rows_p[:, :, s * bptt:(s + 1) * bptt]
-            w = wpos[:, s * bptt:(s + 1) * bptt].expand(G, R, bptt)
-            n_glob = n_win[s].expand(G)
-            leaves = lv.leaves(p_rows.view(-1).index_select(0, leaf_idx), G)
-            _, loss = lv.model.forward_clients(
-                lab, G, params=leaves, scaler_rate=lv.scaler_rate, label_mask=lmu,
-                sample_weight=w, gens=gens, draws=None if draws is None else draws(t))
-            lsum = loss * n_glob
-            grads = torch.autograd.grad(lsum.sum(), [leaves[k] for k in lv.spec.names])
-            del leaves
-            self._step(lv, p, buf, g, grads, n_glob, lr)
-            del grads
-            wl = lsum.detach() / n_glob.clamp_min(1e-6)
-            acc += torch.stack([wl * rows_n, torch.exp(wl) * rows_n, rows_n], dim=1)
-        return p, acc
+            self._level_lm_step(lv, st, gens, rows_p[:, :, s * bptt:(s + 1) * bptt],
+                                wpos[:, s * bptt:(s + 1) * bptt].expand(G, R, bptt),
+                                n_win[s].expand(G), None if draws is None else draws(t))
+        return p_rows[:, :lv.spec.total], st["acc"]
+
+    # -- one batched step: shared by the eager loops above and the captured steps
+
+    def _level_perms(self, gens: List[torch.Generator], smu: torch.Tensor,
+                     raw_perms: Optional[List[np.ndarray]] = None) -> torch.Tensor:
+        """G clients' ``[G, E, S * B]`` epoch orders (sample masks ``smu [G,
+        N]``), as ``RoundEngine._epoch_perms``: drawn from each client's
+        generator (or ``raw_perms``), real samples first, tiled."""
+        G, E, N, dev = len(gens), self.local_epochs, smu.shape[1], smu.device
+        SB = math.ceil(N / self.batch_size) * self.batch_size
+        if raw_perms is None:
+            perms = torch.stack([torch.stack([torch.randperm(N, generator=gen, device=dev)
+                                              for _ in range(E)]) for gen in gens])
+        else:
+            perms = torch.as_tensor(np.stack(raw_perms), dtype=torch.int64).to(dev)
+        order = torch.sort(-torch.gather(smu[:, None, :].expand(G, E, N), 2, perms), dim=2,
+                           stable=True).indices
+        perms = torch.gather(perms, 2, order)
+        if SB > N:
+            perms = perms.repeat(1, 1, math.ceil(SB / N))[:, :, :SB]
+        return perms
+
+    def _level_vision_step(self, lv: Level, st, gens: List[torch.Generator], xb, labels, w,
+                           draws=None) -> None:
+        """One batched step of G vision clients on their batches ``(xb [G,
+        B, ...], labels, w [G, B])``, in place on ``st`` (``p``, ``buf``,
+        ``g`` ``[G, ld]`` rows, ``acc``; ``lr``, ``lm``); ``draws`` the
+        clients' augmentation ``(offsets, flips)`` instead of ``gens``."""
+        B, G = self.batch_size, len(gens)
+        n_glob = w.sum(1)
+        if self.augment:
+            if draws is None:
+                draws = [augment_draws(B, gen, xb.device) for gen in gens]
+            xb = augment_cifar(xb.reshape((G * B,) + tuple(xb.shape[2:])), None,
+                               torch.cat([d[0] for d in draws]),
+                               torch.cat([d[1] for d in draws])).view(xb.shape)
+        img = normalize_image(xb, *self.norm) if self.norm is not None \
+            else xb.to(torch.float32)
+        leaves = lv.leaves(st["p"].view(-1).index_select(0, lv.leaf_major(G)), G)
+        score, loss = lv.model.forward_clients(
+            clients_in_channels(img), labels, G, params=leaves,
+            scaler_rate=lv.scaler_rate, label_mask=st["lm"], sample_weight=w)
+        lsum = loss * n_glob  # weighted-SUM form, each client's own
+        grads = torch.autograd.grad(lsum.sum(), [leaves[k] for k in lv.spec.names])
+        del leaves
+        correct = ((score.detach().argmax(-1) == labels).to(torch.float32) * w).sum(1)
+        n = lv.spec.total
+        self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"])
+        del grads
+        st["acc"] += torch.stack([lsum.detach(), correct, n_glob], dim=1)
+
+    def _level_lm_step(self, lv: Level, st, gens: List[torch.Generator], lab, w, n_glob,
+                       draws=None) -> None:
+        """One batched step of G masked-LM clients on their windows ``(lab
+        [G, R, bptt], w)`` of weight sums ``n_glob [G]``, in place on
+        ``st`` (as :meth:`_level_vision_step`'s, and ``rows_n``)."""
+        G = len(gens)
+        leaves = lv.leaves(st["p"].view(-1).index_select(0, lv.leaf_major(G)), G)
+        _, loss = lv.model.forward_clients(
+            lab, G, params=leaves, scaler_rate=lv.scaler_rate, label_mask=st["lm"],
+            sample_weight=w, gens=gens, draws=draws)
+        lsum = loss * n_glob
+        grads = torch.autograd.grad(lsum.sum(), [leaves[k] for k in lv.spec.names])
+        del leaves
+        n = lv.spec.total
+        self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"])
+        del grads
+        wl = lsum.detach() / n_glob.clamp_min(1e-6)
+        rows_n = st["rows_n"]
+        st["acc"] += torch.stack([wl * rows_n, torch.exp(wl) * rows_n, rows_n], dim=1)
 
     # -- one round --------------------------------------------------------------
 
@@ -331,7 +367,14 @@ class GroupedRoundEngine(FlatParams):
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One round from the global flat params ``P``, under cuDNN's
         deterministic algorithms; arguments, hooks and results as
-        ``RoundEngine.train_round``'s (no codec)."""
+        ``RoundEngine.train_round``'s (no codec: a lossy one is refused, as
+        the reference's K=1 round refuses it)."""
+        if self.codec is not None:
+            raise ValueError(
+                f"wire_codec={self.codec.name!r} with the grouped strategy needs the fused "
+                f"superstep (superstep_rounds > 1 or client_store='stream'): the K=1 "
+                f"host-orchestrated path reduces per level and has no single global psum "
+                f"to compress")
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
@@ -341,7 +384,10 @@ class GroupedRoundEngine(FlatParams):
             torch.backends.cudnn.deterministic = deterministic
 
     def _train_round(self, P, lr, user_idx, data, round_seed, epoch_perms, lm_draws, rates,
-                     aug_draws):
+                     aug_draws, codec_noise=None, codec_slots=None):
+        """:meth:`train_round`'s body, which also takes a codec: its grid
+        sized for ``codec_slots`` clients (default: :meth:`codec_slots` of
+        this round alone), ``codec_noise`` the int8 codec's draw."""
         user_idx = np.asarray(user_idx, np.int64).reshape(-1)
         rates_abs = cohort_rates(self.cfg, user_idx, round_seed, rates)
         snapped = snap_to_levels(rates_abs, self.levels)
@@ -375,4 +421,211 @@ class GroupedRoundEngine(FlatParams):
             acc[torch.as_tensor(pos, dtype=torch.int64).to(dev)] = acc_l
         ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
               "rate": rates_abs}
-        return combine_counted(P, summed, counts), ms
+        if codec_slots is None:
+            codec_slots = self.codec_slots(rates_abs[None])
+        return self._aggregate(P, summed, counts, round_seed, len(user_idx), codec_noise,
+                               cmax=codec_slots), ms
+
+    def codec_slots(self, rate_schedule) -> int:
+        """The clients a wire codec's grid is sized for over the ``[k, A]``
+        rates of a superstep, as the reference's one-device span layout
+        sizes it (ref grouped.py:900, :1305-1335): every level of the
+        engine times a level's slots, the most clients any level holds in
+        any of the k rounds, rounded up to a power of two."""
+        need = 1
+        for row in np.asarray(rate_schedule, np.float32):
+            snapped = snap_to_levels(row, self.levels)
+            need = max([need] + [int(np.sum(snapped == rate)) for rate in self.levels])
+        return len(self.levels) * (1 << (need - 1).bit_length())
+
+    # -- the superstep: k rounds, each level's batched steps replayed ---------
+
+    def _slots(self, lv: Level, G: int, P: torch.Tensor, data) -> Dict[str, torch.Tensor]:
+        """Static buffers of the captured step of G clients at level ``lv``
+        (made on first use): their ``[G, ld]`` params, momentum and
+        gradient, their data, permutations (vision) or token rows (LM),
+        sums and the step counter."""
+        key = (lv.scaler_rate, G)
+        if key in self._st:
+            return self._st[key]
+        dev = P.device
+        p = torch.zeros((G, lv.ld), dtype=P.dtype, device=dev)
+        st = {"p": p, "buf": torch.zeros_like(p), "g": torch.zeros_like(p),
+              "acc": torch.zeros((G, 3), dtype=torch.float32, device=dev),
+              "t": device_counter(dev), "lr": self._lr,
+              "lm": torch.zeros((G,) + tuple(data[-1].shape[1:]), dtype=data[-1].dtype,
+                                device=dev)}
+        if self.is_lm:
+            R, T = data[0].shape[1:]
+            wpos, n_win = lv.engine._window_weights(R, T, dev)
+            S = n_win.numel()
+            st.update(rows_p=torch.zeros((G,) + tuple(wpos.shape), dtype=data[0].dtype,
+                                         device=dev),
+                      wpos=wpos, n_win=n_win,
+                      rows_n=torch.full((G,), float(R), dtype=torch.float32, device=dev),
+                      ar=torch.arange(self.bptt, device=dev))
+        else:
+            wpad = lv.engine._pad_weights(data[0].shape[1], dev)
+            S = wpad.numel() // self.batch_size
+            st.update(x=torch.zeros((G,) + tuple(data[0].shape[1:]), dtype=data[0].dtype,
+                                    device=dev),
+                      y=torch.zeros((G,) + tuple(data[1].shape[1:]), dtype=data[1].dtype,
+                                    device=dev),
+                      sm=torch.zeros((G,) + tuple(data[2].shape[1:]), dtype=data[2].dtype,
+                                     device=dev),
+                      wpad=wpad, perms=torch.zeros((G, self.local_epochs * wpad.numel()),
+                                                   dtype=torch.int64, device=dev),
+                      ar=torch.arange(self.batch_size, device=dev),
+                      rows=torch.arange(G, device=dev)[:, None])
+        st["steps"] = self.local_epochs * S
+        lv.leaf_major(G)
+        lv.pad(G)
+        self._st[key] = st
+        return st
+
+    def _counted_level_step(self, lv: Level, st, gens: List[torch.Generator]) -> None:
+        """:meth:`_level_vision_step` on the static buffers, batch ``t`` read
+        through the device step counter, which it advances."""
+        B = self.batch_size
+        S = st["wpad"].numel() // B
+        t = st["t"]
+        ids = st["perms"].index_select(1, t * B + st["ar"])
+        w = st["wpad"].index_select(0, torch.remainder(t, S) * B + st["ar"]) \
+            * torch.gather(st["sm"], 1, ids)
+        self._level_vision_step(lv, st, gens, st["x"][st["rows"], ids],
+                                torch.gather(st["y"], 1, ids), w)
+        st["t"] += 1
+
+    def _counted_level_step_lm(self, lv: Level, st, gens: List[torch.Generator]) -> None:
+        """:meth:`_level_lm_step` on the static buffers, window ``t % S``
+        read through the device step counter, which it advances."""
+        bptt, G = self.bptt, len(gens)
+        s = torch.remainder(st["t"], st["n_win"].numel())
+        cols = s * bptt + st["ar"]
+        R = st["wpos"].shape[0]
+        self._level_lm_step(lv, st, gens, st["rows_p"].index_select(2, cols),
+                            st["wpos"].index_select(1, cols).expand(G, R, bptt),
+                            st["n_win"].index_select(0, s.view(1)).expand(G))
+        st["t"] += 1
+
+    def level_step(self, lv: Level, G: int, P: torch.Tensor, data):
+        """The captured batched step of G clients at level ``lv`` (captured
+        on first use), its static buffers and its generators."""
+        st = self._slots(lv, G, P, data)
+        while len(self._ggens) < G:
+            self._ggens.append(torch.Generator(device=P.device))
+        gens = self._ggens[:G]
+        body = self._counted_level_step_lm if self.is_lm else self._counted_level_step
+        step = self.graphs.get(("level", lv.scaler_rate, G), lambda: body(lv, st, gens),
+                               st["t"].zero_, gens)
+        return step, st, gens
+
+    def stage_level(self, lv: Level, st, gens, P: torch.Tensor, uids: torch.Tensor,
+                    users: Sequence[int], data, rseed: int,
+                    raw_perms: Optional[List[np.ndarray]] = None) -> None:
+        """Eager set-up of a level's G clients into the static buffers: the
+        global params at the level's entries, zero momentum and sums, the
+        step counter at 0, their data and (vision) their epoch permutations
+        with real samples first, each client's generator reseeded --
+        ``local_train_level``'s prologue (``raw_perms`` its hook)."""
+        for gen, u in zip(gens, users):
+            gen.manual_seed(client_seed(rseed, u))
+        n = lv.spec.total
+        st["p"].zero_()
+        st["p"][:, :n] = P.index_select(0, lv.idx)
+        st["buf"].zero_()
+        st["acc"].zero_()
+        st["t"].zero_()
+        st["lm"].copy_(data[-1][uids])
+        if self.is_lm:
+            rows = data[0][uids]
+            st["rows_p"].zero_()
+            st["rows_p"][:, :, :rows.shape[2]].copy_(rows)
+            return
+        st["x"].copy_(data[0][uids])
+        st["y"].copy_(data[1][uids])
+        st["sm"].copy_(data[2][uids])
+        st["perms"].copy_(self._level_perms(gens, st["sm"], raw_perms).reshape(len(gens), -1))
+
+    def _replayed_round(self, P: torch.Tensor, user_idx: np.ndarray, data, rseed: int, plan,
+                        cmax: int, epoch_perms=None, codec_noise=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One round of the superstep: per level, in descending rate, the
+        eager set-up of its G clients, their batched steps replayed, their
+        counted sums added at the level's entries; then the codec (its grid
+        sized for ``cmax`` clients) and the counted average -> ``(new P,
+        [A, 3] device sums)``.  ``plan``: per level ``(rate, positions, user
+        ids on the device, positions on the device)``; hooks as
+        :meth:`train_superstep`'s, this round's."""
+        summed = torch.zeros_like(P)
+        counts = torch.zeros_like(P)
+        acc = torch.zeros((len(user_idx), 3), dtype=torch.float32, device=P.device)
+        for rate, pos, uids, pos_dev in plan:
+            lv = self.levels[rate]
+            step, st, gens = self.level_step(lv, len(pos), P, data)
+            users = user_idx[pos].tolist()
+            self.stage_level(lv, st, gens, P, uids, users, data, rseed,
+                             None if epoch_perms is None else [epoch_perms[u] for u in users])
+            for _ in range(st["steps"]):
+                step.replay()
+            cm = lv.count_masks(data[-1][uids])
+            summed.index_add_(0, lv.idx, (st["p"][:, :lv.spec.total] * cm).sum(0))
+            counts.index_add_(0, lv.idx, cm.sum(0))
+            acc[pos_dev] = st["acc"]
+        return self._aggregate(P, summed, counts, rseed, len(user_idx), codec_noise,
+                               cmax=cmax), acc
+
+    def _plans(self, users: np.ndarray, rates: np.ndarray, device: torch.device):
+        """Each round's levels (descending rate) with their slot positions
+        and user ids; the ids and positions of the whole superstep go to the
+        device in one copy."""
+        plans, host = [], []
+        for r in range(users.shape[0]):
+            snapped = snap_to_levels(rates[r], self.levels)
+            by_level: Dict[float, List[int]] = {}
+            for pos, rate in enumerate(snapped.tolist()):
+                by_level.setdefault(rate, []).append(pos)
+            plans.append([(rate, by_level[rate]) for rate in sorted(by_level, reverse=True)])
+            for rate, pos in plans[-1]:
+                host += [users[r][pos], np.asarray(pos, np.int64)]
+        flat = torch.from_numpy(np.concatenate(host).astype(np.int64)).to(device) if host \
+            else None
+        out, off = [], 0
+        for plan in plans:
+            rnd = []
+            for rate, pos in plan:
+                G = len(pos)
+                rnd.append((rate, pos, flat[off:off + G], flat[off + G:off + 2 * G]))
+                off += 2 * G
+            out.append(rnd)
+        return out
+
+    def train_superstep(self, P: torch.Tensor, seed: int, epoch0: int, k: int,
+                        data: Tuple[torch.Tensor, ...], user_schedule, rate_schedule, lrs,
+                        eval_mask=None, fused_eval=None,
+                        epoch_perms: Optional[Sequence[Dict[int, np.ndarray]]] = None,
+                        codec_noise: Optional[Sequence[torch.Tensor]] = None
+                        ) -> Tuple[torch.Tensor, PendingMetrics]:
+        """Rounds ``epoch0 .. epoch0 + k - 1`` with no host read between
+        them (ref parallel/grouped.py:1416-1617), under cuDNN's
+        deterministic algorithms: arguments and results as
+        ``RoundEngine.train_superstep``'s; the slots are grouped by level
+        once for the superstep from the schedules, each level's G clients
+        replay the captured step of (level, G), and a lossy codec compresses
+        each round's merged sums on a grid sized for :meth:`codec_slots`
+        of the schedule.  Test hooks, which replace a draw from the round
+        seed, one entry a round: ``epoch_perms[r]`` ``{uid: [E, N]}`` raw
+        permutations, ``codec_noise[r]`` the int8 codec's noise."""
+        users, rates, lrs = superstep_schedules(user_schedule, rate_schedule, lrs, k)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            plans, cmax = self._plans(users, rates, P.device), self.codec_slots(rates)
+            return self._superstep(
+                P, seed, epoch0, k, users, rates, lrs, eval_mask, fused_eval, self._lr,
+                lambda P, r, u, rates, rseed: self._replayed_round(
+                    P, u, data, rseed, plans[r], cmax,
+                    None if epoch_perms is None else epoch_perms[r],
+                    None if codec_noise is None else codec_noise[r]))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic

@@ -50,12 +50,14 @@ import torch
 from ..compress import make_codec, resolve_codec_cfg
 from ..compress.codecs import compressed_sum
 from ..data.datasets import DATASET_STATS
-from ..fed.core import combine_counted, round_rates, to_width_rates
+from ..fed.core import combine_counted, round_rates, round_seed, to_width_rates
 from ..models.base import FedModel
 from ..models.spec import label_vector, param_mask
 from ..ops.augment import augment_cifar, normalize_image
 from ..ops.fused_update import FlatSpec, fused_sgd_flat, make_scal, resolve_fused_mode
 from ..utils.optim import clip_by_global_norm, sgd_update
+from .staging import PendingMetrics
+from .step_graph import StepGraphs, device_counter, maybe_event
 
 
 def norm_stats_tensors(cfg: Dict[str, Any], device: torch.device
@@ -98,6 +100,45 @@ def client_seed(round_seed: int, uid: int) -> int:
     return int(np.random.SeedSequence([int(round_seed), 13, int(uid)]).generate_state(1)[0])
 
 
+def normalize_eval_mask(eval_mask, k: int, fused_eval):
+    """The superstep's eval mask as a bool tuple, or None when no round
+    evaluates (ref parallel/round_engine.py:136-151)."""
+    if eval_mask is None:
+        return None
+    eval_mask = tuple(bool(m) for m in eval_mask)
+    if len(eval_mask) != k:
+        raise ValueError(f"eval_mask must have k={k} entries, got {len(eval_mask)}")
+    if not any(eval_mask):
+        return None
+    if fused_eval is None:
+        raise ValueError("eval_mask needs a FusedEval (Evaluator.fused) "
+                         "carrying the staged eval operands")
+    return eval_mask
+
+
+def superstep_schedules(user_schedule, rate_schedule, lrs, k: int):
+    """The superstep's ``[k, A]`` cohorts (int64) and absolute rates
+    (float32) and its ``[k]`` learning rates, checked against ``k``."""
+    users = np.asarray(user_schedule, np.int64)
+    rates = np.asarray(rate_schedule, np.float32)
+    lrs = np.asarray(lrs, np.float32).reshape(-1)
+    if users.ndim != 2 or users.shape[0] != k or rates.shape != users.shape or lrs.size != k:
+        raise ValueError(f"superstep schedules: users {users.shape}, rates {rates.shape}, "
+                         f"lrs {lrs.shape}; want [k={k}, A], [k, A], [k]")
+    return users, rates, lrs
+
+
+def assemble_superstep(host, rates, eval_epochs, fused_eval):
+    """The fetched superstep as the experiment loop reads it: k per-round dicts
+    (``loss_sum``, ``score_sum``, ``n`` per client, ``rate``), or
+    ``{"train": [...], "eval": [...]}`` when a round evaluated."""
+    rounds = [{"loss_sum": a[:, 0], "score_sum": a[:, 1], "n": a[:, 2], "rate": rates[r]}
+              for r, a in enumerate(host["train"])]
+    if not eval_epochs:
+        return rounds
+    return {"train": rounds, "eval": fused_eval.assemble(host["eval"], eval_epochs)}
+
+
 class FlatParams:
     """What the experiment loop reads of a round engine: the global params
     as one flat buffer (``spec``, on ``device``) and the wire codec's
@@ -106,6 +147,7 @@ class FlatParams:
     spec: FlatSpec
     device: torch.device
     codec = None
+    _resid: Optional[torch.Tensor] = None  # [resid_slots, total] EF carry
 
     def flatten(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self.spec.flatten({k: v.detach() for k, v in params.items()}).to(self.device)
@@ -113,8 +155,76 @@ class FlatParams:
     def unflatten(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.spec.unflatten(flat)
 
+    # -- the wire codec's error-feedback carry ----------------------------
+
+    def _ensure_resid(self, device: torch.device) -> torch.Tensor:
+        """The residual carry, zeros on first use."""
+        if self._resid is None:
+            self._resid = torch.zeros((self.codec.resid_slots, self.spec.total),
+                                      dtype=torch.float32, device=device)
+        return self._resid
+
     def wire_resid_host(self) -> Optional[np.ndarray]:
-        return None
+        """Host copy of the residual carry ``[resid_slots, total]`` (for a
+        checkpoint); None under ``dense`` or before the first compressed
+        round."""
+        return None if self._resid is None else self._resid.cpu().numpy()
+
+    def set_wire_resid(self, arr) -> None:
+        """Restore the residual carry (from a checkpoint) onto the device."""
+        host = torch.as_tensor(np.asarray(arr, np.float32))
+        want = (self.codec.resid_slots, self.spec.total)
+        if tuple(host.shape) != want:
+            raise ValueError(f"wire residual of shape {tuple(host.shape)}, want {want}")
+        self._resid = host.to(self.device)
+
+    def reset_carries(self) -> None:
+        """Drop the residual carry; the next compressed round starts from
+        zeros unless one is restored first."""
+        self._resid = None
+
+    def _superstep(self, P: torch.Tensor, seed: int, epoch0: int, k: int, user_schedule,
+                   rate_schedule, lrs, eval_mask, fused_eval, lr: torch.Tensor, round_fn
+                   ) -> Tuple[torch.Tensor, PendingMetrics]:
+        """The superstep's round loop, shared by the engines: round r writes
+        ``lrs[r]`` into the steps' static scalar ``lr``, runs
+        ``round_fn(P, r, users, rates, round seed) -> (P, [A, 3] sums)``,
+        and evaluates where ``eval_mask[r]`` fires; device marks around each
+        round and evaluation time them."""
+        eval_mask = normalize_eval_mask(eval_mask, k, fused_eval)
+        users, rates, lrs = superstep_schedules(user_schedule, rate_schedule, lrs, k)
+        lrs_dev = torch.from_numpy(lrs).to(P.device)
+        train, evals, timers = [], [], {"train": [], "eval": []}
+        for r in range(k):
+            t0 = maybe_event(P.device)
+            lr.copy_(lrs_dev[r])
+            P, acc = round_fn(P, r, users[r], rates[r], round_seed(seed, epoch0 + r))
+            train.append(acc)
+            t1 = maybe_event(P.device)
+            timers["train"].append((t0, t1))
+            if eval_mask is not None and eval_mask[r]:
+                evals.append(fused_eval.run(P, epoch0 + r))
+                timers["eval"].append((t1, maybe_event(P.device)))
+        eval_epochs = [epoch0 + r for r in range(k) if eval_mask and eval_mask[r]]
+        return P, PendingMetrics(
+            {"train": train, "eval": evals},
+            lambda host: assemble_superstep(host, rates, eval_epochs, fused_eval), timers)
+
+    def _aggregate(self, P, summed, counts, round_seed: int, n_clients: int,
+                   codec_noise=None, topk_offset=None, cmax: Optional[int] = None
+                   ) -> torch.Tensor:
+        """The round's new global params: the counted sums through the wire
+        codec (encode, sum, decode, the residual carried; its grid sized for
+        ``cmax`` clients, default ``n_clients``) when there is one and a
+        client trained, then the counted average with the stale fallback."""
+        if self.codec is not None and n_clients:
+            draw = {"int8": codec_noise, "topk": topk_offset}.get(self.codec.name)
+            if draw is None:
+                draw = self.codec.draw(round_seed, P.device)
+            summed, counts, self._resid = compressed_sum(
+                self.codec, P, summed, counts, self._ensure_resid(P.device), draw,
+                n_clients if cmax is None else cmax)
+        return combine_counted(P, summed, counts)
 
 
 class RoundEngine(FlatParams):
@@ -144,7 +254,7 @@ class RoundEngine(FlatParams):
         # no residual, and leaves the round as it was
         name, ef = resolve_codec_cfg(cfg)
         self.codec = make_codec(name, self.spec, 1, error_feedback=ef)
-        self._resid: Optional[torch.Tensor] = None  # [resid_slots, total] EF carry
+        self._resid = None
         self._label_axes = [(k, s.label_axis) for k, s in model.specs.items()
                             if s.label_axis is not None]
         # flat width masks (and the group norms' channel masks) per width
@@ -156,6 +266,11 @@ class RoundEngine(FlatParams):
         for wr in sorted(set(to_width_rates(cfg["model_rate"], cfg).tolist())):
             self.param_mask_flat(wr)
             model.prepare_width(wr, device)
+        # the superstep's captured steps (one a width rate), their static
+        # buffers (made at the first superstep) and their generator
+        self.graphs = StepGraphs(device)
+        self._st: Optional[Dict[str, torch.Tensor]] = None
+        self._ggen = torch.Generator(device=device)
 
     # -- flat buffers ----------------------------------------------------
 
@@ -203,46 +318,21 @@ class RoundEngine(FlatParams):
         permutations (the real-first sort still runs on them); ``aug(t)``
         gives local step ``t``'s augmentation ``(offsets [B, 2], flips
         [B])`` instead of the generator."""
-        spec, model, B, E = self.spec, self.model, self.batch_size, self.local_epochs
-        dev = P.device
-        N = x.shape[0]
-        S = math.ceil(N / B)
-        SB = S * B
+        B, dev = self.batch_size, P.device
+        S = math.ceil(x.shape[0] / B)
         mask = self.param_mask_flat(wr)
-        p = P * mask
-        buf = torch.zeros_like(p)
-        g = torch.empty_like(p)
-        if raw_perms is None:
-            perms = torch.stack([torch.randperm(N, generator=gen, device=dev) for _ in range(E)])
-        else:
-            perms = torch.as_tensor(np.asarray(raw_perms), dtype=torch.int64).to(dev)
-        order = torch.sort(-sm[perms], dim=1, stable=True).indices
-        perms = torch.gather(perms, 1, order)
-        wpad = torch.ones(SB, dtype=torch.float32, device=dev)
-        if SB > N:
-            perms = perms.repeat(1, math.ceil(SB / N))[:, :SB]
-            wpad[N:] = 0.0
-        acc = torch.zeros(3, dtype=torch.float32, device=dev)
-        for t in range(E * S):
+        st = {"p": P * mask, "buf": torch.zeros_like(P), "g": torch.empty_like(P),
+              "acc": torch.zeros(3, dtype=torch.float32, device=dev), "lr": lr, "lm": lm}
+        perms = self._epoch_perms(gen, sm, raw_perms)
+        wpad = self._pad_weights(x.shape[0], dev)
+        for t in range(self.local_epochs * S):
             e, s = divmod(t, S)
             ids = perms[e, s * B:(s + 1) * B]
-            w = wpad[s * B:(s + 1) * B] * sm[ids]
-            n_glob = w.sum()
-            labels = y[ids]
-            img = self._prep(x[ids], gen, None if aug is None else
-                             tuple(torch.as_tensor(np.array(a)).to(dev) for a in aug(t)))
-            leaves = {k: v.requires_grad_() for k, v in spec.unflatten(p).items()}
-            score, loss = model(img, labels, params=leaves, width_rate=wr,
-                                scaler_rate=wr if scaler_rate is None else scaler_rate,
-                                label_mask=lm, sample_weight=w)
-            lsum = loss * n_glob  # weighted-SUM form, as the reference
-            grads = torch.autograd.grad(lsum, [leaves[k] for k in spec.names])
-            del leaves
-            correct = ((score.detach().argmax(-1) == labels).to(torch.float32) * w).sum()
-            self._step(p, buf, g, grads, mask, n_glob, lr)
-            del grads
-            acc += torch.stack([lsum.detach(), correct, n_glob])
-        return p, acc
+            draw = None if aug is None else tuple(torch.as_tensor(np.array(a)).to(dev)
+                                                  for a in aug(t))
+            self._vision_step(st, wr, wr if scaler_rate is None else scaler_rate, mask, gen,
+                              x[ids], y[ids], wpad[s * B:(s + 1) * B] * sm[ids], draw)
+        return st["p"], st["acc"]
 
     def local_train_lm(self, P: torch.Tensor, wr: float, rows: torch.Tensor, lm: torch.Tensor,
                        gen: torch.Generator, lr: torch.Tensor,
@@ -260,39 +350,95 @@ class RoundEngine(FlatParams):
         round_engine.py:740-815).  ``draws(t)`` (test hook) gives step
         ``t``'s corruption and dropout draws instead of ``gen``;
         ``scaler_rate`` as in :meth:`local_train`."""
-        spec, model, bptt, E = self.spec, self.model, self.bptt, self.local_epochs
-        dev = P.device
+        bptt, dev = self.bptt, P.device
         R, T = rows.shape
-        S = math.ceil(T / bptt)
-        pad = S * bptt - T
-        rows_p = torch.nn.functional.pad(rows, (0, pad))
-        wpos = torch.ones((R, S * bptt), dtype=torch.float32, device=dev)
-        if pad:
-            wpos[:, T:] = 0.0
-        n_win = wpos.view(R, S, bptt).sum((0, 2))  # each window's weight sum
+        wpos, n_win = self._window_weights(R, T, dev)
+        S = n_win.numel()
+        rows_p = torch.nn.functional.pad(rows, (0, S * bptt - T))
         mask = self.param_mask_flat(wr)
-        p = P * mask
-        buf = torch.zeros_like(p)
-        g = torch.empty_like(p)
-        acc = torch.zeros(3, dtype=torch.float32, device=dev)
-        rows_n = torch.full((), float(R), dtype=torch.float32, device=dev)
-        for t in range(E * S):
+        st = {"p": P * mask, "buf": torch.zeros_like(P), "g": torch.empty_like(P),
+              "acc": torch.zeros(3, dtype=torch.float32, device=dev), "lr": lr, "lm": lm,
+              "rows_n": torch.full((), float(R), dtype=torch.float32, device=dev)}
+        for t in range(self.local_epochs * S):
             s = t % S
-            lab, w = rows_p[:, s * bptt:(s + 1) * bptt], wpos[:, s * bptt:(s + 1) * bptt]
-            n_glob = n_win[s]
-            leaves = {k: v.requires_grad_() for k, v in spec.unflatten(p).items()}
-            _, loss = model(lab, params=leaves, width_rate=wr,
-                            scaler_rate=wr if scaler_rate is None else scaler_rate, label_mask=lm,
-                            sample_weight=w, train=True, gen=gen,
-                            draws=None if draws is None else draws(t))
-            lsum = loss * n_glob  # weighted-SUM form, as the reference
-            grads = torch.autograd.grad(lsum, [leaves[k] for k in spec.names])
-            del leaves
-            self._step(p, buf, g, grads, mask, n_glob, lr)
-            del grads
-            wl = lsum.detach() / n_glob.clamp_min(1e-6)
-            acc += torch.stack([wl * rows_n, torch.exp(wl) * rows_n, rows_n])
-        return p, acc
+            self._lm_step(st, wr, wr if scaler_rate is None else scaler_rate, mask, gen,
+                          rows_p[:, s * bptt:(s + 1) * bptt], wpos[:, s * bptt:(s + 1) * bptt],
+                          n_win[s], None if draws is None else draws(t))
+        return st["p"], st["acc"]
+
+    # -- one step: shared by the eager loops above and the captured steps ----
+
+    def _epoch_perms(self, gen: torch.Generator, sm: torch.Tensor,
+                     raw_perms: Optional[np.ndarray] = None) -> torch.Tensor:
+        """A client's ``[E, S * B]`` epoch orders: a permutation of its N
+        samples an epoch (from ``gen``, or ``raw_perms``), real samples
+        first (a stable sort), tiled to its steps' ``S * B`` slots."""
+        N, E, dev = sm.shape[0], self.local_epochs, sm.device
+        SB = math.ceil(N / self.batch_size) * self.batch_size
+        if raw_perms is None:
+            perms = torch.stack([torch.randperm(N, generator=gen, device=dev) for _ in range(E)])
+        else:
+            perms = torch.as_tensor(np.asarray(raw_perms), dtype=torch.int64).to(dev)
+        order = torch.sort(-sm[perms], dim=1, stable=True).indices
+        perms = torch.gather(perms, 1, order)
+        if SB > N:
+            perms = perms.repeat(1, math.ceil(SB / N))[:, :SB]
+        return perms
+
+    def _pad_weights(self, N: int, device: torch.device) -> torch.Tensor:
+        """``[S * B]`` slot weights: 1 on a client's N samples, 0 on the
+        padded tail of its last batch."""
+        wpad = torch.ones(math.ceil(N / self.batch_size) * self.batch_size,
+                          dtype=torch.float32, device=device)
+        wpad[N:] = 0.0
+        return wpad
+
+    def _window_weights(self, R: int, T: int, device: torch.device
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """An LM client's ``[R, S * bptt]`` position weights (0 on the
+        padded tail of the last window) and each window's weight sum."""
+        S = math.ceil(T / self.bptt)
+        wpos = torch.ones((R, S * self.bptt), dtype=torch.float32, device=device)
+        wpos[:, T:] = 0.0
+        return wpos, wpos.view(R, S, self.bptt).sum((0, 2))
+
+    def _vision_step(self, st, wr: float, scaler_rate: float, mask: torch.Tensor,
+                     gen: torch.Generator, xb, labels, w, draw=None) -> None:
+        """One local step on the batch ``(xb, labels, w)``, in place on the
+        client's ``st`` (``p``, ``buf``, ``g``, ``acc``; ``lr``, ``lm``);
+        ``draw``, when given, the augmentation's ``(offsets, flips)``."""
+        spec = self.spec
+        n_glob = w.sum()
+        img = self._prep(xb, gen, draw)
+        leaves = {k: v.requires_grad_() for k, v in spec.unflatten(st["p"]).items()}
+        score, loss = self.model(img, labels, params=leaves, width_rate=wr,
+                                 scaler_rate=scaler_rate, label_mask=st["lm"], sample_weight=w)
+        lsum = loss * n_glob  # weighted-SUM form, as the reference
+        grads = torch.autograd.grad(lsum, [leaves[k] for k in spec.names])
+        del leaves
+        correct = ((score.detach().argmax(-1) == labels).to(torch.float32) * w).sum()
+        self._step(st["p"], st["buf"], st["g"], grads, mask, n_glob, st["lr"])
+        del grads
+        st["acc"] += torch.stack([lsum.detach(), correct, n_glob])
+
+    def _lm_step(self, st, wr: float, scaler_rate: float, mask: torch.Tensor,
+                 gen: torch.Generator, lab, w, n_glob, draws=None) -> None:
+        """One masked-LM local step on the window ``(lab, w)`` of weight sum
+        ``n_glob``, in place on the client's ``st`` (as :meth:`_vision_step`'s,
+        and ``rows_n``); ``draws`` replaces the generator's."""
+        spec = self.spec
+        leaves = {k: v.requires_grad_() for k, v in spec.unflatten(st["p"]).items()}
+        _, loss = self.model(lab, params=leaves, width_rate=wr, scaler_rate=scaler_rate,
+                             label_mask=st["lm"], sample_weight=w, train=True, gen=gen,
+                             draws=draws)
+        lsum = loss * n_glob  # weighted-SUM form, as the reference
+        grads = torch.autograd.grad(lsum, [leaves[k] for k in spec.names])
+        del leaves
+        self._step(st["p"], st["buf"], st["g"], grads, mask, n_glob, st["lr"])
+        del grads
+        wl = lsum.detach() / n_glob.clamp_min(1e-6)
+        rows_n = st["rows_n"]
+        st["acc"] += torch.stack([wl * rows_n, torch.exp(wl) * rows_n, rows_n])
 
     def _step(self, p, buf, g, grads, mask, n_glob, lr) -> None:
         """The optimizer tail of one local step, in place on ``p`` and
@@ -320,34 +466,6 @@ class RoundEngine(FlatParams):
         for k in spec.names:
             pt[k].copy_(torch.where(has, new_p[k], pt[k]))
             bt[k].copy_(torch.where(has, new_b[k], bt[k]))
-
-    # -- the wire codec's error-feedback carry ----------------------------
-
-    def _ensure_resid(self, device: torch.device) -> torch.Tensor:
-        """The residual carry, zeros on first use."""
-        if self._resid is None:
-            self._resid = torch.zeros((self.codec.resid_slots, self.spec.total),
-                                      dtype=torch.float32, device=device)
-        return self._resid
-
-    def wire_resid_host(self) -> Optional[np.ndarray]:
-        """Host copy of the residual carry ``[resid_slots, total]`` (for a
-        checkpoint); None under ``dense`` or before the first compressed
-        round."""
-        return None if self._resid is None else self._resid.cpu().numpy()
-
-    def set_wire_resid(self, arr) -> None:
-        """Restore the residual carry (from a checkpoint) onto the device."""
-        host = torch.as_tensor(np.asarray(arr, np.float32))
-        want = (self.codec.resid_slots, self.spec.total)
-        if tuple(host.shape) != want:
-            raise ValueError(f"wire residual of shape {tuple(host.shape)}, want {want}")
-        self._resid = host.to(self.device)
-
-    def reset_carries(self) -> None:
-        """Drop the residual carry; the next compressed round starts from
-        zeros unless one is restored first."""
-        self._resid = None
 
     # -- one round ---------------------------------------------------------
 
@@ -407,11 +525,138 @@ class RoundEngine(FlatParams):
         acc = torch.stack(rows) if rows else P.new_zeros((0, 3))
         ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
               "rate": rates_abs}
-        if self.codec is not None and rows:
-            draw = {"int8": codec_noise, "topk": topk_offset}.get(self.codec.name)
-            if draw is None:
-                draw = self.codec.draw(round_seed, P.device)
-            summed, counts, self._resid = compressed_sum(
-                self.codec, P, summed, counts, self._ensure_resid(P.device), draw,
-                len(user_idx))
-        return combine_counted(P, summed, counts), ms
+        return self._aggregate(P, summed, counts, round_seed, len(rows), codec_noise,
+                               topk_offset), ms
+
+    # -- the superstep: k rounds, each client's steps replayed ---------------
+
+    def _slots(self, P: torch.Tensor, data) -> Dict[str, torch.Tensor]:
+        """The captured steps' static buffers (made once): the client's
+        params, momentum, gradient, data, permutations, sums, the step
+        counter and the round's learning rate."""
+        if self._st is not None:
+            return self._st
+        dev = P.device
+        st = {"p": torch.empty_like(P), "buf": torch.empty_like(P), "g": torch.empty_like(P),
+              "acc": torch.zeros(3, dtype=torch.float32, device=dev),
+              "t": device_counter(dev),
+              "lr": torch.zeros((), dtype=torch.float32, device=dev),
+              "lm": torch.zeros_like(data[-1][0])}
+        if self.is_lm:
+            R, T = data[0].shape[1:]
+            wpos, n_win = self._window_weights(R, T, dev)
+            st.update(rows_p=torch.zeros(wpos.shape, dtype=data[0].dtype, device=dev),
+                      wpos=wpos, n_win=n_win,
+                      rows_n=torch.full((), float(R), dtype=torch.float32, device=dev),
+                      ar=torch.arange(self.bptt, device=dev))
+            st["steps"] = self.local_epochs * n_win.numel()
+        else:
+            wpad = self._pad_weights(data[0].shape[1], dev)
+            st.update(x=torch.zeros_like(data[0][0]), y=torch.zeros_like(data[1][0]),
+                      sm=torch.zeros_like(data[2][0]), wpad=wpad,
+                      perms=torch.zeros(self.local_epochs * wpad.numel(), dtype=torch.int64,
+                                        device=dev),
+                      ar=torch.arange(self.batch_size, device=dev))
+            st["steps"] = self.local_epochs * wpad.numel() // self.batch_size
+        self._st = st
+        return st
+
+    def _counted_vision_step(self, st, wr: float, mask: torch.Tensor,
+                             gen: torch.Generator) -> None:
+        """:meth:`_vision_step` on the static buffers, batch ``t`` read
+        through the device step counter, which it advances."""
+        B = self.batch_size
+        S = st["wpad"].numel() // B
+        t = st["t"]
+        ids = st["perms"].index_select(0, t * B + st["ar"])
+        w = st["wpad"].index_select(0, torch.remainder(t, S) * B + st["ar"]) \
+            * st["sm"].index_select(0, ids)
+        self._vision_step(st, wr, wr, mask, gen, st["x"].index_select(0, ids),
+                          st["y"].index_select(0, ids), w)
+        st["t"] += 1
+
+    def _counted_lm_step(self, st, wr: float, mask: torch.Tensor, gen: torch.Generator) -> None:
+        """:meth:`_lm_step` on the static buffers, window ``t % S`` read
+        through the device step counter, which it advances."""
+        bptt = self.bptt
+        s = torch.remainder(st["t"], st["n_win"].numel())
+        cols = s * bptt + st["ar"]
+        self._lm_step(st, wr, wr, mask, gen, st["rows_p"].index_select(1, cols),
+                      st["wpos"].index_select(1, cols),
+                      st["n_win"].index_select(0, s.view(1)).view(()))
+        st["t"] += 1
+
+    def client_step(self, wr: float, P: torch.Tensor, data):
+        """The captured step of a client at width rate ``wr`` (captured on
+        first use) and its static buffers."""
+        st = self._slots(P, data)
+        mask = self.param_mask_flat(wr)
+        body = self._counted_lm_step if self.is_lm else self._counted_vision_step
+        step = self.graphs.get(("client", wr), lambda: body(st, wr, mask, self._ggen),
+                               st["t"].zero_, [self._ggen])
+        return step, st
+
+    def stage_client(self, st, P: torch.Tensor, wr: float, uid: int, data, cseed: int) -> None:
+        """Eager set-up of one client into the static buffers: the masked
+        params, zero momentum and sums, the step counter at 0, its data and
+        (vision) its epoch permutations with real samples first, drawn from
+        the step's generator reseeded for the client -- ``local_train``'s
+        prologue."""
+        gen = self._ggen
+        gen.manual_seed(cseed)
+        torch.mul(P, self.param_mask_flat(wr), out=st["p"])
+        st["buf"].zero_()
+        st["acc"].zero_()
+        st["t"].zero_()
+        st["lm"].copy_(data[-1][uid])
+        if self.is_lm:
+            rows = data[0][uid]
+            st["rows_p"].zero_()
+            st["rows_p"][:, :rows.shape[1]].copy_(rows)
+            return
+        st["x"].copy_(data[0][uid])
+        st["y"].copy_(data[1][uid])
+        st["sm"].copy_(data[2][uid])
+        st["perms"].copy_(self._epoch_perms(gen, data[2][uid]).reshape(-1))
+
+    def _replayed_round(self, P: torch.Tensor, user_idx: np.ndarray, rates_abs: np.ndarray,
+                        data, rseed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One round of the superstep: per client the eager set-up, then its
+        steps replayed; aggregation (and the codec) on the device as
+        :meth:`train_round` -> ``(new P, [A, 3] device sums)``."""
+        wrs = to_width_rates(rates_abs, self.cfg)
+        summed = torch.zeros_like(P)
+        counts = torch.zeros_like(P)
+        rows = []
+        for slot, uid in enumerate(user_idx.tolist()):
+            wr = float(wrs[slot])
+            step, st = self.client_step(wr, P, data)
+            self.stage_client(st, P, wr, uid, data, client_seed(rseed, uid))
+            for _ in range(st["steps"]):
+                step.replay()
+            cm = self.count_mask_flat(wr, data[-1][uid])
+            summed += st["p"] * cm
+            counts += cm
+            rows.append(st["acc"].clone())
+        acc = torch.stack(rows) if rows else P.new_zeros((0, 3))
+        return self._aggregate(P, summed, counts, rseed, len(rows)), acc
+
+    def train_superstep(self, P: torch.Tensor, seed: int, epoch0: int, k: int,
+                        data: Tuple[torch.Tensor, ...], user_schedule, rate_schedule, lrs,
+                        eval_mask=None, fused_eval=None) -> Tuple[torch.Tensor, PendingMetrics]:
+        """Rounds ``epoch0 .. epoch0 + k - 1`` with no host read between
+        them (ref parallel/round_engine.py:1487-1767): round r trains the
+        cohort ``user_schedule[r]`` at the absolute rates
+        ``rate_schedule[r]`` and learning rate ``lrs[r]`` (written into the
+        steps' static scalar), its draws from ``round_seed(seed, epoch0 +
+        r)`` as :meth:`train_round` draws them, each client's steps replayed
+        from the captured step of its width rate; where ``eval_mask[r]``
+        fires, ``fused_eval`` evaluates the round's params.  Returns the new
+        params and the :class:`~.staging.PendingMetrics` whose ``fetch()``
+        yields k per-round dicts, or ``{"train", "eval"}``; its timers are
+        ``train`` and ``eval``."""
+        st = self._slots(P, data)
+        return self._superstep(
+            P, seed, epoch0, k, user_schedule, rate_schedule, lrs, eval_mask, fused_eval,
+            st["lr"], lambda P, r, users, rates, rseed: self._replayed_round(
+                P, users, rates, data, rseed))

@@ -13,6 +13,10 @@ writes them.  An optimizer's state is a plain dict ``{"step": int,
 Schedules are functions ``round -> lr`` evaluated on the host once per
 round (or epoch); ``ReduceLROnPlateau`` is the stateful
 :class:`PlateauScheduler`, fed the test Global loss after each evaluation.
+:func:`superstep_lrs` is the superstep's counterpart of the reference's
+``make_traced_lr_fn``: a superstep's k learning rates staged as one float32
+vector, from which each round's is copied into a static device scalar
+before that round's graph replays.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 Params = Dict[str, torch.Tensor]
@@ -145,6 +150,17 @@ def make_scheduler(cfg: Dict[str, Any]) -> Callable[[int], float]:
         return PlateauScheduler(base, factor, cfg.get("patience", 10),
                                 cfg.get("threshold", 1e-3), cfg.get("min_lr", 0.0))
     raise ValueError("Not valid scheduler name")
+
+
+def superstep_lrs(scheduler: Callable[[int], float], epoch0: int, k: int) -> np.ndarray:
+    """The learning rates (float32 ``[k]``) of rounds ``epoch0 .. epoch0 + k
+    - 1`` (ref utils/optim.py:138-175, ``make_traced_lr_fn``): each round's
+    ``scheduler(round)`` rounded to float32 as the K=1 round rounds it;
+    ReduceLROnPlateau holds its rate for the whole superstep (it steps only
+    on evaluations at superstep boundaries, ``config.resolve_superstep_cfg``)."""
+    if isinstance(scheduler, PlateauScheduler):
+        return np.full(k, scheduler(epoch0), np.float32)
+    return np.asarray([scheduler(epoch0 + r) for r in range(k)], np.float32)
 
 
 def _triangle(x: float) -> float:

@@ -35,6 +35,16 @@ round runs), timed in turns against the same G clients trained one after
 another by the masked engine (both kernel routes); times are per batched
 step, that is per G masked steps.
 
+``--graph`` times the superstep's unit instead: the same client's local
+epoch eagerly (``local_train``; with ``--clients G`` the grouped
+``local_train_level``), with each step replayed from its captured CUDA
+graph (``RoundEngine.client_step`` / ``GroupedRoundEngine.level_step``, the
+superstep's path, parallel/step_graph.py), and with the client's whole
+epoch captured as one graph; in turns, per step on the host clock; the
+profile is then taken of the replayed steps (launches a step under
+replay, the device's busy share), and the captures' seconds and pool bytes
+are printed.
+
 ``--device cpu --samples 20`` rehearses the control flow on the CPU (no
 device numbers come out of that).
 """
@@ -136,6 +146,8 @@ def main(argv=None) -> int:
     ap.add_argument("--width", type=float, default=1.0, help="the client's width rate")
     ap.add_argument("--clients", type=int, default=0,
                     help="G > 0: the grouped engine's step of G clients at --width")
+    ap.add_argument("--graph", action="store_true",
+                    help="eager against replayed steps against one graph a client")
     ap.add_argument("--out", default=None, help="write the results here as JSON")
     args = ap.parse_args(argv)
 
@@ -214,6 +226,52 @@ def main(argv=None) -> int:
 
         order = [f"grouped, {G} clients batched", masked]
         out["clients"] = G
+    if args.graph:
+        from heterofl_tpu_torch.parallel import step_graph
+
+        eng = engines[ROUTES[0][0]]
+        wr = args.width
+        eager_epoch = epoch
+        if args.clients:
+            users = list(range(args.clients))
+            lv = level
+
+            def unit(seed):  # the grouped superstep's level step and its buffers
+                step, st, gens = grouped.level_step(lv, args.clients, P, data)
+                grouped.stage_level(lv, st, gens, P, uids, users, data, seed)
+                grouped._lr.fill_(0.1)
+                body = grouped._counted_level_step_lm if grouped.is_lm \
+                    else grouped._counted_level_step
+                return step, st, (lambda: body(lv, st, gens)), gens, grouped.graphs
+        else:
+            one = (x[None], y[None], sm[None], lm[None])
+
+            def unit(seed):  # the masked superstep's client step and its buffers
+                step, st = eng.client_step(wr, P, one)
+                eng.stage_client(st, P, wr, 0, one, seed)
+                st["lr"].fill_(0.1)
+                return step, st, (lambda: eng._counted_vision_step(
+                    st, wr, eng.param_mask_flat(wr), eng._ggen)), [eng._ggen], eng.graphs
+
+        def epoch(label, seed):  # noqa: F811 -- eager, replayed steps, one graph a client
+            torch.backends.cudnn.deterministic = bool(args.clients)
+            if label == "eager":
+                return eager_epoch(order0[0], seed)
+            step, st, body, gens, graphs = unit(seed)
+            if label == "replayed steps":
+                for _ in range(st["steps"]):
+                    step.replay()
+            else:
+                whole = graphs.get(("whole client", args.clients, wr),
+                                   lambda: [body() for _ in range(st["steps"])],
+                                   st["t"].zero_, gens)
+                unit(seed)  # the capture's warm-up wrote into the buffers
+                whole.replay()
+            return st["acc"]
+
+        order0 = order
+        order = ["replayed steps", "eager", "one graph a client"]
+        out["graph"] = True
     for label in order:  # warm-up: kernel build, cuDNN plans, allocator
         epoch(label, 0)
     sync()
@@ -229,6 +287,11 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{label}: non-finite loss")
     out["steps_per_epoch"] = steps
     out["ms_per_step"] = {k: {"median": statistics.median(v), "all": v} for k, v in times.items()}
+    if args.graph:
+        out["graph_stats"] = dict(step_graph.STATS)
+        print(f"graphs: {step_graph.STATS['captures']} captures in "
+              f"{step_graph.STATS['capture_seconds']:.2f} s (warm-up included), pools "
+              f"{step_graph.STATS['pool_bytes'] / 1e6:.1f} MB", flush=True)
     for k, v in times.items():
         print(f"{k}: {statistics.median(v):.3f} ms/step (runs {[round(t, 3) for t in v]})",
               flush=True)
@@ -262,7 +325,9 @@ def main(argv=None) -> int:
         epoch(label, 98)
         sync()
     copies = copy_sources(prof_stack.events(), dev.type == "cuda")
-    pack = pack_time(prof_stack.events(), dev.type == "cuda") if args.clients else None
+    # a replayed step calls no op on the host: the pack is within the graph
+    pack = pack_time(prof_stack.events(), dev.type == "cuda") \
+        if args.clients and not args.graph else None
     out["profile"] = {"route": label, "steps": steps, "wall_ms": wall_ms,
                       "device_busy_ms": busy,
                       "device_busy_share": busy / wall_ms if wall_ms else 0.0,

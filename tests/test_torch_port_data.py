@@ -46,12 +46,16 @@ def test_process_control_matches_reference(control, data_name, model_name):
 def test_unported_keys_raise_naming_the_key():
     cfg = PC.default_cfg()
     cfg["control"] = PC.parse_control_name("1_100_0.1_iid_fix_a1_bn_1_1")
-    for key, value in (("superstep_rounds", 4), ("telemetry", "on"),
-                       ("level_placement", "slices"), ("sampler", "prp"),
+    for key, value in (("client_store", "stream"), ("telemetry", "on"),
+                       ("level_placement", "slices"), ("sample_horizon", 1),
                        ("quarantine", "on")):
         bad = dict(cfg, **{key: value})
         with pytest.raises(NotImplementedError, match=key):
             PC.process_control(bad)
+    # the superstep and the prp sampler are ported
+    done = PC.process_control(dict(cfg, superstep_rounds=4, metrics_fetch_every=4,
+                                   sampler="prp"))
+    assert (done["superstep_rounds"], done["sampler"]) == (4, "prp")
     # the grouped and sliced strategies are ported; a per-level codec map
     # outside grouped, and an unknown strategy, are refused as in the reference
     for strategy in ("grouped", "sliced"):

@@ -75,4 +75,6 @@ def test_no_port_file_imports_jax_or_reference():
             "scripts/torch_port_round_time.py", "heterofl_tpu_torch/data/stats.py",
             "heterofl_tpu_torch/data/datasets.py", "heterofl_tpu_torch/fed/core.py",
             "heterofl_tpu_torch/models/resnet.py", "heterofl_tpu_torch/models/norms.py",
-            "heterofl_tpu_torch/parallel/grouped.py", "heterofl_tpu_torch/fed/sliced.py"} <= scanned
+            "heterofl_tpu_torch/parallel/grouped.py", "heterofl_tpu_torch/fed/sliced.py",
+            "heterofl_tpu_torch/fed/sampling.py", "heterofl_tpu_torch/parallel/staging.py",
+            "heterofl_tpu_torch/parallel/step_graph.py"} <= scanned
