@@ -22,7 +22,9 @@ the reference's format with resume and the best copy, the test entries,
 and the centralised baseline), and the masked-LM path on top of it (token
 datasets, the transformer with per-head width slicing and the
 width-geometry check, Global-Perplexity evaluation, its federated, test
-and centralised entries).
+and centralised entries); the grouped engine and the K-round superstep;
+bfloat16 compute (``compute_dtype``), the im2col convolution
+(``conv_impl``) and the grouped engine's per-level wire-codec map.
 """
 
 from __future__ import annotations
@@ -35,6 +37,12 @@ import torch
 # once, for every user of the package.
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
+# ``compute_dtype='bfloat16'`` multiplies bf16 operands and accumulates the
+# products in float32, as the reference does ("XLA:TPU accumulates bf16
+# convs in f32", heterofl_tpu/ops/layers.py:74).  cuBLAS may otherwise
+# reduce a bf16 GEMM's split-K partial sums in bf16, so that is pinned off
+# too.  cuDNN's bf16 convolutions accumulate in float32 (PERF.md).
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(cfg) -> torch.device:

@@ -20,7 +20,9 @@ compresses at any ``superstep_rounds``; the ``grouped`` one, as in the
 reference, only in its K-round superstep (``superstep_rounds > 1``): its
 K=1 round and the sliced twin refuse a lossy codec with the reference
 experiment loop's ``ValueError``s (heterofl_tpu/entry/common.py:288-335).
-A per-level ``{rate: codec}`` map with a lossy level is not ported.
+A per-level ``{rate: codec}`` map runs under ``grouped`` at K > 1: each
+level's sliced sums go through that level's codec
+(parallel/grouped.py::GroupedRoundEngine._merge).
 """
 
 from __future__ import annotations
@@ -106,9 +108,9 @@ def resolve_codec_cfg(cfg: Dict[str, Any]) -> Tuple[Any, bool]:
     common.py:307-335): a per-level map outside ``grouped``, a lossy codec
     with ``sliced``, and a lossy codec (or map) with ``grouped`` at
     ``superstep_rounds`` 1 -- its K=1 round reduces per level and has no
-    single sum to compress.  A lossy per-level map at K > 1 raises
-    ``NotImplementedError``.  The grouped engine and the sliced twin refuse
-    through this function, with their own strategy."""
+    single sum to compress.  The grouped engine and the sliced twin refuse
+    through this function, with their own strategy; the grouped engine
+    checks a map's keys against its level table."""
     name = cfg.get("wire_codec", "dense") or "dense"
     if isinstance(name, dict):
         name = normalize_codec_map(name)
@@ -136,10 +138,6 @@ def resolve_codec_cfg(cfg: Dict[str, Any]) -> Tuple[Any, bool]:
                 f"wire_codec={name!r} with the grouped strategy needs the fused superstep "
                 f"(superstep_rounds > 1 or client_store='stream'): the K=1 host-orchestrated "
                 f"path reduces per level and has no single global psum to compress")
-        if isinstance(name, dict):
-            raise NotImplementedError(
-                "cfg['wire_codec'] = a per-level map with a lossy level is not ported to "
-                "heterofl_tpu_torch yet (only one codec for every level is)")
     return name, ef
 
 

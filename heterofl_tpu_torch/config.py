@@ -27,9 +27,10 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .compress import resolve_codec_cfg
 from .fed.sampling import resolve_sampler_cfg
@@ -78,7 +79,15 @@ DEFAULT_CFG: Dict[str, Any] = {
     # True = the CUDA kernel on a CUDA device, its plain version on the CPU;
     # "cuda" = the kernel or raise; False = the unfused per-leaf chain
     "fused_update": True,
+    # bfloat16 | float32 (aliases bf16; f32, fp32, None): the dtype of each
+    # conv's and linear's operands (parse_compute_dtype)
     "compute_dtype": "float32",
+    # None (direct, "direct") | "im2col": patch extraction plus a matmul
+    # (ops/layers.py::conv2d; parse_conv_impl)
+    "conv_impl": None,
+    # the reference's scan unroll; the port replays its steps one by one, so
+    # any value >= 1 is accepted and changes nothing (parse_scan_unroll)
+    "scan_unroll": 1,
     # compressed aggregation (compress/): dense | int8 | signsgd | topk, and
     # the lossy codecs' error-feedback residual
     "wire_codec": "dense",
@@ -107,8 +116,6 @@ DEFAULT_CFG: Dict[str, Any] = {
 UNPORTED: Dict[str, Any] = {
     "world_size": 1,
     "data_placement": "replicated",
-    "conv_impl": None,
-    "scan_unroll": 1,
     "client_store": "eager",
     "schedule": None,
     "sample_horizon": None,
@@ -141,6 +148,38 @@ def resolve_strategy_cfg(cfg: Dict[str, Any]) -> str:
     return strategy
 
 
+def parse_compute_dtype(cd) -> Optional[torch.dtype]:
+    """``cfg['compute_dtype']`` -> ``torch.bfloat16``, or None for float32
+    (ref models/__init__.py:42-50): ``bfloat16``/``bf16`` and
+    ``float32``/``f32``/``fp32``/None; anything else raises ``ValueError``."""
+    if cd in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    if cd in (None, "float32", "f32", "fp32"):
+        return None
+    raise ValueError(f"Not valid compute_dtype: {cd!r} (float32 | bfloat16)")
+
+
+def parse_conv_impl(impl) -> Optional[str]:
+    """``cfg['conv_impl']`` -> ``"im2col"`` or None (direct; ``"direct"``
+    means None); anything else raises ``ValueError`` (ref
+    models/__init__.py:60-64)."""
+    if impl not in (None, "direct", "im2col"):
+        raise ValueError(f"Not valid conv_impl: {impl!r}")
+    return None if impl == "direct" else impl
+
+
+def parse_scan_unroll(cfg: Dict[str, Any]) -> int:
+    """``cfg['scan_unroll']`` as the reference parses it
+    (``int(cfg.get("scan_unroll", 1) or 1)``, ref parallel/round_engine.py:
+    414); below 1 raises ``ValueError``.  The reference unrolls its local
+    step scan by it; the port has no scan (each step is a replayed graph),
+    so the value changes nothing here."""
+    unroll = int(cfg.get("scan_unroll", 1) or 1)
+    if unroll < 1:
+        raise ValueError(f"Not valid scan_unroll: {cfg['scan_unroll']!r} (an int >= 1)")
+    return unroll
+
+
 def check_ported(cfg: Dict[str, Any]) -> None:
     """Raise ``NotImplementedError`` naming the first key whose value asks
     for a feature this package does not port yet, and ``ValueError`` for a
@@ -152,10 +191,9 @@ def check_ported(cfg: Dict[str, Any]) -> None:
             raise NotImplementedError(
                 f"cfg[{key!r}] = {cfg[key]!r} is not ported to heterofl_tpu_torch "
                 f"yet (only {off!r} is)")
-    if cfg.get("compute_dtype", "float32") not in ("float32", None):
-        raise NotImplementedError(
-            f"cfg['compute_dtype'] = {cfg['compute_dtype']!r} is not ported to "
-            f"heterofl_tpu_torch yet (only 'float32' is)")
+    parse_compute_dtype(cfg.get("compute_dtype"))
+    parse_conv_impl(cfg.get("conv_impl"))
+    parse_scan_unroll(cfg)
     resolve_sampler_cfg(cfg)
     resolve_codec_cfg(cfg)
 

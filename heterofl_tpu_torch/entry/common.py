@@ -112,6 +112,8 @@ def cfg_from_args(args: argparse.Namespace) -> Dict[str, Any]:
             cfg[k] = json.loads(val)
         elif isinstance(v, bool):
             cfg[k] = bool(val)
+        elif isinstance(v, str) and val.lstrip().startswith("{"):
+            cfg[k] = json.loads(val)  # a per-level map, e.g. --wire_codec '{"1": "int8"}'
         else:
             cfg[k] = val
     if getattr(args, "control_name", None) and args.control_name != "None":
@@ -446,18 +448,24 @@ class FedExperiment:
         return named
 
     # -- the error-feedback residual in a blob: the reference's [clients,
-    # slots, total] carry in its flat layout, one participant here
+    # slots, total] carry in its flat layout (under a per-level map, each
+    # lossy level's columns in that level's sliced layout), one participant
     def _resid_to_blob(self) -> Optional[np.ndarray]:
         resid = self.engine.wire_resid_host()
-        return None if resid is None else \
-            flat_to_jax(resid, self.engine.spec.shapes, self.perms)[None]
+        if resid is None:
+            return None
+        return np.concatenate([flat_to_jax(resid[:, off:off + spec.total], spec.shapes,
+                                           self.perms)
+                               for off, spec in self.engine.resid_segments()], 1)[None]
 
     def _resid_from_blob(self, arr) -> np.ndarray:
         arr = np.asarray(arr, np.float32)
         if arr.ndim != 3 or arr.shape[0] != 1:
             raise ValueError(f"checkpointed wire residual of shape {arr.shape}: the port runs "
                              f"one participant and restores a [1, slots, total] carry")
-        return flat_from_jax(arr[0], self.engine.spec.shapes, self.perms)
+        return np.concatenate([flat_from_jax(arr[0][:, off:off + spec.total], spec.shapes,
+                                             self.perms)
+                               for off, spec in self.engine.resid_segments()], 1)
 
     def run(self, pivot_metric: str = "Global-Accuracy", pivot_mode: str = "max"
             ) -> Dict[str, Any]:
@@ -479,7 +487,7 @@ class FedExperiment:
             if self.superstep_rounds > 1 and blob.get("sampler_state") is not None:
                 # the permutation stream at the superstep boundary
                 self.rng.bit_generator.state = blob["sampler_state"]
-            if blob.get("wire_resid") is not None and self.engine.codec is not None:
+            if blob.get("wire_resid") is not None and self.engine.lossy:
                 self.engine.set_wire_resid(self._resid_from_blob(blob["wire_resid"]))
             if "epoch" in blob:
                 epoch = blob["epoch"]

@@ -7,14 +7,16 @@ base)``.  ``make_model(cfg)`` builds the global model; ``make_model(cfg,
 rate)`` the dense sub-model of a level, whose parameter names are the
 global model's and whose shapes are the global model's sliced at ``rate /
 global_model_rate`` (the grouped engine and the sliced twin train it, with
-the Scaler at that ratio, ``meta['scaler_rate']``).
+the Scaler at that ratio, ``meta['scaler_rate']``).  ``cfg['compute_dtype']``
+and ``cfg['conv_impl']`` are parsed once here and go to every family, as
+the reference's ``make_model`` hands them on.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from ..config import ceil_width, scaled_hidden
+from ..config import ceil_width, parse_compute_dtype, parse_conv_impl, scaled_hidden
 from .base import FedModel  # noqa: F401
 from .conv import ConvNet
 from .resnet import ResNet
@@ -42,13 +44,17 @@ def make_model(cfg: Dict[str, Any], model_rate: Optional[float] = None) -> FedMo
 
 def _build(cfg: Dict[str, Any], rate: float) -> FedModel:
     name = cfg["model_name"]
+    compute_dtype = parse_compute_dtype(cfg.get("compute_dtype"))
+    conv_impl = parse_conv_impl(cfg.get("conv_impl"))
     if name == "transformer":
         t = cfg["transformer"]
         return Transformer(cfg["num_tokens"], ceil_width(t["embedding_size"], rate),
                            t["num_heads"], ceil_width(t["hidden_size"], rate), t["num_layers"],
-                           t["dropout"], cfg["bptt"], cfg["mask_rate"], mask=cfg["mask"])
+                           t["dropout"], cfg["bptt"], cfg["mask_rate"], mask=cfg["mask"],
+                           compute_dtype=compute_dtype)
     kw = dict(norm=cfg["norm"], scale=cfg["scale"], mask=cfg["mask"],
-              pallas_norm=bool(cfg.get("pallas_norm", False)))
+              pallas_norm=bool(cfg.get("pallas_norm", False)), compute_dtype=compute_dtype,
+              conv_impl=conv_impl)
     if name == "conv":
         return ConvNet(cfg["data_shape"], scaled_hidden(cfg["conv"]["hidden_size"], rate),
                        cfg["classes_size"], **kw)

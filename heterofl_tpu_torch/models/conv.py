@@ -24,12 +24,16 @@ from .spec import Group, ParamSpec
 
 class ConvNet(FedModel):
     def __init__(self, data_shape, hidden_size, classes_size: int, *, norm: str = "bn",
-                 scale: bool = True, mask: bool = True, pallas_norm: bool = False):
+                 scale: bool = True, mask: bool = True, pallas_norm: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None, conv_impl: Optional[str] = None):
         super().__init__()
         check_norm(norm)
         in_ch = data_shape[-1]
         self.n_blocks = len(hidden_size)
         self.norm, self.scale, self.mask, self.pallas_norm = norm, scale, mask, pallas_norm
+        # each conv's and linear's operand dtype (None: float32) and the
+        # convolution's lowering (None: direct; "im2col")
+        self.compute_dtype, self.conv_impl = compute_dtype, conv_impl
         self.groups = {f"h{i}": Group(f"h{i}", hidden_size[i]) for i in range(self.n_blocks)}
         self.groups["classes"] = Group("classes", classes_size, kind="full")
         self.specs: Dict[str, ParamSpec] = {}
@@ -71,7 +75,8 @@ class ConvNet(FedModel):
         P = params if params is not None else self.params()
         x = img
         for i in range(self.n_blocks):
-            x = conv2d(x, P[f"block{i}.conv.w"], P[f"block{i}.conv.b"])
+            x = conv2d(x, P[f"block{i}.conv.w"], P[f"block{i}.conv.b"],
+                       compute_dtype=self.compute_dtype, impl=self.conv_impl)
             if self.scale:
                 x = scaler(x, scaler_rate)
             site = f"block{i}.norm"
@@ -85,7 +90,7 @@ class ConvNet(FedModel):
             x = torch.relu(x)
             if i < self.n_blocks - 1:  # last pool dropped (ref conv.py:56)
                 x = max_pool2(x)
-        out = linear(global_avg_pool(x), P["linear.w"], P["linear.b"])
+        out = linear(global_avg_pool(x), P["linear.w"], P["linear.b"], self.compute_dtype)
         out = masked_logits(out, label_mask, self.mask)
         return out, cross_entropy(out, label, sample_weight)
 
@@ -98,7 +103,8 @@ class ConvNet(FedModel):
         P = params
         x = img
         for i in range(self.n_blocks):
-            x = conv2d_clients(x, P[f"block{i}.conv.w"], P[f"block{i}.conv.b"], G)
+            x = conv2d_clients(x, P[f"block{i}.conv.w"], P[f"block{i}.conv.b"], G,
+                               compute_dtype=self.compute_dtype, impl=self.conv_impl)
             if self.scale:
                 x = scaler(x, scaler_rate)
             site = f"block{i}.norm"
@@ -109,6 +115,6 @@ class ConvNet(FedModel):
             if i < self.n_blocks - 1:
                 x = max_pool2(x)
         out = linear_clients(channels_to_clients(global_avg_pool(x), G), P["linear.w"],
-                             P["linear.b"])
+                             P["linear.b"], self.compute_dtype)
         out = masked_logits_clients(out, label_mask, self.mask)
         return out, cross_entropy_clients(out, label, sample_weight)

@@ -16,7 +16,7 @@ grouped engine).
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -31,7 +31,8 @@ from .spec import Group, ParamSpec
 class ResNet(FedModel):
     def __init__(self, data_shape, hidden_size, num_blocks: List[int], classes_size: int, *,
                  bottleneck: bool = False, norm: str = "bn", scale: bool = True,
-                 mask: bool = True, pallas_norm: bool = False):
+                 mask: bool = True, pallas_norm: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None, conv_impl: Optional[str] = None):
         super().__init__()
         check_norm(norm)
         in_ch = data_shape[-1]
@@ -39,6 +40,9 @@ class ResNet(FedModel):
         exp = 4 if bottleneck else 1
         self.bottleneck = bottleneck
         self.norm, self.scale, self.mask, self.pallas_norm = norm, scale, mask, pallas_norm
+        # each conv's and linear's operand dtype (None: float32) and the
+        # convolution's lowering (None: direct; "im2col")
+        self.compute_dtype, self.conv_impl = compute_dtype, conv_impl
         self.groups: Dict[str, Group] = {f"s{s}": Group(f"s{s}", hidden_size[s] * exp)
                                          for s in range(n_stages)}
         if bottleneck:
@@ -119,24 +123,26 @@ class ResNet(FedModel):
         def sc(x):
             return scaler(x, scaler_rate) if self.scale else x
 
-        x = conv2d(img, P["conv1.w"], stride=1, padding=1)
+        def conv(x, name, stride, padding):
+            return conv2d(x, P[f"{name}.w"], stride=stride, padding=padding,
+                          compute_dtype=self.compute_dtype, impl=self.conv_impl)
+
+        x = conv(img, "conv1", 1, 1)
         for pfx, stride, has_short in self.blocks:
             out = torch.relu(norm_site(f"{pfx}.n1", sc(x)))
-            short = conv2d(out, P[f"{pfx}.shortcut.w"], stride=stride, padding=0) \
-                if has_short else x
+            short = conv(out, f"{pfx}.shortcut", stride, 0) if has_short else x
             if self.bottleneck:
-                out = conv2d(out, P[f"{pfx}.conv1.w"], stride=1, padding=0)
+                out = conv(out, f"{pfx}.conv1", 1, 0)
                 out = torch.relu(norm_site(f"{pfx}.n2", sc(out)))
-                out = conv2d(out, P[f"{pfx}.conv2.w"], stride=stride, padding=1)
+                out = conv(out, f"{pfx}.conv2", stride, 1)
                 out = torch.relu(norm_site(f"{pfx}.n3", sc(out)))
-                out = conv2d(out, P[f"{pfx}.conv3.w"], stride=1, padding=0)
+                out = conv(out, f"{pfx}.conv3", 1, 0)
             else:
-                out = conv2d(out, P[f"{pfx}.conv1.w"], stride=stride, padding=1)
-                out = conv2d(torch.relu(norm_site(f"{pfx}.n2", sc(out))), P[f"{pfx}.conv2.w"],
-                             stride=1, padding=1)
+                out = conv(out, f"{pfx}.conv1", stride, 1)
+                out = conv(torch.relu(norm_site(f"{pfx}.n2", sc(out))), f"{pfx}.conv2", 1, 1)
             x = out + short
         x = torch.relu(norm_site("n4", sc(x)))
-        out = linear(global_avg_pool(x), P["linear.w"], P["linear.b"])
+        out = linear(global_avg_pool(x), P["linear.w"], P["linear.b"], self.compute_dtype)
         out = masked_logits(out, label_mask, self.mask)
         return out, cross_entropy(out, label, sample_weight)
 
@@ -155,7 +161,8 @@ class ResNet(FedModel):
             return scaler(x, scaler_rate) if self.scale else x
 
         def conv(x, name, stride, padding):
-            return conv2d_clients(x, P[f"{name}.w"], None, G, stride=stride, padding=padding)
+            return conv2d_clients(x, P[f"{name}.w"], None, G, stride=stride, padding=padding,
+                                  compute_dtype=self.compute_dtype, impl=self.conv_impl)
 
         x = conv(img, "conv1", 1, 1)
         for pfx, stride, has_short in self.blocks:
@@ -173,6 +180,6 @@ class ResNet(FedModel):
             x = out + short
         x = torch.relu(norm_site("n4", sc(x)))
         out = linear_clients(channels_to_clients(global_avg_pool(x), G), P["linear.w"],
-                             P["linear.b"])
+                             P["linear.b"], self.compute_dtype)
         out = masked_logits_clients(out, label_mask, self.mask)
         return out, cross_entropy_clients(out, label, sample_weight)

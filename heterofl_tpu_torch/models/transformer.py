@@ -29,7 +29,12 @@ first, then dropout sites ``0``, ``1 + 3i``, ``2 + 3i``, ``3 + 3i``), or
 handed in through ``draws`` (``{"corrupt": [N, S] bool, "keep": {site:
 bool}}``), which is how tests give it the reference's ``jax.random``
 draws.  Attention is the reference's plain chain (matmul, divide by the
-temperature, softmax, matmul); no TPU kernel sits behind it.
+temperature, softmax, matmul); no TPU kernel sits behind it.  Under
+``compute_dtype`` (bfloat16) every linear layer casts its operands, and
+the attention follows the reference (transformer.py:166-183): q, k and v
+are cast after the head split, the scores come out of the bf16 product
+and are cast to float32 before the temperature and the softmax, the
+weights are cast back to bf16 and the output product is cast to float32.
 
 :meth:`Transformer.forward_clients` is the training forward of a level's G
 clients of one dense level model at once (the grouped engine): the
@@ -58,8 +63,9 @@ Draws = Dict[str, Any]
 class Transformer(FedModel):
     def __init__(self, num_tokens: int, embedding_size: int, num_heads: int, hidden_size: int,
                  num_layers: int, dropout: float, bptt: int, mask_rate: float, *,
-                 mask: bool = True):
+                 mask: bool = True, compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         E, H, F, V = embedding_size, num_heads, hidden_size, num_tokens
         self.num_tokens, self.num_heads, self.num_layers = V, H, num_layers
         self.dropout, self.bptt, self.mask_rate, self.mask = dropout, bptt, mask_rate, mask
@@ -142,6 +148,20 @@ class Transformer(FedModel):
             self._emb_masks[key] = self.groups["emb"].mask(width_rate).to(dev)
         return self._emb_masks[key]
 
+    def _attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, temp: float
+                   ) -> torch.Tensor:
+        """``softmax(q k^T / temp) v`` over the last two axes; under
+        ``compute_dtype`` the two products take bf16 operands and their
+        results go back to float32, the softmax in float32."""
+        cd = self.compute_dtype
+        if cd is None:
+            return torch.matmul(torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / temp,
+                                              dim=-1), v)
+        q, k, v = q.to(cd), k.to(cd), v.to(cd)
+        scores = torch.matmul(q, k.transpose(-1, -2)).to(torch.float32) / temp
+        attn = torch.softmax(scores, dim=-1).to(cd)
+        return torch.matmul(attn, v).to(torch.float32)
+
     def forward(self, label: torch.Tensor, *, params=None, width_rate: float = 1.0,
                 scaler_rate: float = 1.0, label_mask=None, sample_weight=None,
                 train: bool = True, gen: Optional[torch.Generator] = None,
@@ -179,7 +199,7 @@ class Transformer(FedModel):
             return masked_layer_norm(x, P[f"{site}.g"], P[f"{site}.b"], emb_mask, k_emb)
 
         def lin(name: str, x: torch.Tensor) -> torch.Tensor:
-            return linear(x, P[f"{name}.w"], P[f"{name}.b"])
+            return linear(x, P[f"{name}.w"], P[f"{name}.b"], self.compute_dtype)
 
         corrupt = draws.get("corrupt")
         corrupt = rand_mask((N, S), self.mask_rate) if corrupt is None else corrupt.to(dev)
@@ -193,8 +213,7 @@ class Transformer(FedModel):
         for i in range(self.num_layers):
             p = f"enc{i}"
             q, k, v = (heads(sc(lin(f"{p}.mha.{h}", x))) for h in ("q", "k", "v"))
-            attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / temp, dim=-1)
-            o = torch.matmul(attn, v).transpose(1, 2).reshape(N, S, E)
+            o = self._attention(q, k, v, temp).transpose(1, 2).reshape(N, S, E)
             o = sc(lin(f"{p}.mha.o", o))
             x = ln(f"{p}.norm1", x + dropout(o, 1 + 3 * i))
             h = dropout(gelu(sc(lin(f"{p}.ff.l1", x))), 2 + 3 * i)
@@ -244,7 +263,7 @@ class Transformer(FedModel):
             return masked_layer_norm(x, vec(f"{site}.g"), vec(f"{site}.b"), emb_mask, float(E))
 
         def lin(name: str, x: torch.Tensor) -> torch.Tensor:
-            return linear_clients(x, P[f"{name}.w"], P[f"{name}.b"])
+            return linear_clients(x, P[f"{name}.w"], P[f"{name}.b"], self.compute_dtype)
 
         corrupt = rand_mask((N, S), self.mask_rate) if draws is None else \
             torch.stack([d["corrupt"] for d in draws]).to(dev)
@@ -259,8 +278,7 @@ class Transformer(FedModel):
         for i in range(self.num_layers):
             p = f"enc{i}"
             q, k, v = (heads(sc(lin(f"{p}.mha.{h}", x))) for h in ("q", "k", "v"))
-            attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / temp, dim=-1)
-            o = torch.matmul(attn, v).transpose(2, 3).reshape(G, N, S, E)
+            o = self._attention(q, k, v, temp).transpose(2, 3).reshape(G, N, S, E)
             o = sc(lin(f"{p}.mha.o", o))
             x = ln(f"{p}.norm1", x + dropout(o, 1 + 3 * i))
             h = dropout(gelu(sc(lin(f"{p}.ff.l1", x))), 2 + 3 * i)

@@ -21,21 +21,62 @@ import torch.nn.functional as F
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           stride: int = 1, padding: int = 1) -> torch.Tensor:
-    """3x3 / 1x1 convolution, NCHW x OIHW -> NCHW.  A plain large product
-    that the reference leaves to XLA, so it goes to ``F.conv2d`` here.
+           stride: int = 1, padding: int = 1, compute_dtype: Optional[torch.dtype] = None,
+           impl: Optional[str] = None) -> torch.Tensor:
+    """3x3 / 1x1 convolution, NCHW x OIHW -> NCHW (ref ops/layers.py:29-75):
+    :func:`conv2d_clients` of one client.
 
-    On the CPU the input is made NCHW-contiguous first: the oneDNN backward
-    of a strided 1x1 convolution on a channels_last input corrupts the heap
-    in PyTorch 2.13's CPU build (the ResNet shortcut), and the CPU path is
-    the tests' only."""
-    if x.device.type == "cpu":
-        x = x.contiguous()
-    return F.conv2d(x, w, b, stride=stride, padding=padding)
+    ``compute_dtype`` (``torch.bfloat16``) casts both operands; the op's
+    result is cast back to float32 and the bias added after that cast, in
+    float32, as the reference does.  ``impl='im2col'`` computes the op as
+    patch extraction plus a matmul (:func:`_im2col`); else the direct
+    convolution, a plain large product that the reference leaves to XLA,
+    goes to ``F.conv2d``."""
+    return conv2d_clients(x, w[None], None if b is None else b[None], 1, stride, padding,
+                          compute_dtype, impl)
 
 
-def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return F.linear(x, w, b)
+def _out_hw(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int) -> Tuple[int, int]:
+    """The output's ``(H', W')``."""
+    return tuple((n + 2 * padding - k) // stride + 1 for n, k in zip(x.shape[2:], w.shape[-2:]))
+
+
+def _im2col(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
+    """The convolution of G clients as patch extraction plus a batched
+    matmul (ref ops/layers.py:52-63): ``x [B, G*C, H, W]`` (channels_last,
+    client g's channels ``[g*C, (g+1)*C)``), ``w [G, O, C, kh, kw]`` ->
+    ``[G, B*H'*W', O]``, rows in ``(B, H', W')`` order.
+
+    The patches are taken from the channels-last view ``[B, H, W, G*C]``
+    (padded, then ``Tensor.unfold`` over H and W, a strided view), so the
+    one copy is the patch matrix ``[B*H'*W', G, C*kh*kw]`` itself, its
+    features in ``(C, kh, kw)`` order -- the OIHW weight's own order, so
+    ``w.reshape(G, O, C*kh*kw)`` needs no transpose; ``F.unfold`` would
+    first copy a channels_last input to NCHW.  A 1x1 convolution with no
+    padding is a matmul on the strided pixels, with no patch matrix."""
+    G, O, C, kh, kw = w.shape
+    B = x.shape[0]
+    if (kh, kw) == (1, 1) and padding == 0:
+        xh = x[:, :, ::stride, ::stride].permute(0, 2, 3, 1)
+        patches = xh.reshape(-1, G, C)
+    else:
+        xh = x.permute(0, 2, 3, 1)
+        if padding:
+            xh = F.pad(xh, (0, 0, padding, padding, padding, padding))
+        xh = xh.unfold(1, kh, stride).unfold(2, kw, stride)  # [B, H', W', G*C, kh, kw]
+        patches = xh.reshape(B * xh.shape[1] * xh.shape[2], G, C * kh * kw)
+    return torch.bmm(patches.transpose(0, 1), w.reshape(G, O, -1).transpose(1, 2))
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x @ w.T + b``; ``compute_dtype`` casts both operands, the product
+    goes back to float32 and the bias is added after, in float32 (ref
+    ops/layers.py:78-87)."""
+    if compute_dtype is None:
+        return F.linear(x, w, b)
+    y = F.linear(x.to(compute_dtype), w.to(compute_dtype)).to(torch.float32)
+    return y if b is None else y + b
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -209,23 +250,56 @@ def clients_in_channels(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d_clients(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], G: int,
-                   stride: int = 1, padding: int = 1) -> torch.Tensor:
+                   stride: int = 1, padding: int = 1,
+                   compute_dtype: Optional[torch.dtype] = None,
+                   impl: Optional[str] = None) -> torch.Tensor:
     """Each client's convolution at once: ``x [B, G*I, H, W]``, ``w [G, O,
-    I, k, k]``, ``b [G, O]`` -> ``[B, G*O, H', W']``, one grouped
-    convolution (``groups=G``) whose group g is client g."""
-    if x.device.type == "cpu":
-        x = x.contiguous()
-    return F.conv2d(x, w.reshape((-1,) + tuple(w.shape[2:])),
-                    None if b is None else b.reshape(-1), stride=stride, padding=padding,
-                    groups=G)
+    I, k, k]``, ``b [G, O]`` -> ``[B, G*O, H', W']`` (channels_last).
+    Direct: one grouped convolution (``groups=G``) whose group g is client
+    g.  ``impl='im2col'``: the patches extracted once for all G clients and
+    each client's multiplied by its own weights in one batched matmul (ref
+    ops/layers.py:39-48, the op under ``vmap``).  ``compute_dtype`` as in
+    :func:`conv2d`.
+
+    On the CPU the direct convolution's input is made NCHW-contiguous first:
+    the oneDNN backward of a strided 1x1 convolution on a channels_last
+    input corrupts the heap in PyTorch 2.13's CPU build (the ResNet
+    shortcut), and the CPU path is the tests' only."""
+    bias = None if b is None else b.reshape(-1)
+    if compute_dtype is None and impl is None:
+        if x.device.type == "cpu":
+            x = x.contiguous()
+        return F.conv2d(x, w.reshape((-1,) + tuple(w.shape[2:])), bias, stride=stride,
+                        padding=padding, groups=G)
+    if compute_dtype is not None:
+        x, w = x.to(compute_dtype), w.to(compute_dtype)
+    if impl == "im2col":
+        y = _im2col(x, w, stride, padding)  # [G, B*H'*W', O]
+        y = y.transpose(0, 1).reshape(x.shape[0], *_out_hw(x, w, stride, padding), -1)
+        y = y.permute(0, 3, 1, 2)
+    else:
+        if x.device.type == "cpu":
+            x = x.contiguous()
+        y = F.conv2d(x, w.reshape((-1,) + tuple(w.shape[2:])), stride=stride, padding=padding,
+                     groups=G)
+    if compute_dtype is not None:
+        y = y.to(torch.float32)
+    return y if bias is None else y + bias.view(1, -1, 1, 1)
 
 
-def linear_clients(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+def linear_clients(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Each client's linear layer: ``x [G, ..., I]``, ``w [G, O, I]``, ``b
-    [G, O]`` -> ``[G, ..., O]`` (one batched product)."""
+    [G, O]`` -> ``[G, ..., O]`` (one batched product); ``compute_dtype``
+    as in :func:`linear`."""
     G, lead = x.shape[0], x.shape[1:-1]
     x3 = x.reshape(G, -1, x.shape[-1])
-    if b is None:
+    if compute_dtype is not None:
+        out = torch.bmm(x3.to(compute_dtype), w.to(compute_dtype).transpose(1, 2))
+        out = out.to(torch.float32)
+        if b is not None:
+            out = out + b.unsqueeze(1)
+    elif b is None:
         out = torch.bmm(x3, w.transpose(1, 2))
     else:
         out = torch.baddbmm(b.unsqueeze(1), x3, w.transpose(1, 2))

@@ -61,7 +61,11 @@ refuses it (grouped.py:690-695); the superstep (:meth:`GroupedRoundEngine.
 train_superstep`, ref grouped.py:1416-1617) compresses the merged global
 sums with it, as the reference's superstep does, on the grid the
 reference sizes for its slots (:meth:`GroupedRoundEngine.codec_slots`), so
-such a run resumes bit for bit at a superstep boundary.  There the clients of
+such a run resumes bit for bit at a superstep boundary.  A per-level
+``{rate: codec}`` map (ref grouped.py:399-456, :1103-1159) instead sends
+each level's sliced sums through that level's codec, a grid a level's
+slots, the lossy levels' residuals in one ``[2, total_lossy]`` carry
+(:meth:`GroupedRoundEngine._merge`).  There the clients of
 each round are grouped by level from the ``[k, A]`` schedules, and a
 level's G clients replay one captured batched step a (level, G)
 (``parallel/step_graph.py``), cached: a capture costs about three eager
@@ -87,7 +91,8 @@ import numpy as np
 import torch
 
 from ..compress import make_codec, resolve_codec_cfg
-from ..fed.core import level_index_map, round_seed, snap_to_levels
+from ..compress.codecs import compressed_sum
+from ..fed.core import combine_counted, level_index_map, round_seed, snap_to_levels
 from ..models import make_model
 from ..models.base import FedModel
 from ..models.spec import label_vector
@@ -117,7 +122,8 @@ class Level:
         self.model = make_model(cfg, rate)
         self.scaler_rate = self.model.meta["scaler_rate"]
         # the dense sub-model trains at width rate 1: its only width mask
-        level_cfg = dict(cfg, model_rate=[cfg["global_model_rate"]], model_split_mode="fix")
+        level_cfg = dict(cfg, model_rate=[cfg["global_model_rate"]], model_split_mode="fix",
+                         wire_codec="dense")  # the engine compresses, not its levels
         self.engine = RoundEngine(self.model, level_cfg, device)
         self.spec = self.engine.spec
         self.ld = row_stride(self.spec.total)
@@ -187,12 +193,14 @@ class GroupedRoundEngine(FlatParams):
     clients batched, for one (global model, cfg, device)."""
 
     def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device):
-        # a lossy codec is refused at superstep_rounds 1
+        # a lossy codec (or per-level map) is refused at superstep_rounds 1
         name, ef = resolve_codec_cfg(dict(cfg, strategy="grouped"))
         self.model, self.cfg, self.device = model, cfg, device
         self.is_lm = model.meta["kind"] == "transformer"
         self.spec = FlatSpec.of(dict(model.named_parameters()))
-        self.codec = make_codec(name, self.spec, 1, error_feedback=ef)
+        self.codec_map = name if isinstance(name, dict) else None
+        self.codec = None if self.codec_map else make_codec(name, self.spec, 1,
+                                                            error_feedback=ef)
         self._resid = None
         # the superstep's captured batched steps, one a (level, G) met, their
         # static buffers and generators
@@ -203,6 +211,10 @@ class GroupedRoundEngine(FlatParams):
         self.levels: Dict[float, Level] = {
             rate: Level(cfg, rate, model, self.spec, device)
             for rate in sorted({float(r) for r in cfg["model_rate"]}, reverse=True)}
+        self._map_codecs: Dict[float, Tuple[Any, int]] = {}
+        self._total_lossy = 0
+        if self.codec_map is not None:
+            self._map_layout(ef)
         eng0 = next(iter(self.levels.values())).engine
         self.local_epochs, self.batch_size = eng0.local_epochs, eng0.batch_size
         self.fused_mode, self.momentum, self.weight_decay = \
@@ -369,9 +381,9 @@ class GroupedRoundEngine(FlatParams):
         deterministic algorithms; arguments, hooks and results as
         ``RoundEngine.train_round``'s (no codec: a lossy one is refused, as
         the reference's K=1 round refuses it)."""
-        if self.codec is not None:
+        if self.lossy:
             raise ValueError(
-                f"wire_codec={self.codec.name!r} with the grouped strategy needs the fused "
+                f"wire_codec={self.cfg['wire_codec']!r} with the grouped strategy needs the fused "
                 f"superstep (superstep_rounds > 1 or client_store='stream'): the K=1 "
                 f"host-orchestrated path reduces per level and has no single global psum "
                 f"to compress")
@@ -387,7 +399,8 @@ class GroupedRoundEngine(FlatParams):
                      aug_draws, codec_noise=None, codec_slots=None):
         """:meth:`train_round`'s body, which also takes a codec: its grid
         sized for ``codec_slots`` clients (default: :meth:`codec_slots` of
-        this round alone), ``codec_noise`` the int8 codec's draw."""
+        this round alone; under a per-level map a level's, :meth:`level_slots`),
+        ``codec_noise`` the codec's draw (:meth:`_merge`)."""
         user_idx = np.asarray(user_idx, np.int64).reshape(-1)
         rates_abs = cohort_rates(self.cfg, user_idx, round_seed, rates)
         snapped = snap_to_levels(rates_abs, self.levels)
@@ -396,8 +409,7 @@ class GroupedRoundEngine(FlatParams):
             by_level.setdefault(r, []).append(pos)
         dev = P.device
         lr_t = torch.full((), float(lr), dtype=torch.float32, device=dev)
-        summed = torch.zeros_like(P)
-        counts = torch.zeros_like(P)
+        sums: Dict[float, Tuple[torch.Tensor, torch.Tensor]] = {}
         acc = torch.zeros((len(user_idx), 3), dtype=torch.float32, device=dev)
         for rate in sorted(by_level, reverse=True):
             lv, pos = self.levels[rate], by_level[rate]
@@ -416,27 +428,114 @@ class GroupedRoundEngine(FlatParams):
                     None if aug_draws is None else
                     (lambda t, us=users: [aug_draws(u, t) for u in us]))
             cm = lv.count_masks(data[-1][uids])
-            summed.index_add_(0, lv.idx, (trained * cm).sum(0))
-            counts.index_add_(0, lv.idx, cm.sum(0))
+            sums[rate] = ((trained * cm).sum(0), cm.sum(0))
             acc[torch.as_tensor(pos, dtype=torch.int64).to(dev)] = acc_l
         ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
               "rate": rates_abs}
         if codec_slots is None:
             codec_slots = self.codec_slots(rates_abs[None])
-        return self._aggregate(P, summed, counts, round_seed, len(user_idx), codec_noise,
-                               cmax=codec_slots), ms
+        return self._merge(P, sums, round_seed, len(user_idx), codec_noise, codec_slots), ms
 
-    def codec_slots(self, rate_schedule) -> int:
-        """The clients a wire codec's grid is sized for over the ``[k, A]``
-        rates of a superstep, as the reference's one-device span layout
-        sizes it (ref grouped.py:900, :1305-1335): every level of the
-        engine times a level's slots, the most clients any level holds in
-        any of the k rounds, rounded up to a power of two."""
+    def level_slots(self, rate_schedule) -> int:
+        """A level's slots over the ``[k, A]`` rates of a superstep, as the
+        reference's one-device span layout counts them (ref grouped.py:
+        1305-1335): the most clients any level holds in any of the k
+        rounds, rounded up to a power of two.  A per-level map sizes each
+        lossy level's grid for it (ref grouped.py:1103-1159,
+        ``encode(..., per_dev)``)."""
         need = 1
         for row in np.asarray(rate_schedule, np.float32):
             snapped = snap_to_levels(row, self.levels)
             need = max([need] + [int(np.sum(snapped == rate)) for rate in self.levels])
-        return len(self.levels) * (1 << (need - 1).bit_length())
+        return 1 << (need - 1).bit_length()
+
+    def codec_slots(self, rate_schedule) -> int:
+        """The clients one wire codec's grid is sized for over the ``[k,
+        A]`` rates of a superstep (ref grouped.py:900): every level of the
+        engine times :meth:`level_slots`; under a per-level map, a level's
+        own :meth:`level_slots`."""
+        slots = self.level_slots(rate_schedule)
+        return slots if self.codec_map is not None else len(self.levels) * slots
+
+    # -- the per-level wire-codec map -----------------------------------------
+
+    @property
+    def lossy(self) -> bool:
+        return self.codec is not None or bool(self._map_codecs)
+
+    def _map_layout(self, ef: bool) -> None:
+        """The per-level map's layout (ref grouped.py:399-444): its keys
+        must be the level table; each lossy level gets a codec over its
+        sliced flat layout (the level model's) and the offset of its
+        columns in ONE residual ``[2, total_lossy]``, lossy levels in
+        descending rate (row 1 only written by ``topk``).  A map of dense
+        levels only is ``dense`` (``resolve_codec_cfg``)."""
+        if set(self.codec_map) != set(self.levels):
+            raise ValueError(
+                f"per-level wire_codec map keys {sorted(self.codec_map)} do not match the "
+                f"engine's level table {sorted(self.levels)}: every level needs exactly one "
+                f"codec")
+        off = 0
+        for rate, lv in self.levels.items():
+            name = self.codec_map[rate]
+            if name != "dense":
+                self._map_codecs[rate] = (make_codec(name, lv.spec, 1, error_feedback=ef), off)
+                off += lv.spec.total
+        self._total_lossy = off
+
+    def resid_shape(self) -> Tuple[int, int]:
+        if self.codec_map is None:
+            return super().resid_shape()
+        return (2, self._total_lossy)
+
+    def resid_segments(self) -> Sequence[Tuple[int, FlatSpec]]:
+        if self.codec_map is None:
+            return super().resid_segments()
+        return [(off, self.levels[rate].spec) for rate, (_, off) in self._map_codecs.items()]
+
+    def _merge(self, P: torch.Tensor, sums: Dict[float, Tuple[torch.Tensor, torch.Tensor]],
+               rseed: int, n_clients: int, codec_noise=None, cmax: int = 1) -> torch.Tensor:
+        """The round's new global params from each trained level's sliced
+        counted sums ``{rate: (s_l, c_l)}``: added into zero global
+        buffers at the level's entries, levels in descending rate (the
+        reference's ``merge``), then the uniform codec (its grid sized for
+        ``cmax`` clients) and the counted average.  Under a per-level map
+        (ref grouped.py:1103-1159) every lossy level -- trained or not, as
+        the reference runs every level's slots -- encodes its sliced sums
+        with its residual under its own codec on a grid sized for ``cmax``
+        slots and the global params at its entries, and is decoded before
+        it is added; a dense level adds its float32 sums.  ``codec_noise``:
+        the uniform codec's int8 noise, or under a map ``{rate: draw}`` (an
+        int8 level's noise ``[n_l]``, a topk level's block offset), test
+        hooks replacing the draws from ``rseed``."""
+        summed = torch.zeros_like(P)
+        counts = torch.zeros_like(P)
+        lossy = self.codec_map is not None and n_clients > 0
+        if lossy:
+            resid = self._ensure_resid(P.device)
+            new_resid = torch.zeros_like(resid)
+        for rate, lv in self.levels.items():  # descending rate
+            if rate in sums:
+                s_l, c_l = sums[rate]
+            elif lossy and rate in self._map_codecs:
+                s_l = c_l = torch.zeros(lv.spec.total, dtype=P.dtype, device=P.device)
+            else:
+                continue
+            if lossy and rate in self._map_codecs:
+                cobj, off = self._map_codecs[rate]
+                n, slots = lv.spec.total, cobj.resid_slots
+                draw = None if codec_noise is None else codec_noise.get(rate)
+                if draw is None:
+                    draw = cobj.draw(rseed, P.device)
+                s_l, c_l, new_resid[:slots, off:off + n] = compressed_sum(
+                    cobj, P.index_select(0, lv.idx), s_l, c_l, resid[:slots, off:off + n],
+                    draw, cmax)
+            summed.index_add_(0, lv.idx, s_l)
+            counts.index_add_(0, lv.idx, c_l)
+        if lossy:
+            self._resid = new_resid
+            return combine_counted(P, summed, counts)
+        return self._aggregate(P, summed, counts, rseed, n_clients, codec_noise, cmax=cmax)
 
     # -- the superstep: k rounds, each level's batched steps replayed ---------
 
@@ -557,8 +656,7 @@ class GroupedRoundEngine(FlatParams):
         [A, 3] device sums)``.  ``plan``: per level ``(rate, positions, user
         ids on the device, positions on the device)``; hooks as
         :meth:`train_superstep`'s, this round's."""
-        summed = torch.zeros_like(P)
-        counts = torch.zeros_like(P)
+        sums: Dict[float, Tuple[torch.Tensor, torch.Tensor]] = {}
         acc = torch.zeros((len(user_idx), 3), dtype=torch.float32, device=P.device)
         for rate, pos, uids, pos_dev in plan:
             lv = self.levels[rate]
@@ -569,11 +667,9 @@ class GroupedRoundEngine(FlatParams):
             for _ in range(st["steps"]):
                 step.replay()
             cm = lv.count_masks(data[-1][uids])
-            summed.index_add_(0, lv.idx, (st["p"][:, :lv.spec.total] * cm).sum(0))
-            counts.index_add_(0, lv.idx, cm.sum(0))
+            sums[rate] = ((st["p"][:, :lv.spec.total] * cm).sum(0), cm.sum(0))
             acc[pos_dev] = st["acc"]
-        return self._aggregate(P, summed, counts, rseed, len(user_idx), codec_noise,
-                               cmax=cmax), acc
+        return self._merge(P, sums, rseed, len(user_idx), codec_noise, cmax), acc
 
     def _plans(self, users: np.ndarray, rates: np.ndarray, device: torch.device):
         """Each round's levels (descending rate) with their slot positions

@@ -157,15 +157,30 @@ class FlatParams:
 
     # -- the wire codec's error-feedback carry ----------------------------
 
+    @property
+    def lossy(self) -> bool:
+        """Whether a round sends its sums through a lossy codec (and so
+        carries a residual)."""
+        return self.codec is not None
+
+    def resid_shape(self) -> Tuple[int, int]:
+        """The residual carry's shape, ``[resid_slots, total]``."""
+        return (self.codec.resid_slots, self.spec.total)
+
+    def resid_segments(self) -> Sequence[Tuple[int, FlatSpec]]:
+        """The residual's columns as ``(offset, flat layout)`` segments:
+        one over the whole model here; a per-level codec map has one a
+        lossy level (parallel/grouped.py)."""
+        return [(0, self.spec)]
+
     def _ensure_resid(self, device: torch.device) -> torch.Tensor:
         """The residual carry, zeros on first use."""
         if self._resid is None:
-            self._resid = torch.zeros((self.codec.resid_slots, self.spec.total),
-                                      dtype=torch.float32, device=device)
+            self._resid = torch.zeros(self.resid_shape(), dtype=torch.float32, device=device)
         return self._resid
 
     def wire_resid_host(self) -> Optional[np.ndarray]:
-        """Host copy of the residual carry ``[resid_slots, total]`` (for a
+        """Host copy of the residual carry (:meth:`resid_shape`; for a
         checkpoint); None under ``dense`` or before the first compressed
         round."""
         return None if self._resid is None else self._resid.cpu().numpy()
@@ -173,7 +188,7 @@ class FlatParams:
     def set_wire_resid(self, arr) -> None:
         """Restore the residual carry (from a checkpoint) onto the device."""
         host = torch.as_tensor(np.asarray(arr, np.float32))
-        want = (self.codec.resid_slots, self.spec.total)
+        want = tuple(self.resid_shape())
         if tuple(host.shape) != want:
             raise ValueError(f"wire residual of shape {tuple(host.shape)}, want {want}")
         self._resid = host.to(self.device)
@@ -596,12 +611,13 @@ class RoundEngine(FlatParams):
                                st["t"].zero_, [self._ggen])
         return step, st
 
-    def stage_client(self, st, P: torch.Tensor, wr: float, uid: int, data, cseed: int) -> None:
+    def stage_client(self, st, P: torch.Tensor, wr: float, uid: int, data, cseed: int,
+                     raw_perms: Optional[np.ndarray] = None) -> None:
         """Eager set-up of one client into the static buffers: the masked
         params, zero momentum and sums, the step counter at 0, its data and
         (vision) its epoch permutations with real samples first, drawn from
         the step's generator reseeded for the client -- ``local_train``'s
-        prologue."""
+        prologue (``raw_perms`` its hook)."""
         gen = self._ggen
         gen.manual_seed(cseed)
         torch.mul(P, self.param_mask_flat(wr), out=st["p"])
@@ -617,13 +633,15 @@ class RoundEngine(FlatParams):
         st["x"].copy_(data[0][uid])
         st["y"].copy_(data[1][uid])
         st["sm"].copy_(data[2][uid])
-        st["perms"].copy_(self._epoch_perms(gen, data[2][uid]).reshape(-1))
+        st["perms"].copy_(self._epoch_perms(gen, data[2][uid], raw_perms).reshape(-1))
 
     def _replayed_round(self, P: torch.Tensor, user_idx: np.ndarray, rates_abs: np.ndarray,
-                        data, rseed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                        data, rseed: int, epoch_perms=None, codec_noise=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One round of the superstep: per client the eager set-up, then its
         steps replayed; aggregation (and the codec) on the device as
-        :meth:`train_round` -> ``(new P, [A, 3] device sums)``."""
+        :meth:`train_round` -> ``(new P, [A, 3] device sums)``; hooks as
+        :meth:`train_superstep`'s, this round's."""
         wrs = to_width_rates(rates_abs, self.cfg)
         summed = torch.zeros_like(P)
         counts = torch.zeros_like(P)
@@ -631,7 +649,8 @@ class RoundEngine(FlatParams):
         for slot, uid in enumerate(user_idx.tolist()):
             wr = float(wrs[slot])
             step, st = self.client_step(wr, P, data)
-            self.stage_client(st, P, wr, uid, data, client_seed(rseed, uid))
+            self.stage_client(st, P, wr, uid, data, client_seed(rseed, uid),
+                              None if epoch_perms is None else epoch_perms[uid])
             for _ in range(st["steps"]):
                 step.replay()
             cm = self.count_mask_flat(wr, data[-1][uid])
@@ -639,11 +658,14 @@ class RoundEngine(FlatParams):
             counts += cm
             rows.append(st["acc"].clone())
         acc = torch.stack(rows) if rows else P.new_zeros((0, 3))
-        return self._aggregate(P, summed, counts, rseed, len(rows)), acc
+        return self._aggregate(P, summed, counts, rseed, len(rows), codec_noise), acc
 
     def train_superstep(self, P: torch.Tensor, seed: int, epoch0: int, k: int,
                         data: Tuple[torch.Tensor, ...], user_schedule, rate_schedule, lrs,
-                        eval_mask=None, fused_eval=None) -> Tuple[torch.Tensor, PendingMetrics]:
+                        eval_mask=None, fused_eval=None,
+                        epoch_perms: Optional[Sequence[Dict[int, np.ndarray]]] = None,
+                        codec_noise: Optional[Sequence[torch.Tensor]] = None
+                        ) -> Tuple[torch.Tensor, PendingMetrics]:
         """Rounds ``epoch0 .. epoch0 + k - 1`` with no host read between
         them (ref parallel/round_engine.py:1487-1767): round r trains the
         cohort ``user_schedule[r]`` at the absolute rates
@@ -654,9 +676,14 @@ class RoundEngine(FlatParams):
         fires, ``fused_eval`` evaluates the round's params.  Returns the new
         params and the :class:`~.staging.PendingMetrics` whose ``fetch()``
         yields k per-round dicts, or ``{"train", "eval"}``; its timers are
-        ``train`` and ``eval``."""
+        ``train`` and ``eval``.  Test hooks, which replace a draw from the
+        round seed, one entry a round: ``epoch_perms[r]`` ``{uid: [E, N]}``
+        raw permutations (vision), ``codec_noise[r]`` the int8 codec's
+        noise."""
         st = self._slots(P, data)
         return self._superstep(
             P, seed, epoch0, k, user_schedule, rate_schedule, lrs, eval_mask, fused_eval,
             st["lr"], lambda P, r, users, rates, rseed: self._replayed_round(
-                P, users, rates, data, rseed))
+                P, users, rates, data, rseed,
+                None if epoch_perms is None else epoch_perms[r],
+                None if codec_noise is None else codec_noise[r]))

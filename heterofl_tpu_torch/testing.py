@@ -11,9 +11,14 @@ measured, one ``parity`` line per check, so the differences recorded in
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Iterator, Tuple
 
 import numpy as np
+import torch
+
+#: torch's intra-op threads a port test runs on
+TEST_THREADS = 2
 
 
 def _host(a) -> np.ndarray:
@@ -70,3 +75,40 @@ def assert_grid_close(what: str, actual, desired, step, *, atol: float, max_shar
     if not np.all(diff[off] <= st[off] + atol):
         raise AssertionError(f"{what}: an entry differs by more than one grid step")
     return max_abs, share
+
+
+@contextlib.contextmanager
+def limited_threads(deterministic: bool = False) -> Iterator[None]:
+    """Run the body on at most :data:`TEST_THREADS` torch threads (and, with
+    ``deterministic``, under ``torch.use_deterministic_algorithms``), and
+    put both settings back after.  The port's CPU tests run many small
+    ops, each a short parallel region; several test processes side by side,
+    each at torch's default of a thread a core, leave those regions waiting
+    on descheduled threads (a file that takes 12.8 s alone took 374 s
+    beside one other process)."""
+    before_threads = torch.get_num_threads()
+    before_det = torch.are_deterministic_algorithms_enabled()
+    torch.set_num_threads(min(before_threads, TEST_THREADS))
+    if deterministic:
+        torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before_det)
+        torch.set_num_threads(before_threads)
+
+
+def thread_limit_fixture(deterministic: bool = False):
+    """An autouse pytest fixture that runs each test of the module that
+    binds it under :func:`limited_threads`::
+
+        few_threads = thread_limit_fixture()
+    """
+    import pytest  # the tests' dependency, not the package's
+
+    @pytest.fixture(autouse=True)
+    def _limited_threads():
+        with limited_threads(deterministic):
+            yield
+
+    return _limited_threads

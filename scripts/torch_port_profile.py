@@ -45,6 +45,14 @@ profile is then taken of the replayed steps (launches a step under
 replay, the device's busy share), and the captures' seconds and pool bytes
 are printed.
 
+``--compute_dtype bfloat16`` runs each conv's and linear's operands in
+bf16 (float32 accumulation) and ``--conv_impl im2col`` computes each
+convolution as patch extraction plus a matmul (with ``--clients G`` one
+batched matmul of each client's patches by its own weights instead of the
+grouped convolution); the device time is then bucketed into convolutions,
+cuDNN's layout transposes, matmuls, the port's BN and SGD kernels and the
+rest.
+
 ``--device cpu --samples 20`` rehearses the control flow on the CPU (no
 device numbers come out of that).
 """
@@ -67,8 +75,8 @@ ROUTES = [("bn kernel + sgd kernel", True, True), ("bn two-pass + sgd kernel", F
 BUCKETS = [("port bn kernels", ("bn_fwd_", "bn_bwd_")),
            ("port sgd kernel", ("sgd_norm_partial", "sgd_apply", "sgd_batched")),
            ("cudnn layout transposes", ("nhwctonchw", "nchwtonhwc")),
-           ("convolution", ("conv", "cudnn", "gemm", "xmma", "sm90_", "implicit", "winograd",
-                            "dgrad", "wgrad", "fprop"))]
+           ("convolution", ("conv", "cudnn", "implicit", "winograd", "dgrad", "wgrad", "fprop")),
+           ("matmul", ("gemm", "xmma", "sm90_", "cutlass", "gemv", "nvjet"))]
 
 
 def bucket_of(name: str) -> str:
@@ -148,6 +156,8 @@ def main(argv=None) -> int:
                     help="G > 0: the grouped engine's step of G clients at --width")
     ap.add_argument("--graph", action="store_true",
                     help="eager against replayed steps against one graph a client")
+    ap.add_argument("--compute_dtype", default="float32", help="float32 or bfloat16")
+    ap.add_argument("--conv_impl", default="direct", help="direct or im2col")
     ap.add_argument("--out", default=None, help="write the results here as JSON")
     args = ap.parse_args(argv)
 
@@ -161,7 +171,8 @@ def main(argv=None) -> int:
     from heterofl_tpu_torch.parallel import GroupedRoundEngine, RoundEngine
 
     dev = resolve_device({"device": args.device})
-    out = {"device": str(dev), "model": args.model, "width": args.width}
+    out = {"device": str(dev), "model": args.model, "width": args.width,
+           "compute_dtype": args.compute_dtype, "conv_impl": args.conv_impl}
     if dev.type == "cuda":
         out["card"] = torch.cuda.get_device_name(0)
         out["nvidia_smi"] = subprocess.run(
@@ -188,6 +199,7 @@ def main(argv=None) -> int:
         cfg["pallas_norm"] = bn_kernel
         cfg["fused_update"] = sgd_kernel
         cfg["override"] = {"num_epochs": {"global": 1, "local": 1}}
+        cfg["compute_dtype"], cfg["conv_impl"] = args.compute_dtype, args.conv_impl
         cfg = C.process_control(cfg)
         cfg["classes_size"] = 10
         model = make_model(cfg).init_(torch.Generator().manual_seed(0)).to(dev)

@@ -27,6 +27,9 @@ from heterofl_tpu_torch.ops import _build, fused_norm
 from heterofl_tpu_torch.ops.fused_norm import (BN_MAX_CLUSTER, BN_MAX_TILE_C, BN_SMEM_LIMIT,
                                                BN_STATIC_SMEM, BN_STATIC_SMEM_BATCHED,
                                                BN_THREADS, bn_plan, bn_plan_batched, stage_bytes)
+from heterofl_tpu_torch.testing import thread_limit_fixture
+
+few_threads = thread_limit_fixture()
 
 SHAPES = [
     (10240, 64), (2560, 128), (640, 256), (160, 512),  # ResNet-18, CIFAR10 at batch 10

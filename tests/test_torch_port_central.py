@@ -23,8 +23,10 @@ from heterofl_tpu_torch.convert import params_from_jax, params_to_jax
 from heterofl_tpu_torch.entry import test_classifier, train_classifier
 from heterofl_tpu_torch.entry.central import CentralEngine, CentralExperiment
 from heterofl_tpu_torch.models import make_model
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
 from heterofl_tpu_torch.utils import checkpoint as ckpt
+
+few_threads = thread_limit_fixture()
 
 CONTROL = "1_1_1_none_fix_a1_bn_1_1"
 TAG = f"0_MNIST_label_conv_{CONTROL}"

@@ -32,9 +32,11 @@ from heterofl_tpu_torch.models import make_model
 from heterofl_tpu_torch.ops import quant
 from heterofl_tpu_torch.ops.fused_update import FlatSpec
 from heterofl_tpu_torch.parallel import RoundEngine
-from heterofl_tpu_torch.testing import assert_close, assert_grid_close
+from heterofl_tpu_torch.testing import assert_close, assert_grid_close, thread_limit_fixture
 
 from test_torch_port_round import CONTROL, LR, _data
+
+few_threads = thread_limit_fixture()
 
 RATE_LM = np.array([[1, 1, 0, 0, 0, 0, 0, 0, 0, 0],
                     [0, 0, 1, 1, 0, 0, 0, 0, 0, 0],

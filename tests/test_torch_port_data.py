@@ -12,6 +12,9 @@ from heterofl_tpu.data import split_dataset as r_split
 from heterofl_tpu.data import stack_client_shards as r_stack
 from heterofl_tpu_torch import config as PC
 from heterofl_tpu_torch.data import fetch_dataset, label_split_masks, split_dataset, stack_client_shards
+from heterofl_tpu_torch.testing import thread_limit_fixture
+
+few_threads = thread_limit_fixture()
 
 # keys the port reads from a processed cfg
 PORT_KEYS = ("control_name", "model_split_rate", "fed", "num_users", "frac", "data_split_mode",

@@ -33,6 +33,9 @@ from heterofl_tpu_torch.entry.common import FedExperiment, round_seed
 from heterofl_tpu_torch.fed import round_rates, validate_width_geometry
 from heterofl_tpu_torch.models import make_model
 from heterofl_tpu_torch.utils import checkpoint as ckpt
+from heterofl_tpu_torch.testing import thread_limit_fixture
+
+few_threads = thread_limit_fixture()
 
 PORT_KEYS = ("model_rate", "proportion", "model_split_mode", "global_model_rate",
              "global_model_mode", "num_users", "frac", "norm", "model_mode", "control_name")

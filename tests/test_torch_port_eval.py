@@ -28,8 +28,10 @@ from heterofl_tpu_torch.entry.common import FedExperiment, stage_eval_operands
 from heterofl_tpu_torch.models import make_model
 from heterofl_tpu_torch.ops import layers
 from heterofl_tpu_torch.parallel import Evaluator
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
 from heterofl_tpu_torch.utils import summarize_sums
+
+few_threads = thread_limit_fixture()
 
 HIDDEN = {"conv": {"conv": {"hidden_size": [8, 16]}},
           "resnet18": {"resnet": {"hidden_size": [8, 16, 16, 16]}}}

@@ -42,10 +42,12 @@ from heterofl_tpu_torch.entry.common import FedExperiment
 from heterofl_tpu_torch.fed.sliced import SlicedFederation
 from heterofl_tpu_torch.models import make_model
 from heterofl_tpu_torch.parallel import GroupedRoundEngine, RoundEngine
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
 from test_torch_port_lm import BPTT, SMALL, V, draws_of
 from test_torch_port_lm import _cfg as lm_cfg
 from test_torch_port_round import reference_draws
+
+few_threads = thread_limit_fixture()
 
 LR = 0.05
 TOL_GROUPED = (5e-4, 5e-5)  # rtol, atol of grouped == masked == sliced (reference contract)

@@ -31,7 +31,9 @@ from heterofl_tpu_torch.models import make_model
 from heterofl_tpu_torch.ops import fused_norm, fused_update
 from heterofl_tpu_torch.ops.fused_update import FlatSpec
 from heterofl_tpu_torch.ops.layers import clients_in_channels
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
+
+few_threads = thread_limit_fixture()
 
 LEVELS = (1.0, 0.5, 0.25, 0.125, 0.0625)
 MODELS = {  # model -> (data, override)

@@ -40,24 +40,15 @@ from heterofl_tpu_torch.compress.codecs import QUANT_NOISE_SALT
 from heterofl_tpu_torch.convert import params_from_jax
 from heterofl_tpu_torch.models import make_model
 from heterofl_tpu_torch.parallel import GroupedRoundEngine
-from heterofl_tpu_torch.testing import assert_close, assert_grid_close
+from heterofl_tpu_torch.testing import assert_close, assert_grid_close, thread_limit_fixture
 from test_torch_port_grouped import _vision_data
 from test_torch_port_round import reference_draws
 
 CONTROL = "1_6_1_iid_fix_a2-c2-e2_bn_1_1"  # users 0, 1 at level a; 2, 3 at c; 4, 5 at e
 USERS = np.array([[0, 1, 2, 4], [3, 4, 5, 0]])  # [k, A]: level a twice, then level e twice
 LR, EPOCH0 = 0.05, 3
-THREADS = 2
 
-
-@pytest.fixture(autouse=True)
-def few_threads():
-    """Two threads: small shapes make many short parallel regions, which
-    stall on descheduled threads beside other test processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(min(threads, THREADS))
-    yield
-    torch.set_num_threads(threads)
+few_threads = thread_limit_fixture()
 
 
 def _cfg(mod):

@@ -7,6 +7,10 @@ import os
 import subprocess
 import sys
 
+from heterofl_tpu_torch.testing import thread_limit_fixture
+
+few_threads = thread_limit_fixture()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "heterofl_tpu_torch")
 

@@ -32,9 +32,11 @@ from heterofl_tpu_torch import config as PC
 from heterofl_tpu_torch.convert import flat_from_jax, flat_to_jax, params_to_jax
 from heterofl_tpu_torch.entry import test_classifier_fed, train_classifier_fed
 from heterofl_tpu_torch.entry.common import FedExperiment
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
 from heterofl_tpu_torch.utils import Logger, PlateauScheduler, make_optimizer, make_scheduler
 from heterofl_tpu_torch.utils import checkpoint as ckpt
+
+few_threads = thread_limit_fixture()
 
 CONTROL = "1_4_0.5_iid_fix_a1-e1_bn_1_1"
 TAG = f"0_MNIST_label_conv_{CONTROL}"

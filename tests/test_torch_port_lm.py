@@ -47,7 +47,9 @@ from heterofl_tpu_torch.entry.central import CentralEngine
 from heterofl_tpu_torch.models import make_model
 from heterofl_tpu_torch.models.spec import mask_params, param_mask
 from heterofl_tpu_torch.parallel import Evaluator, RoundEngine
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
+
+few_threads = thread_limit_fixture()
 
 V, E, H, F, L, BPTT, DROP, MR = 50, 128, 4, 64, 2, 16, 0.2, 0.15
 SMALL = {"transformer": {"embedding_size": E, "num_heads": H, "hidden_size": F,

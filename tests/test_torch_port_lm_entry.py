@@ -27,8 +27,10 @@ from heterofl_tpu_torch.entry import (test_transformer, test_transformer_fed, tr
                                       train_transformer_fed)
 from heterofl_tpu_torch.entry.common import FedExperiment
 from heterofl_tpu_torch.models import make_model
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
 from heterofl_tpu_torch.utils import checkpoint as ckpt
+
+few_threads = thread_limit_fixture()
 
 CONTROL = "1_4_0.5_iid_fix_a1-e1_bn_1_1"
 TAG = f"0_WikiText2_label_transformer_{CONTROL}"

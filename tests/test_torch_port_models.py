@@ -17,7 +17,9 @@ from heterofl_tpu.models.spec import mask_params as r_mask_params
 from heterofl_tpu_torch import config as PC
 from heterofl_tpu_torch.convert import params_from_jax, params_to_jax
 from heterofl_tpu_torch.models import count_masks, make_model, mask_params
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
+
+few_threads = thread_limit_fixture()
 
 HIDDEN = {"conv": {"conv": {"hidden_size": [8, 16]}},
           "resnet18": {"resnet": {"hidden_size": [8, 16, 16, 16]}}}

@@ -29,7 +29,9 @@ from heterofl_tpu_torch.models import make_model, mask_params
 from heterofl_tpu_torch.models.norms import apply_norm
 from heterofl_tpu_torch.models.spec import Group
 from heterofl_tpu_torch.ops.layers import group_onehot
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
+
+few_threads = thread_limit_fixture()
 
 NORMS = ("in", "ln", "gn")
 LEVELS = {"a": 1.0, "e": 0.0625}

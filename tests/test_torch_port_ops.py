@@ -20,9 +20,11 @@ from heterofl_tpu.ops.pallas_norm import _call_fwd as r_bn_call_fwd
 from heterofl_tpu.ops.pallas_norm import batch_norm_pallas
 from heterofl_tpu_torch.ops import augment, fused_norm, fused_update, layers
 from heterofl_tpu_torch.ops.fused_update import FlatSpec, fused_sgd_flat, fused_sgd_plain, make_scal
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
 from heterofl_tpu_torch.utils import clip_by_global_norm, sgd_update
 
+
+few_threads = thread_limit_fixture()
 
 def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2)

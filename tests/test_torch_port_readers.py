@@ -24,8 +24,10 @@ from heterofl_tpu.entry.common import _maybe_compute_norm_stats as r_maybe_stats
 from heterofl_tpu_torch.data import fetch_dataset, stats
 from heterofl_tpu_torch.entry import test_classifier, train_classifier
 from heterofl_tpu_torch.entry.common import _maybe_compute_norm_stats
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
 from heterofl_tpu_torch.utils import checkpoint as ckpt
+
+few_threads = thread_limit_fixture()
 
 EMNIST_CLASSES = {"byclass": 62, "bymerge": 47, "balanced": 47, "letters": 26, "digits": 10,
                   "mnist": 10}

@@ -30,7 +30,9 @@ from heterofl_tpu_torch.entry import train_classifier_fed
 from heterofl_tpu_torch.entry.common import FedExperiment
 from heterofl_tpu_torch.models import make_model
 from heterofl_tpu_torch.parallel import RoundEngine
-from heterofl_tpu_torch.testing import assert_close
+from heterofl_tpu_torch.testing import assert_close, thread_limit_fixture
+
+few_threads = thread_limit_fixture()
 
 CONTROL = "1_4_1_iid_fix_a1-b1-c1-e1_bn_1_1"  # rates 1, 0.5, 0.25, 0.0625
 OVERRIDE = {"num_epochs": {"local": 2}, "conv": {"hidden_size": [8, 16]}}

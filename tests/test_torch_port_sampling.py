@@ -21,7 +21,10 @@ from heterofl_tpu_torch.fed import core
 from heterofl_tpu_torch.fed import sampling as S
 from heterofl_tpu_torch.parallel.staging import MetricsPipeline, PendingMetrics, host_fetch
 from heterofl_tpu_torch.utils.optim import PlateauScheduler, make_scheduler, superstep_lrs
+from heterofl_tpu_torch.testing import thread_limit_fixture
 
+
+few_threads = thread_limit_fixture()
 
 def _reference_keys(round_key, num_users):
     """The reference's Feistel round keys of a round: the salted sample key,
@@ -168,16 +171,17 @@ def test_superstep_config_accepts():
 
 def test_grouped_lossy_codec_needs_the_superstep():
     """A lossy codec with ``grouped`` is refused at K=1 and accepted at
-    K > 1, by both packages' codec checks; a per-level map with a lossy
-    level is not ported (the reference runs it)."""
+    K > 1, by both packages' codec checks; so is a per-level map with a
+    lossy level (tests/test_torch_port_codec_map.py holds it against the
+    reference's superstep)."""
     for resolve in (r_resolve_codec, resolve_codec_cfg):
-        with pytest.raises(ValueError, match="K=1 host-orchestrated path"):
-            resolve({"wire_codec": "int8", "strategy": "grouped"})
+        for codec in ("int8", {"1.0": "int8"}):
+            with pytest.raises(ValueError, match="K=1 host-orchestrated path"):
+                resolve({"wire_codec": codec, "strategy": "grouped"})
     assert resolve_codec_cfg({"wire_codec": "int8", "strategy": "grouped",
                               "superstep_rounds": 2})[0] == "int8"
-    with pytest.raises(NotImplementedError, match="per-level map"):
-        resolve_codec_cfg({"wire_codec": {"1.0": "int8"}, "strategy": "grouped",
-                           "superstep_rounds": 2})
+    assert resolve_codec_cfg({"wire_codec": {"1.0": "int8"}, "strategy": "grouped",
+                              "superstep_rounds": 2})[0] == {1.0: "int8"}
 
 
 @pytest.mark.parametrize("fetch_every", [1, 3, 6])

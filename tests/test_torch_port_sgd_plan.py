@@ -26,6 +26,9 @@ from heterofl_tpu_torch.ops.fused_update import (SGD_CLUSTER_PARTS, SGD_MAX_PART
                                                  SGD_THREADS, SGD_WIDE_ITEMS, FlatSpec,
                                                  sgd_parts, sgd_plan_batched)
 from heterofl_tpu_torch.parallel.grouped import Level, row_stride
+from heterofl_tpu_torch.testing import thread_limit_fixture
+
+few_threads = thread_limit_fixture()
 
 # parameters of a client at levels a-e (rates 1 to 1/16): full-width
 # ResNet-18 on CIFAR10 and the transformer on WikiText2 (vocabulary 512),

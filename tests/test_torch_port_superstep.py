@@ -24,30 +24,16 @@ from heterofl_tpu_torch.entry.common import FedExperiment
 from heterofl_tpu_torch.fed.core import (round_seed, superstep_rate_schedule,
                                          superstep_user_schedule)
 from heterofl_tpu_torch.parallel import client_seed
+from heterofl_tpu_torch.testing import thread_limit_fixture
 from heterofl_tpu_torch.utils import checkpoint_path, load_checkpoint
 from heterofl_tpu_torch.utils.checkpoint import generation_path
 from heterofl_tpu_torch.utils.optim import superstep_lrs
 
-THREADS = 2
-
-
-@pytest.fixture(autouse=True)
-def deterministic():
-    """Every test here runs under PyTorch's deterministic algorithms: on the
-    CPU an LM round alone differs from itself run to run (about 1e-8 on
-    params: the accumulate into the token embedding's gradient over
-    repeated tokens), so no two runs of it could be held bit for bit.  And
-    on two threads: these small shapes make many short parallel regions,
-    and with a thread a core in each of several test processes they wait
-    on descheduled threads (the file took 12.8 s alone and 374 s beside
-    one other process)."""
-    before = torch.are_deterministic_algorithms_enabled()
-    threads = torch.get_num_threads()
-    torch.use_deterministic_algorithms(True)
-    torch.set_num_threads(min(threads, THREADS))
-    yield
-    torch.set_num_threads(threads)
-    torch.use_deterministic_algorithms(before)
+# Every test here runs under PyTorch's deterministic algorithms: on the CPU
+# an LM round alone differs from itself run to run (about 1e-8 on params:
+# the accumulate into the token embedding's gradient over repeated tokens),
+# so no two runs of it could be held bit for bit.
+deterministic = thread_limit_fixture(deterministic=True)
 
 
 DATA = {"conv": "MNIST", "resnet18": "CIFAR10", "transformer": "WikiText2"}
