@@ -136,7 +136,26 @@ each prints its seconds:
    ``CODEC_MAP`` (three rounds, round 3 resumed at the superstep boundary
    equal bit for bit, params and the concatenated residual), and the
    quantise-and-pack kernel held and timed at its int8 levels' sliced n;
-10. the ``kernels`` JSON line (launches from the int8 path, the batched
+10. the client scheduler (``--schedule``, ``--client_failure_rate``), its
+   paths cut to ``SCENARIO_SIZES`` (five steps a client, one evaluation a
+   run): (a) the fused SGD with ``has`` 0 leaves its buffers bit for bit,
+   and kernel 3b at (level a, G 2) and (level e, G 4) with ``has`` rows
+   ``[1, 0, ...]`` leaves the gated rows bit for bit and gives the live row
+   the one-client kernel's bits; (b) the masked headline with markov
+   availability, a deadline, buffered aggregation and client failures,
+   three rounds eagerly and as supersteps, equal bit for bit, its steps
+   (launches and replays) equal to the budgets of the clients that
+   trained, and round 3 resumed from the boundary checkpoint (its
+   ``sched_buf`` non-zero) equal to the uninterrupted run; (c) the grouped
+   headline superstep with a trace that leaves slots unfilled, a deadline
+   and buffered aggregation, resumed at the boundary bit for bit, kernel
+   3b replayed to each level's largest budget; one grouped int8 round with
+   unfilled slots on the card against the CPU; (d) the LM control's
+   superstep with a deadline and buffered aggregation against its K=1
+   rounds bit for bit.  Each run prints its host-clock seconds, its steps
+   against the lockstep budget, its slots filled and failed and its
+   kernels by name;
+11. the ``kernels`` JSON line (launches from the int8 path, the batched
    kernels' from the grouped path; per path in ``launches_by_path``, and
    the superstep's launches from replays -- a graph's captured launches
    times its replays -- in ``replayed_launches_by_path``), then the ``ok``
@@ -255,6 +274,16 @@ IM2COL_SIZES = {"train": 2000, "test": 1000}  # the im2col rounds: two steps a c
 TOL_IM2COL = 1e-3  # max |params| difference, im2col round vs direct round (as TOL_ROUND)
 # the per-level map: a dense level, two int8 levels and the other two codecs
 CODEC_MAP = {"1": "dense", "0.5": "int8", "0.25": "int8", "0.125": "signsgd", "0.0625": "topk"}
+# the client scheduler's paths (phase 10): depth cut to 50 train images a client (5 steps a
+# client, a local epoch), 1,000 test images and one evaluation a run; full widths
+SCENARIO_SIZES = {"train": 5000, "test": 1000}
+SCENARIO_ROUNDS = 3  # a superstep of two and the clamped tail of one
+SCENARIO_MIN_FRAC = 0.5
+SCENARIO_FAIL = 0.1
+SCENARIO_MASKED = {"kind": "markov", "deadline": {"min_frac": SCENARIO_MIN_FRAC},
+                   "aggregation": "buffered"}
+SCENARIO_TRACE_AVAIL = (6, 100, 4)  # users available in each round of the grouped trace
+SCENARIO_LM_SIZES = {"train": 256000, "test": 24576}  # 40 steps a client
 # ResNet-50 at full width on CIFAR10 (23,513,162 parameters, 49 BN sites a
 # step); its card-vs-CPU round: a level-a and a level-e client of 20
 # samples, 2 steps each (level e is chaotic over more steps; a batch of
@@ -2733,6 +2762,338 @@ def codec_map_path(torch, counters, out_dir: str, local_epochs: int, quant, code
     return launches, resumed, replayed, by_level
 
 
+def gate_kernel_phase(torch, fused_update, level_n) -> None:
+    """The kernels under the scheduler's gates (phase 10a): the one-client
+    fused SGD with ``has`` 0 at ResNet-18's n leaves ``p`` and ``buf`` bit
+    for bit; kernel 3b at (level a, G 2) and (level e, G 4) with ``has``
+    rows ``[1, 0, ...]`` (a deadline's or a padding slot's gated rows):
+    the gated rows bit for bit untouched, the live row bit for bit the
+    one-client kernel's on it."""
+    from heterofl_tpu_torch.parallel.grouped import row_stride
+
+    kw = dict(momentum=0.9, weight_decay=5e-4, max_norm=1.0)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = level_n[1.0]
+    g, p, buf = (torch.randn(n, device=dev, generator=gen) for _ in range(3))
+    mask = (torch.rand(n, device=dev, generator=gen) < 0.9).to(torch.float32)
+    p0, b0 = p.clone(), buf.clone()
+    fused_update.fused_sgd_cuda(g, p, buf, mask, torch.tensor([7.0, 0.1, 0.0], device=dev), **kw)
+    torch.cuda.synchronize()
+    if not (same_bits(torch, p, p0) and same_bits(torch, buf, b0)):
+        raise AssertionError("fused_sgd with has 0 moved p or buf")
+    say(f"  fused_sgd n={n} with has 0: p and buf bit for bit untouched")
+    for rate, G in ((1.0, 2), (0.0625, 4)):
+        n = level_n[rate]
+        ld = row_stride(n)
+        g, p0, b0, mask, scal, _ = sgd_batched_inputs(torch, gen, n, G, ld)
+        scal[:, 2] = 0.0
+        scal[0, 2] = 1.0
+        (_, p_k), (_, b_k) = padded_copy(torch, p0, ld), padded_copy(torch, b0, ld)
+        fused_update.fused_sgd_batched_cuda(g, p_k, b_k, mask, scal, **kw)
+        pu, bu = p0[0].clone(), b0[0].clone()
+        fused_update.fused_sgd_cuda(g[0].clone(), pu, bu, mask, scal[0].clone(), **kw)
+        torch.cuda.synchronize()
+        if not (same_bits(torch, p_k[1:], p0[1:]) and same_bits(torch, b_k[1:], b0[1:])):
+            raise AssertionError(f"fused_sgd_batched level {rate:g} G {G}: a gated row moved")
+        if not (same_bits(torch, p_k[0], pu) and same_bits(torch, b_k[0], bu)):
+            raise AssertionError(f"fused_sgd_batched level {rate:g} G {G}: the live row differs "
+                                 f"from the one-client kernel")
+        say(f"  fused_sgd_batched level {rate:g} G {G} (n={n}), has rows [1, 0, ...]: the gated "
+            f"rows bit for bit untouched, the live row bit for bit the one-client kernel's")
+
+
+def scenario_argv(out_dir: str, rounds: int, schedule, *extra, codec: str = "dense"):
+    """The headline control's flags with a schedule, on ``SCENARIO_SIZES``,
+    one local epoch, evaluated after the last round only."""
+    return ["--control_name", HEADLINE, "--synthetic", "1", "--synthetic_sizes",
+            json.dumps(SCENARIO_SIZES), "--pallas_norm", "1", "--fused_update", "1",
+            "--wire_codec", codec, "--eval_interval", str(SCENARIO_ROUNDS),
+            "--output_dir", out_dir, "--schedule", json.dumps(schedule),
+            "--override", json.dumps({"num_epochs": {"global": rounds, "local": 1}}), *extra]
+
+
+def scenario_steps(hist, total: int, rates, min_frac: float):
+    """The local steps a scenario run's rounds took, from its logged cohorts
+    and the port's own deadline draws (``deadline_steps`` at each round's
+    seed, experiment seed 0): the masked engine steps each slot that
+    trained (rate above 0) to its budget; the grouped engine steps each
+    level to its largest budget (a level of padding only: 0) ->
+    (masked steps, grouped level-steps, lockstep client-steps)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.fed.core import round_seed
+    from heterofl_tpu_torch.sched.deadline import deadline_steps
+
+    masked = grouped = lockstep = 0
+    for r in hist:
+        users = np.asarray(r["users"], np.int64)
+        trained = np.asarray(r["user_rates"]) > 0
+        lim = np.where(trained, np.minimum(
+            deadline_steps(round_seed(0, r["epoch"]), users, total, min_frac), total), 0)
+        masked += int(lim.sum())
+        levels = np.asarray(rates)[users]  # a -1 slot at the last user's level
+        grouped += sum(int(lim[levels == lv].max()) for lv in set(levels.tolist()))
+        lockstep += total * users.size
+    return masked, grouped, lockstep
+
+
+def say_slots(what: str, hist) -> None:
+    for r in hist:
+        say(f"  {what} round {r['epoch']}: users {r['users']}; {r['filled']} of "
+            f"{len(r['users'])} slots filled, {r['failed']} failed; n {r['n']:.0f}; loss "
+            f"{r['loss']:.6f}")
+
+
+def scenario_masked_path(torch, counters, out_dir: str):
+    """Phase 10b: ``train_classifier_fed`` on the headline control at full
+    width with ``--schedule SCENARIO_MASKED --client_failure_rate
+    SCENARIO_FAIL`` (markov availability, a deadline, buffered
+    aggregation), three rounds eagerly and as ``--superstep_rounds 2``
+    (two and the clamped tail), under cuDNN's deterministic algorithms:
+    the same cohorts, params, staleness buffer and round metrics bit for
+    bit; the steps each run took (its fused-SGD launches, eager; from
+    replays, the superstep, with 17 BN launches a step) equal the budgets
+    of the clients that trained; then two rounds and round 3 resumed from
+    their checkpoint, whose ``sched_buf`` is non-zero, equal to the
+    uninterrupted superstep run bit for bit -> (launches, replayed)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.parallel import step_graph
+    from heterofl_tpu_torch.utils import checkpoint_path, load_checkpoint
+
+    extra = ("--client_failure_rate", str(SCENARIO_FAIL))
+    ss = ("--superstep_rounds", str(SS_ROUNDS))
+    runs, secs, launches, replayed = {}, {}, {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for run, more in (("eager", ()), ("superstep", ss)):
+            argv = scenario_argv(os.path.join(out_dir, run), SCENARIO_ROUNDS, SCENARIO_MASKED,
+                                 *extra, *more)
+            say(f"scenario masked ({run}): train_classifier_fed {' '.join(argv)}")
+            step_graph.reset_stats()
+            zero(counters)
+            t0 = time.time()
+            (runs[run],) = train_classifier_fed.main(argv)
+            torch.cuda.synchronize()
+            secs[run] = time.time() - t0
+            launches[run], replayed[run] = read(counters), dict(step_graph.REPLAYED)
+        cut = os.path.join(out_dir, "cut")
+        train_classifier_fed.main(scenario_argv(cut, SS_ROUNDS, SCENARIO_MASKED, *extra, *ss))
+        blob = load_checkpoint(checkpoint_path(cut, TAG))
+        t0 = time.time()
+        (res,) = train_classifier_fed.main(scenario_argv(cut, SCENARIO_ROUNDS, SCENARIO_MASKED,
+                                                         *extra, *ss, "--resume_mode", "1"))
+        torch.cuda.synchronize()
+        secs["resumed"] = time.time() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    eager, sup = runs["eager"]["history"], runs["superstep"]["history"]
+    say_slots("scenario masked", sup)
+    total = SCENARIO_SIZES["train"] // 100 // BATCH
+    steps, _, lockstep = scenario_steps(sup, total, np.repeat(LEVELS, 20), SCENARIO_MIN_FRAC)
+    bits = all(torch.equal(runs["superstep"]["params"][k], v)
+               for k, v in runs["eager"]["params"].items())
+    buf = np.array_equal(runs["superstep"]["sched_buf"], runs["eager"]["sched_buf"])
+    same = [r["users"] for r in eager] == [r["users"] for r in sup] and all(
+        a[k] == b[k] for a, b in zip(eager, sup) for k in ("loss", "accuracy", "n"))
+    resumed = all(torch.equal(res["params"][k], v) for k, v in runs["superstep"]["params"].items())
+    resumed_buf = np.array_equal(res["sched_buf"], runs["superstep"]["sched_buf"])
+    cut_buf = blob["sched_buf"]
+    say(f"scenario masked: runs {secs['eager']:.1f} s eager, {secs['superstep']:.1f} s superstep, "
+        f"{secs['resumed']:.1f} s the resumed round (host clock); steps {steps} of the lockstep "
+        f"budget {lockstep} (eager fused_sgd launches {launches['eager']['fused_sgd']}, replayed "
+        f"{replayed['superstep']}); superstep == eager: params bit for bit {bits}, staleness "
+        f"buffer {buf}, cohorts and round metrics {same}; resumed from the boundary checkpoint "
+        f"(sched_buf non-zero {bool(np.any(cut_buf != 0))}): params {resumed}, buffer "
+        f"{resumed_buf}; launches {launches['superstep']}")
+    want = {"bn_fwd": BN_SITES * steps, "bn_bwd": BN_SITES * steps, "fused_sgd": steps}
+    if not (bits and buf and same and resumed and resumed_buf and np.any(cut_buf != 0)
+            and [r["epoch"] for r in res["history"]] == [SCENARIO_ROUNDS]
+            and res["history"][0]["users"] == sup[-1]["users"]
+            and launches["eager"]["fused_sgd"] == steps < lockstep
+            and all(replayed["superstep"].get(k) == v for k, v in want.items())
+            and all(math.isfinite(r["loss"]) for r in sup)):
+        raise AssertionError("scenario masked: the superstep, the eager run and the resumed run "
+                             f"disagree, or the steps {replayed['superstep']} are not {want}")
+    return launches["superstep"], replayed["superstep"]
+
+
+def scenario_grouped_path(torch, counters, out_dir: str):
+    """Phase 10c: ``train_classifier_fed --strategy grouped
+    --superstep_rounds 2`` on the headline control at full width with a
+    ``trace`` schedule of ``SCENARIO_TRACE_AVAIL`` users available in its
+    three rounds (rounds 1 and 3 leave slots unfilled: ``-1`` slots at
+    level e, their rows gated), a deadline and buffered aggregation: three
+    rounds, then two and round 3 resumed at the superstep boundary, equal
+    bit for bit (params and staleness buffer); kernel 3b's replays equal
+    the levels' largest budgets, 1b/2b's 17 a step, no one-client kernel
+    -> (launches, replayed)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.parallel import step_graph
+
+    rng = np.random.default_rng(12)
+    trace = np.zeros((len(SCENARIO_TRACE_AVAIL), 100), np.uint8)
+    for row, k in zip(trace, SCENARIO_TRACE_AVAIL):
+        row[rng.choice(100, k, replace=False)] = 1
+    sched = {"kind": "trace", "trace": trace.tolist(),
+             "deadline": {"min_frac": SCENARIO_MIN_FRAC}, "aggregation": "buffered"}
+    extra = ("--strategy", "grouped", "--superstep_rounds", str(SS_ROUNDS))
+    argv = scenario_argv(os.path.join(out_dir, "full"), SCENARIO_ROUNDS, sched, *extra)
+    say(f"scenario grouped: train_classifier_fed {' '.join(argv[:-4])} ... (the trace)")
+    step_graph.reset_stats()
+    zero(counters)
+    t0 = time.time()
+    (full,) = train_classifier_fed.main(argv)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches, replayed = read(counters), dict(step_graph.REPLAYED)
+    hist = full["history"]
+    say_slots("scenario grouped", hist)
+    cut = os.path.join(out_dir, "cut")
+    train_classifier_fed.main(scenario_argv(cut, SS_ROUNDS, sched, *extra))
+    (res,) = train_classifier_fed.main(scenario_argv(cut, SCENARIO_ROUNDS, sched, *extra,
+                                                     "--resume_mode", "1"))
+    total = SCENARIO_SIZES["train"] // 100 // BATCH
+    _, steps, lockstep = scenario_steps(hist, total, np.repeat(LEVELS, 20), SCENARIO_MIN_FRAC)
+    bits = all(torch.equal(res["params"][k], v) for k, v in full["params"].items())
+    buf = np.array_equal(res["sched_buf"], full["sched_buf"])
+    unfilled = [r["epoch"] for r in hist if -1 in r["users"]]
+    say(f"scenario grouped: {secs:.1f} s the run (host clock); level-steps {steps} (client-steps "
+        f"of the lockstep budget {lockstep}); rounds with unfilled slots {unfilled}; resumed at "
+        f"the boundary: params bit for bit {bits}, staleness buffer {buf}; launches {launches}, "
+        f"from replays {replayed}")
+    one_client = sum(launches[k] for k in ("bn_fwd", "bn_bwd", "fused_sgd"))
+    if not (bits and buf and unfilled == [1, 3] and not one_client
+            and replayed.get("fused_sgd_batched") == steps
+            and replayed.get("bn_fwd_batched") == BN_SITES * steps
+            and res["history"][0]["users"] == hist[-1]["users"]
+            and np.any(full["sched_buf"] != 0)
+            and all(math.isfinite(r["loss"]) for r in hist)):
+        raise AssertionError(f"scenario grouped: the resumed run differs, or the launches "
+                             f"{launches} / {replayed} do not match the budgets ({steps})")
+    return launches, replayed
+
+
+def scenario_grouped_int8_phase(torch, devices=("cuda", "cpu")) -> None:
+    """Phase 10c: one grouped int8 round (the superstep of one round) with
+    unfilled slots on the card (kernels) against the same round on the CPU
+    (plain versions): the conv net (16/32, MNIST), levels a, b and e, two
+    ``-1`` slots at level e (the last user's), epoch permutations and codec
+    noise injected; the grid sized for 4 levels x 4 slots; params within
+    ``TOL_ROUND`` but a share ``SHARE_ROUND_INT8`` within one grid step,
+    the residual within ``5 x TOL_ROUND`` but that share within one step."""
+    import numpy as np
+
+    from heterofl_tpu_torch import config as C
+    from heterofl_tpu_torch.data import (fetch_dataset, label_split_masks, split_dataset,
+                                         stack_client_shards)
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.parallel import GroupedRoundEngine
+    from heterofl_tpu_torch.testing import assert_grid_close
+
+    cfg = C.default_cfg()
+    cfg["control"] = C.parse_control_name("1_5_1_iid_fix_a2-b1-c1-e1_bn_1_1")
+    cfg.update(data_name="MNIST", model_name="conv", pallas_norm=True, strategy="grouped",
+               wire_codec="int8", superstep_rounds=2,
+               override={"num_epochs": {"local": 2}, "conv": {"hidden_size": [16, 32]}})
+    cfg = C.process_control(cfg)
+    cfg["classes_size"] = 10
+    ds = fetch_dataset("MNIST", synthetic=True, synthetic_sizes={"train": 500, "test": 40})
+    split, lsplit = split_dataset(ds, 5, "iid", np.random.default_rng(0), classes_size=10)
+    arrays = stack_client_shards(ds["train"].data, ds["train"].target, split["train"],
+                                 list(range(5))) + (label_split_masks(lsplit, 5, 10),)
+    users = np.array([[0, -1, 2, 4, -1]])
+    rates = np.asarray(cfg["model_rate"], np.float32)[users]
+    rng = np.random.default_rng(2)
+    perms = {u: np.stack([rng.permutation(arrays[0].shape[1]) for _ in range(2)])
+             for u in range(5)}
+    out = []
+    for dev in map(torch.device, devices):
+        model = make_model(cfg).init_(torch.Generator().manual_seed(0)).to(dev)
+        eng = GroupedRoundEngine(model, cfg, dev)
+        data = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        P = eng.flatten(model.params())
+        noise = torch.rand(eng.spec.total, generator=torch.Generator().manual_seed(5)).to(dev)
+        new, pend = eng.train_superstep(P, 0, 1, 1, data, users, rates, [0.05],
+                                        epoch_perms=[perms], codec_noise=[noise])
+        (ms,) = pend.fetch()
+        out.append((new.cpu(), ms, eng.wire_resid_host()))
+    cmax = eng.codec_slots(rates)
+    counts = torch.zeros_like(out[1][0])
+    for u, rate in zip(users[0], rates[0]):
+        if u >= 0:
+            lv = eng.levels[float(rate)]
+            counts.index_add_(0, lv.idx, lv.count_masks(data[-1][[int(u)]])[0])
+    s = eng.codec.scale_flat(P, cmax)
+    (card, ms_card, r_card), (cpu, ms_cpu, r_cpu) = out
+    what = "grouped int8 round with unfilled slots, card vs CPU"
+    assert_grid_close(f"{what}: params", card, cpu, torch.where(counts > 0, s / counts.clamp_min(1),
+                                                                0.0),
+                      atol=TOL_ROUND, max_share=SHARE_ROUND_INT8)
+    assert_grid_close(f"{what}: residual", r_card, r_cpu, s, atol=5 * TOL_ROUND,
+                      max_share=SHARE_ROUND_INT8)
+    say(f"{what}: grid for {cmax} slots; n {ms_card['n'].tolist()} / {ms_cpu['n'].tolist()}")
+    if not (cmax == 16 and np.array_equal(ms_card["n"], ms_cpu["n"])
+            and (ms_card["n"][users[0] < 0] == 0).all() and np.any(r_card != 0)):
+        raise AssertionError(f"{what}: the slots or the counts disagree")
+
+
+def scenario_lm_path(torch, counters, out_dir: str):
+    """Phase 10d: ``train_transformer_fed`` on the LM control at full width
+    on ``SCENARIO_LM_SIZES`` (40 steps a client) with a deadline and
+    buffered aggregation, two rounds eagerly and as one superstep: params,
+    staleness buffer and round losses bit for bit; the fused-SGD launches
+    (eager) and replays (superstep) equal the client's budgets ->
+    (launches, replayed)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.entry import train_transformer_fed
+    from heterofl_tpu_torch.parallel import step_graph
+
+    sched = {"deadline": {"min_frac": SCENARIO_MIN_FRAC}, "aggregation": "buffered"}
+    runs, secs, launches, replayed = {}, {}, {}, {}
+    for run, more in (("eager", ()), ("superstep", ("--superstep_rounds", str(SS_ROUNDS)))):
+        argv = ["--control_name", LM_CONTROL, "--synthetic", "1", "--synthetic_sizes",
+                json.dumps(SCENARIO_LM_SIZES), "--fused_update", "1", "--eval_interval",
+                str(SS_ROUNDS), "--output_dir", os.path.join(out_dir, run), "--schedule",
+                json.dumps(sched), "--override",
+                json.dumps({"num_epochs": {"global": SS_ROUNDS, "local": 1}}), *more]
+        say(f"scenario LM ({run}): train_transformer_fed {' '.join(argv)}")
+        step_graph.reset_stats()
+        zero(counters)
+        t0 = time.time()
+        (runs[run],) = train_transformer_fed.main(argv)
+        torch.cuda.synchronize()
+        secs[run] = time.time() - t0
+        launches[run], replayed[run] = read(counters), dict(step_graph.REPLAYED)
+    eager, sup = runs["eager"]["history"], runs["superstep"]["history"]
+    total = SCENARIO_LM_SIZES["train"] // 100 // 64
+    steps, _, lockstep = scenario_steps(sup, total, np.repeat(LEVELS, 20), SCENARIO_MIN_FRAC)
+    bits = all(torch.equal(runs["superstep"]["params"][k], v)
+               for k, v in runs["eager"]["params"].items())
+    buf = np.array_equal(runs["superstep"]["sched_buf"], runs["eager"]["sched_buf"])
+    same = [(r["users"], r["loss"]) for r in eager] == [(r["users"], r["loss"]) for r in sup]
+    say_slots("scenario LM", sup)
+    say(f"scenario LM: runs {secs['eager']:.1f} s eager, {secs['superstep']:.1f} s superstep "
+        f"(host clock); steps {steps} of the lockstep budget {lockstep} (eager fused_sgd "
+        f"launches {launches['eager']['fused_sgd']}, replayed {replayed['superstep']}); "
+        f"superstep == eager: params bit for bit {bits}, staleness buffer {buf}, cohorts and "
+        f"losses {same}")
+    if not (bits and buf and same and launches["eager"]["fused_sgd"] == steps < lockstep
+            and replayed["superstep"].get("fused_sgd") == steps
+            and launches["superstep"]["bn_fwd"] == 0 and np.any(runs["eager"]["sched_buf"] != 0)
+            and all(math.isfinite(r["loss"]) for r in sup)):
+        raise AssertionError("scenario LM: the superstep differs from the eager rounds, or the "
+                             f"steps {launches['eager']} / {replayed['superstep']} are not {steps}")
+    mask_row_kept(torch, runs["superstep"]["params"])
+    return launches["superstep"], replayed["superstep"]
+
+
 def make_lm_perms(torch):
     """The transformer's leaf permutations to the checkpoint's layout."""
     from heterofl_tpu_torch.models import make_model
@@ -2948,6 +3309,20 @@ def main() -> int:
          replayed_by_path["codec_map_superstep"], qp_levels) = codec_map_path(
             torch, counters, os.path.join(tmp, "codec_map"), args.local_epochs, quant, codecs)
         phases.done("per-level codec map superstep and its resumed round")
+        # 10. the client scheduler
+        gate_kernel_phase(torch, fused_update, level_n)
+        phases.done("scenario: kernels under the gates")
+        by_path["scenario_masked"], replayed_by_path["scenario_masked"] = scenario_masked_path(
+            torch, counters, os.path.join(tmp, "scenario_masked"))
+        phases.done("scenario: masked headline, K=1 and superstep, and its resumed round")
+        by_path["scenario_grouped"], replayed_by_path["scenario_grouped"] = \
+            scenario_grouped_path(torch, counters, os.path.join(tmp, "scenario_grouped"))
+        scenario_grouped_int8_phase(torch)
+        phases.done("scenario: grouped headline superstep with unfilled slots, resumed; "
+                    "grouped int8 round against the CPU")
+        by_path["scenario_lm"], replayed_by_path["scenario_lm"] = scenario_lm_path(
+            torch, counters, os.path.join(tmp, "scenario_lm"))
+        phases.done("scenario: LM superstep against its K=1 rounds")
     say("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phases.secs.items())
         + f"; total {time.time() - phases.t0:.1f} s")
 

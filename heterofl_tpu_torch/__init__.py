@@ -24,7 +24,9 @@ datasets, the transformer with per-head width slicing and the
 width-geometry check, Global-Perplexity evaluation, its federated, test
 and centralised entries); the grouped engine and the K-round superstep;
 bfloat16 compute (``compute_dtype``), the im2col convolution
-(``conv_impl``) and the grouped engine's per-level wire-codec map.
+(``conv_impl``) and the grouped engine's per-level wire-codec map; the
+client scheduler (``sched/``: availability traces, deadline stragglers,
+buffered aggregation, client failures).
 """
 
 from __future__ import annotations

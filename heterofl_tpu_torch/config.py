@@ -21,6 +21,12 @@ evaluation forwards replayed from CUDA graphs (``parallel/step_graph.py``),
 and ``metrics_fetch_every`` defers the host's metric fetch
 (:func:`resolve_superstep_cfg` holds the cross-field checks of
 heterofl_tpu/entry/common.py:336-416).
+
+``schedule`` and ``client_failure_rate`` run the client scheduler
+(``sched/``: availability traces, deadline stragglers, buffered
+aggregation, client failures) on ``masked`` and ``grouped``;
+``sched.resolve_schedule_cfg`` checks them once ``num_users`` is known, at
+the end of :func:`process_control`.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 
 from .compress import resolve_codec_cfg
 from .fed.sampling import resolve_sampler_cfg
+from .sched import resolve_schedule_cfg
 
 # Width multiplier per complexity level (ref src/utils.py:114).
 MODEL_SPLIT_RATE: Dict[str, float] = {"a": 1.0, "b": 0.5, "c": 0.25, "d": 0.125, "e": 0.0625}
@@ -99,6 +106,13 @@ DEFAULT_CFG: Dict[str, Any] = {
     # and the host's metric fetch every this many rounds (1 or K at K > 1)
     "superstep_rounds": 1,
     "metrics_fetch_every": 1,
+    # the client scheduler (sched/): None (lockstep) or {"kind": "uniform" |
+    # "trace" | "markov", "trace", "markov", "deadline": {"min_frac": f},
+    # "aggregation": "sync" | "buffered", "staleness"} (resolve_schedule_cfg)
+    "schedule": None,
+    # each round a client fails with this probability: its update never
+    # reaches the aggregate (fed.core.client_alive)
+    "client_failure_rate": 0.0,
     "data_dir": "./data",
     "output_dir": "./output",
     "synthetic": False,
@@ -117,7 +131,6 @@ UNPORTED: Dict[str, Any] = {
     "world_size": 1,
     "data_placement": "replicated",
     "client_store": "eager",
-    "schedule": None,
     "sample_horizon": None,
     "eval_cohort": None,
     "telemetry": "off",
@@ -126,7 +139,6 @@ UNPORTED: Dict[str, Any] = {
     "watchdog": None,
     "quarantine": "off",
     "chaos_poison": None,
-    "client_failure_rate": 0.0,
     # the grouped engine's per-level device partition needs several GPUs
     "level_placement": "span",
     "trace_dir": None,
@@ -361,6 +373,7 @@ def process_control(cfg: Dict[str, Any]) -> Dict[str, Any]:
         else:
             cfg[k] = v
     check_ported(cfg)
+    resolve_schedule_cfg(cfg)  # needs num_users (a markov trace, a trace's width)
     resolve_checkpoint_keep(cfg)
     return cfg
 

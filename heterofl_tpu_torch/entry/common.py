@@ -47,6 +47,13 @@ what the uninterrupted one drew; the end of the run clamps the last
 superstep to the rounds left.  ``superstep_rounds=1`` is the eager loop
 above, its train metrics deferred ``metrics_fetch_every`` rounds (flushed
 before each evaluation and at the end).
+
+A ``schedule`` (``sched/``) filters each round's cohort by its availability
+row (``-1`` for a slot no available user fills), at K=1 and in the
+superstep's schedule; each round's record counts its slots ``filled`` and
+``failed``; buffered aggregation's staleness buffer goes into the
+checkpoint under ``sched_buf`` in the reference's flat layout and is
+restored on resume (ref common.py:1308-1312, 1464-1465, 1572-1573).
 """
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ from ..fed.core import (round_seed, round_users, superstep_rate_schedule,  # noq
                         superstep_user_schedule, validate_width_geometry)
 from ..fed.sampling import resolve_sampler_cfg
 from ..models import make_model
+from ..sched import resolve_schedule_cfg
 from ..fed.sliced import SlicedFederation
 from ..parallel import Evaluator, GroupedRoundEngine, RoundEngine
 from ..parallel.staging import MetricsPipeline, PendingMetrics
@@ -234,6 +242,10 @@ class FedExperiment:
         self.superstep_rounds, fetch_every = C.resolve_superstep_cfg(
             cfg, isinstance(self.scheduler, PlateauScheduler))
         self.metrics_pipe = MetricsPipeline(fetch_every)
+        # the schedule's cross-field refusals (a scenario with sliced, buffered
+        # with a lossy codec or with grouped at K=1) raise here, as in the
+        # reference, before its experiment loop's own copies of them could
+        self.sched = resolve_schedule_cfg(cfg)
         if self.superstep_rounds == 1 and fetch_every > self.eval_interval:
             # evaluate() drains the pipeline, so batches never grow past it
             warnings.warn(
@@ -283,9 +295,12 @@ class FedExperiment:
 
     def sample_users(self, epoch: int) -> np.ndarray:
         """The K=1 round's cohort: the next permutation of the numpy stream
-        (``perm``) or the round seed's PRP image (``prp``)."""
+        (``perm``) or the round seed's PRP image (``prp``), filtered by the
+        schedule's availability row of the round (``-1``: a slot no
+        available user fills)."""
         return round_users(round_seed(self.seed, epoch), self.cfg["num_users"],
-                           self.num_active, self.sampler, self.rng)
+                           self.num_active, self.sampler, self.rng,
+                           self.sched.avail_row(epoch))
 
     def train_round(self, P: torch.Tensor, epoch: int, lr: float) -> torch.Tensor:
         """One round from the global flat params ``P``: the cohort, then
@@ -317,15 +332,19 @@ class FedExperiment:
         """Log one round's fetched sums: its train loss and accuracy (a
         masked LM: perplexity) to the experiment's logger as
         ``train/Local-*`` (ref entry/common.py:1189-1225), and the record
-        with the cohort (``users``) and its rates (``user_rates``) to
-        :attr:`history`."""
+        with the cohort (``users``), its rates (``user_rates``, 0 for a
+        slot that did not train) and its slots (``filled``: not ``-1``;
+        ``failed``: filled but not trained) to :attr:`history`."""
         user_idx = np.asarray(user_idx, np.int64)
         n = float(sums["n"].sum())
         named = summarize_sums(sums, kind=self.kind)
+        filled = user_idx >= 0
         rec = {"epoch": epoch, "lr": lr, "seconds": dt, "n": n,
                "loss": named.get("Local-Loss", 0.0),
                "rates": sorted(set(sums["rate"][sums["n"] > 0].tolist())),
-               "users": user_idx.tolist(), "user_rates": sums["rate"].tolist()}
+               "users": user_idx.tolist(), "user_rates": sums["rate"].tolist(),
+               "filled": int(filled.sum()),
+               "failed": int((filled & (np.asarray(sums["rate"]) == 0)).sum())}
         score = METRICS[self.kind][1]  # Accuracy | Perplexity
         rec[score.lower()] = named.get(f"Local-{score}", 0.0)
         rec.update(self._checkpoint_recs.pop(epoch, {}))
@@ -333,6 +352,8 @@ class FedExperiment:
         self.logger.append(named, "train", n=n)
         self.logger.append({"info": [f"Model: {self.tag}", f"Train Epoch: {epoch}",
                                      f"Learning rate: {lr:g}", f"Rates: {rec['rates']}",
+                                     f"Slots: {rec['filled']} of {user_idx.size} filled, "
+                                     f"{rec['failed']} failed",
                                      f"Round time: {dt:.2f}s"]}, "train", mean=False)
         self.logger.write("train", list(named))
 
@@ -387,7 +408,7 @@ class FedExperiment:
         cfg = self.cfg
         last = cfg["num_epochs"]["global"]
         users = superstep_user_schedule(self.seed, epoch0, k, cfg["num_users"], self.num_active,
-                                        self.sampler, self.rng)
+                                        self.sampler, self.rng, self.sched)
         rates = superstep_rate_schedule(self.seed, epoch0, k, cfg, users)
         lrs = superstep_lrs(self.scheduler, epoch0, k)
         mask = [(epoch0 + r) % self.eval_interval == 0 or epoch0 + r == last for r in range(k)]
@@ -467,6 +488,15 @@ class FedExperiment:
                                              self.perms)
                                for off, spec in self.engine.resid_segments()], 1)
 
+    # -- the staleness buffer in a blob: the reference's [2, total] carry in its
+    # flat layout (ref entry/common.py:1308-1312, 1464-1465, 1572-1573)
+    def _sched_buf_to_blob(self) -> Optional[np.ndarray]:
+        buf = self.engine.sched_buf_host() if self.sched.buffered else None
+        return None if buf is None else flat_to_jax(buf, self.engine.spec.shapes, self.perms)
+
+    def _flat_from_blob(self, arr) -> np.ndarray:
+        return flat_from_jax(np.asarray(arr, np.float32), self.engine.spec.shapes, self.perms)
+
     def run(self, pivot_metric: str = "Global-Accuracy", pivot_mode: str = "max"
             ) -> Dict[str, Any]:
         """Resume (per ``resume_mode``), then train to ``num_epochs.global``
@@ -489,6 +519,9 @@ class FedExperiment:
                 self.rng.bit_generator.state = blob["sampler_state"]
             if blob.get("wire_resid") is not None and self.engine.lossy:
                 self.engine.set_wire_resid(self._resid_from_blob(blob["wire_resid"]))
+            if blob.get("sched_buf") is not None and self.sched.buffered:
+                # the buffered update still in flight at the checkpoint
+                self.engine.set_sched_buf(self._flat_from_blob(blob["sched_buf"]))
             if "epoch" in blob:
                 epoch = blob["epoch"]
                 pivot = blob.get("pivot", pivot)
@@ -510,7 +543,8 @@ class FedExperiment:
         return {"params": {k: v.clone() for k, v in self.engine.unflatten(P).items()},
                 "history": self.history, "logger": logger, "data_split": data_split,
                 "label_split": label_split, "bn_state": self.bn_state,
-                "wire_resid": self.engine.wire_resid_host()}
+                "wire_resid": self.engine.wire_resid_host(),
+                "sched_buf": self.engine.sched_buf_host()}
 
     def _run_iteration(self, P, epoch, last, pivot_metric, pivot_mode, pivot, data_split,
                        label_split):
@@ -552,7 +586,7 @@ class FedExperiment:
             "params": params_to_jax(self.engine.unflatten(P), self.perms),
             "bn_state": self.bn_state,
             "wire_resid": self._resid_to_blob(),
-            "sched_buf": None,  # buffered-async aggregation: not ported
+            "sched_buf": self._sched_buf_to_blob(),
             "ledger": None,     # population ledger: not ported
             "pivot": pivot,
             "logger_history": dict(logger.history),

@@ -28,6 +28,9 @@ Under ``sampler='perm'`` the cohorts come from the experiment's numpy
 permutation stream (reference parity at K=1), and the superstep's schedule
 takes the next k draws of that same stream; the reference's superstep draws
 ``jax.random.permutation`` there instead, which torch cannot reproduce.
+A schedule's availability row filters either draw (:func:`round_users`),
+and :func:`client_alive` draws the round's failures from the port's own
+stream.
 """
 
 from __future__ import annotations
@@ -85,13 +88,21 @@ def round_seed(seed: int, epoch: int) -> int:
 
 
 def round_users(rseed: int, num_users: int, num_active: int, sampler: str = "perm",
-                rng: Optional[np.random.Generator] = None) -> np.ndarray:
+                rng: Optional[np.random.Generator] = None, avail=None) -> np.ndarray:
     """The cohort of the round with seed ``rseed`` (int64 ``[num_active]``;
     ref core.py:155-207): ``'prp'`` the image of ``[0, num_active)`` under
     the round's keyed permutation; ``'perm'`` the next full permutation of
     the experiment's numpy stream ``rng``, cut to ``num_active``.  A
     ``num_active`` outside ``[0, num_users]`` raises ``ValueError`` with the
-    reference's message."""
+    reference's message.
+
+    ``avail``: the round's ``[num_users]`` 0/1 availability row (a
+    schedule's, ``ScheduleSpec.avail_row``), or None.  With a row the
+    available users come first, in permutation order, and the slots they
+    cannot fill are ``-1`` (padding): under ``'perm'`` the reference's
+    stable sort of the permuted row (core.py:202-207), under ``'prp'`` its
+    draw-then-filter walk (``sampling.prp_round_users``).  An all-ones row
+    selects the uniform cohort."""
     if not 0 <= num_active <= num_users:
         raise ValueError(
             f"round_users: num_active={num_active} must be in [0, "
@@ -100,21 +111,36 @@ def round_users(rseed: int, num_users: int, num_active: int, sampler: str = "per
             f"wrap); fix cfg['frac']/num_active")
     if sampler == "prp":
         return prp_round_users(prp_round_keys(rseed, num_users), num_users,
-                               num_active).astype(np.int64)
+                               num_active, avail).astype(np.int64)
     if sampler == "perm":
         if rng is None:
             raise ValueError("round_users: sampler='perm' draws from the experiment's "
                              "numpy stream; pass rng")
-        return rng.permutation(num_users)[:num_active].astype(np.int64)
+        return filter_available(rng.permutation(num_users), num_active, avail)
     raise ValueError(f"Not valid sampler: {sampler!r} (one of ('perm', 'prp'))")
+
+
+def filter_available(perm: np.ndarray, num_active: int, avail=None) -> np.ndarray:
+    """The first ``num_active`` users of the permutation ``perm`` (int64),
+    or with an availability row the available ones first, in ``perm``'s
+    order (a stable sort), the slots they cannot fill ``-1``."""
+    perm = np.asarray(perm, np.int64)
+    if avail is None:
+        return perm[:num_active]
+    a = np.asarray(avail, np.float32)[perm]
+    order = np.argsort(-a, kind="stable")[:num_active]
+    return np.where(a[order] > 0, perm[order], -1).astype(np.int64)
 
 
 def superstep_user_schedule(seed: int, epoch0: int, k: int, num_users: int, num_active: int,
                             sampler: str = "perm",
-                            rng: Optional[np.random.Generator] = None) -> np.ndarray:
+                            rng: Optional[np.random.Generator] = None,
+                            schedule=None) -> np.ndarray:
     """``[k, A]`` cohorts of rounds ``epoch0 .. epoch0 + k - 1`` (ref
     core.py:210-239): :func:`round_users` at each round's seed, in round
-    order, so the schedule is what k K=1 rounds draw."""
+    order, so the schedule is what k K=1 rounds draw.  ``schedule`` (a
+    ``sched.ScheduleSpec``, or None) gives round ``epoch0 + r`` its
+    availability row; ``-1`` marks a slot it could not fill."""
     if epoch0 < 0:
         raise ValueError(f"superstep_user_schedule: epoch0={epoch0} must be non-negative")
     if k < 0:
@@ -122,14 +148,39 @@ def superstep_user_schedule(seed: int, epoch0: int, k: int, num_users: int, num_
     if not k:
         return np.zeros((0, num_active), np.int64)
     return np.stack([round_users(round_seed(seed, epoch0 + r), num_users, num_active, sampler,
-                                 rng) for r in range(k)])
+                                 rng, None if schedule is None
+                                 else schedule.avail_row(epoch0 + r)) for r in range(k)])
+
+
+#: salt of the per-round failure draw (the reference's ``FAILURE_STREAM_SALT``)
+FAILURE_STREAM_SALT = 98
+
+
+def client_alive(rseed: int, uids, failure_rate: float) -> np.ndarray:
+    """bool ``[slots]``: which of the round's slots survive
+    ``client_failure_rate`` -- a slot fails with probability
+    ``failure_rate``, a Bernoulli draw keyed by (round seed, user id) on the
+    port's own stream (the reference draws ``jax.random.bernoulli`` at
+    ``fold_in(fold_in(key, 98), uid)``, round_engine.py:853-866).  A failed
+    client's update never reaches the aggregate; ``-1`` slots draw user
+    0's, as the reference's ``max(uid, 0)``."""
+    uids = np.asarray(uids, np.int64).reshape(-1)
+    if failure_rate <= 0.0:
+        return np.ones(uids.shape, bool)
+    u = np.asarray([np.random.SeedSequence([int(rseed), FAILURE_STREAM_SALT, max(int(x), 0)])
+                    .generate_state(1, np.uint32)[0] >> np.uint32(8) for x in uids],
+                   np.float64) * 2.0 ** -24
+    return ~(u < float(failure_rate))
 
 
 def superstep_rate_schedule(seed: int, epoch0: int, k: int, cfg: Dict[str, Any],
                             user_schedule) -> np.ndarray:
     """``[k, A]`` absolute rates (float32) of the schedule's cohorts (ref
     core.py:242-251): each user's own in ``fix`` mode, each round's draw
-    (:func:`round_rates` at the round's seed) in ``dynamic`` mode."""
+    (:func:`round_rates` at the round's seed) in ``dynamic`` mode.  A ``-1``
+    slot takes user ``U - 1``'s rate, as the reference's ``jnp.take`` wraps
+    index ``-1`` (core.py:51): the grouped engine places the padding slot
+    in that user's level."""
     users = np.asarray(user_schedule, np.int64)
     if cfg["model_split_mode"] == "fix":
         return np.asarray(cfg["model_rate"], np.float32)[users].reshape(users.shape)

@@ -19,9 +19,10 @@ seed (:func:`prp_round_keys`) and a test hands in the reference's to hold
 the map bit for bit.
 
 ``sampler='perm'`` is the numpy permutation stream of the experiment loop
-(``entry/common.py``), the port's default.  The availability filter
-(``schedule``) and the schedule commitment (``sample_horizon``) are not
-ported (``config.UNPORTED``).
+(``entry/common.py``), the port's default.  A schedule's availability row
+filters either draw (:func:`prp_round_users`, ``fed.core.round_users``);
+the schedule commitment (``sample_horizon``) is not ported
+(``config.UNPORTED``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ USER_SAMPLE_SALT = 11
 
 #: salt of the Feistel key schedule (the reference's ``PRP_KEY_SALT``)
 PRP_KEY_SALT = 23
+
+#: candidates the availability walk visits per cohort slot (the
+#: reference's ``AVAIL_OVERDRAW``)
+AVAIL_OVERDRAW = 4
 
 
 class SamplerSpec:
@@ -130,7 +135,21 @@ def prp_map(rk, x, num_users: int) -> np.ndarray:
     return y.astype(np.int32)
 
 
-def prp_round_users(rk, num_users: int, num_active: int) -> np.ndarray:
-    """One round's cohort under the PRP sampler: the image of ``[0,
-    num_active)`` (ref fed/sampling.py:240-289, without ``avail``)."""
-    return prp_map(rk, np.arange(num_active, dtype=np.int32), num_users)
+def prp_round_users(rk, num_users: int, num_active: int, avail=None,
+                    overdraw: int = AVAIL_OVERDRAW) -> np.ndarray:
+    """One round's cohort under the PRP sampler (ref fed/sampling.py:
+    240-289): the image of ``[0, num_active)``.
+
+    ``avail``: the round's ``[num_users]`` 0/1 availability row.  The walk
+    visits the first ``min(num_users, overdraw * num_active)`` PRP
+    candidates in permutation order, keeps the available ones in that
+    order, and leaves the slots it could not fill at ``-1`` (padding); an
+    all-ones row selects the uniform cohort."""
+    if avail is None:
+        return prp_map(rk, np.arange(num_active, dtype=np.int32), num_users)
+    budget = min(num_users, max(1, overdraw) * num_active)
+    cand = prp_map(rk, np.arange(budget, dtype=np.int32), num_users)
+    kept = cand[np.asarray(avail, np.float32)[cand] > 0][:num_active]
+    out = np.full(num_active, -1, np.int32)
+    out[:kept.size] = kept
+    return out

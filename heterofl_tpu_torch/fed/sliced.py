@@ -12,7 +12,9 @@ stale fallback.  Every client keeps the masked engine's generator
 association, and the grouped engine (its clients batched, the batched
 kernels) equals this twin: the check that holds every batched kernel
 against the one-client kernels end to end.  Slow by design (host copies a
-client); a lossy wire codec is refused (``compress.resolve_codec_cfg``).
+client); a lossy wire codec is refused (``compress.resolve_codec_cfg``),
+and so is a schedule other than lockstep (``sched.resolve_schedule_cfg``)
+and ``client_failure_rate`` (the reference's twin ignores the rate).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..models import make_model
 from ..models.base import FedModel
 from ..models.spec import count_masks
 from ..ops.fused_update import FlatSpec
+from ..sched import resolve_schedule_cfg
 from ..parallel.round_engine import FlatParams, RoundEngine, client_seed, cohort_rates
 from .core import combine_counted, embed_sliced, extract_sliced, snap_to_levels
 
@@ -37,11 +40,17 @@ class SlicedFederation(FlatParams):
 
     def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device):
         resolve_codec_cfg(dict(cfg, strategy="sliced"))  # a codec is refused
+        resolve_schedule_cfg(dict(cfg, strategy="sliced"))  # and so is a scenario
+        if float(cfg.get("client_failure_rate", 0.0) or 0.0) > 0.0:
+            raise ValueError(
+                "client_failure_rate needs a mesh-native strategy ('masked' or 'grouped'): the "
+                "sliced debug twin replays the reference host loop, which draws no failures")
         self.model, self.cfg, self.device = model, cfg, device
         self.global_rate = cfg["global_model_rate"]
         self.is_lm = model.meta["kind"] == "transformer"
         self.spec = FlatSpec.of(dict(model.named_parameters()))
-        level_cfg = dict(cfg, model_rate=[self.global_rate], model_split_mode="fix")
+        level_cfg = dict(cfg, model_rate=[self.global_rate], model_split_mode="fix",
+                         schedule=None)
         self.levels: Dict[float, RoundEngine] = {
             rate: RoundEngine(make_model(cfg, rate), level_cfg, device)
             for rate in sorted({float(r) for r in cfg["model_rate"]}, reverse=True)}

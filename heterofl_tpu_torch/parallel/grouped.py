@@ -72,6 +72,17 @@ level's G clients replay one captured batched step a (level, G)
 steps, a level's round replays E x S of them, so G is not bucketed (the
 reference buckets it to powers of two to bound its compiles, grouped.py:743).
 
+**The scheduler.**  A ``-1`` slot sits in the level of user ``U - 1``'s
+rate (the reference's ``jnp.take`` wraps ``-1``), so it counts towards its
+level's G and the codec's slots; it and a failed client ride in their
+level's batch on user 0's data with a budget of 0 steps.  When some slot
+of the round (the superstep) sits out or stops early, each row's budget is
+a static buffer the step reads: step ``t`` of a row with ``t >= budget``
+gates off its update (kernel 3b's ``has`` row 0) and its sums, and the
+level replays up to its largest budget; otherwise the steps are the
+lockstep ones.  Buffered aggregation runs in the superstep only; the K=1
+round refuses it with the reference's message.
+
 **Determinism.**  A round runs under cuDNN's deterministic algorithms
 (``torch.backends.cudnn.deterministic``, set for the round and put back
 after): cuDNN's default algorithms for the grouped convolutions' weight
@@ -85,7 +96,7 @@ path of the port; the headline round costs about 7% more on an H100
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -123,7 +134,8 @@ class Level:
         self.scaler_rate = self.model.meta["scaler_rate"]
         # the dense sub-model trains at width rate 1: its only width mask
         level_cfg = dict(cfg, model_rate=[cfg["global_model_rate"]], model_split_mode="fix",
-                         wire_codec="dense")  # the engine compresses, not its levels
+                         wire_codec="dense", schedule=None,  # the engine compresses and
+                         client_failure_rate=0.0)           # schedules, not its levels
         self.engine = RoundEngine(self.model, level_cfg, device)
         self.spec = self.engine.spec
         self.ld = row_stride(self.spec.total)
@@ -188,6 +200,24 @@ class Level:
         return cm
 
 
+class LevelPlan(NamedTuple):
+    """One level's slots in one round of the superstep: its rate, the
+    slots' positions in the round and their users (``-1`` slots as user 0,
+    the reference's ``max(uid, 0)``), the same on the device, each row's
+    step budget on the device (None: the step gates no row), the steps
+    the level replays (its largest budget), and its rows' validity as
+    float32 on the device (None: every row counts)."""
+
+    rate: float
+    pos: List[int]
+    users: List[int]
+    uids: torch.Tensor
+    pos_dev: torch.Tensor
+    lim: Optional[torch.Tensor]
+    steps: int
+    valid: Optional[torch.Tensor]
+
+
 class GroupedRoundEngine(FlatParams):
     """Local training and counted aggregation of one round, each level's
     clients batched, for one (global model, cfg, device)."""
@@ -202,6 +232,7 @@ class GroupedRoundEngine(FlatParams):
         self.codec = None if self.codec_map else make_codec(name, self.spec, 1,
                                                             error_feedback=ef)
         self._resid = None
+        self._init_sched(cfg)
         # the superstep's captured batched steps, one a (level, G) met, their
         # static buffers and generators
         self.graphs = StepGraphs(device)
@@ -226,32 +257,38 @@ class GroupedRoundEngine(FlatParams):
 
     # -- one level's clients ------------------------------------------------
 
-    def _step(self, lv: Level, p, buf, g, grads, n_glob, lr) -> None:
+    def _step(self, lv: Level, p, buf, g, grads, n_glob, lr, live=None) -> None:
         """The optimizer tail of one step of G clients, in place on ``p``
         and ``buf`` ``[G, n_l]`` (views of ``[G, ld]`` rows): the batched
         fused epilogue (gradients packed client-major into ``g [G, ld]``),
-        or each client's per-leaf chain."""
+        or each client's per-leaf chain.  A row steps where its batch has
+        weight and, with ``live [G]`` (bool), where it is live."""
         G = p.shape[0]
+        has = n_glob > 0 if live is None else (n_glob > 0) & live
         if self.fused_mode is None:
             for i in range(G):
                 lv.engine._reference_step(p[i], buf[i], [gr[i] for gr in grads], lv.mask,
-                                          n_glob[i], lr)
+                                          n_glob[i], lr, has[i])
             return
         torch.cat([gr.reshape(G, -1) for gr in grads] + lv.pad(G), dim=1, out=g)
-        scal = torch.stack([n_glob.clamp_min(1e-6), lr.expand(G),
-                            (n_glob > 0).to(torch.float32)], dim=1)
+        scal = torch.stack([n_glob.clamp_min(1e-6), lr.expand(G), has.to(torch.float32)],
+                           dim=1)
         fused_sgd_batched(g[:, :lv.spec.total], p, buf, lv.mask, scal, momentum=self.momentum,
                           weight_decay=self.weight_decay, max_norm=1.0)
 
     def local_train_level(self, lv: Level, P: torch.Tensor, uids: torch.Tensor, data,
                           gens: List[torch.Generator], lr: torch.Tensor,
                           raw_perms: Optional[List[np.ndarray]] = None,
-                          aug: Optional[Callable[[int], List[Tuple[Any, Any]]]] = None
+                          aug: Optional[Callable[[int], List[Tuple[Any, Any]]]] = None,
+                          lim: Optional[np.ndarray] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Local SGD of a level's G vision clients (``uids``) from the global
         flat params ``P`` -> ``(trained [G, n_l], [G, 3] sums of loss,
-        correct, n)``.  Hooks as in ``RoundEngine.local_train``, one entry a
-        client: ``raw_perms`` their ``[E, N]`` permutations, ``aug(t)`` their
+        correct, n)``.  ``lim [G]`` (host int64, or None): each row's step
+        budget -- step ``t`` of a row with ``t >= lim`` changes neither its
+        params nor its sums, and the level stops after its largest budget.
+        Hooks as in ``RoundEngine.local_train``, one entry a client:
+        ``raw_perms`` their ``[E, N]`` permutations, ``aug(t)`` their
         step-``t`` ``(offsets, flips)``."""
         B, G, dev = self.batch_size, len(gens), P.device
         x_all, y_all, sm_all, lm_all = data
@@ -263,22 +300,26 @@ class GroupedRoundEngine(FlatParams):
         perms = self._level_perms(gens, smu, raw_perms)
         wpad = lv.engine._pad_weights(x_all.shape[1], dev)
         rows = uids[:, None]
-        for t in range(self.local_epochs * S):
+        steps, lim = self._budgets(self.local_epochs * S, lim, dev)
+        for t in range(steps):
             e, s = divmod(t, S)
             ids = perms[:, e, s * B:(s + 1) * B]
             draws = None if aug is None else [
                 tuple(torch.as_tensor(np.array(a)).to(dev) for a in d) for d in aug(t)]
             self._level_vision_step(lv, st, gens, x_all[rows, ids], y_all[rows, ids],
-                                    wpad[s * B:(s + 1) * B] * torch.gather(smu, 1, ids), draws)
+                                    wpad[s * B:(s + 1) * B] * torch.gather(smu, 1, ids), draws,
+                                    None if lim is None else lim > t)
         return p_rows[:, :lv.spec.total], st["acc"]
 
     def local_train_level_lm(self, lv: Level, P: torch.Tensor, uids: torch.Tensor, data,
                              gens: List[torch.Generator], lr: torch.Tensor,
-                             draws: Optional[Callable[[int], List[Dict[str, Any]]]] = None
+                             draws: Optional[Callable[[int], List[Dict[str, Any]]]] = None,
+                             lim: Optional[np.ndarray] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Local SGD of a level's G masked-LM clients on their token rows
         -> ``(trained [G, n_l], [G, 3] sums of loss, score, n)``, as
-        ``RoundEngine.local_train_lm``; ``draws(t)`` (test hook) gives each
+        ``RoundEngine.local_train_lm``; ``lim`` as in
+        :meth:`local_train_level`; ``draws(t)`` (test hook) gives each
         client's step-``t`` corruption and dropout draws."""
         bptt, G, dev = self.bptt, len(gens), P.device
         rows_all, lm_all = data
@@ -291,12 +332,24 @@ class GroupedRoundEngine(FlatParams):
         st = {"p": p_rows, "buf": buf_rows, "g": g, "lr": lr, "lm": lm_all[uids],
               "acc": torch.zeros((G, 3), dtype=torch.float32, device=dev),
               "rows_n": torch.full((G,), float(R), dtype=torch.float32, device=dev)}
-        for t in range(self.local_epochs * S):
+        steps, lim = self._budgets(self.local_epochs * S, lim, dev)
+        for t in range(steps):
             s = t % S
             self._level_lm_step(lv, st, gens, rows_p[:, :, s * bptt:(s + 1) * bptt],
                                 wpos[:, s * bptt:(s + 1) * bptt].expand(G, R, bptt),
-                                n_win[s].expand(G), None if draws is None else draws(t))
+                                n_win[s].expand(G), None if draws is None else draws(t),
+                                None if lim is None else lim > t)
         return p_rows[:, :lv.spec.total], st["acc"]
+
+    @staticmethod
+    def _budgets(total: int, lim: Optional[np.ndarray], device: torch.device
+                 ) -> Tuple[int, Optional[torch.Tensor]]:
+        """A level's steps (``total``, or its largest budget) and its rows'
+        budgets on the device (None: every row runs every step)."""
+        if lim is None:
+            return total, None
+        lim = np.asarray(lim, np.int64)
+        return min(total, int(lim.max(initial=0))), torch.from_numpy(lim).to(device)
 
     # -- one batched step: shared by the eager loops above and the captured steps
 
@@ -320,11 +373,13 @@ class GroupedRoundEngine(FlatParams):
         return perms
 
     def _level_vision_step(self, lv: Level, st, gens: List[torch.Generator], xb, labels, w,
-                           draws=None) -> None:
+                           draws=None, live=None) -> None:
         """One batched step of G vision clients on their batches ``(xb [G,
         B, ...], labels, w [G, B])``, in place on ``st`` (``p``, ``buf``,
         ``g`` ``[G, ld]`` rows, ``acc``; ``lr``, ``lm``); ``draws`` the
-        clients' augmentation ``(offsets, flips)`` instead of ``gens``."""
+        clients' augmentation ``(offsets, flips)`` instead of ``gens``;
+        ``live [G]`` (bool, or None: all) gates each row's update and sums,
+        as the reference's deadline gates a step (round_engine.py:688-713)."""
         B, G = self.batch_size, len(gens)
         n_glob = w.sum(1)
         if self.augment:
@@ -344,12 +399,16 @@ class GroupedRoundEngine(FlatParams):
         del leaves
         correct = ((score.detach().argmax(-1) == labels).to(torch.float32) * w).sum(1)
         n = lv.spec.total
-        self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"])
+        self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"], live)
         del grads
-        st["acc"] += torch.stack([lsum.detach(), correct, n_glob], dim=1)
+        sums = [lsum.detach(), correct, n_glob]
+        if live is not None:
+            gate = live.to(torch.float32)
+            sums = [v * gate for v in sums]
+        st["acc"] += torch.stack(sums, dim=1)
 
     def _level_lm_step(self, lv: Level, st, gens: List[torch.Generator], lab, w, n_glob,
-                       draws=None) -> None:
+                       draws=None, live=None) -> None:
         """One batched step of G masked-LM clients on their windows ``(lab
         [G, R, bptt], w)`` of weight sums ``n_glob [G]``, in place on
         ``st`` (as :meth:`_level_vision_step`'s, and ``rows_n``)."""
@@ -362,10 +421,10 @@ class GroupedRoundEngine(FlatParams):
         grads = torch.autograd.grad(lsum.sum(), [leaves[k] for k in lv.spec.names])
         del leaves
         n = lv.spec.total
-        self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"])
+        self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"], live)
         del grads
         wl = lsum.detach() / n_glob.clamp_min(1e-6)
-        rows_n = st["rows_n"]
+        rows_n = st["rows_n"] if live is None else st["rows_n"] * live.to(torch.float32)
         st["acc"] += torch.stack([wl * rows_n, torch.exp(wl) * rows_n, rows_n], dim=1)
 
     # -- one round --------------------------------------------------------------
@@ -375,34 +434,52 @@ class GroupedRoundEngine(FlatParams):
                     epoch_perms: Optional[Dict[int, np.ndarray]] = None,
                     lm_draws: Optional[Callable[[int, int], Dict[str, Any]]] = None,
                     rates: Optional[Sequence[float]] = None,
-                    aug_draws: Optional[Callable[[int, int], Tuple[Any, Any]]] = None
+                    aug_draws: Optional[Callable[[int, int], Tuple[Any, Any]]] = None,
+                    step_limits=None, alive=None
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One round from the global flat params ``P``, under cuDNN's
         deterministic algorithms; arguments, hooks and results as
         ``RoundEngine.train_round``'s (no codec: a lossy one is refused, as
-        the reference's K=1 round refuses it)."""
+        the reference's K=1 round refuses it; nor buffered aggregation,
+        refused with the reference's message, grouped.py:682-686)."""
         if self.lossy:
             raise ValueError(
                 f"wire_codec={self.cfg['wire_codec']!r} with the grouped strategy needs the fused "
                 f"superstep (superstep_rounds > 1 or client_store='stream'): the K=1 "
                 f"host-orchestrated path reduces per level and has no single global psum "
                 f"to compress")
+        if self.sched.buffered:
+            raise ValueError(
+                "schedule aggregation='buffered' needs the fused grouped "
+                "superstep (set superstep_rounds > 1 or client_store="
+                "'stream'): the K=1 host-orchestrated path combines in its "
+                "own program and has no scan carry to buffer")
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
             return self._train_round(P, lr, user_idx, data, round_seed, epoch_perms, lm_draws,
-                                     rates, aug_draws)
+                                     rates, aug_draws, step_limits=step_limits, alive=alive)
         finally:
             torch.backends.cudnn.deterministic = deterministic
 
     def _train_round(self, P, lr, user_idx, data, round_seed, epoch_perms, lm_draws, rates,
-                     aug_draws, codec_noise=None, codec_slots=None):
+                     aug_draws, codec_noise=None, codec_slots=None, step_limits=None,
+                     alive=None):
         """:meth:`train_round`'s body, which also takes a codec: its grid
         sized for ``codec_slots`` clients (default: :meth:`codec_slots` of
         this round alone; under a per-level map a level's, :meth:`level_slots`),
-        ``codec_noise`` the codec's draw (:meth:`_merge`)."""
+        ``codec_noise`` the codec's draw (:meth:`_merge`).
+
+        A ``-1`` slot sits in the level of user ``U - 1``'s rate, as in the
+        reference (``cohort_rates``); it and a failed client ride in their
+        level's batch on user 0's data (the reference's ``max(uid, 0)``)
+        with a budget of 0 steps: every step gated off (kernel 3b's ``has``
+        row 0), no count, a zero metrics row and rate 0."""
         user_idx = np.asarray(user_idx, np.int64).reshape(-1)
         rates_abs = cohort_rates(self.cfg, user_idx, round_seed, rates)
+        total = self.total_steps(data)
+        valid, limits = self.slot_plan(user_idx, round_seed, total, step_limits, alive)
+        gate = bool((limits < total).any())  # a slot sits out or stops early
         snapped = snap_to_levels(rates_abs, self.levels)
         by_level: Dict[float, List[int]] = {}
         for pos, r in enumerate(snapped.tolist()):
@@ -413,25 +490,29 @@ class GroupedRoundEngine(FlatParams):
         acc = torch.zeros((len(user_idx), 3), dtype=torch.float32, device=dev)
         for rate in sorted(by_level, reverse=True):
             lv, pos = self.levels[rate], by_level[rate]
-            users = user_idx[pos].tolist()
+            users = np.maximum(user_idx[pos], 0).tolist()
             gens = [torch.Generator(device=dev).manual_seed(client_seed(round_seed, u))
                     for u in users]
             uids = torch.as_tensor(users, dtype=torch.int64).to(dev)
+            lim = limits[pos] if gate else None
             if self.is_lm:
                 draws = None if lm_draws is None else \
                     (lambda t, us=users: [lm_draws(u, t) for u in us])
-                trained, acc_l = self.local_train_level_lm(lv, P, uids, data, gens, lr_t, draws)
+                trained, acc_l = self.local_train_level_lm(lv, P, uids, data, gens, lr_t, draws,
+                                                           lim)
             else:
                 trained, acc_l = self.local_train_level(
                     lv, P, uids, data, gens, lr_t,
                     None if epoch_perms is None else [epoch_perms[u] for u in users],
                     None if aug_draws is None else
-                    (lambda t, us=users: [aug_draws(u, t) for u in us]))
+                    (lambda t, us=users: [aug_draws(u, t) for u in us]), lim)
             cm = lv.count_masks(data[-1][uids])
+            if not valid[pos].all():  # padding and failed rows count nothing
+                cm = cm * torch.from_numpy(valid[pos].astype(np.float32)).to(dev)[:, None]
             sums[rate] = ((trained * cm).sum(0), cm.sum(0))
             acc[torch.as_tensor(pos, dtype=torch.int64).to(dev)] = acc_l
         ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
-              "rate": rates_abs}
+              "rate": rates_abs * valid}
         if codec_slots is None:
             codec_slots = self.codec_slots(rates_abs[None])
         return self._merge(P, sums, round_seed, len(user_idx), codec_noise, codec_slots), ms
@@ -539,12 +620,14 @@ class GroupedRoundEngine(FlatParams):
 
     # -- the superstep: k rounds, each level's batched steps replayed ---------
 
-    def _slots(self, lv: Level, G: int, P: torch.Tensor, data) -> Dict[str, torch.Tensor]:
+    def _slots(self, lv: Level, G: int, P: torch.Tensor, data, gate: bool = False
+               ) -> Dict[str, torch.Tensor]:
         """Static buffers of the captured step of G clients at level ``lv``
         (made on first use): their ``[G, ld]`` params, momentum and
         gradient, their data, permutations (vision) or token rows (LM),
-        sums and the step counter."""
-        key = (lv.scaler_rate, G)
+        sums and the step counter; with ``gate`` also each row's step
+        budget (``lim``), which the step reads."""
+        key = (lv.scaler_rate, G, gate)
         if key in self._st:
             return self._st[key]
         dev = P.device
@@ -577,6 +660,8 @@ class GroupedRoundEngine(FlatParams):
                       ar=torch.arange(self.batch_size, device=dev),
                       rows=torch.arange(G, device=dev)[:, None])
         st["steps"] = self.local_epochs * S
+        if gate:  # each row's step budget, read by the captured step
+            st["lim"] = torch.zeros(G, dtype=torch.int64, device=dev)
         lv.leaf_major(G)
         lv.pad(G)
         self._st[key] = st
@@ -592,7 +677,7 @@ class GroupedRoundEngine(FlatParams):
         w = st["wpad"].index_select(0, torch.remainder(t, S) * B + st["ar"]) \
             * torch.gather(st["sm"], 1, ids)
         self._level_vision_step(lv, st, gens, st["x"][st["rows"], ids],
-                                torch.gather(st["y"], 1, ids), w)
+                                torch.gather(st["y"], 1, ids), w, live=self._live(st))
         st["t"] += 1
 
     def _counted_level_step_lm(self, lv: Level, st, gens: List[torch.Generator]) -> None:
@@ -604,29 +689,39 @@ class GroupedRoundEngine(FlatParams):
         R = st["wpos"].shape[0]
         self._level_lm_step(lv, st, gens, st["rows_p"].index_select(2, cols),
                             st["wpos"].index_select(1, cols).expand(G, R, bptt),
-                            st["n_win"].index_select(0, s.view(1)).expand(G))
+                            st["n_win"].index_select(0, s.view(1)).expand(G),
+                            live=self._live(st))
         st["t"] += 1
 
-    def level_step(self, lv: Level, G: int, P: torch.Tensor, data):
+    @staticmethod
+    def _live(st) -> Optional[torch.Tensor]:
+        """The rows of the captured step ``t`` still within their budget
+        (the static ``lim``), or None when the step gates no row."""
+        return st["t"] < st["lim"] if "lim" in st else None
+
+    def level_step(self, lv: Level, G: int, P: torch.Tensor, data, gate: bool = False):
         """The captured batched step of G clients at level ``lv`` (captured
-        on first use), its static buffers and its generators."""
-        st = self._slots(lv, G, P, data)
+        on first use; with ``gate`` one that gates each row by its budget),
+        its static buffers and its generators."""
+        st = self._slots(lv, G, P, data, gate)
         while len(self._ggens) < G:
             self._ggens.append(torch.Generator(device=P.device))
         gens = self._ggens[:G]
         body = self._counted_level_step_lm if self.is_lm else self._counted_level_step
-        step = self.graphs.get(("level", lv.scaler_rate, G), lambda: body(lv, st, gens),
+        step = self.graphs.get(("level", lv.scaler_rate, G, gate), lambda: body(lv, st, gens),
                                st["t"].zero_, gens)
         return step, st, gens
 
     def stage_level(self, lv: Level, st, gens, P: torch.Tensor, uids: torch.Tensor,
                     users: Sequence[int], data, rseed: int,
-                    raw_perms: Optional[List[np.ndarray]] = None) -> None:
+                    raw_perms: Optional[List[np.ndarray]] = None,
+                    lim: Optional[torch.Tensor] = None) -> None:
         """Eager set-up of a level's G clients into the static buffers: the
         global params at the level's entries, zero momentum and sums, the
-        step counter at 0, their data and (vision) their epoch permutations
-        with real samples first, each client's generator reseeded --
-        ``local_train_level``'s prologue (``raw_perms`` its hook)."""
+        step counter at 0, the rows' budgets ``lim`` (a gated step), their
+        data and (vision) their epoch permutations with real samples first,
+        each client's generator reseeded -- ``local_train_level``'s prologue
+        (``raw_perms`` its hook)."""
         for gen, u in zip(gens, users):
             gen.manual_seed(client_seed(rseed, u))
         n = lv.spec.total
@@ -635,6 +730,8 @@ class GroupedRoundEngine(FlatParams):
         st["buf"].zero_()
         st["acc"].zero_()
         st["t"].zero_()
+        if "lim" in st:
+            st["lim"].copy_(lim)
         st["lm"].copy_(data[-1][uids])
         if self.is_lm:
             rows = data[0][uids]
@@ -646,81 +743,108 @@ class GroupedRoundEngine(FlatParams):
         st["sm"].copy_(data[2][uids])
         st["perms"].copy_(self._level_perms(gens, st["sm"], raw_perms).reshape(len(gens), -1))
 
-    def _replayed_round(self, P: torch.Tensor, user_idx: np.ndarray, data, rseed: int, plan,
-                        cmax: int, epoch_perms=None, codec_noise=None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _replayed_round(self, P: torch.Tensor, user_idx: np.ndarray, rates_abs: np.ndarray,
+                        data, rseed: int, plan, cmax: int, epoch_perms=None, codec_noise=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
         """One round of the superstep: per level, in descending rate, the
-        eager set-up of its G clients, their batched steps replayed, their
-        counted sums added at the level's entries; then the codec (its grid
-        sized for ``cmax`` clients) and the counted average -> ``(new P,
-        [A, 3] device sums)``.  ``plan``: per level ``(rate, positions, user
-        ids on the device, positions on the device)``; hooks as
-        :meth:`train_superstep`'s, this round's."""
+        eager set-up of its G clients, their batched steps replayed (up to
+        the level's largest budget), their counted sums added at the
+        level's entries; then the codec (its grid sized for ``cmax``
+        clients) and the counted average -> ``(new P, [A, 3] device sums,
+        reported rates)``.  ``plan``: the round's valid slots and its
+        :class:`LevelPlan` s; hooks as :meth:`train_superstep`'s, this
+        round's."""
+        valid, levels = plan
         sums: Dict[float, Tuple[torch.Tensor, torch.Tensor]] = {}
         acc = torch.zeros((len(user_idx), 3), dtype=torch.float32, device=P.device)
-        for rate, pos, uids, pos_dev in plan:
-            lv = self.levels[rate]
-            step, st, gens = self.level_step(lv, len(pos), P, data)
-            users = user_idx[pos].tolist()
-            self.stage_level(lv, st, gens, P, uids, users, data, rseed,
-                             None if epoch_perms is None else [epoch_perms[u] for u in users])
-            for _ in range(st["steps"]):
+        for lp in levels:
+            lv = self.levels[lp.rate]
+            step, st, gens = self.level_step(lv, len(lp.pos), P, data, lp.lim is not None)
+            self.stage_level(lv, st, gens, P, lp.uids, lp.users, data, rseed,
+                             None if epoch_perms is None else [epoch_perms[u] for u in lp.users],
+                             lp.lim)
+            for _ in range(min(st["steps"], lp.steps)):
                 step.replay()
-            cm = lv.count_masks(data[-1][uids])
-            sums[rate] = ((st["p"][:, :lv.spec.total] * cm).sum(0), cm.sum(0))
-            acc[pos_dev] = st["acc"]
-        return self._merge(P, sums, rseed, len(user_idx), codec_noise, cmax), acc
+            cm = lv.count_masks(data[-1][lp.uids])
+            if lp.valid is not None:
+                cm = cm * lp.valid[:, None]
+            sums[lp.rate] = ((st["p"][:, :lv.spec.total] * cm).sum(0), cm.sum(0))
+            acc[lp.pos_dev] = st["acc"]
+        return (self._merge(P, sums, rseed, len(user_idx), codec_noise, cmax), acc,
+                rates_abs * valid)
 
-    def _plans(self, users: np.ndarray, rates: np.ndarray, device: torch.device):
-        """Each round's levels (descending rate) with their slot positions
-        and user ids; the ids and positions of the whole superstep go to the
-        device in one copy."""
-        plans, host = [], []
+    def _plans(self, seed: int, epoch0: int, users: np.ndarray, rates: np.ndarray, data,
+               device: torch.device, step_limits=None, alive=None):
+        """Each round's ``(valid slots, [LevelPlan])``: its slots' plan
+        (:meth:`slot_plan` at the round's seed) and its levels in
+        descending rate; the user ids, positions, budgets and valid rows of
+        the whole superstep go to the device in one copy.  The steps gate
+        their rows by the budgets when some slot of the superstep sits out
+        or stops early, and run as without a scheduler otherwise."""
+        total, plans, host = self.total_steps(data), [], []
         for r in range(users.shape[0]):
+            valid, limits = self.slot_plan(
+                users[r], round_seed(seed, epoch0 + r), total,
+                None if step_limits is None else step_limits[r],
+                None if alive is None else alive[r])
             snapped = snap_to_levels(rates[r], self.levels)
             by_level: Dict[float, List[int]] = {}
             for pos, rate in enumerate(snapped.tolist()):
                 by_level.setdefault(rate, []).append(pos)
-            plans.append([(rate, by_level[rate]) for rate in sorted(by_level, reverse=True)])
-            for rate, pos in plans[-1]:
-                host += [users[r][pos], np.asarray(pos, np.int64)]
+            levels = [(rate, by_level[rate], np.maximum(users[r][by_level[rate]], 0))
+                      for rate in sorted(by_level, reverse=True)]
+            plans.append((valid, limits, levels))
+            for _, pos, uids in levels:
+                host += [uids, np.asarray(pos, np.int64), limits[pos], valid[pos]]
         flat = torch.from_numpy(np.concatenate(host).astype(np.int64)).to(device) if host \
             else None
+        gate = any(bool((limits < total).any()) for _, limits, _ in plans)
         out, off = [], 0
-        for plan in plans:
+        for valid, limits, levels in plans:
             rnd = []
-            for rate, pos in plan:
+            for rate, pos, uids in levels:
                 G = len(pos)
-                rnd.append((rate, pos, flat[off:off + G], flat[off + G:off + 2 * G]))
-                off += 2 * G
-            out.append(rnd)
+                seg = [flat[off + i * G:off + (i + 1) * G] for i in range(4)]
+                off += 4 * G
+                rnd.append(LevelPlan(
+                    rate, pos, uids.tolist(), seg[0], seg[1],
+                    seg[2] if gate else None, int(limits[pos].max()) if gate else total,
+                    None if valid[pos].all() else seg[3].to(torch.float32)))
+            out.append((valid, rnd))
         return out
 
     def train_superstep(self, P: torch.Tensor, seed: int, epoch0: int, k: int,
                         data: Tuple[torch.Tensor, ...], user_schedule, rate_schedule, lrs,
                         eval_mask=None, fused_eval=None,
                         epoch_perms: Optional[Sequence[Dict[int, np.ndarray]]] = None,
-                        codec_noise: Optional[Sequence[torch.Tensor]] = None
+                        codec_noise: Optional[Sequence[torch.Tensor]] = None,
+                        step_limits: Optional[Sequence[Any]] = None,
+                        alive: Optional[Sequence[Any]] = None
                         ) -> Tuple[torch.Tensor, PendingMetrics]:
         """Rounds ``epoch0 .. epoch0 + k - 1`` with no host read between
         them (ref parallel/grouped.py:1416-1617), under cuDNN's
         deterministic algorithms: arguments and results as
         ``RoundEngine.train_superstep``'s; the slots are grouped by level
-        once for the superstep from the schedules, each level's G clients
-        replay the captured step of (level, G), and a lossy codec compresses
-        each round's merged sums on a grid sized for :meth:`codec_slots`
-        of the schedule.  Test hooks, which replace a draw from the round
-        seed, one entry a round: ``epoch_perms[r]`` ``{uid: [E, N]}`` raw
-        permutations, ``codec_noise[r]`` the int8 codec's noise."""
+        once for the superstep from the schedules (a ``-1`` slot at user
+        ``U - 1``'s rate, its row gated off), each level's G clients replay
+        the captured step of (level, G) up to their largest step budget,
+        a lossy codec compresses each round's merged sums on a grid sized
+        for :meth:`codec_slots` of the schedule, and buffered aggregation
+        applies the previous round's sums.  Test hooks, which replace a draw
+        from the round seed, one entry a round: ``epoch_perms[r]`` ``{uid:
+        [E, N]}`` raw permutations, ``codec_noise[r]`` the int8 codec's
+        noise, ``step_limits[r]`` and ``alive[r]`` the deadline budgets and
+        the survivors in slot order."""
         users, rates, lrs = superstep_schedules(user_schedule, rate_schedule, lrs, k)
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            plans, cmax = self._plans(users, rates, P.device), self.codec_slots(rates)
+            plans = self._plans(seed, epoch0, users, rates, data, P.device, step_limits, alive)
+            cmax = self.codec_slots(rates)
             return self._superstep(
                 P, seed, epoch0, k, users, rates, lrs, eval_mask, fused_eval, self._lr,
                 lambda P, r, u, rates, rseed: self._replayed_round(
-                    P, u, data, rseed, plans[r], cmax,
+                    P, u, rates, data, rseed, plans[r], cmax,
                     None if epoch_perms is None else epoch_perms[r],
                     None if codec_noise is None else codec_noise[r]))
         finally:

@@ -25,7 +25,17 @@ in a Python loop (batching them is later work), each through:
   With a lossy ``wire_codec`` the flat ``(sum, count)`` pair goes through
   the codec first (compress/codecs.py: encode, the sum over participants,
   decode), and the codec's error-feedback residual is carried on the device
-  from round to round (the reference's ``_WireCodecCarry``).
+  from round to round (the reference's ``_WireCodecCarry``);
+* the client scheduler (``sched/``; :meth:`FlatParams.slot_plan`): a
+  ``-1`` slot (a schedule's padding) or a failed client
+  (``client_failure_rate``) trains nothing and reports a zero metrics row;
+  under a deadline a client stops after its budget of local steps (the
+  reference gates the steps past it, which changes nothing either); with
+  buffered aggregation the round applies the previous round's sums and
+  buffers its own (``sched/buffer.py``), the ``[2, total]`` buffer carried
+  on the device beside the residual.  The codec's grid is sized for the
+  round's slots, padding and failed ones included, and the codec runs
+  whenever the round has slots, as the reference's does.
 
 The step loop never waits for the device: the batch weight sum, ``lr`` and
 ``has`` stay device tensors the kernel reads by pointer, and no value is
@@ -50,11 +60,14 @@ import torch
 from ..compress import make_codec, resolve_codec_cfg
 from ..compress.codecs import compressed_sum
 from ..data.datasets import DATASET_STATS
-from ..fed.core import combine_counted, round_rates, round_seed, to_width_rates
+from ..fed.core import client_alive, combine_counted, round_rates, round_seed, to_width_rates
 from ..models.base import FedModel
 from ..models.spec import label_vector, param_mask
 from ..ops.augment import augment_cifar, normalize_image
 from ..ops.fused_update import FlatSpec, fused_sgd_flat, make_scal, resolve_fused_mode
+from ..sched import ScheduleSpec, resolve_schedule_cfg
+from ..sched.buffer import buffered_combine
+from ..sched.deadline import deadline_steps
 from ..utils.optim import clip_by_global_norm, sgd_update
 from .staging import PendingMetrics
 from .step_graph import StepGraphs, device_counter, maybe_event
@@ -83,7 +96,9 @@ def cohort_rates(cfg: Dict[str, Any], user_idx: np.ndarray, round_seed: int,
                  rates: Optional[Sequence[float]] = None) -> np.ndarray:
     """The cohort's absolute rates (float32): ``rates`` when given, else each
     user's own in ``fix`` mode and the round's draw (``fed.core.round_rates``
-    at ``round_seed``) in ``dynamic`` mode."""
+    at ``round_seed``) in ``dynamic`` mode.  A ``-1`` (padding) slot takes
+    user ``U - 1``'s rate, as the reference's ``jnp.take`` wraps ``-1``
+    (heterofl_tpu/fed/core.py:51)."""
     if rates is not None:
         out = np.asarray(rates, np.float32).reshape(-1)
     elif cfg["model_split_mode"] == "fix":
@@ -141,13 +156,23 @@ def assemble_superstep(host, rates, eval_epochs, fused_eval):
 
 class FlatParams:
     """What the experiment loop reads of a round engine: the global params
-    as one flat buffer (``spec``, on ``device``) and the wire codec's
-    residual carry (none without a codec)."""
+    as one flat buffer (``spec``, on ``device``), the wire codec's residual
+    carry (none without a codec), the buffered aggregation's staleness
+    carry (none under ``sync``), and the scheduler's per-slot plan."""
 
     spec: FlatSpec
     device: torch.device
     codec = None
     _resid: Optional[torch.Tensor] = None  # [resid_slots, total] EF carry
+    sched: ScheduleSpec = ScheduleSpec()
+    failure_rate = 0.0
+    _sched_buf: Optional[torch.Tensor] = None  # [2, total] staleness carry
+
+    def _init_sched(self, cfg: Dict[str, Any]) -> None:
+        """The scheduler of ``cfg`` (``schedule``, ``client_failure_rate``)."""
+        self.sched = resolve_schedule_cfg(cfg)
+        self.failure_rate = float(cfg.get("client_failure_rate", 0.0) or 0.0)
+        self._sched_buf = None
 
     def flatten(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self.spec.flatten({k: v.detach() for k, v in params.items()}).to(self.device)
@@ -193,28 +218,77 @@ class FlatParams:
             raise ValueError(f"wire residual of shape {tuple(host.shape)}, want {want}")
         self._resid = host.to(self.device)
 
+    # -- the buffered aggregation's staleness carry (ref sched/buffer.py) --
+
+    def sched_buf_host(self) -> Optional[np.ndarray]:
+        """Host copy of the staleness buffer ``[2, total]`` (for a
+        checkpoint); None under ``sync`` or before the first buffered
+        round."""
+        return None if self._sched_buf is None else self._sched_buf.cpu().numpy()
+
+    def set_sched_buf(self, arr) -> None:
+        """Restore the staleness buffer (from a checkpoint) onto the device."""
+        host = torch.as_tensor(np.asarray(arr, np.float32))
+        if tuple(host.shape) != (2, self.spec.total):
+            raise ValueError(f"staleness buffer of shape {tuple(host.shape)}, want "
+                             f"{(2, self.spec.total)}")
+        self._sched_buf = host.to(self.device)
+
     def reset_carries(self) -> None:
-        """Drop the residual carry; the next compressed round starts from
-        zeros unless one is restored first."""
+        """Drop the residual and staleness carries; the next round starts
+        from zeros unless they are restored first."""
         self._resid = None
+        self._sched_buf = None
+
+    # -- the scheduler's slots --------------------------------------------
+
+    def total_steps(self, data) -> int:
+        """A client's local steps, from the stacked, padded shard: ``E *
+        ceil(N / B)`` (an LM ``E * ceil(T / bptt)``) -- the deadline's
+        ``total`` (ref round_engine.py:881-912)."""
+        if self.is_lm:
+            return self.local_epochs * math.ceil(data[0].shape[2] / self.bptt)
+        return self.local_epochs * math.ceil(data[0].shape[1] / self.batch_size)
+
+    def slot_plan(self, user_idx: np.ndarray, rseed: int, total_steps: int,
+                  step_limits=None, alive=None) -> Tuple[np.ndarray, np.ndarray]:
+        """``(valid [A] bool, budgets [A] int64)`` of a round's slots: a slot
+        trains when it holds a user (not ``-1``) who did not fail
+        (``fed.core.client_alive``); its budget is ``total_steps``, or under
+        a deadline its drawn step count (``sched.deadline.deadline_steps``),
+        and 0 when it does not train.  Test hooks, in slot order, replace
+        the draws: ``alive`` the survivors, ``step_limits`` the budgets."""
+        valid = user_idx >= 0
+        if alive is not None:
+            valid = valid & np.asarray(alive, bool).reshape(-1)
+        elif self.failure_rate > 0.0:
+            valid = valid & client_alive(rseed, user_idx, self.failure_rate)
+        if step_limits is not None:
+            limits = np.asarray(step_limits, np.int64).reshape(-1)
+        elif self.sched.has_deadline:
+            limits = deadline_steps(rseed, user_idx, total_steps, self.sched.deadline_min_frac)
+        else:
+            limits = np.full(user_idx.shape, total_steps, np.int64)
+        return valid, np.where(valid, np.minimum(limits, total_steps), 0)
 
     def _superstep(self, P: torch.Tensor, seed: int, epoch0: int, k: int, user_schedule,
                    rate_schedule, lrs, eval_mask, fused_eval, lr: torch.Tensor, round_fn
                    ) -> Tuple[torch.Tensor, PendingMetrics]:
         """The superstep's round loop, shared by the engines: round r writes
         ``lrs[r]`` into the steps' static scalar ``lr``, runs
-        ``round_fn(P, r, users, rates, round seed) -> (P, [A, 3] sums)``,
-        and evaluates where ``eval_mask[r]`` fires; device marks around each
-        round and evaluation time them."""
+        ``round_fn(P, r, users, rates, round seed) -> (P, [A, 3] sums,
+        reported rates)``, and evaluates where ``eval_mask[r]`` fires; device
+        marks around each round and evaluation time them."""
         eval_mask = normalize_eval_mask(eval_mask, k, fused_eval)
         users, rates, lrs = superstep_schedules(user_schedule, rate_schedule, lrs, k)
         lrs_dev = torch.from_numpy(lrs).to(P.device)
-        train, evals, timers = [], [], {"train": [], "eval": []}
+        train, evals, timers, reported = [], [], {"train": [], "eval": []}, []
         for r in range(k):
             t0 = maybe_event(P.device)
             lr.copy_(lrs_dev[r])
-            P, acc = round_fn(P, r, users[r], rates[r], round_seed(seed, epoch0 + r))
+            P, acc, rate_r = round_fn(P, r, users[r], rates[r], round_seed(seed, epoch0 + r))
             train.append(acc)
+            reported.append(rate_r)
             t1 = maybe_event(P.device)
             timers["train"].append((t0, t1))
             if eval_mask is not None and eval_mask[r]:
@@ -223,22 +297,33 @@ class FlatParams:
         eval_epochs = [epoch0 + r for r in range(k) if eval_mask and eval_mask[r]]
         return P, PendingMetrics(
             {"train": train, "eval": evals},
-            lambda host: assemble_superstep(host, rates, eval_epochs, fused_eval), timers)
+            lambda host: assemble_superstep(host, reported, eval_epochs, fused_eval), timers)
 
-    def _aggregate(self, P, summed, counts, round_seed: int, n_clients: int,
+    def _aggregate(self, P, summed, counts, round_seed: int, n_slots: int,
                    codec_noise=None, topk_offset=None, cmax: Optional[int] = None
                    ) -> torch.Tensor:
         """The round's new global params: the counted sums through the wire
         codec (encode, sum, decode, the residual carried; its grid sized for
-        ``cmax`` clients, default ``n_clients``) when there is one and a
-        client trained, then the counted average with the stale fallback."""
-        if self.codec is not None and n_clients:
+        ``cmax`` clients, default the round's ``n_slots``, padding and
+        failed slots included, as the reference's ``user_glob.shape[0]``)
+        whenever the round has slots, then the counted average with the
+        stale fallback -- or under buffered aggregation
+        (``sched.buffer.buffered_combine``) the buffered update of the
+        previous round, this round's sums buffered."""
+        if self.codec is not None and n_slots:
             draw = {"int8": codec_noise, "topk": topk_offset}.get(self.codec.name)
             if draw is None:
                 draw = self.codec.draw(round_seed, P.device)
             summed, counts, self._resid = compressed_sum(
                 self.codec, P, summed, counts, self._ensure_resid(P.device), draw,
-                n_clients if cmax is None else cmax)
+                n_slots if cmax is None else cmax)
+        if self.sched.buffered:
+            if self._sched_buf is None:
+                self._sched_buf = torch.zeros((2, self.spec.total), dtype=torch.float32,
+                                              device=P.device)
+            P, self._sched_buf = buffered_combine(P, self._sched_buf, summed, counts,
+                                                  self.sched.staleness)
+            return P
         return combine_counted(P, summed, counts)
 
 
@@ -270,6 +355,7 @@ class RoundEngine(FlatParams):
         name, ef = resolve_codec_cfg(cfg)
         self.codec = make_codec(name, self.spec, 1, error_feedback=ef)
         self._resid = None
+        self._init_sched(cfg)
         self._label_axes = [(k, s.label_axis) for k, s in model.specs.items()
                             if s.label_axis is not None]
         # flat width masks (and the group norms' channel masks) per width
@@ -321,13 +407,16 @@ class RoundEngine(FlatParams):
     def local_train(self, P: torch.Tensor, wr: float, x, y, sm, lm, gen: torch.Generator,
                     lr: torch.Tensor, raw_perms: Optional[np.ndarray] = None,
                     aug: Optional[Callable[[int], Tuple[Any, Any]]] = None,
-                    scaler_rate: Optional[float] = None
+                    scaler_rate: Optional[float] = None, step_limit: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Local SGD of one client from the global flat params ``P`` ->
         ``(trained flat params, [loss_sum, correct_sum, n] device sums)``.
         ``scaler_rate`` (default ``wr``): the Scaler's rate, which a dense
         level sub-model trained at ``wr = 1`` takes from its level (the
-        sliced twin).
+        sliced twin).  ``step_limit``: a deadline's budget -- the client
+        stops after that many of its ``E * S`` steps, which is what the
+        reference's gated steps past the budget amount to (no update, no
+        metric).
 
         Test hooks: ``raw_perms`` (``[E, N]``) replaces the generator's epoch
         permutations (the real-first sort still runs on them); ``aug(t)``
@@ -340,7 +429,8 @@ class RoundEngine(FlatParams):
               "acc": torch.zeros(3, dtype=torch.float32, device=dev), "lr": lr, "lm": lm}
         perms = self._epoch_perms(gen, sm, raw_perms)
         wpad = self._pad_weights(x.shape[0], dev)
-        for t in range(self.local_epochs * S):
+        steps = self.local_epochs * S
+        for t in range(steps if step_limit is None else min(steps, step_limit)):
             e, s = divmod(t, S)
             ids = perms[e, s * B:(s + 1) * B]
             draw = None if aug is None else tuple(torch.as_tensor(np.array(a)).to(dev)
@@ -352,7 +442,7 @@ class RoundEngine(FlatParams):
     def local_train_lm(self, P: torch.Tensor, wr: float, rows: torch.Tensor, lm: torch.Tensor,
                        gen: torch.Generator, lr: torch.Tensor,
                        draws: Optional[Callable[[int], Dict[str, Any]]] = None,
-                       scaler_rate: Optional[float] = None
+                       scaler_rate: Optional[float] = None, step_limit: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Local SGD of one masked-LM client on its token rows ``[R, T]``
         from the global flat params ``P`` -> ``(trained flat params,
@@ -364,7 +454,7 @@ class RoundEngine(FlatParams):
         ``exp(window CE) * R`` to the score (Perplexity's sum; ref
         round_engine.py:740-815).  ``draws(t)`` (test hook) gives step
         ``t``'s corruption and dropout draws instead of ``gen``;
-        ``scaler_rate`` as in :meth:`local_train`."""
+        ``scaler_rate`` and ``step_limit`` as in :meth:`local_train`."""
         bptt, dev = self.bptt, P.device
         R, T = rows.shape
         wpos, n_win = self._window_weights(R, T, dev)
@@ -374,7 +464,8 @@ class RoundEngine(FlatParams):
         st = {"p": P * mask, "buf": torch.zeros_like(P), "g": torch.empty_like(P),
               "acc": torch.zeros(3, dtype=torch.float32, device=dev), "lr": lr, "lm": lm,
               "rows_n": torch.full((), float(R), dtype=torch.float32, device=dev)}
-        for t in range(self.local_epochs * S):
+        steps = self.local_epochs * S
+        for t in range(steps if step_limit is None else min(steps, step_limit)):
             s = t % S
             self._lm_step(st, wr, wr if scaler_rate is None else scaler_rate, mask, gen,
                           rows_p[:, s * bptt:(s + 1) * bptt], wpos[:, s * bptt:(s + 1) * bptt],
@@ -466,18 +557,19 @@ class RoundEngine(FlatParams):
             fused_sgd_flat(g, p, buf, mask, make_scal(n_glob, lr), momentum=self.momentum,
                            weight_decay=self.weight_decay, max_norm=1.0)
 
-    def _reference_step(self, p, buf, grads, mask, n_glob, lr) -> None:
+    def _reference_step(self, p, buf, grads, mask, n_glob, lr, has=None) -> None:
         """``fused_update=False``: the unfused per-leaf optimizer chain
         (ref round_engine.py:622-634) -- mean-normalise, width mask,
-        global-norm clip, SGD, ``has`` gate -- in place on leaf views of the
-        flat ``p`` and ``buf``."""
+        global-norm clip, SGD, ``has`` gate (default ``n_glob > 0``) -- in
+        place on leaf views of the flat ``p`` and ``buf``."""
         spec = self.spec
         pt, bt, mt = spec.unflatten(p), spec.unflatten(buf), spec.unflatten(mask)
         denom = n_glob.clamp_min(1e-6)
         gm = {k: (gr / denom) * mt[k] for k, gr in zip(spec.names, grads)}
         gm, _ = clip_by_global_norm(gm, 1.0)
         new_p, new_b = sgd_update(pt, gm, bt, lr, self.momentum, self.weight_decay)
-        has = n_glob > 0  # all-padding batch: skip the step entirely
+        if has is None:
+            has = n_glob > 0  # all-padding batch: skip the step entirely
         for k in spec.names:
             pt[k].copy_(torch.where(has, new_p[k], pt[k]))
             bt[k].copy_(torch.where(has, new_b[k], bt[k]))
@@ -491,7 +583,8 @@ class RoundEngine(FlatParams):
                     topk_offset: Optional[int] = None,
                     lm_draws: Optional[Callable[[int, int], Dict[str, Any]]] = None,
                     rates: Optional[Sequence[float]] = None,
-                    aug_draws: Optional[Callable[[int, int], Tuple[Any, Any]]] = None
+                    aug_draws: Optional[Callable[[int, int], Tuple[Any, Any]]] = None,
+                    step_limits=None, alive=None
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One round from the global flat params ``P``.
 
@@ -504,42 +597,56 @@ class RoundEngine(FlatParams):
         them a ``dynamic`` round draws them (``fed.core.round_rates`` at
         ``round_seed``) and a ``fix`` round takes each user's own.  An empty
         cohort leaves ``P`` as it is (the stale-value fallback everywhere)
-        and sends nothing through a wire codec.  Test hooks, which replace
-        a draw from the round seed: ``epoch_perms`` ``{uid: [E, N]}`` raw
-        permutations; ``aug_draws(uid, t)`` a CIFAR client's augmentation
-        ``(offsets [B, 2], flips [B])`` of local step ``t``; ``codec_noise``
-        the int8 codec's rounding noise ``[total]`` (flat layout of
-        ``self.spec``); ``topk_offset`` the topk codec's block offset;
-        ``lm_draws(uid, t)`` an LM client's corruption and dropout draws of
-        local step ``t``."""
+        and sends nothing through a wire codec.
+
+        The scheduler (:meth:`slot_plan`): a ``-1`` slot (a schedule's
+        padding) or a failed client trains nothing, counts nothing and
+        reports a zero metrics row and rate 0 -- the reference trains a
+        failed client and throws the result away, which gives the same
+        round; under a deadline a client stops at its budget.
+
+        Test hooks, which replace a draw from the round seed: ``epoch_perms``
+        ``{uid: [E, N]}`` raw permutations; ``aug_draws(uid, t)`` a CIFAR
+        client's augmentation ``(offsets [B, 2], flips [B])`` of local step
+        ``t``; ``codec_noise`` the int8 codec's rounding noise ``[total]``
+        (flat layout of ``self.spec``); ``topk_offset`` the topk codec's
+        block offset; ``lm_draws(uid, t)`` an LM client's corruption and
+        dropout draws of local step ``t``; ``step_limits`` and ``alive``
+        (slot order) the deadline budgets and the survivors."""
         lm_all = data[-1]
         user_idx = np.asarray(user_idx, np.int64).reshape(-1)
         rates_abs = cohort_rates(self.cfg, user_idx, round_seed, rates)
+        valid, limits = self.slot_plan(user_idx, round_seed, self.total_steps(data),
+                                       step_limits, alive)
         wrs = to_width_rates(rates_abs, self.cfg)
         lr_t = torch.full((), float(lr), dtype=torch.float32, device=P.device)
         summed = torch.zeros_like(P)
         counts = torch.zeros_like(P)
         rows = []
         for slot, uid in enumerate(user_idx.tolist()):
+            if not valid[slot]:
+                rows.append(P.new_zeros(3))
+                continue
             gen = torch.Generator(device=P.device)
             gen.manual_seed(client_seed(round_seed, uid))
-            wr = float(wrs[slot])
+            wr, limit = float(wrs[slot]), int(limits[slot])
             if self.is_lm:
                 draws = None if lm_draws is None else (lambda t, u=uid: lm_draws(u, t))
                 trained, acc = self.local_train_lm(P, wr, data[0][uid], lm_all[uid], gen, lr_t,
-                                                   draws)
+                                                   draws, step_limit=limit)
             else:
                 trained, acc = self.local_train(
                     P, wr, data[0][uid], data[1][uid], data[2][uid], lm_all[uid], gen, lr_t,
                     None if epoch_perms is None else epoch_perms[uid],
-                    None if aug_draws is None else (lambda t, u=uid: aug_draws(u, t)))
+                    None if aug_draws is None else (lambda t, u=uid: aug_draws(u, t)),
+                    step_limit=limit)
             cm = self.count_mask_flat(wr, lm_all[uid])
             summed += trained * cm
             counts += cm
             rows.append(acc)
         acc = torch.stack(rows) if rows else P.new_zeros((0, 3))
         ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
-              "rate": rates_abs}
+              "rate": rates_abs * valid}
         return self._aggregate(P, summed, counts, round_seed, len(rows), codec_noise,
                                topk_offset), ms
 
@@ -636,35 +743,45 @@ class RoundEngine(FlatParams):
         st["perms"].copy_(self._epoch_perms(gen, data[2][uid], raw_perms).reshape(-1))
 
     def _replayed_round(self, P: torch.Tensor, user_idx: np.ndarray, rates_abs: np.ndarray,
-                        data, rseed: int, epoch_perms=None, codec_noise=None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        data, rseed: int, epoch_perms=None, codec_noise=None, step_limits=None,
+                        alive=None) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
         """One round of the superstep: per client the eager set-up, then its
-        steps replayed; aggregation (and the codec) on the device as
-        :meth:`train_round` -> ``(new P, [A, 3] device sums)``; hooks as
-        :meth:`train_superstep`'s, this round's."""
+        steps replayed (up to its budget, :meth:`slot_plan`; a padding or
+        failed slot is skipped with a zero row); aggregation (and the codec)
+        on the device as :meth:`train_round` -> ``(new P, [A, 3] device
+        sums, reported rates)``; hooks as :meth:`train_superstep`'s, this
+        round's."""
+        valid, limits = self.slot_plan(user_idx, rseed, self.total_steps(data), step_limits,
+                                       alive)
         wrs = to_width_rates(rates_abs, self.cfg)
         summed = torch.zeros_like(P)
         counts = torch.zeros_like(P)
         rows = []
         for slot, uid in enumerate(user_idx.tolist()):
+            if not valid[slot]:
+                rows.append(P.new_zeros(3))
+                continue
             wr = float(wrs[slot])
             step, st = self.client_step(wr, P, data)
             self.stage_client(st, P, wr, uid, data, client_seed(rseed, uid),
                               None if epoch_perms is None else epoch_perms[uid])
-            for _ in range(st["steps"]):
+            for _ in range(min(st["steps"], int(limits[slot]))):
                 step.replay()
             cm = self.count_mask_flat(wr, data[-1][uid])
             summed += st["p"] * cm
             counts += cm
             rows.append(st["acc"].clone())
         acc = torch.stack(rows) if rows else P.new_zeros((0, 3))
-        return self._aggregate(P, summed, counts, rseed, len(rows), codec_noise), acc
+        return (self._aggregate(P, summed, counts, rseed, len(rows), codec_noise), acc,
+                rates_abs * valid)
 
     def train_superstep(self, P: torch.Tensor, seed: int, epoch0: int, k: int,
                         data: Tuple[torch.Tensor, ...], user_schedule, rate_schedule, lrs,
                         eval_mask=None, fused_eval=None,
                         epoch_perms: Optional[Sequence[Dict[int, np.ndarray]]] = None,
-                        codec_noise: Optional[Sequence[torch.Tensor]] = None
+                        codec_noise: Optional[Sequence[torch.Tensor]] = None,
+                        step_limits: Optional[Sequence[Any]] = None,
+                        alive: Optional[Sequence[Any]] = None
                         ) -> Tuple[torch.Tensor, PendingMetrics]:
         """Rounds ``epoch0 .. epoch0 + k - 1`` with no host read between
         them (ref parallel/round_engine.py:1487-1767): round r trains the
@@ -679,11 +796,15 @@ class RoundEngine(FlatParams):
         ``train`` and ``eval``.  Test hooks, which replace a draw from the
         round seed, one entry a round: ``epoch_perms[r]`` ``{uid: [E, N]}``
         raw permutations (vision), ``codec_noise[r]`` the int8 codec's
-        noise."""
+        noise, ``step_limits[r]`` and ``alive[r]`` the deadline budgets and
+        the survivors in slot order."""
         st = self._slots(P, data)
+
+        def hook(h, r):
+            return None if h is None else h[r]
+
         return self._superstep(
             P, seed, epoch0, k, user_schedule, rate_schedule, lrs, eval_mask, fused_eval,
             st["lr"], lambda P, r, users, rates, rseed: self._replayed_round(
-                P, users, rates, data, rseed,
-                None if epoch_perms is None else epoch_perms[r],
-                None if codec_noise is None else codec_noise[r]))
+                P, users, rates, data, rseed, hook(epoch_perms, r), hook(codec_noise, r),
+                hook(step_limits, r), hook(alive, r)))

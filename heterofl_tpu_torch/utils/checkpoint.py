@@ -2,7 +2,7 @@
 
 Port of the single-process part of ``heterofl_tpu/utils/checkpoint.py``.
 Each round the experiment loop stores ``{cfg, epoch, data_split,
-label_split, params, bn_state, wire_resid, pivot, logger_state,
+label_split, params, bn_state, wire_resid, sched_buf, pivot, logger_state,
 scheduler_state, ...}`` to ``output_dir/model/{tag}_checkpoint.pkl`` and
 copies it to ``_best.pkl`` when the pivot metric improves; resume restores
 everything, the data partition included, so a resumed run keeps the same
@@ -13,7 +13,9 @@ the SHA-256 of the payload, then the payload, a protocol-4 pickle of numpy
 arrays, Python scalars, lists, tuples and dicts only.  Torch tensors are
 turned into numpy arrays on the way in (:func:`_to_host`), so a blob holds
 no torch object and each package reads the other's files.  Params go in
-the reference's layout (``convert.params_to_jax``; the caller's job).
+the reference's layout (``convert.params_to_jax``), and the flat carries
+(the residual, the staleness buffer ``sched_buf``) in the reference's flat
+layout (``convert.flat_to_jax``); the caller's job.
 
 * every write goes tmp -> flush -> ``os.fsync`` -> ``os.replace`` ->
   fsync(dir), so a crash never leaves a torn blob under the final name;

@@ -81,4 +81,5 @@ def test_no_port_file_imports_jax_or_reference():
             "heterofl_tpu_torch/models/resnet.py", "heterofl_tpu_torch/models/norms.py",
             "heterofl_tpu_torch/parallel/grouped.py", "heterofl_tpu_torch/fed/sliced.py",
             "heterofl_tpu_torch/fed/sampling.py", "heterofl_tpu_torch/parallel/staging.py",
-            "heterofl_tpu_torch/parallel/step_graph.py"} <= scanned
+            "heterofl_tpu_torch/parallel/step_graph.py", "heterofl_tpu_torch/sched/__init__.py",
+            "heterofl_tpu_torch/sched/deadline.py", "heterofl_tpu_torch/sched/buffer.py"} <= scanned
