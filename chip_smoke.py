@@ -155,7 +155,27 @@ each prints its seconds:
    rounds bit for bit.  Each run prints its host-clock seconds, its steps
    against the lockstep budget, its slots filled and failed and its
    kernels by name;
-11. the ``kernels`` JSON line (launches from the int8 path, the batched
+11. the streaming client store (``--client_store stream``), at phase 10's
+   depth: (a) the masked headline streamed against the eager store, three
+   rounds at K=1 and five at ``--superstep_rounds 2
+   --stream_prefetch_depth 2``, params, log and launches bit for bit, and
+   the superstep run resumed from its round-2 checkpoint (written with two
+   cohorts already prefetched) equal to the uninterrupted run; (b) the
+   grouped headline superstep streamed against the eager store bit for
+   bit, the eager store's refusal of int8 at K=1, and that streamed int8
+   K=1 round on the card against the CPU under phase 10c's contract; (c)
+   the LM control's superstep streamed against the eager store bit for
+   bit; (d) span stores of 10,000 and 1,000,000 users over 15,000
+   synthetic CIFAR10 images (shard 500, prp, A = 10): ``stage_cohort``'s
+   host seconds, the device bytes it allocates (equal at both
+   populations) and the store's metadata bytes, staging at 1e6 users
+   under 5x the seconds at 1e4, and one streamed superstep of two rounds
+   on full-width ResNet-18 from the 1e6 cohort trains; (e) the cohort ring
+   at depth 1 and 2: cohorts staged while the superstep before them runs,
+   each copied out on the compute stream after its superstep equal to the
+   host gather bit for bit, and whether each prefetch ended while the
+   device was still busy (``Event.query``);
+12. the ``kernels`` JSON line (launches from the int8 path, the batched
    kernels' from the grouped path; per path in ``launches_by_path``, and
    the superstep's launches from replays -- a graph's captured launches
    times its replays -- in ``replayed_launches_by_path``), then the ``ok``
@@ -284,6 +304,18 @@ SCENARIO_MASKED = {"kind": "markov", "deadline": {"min_frac": SCENARIO_MIN_FRAC}
                    "aggregation": "buffered"}
 SCENARIO_TRACE_AVAIL = (6, 100, 4)  # users available in each round of the grouped trace
 SCENARIO_LM_SIZES = {"train": 256000, "test": 24576}  # 40 steps a client
+# the streaming store's paths (phase 11), at the scenario paths' depth: K=2 supersteps of rounds
+# [1, 2], [3, 4], [5], so depth 2 prefetches two cohorts; the population at the reference's
+# acceptance shape (tests/test_streaming.py:384-437), full-width ResNet-18
+STREAM_ROUNDS = 5
+POP_USERS = (10_000, 1_000_000)
+POP_ITEMS = 15000
+POP_SHARD = 500
+POP_ACTIVE = 10
+POP_STAGE_CALLS = 5
+POP_TIME_RATIO = 5.0  # the reference's bound, tests/test_streaming.py:430
+RING_SHARD = 50  # the ring check's shard: five steps a client
+RING_SUPERSTEPS = 4
 # ResNet-50 at full width on CIFAR10 (23,513,162 parameters, 49 BN sites a
 # step); its card-vs-CPU round: a level-a and a level-e client of 20
 # samples, 2 steps each (level e is chaotic over more steps; a batch of
@@ -2979,14 +3011,17 @@ def scenario_grouped_path(torch, counters, out_dir: str):
     return launches, replayed
 
 
-def scenario_grouped_int8_phase(torch, devices=("cuda", "cpu")) -> None:
+def scenario_grouped_int8_phase(torch, devices=("cuda", "cpu"), stream: bool = False) -> None:
     """Phase 10c: one grouped int8 round (the superstep of one round) with
     unfilled slots on the card (kernels) against the same round on the CPU
     (plain versions): the conv net (16/32, MNIST), levels a, b and e, two
     ``-1`` slots at level e (the last user's), epoch permutations and codec
     noise injected; the grid sized for 4 levels x 4 slots; params within
     ``TOL_ROUND`` but a share ``SHARE_ROUND_INT8`` within one grid step,
-    the residual within ``5 x TOL_ROUND`` but that share within one step."""
+    the residual within ``5 x TOL_ROUND`` but that share within one step.
+    ``stream`` (phase 11b): the K=1 round of ``client_store='stream'``,
+    which the eager store refuses, its cohort staged from a ``ClientStore``
+    (``stage_cohort``, ``train_superstep(cohort=...)``) on both devices."""
     import numpy as np
 
     from heterofl_tpu_torch import config as C
@@ -2994,12 +3029,14 @@ def scenario_grouped_int8_phase(torch, devices=("cuda", "cpu")) -> None:
                                          stack_client_shards)
     from heterofl_tpu_torch.models import make_model
     from heterofl_tpu_torch.parallel import GroupedRoundEngine
+    from heterofl_tpu_torch.parallel.staging import ClientStore
     from heterofl_tpu_torch.testing import assert_grid_close
 
     cfg = C.default_cfg()
     cfg["control"] = C.parse_control_name("1_5_1_iid_fix_a2-b1-c1-e1_bn_1_1")
     cfg.update(data_name="MNIST", model_name="conv", pallas_norm=True, strategy="grouped",
-               wire_codec="int8", superstep_rounds=2,
+               wire_codec="int8", superstep_rounds=1 if stream else 2,
+               client_store="stream" if stream else "eager",
                override={"num_epochs": {"local": 2}, "conv": {"hidden_size": [16, 32]}})
     cfg = C.process_control(cfg)
     cfg["classes_size"] = 10
@@ -3019,8 +3056,15 @@ def scenario_grouped_int8_phase(torch, devices=("cuda", "cpu")) -> None:
         data = tuple(torch.from_numpy(a).to(dev) for a in arrays)
         P = eng.flatten(model.params())
         noise = torch.rand(eng.spec.total, generator=torch.Generator().manual_seed(5)).to(dev)
-        new, pend = eng.train_superstep(P, 0, 1, 1, data, users, rates, [0.05],
-                                        epoch_perms=[perms], codec_noise=[noise])
+        if stream:
+            store = ClientStore.from_split(ds["train"].data, ds["train"].target, split["train"],
+                                           lsplit, 10)
+            new, pend = eng.train_superstep(P, 0, 1, 1, None, None, None, [0.05],
+                                            epoch_perms=[perms], codec_noise=[noise],
+                                            cohort=eng.stage_cohort(store, users, rates))
+        else:
+            new, pend = eng.train_superstep(P, 0, 1, 1, data, users, rates, [0.05],
+                                            epoch_perms=[perms], codec_noise=[noise])
         (ms,) = pend.fetch()
         out.append((new.cpu(), ms, eng.wire_resid_host()))
     cmax = eng.codec_slots(rates)
@@ -3031,7 +3075,8 @@ def scenario_grouped_int8_phase(torch, devices=("cuda", "cpu")) -> None:
             counts.index_add_(0, lv.idx, lv.count_masks(data[-1][[int(u)]])[0])
     s = eng.codec.scale_flat(P, cmax)
     (card, ms_card, r_card), (cpu, ms_cpu, r_cpu) = out
-    what = "grouped int8 round with unfilled slots, card vs CPU"
+    what = "grouped int8 round with unfilled slots, card vs CPU" + (" (streamed, K=1)" if stream
+                                                                   else "")
     assert_grid_close(f"{what}: params", card, cpu, torch.where(counts > 0, s / counts.clamp_min(1),
                                                                 0.0),
                       atol=TOL_ROUND, max_share=SHARE_ROUND_INT8)
@@ -3099,6 +3144,361 @@ def make_lm_perms(torch):
     from heterofl_tpu_torch.models import make_model
 
     return make_model(lm_cfg()).jax_perms()
+
+
+def counted_run(torch, counters, main, argv, what: str):
+    """One entry run, the launch counters and the replay record set to 0
+    just before it and read just after -> (result, host seconds, launches,
+    launches from replays)."""
+    from heterofl_tpu_torch.parallel import step_graph
+
+    say(f"{what}: {' '.join(argv)}")
+    step_graph.reset_stats()
+    zero(counters)
+    t0 = time.time()
+    (res,) = main(argv)
+    torch.cuda.synchronize()
+    return res, time.time() - t0, read(counters), dict(step_graph.REPLAYED)
+
+
+def same_run(torch, a, b) -> bool:
+    """Two runs' cohorts, logged records and metric history, params and
+    residual equal bit for bit."""
+    import numpy as np
+
+    keys = ("epoch", "users", "loss", "n", "accuracy", "perplexity", "rates", "Global-Accuracy",
+            "Local-Accuracy", "Global-Perplexity")
+    hist = lambda r: {k: list(v) for k, v in r["logger"].history.items()}  # noqa: E731
+    resid = (a["wire_resid"] is None and b["wire_resid"] is None) or (
+        a["wire_resid"] is not None and b["wire_resid"] is not None
+        and np.array_equal(a["wire_resid"], b["wire_resid"]))
+    return ([[r.get(k) for k in keys] for r in a["history"]]
+            == [[r.get(k) for k in keys] for r in b["history"]]
+            and hist(a) == hist(b) and resid
+            and all(torch.equal(a["params"][k], v) for k, v in b["params"].items()))
+
+
+def stream_argv(out_dir: str, rounds: int, *extra):
+    """The headline control's flags on ``SCENARIO_SIZES``, one local epoch,
+    evaluated after the last round only."""
+    return ["--control_name", HEADLINE, "--synthetic", "1", "--synthetic_sizes",
+            json.dumps(SCENARIO_SIZES), "--pallas_norm", "1", "--fused_update", "1",
+            "--eval_interval", str(rounds), "--output_dir", out_dir,
+            "--override", json.dumps({"num_epochs": {"global": rounds, "local": 1}}), *extra]
+
+
+def stream_masked_path(torch, counters, out_dir: str):
+    """Phase 11a: the masked headline with ``--client_store stream`` against
+    the eager store, under cuDNN's deterministic algorithms: three rounds at
+    K=1, and ``STREAM_ROUNDS`` at ``--superstep_rounds 2
+    --stream_prefetch_depth 2`` (two cohorts prefetched) -- params, log and
+    launches bit for bit (at K=1 the streamed run's replayed launches
+    against the eager loop's launches); then the streamed superstep run
+    resumed from its round-2 checkpoint, written while the cohorts of
+    rounds 3-5 were already drawn, equal to the uninterrupted run ->
+    {path: (launches, replayed)}."""
+    import shutil
+
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.utils import checkpoint_path
+    from heterofl_tpu_torch.utils.checkpoint import generation_path
+
+    stream = ("--client_store", "stream")
+    ss = ("--superstep_rounds", str(SS_ROUNDS), "--stream_prefetch_depth", "2")
+    runs, secs, launches, replayed = {}, {}, {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, rounds, more in (("eager_k1", SCENARIO_ROUNDS, ()),
+                                   ("stream_k1", SCENARIO_ROUNDS, stream),
+                                   ("eager_ss", STREAM_ROUNDS, ss),
+                                   ("stream_ss", STREAM_ROUNDS, ss + stream)):
+            runs[name], secs[name], launches[name], replayed[name] = counted_run(
+                torch, counters, train_classifier_fed.main,
+                stream_argv(os.path.join(out_dir, name), rounds, *more),
+                f"stream masked ({name}): train_classifier_fed")
+        full, cut = os.path.join(out_dir, "stream_ss"), os.path.join(out_dir, "cut")
+        shutil.copytree(os.path.join(full, "model"), os.path.join(cut, "model"))
+        shutil.copyfile(generation_path(checkpoint_path(full, TAG), 2), checkpoint_path(cut, TAG))
+        res, secs["resumed"], launches["resumed"], replayed["resumed"] = counted_run(
+            torch, counters, train_classifier_fed.main,
+            stream_argv(cut, STREAM_ROUNDS, *ss, *stream, "--resume_mode", "1"),
+            "stream masked (resumed from round 2): train_classifier_fed")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # a streamed K=1 run is a run of one-round supersteps: its steps replay
+    # captured graphs (whose warm-up steps launch too), the eager loop's run
+    # eagerly -- the same kernels a step
+    k1 = same_run(torch, runs["stream_k1"], runs["eager_k1"]) and all(
+        replayed["stream_k1"].get(k, 0) == v for k, v in launches["eager_k1"].items())
+    sup = same_run(torch, runs["stream_ss"], runs["eager_ss"]) \
+        and launches["stream_ss"] == launches["eager_ss"] \
+        and replayed["stream_ss"] == replayed["eager_ss"]
+    hist = runs["stream_ss"]["history"]
+    resumed = [r["epoch"] for r in res["history"]] == [3, 4, 5] \
+        and [r["users"] for r in res["history"]] == [r["users"] for r in hist[2:]] \
+        and all(torch.equal(res["params"][k], v) for k, v in runs["stream_ss"]["params"].items())
+    say("stream masked: runs " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+        + " (host clock); stream == eager bit for bit (params, log, launches): K=1 "
+        f"{k1}, superstep at depth 2 {sup}; resumed at the boundary == uninterrupted {resumed}; "
+        f"launches K=1 {launches['stream_k1']}, superstep {launches['stream_ss']}, from replays "
+        f"{replayed['stream_ss']}")
+    if not (k1 and sup and resumed and all(math.isfinite(r["loss"]) for r in hist)):
+        raise AssertionError("stream masked: a streamed run differs from the eager store's, or "
+                             "the resumed run from the uninterrupted one")
+    return {"stream_masked_k1": (launches["stream_k1"], replayed["stream_k1"]),
+            "stream_masked_superstep": (launches["stream_ss"], replayed["stream_ss"]),
+            "stream_masked_resumed": (launches["resumed"], replayed["resumed"])}
+
+
+def stream_grouped_path(torch, counters, out_dir: str):
+    """Phase 11b: the grouped headline superstep (``SCENARIO_ROUNDS``
+    rounds, ``--superstep_rounds 2``) with the stream store against the
+    eager store, bit for bit (params, log, launches, replays); the eager
+    store refuses a grouped int8 run at K=1, which the stream store runs
+    (held on the card against the CPU by :func:`scenario_grouped_int8_phase`)
+    -> (launches, replayed)."""
+    from heterofl_tpu_torch.entry import train_classifier_fed
+
+    ss = ("--strategy", "grouped", "--superstep_rounds", str(SS_ROUNDS))
+    runs, secs, launches, replayed = {}, {}, {}, {}
+    for name, more in (("eager", ()), ("stream", ("--client_store", "stream"))):
+        runs[name], secs[name], launches[name], replayed[name] = counted_run(
+            torch, counters, train_classifier_fed.main,
+            stream_argv(os.path.join(out_dir, name), SCENARIO_ROUNDS, *ss, *more),
+            f"stream grouped ({name}): train_classifier_fed")
+    try:
+        train_classifier_fed.main(stream_argv(os.path.join(out_dir, "k1"), 1, "--strategy",
+                                              "grouped", "--wire_codec", "int8"))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    same = same_run(torch, runs["stream"], runs["eager"]) \
+        and launches["stream"] == launches["eager"] and replayed["stream"] == replayed["eager"]
+    say(f"stream grouped: runs {secs['eager']:.1f} s eager store, {secs['stream']:.1f} s stream "
+        f"store (host clock); stream == eager bit for bit {same}; launches {launches['stream']}, "
+        f"from replays {replayed['stream']}; the eager store at K=1 with int8: {refused}")
+    if not (same and refused and "client_store='stream'" in refused
+            and not any(launches["stream"][k] for k in ("bn_fwd", "bn_bwd", "fused_sgd"))):
+        raise AssertionError("stream grouped: the streamed superstep differs from the eager "
+                             "store's, or the eager store did not refuse int8 at K=1")
+    return launches["stream"], replayed["stream"]
+
+
+def stream_lm_path(torch, counters, out_dir: str):
+    """Phase 11c: the LM control at full width on ``SCENARIO_LM_SIZES`` (40
+    steps a client), a superstep of two rounds, with the stream store
+    against the eager store, bit for bit -> (launches, replayed)."""
+    from heterofl_tpu_torch.entry import train_transformer_fed
+
+    runs, secs, launches, replayed = {}, {}, {}, {}
+    for name, more in (("eager", ()), ("stream", ("--client_store", "stream"))):
+        argv = ["--control_name", LM_CONTROL, "--synthetic", "1", "--synthetic_sizes",
+                json.dumps(SCENARIO_LM_SIZES), "--fused_update", "1", "--eval_interval",
+                str(SS_ROUNDS), "--superstep_rounds", str(SS_ROUNDS), "--output_dir",
+                os.path.join(out_dir, name), "--override",
+                json.dumps({"num_epochs": {"global": SS_ROUNDS, "local": 1}}), *more]
+        runs[name], secs[name], launches[name], replayed[name] = counted_run(
+            torch, counters, train_transformer_fed.main, argv,
+            f"stream LM ({name}): train_transformer_fed")
+    same = same_run(torch, runs["stream"], runs["eager"]) \
+        and launches["stream"] == launches["eager"] and replayed["stream"] == replayed["eager"]
+    say(f"stream LM: runs {secs['eager']:.1f} s eager store, {secs['stream']:.1f} s stream store "
+        f"(host clock); stream == eager bit for bit {same}; launches {launches['stream']}, from "
+        f"replays {replayed['stream']}")
+    if not (same and replayed["stream"].get("fused_sgd", 0) > 0
+            and all(math.isfinite(r["loss"]) for r in runs["stream"]["history"])):
+        raise AssertionError("stream LM: the streamed superstep differs from the eager store's")
+    mask_row_kept(torch, runs["stream"]["params"])
+    return launches["stream"], replayed["stream"]
+
+
+def population_cfg(users: int, depth: int = 1):
+    """The headline's full-width ResNet-18 on CIFAR10 over ``users`` users
+    (the reference's acceptance shape, tests/test_streaming.py:384-437):
+    the prp sampler, one local epoch."""
+    from heterofl_tpu_torch import config as C
+
+    cfg = C.default_cfg()
+    cfg["control"] = C.parse_control_name(
+        f"1_{users}_{POP_ACTIVE / users:g}_iid_fix_a1-b1-c1-d1-e1_bn_1_1")
+    cfg.update(data_name="CIFAR10", model_name="resnet18", pallas_norm=True, sampler="prp",
+               client_store="stream", stream_prefetch_depth=depth,
+               override={"num_epochs": {"local": 1}})
+    cfg = C.process_control(cfg)
+    cfg["classes_size"] = 10
+    return cfg
+
+
+def population_phase(torch, counters, device: str = "cuda"):
+    """Phase 11d: span stores of ``POP_USERS`` users over ``POP_ITEMS``
+    synthetic CIFAR10 images, shard ``POP_SHARD``, the prp sampler, A =
+    ``POP_ACTIVE``; ``stage_cohort`` for k = 2 at each population, timed
+    on the host clock (the median of ``POP_STAGE_CALLS`` calls; and until
+    the copy's event), the device bytes the cohort allocates and the
+    store's metadata bytes.  The cohort's device bytes must be equal at
+    both populations and the host seconds at 1e6 users under
+    ``POP_TIME_RATIO`` times those at 1e4 (the reference's bound); then one
+    streamed superstep of two rounds on full-width ResNet-18 from the 1e6
+    cohort trains (finite losses, n > 0) -> ((launches, replayed),
+    numbers).  ``device`` ``cpu`` rehearses the phase (no device bytes)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.data import fetch_dataset, span_population
+    from heterofl_tpu_torch.fed.core import superstep_rate_schedule, superstep_user_schedule
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.parallel import RoundEngine, step_graph
+    from heterofl_tpu_torch.parallel.staging import ClientStore
+
+    dev = torch.device(device)
+    allocated_now = torch.cuda.memory_allocated if dev.type == "cuda" else (lambda: 0)
+    tr = fetch_dataset("CIFAR10", synthetic=True,
+                       synthetic_sizes={"train": POP_ITEMS, "test": 10})["train"]
+    model = make_model(population_cfg(POP_USERS[0])).init_(
+        torch.Generator().manual_seed(0)).to(dev)
+    nums = {}
+    for users in POP_USERS:
+        cfg = population_cfg(users)
+        eng = RoundEngine(model, cfg, dev)
+        t0 = time.perf_counter()
+        store = ClientStore.from_spans(tr.data, tr.target,
+                                       *span_population(POP_ITEMS, users, POP_SHARD), 10)
+        build_s = time.perf_counter() - t0
+        sched = superstep_user_schedule(0, 1, SS_ROUNDS, users, POP_ACTIVE, "prp")
+        rates = superstep_rate_schedule(0, 1, SS_ROUNDS, cfg, sched)
+        before = allocated_now()
+        host_s, copy_s, allocated = [], [], None
+        for i in range(POP_STAGE_CALLS):
+            t0 = time.perf_counter()
+            coh = eng.stage_cohort(store, sched, rates)
+            host_s.append(time.perf_counter() - t0)
+            if coh.ready is not None:
+                coh.ready.synchronize()
+            copy_s.append(time.perf_counter() - t0)
+            if allocated is None:
+                allocated = allocated_now() - before
+            if i + 1 < POP_STAGE_CALLS:
+                coh.release()
+        nums[users] = {"stage_host_s": statistics.median(host_s),
+                       "stage_copied_s": statistics.median(copy_s), "build_s": build_s,
+                       "allocated_before": before, "cohort_allocated": allocated,
+                       "cohort_bytes": sum(t.numel() * t.element_size() for t in coh.data),
+                       "metadata_nbytes": store.metadata_nbytes}
+        say(f"population {users:,} users (span store over {POP_ITEMS:,} images, shard "
+            f"{POP_SHARD}): store built in {build_s:.4f} s, metadata {store.metadata_nbytes:,} B; "
+            f"stage_cohort k={SS_ROUNDS} A={POP_ACTIVE}: host {nums[users]['stage_host_s']:.4f} s "
+            f"(median of {POP_STAGE_CALLS}; calls {[round(s, 4) for s in host_s]}), "
+            f"{nums[users]['stage_copied_s']:.4f} s until its copy ended (host clock); "
+            f"torch.cuda.memory_allocated {before:,} B before, the cohort's slot {allocated:,} B, "
+            f"cohort tensors {nums[users]['cohort_bytes']:,} B")
+    small, big = nums[POP_USERS[0]], nums[POP_USERS[-1]]
+    ratio = big["stage_host_s"] / max(small["stage_host_s"], 1e-9)
+    say(f"population: staging at {POP_USERS[-1]:,} users takes {ratio:.3f}x the host seconds at "
+        f"{POP_USERS[0]:,} (bound {POP_TIME_RATIO}x); cohort device bytes "
+        f"{big['cohort_allocated']:,} / {small['cohort_allocated']:,}")
+    if not (big["cohort_allocated"] == small["cohort_allocated"]
+            and big["cohort_bytes"] == small["cohort_bytes"]
+            and (dev.type == "cpu" or big["cohort_allocated"] >= big["cohort_bytes"])
+            and ratio < POP_TIME_RATIO
+            and big["metadata_nbytes"] == 2 * POP_USERS[-1] * 8):
+        raise AssertionError("population: staging a cohort depends on the population's size")
+    step_graph.reset_stats()
+    zero(counters)
+    t0 = time.time()
+    P = eng.flatten(model.params())
+    P, pend = eng.train_superstep(P, 0, 1, SS_ROUNDS, None, None, None, [0.1] * SS_ROUNDS,
+                                  cohort=coh)
+    rounds = pend.fetch()
+    secs = time.time() - t0
+    launches, replayed = read(counters), dict(step_graph.REPLAYED)
+    losses = [float(np.sum(r["loss_sum"]) / max(np.sum(r["n"]), 1)) for r in rounds]
+    n = [float(np.sum(r["n"])) for r in rounds]
+    say(f"population: one streamed superstep of {SS_ROUNDS} rounds on full-width ResNet-18 from "
+        f"the {POP_USERS[-1]:,}-user cohort {sched.tolist()}: {secs:.1f} s (host clock), losses "
+        f"{losses}, n {n}; launches {launches}, from replays {replayed}")
+    if not (all(math.isfinite(v) for v in losses) and all(v > 0 for v in n)
+            and bool(torch.isfinite(P).all())):
+        raise AssertionError("population: the streamed superstep did not train")
+    nums["ratio"] = ratio
+    return (launches, replayed), nums
+
+
+def ring_phase(torch, device: str = "cuda") -> dict:
+    """Phase 11e: the cohort ring on the card at depth 1 and 2: over
+    ``RING_SUPERSTEPS`` masked supersteps of two rounds (full-width
+    ResNet-18, a span store of 10,000 users, shard ``RING_SHARD``), the
+    next ``depth`` cohorts are staged right after each superstep is
+    dispatched, while it runs; each cohort is held across its superstep and
+    copied out on the compute stream right after it, then released.  Every
+    copy must equal the host gather of its schedule bit for bit.  At the
+    end of each prefetch a ``torch.cuda.Event.query()`` of the superstep's
+    end says whether the device was still busy; the copy's end against the
+    superstep's end is read from their events -> {depth: numbers}.
+    ``device`` ``cpu`` rehearses the phase (no events)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.data import fetch_dataset, span_population
+    from heterofl_tpu_torch.fed.core import superstep_rate_schedule, superstep_user_schedule
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.parallel import RoundEngine
+    from heterofl_tpu_torch.parallel.staging import ClientStore
+
+    users, dev = POP_USERS[0], torch.device(device)
+    tr = fetch_dataset("CIFAR10", synthetic=True,
+                       synthetic_sizes={"train": POP_ITEMS, "test": 10})["train"]
+    store = ClientStore.from_spans(tr.data, tr.target,
+                                   *span_population(POP_ITEMS, users, RING_SHARD), 10)
+    model = make_model(population_cfg(users)).init_(torch.Generator().manual_seed(0)).to(dev)
+    out = {}
+    for depth in (1, 2):
+        cfg = population_cfg(users, depth)
+        eng = RoundEngine(model, cfg, dev)
+        scheds = [superstep_user_schedule(0, 1 + SS_ROUNDS * i, SS_ROUNDS, users, POP_ACTIVE,
+                                          "prp") for i in range(RING_SUPERSTEPS)]
+        rates = [superstep_rate_schedule(0, 1 + SS_ROUNDS * i, SS_ROUNDS, cfg, s)
+                 for i, s in enumerate(scheds)]
+        queue = [(0, eng.stage_cohort(store, scheds[0], rates[0]))]
+        P = eng.flatten(model.params())
+        copies, prefetches, pends = [], [], []
+        for i in range(RING_SUPERSTEPS):
+            _, coh = queue.pop(0)
+            data = coh.open("masked", SS_ROUNDS)  # held: copied out after its superstep
+            P, pend = eng.train_superstep(P, 0, 1 + SS_ROUNDS * i, SS_ROUNDS, None, None, None,
+                                          [0.1] * SS_ROUNDS, cohort=coh)
+            done = None
+            if dev.type == "cuda":
+                done = torch.cuda.Event(enable_timing=True)
+                done.record()
+            copies.append(tuple(t.clone() for t in data))
+            coh.release()
+            while len(queue) < depth and i + 1 + len(queue) < RING_SUPERSTEPS:
+                j = i + 1 + len(queue)
+                nxt = eng.stage_cohort(store, scheds[j], rates[j])
+                queue.append((j, nxt))
+                prefetches.append((i, j, done is not None and not done.query(), done,
+                                   nxt.ready))
+            pends.append(pend)
+        losses = [float(np.sum(r["loss_sum"])) for p in pends for r in p.fetch()]
+        equal = []
+        for cp, sched in zip(copies, scheds):
+            host = [np.empty(shape, dt) for shape, dt in store.layouts(sched.size)]
+            store.fill(sched.reshape(-1), host)
+            equal.append(all(np.array_equal(c.cpu().numpy(), h) for c, h in zip(cp, host)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        lead = [round(done.elapsed_time(ready), 3) for _, _, _, done, ready in prefetches
+                if done is not None]
+        busy = [b for _, _, b, _, _ in prefetches]
+        say(f"ring depth {depth}: {RING_SUPERSTEPS} supersteps, cohorts staged "
+            f"{[(i, j) for i, j, *_ in prefetches]} (superstep in flight, cohort staged); each "
+            f"committed cohort copied out after its superstep == the host gather {equal}; the "
+            f"device still busy with the superstep at the end of each prefetch (Event.query) "
+            f"{busy}; the copy's end minus the superstep's end {lead} ms (device clock, "
+            f"negative: the copy ended first)")
+        if not (all(equal) and all(math.isfinite(v) for v in losses)):
+            raise AssertionError(f"ring depth {depth}: a committed cohort changed")
+        out[depth] = {"equal": equal, "busy": busy, "copy_minus_superstep_ms": lead}
+    return out
 
 
 class Phases:
@@ -3323,6 +3723,28 @@ def main() -> int:
         by_path["scenario_lm"], replayed_by_path["scenario_lm"] = scenario_lm_path(
             torch, counters, os.path.join(tmp, "scenario_lm"))
         phases.done("scenario: LM superstep against its K=1 rounds")
+        # 11. the streaming client store
+        for path, (n, rep) in stream_masked_path(torch, counters,
+                                                 os.path.join(tmp, "stream_masked")).items():
+            by_path[path], replayed_by_path[path] = n, rep
+        phases.done("stream: masked headline against the eager store, and its resumed run")
+        by_path["stream_grouped_superstep"], replayed_by_path["stream_grouped_superstep"] = \
+            stream_grouped_path(torch, counters, os.path.join(tmp, "stream_grouped"))
+        scenario_grouped_int8_phase(torch, stream=True)
+        phases.done("stream: grouped superstep against the eager store; grouped int8 K=1 "
+                    "against the CPU")
+        by_path["stream_lm_superstep"], replayed_by_path["stream_lm_superstep"] = \
+            stream_lm_path(torch, counters, os.path.join(tmp, "stream_lm"))
+        phases.done("stream: LM superstep against the eager store")
+        (by_path["stream_population_superstep"],
+         replayed_by_path["stream_population_superstep"]), pop_nums = population_phase(
+            torch, counters)
+        phases.done("stream: population of 1e4 and 1e6 users, and a superstep")
+        ring_nums = ring_phase(torch)
+        phases.done("stream: the cohort ring at depth 1 and 2")
+    say(f"stream: staging a cohort at {POP_USERS[-1]:,} users {pop_nums['ratio']:.3f}x the host "
+        f"seconds at {POP_USERS[0]:,}; prefetches ended with the device busy: "
+        + ", ".join(f"depth {d} {n['busy']}" for d, n in ring_nums.items()))
     say("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phases.secs.items())
         + f"; total {time.time() - phases.t0:.1f} s")
 

@@ -107,8 +107,9 @@ def resolve_codec_cfg(cfg: Dict[str, Any]) -> Tuple[Any, bool]:
     reference experiment loop's ``ValueError``s (heterofl_tpu/entry/
     common.py:307-335): a per-level map outside ``grouped``, a lossy codec
     with ``sliced``, and a lossy codec (or map) with ``grouped`` at
-    ``superstep_rounds`` 1 -- its K=1 round reduces per level and has no
-    single sum to compress.  The grouped engine and the sliced twin refuse
+    ``superstep_rounds`` 1 and the eager store -- its K=1 round reduces per
+    level and has no single sum to compress (with ``client_store='stream'``
+    a K=1 run is a run of one-round supersteps, which compress).  The grouped engine and the sliced twin refuse
     through this function, with their own strategy; the grouped engine
     checks a map's keys against its level table."""
     name = cfg.get("wire_codec", "dense") or "dense"
@@ -133,7 +134,8 @@ def resolve_codec_cfg(cfg: Dict[str, Any]) -> Tuple[Any, bool]:
             raise ValueError(
                 f"wire_codec={name!r} needs a mesh-native strategy ('masked' or 'grouped'): "
                 f"the sliced debug twin aggregates on the host, there is no psum to compress")
-        if strategy == "grouped" and int(cfg.get("superstep_rounds", 1) or 1) <= 1:
+        if strategy == "grouped" and int(cfg.get("superstep_rounds", 1) or 1) <= 1 \
+                and (cfg.get("client_store", "eager") or "eager") != "stream":
             raise ValueError(
                 f"wire_codec={name!r} with the grouped strategy needs the fused superstep "
                 f"(superstep_rounds > 1 or client_store='stream'): the K=1 host-orchestrated "

@@ -22,6 +22,15 @@ and ``metrics_fetch_every`` defers the host's metric fetch
 (:func:`resolve_superstep_cfg` holds the cross-field checks of
 heterofl_tpu/entry/common.py:336-416).
 
+``client_store='stream'`` keeps the population as an O(1)-per-user index
+(``parallel/staging.py::ClientStore``) and stages each superstep's cohort
+onto the device while the previous superstep runs (``stream_prefetch``,
+``stream_prefetch_depth``); ``sample_horizon`` commits the cohort schedule
+(``fed/sampling.py::ScheduleCommitment``); ``eval_cohort`` evaluates Local
+on a rolling window of users.  :func:`resolve_store_cfg`,
+:func:`resolve_prefetch_depth` and :func:`resolve_eval_cohort` check them
+with the reference's messages (heterofl_tpu/config.py:650-787).
+
 ``schedule`` and ``client_failure_rate`` run the client scheduler
 (``sched/``: availability traces, deadline stragglers, buffered
 aggregation, client failures) on ``masked`` and ``grouped``;
@@ -50,6 +59,9 @@ CONTROL_KEYS = ("fed", "num_users", "frac", "data_split_mode", "model_split_mode
 
 #: the round engines (heterofl_tpu/config.py:47)
 STRATEGIES = ("masked", "grouped", "sliced")
+
+#: the client stores (heterofl_tpu/config.py:49)
+CLIENT_STORES = ("eager", "stream")
 
 MNIST_LIKE = ("MNIST", "FashionMNIST", "EMNIST")
 CIFAR_LIKE = ("CIFAR10", "CIFAR100")
@@ -106,6 +118,34 @@ DEFAULT_CFG: Dict[str, Any] = {
     # and the host's metric fetch every this many rounds (1 or K at K > 1)
     "superstep_rounds": 1,
     "metrics_fetch_every": 1,
+    # "eager": every user's shard stacked onto the device at start-up
+    # ([num_users, ...]; memory grows with the population); "stream": the
+    # population as an O(1)-per-user index over the raw arrays
+    # (parallel/staging.py::ClientStore), each superstep's sampled cohort
+    # gathered into pinned host memory and copied onto the device while
+    # the previous superstep runs -- memory grows with the cohort.  Streamed
+    # runs equal eager ones bit for bit; a streamed superstep_rounds=1 run
+    # is a run of k=1 supersteps.  Needs 'masked' or 'grouped'.
+    "client_store": "eager",
+    # True: stage superstep N+1's cohort right after superstep N is
+    # dispatched, so the gather and the copy overlap N's compute; False:
+    # stage each cohort when its superstep starts (warned once)
+    "stream_prefetch": True,
+    # how many upcoming supersteps' cohorts may be staged ahead of the one
+    # in flight; the stager's ring holds depth + 1 slots (resolve_prefetch_depth)
+    "stream_prefetch_depth": 1,
+    # schedule commitment: None = stateless sampler (the cohort schedule a
+    # function of the seed and the stream alone, prefetch unconstrained); an
+    # int >= 0 = superstep N+1's cohort may only be drawn once superstep
+    # N - sample_horizon's metrics are fetched (fed/sampling.py::
+    # ScheduleCommitment).  Both samplers ignore the committed state, so the
+    # committed schedule equals the immediate one
+    "sample_horizon": None,
+    # with client_store='stream' (vision): the per-user Local evaluation on
+    # a rolling window of this many consecutive users (the window advances
+    # with each evaluation, deterministic in the epoch), sBN and Global on
+    # their full sets; None = every user (warned past 100,000 users)
+    "eval_cohort": None,
     # the client scheduler (sched/): None (lockstep) or {"kind": "uniform" |
     # "trace" | "markov", "trace", "markov", "deadline": {"min_frac": f},
     # "aggregation": "sync" | "buffered", "staleness"} (resolve_schedule_cfg)
@@ -130,9 +170,6 @@ DEFAULT_CFG: Dict[str, Any] = {
 UNPORTED: Dict[str, Any] = {
     "world_size": 1,
     "data_placement": "replicated",
-    "client_store": "eager",
-    "sample_horizon": None,
-    "eval_cohort": None,
     "telemetry": "off",
     "ledger": "off",
     "arms": None,
@@ -217,11 +254,19 @@ def resolve_superstep_cfg(cfg: Dict[str, Any], plateau: bool = False) -> Tuple[i
     (heterofl_tpu/entry/common.py:336-395), which raise ``ValueError`` with
     its messages: K > 1 with ``sliced``; a ``metrics_fetch_every`` other
     than 1 that K does not divide, or above K; ReduceLROnPlateau
-    (``plateau``) with an ``eval_interval`` that K does not divide."""
+    (``plateau``) with an ``eval_interval`` that K does not divide; and, at
+    K = 1, a ``metrics_fetch_every`` above 1 with the stream store (the
+    reference's configuration message, heterofl_tpu/config.py:717-724)."""
     K = max(1, int(cfg.get("superstep_rounds", 1) or 1))
     fetch_every = int(cfg.get("metrics_fetch_every", 1) or 1)
     eval_iv = max(1, int(cfg.get("eval_interval", 1) or 1))
     if K == 1:
+        if resolve_store_cfg(cfg) == "stream" and fetch_every > 1:
+            raise ValueError(
+                f"Not valid metrics_fetch_every={fetch_every} with "
+                f"client_store='stream' at superstep_rounds=1: streaming "
+                f"routes through the (k=1) superstep path, whose "
+                f"best-checkpoint pivot needs a synchronous fetch; use 1")
         return 1, max(1, fetch_every)
     if (cfg.get("strategy") or "masked") == "sliced":
         raise ValueError(
@@ -373,9 +418,78 @@ def process_control(cfg: Dict[str, Any]) -> Dict[str, Any]:
         else:
             cfg[k] = v
     check_ported(cfg)
+    resolve_store_cfg(cfg)
+    resolve_prefetch_depth(cfg)
     resolve_schedule_cfg(cfg)  # needs num_users (a markov trace, a trace's width)
+    resolve_eval_cohort(cfg)
     resolve_checkpoint_keep(cfg)
     return cfg
+
+
+def resolve_store_cfg(cfg: Dict[str, Any]) -> str:
+    """Validate ``cfg['client_store']`` (and ``stream_prefetch``) and return
+    it, with the reference's messages (heterofl_tpu/config.py:650-671): an
+    unknown store, and the stream store with ``sliced``, raise
+    ``ValueError``.  ``stream_prefetch`` must be a bool (the reference
+    takes ``bool()`` of anything, so a typo there silently stages
+    synchronously)."""
+    strategy = resolve_strategy_cfg(cfg)
+    store = cfg.get("client_store", "eager") or "eager"
+    if store not in CLIENT_STORES:
+        raise ValueError(f"Not valid client_store: {store!r} "
+                         f"(one of {CLIENT_STORES})")
+    if store == "stream" and strategy == "sliced":
+        raise ValueError(
+            "Not valid client_store='stream' with strategy='sliced': the "
+            "cohort pipeline stages through the mesh-native engines' "
+            "superstep programs ('masked' or 'grouped')")
+    prefetch = cfg.get("stream_prefetch", True)
+    if not isinstance(prefetch, bool):
+        raise ValueError(f"Not valid stream_prefetch: {prefetch!r} (a bool: True stages "
+                         f"the next superstep's cohort while this one runs)")
+    return store
+
+
+def resolve_prefetch_depth(cfg: Dict[str, Any]) -> int:
+    """Validate ``cfg['stream_prefetch_depth']`` and return it
+    (heterofl_tpu/config.py:727-740): an int >= 1, None meaning 1."""
+    depth = cfg.get("stream_prefetch_depth", 1)
+    if depth is None:
+        return 1
+    if not isinstance(depth, int) or isinstance(depth, bool) or depth < 1:
+        raise ValueError(f"Not valid stream_prefetch_depth: {depth!r} "
+                         f"(an int >= 1)")
+    return depth
+
+
+def resolve_eval_cohort(cfg: Dict[str, Any]) -> Optional[int]:
+    """Validate ``cfg['eval_cohort']`` and return it (heterofl_tpu/config.py:
+    757-787): None, or an int in ``[1, num_users]`` with the stream store
+    on a vision model."""
+    ec = cfg.get("eval_cohort")
+    if ec is None:
+        return None
+    if not isinstance(ec, int) or isinstance(ec, bool) or ec < 1:
+        raise ValueError(f"Not valid eval_cohort: {ec!r} (an int >= 1, the "
+                         f"rolling Local-eval window size, or None for "
+                         f"whole-population local eval)")
+    users = cfg.get("num_users")
+    if users is not None and ec > int(users):
+        raise ValueError(f"Not valid eval_cohort: {ec} exceeds "
+                         f"num_users={users} (drop eval_cohort for "
+                         f"whole-population local eval)")
+    if (cfg.get("client_store", "eager") or "eager") != "stream":
+        raise ValueError(
+            f"Not valid eval_cohort={ec} with client_store='eager': the "
+            f"eager store already densifies the population, so its local "
+            f"eval is O(num_users) either way -- eval_cohort needs "
+            f"client_store='stream'")
+    if cfg.get("model_name") == "transformer":
+        raise ValueError(
+            f"Not valid eval_cohort={ec} with model_name='transformer': "
+            f"eval_cohort samples the per-user Local eval, which only "
+            f"vision experiments run (LM evaluates Global only)")
+    return ec
 
 
 def resolve_checkpoint_keep(cfg: Dict[str, Any]) -> int:

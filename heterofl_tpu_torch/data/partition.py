@@ -1,13 +1,15 @@
 """Client data partitioning: iid equal shards (of images or of token rows)
 and non-iid label shards.
 
-Port of ``heterofl_tpu/data/partition.py`` (iid, non_iid, split_dataset).
-Randomness comes from an explicit ``numpy.random.Generator``, consumed in
-the reference's order, so the splits are identical for the same stream.
+Port of ``heterofl_tpu/data/partition.py`` (iid, non_iid, split_dataset,
+span_population).  Randomness comes from an explicit
+``numpy.random.Generator``, consumed in the reference's order, so the
+splits are identical for the same stream.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -72,6 +74,27 @@ def non_iid(dataset, num_users: int, rng: np.random.Generator, shard_per_user: i
             pick = int(rng.integers(len(pools[label_i])))
             data_split[i].extend(pools[label_i].pop(pick).tolist())
     return data_split, label_split
+
+
+def span_population(num_items: int, num_users: int, shard_size: int,
+                    stride: int = 9973) -> Tuple[np.ndarray, np.ndarray]:
+    """A synthetic population larger than its dataset (ref partition.py:
+    87-111): user ``u``'s shard is the contiguous window ``[starts[u],
+    starts[u] + shard_size)`` of a pool of ``num_items`` samples, ``starts
+    = (u * stride) % hi`` with ``hi = num_items - shard_size + 1`` --
+    O(num_users) metadata (``parallel.staging.ClientStore.from_spans``), no
+    index lists.  A stride that shares a factor with ``hi`` would walk only
+    ``hi / gcd`` starts (every user the same shard when the gcd is ``hi``),
+    so it is bumped to the next stride coprime to ``hi``."""
+    if shard_size <= 0 or shard_size > num_items:
+        raise ValueError(f"shard_size {shard_size} must be in [1, {num_items}]")
+    hi = num_items - shard_size + 1
+    stride = max(1, stride)
+    while math.gcd(stride, hi) != 1:
+        stride += 1
+    starts = (np.arange(num_users, dtype=np.int64) * stride) % hi
+    sizes = np.full(num_users, shard_size, np.int64)
+    return starts, sizes
 
 
 def split_dataset(dataset, num_users: int, data_split_mode: str, rng: np.random.Generator,

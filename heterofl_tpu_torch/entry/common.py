@@ -54,6 +54,23 @@ superstep's schedule; each round's record counts its slots ``filled`` and
 ``failed``; buffered aggregation's staleness buffer goes into the
 checkpoint under ``sched_buf`` in the reference's flat layout and is
 restored on resume (ref common.py:1308-1312, 1464-1465, 1572-1573).
+
+``client_store='stream'`` (ref common.py:588-672, 783-935, 970-987, 1138-1144,
+1516-1523): no ``[U, ...]`` stack is built; the population is a
+:class:`~..parallel.staging.ClientStore` over the raw arrays, every
+iteration is a superstep (a K=1 run's of one round), and each superstep's
+cohort is gathered and copied onto the device (the engine's
+``stage_cohort``) -- the first synchronously, the next ``stream_prefetch_depth``
+right after a superstep is dispatched, while it runs.  The evaluation
+operands are staged at the first evaluation; with ``eval_cohort`` the
+Local evaluation runs on a rolling window of users, padded to the
+population's largest test shard and copied into the same device operands
+each window.  Under ``perm`` a prefetched cohort is drawn from the numpy
+stream before the superstep in flight is checkpointed, so the checkpoint
+records the stream's state from before the first prefetched draw (the
+boundary), and a resumed streamed run, K=1 included, draws what the
+uninterrupted run drew.  ``sample_horizon`` gates the draws on fetched
+supersteps (:class:`~..fed.sampling.ScheduleCommitment`).
 """
 
 from __future__ import annotations
@@ -78,12 +95,12 @@ from ..data.datasets import DATASET_STATS
 from ..data.stats import dataset_stats
 from ..fed.core import (round_seed, round_users, superstep_rate_schedule,  # noqa: F401
                         superstep_user_schedule, validate_width_geometry)
-from ..fed.sampling import resolve_sampler_cfg
+from ..fed.sampling import ScheduleCommitment, resolve_sampler_cfg
 from ..models import make_model
 from ..sched import resolve_schedule_cfg
 from ..fed.sliced import SlicedFederation
 from ..parallel import Evaluator, GroupedRoundEngine, RoundEngine
-from ..parallel.staging import MetricsPipeline, PendingMetrics
+from ..parallel.staging import ClientStore, MetricsPipeline, PendingMetrics
 from ..utils import (Logger, PlateauScheduler, checkpoint_path, copy_best, make_scheduler,
                      resume, save_checkpoint, summarize_sums)
 from ..utils.metrics import METRICS
@@ -115,7 +132,9 @@ def cfg_from_args(args: argparse.Namespace) -> Dict[str, Any]:
                 parsed = json.loads(val)
             except json.JSONDecodeError:
                 parsed = val
-            cfg[k] = parsed if isinstance(parsed, (dict, list, type(None))) else val
+            keep = isinstance(parsed, (dict, list, type(None))) or (
+                isinstance(parsed, int) and not isinstance(parsed, bool))  # eval_cohort 3
+            cfg[k] = parsed if keep else val
         elif isinstance(v, (dict, list)):
             cfg[k] = json.loads(val)
         elif isinstance(v, bool):
@@ -238,7 +257,21 @@ class FedExperiment:
         self.eval_interval = max(1, int(cfg.get("eval_interval", 1) or 1))
         self.checkpoint_keep = C.resolve_checkpoint_keep(cfg)
         self.scheduler = make_scheduler(cfg)
-        self.sampler = resolve_sampler_cfg(cfg).kind
+        self.sampler_spec = resolve_sampler_cfg(cfg)
+        self.sampler = self.sampler_spec.kind
+        # the streaming store (its refusals raise in process_control, as in
+        # the reference): the store, the queue of prefetched (epoch0, k,
+        # cohort, the perm stream's state before its draw), the commitment
+        self.streaming = C.resolve_store_cfg(cfg) == "stream"
+        self.stream_prefetch = cfg.get("stream_prefetch", True)
+        self._prefetch_depth = C.resolve_prefetch_depth(cfg)
+        self.eval_cohort = C.resolve_eval_cohort(cfg)
+        self.store: Optional[ClientStore] = None
+        self._next_cohorts: List[Tuple[int, int, Any, Any]] = []
+        self._stream_sync_warned = False
+        self._eval_widx: Optional[int] = None  # the rolling Local-eval window staged
+        self._commitment = None
+        self._ss_dispatched = self._ss_fetched = 0
         self.superstep_rounds, fetch_every = C.resolve_superstep_cfg(
             cfg, isinstance(self.scheduler, PlateauScheduler))
         self.metrics_pipe = MetricsPipeline(fetch_every)
@@ -264,6 +297,12 @@ class FedExperiment:
         self.history: List[Dict[str, Any]] = []  # one record per round this run trained
         self.bn_state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}  # the last sBN pass's
 
+    @property
+    def _supersteps(self) -> bool:
+        """Whether each iteration is a superstep: ``superstep_rounds`` > 1,
+        or the stream store."""
+        return self.superstep_rounds > 1 or self.streaming
+
     def make_splits(self):
         return split_dataset(self.dataset, self.cfg["num_users"], self.cfg["data_split_mode"],
                              self.rng, classes_size=self.cfg["classes_size"])
@@ -273,9 +312,22 @@ class FedExperiment:
 
     def stage(self, data_split, label_split) -> None:
         """Every user's train shard and the evaluation operands onto the
-        device, once."""
+        device, once; with the stream store only the population's index
+        (the evaluation operands wait for the first evaluation,
+        :meth:`_ensure_eval_staged`)."""
         cfg, tr = self.cfg, self.dataset["train"]
         users = cfg["num_users"]
+        if self.streaming:
+            if self.kind == "transformer":
+                self.store = ClientStore.from_split(tr.token, None, data_split["train"],
+                                                    label_split, cfg["num_tokens"], kind="lm")
+            else:
+                self.store = ClientStore.from_split(tr.data, tr.target, data_split["train"],
+                                                    label_split, cfg["classes_size"])
+            self.train_data = None
+            self._eval_split = (data_split["test"], label_split)
+            self._eval_staged = False
+            return
         if self.kind == "transformer":
             rows = stack_client_token_rows(tr.token, data_split["train"], list(range(users)))
             lm = label_split_masks(label_split, users, cfg["num_tokens"])
@@ -292,6 +344,151 @@ class FedExperiment:
         self.sbn_batches = self._to_device(sbn)
         self.local_eval = self._to_device(local)
         self.global_eval = self._to_device(glob)
+
+    def _ensure_eval_staged(self) -> None:
+        """The stream store's evaluation operands onto the device, at the
+        first evaluation (ref common.py:631-672): sBN and Global always;
+        Local for every user, or with ``eval_cohort`` per window
+        (:meth:`_local_cohort_operands`)."""
+        if self._eval_staged:
+            return
+        cfg, tr = self.cfg, self.dataset["train"]
+        users = cfg["num_users"]
+        test_split, label_split = self._eval_split
+        if self.kind == "transformer":
+            te = self.dataset["test"]
+            self.global_eval = self._to_device(stack_windows(bptt_windows(te.token, cfg["bptt"]),
+                                                             cfg["bptt"]))
+        elif self.eval_cohort is not None:
+            b = cfg["batch_size"]["test"]
+            te = self.dataset["test"]
+            xg, wg = _batch_array(te.data, b)
+            yg, _ = _batch_array(te.target, b)
+            self.sbn_batches = self._to_device(_batch_array(tr.data, cfg["batch_size"]["train"]))
+            self.global_eval = self._to_device((xg, yg, wg))
+            self.local_eval = None  # staged a window at a time
+        else:
+            if users > 100_000:
+                warnings.warn(
+                    f"local eval stages every user's test shard (O(U) at "
+                    f"num_users={users}); set eval_cohort for a rolling "
+                    f"O(cohort) Local eval, cap eval_interval past "
+                    f"num_epochs, or stick to population benches if this "
+                    f"OOMs")
+            lm = label_split_masks(label_split, users, cfg["classes_size"])
+            sbn, local, glob = stage_eval_operands(cfg, tr, self.dataset["test"], test_split, lm)
+            self.sbn_batches = self._to_device(sbn)
+            self.local_eval = self._to_device(local)
+            self.global_eval = self._to_device(glob)
+        self._eval_staged = True
+
+    def _eval_cohort_users(self, widx: int) -> List[int]:
+        """The rolling Local-eval window ``widx`` (ref common.py:875-883):
+        ``eval_cohort`` consecutive users from ``widx * eval_cohort``,
+        modulo the population -- deterministic in the window index (itself
+        from the evaluation's epoch), so a resumed run evaluates the same
+        window."""
+        n, u = self.eval_cohort, self.cfg["num_users"]
+        return [int(x) for x in (widx * n + np.arange(n)) % u]
+
+    def _local_cohort_operands(self, widx: int):
+        """The window's Local operands on the host (ref common.py:885-911),
+        in ``stage_local_eval``'s batched layout, each shard padded to the
+        population's largest test shard so every window has one shape."""
+        users = self._eval_cohort_users(widx)
+        test_split, label_split = self._eval_split
+        if not hasattr(self, "_eval_shard_max"):
+            self._eval_shard_max = max(len(test_split[u]) for u in range(self.cfg["num_users"]))
+        te = self.dataset["test"]
+        xu, yu, mu = stack_client_shards(te.data, te.target, test_split, users)
+        n = self._eval_shard_max
+        if xu.shape[1] < n:
+            pad = n - xu.shape[1]
+            xu = np.concatenate([xu, np.zeros((len(users), pad) + xu.shape[2:], xu.dtype)], 1)
+            yu = np.concatenate([yu, np.zeros((len(users), pad), yu.dtype)], 1)
+            mu = np.concatenate([mu, np.zeros((len(users), pad), np.float32)], 1)
+        lm = label_split_masks({i: label_split[u] for i, u in enumerate(users)}, len(users),
+                               self.cfg["classes_size"])
+        b = min(self.cfg["batch_size"]["test"], n)
+        return stage_local_eval(xu, yu, mu, b) + (lm,)
+
+    # -- the streamed cohorts ------------------------------------------------
+
+    def _stage_cohort(self, epoch0: int, k: int):
+        """Draw and stage the cohort of rounds ``epoch0 .. epoch0 + k - 1``
+        -> ``(epoch0, k, cohort, the perm stream's state before the draw)``."""
+        cfg = self.cfg
+        state = self.rng.bit_generator.state if self.sampler == "perm" else None
+        users = superstep_user_schedule(self.seed, epoch0, k, cfg["num_users"], self.num_active,
+                                        self.sampler, self.rng, self.sched)
+        rates = superstep_rate_schedule(self.seed, epoch0, k, cfg, users)
+        return epoch0, k, self.engine.stage_cohort(self.store, users, rates), state
+
+    def _take_cohort(self, epoch0: int, k: int):
+        """The prefetched cohort of this superstep, or one staged now (the
+        run's first superstep; ``stream_prefetch`` off, warned once), with
+        the commitment's checks (ref common.py:795-844).  The prefetch
+        clamps its supersteps as the run loop does, so the queue always
+        starts here."""
+        if self._next_cohorts:
+            if self._next_cohorts[0][:2] != (epoch0, k):
+                raise RuntimeError(f"prefetched supersteps {[e[:2] for e in self._next_cohorts]}"
+                                   f" do not start at (epoch {epoch0}, k {k})")
+            return self._next_cohorts.pop(0)[2]
+        horizon = self.sampler_spec.horizon
+        if self._commitment is not None \
+                and not self._commitment.may_draw(self._ss_dispatched + 1):
+            raise RuntimeError(
+                f"schedule commitment: the superstep at epoch {epoch0} "
+                f"draws from superstep "
+                f"{self._ss_dispatched - horizon}'s "
+                f"state but only {self._ss_fetched} superstep(s) have "
+                f"fetched -- a deferred metrics fetch crossed "
+                f"sample_horizon={horizon}")
+        if self._commitment is not None and horizon == 0 \
+                and self._ss_dispatched > 0 and self.stream_prefetch \
+                and not self._stream_sync_warned:
+            self._stream_sync_warned = True
+            warnings.warn(
+                "sample_horizon=0 (strictly output-dependent sampler) is "
+                "staging SYNCHRONOUSLY: each cohort draws from the "
+                "previous superstep's just-fetched state, so staging "
+                "cannot overlap compute -- sample_horizon=1 commits one "
+                "state further back and keeps the overlap")
+        if not self.stream_prefetch and not self._stream_sync_warned:
+            self._stream_sync_warned = True
+            warnings.warn(
+                "client_store='stream' is staging SYNCHRONOUSLY "
+                "(stream_prefetch=False): cohort materialisation serialises "
+                "with the round compute instead of overlapping it -- an "
+                "output-dependent sampler can keep the overlap by "
+                "committing its schedule instead (cfg['sample_horizon'])")
+        return self._stage_cohort(epoch0, k)[2]
+
+    def _prefetch_cohort(self, epoch0: int) -> None:
+        """Stage the next supersteps' cohorts, up to ``stream_prefetch_depth``
+        ahead, right after a superstep is dispatched, so their gathers and
+        copies overlap it (ref common.py:846-870); the commitment stops the
+        queue where a draw would read state not yet fetched."""
+        if not self.stream_prefetch:
+            return
+        last = self.cfg["num_epochs"]["global"]
+        e = self._next_cohorts[-1][0] + self._next_cohorts[-1][1] if self._next_cohorts \
+            else epoch0
+        while len(self._next_cohorts) < self._prefetch_depth and e <= last:
+            if self._commitment is not None and not self._commitment.may_draw(
+                    self._ss_dispatched + len(self._next_cohorts) + 1):
+                break
+            k = min(self.superstep_rounds, last - e + 1)
+            self._next_cohorts.append(self._stage_cohort(e, k))
+            e += k
+
+    def _sampler_state(self):
+        """The permutation stream's state at the superstep boundary: before
+        the first prefetched cohort's draw, if one is queued."""
+        if self._next_cohorts and self._next_cohorts[0][3] is not None:
+            return self._next_cohorts[0][3]
+        return self.rng.bit_generator.state
 
     def sample_users(self, epoch: int) -> np.ndarray:
         """The K=1 round's cohort: the next permutation of the numpy stream
@@ -363,15 +560,22 @@ class FedExperiment:
         (ref entry/common.py:1241-1272), logged under ``test/`` -> the named
         test metrics and ``eval_seconds``.  A masked LM runs Global only,
         its draws seeded from ``epoch``.  Rounds whose metrics the pipeline
-        still holds are logged first."""
+        still holds are logged first.  With the stream store the operands
+        are staged here if no evaluation staged them yet, and with
+        ``eval_cohort`` Local runs on the window of ``epoch`` (the test
+        entries evaluate a checkpoint this way)."""
         self._drain_metrics()
         logger = self.logger if logger is None else logger
         t0 = time.time()
         params = self.engine.unflatten(P)
         bn, named = {}, {}
+        if self.streaming:
+            self._ensure_eval_staged()
         if self.kind == "vision":
             bn = self.evaluator.sbn_stats(params, *self.sbn_batches)
-            local = self.evaluator.eval_users(params, bn, *self.local_eval)
+            local_eval = self.local_eval if self.eval_cohort is None else self._to_device(
+                self._local_cohort_operands(epoch // self.eval_interval))
+            local = self.evaluator.eval_users(params, bn, *local_eval)
             named = summarize_sums(local)
             logger.append(named, "test", n=float(np.sum(local["n"])))
         g = self.evaluator.eval_global(params, bn, *self.global_eval, epoch=epoch)
@@ -387,8 +591,20 @@ class FedExperiment:
 
     # -- the superstep ---------------------------------------------------------
 
-    def _fused_eval(self):
-        """The superstep's evaluation over the staged operands (made once)."""
+    def _fused_eval(self, widx: Optional[int] = None):
+        """The superstep's evaluation over the staged operands (made once);
+        with ``eval_cohort``, window ``widx``'s Local operands copied into
+        it when the window moves (ref common.py:913-935)."""
+        if self.streaming:
+            self._ensure_eval_staged()
+        if self.eval_cohort is not None and widx != self._eval_widx:
+            local = self._local_cohort_operands(widx)
+            if self._fused is None:
+                self._fused = self.evaluator.fused(self.engine.spec, self.sbn_batches,
+                                                   self._to_device(local), self.global_eval)
+            else:
+                self._fused.set_local(local)
+            self._eval_widx = widx
         if self._fused is None:
             spec = self.engine.spec
             if self.kind == "vision":
@@ -407,15 +623,29 @@ class FedExperiment:
         and are logged round by round when fetched (:meth:`_log_superstep`)."""
         cfg = self.cfg
         last = cfg["num_epochs"]["global"]
-        users = superstep_user_schedule(self.seed, epoch0, k, cfg["num_users"], self.num_active,
-                                        self.sampler, self.rng, self.sched)
-        rates = superstep_rate_schedule(self.seed, epoch0, k, cfg, users)
         lrs = superstep_lrs(self.scheduler, epoch0, k)
         mask = [(epoch0 + r) % self.eval_interval == 0 or epoch0 + r == last for r in range(k)]
-        fused = self._fused_eval() if any(mask) else None
+        widx = None
+        if any(mask) and self.eval_cohort is not None:
+            # the window of the superstep's first evaluation
+            widx = min(epoch0 + r for r in range(k) if mask[r]) // self.eval_interval
+        fused = self._fused_eval(widx) if any(mask) else None
         t0 = time.time()
-        P, pending = self.engine.train_superstep(P, self.seed, epoch0, k, self.train_data, users,
-                                                 rates, lrs, mask if fused else None, fused)
+        if self.streaming:
+            cohort = self._take_cohort(epoch0, k)
+            users = cohort.users
+            P, pending = self.engine.train_superstep(P, self.seed, epoch0, k, None, users,
+                                                     cohort.rates, lrs, mask if fused else None,
+                                                     fused, cohort=cohort)
+            self._ss_dispatched += 1
+            self._prefetch_cohort(epoch0 + k)  # while this superstep runs
+        else:
+            users = superstep_user_schedule(self.seed, epoch0, k, cfg["num_users"],
+                                            self.num_active, self.sampler, self.rng, self.sched)
+            rates = superstep_rate_schedule(self.seed, epoch0, k, cfg, users)
+            P, pending = self.engine.train_superstep(P, self.seed, epoch0, k, self.train_data,
+                                                     users, rates, lrs, mask if fused else None,
+                                                     fused)
         tag = {"epoch0": epoch0, "k": k, "users": users, "lrs": lrs, "t0": t0,
                "pending": pending}
         for tag, out in self.metrics_pipe.push(tag, pending):
@@ -429,7 +659,12 @@ class FedExperiment:
         closed into the logger's history and reset as a K=1 iteration
         closes its round, so the log equals a K=1 run's.  A round's
         ``seconds`` (and ``eval_seconds``) are the device's, between marks
-        recorded on its stream around the round (and the evaluation)."""
+        recorded on its stream around the round (and the evaluation).  Under
+        ``sample_horizon`` the fetched superstep is committed: cohorts that
+        read its state may be drawn now (ref common.py:1138-1144)."""
+        if self._commitment is not None:
+            self._ss_fetched += 1
+            self._commitment.commit(self._ss_fetched, state=out)
         rounds = out["train"] if isinstance(out, dict) else out
         evals = {e["epoch"]: e for e in out.get("eval", [])} if isinstance(out, dict) else {}
         secs = tag["pending"].seconds
@@ -503,6 +738,9 @@ class FedExperiment:
         with a checkpoint every round and a copy of the best by
         ``test/{pivot_metric}``."""
         cfg, logger = self.cfg, self.logger
+        self._ss_dispatched = self._ss_fetched = 0
+        self._commitment = ScheduleCommitment(self.sampler_spec.horizon) \
+            if self.sampler_spec.committed else None
         blob = resume(cfg["output_dir"], self.tag, cfg["resume_mode"])
         if blob and blob.get("data_split") is not None:
             data_split, label_split = blob["data_split"], blob["label_split"]
@@ -514,7 +752,7 @@ class FedExperiment:
         pivot = -math.inf if pivot_mode == "max" else math.inf
         if blob:
             P = self.engine.flatten(params_from_jax(blob["params"], self.perms))
-            if self.superstep_rounds > 1 and blob.get("sampler_state") is not None:
+            if self._supersteps and blob.get("sampler_state") is not None:
                 # the permutation stream at the superstep boundary
                 self.rng.bit_generator.state = blob["sampler_state"]
             if blob.get("wire_resid") is not None and self.engine.lossy:
@@ -556,7 +794,9 @@ class FedExperiment:
         included) go into the last round's :attr:`history` record."""
         cfg, logger = self.cfg, self.logger
         logger.safe(True)
-        if self.superstep_rounds > 1:
+        if self._supersteps:
+            # a streamed K=1 run is a run of one-round supersteps (ref
+            # common.py:1516-1523): its cohorts ride the superstep path
             k = min(self.superstep_rounds, last - epoch + 1)
             P = self.train_superstep(P, epoch, k)
             epoch = epoch + k - 1  # the last round this iteration covered
@@ -593,8 +833,7 @@ class FedExperiment:
             "logger_state": logger.state_dict(),
             "scheduler_state": self.scheduler.state_dict()
             if hasattr(self.scheduler, "state_dict") else None,
-            **({"sampler_state": self.rng.bit_generator.state}
-               if self.superstep_rounds > 1 else {}),
+            **({"sampler_state": self._sampler_state()} if self._supersteps else {}),
         }
         if self.history and self.history[-1]["epoch"] == epoch:
             rec = self.history[-1]

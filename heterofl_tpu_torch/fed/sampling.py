@@ -20,9 +20,11 @@ the map bit for bit.
 
 ``sampler='perm'`` is the numpy permutation stream of the experiment loop
 (``entry/common.py``), the port's default.  A schedule's availability row
-filters either draw (:func:`prp_round_users`, ``fed.core.round_users``);
-the schedule commitment (``sample_horizon``) is not ported
-(``config.UNPORTED``).
+filters either draw (:func:`prp_round_users`, ``fed.core.round_users``).
+With ``sample_horizon`` the streaming driver commits its cohort schedule
+(:class:`ScheduleCommitment`): superstep N+1's cohort is drawn only once
+the state it may read is fetched.  Neither sampler reads that state, so the
+committed schedule is the immediate one.
 """
 
 from __future__ import annotations
@@ -47,12 +49,18 @@ AVAIL_OVERDRAW = 4
 
 class SamplerSpec:
     """The resolved sampler configuration: ``kind`` (``'perm'`` or
-    ``'prp'``) and ``horizon`` (None: a stateless sampler; the committed
-    schedule is not ported)."""
+    ``'prp'``) and ``horizon`` (None: a stateless sampler, prefetch
+    unconstrained; an int >= 0: the schedule-commitment mode, where
+    superstep N+1's cohort may only consume state fetched through superstep
+    ``N - horizon``)."""
 
     def __init__(self, kind: str = "perm", horizon: Optional[int] = None):
         self.kind = kind
         self.horizon = horizon
+
+    @property
+    def committed(self) -> bool:
+        return self.horizon is not None
 
 
 def resolve_sampler_cfg(cfg: Dict[str, Any]) -> SamplerSpec:
@@ -73,6 +81,50 @@ def resolve_sampler_cfg(cfg: Dict[str, Any]) -> SamplerSpec:
                              f"from superstep N-horizon's committed state "
                              f"-- or None for a stateless sampler)")
     return SamplerSpec(kind=kind, horizon=horizon)
+
+
+class ScheduleCommitment:
+    """The schedule-commitment ledger of ``sample_horizon`` (ref
+    fed/sampling.py:115-166): which supersteps' states have been fetched,
+    and so which future cohorts may be drawn.  Superstep indices count
+    dispatches from 1; superstep ``n``'s cohort may read state no fresher
+    than superstep ``n - horizon - 1``'s, so :meth:`may_draw` answers "is
+    everything that draw would read on the host?".  With the driver's
+    dispatch, prefetch, fetch order and ``horizon=1``, prefetching
+    superstep N+1 while N runs is allowed because its draw reads superstep
+    N-1's state.  ``state`` is the payload a state-reading sampler would
+    read (:meth:`state_for`); ``perm`` and ``prp`` ignore it."""
+
+    def __init__(self, horizon: int):
+        self.horizon = int(horizon)
+        self._committed = 0  # the highest superstep index whose state is fetched
+        self._states: Dict[int, Any] = {}
+
+    @property
+    def committed_through(self) -> int:
+        return self._committed
+
+    def commit(self, index: int, state: Any = None) -> None:
+        """Record superstep ``index``'s fetched state (monotonic); states no
+        draw can reference any more are dropped."""
+        index = int(index)
+        if index > self._committed:
+            self._committed = index
+        self._states[index] = state
+        floor = self._committed - (self.horizon + 1)
+        for k in [k for k in self._states if k < floor]:
+            del self._states[k]
+
+    def may_draw(self, index: int) -> bool:
+        """Whether superstep ``index``'s cohort may be drawn now: the state
+        it reads (superstep ``index - horizon - 1``; <= 0 is the initial
+        state) is committed."""
+        return int(index) - (self.horizon + 1) <= self._committed
+
+    def state_for(self, index: int) -> Any:
+        """The committed state superstep ``index``'s draw reads (None before
+        any commit and for indices before the run)."""
+        return self._states.get(int(index) - (self.horizon + 1))
 
 
 def _feistel_geometry(num_users: int):

@@ -30,7 +30,9 @@ batches, the Global test batches or LM windows), reading its batch through
 a device counter and adding into static sums, so the results stay on the
 device until the superstep's one fetch and equal :meth:`Evaluator.sbn_stats`,
 :meth:`~Evaluator.eval_users` and :meth:`~Evaluator.eval_global` bit for
-bit.
+bit.  A rolling Local-eval window (``eval_cohort``) is copied into the same
+device operands (:meth:`FusedEval.set_local`), so no forward is captured
+again per window.
 """
 
 from __future__ import annotations
@@ -202,6 +204,22 @@ class FusedEval:
         self.acc_local = torch.zeros((self.n_users, 3), dtype=torch.float32, device=dev)
         self.acc_global = torch.zeros(3, dtype=torch.float32, device=dev)
         self.gen = torch.Generator(device=dev)
+
+    def set_local(self, local) -> None:
+        """Copy a rolling Local-eval window's operands ``(x, y, m, lm)``
+        (arrays of this evaluation's Local shapes) into the device buffers
+        its captured forwards read, so every window replays the same graphs
+        (the driver pads each window to the population's largest test
+        shard)."""
+        if not self.has_local:
+            raise ValueError("set_local: this evaluation has no Local operands")
+        for dst, src in zip(self.local, local):
+            src = torch.as_tensor(np.ascontiguousarray(src))
+            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+                raise ValueError(f"set_local: a window operand of {tuple(src.shape)} "
+                                 f"{src.dtype}, the evaluation's is {tuple(dst.shape)} "
+                                 f"{dst.dtype}")
+            dst.copy_(src)
 
     @torch.no_grad()
     def _sbn_batch(self) -> None:

@@ -57,7 +57,8 @@ The engine takes the masked engine's test hooks (``rates``,
 ``epoch_perms``, ``aug_draws``, ``lm_draws``) and returns the per-client
 metric sums in user order (ref ``_assemble``, grouped.py:775-787).  A lossy
 wire codec is refused by its K=1 round, as the reference's K=1 round
-refuses it (grouped.py:690-695); the superstep (:meth:`GroupedRoundEngine.
+refuses it (grouped.py:690-695; with ``client_store='stream'`` a K=1 run
+is a run of one-round supersteps, which compress); the superstep (:meth:`GroupedRoundEngine.
 train_superstep`, ref grouped.py:1416-1617) compresses the merged global
 sums with it, as the reference's superstep does, on the grid the
 reference sizes for its slots (:meth:`GroupedRoundEngine.codec_slots`), so
@@ -82,6 +83,12 @@ gates off its update (kernel 3b's ``has`` row 0) and its sums, and the
 level replays up to its largest budget; otherwise the steps are the
 lockstep ones.  Buffered aggregation runs in the superstep only; the K=1
 round refuses it with the reference's message.
+
+**The streamed cohort.**  :meth:`GroupedRoundEngine.stage_cohort` gathers a
+superstep's cohort from a ``ClientStore`` in the reference's per-level
+layout (``[k, levels, per]`` slots, each level's clients contiguous); a
+level plan reads its clients' data at their slots' rows instead of their
+user ids, so the steps and their graphs are the eager store's.
 
 **Determinism.**  A round runs under cuDNN's deterministic algorithms
 (``torch.backends.cudnn.deterministic``, set for the round and put back
@@ -112,7 +119,7 @@ from ..ops.fused_update import FlatSpec, fused_sgd_batched
 from ..ops.layers import clients_in_channels
 from .round_engine import (FlatParams, RoundEngine, client_seed, cohort_rates,
                            superstep_schedules)
-from .staging import PendingMetrics
+from .staging import ClientStore, PendingMetrics, StagedCohort
 from .step_graph import StepGraphs, device_counter
 
 
@@ -203,15 +210,17 @@ class Level:
 class LevelPlan(NamedTuple):
     """One level's slots in one round of the superstep: its rate, the
     slots' positions in the round and their users (``-1`` slots as user 0,
-    the reference's ``max(uid, 0)``), the same on the device, each row's
-    step budget on the device (None: the step gates no row), the steps
-    the level replays (its largest budget), and its rows' validity as
-    float32 on the device (None: every row counts)."""
+    the reference's ``max(uid, 0)``), their rows of the data stacks on the
+    device (the users themselves in the eager stacks, their slots in a
+    cohort's), the positions on the device, each row's step budget on the
+    device (None: the step gates no row), the steps the level replays (its
+    largest budget), and its rows' validity as float32 on the device
+    (None: every row counts)."""
 
     rate: float
     pos: List[int]
     users: List[int]
-    uids: torch.Tensor
+    rows: torch.Tensor
     pos_dev: torch.Tensor
     lim: Optional[torch.Tensor]
     steps: int
@@ -719,8 +728,9 @@ class GroupedRoundEngine(FlatParams):
         """Eager set-up of a level's G clients into the static buffers: the
         global params at the level's entries, zero momentum and sums, the
         step counter at 0, the rows' budgets ``lim`` (a gated step), their
-        data and (vision) their epoch permutations with real samples first,
-        each client's generator reseeded -- ``local_train_level``'s prologue
+        data (rows ``uids`` of the stacks) and (vision) their epoch
+        permutations with real samples first, each client's generator
+        reseeded for its user -- ``local_train_level``'s prologue
         (``raw_perms`` its hook)."""
         for gen, u in zip(gens, users):
             gen.manual_seed(client_seed(rseed, u))
@@ -760,12 +770,12 @@ class GroupedRoundEngine(FlatParams):
         for lp in levels:
             lv = self.levels[lp.rate]
             step, st, gens = self.level_step(lv, len(lp.pos), P, data, lp.lim is not None)
-            self.stage_level(lv, st, gens, P, lp.uids, lp.users, data, rseed,
+            self.stage_level(lv, st, gens, P, lp.rows, lp.users, data, rseed,
                              None if epoch_perms is None else [epoch_perms[u] for u in lp.users],
                              lp.lim)
             for _ in range(min(st["steps"], lp.steps)):
                 step.replay()
-            cm = lv.count_masks(data[-1][lp.uids])
+            cm = lv.count_masks(data[-1][lp.rows])
             if lp.valid is not None:
                 cm = cm * lp.valid[:, None]
             sums[lp.rate] = ((st["p"][:, :lv.spec.total] * cm).sum(0), cm.sum(0))
@@ -774,13 +784,16 @@ class GroupedRoundEngine(FlatParams):
                 rates_abs * valid)
 
     def _plans(self, seed: int, epoch0: int, users: np.ndarray, rates: np.ndarray, data,
-               device: torch.device, step_limits=None, alive=None):
+               device: torch.device, step_limits=None, alive=None, rows=None):
         """Each round's ``(valid slots, [LevelPlan])``: its slots' plan
         (:meth:`slot_plan` at the round's seed) and its levels in
-        descending rate; the user ids, positions, budgets and valid rows of
-        the whole superstep go to the device in one copy.  The steps gate
-        their rows by the budgets when some slot of the superstep sits out
-        or stops early, and run as without a scheduler otherwise."""
+        descending rate; the data rows (``rows [k, A]``, default the users,
+        ``-1`` as 0), positions, budgets and valid rows of the whole
+        superstep go to the device in one copy.  The steps gate their rows
+        by the budgets when some slot of the superstep sits out or stops
+        early, and run as without a scheduler otherwise."""
+        if rows is None:
+            rows = np.maximum(users, 0)
         total, plans, host = self.total_steps(data), [], []
         for r in range(users.shape[0]):
             valid, limits = self.slot_plan(
@@ -794,8 +807,8 @@ class GroupedRoundEngine(FlatParams):
             levels = [(rate, by_level[rate], np.maximum(users[r][by_level[rate]], 0))
                       for rate in sorted(by_level, reverse=True)]
             plans.append((valid, limits, levels))
-            for _, pos, uids in levels:
-                host += [uids, np.asarray(pos, np.int64), limits[pos], valid[pos]]
+            for _, pos, _ in levels:
+                host += [rows[r][pos], np.asarray(pos, np.int64), limits[pos], valid[pos]]
         flat = torch.from_numpy(np.concatenate(host).astype(np.int64)).to(device) if host \
             else None
         gate = any(bool((limits < total).any()) for _, limits, _ in plans)
@@ -813,13 +826,45 @@ class GroupedRoundEngine(FlatParams):
             out.append((valid, rnd))
         return out
 
+    def stage_cohort(self, store: ClientStore, user_schedule, rate_schedule) -> StagedCohort:
+        """Gather and commit one superstep's cohort from ``store`` in the
+        per-level slot layout (ref grouped.py:1305-1413): ``[k, L, per]``
+        slots, round r's level-l clients (levels in descending rate, a
+        ``-1`` slot at user ``U - 1``'s) in the first slots of ``[r, l]``,
+        ``per`` the most clients a level holds in a round rounded up to a
+        power of two, the slots left over ``-1`` (user 0's shard, never
+        read); each level's rows are contiguous.  Through the engine's
+        cohort ring, O(k x L x per x shard) bytes whatever the population;
+        call it for superstep N+1 right after superstep N is dispatched."""
+        users = np.asarray(user_schedule, np.int64)
+        rates = np.asarray(rate_schedule, np.float32)
+        if users.shape != rates.shape or users.ndim != 2:
+            raise ValueError(f"user/rate schedules must both be [k, A], got {users.shape} / "
+                             f"{rates.shape}")
+        k, a = users.shape
+        level_rates = list(self.levels)  # descending
+        snapped = snap_to_levels(rates.reshape(-1), self.levels).reshape(k, a)
+        positions = [[np.flatnonzero(snapped[r] == rate) for rate in level_rates]
+                     for r in range(k)]
+        need = max([1] + [len(pos) for per_round in positions for pos in per_round])
+        per = 1 << (need - 1).bit_length()
+        sched = np.full((k, len(level_rates), per), -1, np.int64)
+        rows = np.zeros((k, a), np.int64)
+        for r in range(k):
+            for li, pos in enumerate(positions[r]):
+                sched[r, li, :len(pos)] = users[r][pos]
+                rows[r][pos] = (r * len(level_rates) + li) * per + np.arange(len(pos))
+        return self.cohort_stager().stage(("grouped",) + sched.shape, store, "grouped", sched,
+                                          users, rates, rows)
+
     def train_superstep(self, P: torch.Tensor, seed: int, epoch0: int, k: int,
                         data: Tuple[torch.Tensor, ...], user_schedule, rate_schedule, lrs,
                         eval_mask=None, fused_eval=None,
                         epoch_perms: Optional[Sequence[Dict[int, np.ndarray]]] = None,
                         codec_noise: Optional[Sequence[torch.Tensor]] = None,
                         step_limits: Optional[Sequence[Any]] = None,
-                        alive: Optional[Sequence[Any]] = None
+                        alive: Optional[Sequence[Any]] = None,
+                        cohort: Optional[StagedCohort] = None
                         ) -> Tuple[torch.Tensor, PendingMetrics]:
         """Rounds ``epoch0 .. epoch0 + k - 1`` with no host read between
         them (ref parallel/grouped.py:1416-1617), under cuDNN's
@@ -830,16 +875,21 @@ class GroupedRoundEngine(FlatParams):
         the captured step of (level, G) up to their largest step budget,
         a lossy codec compresses each round's merged sums on a grid sized
         for :meth:`codec_slots` of the schedule, and buffered aggregation
-        applies the previous round's sums.  Test hooks, which replace a draw
-        from the round seed, one entry a round: ``epoch_perms[r]`` ``{uid:
-        [E, N]}`` raw permutations, ``codec_noise[r]`` the int8 codec's
-        noise, ``step_limits[r]`` and ``alive[r]`` the deadline budgets and
-        the survivors in slot order."""
+        applies the previous round's sums.  ``cohort`` (:meth:`stage_cohort`)
+        replaces ``data``, its schedules the defaults of ``user_schedule``
+        and ``rate_schedule``, each client's data its slot's row.  Test
+        hooks, which replace a draw from the round seed, one entry a round:
+        ``epoch_perms[r]`` ``{uid: [E, N]}`` raw permutations,
+        ``codec_noise[r]`` the int8 codec's noise, ``step_limits[r]`` and
+        ``alive[r]`` the deadline budgets and the survivors in slot order."""
+        data, user_schedule, rate_schedule, rows = self._cohort_args(
+            "grouped", k, data, user_schedule, rate_schedule, cohort)
         users, rates, lrs = superstep_schedules(user_schedule, rate_schedule, lrs, k)
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            plans = self._plans(seed, epoch0, users, rates, data, P.device, step_limits, alive)
+            plans = self._plans(seed, epoch0, users, rates, data, P.device, step_limits, alive,
+                                rows)
             cmax = self.codec_slots(rates)
             return self._superstep(
                 P, seed, epoch0, k, users, rates, lrs, eval_mask, fused_eval, self._lr,
@@ -849,3 +899,5 @@ class GroupedRoundEngine(FlatParams):
                     None if codec_noise is None else codec_noise[r]))
         finally:
             torch.backends.cudnn.deterministic = deterministic
+            if cohort is not None:
+                cohort.release()

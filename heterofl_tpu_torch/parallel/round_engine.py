@@ -47,6 +47,11 @@ reproducible in torch, so tests hand in the reference's rates, epoch
 permutations and augmentation draws (and an LM client's corruption and
 dropout draws) instead.  Every width mask a round can need is on the device
 before the first round.
+
+With ``client_store='stream'`` a superstep reads a cohort
+(:meth:`RoundEngine.stage_cohort`, ``parallel/staging.py``) instead of the
+``[U, ...]`` stacks: a client's data is its slot's row of the cohort
+(``rows``), the same steps on the same bytes.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ import numpy as np
 import torch
 
 from ..compress import make_codec, resolve_codec_cfg
+from ..config import resolve_prefetch_depth
 from ..compress.codecs import compressed_sum
 from ..data.datasets import DATASET_STATS
 from ..fed.core import client_alive, combine_counted, round_rates, round_seed, to_width_rates
@@ -69,7 +75,7 @@ from ..sched import ScheduleSpec, resolve_schedule_cfg
 from ..sched.buffer import buffered_combine
 from ..sched.deadline import deadline_steps
 from ..utils.optim import clip_by_global_norm, sgd_update
-from .staging import PendingMetrics
+from .staging import ClientStore, CohortStager, PendingMetrics, StagedCohort
 from .step_graph import StepGraphs, device_counter, maybe_event
 
 
@@ -299,6 +305,35 @@ class FlatParams:
             {"train": train, "eval": evals},
             lambda host: assemble_superstep(host, reported, eval_epochs, fused_eval), timers)
 
+    # -- the streamed cohort ------------------------------------------------
+
+    _stager: Optional[CohortStager] = None
+
+    def cohort_stager(self) -> CohortStager:
+        """The engine's cohort ring (``stream_prefetch_depth + 1`` slots a
+        layout), made at the first cohort."""
+        if self._stager is None:
+            self._stager = CohortStager(self.device, resolve_prefetch_depth(self.cfg))
+        return self._stager
+
+    def _cohort_args(self, engine: str, k: int, data, user_schedule, rate_schedule,
+                     cohort: Optional[StagedCohort]):
+        """A superstep's ``(data, users, rates, rows)``: the eager stacks and
+        the schedules with each slot's data row its user id, or a cohort's
+        stacks, schedules and rows (its copy waited for)."""
+        if cohort is None:
+            if data is None:
+                raise ValueError("train_superstep needs data stacks or a staged cohort")
+            return data, user_schedule, rate_schedule, None
+        if data is not None:
+            raise ValueError("train_superstep takes data stacks or a staged cohort, not both")
+        users = cohort.users if user_schedule is None else np.asarray(user_schedule, np.int64)
+        if not np.array_equal(users, cohort.users):
+            raise ValueError("train_superstep: the user schedule is not the staged cohort's")
+        if rate_schedule is None:
+            rate_schedule = cohort.rates
+        return cohort.open(engine, k), users, rate_schedule, cohort.rows
+
     def _aggregate(self, P, summed, counts, round_seed: int, n_slots: int,
                    codec_noise=None, topk_offset=None, cmax: Optional[int] = None
                    ) -> torch.Tensor:
@@ -372,6 +407,7 @@ class RoundEngine(FlatParams):
         self.graphs = StepGraphs(device)
         self._st: Optional[Dict[str, torch.Tensor]] = None
         self._ggen = torch.Generator(device=device)
+        self._stager = None
 
     # -- flat buffers ----------------------------------------------------
 
@@ -718,62 +754,84 @@ class RoundEngine(FlatParams):
                                st["t"].zero_, [self._ggen])
         return step, st
 
-    def stage_client(self, st, P: torch.Tensor, wr: float, uid: int, data, cseed: int,
+    def stage_client(self, st, P: torch.Tensor, wr: float, row: int, data, cseed: int,
                      raw_perms: Optional[np.ndarray] = None) -> None:
         """Eager set-up of one client into the static buffers: the masked
-        params, zero momentum and sums, the step counter at 0, its data and
-        (vision) its epoch permutations with real samples first, drawn from
-        the step's generator reseeded for the client -- ``local_train``'s
-        prologue (``raw_perms`` its hook)."""
+        params, zero momentum and sums, the step counter at 0, its data
+        (row ``row`` of the stacks: its user id in the eager stacks, its
+        slot in a cohort's) and (vision) its epoch permutations with real
+        samples first, drawn from the step's generator reseeded for the
+        client -- ``local_train``'s prologue (``raw_perms`` its hook)."""
         gen = self._ggen
         gen.manual_seed(cseed)
         torch.mul(P, self.param_mask_flat(wr), out=st["p"])
         st["buf"].zero_()
         st["acc"].zero_()
         st["t"].zero_()
-        st["lm"].copy_(data[-1][uid])
+        st["lm"].copy_(data[-1][row])
         if self.is_lm:
-            rows = data[0][uid]
+            rows = data[0][row]
             st["rows_p"].zero_()
             st["rows_p"][:, :rows.shape[1]].copy_(rows)
             return
-        st["x"].copy_(data[0][uid])
-        st["y"].copy_(data[1][uid])
-        st["sm"].copy_(data[2][uid])
-        st["perms"].copy_(self._epoch_perms(gen, data[2][uid], raw_perms).reshape(-1))
+        st["x"].copy_(data[0][row])
+        st["y"].copy_(data[1][row])
+        st["sm"].copy_(data[2][row])
+        st["perms"].copy_(self._epoch_perms(gen, data[2][row], raw_perms).reshape(-1))
 
     def _replayed_round(self, P: torch.Tensor, user_idx: np.ndarray, rates_abs: np.ndarray,
-                        data, rseed: int, epoch_perms=None, codec_noise=None, step_limits=None,
-                        alive=None) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+                        data, rseed: int, rows=None, epoch_perms=None, codec_noise=None,
+                        step_limits=None, alive=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
         """One round of the superstep: per client the eager set-up, then its
         steps replayed (up to its budget, :meth:`slot_plan`; a padding or
         failed slot is skipped with a zero row); aggregation (and the codec)
         on the device as :meth:`train_round` -> ``(new P, [A, 3] device
-        sums, reported rates)``; hooks as :meth:`train_superstep`'s, this
+        sums, reported rates)``.  ``rows``: each slot's row of ``data``
+        (default its user id); hooks as :meth:`train_superstep`'s, this
         round's."""
         valid, limits = self.slot_plan(user_idx, rseed, self.total_steps(data), step_limits,
                                        alive)
         wrs = to_width_rates(rates_abs, self.cfg)
         summed = torch.zeros_like(P)
         counts = torch.zeros_like(P)
-        rows = []
+        rows = user_idx if rows is None else rows
+        sums = []
         for slot, uid in enumerate(user_idx.tolist()):
             if not valid[slot]:
-                rows.append(P.new_zeros(3))
+                sums.append(P.new_zeros(3))
                 continue
-            wr = float(wrs[slot])
+            wr, row = float(wrs[slot]), int(rows[slot])
             step, st = self.client_step(wr, P, data)
-            self.stage_client(st, P, wr, uid, data, client_seed(rseed, uid),
+            self.stage_client(st, P, wr, row, data, client_seed(rseed, uid),
                               None if epoch_perms is None else epoch_perms[uid])
             for _ in range(min(st["steps"], int(limits[slot]))):
                 step.replay()
-            cm = self.count_mask_flat(wr, data[-1][uid])
+            cm = self.count_mask_flat(wr, data[-1][row])
             summed += st["p"] * cm
             counts += cm
-            rows.append(st["acc"].clone())
-        acc = torch.stack(rows) if rows else P.new_zeros((0, 3))
-        return (self._aggregate(P, summed, counts, rseed, len(rows), codec_noise), acc,
+            sums.append(st["acc"].clone())
+        acc = torch.stack(sums) if sums else P.new_zeros((0, 3))
+        return (self._aggregate(P, summed, counts, rseed, len(sums), codec_noise), acc,
                 rates_abs * valid)
+
+    def stage_cohort(self, store: ClientStore, user_schedule, rate_schedule=None
+                     ) -> StagedCohort:
+        """Gather and commit one superstep's cohort from ``store`` (ref
+        round_engine.py:1423-1485): the ``[k, A]`` cohorts in schedule
+        order, a slot a row (a ``-1`` slot gathers user 0's shard and is
+        skipped in training), through the engine's cohort ring; ``rate_schedule``
+        (``[k, A]``, optional) rides with it.  Host and device bytes are
+        O(k x A x shard), whatever the population; call it for superstep
+        N+1 right after superstep N is dispatched."""
+        users = np.asarray(user_schedule, np.int64)
+        if users.ndim != 2:
+            raise ValueError(f"user_schedule must be [k, A], got {users.shape}")
+        k, a = users.shape
+        rates = None if rate_schedule is None else np.asarray(rate_schedule, np.float32)
+        rows = np.arange(k * a, dtype=np.int64).reshape(k, a)
+        return self.cohort_stager().stage(("masked", k, a), store, "masked", users, users,
+                                          rates, rows)
 
     def train_superstep(self, P: torch.Tensor, seed: int, epoch0: int, k: int,
                         data: Tuple[torch.Tensor, ...], user_schedule, rate_schedule, lrs,
@@ -781,7 +839,8 @@ class RoundEngine(FlatParams):
                         epoch_perms: Optional[Sequence[Dict[int, np.ndarray]]] = None,
                         codec_noise: Optional[Sequence[torch.Tensor]] = None,
                         step_limits: Optional[Sequence[Any]] = None,
-                        alive: Optional[Sequence[Any]] = None
+                        alive: Optional[Sequence[Any]] = None,
+                        cohort: Optional[StagedCohort] = None
                         ) -> Tuple[torch.Tensor, PendingMetrics]:
         """Rounds ``epoch0 .. epoch0 + k - 1`` with no host read between
         them (ref parallel/round_engine.py:1487-1767): round r trains the
@@ -797,14 +856,27 @@ class RoundEngine(FlatParams):
         round seed, one entry a round: ``epoch_perms[r]`` ``{uid: [E, N]}``
         raw permutations (vision), ``codec_noise[r]`` the int8 codec's
         noise, ``step_limits[r]`` and ``alive[r]`` the deadline budgets and
-        the survivors in slot order."""
+        the survivors in slot order.
+
+        ``cohort`` (:meth:`stage_cohort`) replaces ``data``: each client's
+        data is its slot's row of the cohort (``user_schedule`` defaults to
+        the cohort's, ``rate_schedule`` to its rates); the cohort is released
+        once the superstep's reads are enqueued.  The steps are the eager
+        stacks' steps on the same rows, so the result is the same bit for
+        bit."""
+        data, user_schedule, rate_schedule, rows = self._cohort_args(
+            "masked", k, data, user_schedule, rate_schedule, cohort)
         st = self._slots(P, data)
 
         def hook(h, r):
             return None if h is None else h[r]
 
-        return self._superstep(
-            P, seed, epoch0, k, user_schedule, rate_schedule, lrs, eval_mask, fused_eval,
-            st["lr"], lambda P, r, users, rates, rseed: self._replayed_round(
-                P, users, rates, data, rseed, hook(epoch_perms, r), hook(codec_noise, r),
-                hook(step_limits, r), hook(alive, r)))
+        try:
+            return self._superstep(
+                P, seed, epoch0, k, user_schedule, rate_schedule, lrs, eval_mask, fused_eval,
+                st["lr"], lambda P, r, users, rates, rseed: self._replayed_round(
+                    P, users, rates, data, rseed, hook(rows, r), hook(epoch_perms, r),
+                    hook(codec_noise, r), hook(step_limits, r), hook(alive, r)))
+        finally:
+            if cohort is not None:
+                cohort.release()

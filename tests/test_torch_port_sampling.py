@@ -123,8 +123,8 @@ def test_superstep_lrs_equal_the_rounds(name):
 
 def test_sampler_config_matches_reference():
     """``sampler`` takes ``perm`` (the port's default) and ``prp``; an
-    unknown one raises the reference's message; ``sample_horizon`` is not
-    ported."""
+    unknown one raises the reference's message; ``sample_horizon`` is
+    accepted (the schedule commitment)."""
     for kind in ("perm", "prp"):
         assert S.resolve_sampler_cfg({"sampler": kind}).kind == kind
         assert RS.resolve_sampler_cfg({"sampler": kind}).kind == kind
@@ -137,8 +137,9 @@ def test_sampler_config_matches_reference():
     cfg = PC.default_cfg()
     cfg["control"] = PC.parse_control_name("1_100_0.1_iid_fix_a1_bn_1_1")
     assert PC.process_control(dict(cfg, sampler="prp"))["sampler"] == "prp"
-    with pytest.raises(NotImplementedError, match="sample_horizon"):
-        PC.process_control(dict(cfg, sample_horizon=1))
+    assert PC.process_control(dict(cfg, sample_horizon=1))["sample_horizon"] == 1
+    assert S.resolve_sampler_cfg({"sample_horizon": 1}).horizon == \
+        RS.resolve_sampler_cfg({"sample_horizon": 1}).horizon == 1
 
 
 @pytest.mark.parametrize("case,match", [
