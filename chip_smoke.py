@@ -33,7 +33,7 @@ each prints its seconds:
    e, 2 steps each) against the CPU, and its local step timed; then the
    main paths, each into a fresh temporary ``output_dir``:
    ``heterofl_tpu_torch.entry.train_classifier_fed`` with the paper's
-   headline control on full-width ResNet-18, synthetic CIFAR10 at 15,000 of
+   headline control on full-width ResNet-18, synthetic CIFAR10 at 10,000 of
    its real 50,000 train images, ``pallas_norm=1``, ``fused_update=1``, one
    round (``ROUNDS``) with a checkpoint, sBN and Local/Global evaluation,
    local epochs cut to ``--local-epochs`` (default 1; the control's own is
@@ -175,7 +175,22 @@ each prints its seconds:
    each copied out on the compute stream after its superstep equal to the
    host gather bit for bit, and whether each prefetch ended while the
    device was still busy (``Event.query``);
-12. the ``kernels`` JSON line (launches from the int8 path, the batched
+12. observability and its guards (``--telemetry``, ``--ledger``,
+   ``--trace_dir``, ``--profile_dir``, ``--quarantine``, ``--chaos_poison``,
+   ``--watchdog``), at phase 10's depth: (a) the masked headline superstep
+   under ``hist`` with the ledger, the trace and a profile against the
+   plain run, bit for bit (params, log, launches, replays), one metrics
+   fetch a superstep in both, every record finite, the trace, the ledger's
+   report and the profile's kernel names read back; the one-round tail's
+   ``update_norm`` against the norm of its fetched params minus the
+   checkpoint's before it (1e-5 relative); the probes' kernels a round and
+   the gate's a client (the kernel nodes of a captured call); the tail's
+   device seconds off and on; (b) the
+   grouped superstep and the LM superstep under ``on`` against their plain
+   runs, bit for bit; (c) ``chaos_poison`` under the gate, masked and
+   grouped: finite params, ``quarantined`` the poisoned count; (d) a
+   poisoned run under ``watchdog={'action': 'rollback'}`` recovering;
+13. the ``kernels`` JSON line (launches from the int8 path, the batched
    kernels' from the grouped path; per path in ``launches_by_path``, and
    the superstep's launches from replays -- a graph's captured launches
    times its replays -- in ``replayed_launches_by_path``), then the ``ok``
@@ -197,6 +212,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = "1_100_0.1_iid_fix_a1-b1-c1-d1-e1_bn_1_1"
@@ -204,11 +220,11 @@ TAG = f"0_CIFAR10_label_resnet18_{HEADLINE}"
 CENTRAL = "1_1_1_none_fix_a1_bn_1_1"  # the centralised baseline, full width
 CENTRAL_TAG = f"0_CIFAR10_label_resnet18_{CENTRAL}"
 CENTRAL_EPOCHS = 1
-# the vision paths' synthetic CIFAR10: 15,000 of the real 50,000-image train
-# set (150 steps a round, 1,500 sBN forwards; cut for the script's time, from
-# 25,000 when the bf16, im2col and codec-map phases came), the real
-# 10,000-image test set
-SIZES = {"train": 15000, "test": 10000}
+# the vision paths' synthetic CIFAR10: 10,000 of the real 50,000-image train
+# set (100 steps a round, 1,000 sBN forwards; cut for the script's time, from
+# 25,000 when the bf16, im2col and codec-map phases came, and from 15,000
+# when phase 12 came), the real 10,000-image test set
+SIZES = {"train": 10000, "test": 10000}
 BATCH = 10
 CENTRAL_BATCH = 100
 # ResNet-18 on 32x32 CIFAR at batch 10: (rows M = N*H*W, channels C, BN
@@ -255,7 +271,7 @@ TOL_LM_ROUND = 1e-3     # max |params| difference, card LM round vs CPU LM round
 # the sixth slice: dynamic rates on data read from disk, the group norms and
 # the bottleneck ResNet.  The dataset files are written in their real
 # on-disk formats from a seed: CIFAR10 as the python-pickle batches, cut in
-# depth to the vision paths' 15,000 training images (five batches of 3,000)
+# depth to the vision paths' 10,000 training images (five batches of 2,000)
 # and the real 10,000 test images; EMNIST balanced as gzip IDX, cut from
 # 112,800 / 18,800 images to EMNIST_SIZES.
 DYNAMIC = "1_100_0.1_iid_dynamic_a1-b1-c1-d1-e1_bn_1_1"
@@ -377,8 +393,10 @@ def graph_ms(fn, calls: int = BN_GRAPH_CALLS, samples: int = 25) -> float:
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    from heterofl_tpu_torch.parallel.step_graph import gc_paused
+
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with gc_paused(), torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
     for _ in range(3):
@@ -400,14 +418,25 @@ def graph_ms(fn, calls: int = BN_GRAPH_CALLS, samples: int = 25) -> float:
 #: adds one (``scripts/torch_port_trace_drops.py`` counts how often)
 TRACE_TRIES = 3
 
+#: empty kernels (``torch.cuda._sleep``'s ``spin_kernel``) launched at a
+#: trace's start, before the traced work, and left out of every count: the
+#: profiler may drop the first few records of a trace (three in a row on
+#: one card), and these absorb it
+TRACE_PAD = 8
+PAD_KERNEL = "spin_kernel"
+
 
 def trace(fn):
     """``fn()`` run and the card synchronised inside a ``torch.profiler``
-    trace -> (the profile, the run's host-clock ms)."""
+    trace, after :data:`TRACE_PAD` empty kernels -> (the profile, the run's
+    host-clock ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -416,16 +445,18 @@ def trace(fn):
 
 
 def device_events(prof) -> list:
-    """The names of the card's records in a trace."""
-    return [e.name for e in prof.events() if "CUDA" in str(e.device_type)]
+    """The names of the card's records in a trace, the pad left out."""
+    return [e.name for e in prof.events()
+            if "CUDA" in str(e.device_type) and PAD_KERNEL not in e.name]
 
 
 def kernels_per_call(fn, calls: int = 20):
     """Kernels one call of ``fn`` runs on the card, counted in a
     ``torch.profiler`` trace of ``calls`` calls after a warm-up one (copies
-    and fills not counted) and rounded: the profiler may drop an event or
-    two at a trace's start, and a trace that lost more is taken again (up to
-    :data:`TRACE_TRIES`) -> (kernels a call, their names)."""
+    and fills not counted) and rounded: the profiler may drop a record or
+    two beyond the trace's pad (:func:`trace`), and a trace that lost more
+    is taken again (up to :data:`TRACE_TRIES`) -> (kernels a call, their
+    names)."""
     import torch
 
     fn()
@@ -439,6 +470,50 @@ def kernels_per_call(fn, calls: int = 20):
         say(f"a profiler trace of {calls} calls holds {len(names)} kernels: traced again")
     raise AssertionError(f"the profiler saw {len(names)} kernels in {calls} calls: "
                          f"{sorted(set(names))}")
+
+
+def graph_kernels(fn) -> int:
+    """Kernels one call of ``fn`` launches, counted as the kernel nodes of
+    its capture in a CUDA graph -- CUDA's own list
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``; memsets and copies not
+    counted), exact where a profiler trace can lose records.  A warm-up
+    call runs on a side stream first."""
+    import ctypes
+
+    import torch
+
+    from heterofl_tpu_torch.parallel.step_graph import gc_paused
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with gc_paused(), torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphGetNodes.restype = ctypes.c_int
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    cuda.cuGraphNodeGetType.restype = ctypes.c_int
+    raw, num = graph.raw_cuda_graph(), ctypes.c_size_t(0)
+    rc = cuda.cuGraphGetNodes(raw, None, ctypes.byref(num))  # the count
+    nodes = (ctypes.c_void_p * num.value)()
+    if rc == 0:
+        rc = cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(num))  # the nodes
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rc = cuda.cuGraphNodeGetType(node, ctypes.byref(kind))
+        if rc != 0:
+            raise RuntimeError(f"cuGraphNodeGetType failed: CUresult {rc}")
+        kinds.append(kind.value)
+    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
 
 
 #: the device kernel that each launch counter counts, one a counted call
@@ -2347,6 +2422,8 @@ def graph_check_phase(torch, tmp: str, local_epochs: int, *flags, reps: int = 6,
         torch.backends.cudnn.deterministic = deterministic
     kernels, busy = 0, 0.0
     for evt in prof.key_averages():
+        if PAD_KERNEL in evt.key:
+            continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
@@ -3501,6 +3578,280 @@ def ring_phase(torch, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. observability and its guards
+# ---------------------------------------------------------------------------
+
+OBS_ROUNDS = 5  # phase 12a: supersteps of 2, 2 and 1 -- the captures, the profiled one, the timed tail
+OBS_POISONED = 50  # phase 12c poisons users 0 .. 49 in round 2
+
+
+def profile_kernels(path: str) -> dict:
+    """The hand-written kernels a ``profile_dir`` Chrome trace names, counted
+    by launch counter (:data:`KERNEL_OF`)."""
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    return {k: sum(1 for n in names if re.search(rf"\b{pat}\b", n))
+            for k, pat in KERNEL_OF.items()}
+
+
+def obs_masked_path(torch, counters, out_dir: str):
+    """Phase 12a: the masked headline at ``--superstep_rounds 2``,
+    ``OBS_ROUNDS`` rounds (supersteps of 2, 2 and the tail of 1), plain and
+    under ``--telemetry hist --ledger on --trace_dir --profile_dir`` (the
+    profile of the first steady superstep), under cuDNN's deterministic
+    algorithms: params, log, launches and replays bit for bit; the metrics'
+    device-to-host fetches (``host_fetch`` calls) one a superstep in both;
+    every round's probe record finite with its histograms; ``trace.json``
+    loads, every ``events.jsonl`` line has the schema's fields,
+    ``ledger.npz`` renders its report, and the profile names the BN and SGD
+    kernels; the tail round's ``update_norm`` against the norm of its
+    params minus the round-4 checkpoint's (float64 on the host) within 1e-5
+    relative; the tail's device seconds, plain and observed.  Then, through
+    an engine's own methods at the headline's 11,172,170 params: the
+    probes' kernels a round and the gate's a client (:func:`graph_kernels`),
+    the probes' device time, and the staleness histogram of a
+    ``[2, n]`` carry (past 2**24 entries) against the host's exact counts
+    -> ({path: (launches, replayed)}, numbers)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.convert import params_from_jax
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.obs.hist import STALE_EDGES, stale_hist
+    from heterofl_tpu_torch.obs.probes import round_probes, segment_ends
+    from heterofl_tpu_torch.obs.report import build_report
+    from heterofl_tpu_torch.obs.trace import EVENT_FIELDS
+    from heterofl_tpu_torch.ops.fused_update import FlatSpec
+    from heterofl_tpu_torch.parallel import staging
+    from heterofl_tpu_torch.parallel.round_engine import FlatParams
+    from heterofl_tpu_torch.utils import checkpoint_path
+    from heterofl_tpu_torch.utils.checkpoint import generation_paths, load_checkpoint
+
+    trace_dir, prof_dir = os.path.join(out_dir, "trace"), os.path.join(out_dir, "profile")
+    ss = ("--superstep_rounds", str(SS_ROUNDS))
+    runs, secs, launches, replayed, fetches = {}, {}, {}, {}, {}
+    real_fetch, calls = staging.host_fetch, []
+
+    def counted_fetch(tree):
+        calls.append(1)
+        return real_fetch(tree)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    staging.host_fetch = counted_fetch
+    try:
+        for name, more in (("off", ()), ("hist", ("--telemetry", "hist", "--ledger", "on",
+                                                  "--trace_dir", trace_dir,
+                                                  "--profile_dir", prof_dir))):
+            calls.clear()
+            runs[name], secs[name], launches[name], replayed[name] = counted_run(
+                torch, counters, train_classifier_fed.main,
+                stream_argv(os.path.join(out_dir, name), OBS_ROUNDS, *ss, *more),
+                f"obs masked ({name}): train_classifier_fed")
+            fetches[name] = len(calls)
+    finally:
+        staging.host_fetch = real_fetch
+        torch.backends.cudnn.deterministic = deterministic
+    off, hist = runs["off"]["history"], runs["hist"]["history"]
+    supersteps = -(-OBS_ROUNDS // SS_ROUNDS)
+    same = same_run(torch, runs["hist"], runs["off"]) and launches["hist"] == launches["off"] \
+        and replayed["hist"] == replayed["off"]
+    recs = [r.get("probes") for r in hist]
+    probes_ok = all(rec is not None and rec["nonfinite"] == 0
+                    and math.isfinite(rec["update_norm"]) and rec["update_norm"] > 0
+                    and sum(rec["participation"]) == r["filled"] - r["failed"]
+                    and len(rec["hist_loss"]) == 11
+                    and sum(rec["hist_steps"]) == r["filled"] - r["failed"]
+                    for rec, r in zip(recs, hist))
+    tdir = os.path.join(trace_dir, TAG)
+    with open(os.path.join(tdir, "trace.json")) as f:
+        trace_events = json.load(f)["traceEvents"]
+    with open(os.path.join(tdir, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    schema = all(set(EVENT_FIELDS) <= set(e) for e in events)
+    report = build_report(os.path.join(tdir, "ledger.npz"))
+    prof = profile_kernels(os.path.join(prof_dir, f"{TAG}.pt.trace.json"))
+    # the tail round's update against the round-4 checkpoint's params
+    cfg = C_process(stream_argv(os.path.join(out_dir, "hist"), OBS_ROUNDS))
+    blob = next(b for b in map(load_checkpoint, generation_paths(
+        checkpoint_path(os.path.join(out_dir, "hist"), TAG))) if b["epoch"] == OBS_ROUNDS)
+    before = params_from_jax(blob["params"], make_model(cfg).jax_perms())
+    host = math.sqrt(sum(float(np.sum((runs["hist"]["params"][k].cpu().numpy().astype(np.float64)
+                                       - v.numpy().astype(np.float64)) ** 2))
+                         for k, v in before.items()))
+    rel = abs(recs[-1]["update_norm"] - host) / host
+    dev_off, dev_on = off[-1]["seconds"], hist[-1]["seconds"]
+    say(f"obs masked: runs {secs['off']:.1f} s off, {secs['hist']:.1f} s hist + ledger + trace + "
+        f"profile (host clock); hist == off bit for bit (params, log, launches, replays) {same}; "
+        f"host_fetch calls {fetches['off']} off, {fetches['hist']} hist for {supersteps} "
+        f"supersteps; records {probes_ok} (round 1: {recs[0]}); trace {len(trace_events)} events, "
+        f"events.jsonl {len(events)} lines, schema {schema}; ledger coverage "
+        f"{report['participation']['coverage']}, {report['bytes']} B; profile kernels {prof}; "
+        f"the tail round's update_norm {recs[-1]['update_norm']:.7g} against the fetched "
+        f"params' {host:.7g} (relative {rel:.2e}); its device seconds (device clock) off "
+        f"{dev_off:.4f}, hist {dev_on:.4f}")
+    if not (same and fetches["hist"] == fetches["off"] == supersteps and probes_ok and schema
+            and events and report["updates"] == OBS_ROUNDS and rel <= 1e-5
+            and all(prof[k] > 0 for k in ("bn_fwd", "bn_bwd", "fused_sgd"))):
+        raise AssertionError("obs masked: the observed run differs from the plain one, fetched "
+                             "more than once a superstep, or its records, norm, trace, ledger "
+                             "or profile are wrong")
+    # the engine's probe and gate methods at the headline's width
+    eng = FlatParams()
+    eng.spec = FlatSpec.of(dict(make_model(cfg).named_parameters()))
+    eng._init_obs(dict(cfg, telemetry="hist", quarantine="on"))
+    n, dev = eng.spec.total, next(iter(runs["hist"]["params"].values())).device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    P0 = torch.randn(n, generator=gen, device=dev)
+    P1 = P0 + 0.01 * torch.randn(n, generator=gen, device=dev)
+    S, Cn = P1 * 3.0, torch.full((n,), 3.0, device=dev)
+    ends = segment_ends(eng.spec, dev)
+    n_on = graph_kernels(lambda: round_probes(ends, P0, P1, S, Cn))
+    n_hist = graph_kernels(lambda: eng._round_obs(P0, P1, S, Cn))
+    n_gate = graph_kernels(lambda: eng._guard(P1, P0, Cn, None))
+    probe_ms = time_ms(lambda: eng._round_obs(P0, P1, S, Cn))
+    buf = torch.randn((2, n), generator=gen, device=dev) * 10.0 ** torch.randint(
+        -9, 3, (2, n), generator=gen, device=dev)
+    dev_hist = stale_hist(buf, buf.device).cpu().numpy().astype(np.float64)
+    host_int = np.bincount(np.searchsorted(np.asarray(STALE_EDGES, np.float32),
+                                           np.abs(buf.cpu().numpy()).reshape(-1), side="left"),
+                           minlength=len(STALE_EDGES) + 1)
+    stale_exact = np.array_equal(dev_hist[0] * 2.0 ** 24 + dev_hist[1], host_int)
+    del eng, P0, P1, S, Cn, buf
+    torch.cuda.empty_cache()
+    say(f"obs masked: kernels a round at {n} params (kernel nodes of a captured call): probes "
+        f"{n_on} (telemetry on), {n_hist} (hist), the gate {n_gate} a client; the hist probes "
+        f"{probe_ms:.4f} ms a round (CUDA events); the staleness histogram of {2 * n} entries on "
+        f"the card equal to the host's exact counts {stale_exact} ({host_int.tolist()})")
+    if not stale_exact:
+        raise AssertionError("obs masked: the staleness histogram on the card is not the host's")
+    return ({"obs_masked_hist": (launches["hist"], replayed["hist"])},
+            {"probe_kernels_on": n_on, "probe_kernels_hist": n_hist, "gate_kernels": n_gate,
+             "probe_ms": probe_ms, "superstep_s_off": dev_off, "superstep_s_hist": dev_on,
+             "norm_rel": rel, "off_run": off})
+
+
+def C_process(argv):
+    """The processed cfg of ``train_classifier_fed``'s flags ``argv`` (CIFAR10:
+    10 classes)."""
+    from heterofl_tpu_torch.entry.common import parse_cfg
+
+    return dict(parse_cfg("chip_smoke", "resnet18", "CIFAR10", argv), classes_size=10)
+
+
+def obs_grouped_lm_path(torch, counters, out_dir: str):
+    """Phase 12b: the grouped headline superstep (``SS_ROUNDS`` rounds) and
+    the LM control's superstep, each plain and under ``--telemetry on``:
+    params, log, launches and replays bit for bit; every round's record
+    finite, no non-finite leaf -> {path: (launches, replayed)}."""
+    from heterofl_tpu_torch.entry import train_classifier_fed, train_transformer_fed
+
+    ss = ("--superstep_rounds", str(SS_ROUNDS))
+    lm_argv = lambda d, *more: ["--control_name", LM_CONTROL, "--synthetic", "1",  # noqa: E731
+                                "--synthetic_sizes", json.dumps(SCENARIO_LM_SIZES),
+                                "--fused_update", "1", "--eval_interval", str(SS_ROUNDS), *ss,
+                                "--output_dir", d, "--override",
+                                json.dumps({"num_epochs": {"global": SS_ROUNDS, "local": 1}}),
+                                *more]
+    out = {}
+    for path, main, argv in (
+            ("obs_grouped_on", train_classifier_fed.main,
+             lambda d, *more: stream_argv(d, SS_ROUNDS, "--strategy", "grouped", *ss, *more)),
+            ("obs_lm_on", train_transformer_fed.main, lm_argv)):
+        runs, secs, launches, replayed = {}, {}, {}, {}
+        for name, more in (("off", ()), ("on", ("--telemetry", "on"))):
+            runs[name], secs[name], launches[name], replayed[name] = counted_run(
+                torch, counters, main, argv(os.path.join(out_dir, path, name), *more),
+                f"{path} ({name})")
+        same = same_run(torch, runs["on"], runs["off"]) and launches["on"] == launches["off"] \
+            and replayed["on"] == replayed["off"]
+        recs = [r.get("probes") for r in runs["on"]["history"]]
+        ok = all(rec is not None and rec["nonfinite"] == 0 and math.isfinite(rec["grad_norm"])
+                 and rec["update_norm"] > 0 for rec in recs)
+        say(f"{path}: runs {secs['off']:.1f} s off, {secs['on']:.1f} s on (host clock); on == off "
+            f"bit for bit {same}; records {ok}: {recs}; from replays {replayed['on']}")
+        if not (same and ok):
+            raise AssertionError(f"{path}: telemetry='on' changed the run, or a record is missing "
+                                 f"or not finite")
+        out[path] = (launches["on"], replayed["on"])
+    return out
+
+
+def obs_quarantine_path(torch, counters, out_dir: str):
+    """Phase 12c: ``--chaos_poison`` on users 0 .. ``OBS_POISONED - 1`` in
+    round 2 under ``--quarantine on --telemetry on``, masked and grouped,
+    a superstep of two rounds: params finite, no non-finite leaf, round 2's
+    ``quarantined`` the count of its trained clients the plan poisons,
+    their rates 0, round 1 gating none -> {path: (launches, replayed)}."""
+    from heterofl_tpu_torch.entry import train_classifier_fed
+
+    poison = json.dumps([[2, u] for u in range(OBS_POISONED)])
+    out = {}
+    for strategy in ("masked", "grouped"):
+        path = f"obs_quarantine_{strategy}"
+        res, secs, n, rep = counted_run(
+            torch, counters, train_classifier_fed.main,
+            stream_argv(os.path.join(out_dir, path), SS_ROUNDS, "--strategy", strategy,
+                        "--superstep_rounds", str(SS_ROUNDS), "--quarantine", "on",
+                        "--telemetry", "on", "--chaos_poison", poison), path)
+        r2 = res["history"][1]
+        hit = [i for i, u in enumerate(r2["users"]) if 0 <= u < OBS_POISONED]
+        recs = [r["probes"] for r in res["history"]]
+        finite = all(bool(torch.isfinite(v).all()) for v in res["params"].values())
+        say(f"{path}: {secs:.1f} s (host clock); round 2 cohort {r2['users']}, {len(hit)} "
+            f"poisoned; quarantined {[rec['quarantined'] for rec in recs]}; params finite "
+            f"{finite}; non-finite leaves {[rec['nonfinite'] for rec in recs]}")
+        if not (finite and hit and recs[1]["quarantined"] == len(hit)
+                and recs[0]["quarantined"] == 0
+                and all(r2["user_rates"][i] == 0 for i in hit)
+                and all(rec["nonfinite"] == 0 for rec in recs)):
+            raise AssertionError(f"{path}: the gate did not quarantine exactly the poisoned "
+                                 f"clients, or the params are not finite")
+        out[path] = (n, rep)
+    return out
+
+
+def obs_rollback_path(torch, counters, out_dir: str, off_history):
+    """Phase 12d: the masked headline at ``--superstep_rounds 2``, four
+    rounds, round 3's first drawn user (of phase 12a's plain run, the same
+    draws) poisoned, under ``--telemetry on --watchdog '{"action":
+    "rollback"}'`` and a trace: the run recovers -- params finite, a
+    recovery record after the trip in the log and in ``events.jsonl`` ->
+    (launches, replayed)."""
+    from heterofl_tpu_torch.entry import train_classifier_fed
+
+    uid = next(u for u in off_history[2]["users"] if u >= 0)
+    d = os.path.join(out_dir, "rollback")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res, secs, n, rep = counted_run(
+            torch, counters, train_classifier_fed.main,
+            stream_argv(d, 4, "--superstep_rounds", str(SS_ROUNDS), "--telemetry", "on",
+                        "--chaos_poison", json.dumps([[3, int(uid)]]), "--trace_dir",
+                        os.path.join(d, "trace"), "--watchdog",
+                        json.dumps({"action": "rollback", "max_retries": 3, "backoff": 0.0})),
+            "obs rollback")
+    with open(os.path.join(d, "runs", f"train_{TAG}", "log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    with open(os.path.join(d, "trace", TAG, "events.jsonl")) as f:
+        names = [json.loads(line)["name"] for line in f]
+    trips = [i for i, r in enumerate(log) if r.get("event") == "watchdog"]
+    recs = [r for r in log if r.get("tag") == "recovery"]
+    finite = all(bool(torch.isfinite(v).all()) for v in res["params"].values())
+    say(f"obs rollback: user {uid} poisoned in round 3; {secs:.1f} s (host clock); trips "
+        f"{len(trips)}, recoveries {[(r['attempt'], r['restored_epoch']) for r in recs]}; "
+        f"params finite {finite}; rounds {[r['epoch'] for r in res['history']]}; warnings "
+        f"{sum('rollback attempt' in str(w.message) for w in caught)}")
+    if not (finite and trips and recs and recs[0]["restored_epoch"] == 3
+            and [r["epoch"] for r in res["history"]] == [1, 2, 3, 4]
+            and "watchdog" in names and "recovery" in names
+            and names.index("watchdog") < names.index("recovery")):
+        raise AssertionError("obs rollback: the poisoned run did not recover through a rollback")
+    return n, rep
+
+
 class Phases:
     """Seconds of each phase, printed as each ends."""
 
@@ -3742,9 +4093,24 @@ def main() -> int:
         phases.done("stream: population of 1e4 and 1e6 users, and a superstep")
         ring_nums = ring_phase(torch)
         phases.done("stream: the cohort ring at depth 1 and 2")
+        # 12. observability and its guards
+        obs_dir = os.path.join(tmp, "obs")
+        obs_paths, obs_nums = obs_masked_path(torch, counters, obs_dir)
+        obs_paths.update(obs_grouped_lm_path(torch, counters, obs_dir))
+        obs_paths.update(obs_quarantine_path(torch, counters, obs_dir))
+        obs_paths["obs_rollback"] = obs_rollback_path(torch, counters, obs_dir,
+                                                      obs_nums["off_run"])
+        for path, (n, rep) in obs_paths.items():
+            by_path[path], replayed_by_path[path] = n, rep
+        phases.done("obs: probes, histograms, ledger, trace and profile; the gate; a rollback")
     say(f"stream: staging a cohort at {POP_USERS[-1]:,} users {pop_nums['ratio']:.3f}x the host "
         f"seconds at {POP_USERS[0]:,}; prefetches ended with the device busy: "
         + ", ".join(f"depth {d} {n['busy']}" for d, n in ring_nums.items()))
+    say(f"obs: probe kernels a round {obs_nums['probe_kernels_on']} (on), "
+        f"{obs_nums['probe_kernels_hist']} (hist), the gate {obs_nums['gate_kernels']} a client, "
+        f"{obs_nums['probe_ms']:.4f} ms a round; the tail round's device seconds off "
+        f"{obs_nums['superstep_s_off']:.4f}, hist {obs_nums['superstep_s_hist']:.4f} (device "
+        f"clock); update_norm against the fetched params {obs_nums['norm_rel']:.2e} relative")
     say("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phases.secs.items())
         + f"; total {time.time() - phases.t0:.1f} s")
 

@@ -26,7 +26,11 @@ and centralised entries); the grouped engine and the K-round superstep;
 bfloat16 compute (``compute_dtype``), the im2col convolution
 (``conv_impl``) and the grouped engine's per-level wire-codec map; the
 client scheduler (``sched/``: availability traces, deadline stragglers,
-buffered aggregation, client failures).
+buffered aggregation, client failures); the streaming client store; and
+observability and its guards (``obs/``: health probes and cohort
+histograms, the watchdog with abort and rollback, the update quarantine,
+the client ledger and its report, run tracing and profiles; ``chaos/``:
+the poisoned updates that prove them).
 """
 
 from __future__ import annotations

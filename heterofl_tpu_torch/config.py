@@ -36,6 +36,13 @@ with the reference's messages (heterofl_tpu/config.py:650-787).
 aggregation, client failures) on ``masked`` and ``grouped``;
 ``sched.resolve_schedule_cfg`` checks them once ``num_users`` is known, at
 the end of :func:`process_control`.
+
+``telemetry``, ``watchdog``, ``quarantine``, ``ledger``, ``trace_dir``,
+``profile_dir`` and ``chaos_poison`` run the observability and its guards
+(``obs/``, ``chaos/``); ``obs.resolve_telemetry_cfg``,
+``obs.resolve_ledger_cfg``, ``obs.resolve_quarantine_cfg`` and
+``chaos.resolve_poison_cfg`` check them with the reference's messages, in
+the reference's order, at the end of :func:`process_control`.
 """
 
 from __future__ import annotations
@@ -47,8 +54,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .chaos import resolve_poison_cfg
 from .compress import resolve_codec_cfg
 from .fed.sampling import resolve_sampler_cfg
+from .obs import resolve_ledger_cfg, resolve_quarantine_cfg, resolve_telemetry_cfg
 from .sched import resolve_schedule_cfg
 
 # Width multiplier per complexity level (ref src/utils.py:114).
@@ -162,6 +171,22 @@ DEFAULT_CFG: Dict[str, Any] = {
     # checkpoint generations kept (the live blob and keep - 1 older ones)
     "checkpoint_keep": 3,
     "use_tensorboard": False,
+    # observability (obs/): "off" | "on" (health probes) | "hist" (and the
+    # cohort histograms); the watchdog on the probes ({"action": "warn" |
+    # "abort" | "rollback" | "off", "spike_factor", "window", "max_retries",
+    # "backoff"}); the client-update quarantine ("off" | "on" | {"max_norm":
+    # R}); the client ledger ("off" | "on"); the run trace's directory
+    # (trace.json, events.jsonl); a torch.profiler trace of the first steady
+    # round or superstep into profile_dir
+    "telemetry": "off",
+    "watchdog": None,
+    "quarantine": "off",
+    "ledger": "off",
+    "trace_dir": None,
+    "profile_dir": None,
+    # [[round, uid], ...]: those client updates are made NaN before
+    # aggregation (chaos/), how the quarantine and the rollback are proved
+    "chaos_poison": None,
     "override": {},
 }
 
@@ -170,16 +195,9 @@ DEFAULT_CFG: Dict[str, Any] = {
 UNPORTED: Dict[str, Any] = {
     "world_size": 1,
     "data_placement": "replicated",
-    "telemetry": "off",
-    "ledger": "off",
     "arms": None,
-    "watchdog": None,
-    "quarantine": "off",
-    "chaos_poison": None,
     # the grouped engine's per-level device partition needs several GPUs
     "level_placement": "span",
-    "trace_dir": None,
-    "profile_dir": None,
 }
 DEFAULT_CFG.update(copy.deepcopy(UNPORTED))
 
@@ -422,7 +440,11 @@ def process_control(cfg: Dict[str, Any]) -> Dict[str, Any]:
     resolve_prefetch_depth(cfg)
     resolve_schedule_cfg(cfg)  # needs num_users (a markov trace, a trace's width)
     resolve_eval_cohort(cfg)
+    resolve_telemetry_cfg(cfg)
+    resolve_ledger_cfg(cfg)
+    resolve_quarantine_cfg(cfg)
     resolve_checkpoint_keep(cfg)
+    resolve_poison_cfg(cfg)
     return cfg
 
 

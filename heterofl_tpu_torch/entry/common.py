@@ -71,6 +71,20 @@ records the stream's state from before the first prefetched draw (the
 boundary), and a resumed streamed run, K=1 included, draws what the
 uninterrupted run drew.  ``sample_horizon`` gates the draws on fetched
 supersteps (:class:`~..fed.sampling.ScheduleCommitment`).
+
+Observability and its guards (ref common.py:458-557, 1033-1131, 1276-1475):
+each fetched round's probe record (``telemetry``, ``quarantine``) is
+logged as an ``obs`` event and checked by the
+:class:`~..obs.watchdog.Watchdog` (:meth:`FedExperiment._observe`); the
+client ledger folds each fetch (:meth:`FedExperiment._fold_ledger`), rides
+the checkpoint and is written to ``ledger.npz`` on every exit; a
+``trace_dir`` run records its phases (:class:`~..parallel.staging.PhaseTimer`),
+spans and events in a :class:`~..obs.trace.TraceRecorder`;
+``profile_dir`` profiles the first steady dispatch; under
+``watchdog={'action': 'rollback'}`` a trip restores the newest finite
+checkpoint generation with salted seed streams
+(:meth:`FedExperiment._recover_rollback`), up to ``max_retries`` times
+before it aborts.
 """
 
 from __future__ import annotations
@@ -81,6 +95,7 @@ import math
 import os
 import time
 import warnings
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -100,9 +115,15 @@ from ..models import make_model
 from ..sched import resolve_schedule_cfg
 from ..fed.sliced import SlicedFederation
 from ..parallel import Evaluator, GroupedRoundEngine, RoundEngine
-from ..parallel.staging import ClientStore, MetricsPipeline, PendingMetrics
+from ..obs import obs_levels, resolve_ledger_cfg, resolve_quarantine_cfg, \
+    resolve_telemetry_cfg, split_probes
+from ..obs.ledger import ClientLedger
+from ..obs.trace import TraceRecorder
+from ..obs.watchdog import RETRY_SALT, Watchdog, WatchdogError, WatchdogRollback
+from ..parallel.staging import ClientStore, MetricsPipeline, PendingMetrics, PhaseTimer
 from ..utils import (Logger, PlateauScheduler, checkpoint_path, copy_best, make_scheduler,
                      resume, save_checkpoint, summarize_sums)
+from ..utils.checkpoint import iter_verified_generations
 from ..utils.metrics import METRICS
 from ..utils.optim import superstep_lrs
 
@@ -208,6 +229,26 @@ def pivot_improves(cur: Optional[float], pivot: float, pivot_mode: str) -> bool:
     return cur is not None and (cur > pivot if pivot_mode == "max" else cur < pivot)
 
 
+def salt_seed(seed: int, salt: int) -> int:
+    """A seed stream's root mixed with ``salt`` (the rollback's retry salt):
+    a deterministic function of both."""
+    return int(np.random.SeedSequence([int(seed), int(salt)]).generate_state(1)[0])
+
+
+def tree_finite(tree) -> bool:
+    """Whether every float array or tensor leaf of a nested dict/list tree
+    is all-finite (other leaves pass)."""
+    if isinstance(tree, dict):
+        return all(tree_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(tree_finite(v) for v in tree)
+    if torch.is_tensor(tree):
+        return not tree.is_floating_point() or bool(torch.isfinite(tree).all())
+    if isinstance(tree, np.ndarray) and np.issubdtype(tree.dtype, np.floating):
+        return bool(np.isfinite(tree).all())
+    return True
+
+
 def write_checkpoint(output_dir: str, tag: str, make_blob: Callable[[], Dict[str, Any]],
                      keep: int, is_best: bool, rec: Dict[str, Any]) -> None:
     """Durably write ``make_blob()`` as the live checkpoint (``keep``
@@ -296,6 +337,26 @@ class FedExperiment:
                              use_tensorboard=bool(cfg.get("use_tensorboard")))
         self.history: List[Dict[str, Any]] = []  # one record per round this run trained
         self.bn_state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}  # the last sBN pass's
+        # observability and its guards (obs/, chaos/; their refusals raise in
+        # process_control, as in the reference): the probes' watchdog, the
+        # run trace (made in run()), the client ledger, the host phases
+        self.obs_spec = resolve_telemetry_cfg(cfg)
+        self.quarantine = resolve_quarantine_cfg(cfg)
+        self.obs_levels = obs_levels(cfg)
+        self._observing = self.obs_spec.probes or self.quarantine.enabled
+        self._poisoned = cfg.get("chaos_poison") is not None
+        self.watchdog = Watchdog(self.obs_spec.watchdog) \
+            if self.obs_spec.probes and self.obs_spec.watchdog is not None else None
+        self.ledger = ClientLedger(cfg["num_users"], self.obs_levels) \
+            if resolve_ledger_cfg(cfg).enabled else None
+        self.tracer: Optional[TraceRecorder] = None
+        self.phase_timer = PhaseTimer()
+        # the root of the round-seed stream (cohorts under prp, rates,
+        # clients' draws): the seed, salted by each rollback
+        self.stream_seed = seed
+        self._rollback_attempts = 0  # since the last clean checkpoint
+        self._first_done = self._profiled = False  # profile_dir: the first steady dispatch
+        self.profile_path: Optional[str] = None
 
     @property
     def _supersteps(self) -> bool:
@@ -419,10 +480,13 @@ class FedExperiment:
         -> ``(epoch0, k, cohort, the perm stream's state before the draw)``."""
         cfg = self.cfg
         state = self.rng.bit_generator.state if self.sampler == "perm" else None
-        users = superstep_user_schedule(self.seed, epoch0, k, cfg["num_users"], self.num_active,
-                                        self.sampler, self.rng, self.sched)
-        rates = superstep_rate_schedule(self.seed, epoch0, k, cfg, users)
-        return epoch0, k, self.engine.stage_cohort(self.store, users, rates), state
+        with self.phase_timer.phase("sample"):
+            users = superstep_user_schedule(self.stream_seed, epoch0, k, cfg["num_users"],
+                                            self.num_active, self.sampler, self.rng, self.sched)
+            rates = superstep_rate_schedule(self.stream_seed, epoch0, k, cfg, users)
+        with self.phase_timer.phase("stage"):
+            cohort = self.engine.stage_cohort(self.store, users, rates)
+        return epoch0, k, cohort, state
 
     def _take_cohort(self, epoch0: int, k: int):
         """The prefetched cohort of this superstep, or one staged now (the
@@ -495,7 +559,7 @@ class FedExperiment:
         (``perm``) or the round seed's PRP image (``prp``), filtered by the
         schedule's availability row of the round (``-1``: a slot no
         available user fills)."""
-        return round_users(round_seed(self.seed, epoch), self.cfg["num_users"],
+        return round_users(round_seed(self.stream_seed, epoch), self.cfg["num_users"],
                            self.num_active, self.sampler, self.rng,
                            self.sched.avail_row(epoch))
 
@@ -503,35 +567,65 @@ class FedExperiment:
         """One round from the global flat params ``P``: the cohort, then
         local training and aggregation, the engine drawing the cohort's
         rates in ``dynamic`` mode as the reference's masked engine does
-        (ref entry/common.py:700-712).  Its metric sums go through the
-        metrics pipeline (fetched now at ``metrics_fetch_every`` 1) and are
-        logged when fetched (:meth:`_log_round`)."""
-        user_idx = self.sample_users(epoch)
+        (ref entry/common.py:700-712).  Its metric sums (and ``obs_*``
+        rows) go through the metrics pipeline (fetched now at
+        ``metrics_fetch_every`` 1) and are logged when fetched
+        (:meth:`_log_k1`)."""
+        with self.phase_timer.phase("sample"):
+            user_idx = self.sample_users(epoch)
         t0 = time.time()
-        P, ms = self.engine.train_round(P, lr, user_idx, self.train_data,
-                                        round_seed(self.seed, epoch))
+        prof = self._profile_start()
+        with self.phase_timer.phase("dispatch"):
+            P, ms = self.engine.train_round(P, lr, user_idx, self.train_data,
+                                            round_seed(self.stream_seed, epoch),
+                                            **self._epoch_kw(epoch))
+        self._profile_stop(prof)
+        host = {k: v for k, v in ms.items() if not torch.is_tensor(v)}
         pending = PendingMetrics({k: v for k, v in ms.items() if torch.is_tensor(v)},
-                                 lambda host, rate=ms["rate"]: dict(host, rate=rate))
+                                 lambda fetched, host=host: dict(fetched, **host))
         tag = {"epoch": epoch, "lr": lr, "users": user_idx, "t0": t0}
-        for tag, sums in self.metrics_pipe.push(tag, pending):
-            # the fetch waits for the round's last kernel
-            self._log_round(tag["epoch"], tag["lr"], time.time() - tag["t0"], tag["users"],
-                            sums)
+        with self.phase_timer.phase("fetch"):
+            due = self.metrics_pipe.push(tag, pending)  # the fetch waits for the last kernel
+        for tag, sums in due:
+            self._log_k1(tag, sums)
         return P
+
+    def _epoch_kw(self, epoch: int) -> Dict[str, int]:
+        """The engine's ``epoch=`` (the poison's round), given only with a
+        poison table: the sliced twin takes none."""
+        return {"epoch": epoch} if self._poisoned else {}
 
     def _drain_metrics(self) -> None:
         """Log every round whose metrics the pipeline still holds."""
-        for tag, sums in self.metrics_pipe.flush():
-            self._log_round(tag["epoch"], tag["lr"], time.time() - tag["t0"], tag["users"],
-                            sums)
+        with self.phase_timer.phase("fetch"):
+            due = self.metrics_pipe.flush()
+        for tag, out in due:
+            if "k" in tag:
+                self._log_superstep(tag, out)
+            else:
+                self._log_k1(tag, out)
 
-    def _log_round(self, epoch: int, lr: float, dt: float, user_idx, sums) -> None:
+    def _log_k1(self, tag: Dict[str, Any], sums) -> None:
+        """A fetched K=1 round: its probe record split off (``obs_*`` rows;
+        a gated slot's row and rate read 0), the ledger folded, the round
+        logged (:meth:`_log_round`)."""
+        probes = None
+        if self._observing:
+            sums, probes = split_probes(sums, self.obs_levels)
+        if self.ledger is not None:
+            self._fold_ledger(tag["epoch"], 1, [sums], np.asarray(tag["users"])[None])
+        self._log_round(tag["epoch"], tag["lr"], time.time() - tag["t0"], tag["users"], sums,
+                        probes)
+
+    def _log_round(self, epoch: int, lr: float, dt: float, user_idx, sums,
+                   probes: Optional[Dict[str, Any]] = None) -> None:
         """Log one round's fetched sums: its train loss and accuracy (a
         masked LM: perplexity) to the experiment's logger as
         ``train/Local-*`` (ref entry/common.py:1189-1225), and the record
         with the cohort (``users``), its rates (``user_rates``, 0 for a
         slot that did not train) and its slots (``filled``: not ``-1``;
-        ``failed``: filled but not trained) to :attr:`history`."""
+        ``failed``: filled but not trained) to :attr:`history`; then, with
+        ``probes`` (the round's record), :meth:`_observe`."""
         user_idx = np.asarray(user_idx, np.int64)
         n = float(sums["n"].sum())
         named = summarize_sums(sums, kind=self.kind)
@@ -553,6 +647,118 @@ class FedExperiment:
                                      f"{rec['failed']} failed",
                                      f"Round time: {dt:.2f}s"]}, "train", mean=False)
         self.logger.write("train", list(named))
+        if probes is not None:
+            rec["probes"] = probes
+            self._observe(epoch, probes, sums)
+
+    # -- observability: probes, watchdog, ledger, trace, profile ---------------
+
+    def _trace_span(self, name: str, args: Optional[Dict[str, Any]] = None):
+        """A run-trace span, or nothing when the run is not traced."""
+        if self.tracer is not None:
+            return self.tracer.span(name, cat="driver", args=args)
+        return nullcontext()
+
+    def _persist_evidence(self, close: bool) -> None:
+        """The trip's evidence on disk before a watchdog exception unwinds:
+        the trace (closed on an abort, synced on a rollback), the log
+        flushed, the ledger snapshot written."""
+        if self.tracer is not None:
+            if close:
+                self.tracer.close()
+            else:
+                self.tracer.sync()
+        self.logger.flush()
+        if self.ledger is not None:
+            self.ledger.save(self._ledger_path())
+
+    def _observe(self, epoch: int, probes: Dict[str, Any], ms) -> None:
+        """Surface one fetched round's probe record (ref entry/common.py:
+        1033-1087): a ``probes`` event on the run's log and trace, then the
+        watchdog (warning, abort, or rollback); a trip is on the log and
+        the trace before its exception unwinds."""
+        loss = None
+        n = float(np.sum(ms["n"]))
+        if n > 0:
+            loss = float(np.sum(ms["loss_sum"])) / n
+        self.logger.emit({"event": "probes", "epoch": int(epoch), "loss": loss, **probes})
+        if self.tracer is not None:
+            self.tracer.instant("probes", cat="obs",
+                                args={"epoch": int(epoch), "loss": loss, **probes})
+        if self.watchdog is None:
+            return
+
+        def emit_trip(ev):
+            self.logger.emit(ev)
+            if self.tracer is not None:
+                self.tracer.instant("watchdog", cat="obs", args=ev)
+
+        try:
+            self.watchdog.check(epoch, probes=probes, loss=loss, emit=emit_trip)
+        except WatchdogRollback:
+            self._persist_evidence(close=False)  # the run goes on tracing
+            raise
+        except WatchdogError:
+            self._persist_evidence(close=True)
+            raise
+
+    def _fold_ledger(self, epoch0: int, k: int, rounds, uid_rows) -> None:
+        """Fold one fetch's rounds into the :class:`~..obs.ledger.ClientLedger`
+        (round ``epoch0 + r``'s metric rows, aligned to its cohort
+        ``uid_rows[r]``) and emit the ``ledger`` summary -- O(active) (ref
+        entry/common.py:1089-1124)."""
+        tot_active = tot_new = 0
+        last = None
+        for r in range(k):
+            u = np.asarray(uid_rows[r])
+            a, ms = len(u), rounds[r]
+            last = self.ledger.update(epoch0 + r, u, np.asarray(ms["rate"])[:a],
+                                      np.asarray(ms["loss_sum"])[:a], np.asarray(ms["n"])[:a])
+            tot_active += last["active"]
+            tot_new += last["new_users"]
+        rec = {"event": "ledger", "epoch0": int(epoch0), "k": int(k), "active": tot_active,
+               "new_users": tot_new, "coverage": last["coverage"],
+               "loss_ema_mean": last["loss_ema_mean"], "bytes": self.ledger.nbytes}
+        self.logger.emit(rec, tag="ledger")
+        if self.tracer is not None:
+            self.tracer.instant("ledger", cat="obs", args=rec)
+
+    def _ledger_path(self) -> str:
+        """``ledger.npz``: beside the trace when tracing, else under
+        ``output_dir/obs/<tag>``."""
+        base = os.path.join(self.obs_spec.trace_dir, self.tag) if self.obs_spec.trace_dir \
+            else os.path.join(self.cfg["output_dir"], "obs", self.tag)
+        return os.path.join(base, "ledger.npz")
+
+    def _profile_start(self):
+        """With ``profile_dir``, a ``torch.profiler`` trace (the card's
+        activity on a GPU) of the first steady dispatch -- the second round
+        or superstep a run trains, past the captures of the first (ref
+        entry/common.py:706-712) -> the running profiler or None."""
+        if not self.cfg.get("profile_dir") or not self._first_done or self._profiled:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        self._profiled = True
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _profile_stop(self, prof) -> None:
+        """End the dispatch's profile (the device synchronised first) and
+        export its Chrome trace into ``profile_dir``."""
+        self._first_done = True
+        if prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg["profile_dir"], exist_ok=True)
+        self.profile_path = os.path.join(self.cfg["profile_dir"], f"{self.tag}.pt.trace.json")
+        prof.export_chrome_trace(self.profile_path)
 
     def evaluate(self, P: torch.Tensor, epoch: int,
                  logger: Optional[Logger] = None) -> Dict[str, float]:
@@ -631,24 +837,36 @@ class FedExperiment:
             widx = min(epoch0 + r for r in range(k) if mask[r]) // self.eval_interval
         fused = self._fused_eval(widx) if any(mask) else None
         t0 = time.time()
+        seed = self.stream_seed
         if self.streaming:
             cohort = self._take_cohort(epoch0, k)
             users = cohort.users
-            P, pending = self.engine.train_superstep(P, self.seed, epoch0, k, None, users,
-                                                     cohort.rates, lrs, mask if fused else None,
-                                                     fused, cohort=cohort)
+            prof = self._profile_start()
+            with self.phase_timer.phase("dispatch"):
+                P, pending = self.engine.train_superstep(
+                    P, seed, epoch0, k, None, users, cohort.rates, lrs,
+                    mask if fused else None, fused, cohort=cohort)
+            self._profile_stop(prof)
             self._ss_dispatched += 1
-            self._prefetch_cohort(epoch0 + k)  # while this superstep runs
+            with self._trace_span("prefetch", {"epoch0": int(epoch0 + k)}):
+                self._prefetch_cohort(epoch0 + k)  # while this superstep runs
         else:
-            users = superstep_user_schedule(self.seed, epoch0, k, cfg["num_users"],
-                                            self.num_active, self.sampler, self.rng, self.sched)
-            rates = superstep_rate_schedule(self.seed, epoch0, k, cfg, users)
-            P, pending = self.engine.train_superstep(P, self.seed, epoch0, k, self.train_data,
-                                                     users, rates, lrs, mask if fused else None,
-                                                     fused)
+            with self.phase_timer.phase("sample"):
+                users = superstep_user_schedule(seed, epoch0, k, cfg["num_users"],
+                                                self.num_active, self.sampler, self.rng,
+                                                self.sched)
+                rates = superstep_rate_schedule(seed, epoch0, k, cfg, users)
+            prof = self._profile_start()
+            with self.phase_timer.phase("dispatch"):
+                P, pending = self.engine.train_superstep(P, seed, epoch0, k, self.train_data,
+                                                         users, rates, lrs,
+                                                         mask if fused else None, fused)
+            self._profile_stop(prof)
         tag = {"epoch0": epoch0, "k": k, "users": users, "lrs": lrs, "t0": t0,
                "pending": pending}
-        for tag, out in self.metrics_pipe.push(tag, pending):
+        with self.phase_timer.phase("fetch"):
+            due = self.metrics_pipe.push(tag, pending)
+        for tag, out in due:
             self._log_superstep(tag, out)
         return P
 
@@ -661,12 +879,17 @@ class FedExperiment:
         ``seconds`` (and ``eval_seconds``) are the device's, between marks
         recorded on its stream around the round (and the evaluation).  Under
         ``sample_horizon`` the fetched superstep is committed: cohorts that
-        read its state may be drawn now (ref common.py:1138-1144)."""
+        read its state may be drawn now (ref common.py:1138-1144).  With the
+        ledger the superstep's rounds are folded first, in one summary; each
+        round's probe record goes to :meth:`_observe` after its log."""
         if self._commitment is not None:
             self._ss_fetched += 1
             self._commitment.commit(self._ss_fetched, state=out)
         rounds = out["train"] if isinstance(out, dict) else out
         evals = {e["epoch"]: e for e in out.get("eval", [])} if isinstance(out, dict) else {}
+        probes = out.get("obs") if isinstance(out, dict) else None
+        if self.ledger is not None:
+            self._fold_ledger(tag["epoch0"], tag["k"], rounds, tag["users"])
         secs = tag["pending"].seconds
         logger, j = self.logger, 0
         for r in range(tag["k"]):
@@ -676,7 +899,7 @@ class FedExperiment:
                     logger.history[name].append(logger.mean[name])
                 logger.reset()
             self._log_round(epoch, float(tag["lrs"][r]), secs["train"][r], tag["users"][r],
-                            rounds[r])
+                            rounds[r], probes[r] if probes else None)
             ev = evals.get(epoch)
             if ev is not None:
                 self.history[-1].update(self._log_fused_eval(epoch, ev, secs["eval"][j]))
@@ -736,7 +959,11 @@ class FedExperiment:
             ) -> Dict[str, Any]:
         """Resume (per ``resume_mode``), then train to ``num_epochs.global``
         with a checkpoint every round and a copy of the best by
-        ``test/{pivot_metric}``."""
+        ``test/{pivot_metric}``.  With ``trace_dir`` the run is traced
+        (``<trace_dir>/<tag>/trace.json`` and ``events.jsonl``, closed on
+        every exit, aborts included); with the ledger its ``ledger.npz`` is
+        written on every exit; under the watchdog's ``rollback`` a trip
+        restores a checkpoint and retries (:meth:`_recover_rollback`)."""
         cfg, logger = self.cfg, self.logger
         self._ss_dispatched = self._ss_fetched = 0
         self._commitment = ScheduleCommitment(self.sampler_spec.horizon) \
@@ -747,26 +974,19 @@ class FedExperiment:
         else:
             data_split, label_split = self.make_splits()
         self.stage(data_split, label_split)
+        if self.obs_spec.trace_dir and self.tracer is None:
+            self.tracer = TraceRecorder(os.path.join(self.obs_spec.trace_dir, self.tag))
+            self.phase_timer.trace = self.tracer
         P = self.engine.flatten(self.model.params())
         epoch = 1
         pivot = -math.inf if pivot_mode == "max" else math.inf
         if blob:
             P = self.engine.flatten(params_from_jax(blob["params"], self.perms))
-            if self._supersteps and blob.get("sampler_state") is not None:
-                # the permutation stream at the superstep boundary
-                self.rng.bit_generator.state = blob["sampler_state"]
-            if blob.get("wire_resid") is not None and self.engine.lossy:
-                self.engine.set_wire_resid(self._resid_from_blob(blob["wire_resid"]))
-            if blob.get("sched_buf") is not None and self.sched.buffered:
-                # the buffered update still in flight at the checkpoint
-                self.engine.set_sched_buf(self._flat_from_blob(blob["sched_buf"]))
+            self._restore_carries(blob, self._supersteps)
             if "epoch" in blob:
                 epoch = blob["epoch"]
                 pivot = blob.get("pivot", pivot)
-                logger.load_state_dict(blob.get("logger_state")
-                                       or {"history": blob.get("logger_history", {})})
-                if blob.get("scheduler_state") and hasattr(self.scheduler, "load_state_dict"):
-                    self.scheduler.load_state_dict(blob["scheduler_state"])
+                self._restore_loop_state(blob)
         last = cfg["num_epochs"]["global"]
         if epoch <= last:
             # a restored logger state is the checkpointed round's, taken
@@ -774,15 +994,139 @@ class FedExperiment:
             # zero, as in a run that was never interrupted (the reference's
             # first resumed round averages its means with that round's)
             logger.reset()
-        while epoch <= last:
-            P, pivot, epoch = self._run_iteration(P, epoch, last, pivot_metric, pivot_mode,
-                                                  pivot, data_split, label_split)
-        self._drain_metrics()
+        if self.tracer is not None:
+            self.tracer.instant("run-start", args={"tag": self.tag, "epoch0": int(epoch),
+                                                   "rounds": int(last)})
+        try:
+            while True:
+                try:
+                    if epoch > last:
+                        # inside the recovery loop: a trip the last fetch
+                        # surfaces rolls back as any other
+                        self._drain_metrics()
+                        break
+                    P, pivot, epoch = self._run_iteration(P, epoch, last, pivot_metric,
+                                                          pivot_mode, pivot, data_split,
+                                                          label_split)
+                except WatchdogRollback as trip:
+                    P, epoch, pivot = self._recover_rollback(trip, pivot_mode)
+        finally:
+            if self.tracer is not None:
+                self.tracer.close()
+                self.phase_timer.trace = None
+            if self.ledger is not None:
+                self.ledger.save(self._ledger_path())
         return {"params": {k: v.clone() for k, v in self.engine.unflatten(P).items()},
                 "history": self.history, "logger": logger, "data_split": data_split,
                 "label_split": label_split, "bn_state": self.bn_state,
                 "wire_resid": self.engine.wire_resid_host(),
                 "sched_buf": self.engine.sched_buf_host()}
+
+    def _restore_carries(self, blob: Dict[str, Any], sampler: bool) -> None:
+        """A blob's carries back on the engine: the permutation stream at the
+        boundary (``sampler``, and only where the blob holds it), the
+        residual, the staleness buffer and the ledger."""
+        if sampler and blob.get("sampler_state") is not None:
+            self.rng.bit_generator.state = blob["sampler_state"]
+        if blob.get("wire_resid") is not None and self.engine.lossy:
+            self.engine.set_wire_resid(self._resid_from_blob(blob["wire_resid"]))
+        if blob.get("sched_buf") is not None and self.sched.buffered:
+            # the buffered update still in flight at the checkpoint
+            self.engine.set_sched_buf(self._flat_from_blob(blob["sched_buf"]))
+        if blob.get("ledger") is not None and self.ledger is not None:
+            # the ledger's counts and EMAs go on from the checkpoint
+            self.ledger.load_state_dict(blob["ledger"])
+
+    def _restore_loop_state(self, blob: Dict[str, Any]) -> None:
+        self.logger.load_state_dict(blob.get("logger_state")
+                                    or {"history": blob.get("logger_history", {})})
+        if blob.get("scheduler_state") and hasattr(self.scheduler, "load_state_dict"):
+            self.scheduler.load_state_dict(blob["scheduler_state"])
+
+    def _load_rollback_blob(self) -> Optional[Dict[str, Any]]:
+        """The newest checkpoint generation that verifies AND whose params,
+        BN state, residual and staleness carry are all finite (ref
+        entry/common.py:1367-1391): a deferred fetch can leave the newest
+        generation holding the very NaN the watchdog tripped on.  None when
+        no generation qualifies (a fresh restart)."""
+        path = checkpoint_path(self.cfg["output_dir"], self.tag)
+        for p, blob in iter_verified_generations(path):
+            if all(tree_finite(blob.get(k))
+                   for k in ("params", "bn_state", "wire_resid", "sched_buf")):
+                return blob
+            warnings.warn(f"rollback: checkpoint generation {p} verifies but holds non-finite "
+                          f"params or carries; falling back a generation")
+        return None
+
+    def _recover_rollback(self, trip: WatchdogRollback, pivot_mode: str):
+        """One rollback attempt after a watchdog trip (ref entry/common.py:
+        1393-1475): the recovery record on the log and the trace; every
+        piece of in-flight state dropped -- pending fetches, prefetched
+        cohorts (released back to the ring), the commitment's counters, the
+        spike window, the engine's carries; the newest usable generation
+        restored (params, carries, the permutation stream at its boundary,
+        logger and scheduler state), or a fresh start when there is none;
+        the round-seed stream (and the permutation stream) salted with
+        ``RETRY_SALT + attempt``, so the replayed rounds draw fresh cohorts;
+        the backoff slept -> ``(P, epoch, pivot)``.  Past ``max_retries``
+        attempts since the last clean checkpoint it escalates to
+        :class:`WatchdogError`, the abort path's evidence on disk."""
+        spec, logger = self.obs_spec.watchdog, self.logger
+        self._rollback_attempts += 1
+        attempt = self._rollback_attempts
+        if attempt > spec.max_retries:
+            self._persist_evidence(close=True)
+            raise WatchdogError(
+                f"watchdog rollback budget spent ({spec.max_retries} "
+                f"attempt(s)): escalating to abort; last trip "
+                f"{trip.events[0] if trip.events else trip!r}") from trip
+        blob = self._load_rollback_blob()
+        rec = {"event": "rollback", "attempt": attempt, "max_retries": spec.max_retries,
+               "kind": trip.events[0].get("kind") if trip.events else None,
+               "trip_epoch": trip.events[0].get("epoch") if trip.events else None,
+               "restored_epoch": (blob or {}).get("epoch"), "fresh_restart": blob is None}
+        logger.emit(rec, tag="recovery")
+        if self.tracer is not None:
+            self.tracer.instant("recovery", cat="obs", args=rec)
+        warnings.warn(f"watchdog rollback attempt {attempt}/{spec.max_retries}: restoring "
+                      f"{'a fresh init' if blob is None else 'epoch %s' % rec['restored_epoch']} "
+                      f"with a salted cohort stream")
+        logger.safe(False)  # close the unwound iteration's writer
+        self.metrics_pipe.flush()  # discarded: their rounds replay
+        for entry in self._next_cohorts:
+            entry[2].release()
+        self._next_cohorts = []
+        self._ss_dispatched = self._ss_fetched = 0
+        if self._commitment is not None:
+            self._commitment = ScheduleCommitment(self.sampler_spec.horizon)
+        if self.watchdog is not None:
+            self.watchdog.reset_window()
+        self.engine.reset_carries()
+        self._checkpoint_recs = {}
+        pivot = -math.inf if pivot_mode == "max" else math.inf
+        if blob is None:
+            P = self.engine.flatten(self.model.params())
+            self.logger.load_state_dict({})
+            self.scheduler = make_scheduler(self.cfg)
+            if self.ledger is not None:
+                self.ledger = ClientLedger(self.cfg["num_users"], self.obs_levels)
+            self.bn_state = {}
+            epoch = 1
+        else:
+            P = self.engine.flatten(params_from_jax(blob["params"], self.perms))
+            self._restore_carries(blob, True)
+            self._restore_loop_state(blob)
+            self.bn_state = blob.get("bn_state") or {}
+            epoch, pivot = blob.get("epoch", 1), blob.get("pivot", pivot)
+        logger.reset()
+        self.history = [r for r in self.history if r["epoch"] < epoch]
+        salt = RETRY_SALT + attempt
+        self.stream_seed = salt_seed(self.stream_seed, salt)
+        if self.sampler == "perm":
+            self.rng = np.random.default_rng([salt, *self.rng.integers(0, 2 ** 32, 2).tolist()])
+        if spec.backoff > 0:
+            time.sleep(min(spec.backoff * (2 ** (attempt - 1)), 30.0))
+        return P, epoch, pivot
 
     def _run_iteration(self, P, epoch, last, pivot_metric, pivot_mode, pivot, data_split,
                        label_split):
@@ -798,7 +1142,8 @@ class FedExperiment:
             # a streamed K=1 run is a run of one-round supersteps (ref
             # common.py:1516-1523): its cohorts ride the superstep path
             k = min(self.superstep_rounds, last - epoch + 1)
-            P = self.train_superstep(P, epoch, k)
+            with self._trace_span("superstep", {"epoch0": int(epoch), "k": int(k)}):
+                P = self.train_superstep(P, epoch, k)
             epoch = epoch + k - 1  # the last round this iteration covered
             # the checkpoint holds end-of-superstep params: only an
             # evaluation of that round, fetched now, may move the pivot
@@ -806,9 +1151,11 @@ class FedExperiment:
                            and (epoch % self.eval_interval == 0 or epoch == last))
         else:
             pivot_fresh = True
-            P = self.train_round(P, epoch, self.scheduler(epoch))
+            with self._trace_span("round", {"epoch": int(epoch)}):
+                P = self.train_round(P, epoch, self.scheduler(epoch))
             if epoch % self.eval_interval == 0 or epoch == last:
-                named = self.evaluate(P, epoch)  # first: it logs the rounds still pending
+                with self._trace_span("eval", {"epoch": int(epoch)}):
+                    named = self.evaluate(P, epoch)  # first: it logs the rounds still pending
                 self.history[-1].update(named)
                 if isinstance(self.scheduler, PlateauScheduler):
                     # min-mode plateau on the test Global loss, on evaluated rounds
@@ -818,6 +1165,8 @@ class FedExperiment:
         is_best = pivot_fresh and pivot_improves(cur, pivot, pivot_mode)
         if is_best:
             pivot = cur  # before saving, so a resumed run keeps it
+        # a rollback restores the permutation stream's boundary, K=1 too
+        rollback = self.watchdog is not None and self.watchdog.spec.action == "rollback"
         blob = lambda: {  # noqa: E731
             "cfg": {k: v for k, v in cfg.items() if k != "vocab"},
             "epoch": epoch + 1,
@@ -827,20 +1176,25 @@ class FedExperiment:
             "bn_state": self.bn_state,
             "wire_resid": self._resid_to_blob(),
             "sched_buf": self._sched_buf_to_blob(),
-            "ledger": None,     # population ledger: not ported
+            "ledger": self.ledger.state_dict() if self.ledger is not None else None,
             "pivot": pivot,
             "logger_history": dict(logger.history),
             "logger_state": logger.state_dict(),
             "scheduler_state": self.scheduler.state_dict()
             if hasattr(self.scheduler, "state_dict") else None,
-            **({"sampler_state": self._sampler_state()} if self._supersteps else {}),
+            **({"sampler_state": self._sampler_state()} if self._supersteps or rollback else {}),
         }
         if self.history and self.history[-1]["epoch"] == epoch:
             rec = self.history[-1]
         else:  # the round's metrics are still in the pipeline: its record takes this later
             rec = self._checkpoint_recs.setdefault(epoch, {"epoch": epoch})
-        write_checkpoint(cfg["output_dir"], self.tag, blob, self.checkpoint_keep, is_best, rec)
+        with self._trace_span("checkpoint", {"epoch": int(epoch)}):
+            write_checkpoint(cfg["output_dir"], self.tag, blob, self.checkpoint_keep, is_best,
+                             rec)
         logger.reset()
+        # a clean iteration ending in a durable checkpoint re-arms the
+        # rollback budget for the next incident
+        self._rollback_attempts = 0
         return P, pivot, epoch + 1
 
 

@@ -1,0 +1,295 @@
+"""Host-side per-client participation ledger (numpy only).
+
+Port of ``heterofl_tpu/obs/ledger.py`` (its own copy, the same arrays,
+``state_dict`` and ``ledger.npz`` schema, so each package reads the
+other's snapshot).  :class:`ClientLedger` records, per user, how often and
+when it took part, the gaps between its participations, an EMA of its mean
+training loss (decay :data:`LOSS_EMA_DECAY`; the first observation seeds
+it), its last width level and saturating per-level counts:
+
+* about ``17 + 2 * levels`` resident bytes a user;
+* every update is O(active): one fetch folds one round's cohort row (the
+  users the experiment loop drew) and the per-slot ``rate`` / ``loss_sum`` / ``n``
+  sums the fetch already carries; nothing scans the population;
+* :meth:`state_dict` / :meth:`load_state_dict` ride the experiment loop's
+  checkpoint blob, so a resumed run continues its counts and EMAs;
+  :meth:`save` / :meth:`load` write and read ``ledger.npz`` for the report
+  (``python -m heterofl_tpu_torch.obs.report``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+
+#: ledger.npz / state_dict schema version
+LEDGER_VERSION = 1
+
+#: EMA weight of each NEW loss observation (the first observation seeds)
+LOSS_EMA_DECAY = 0.1
+
+#: level_last value of a never-seen user
+LEVEL_NONE = 255
+
+#: the per-user arrays (name -> (dtype, per-user shape tail))
+LEDGER_FIELDS = ("count", "last_seen", "stale_sum", "loss_ema",
+                 "level_last", "level_counts")
+
+
+def gini(counts: np.ndarray) -> float:
+    """Gini coefficient of a non-negative participation-count vector
+    (0 = perfectly even, -> 1 = one client holds everything).  O(U log U)
+    -- report/snapshot path only, never the per-fetch update."""
+    x = np.sort(np.asarray(counts, np.float64))
+    total = x.sum()
+    if total <= 0 or x.size == 0:
+        return 0.0
+    n = x.size
+    cum = np.cumsum(x)
+    return float((n + 1 - 2.0 * (cum / total).sum()) / n)
+
+
+class ClientLedger:
+    """Per-client participation/staleness/loss record; see module doc."""
+
+    def __init__(self, num_users: int, levels: Sequence[float]):
+        if num_users < 1:
+            raise ValueError(f"ClientLedger needs num_users >= 1, got "
+                             f"{num_users}")
+        self.num_users = int(num_users)
+        self.levels = [float(r) for r in levels]
+        if not self.levels or len(self.levels) >= LEVEL_NONE:
+            raise ValueError(f"ClientLedger needs 1..{LEVEL_NONE - 1} "
+                             f"levels, got {len(self.levels)}")
+        self._level_tab = np.asarray(self.levels, np.float64)
+        U, L = self.num_users, len(self.levels)
+        self.count = np.zeros(U, np.uint32)
+        self.last_seen = np.zeros(U, np.int32)   # 0 = never participated
+        self.stale_sum = np.zeros(U, np.uint32)
+        self.loss_ema = np.zeros(U, np.float32)
+        self.level_last = np.full(U, LEVEL_NONE, np.uint8)
+        self.level_counts = np.zeros((U, L), np.uint16)
+        self.round = 0     # highest round folded in
+        self.updates = 0   # fold calls
+        self._seen = 0     # distinct users seen (incremental coverage)
+
+    # -- O(active) update ----------------------------------------------
+
+    def update(self, epoch: int, uids, rates, loss_sums, ns
+               ) -> Dict[str, Any]:
+        """Fold ONE fetched round into the ledger; O(len(uids)).
+
+        ``uids``: the round's cohort uid row (-1 = padding slot);
+        ``rates``/``loss_sums``/``ns``: the fetch's per-slot metric sums
+        ALIGNED to the uid row (cohort order is schedule order in both
+        engines).
+        Participation is ``rate > 0`` (a failure-injected client is drawn
+        but contributes nothing); the loss EMA only updates where the
+        client processed samples (``n > 0``).  Returns a compact summary
+        (the per-fetch ``{"tag": "ledger"}`` line)."""
+        uids = np.asarray(uids).reshape(-1)
+        rates = np.asarray(rates, np.float32).reshape(-1)
+        loss_sums = np.asarray(loss_sums, np.float32).reshape(-1)
+        ns = np.asarray(ns, np.float32).reshape(-1)
+        if not (len(uids) == len(rates) == len(loss_sums) == len(ns)):
+            raise ValueError(
+                f"ledger update needs aligned rows: uids {len(uids)} vs "
+                f"rate {len(rates)} / loss_sum {len(loss_sums)} / n "
+                f"{len(ns)} -- slice the metric arrays to the uid row")
+        m = (uids >= 0) & (rates > 0)
+        u = uids[m].astype(np.int64)
+        if u.size and (u.max() >= self.num_users):
+            raise ValueError(f"ledger update saw uid {int(u.max())} >= "
+                             f"num_users={self.num_users}")
+        r = rates[m].astype(np.float64)
+        lvl = np.argmin(np.abs(r[:, None] - self._level_tab[None, :]),
+                        axis=1).astype(np.uint8)
+        prev_count = self.count[u].copy()
+        new_users = int((prev_count == 0).sum())
+        gaps = np.where(self.last_seen[u] > 0,
+                        np.maximum(int(epoch) - self.last_seen[u], 0),
+                        0).astype(np.uint32)
+        self.stale_sum[u] += gaps
+        self.count[u] = prev_count + 1
+        self.last_seen[u] = np.int32(epoch)
+        self.level_last[u] = lvl
+        lc = self.level_counts[u, lvl].astype(np.uint32)
+        self.level_counts[u, lvl] = np.minimum(lc + 1, 65535).astype(np.uint16)
+        has_loss = ns[m] > 0
+        lu = u[has_loss]
+        loss_mean = None
+        if lu.size:
+            loss = (loss_sums[m][has_loss]
+                    / ns[m][has_loss]).astype(np.float32)
+            prev = self.loss_ema[lu]
+            first = prev_count[has_loss] == 0
+            d = np.float32(LOSS_EMA_DECAY)
+            self.loss_ema[lu] = np.where(
+                first, loss, (np.float32(1.0) - d) * prev + d * loss)
+            loss_mean = float(self.loss_ema[lu].mean())
+        self._seen += new_users
+        self.round = max(self.round, int(epoch))
+        self.updates += 1
+        return {"event": "ledger", "epoch": int(epoch),
+                "active": int(m.sum()), "new_users": new_users,
+                "coverage": round(self._seen / self.num_users, 6),
+                "stale_gap_mean": (round(float(gaps.mean()), 3)
+                                   if u.size else None),
+                "loss_ema_mean": (round(loss_mean, 6)
+                                  if loss_mean is not None else None)}
+
+    # -- size accounting ------------------------------------------------
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes of the per-user arrays (about 32 bytes a user or
+        less)."""
+        return sum(getattr(self, f).nbytes for f in LEDGER_FIELDS)
+
+    @property
+    def seen(self) -> int:
+        return self._seen
+
+    # -- persistence -----------------------------------------------------
+
+    def _meta(self) -> Dict[str, Any]:
+        return {"version": LEDGER_VERSION, "num_users": self.num_users,
+                "levels": self.levels, "round": self.round,
+                "updates": self.updates, "seen": self._seen,
+                "loss_ema_decay": LOSS_EMA_DECAY}
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Checkpoint payload (rides the checkpoint blob): a resumed run
+        CONTINUES its counts/EMAs instead of resetting them."""
+        out = {"meta": self._meta()}
+        for f in LEDGER_FIELDS:
+            out[f] = getattr(self, f).copy()
+        return out
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        meta = state["meta"]
+        if meta.get("version") != LEDGER_VERSION:
+            raise ValueError(f"ledger state version {meta.get('version')} "
+                             f"!= {LEDGER_VERSION}")
+        if int(meta["num_users"]) != self.num_users \
+                or [float(r) for r in meta["levels"]] != self.levels:
+            raise ValueError(
+                f"ledger state mismatch: checkpoint is for "
+                f"{meta['num_users']} users x levels {meta['levels']}, "
+                f"this run has {self.num_users} x {self.levels}")
+        for f in LEDGER_FIELDS:
+            ref = getattr(self, f)
+            arr = np.asarray(state[f], ref.dtype)
+            if arr.shape != ref.shape:
+                raise ValueError(f"ledger field {f!r} shape {arr.shape} "
+                                 f"!= {ref.shape}")
+            setattr(self, f, arr.copy())
+        self.round = int(meta["round"])
+        self.updates = int(meta["updates"])
+        self._seen = int(meta["seen"])
+
+    def save(self, path: str) -> str:
+        """Write ``ledger.npz`` (arrays + a JSON ``meta`` record) -- the
+        report surface's input.  Parent dirs are created; the write is
+        atomic (tmp + replace) so an abort mid-save never corrupts an
+        earlier snapshot."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp.npz"
+        np.savez(tmp, meta=np.array(json.dumps(self._meta())),
+                 **{f: getattr(self, f) for f in LEDGER_FIELDS})
+        os.replace(tmp, path)
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "ClientLedger":
+        with np.load(path) as z:
+            meta = json.loads(str(z["meta"]))
+            led = cls(meta["num_users"], meta["levels"])
+            led.load_state_dict({"meta": meta,
+                                 **{f: z[f] for f in LEDGER_FIELDS}})
+        return led
+
+    # -- snapshot statistics (report path; O(U log U) allowed) ----------
+
+    def snapshot(self, quantiles=(0.5, 0.9, 0.99)) -> Dict[str, Any]:
+        """Population-level statistics for the report surface: coverage +
+        participation Gini, current-staleness quantiles and mass by
+        participation class, per-level loss-EMA quantiles."""
+        c = self.count.astype(np.float64)
+        seen_mask = c > 0
+        out: Dict[str, Any] = {
+            "version": LEDGER_VERSION,
+            "num_users": self.num_users,
+            "levels": self.levels,
+            "round": self.round,
+            "updates": self.updates,
+            "bytes": self.nbytes,
+            "bytes_per_user": round(self.nbytes / self.num_users, 3),
+            "participation": {
+                "coverage": round(float(seen_mask.mean()), 6),
+                "gini": round(gini(c), 6),
+                "total": int(c.sum()),
+                "count_quantiles": {f"p{int(q * 100)}":
+                                    float(np.quantile(c, q))
+                                    for q in quantiles},
+                "count_max": int(c.max()) if c.size else 0,
+            },
+        }
+        # current staleness: rounds since last seen (never-seen users are
+        # stale since round 0 -- the whole run)
+        stale_now = np.where(self.last_seen > 0,
+                             self.round - self.last_seen,
+                             self.round).astype(np.float64)
+        # availability classes: participation-count quartiles of the SEEN
+        # population (a proxy for the availability rate the traces encode;
+        # the never-seen users are their own class) -- where the staleness
+        # mass sits tells the debiasing follow-on whom to up-weight
+        classes: List[Dict[str, Any]] = [{
+            "class": "never-seen",
+            "users": int((~seen_mask).sum()),
+            "stale_mass": float(stale_now[~seen_mask].sum()),
+        }]
+        if seen_mask.any():
+            cs = c[seen_mask]
+            edges = np.quantile(cs, [0.25, 0.5, 0.75])
+            lo = 0.0
+            for name, hi in (("rare", edges[0]), ("low", edges[1]),
+                             ("mid", edges[2]), ("frequent", np.inf)):
+                sel = seen_mask & (c > lo) & (c <= hi)
+                classes.append({
+                    "class": name,
+                    "users": int(sel.sum()),
+                    "count_range": [float(lo), None if np.isinf(hi)
+                                    else float(hi)],
+                    "stale_mass": float(stale_now[sel].sum()),
+                    "stale_mean": (round(float(stale_now[sel].mean()), 3)
+                                   if sel.any() else None),
+                })
+                lo = hi
+        out["staleness"] = {
+            "now_quantiles": {f"p{int(q * 100)}":
+                              float(np.quantile(stale_now, q))
+                              for q in quantiles},
+            "cumulative_total": int(self.stale_sum.sum()),
+            "by_class": classes,
+        }
+        per_level = []
+        for li, rate in enumerate(self.levels):
+            sel = self.level_last == li
+            ls = self.loss_ema[(self.level_last == li)
+                               & (self.count > 0)].astype(np.float64)
+            per_level.append({
+                "level": rate,
+                "users_last": int(sel.sum()),
+                "participations": int(self.level_counts[:, li]
+                                      .astype(np.int64).sum()),
+                "loss_ema_quantiles": ({f"p{int(q * 100)}":
+                                        round(float(np.quantile(ls, q)), 6)
+                                        for q in quantiles}
+                                       if ls.size else None),
+            })
+        out["per_level"] = per_level
+        return out

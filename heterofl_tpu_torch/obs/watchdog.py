@@ -1,0 +1,116 @@
+"""The non-finite / loss-spike watchdog.
+
+Port of ``heterofl_tpu/obs/watchdog.py`` (its own copy, host-side, no
+device work): fed each fetched round's probe record in order, it trips on
+a non-zero non-finite leaf count (a NaN or an infinity entered the params)
+and on a loss spike -- a round loss above ``spike_factor`` times the
+rolling median of the last ``window`` finite losses, or a non-finite loss.
+Under a K-round superstep the trip names the ROUND, not the fetch.
+
+``action``: ``warn`` emits a loud warning and a structured event through
+the caller's emit hook; ``abort`` then raises :class:`WatchdogError`;
+``rollback`` raises :class:`WatchdogRollback`, which the experiment loop catches to
+restore a checkpoint and retry (``entry/common.py``).  ``fired`` keeps
+every trip of the run.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional
+
+from . import WatchdogSpec
+
+
+class WatchdogError(RuntimeError):
+    """Raised at a fetch boundary when the watchdog trips under
+    ``action='abort'`` -- after the trip was logged/emitted."""
+
+
+class WatchdogRollback(WatchdogError):
+    """Raised at a fetch boundary when the watchdog trips under
+    ``action='rollback'`` -- after the trip was logged/emitted.  The loop
+    catches it, restores the newest verifying checkpoint generation, salts
+    its round-seed stream (the replayed rounds draw a fresh cohort) and
+    retries; unhandled (e.g. outside the experiment loop) it
+    degrades to the abort behaviour, which is why it subclasses
+    :class:`WatchdogError`.  ``events`` carries the trip records."""
+
+    def __init__(self, msg: str, events: List[Dict[str, Any]]):
+        super().__init__(msg)
+        self.events = events
+
+
+#: the retry-salt tag: rollback attempt n mixes ``RETRY_SALT + n`` into the
+#: experiment loop's round-seed stream (and its permutation stream), so every
+#: replayed round draws a fresh cohort, deterministically
+RETRY_SALT = 0x5EED
+
+
+class Watchdog:
+    """Stateful per-run watchdog; feed it every fetched round in order."""
+
+    def __init__(self, spec: WatchdogSpec):
+        self.spec = spec
+        self.fired: List[Dict[str, Any]] = []
+        self._losses = deque(maxlen=spec.window)
+
+    def check(self, epoch: int, probes: Optional[Dict[str, Any]] = None,
+              loss: Optional[float] = None,
+              emit: Optional[Callable[[Dict[str, Any]], None]] = None,
+              ) -> List[Dict[str, Any]]:
+        """Check one round; returns the trip events (empty = healthy).
+
+        Every trip is appended to :attr:`fired`, pushed through ``emit``
+        (structured obs event) and warned loudly; ``action='abort'`` then
+        raises :class:`WatchdogError` naming the first trip."""
+        events: List[Dict[str, Any]] = []
+        nonf = 0 if probes is None else int(probes.get("nonfinite", 0) or 0)
+        if nonf > 0:
+            events.append({"event": "watchdog", "kind": "nonfinite",
+                           "epoch": int(epoch), "nonfinite_leaves": nonf})
+        if loss is not None:
+            if not math.isfinite(loss):
+                events.append({"event": "watchdog", "kind": "loss-nonfinite",
+                               "epoch": int(epoch), "loss": repr(loss)})
+            else:
+                sf = self.spec.spike_factor
+                if sf is not None and len(self._losses) >= 3:
+                    hist = sorted(self._losses)
+                    med = hist[len(hist) // 2]
+                    if med > 0.0 and loss > sf * med:
+                        events.append({"event": "watchdog",
+                                       "kind": "loss-spike",
+                                       "epoch": int(epoch),
+                                       "loss": round(loss, 6),
+                                       "rolling_median": round(med, 6),
+                                       "spike_factor": sf})
+                self._losses.append(loss)
+        for ev in events:
+            self.fired.append(ev)
+            if emit is not None:
+                emit(ev)
+            warnings.warn(f"watchdog [{ev['kind']}] at round {epoch}: {ev} "
+                          f"(action={self.spec.action})")
+        if events and self.spec.action == "abort":
+            raise WatchdogError(
+                f"watchdog abort at round {epoch}: {events[0]['kind']} "
+                f"({events[0]}); set cfg['watchdog']['action']='warn' to "
+                f"continue through trips")
+        if events and self.spec.action == "rollback":
+            raise WatchdogRollback(
+                f"watchdog rollback at round {epoch}: {events[0]['kind']} "
+                f"({events[0]}); restoring the last good checkpoint "
+                f"generation (up to max_retries={self.spec.max_retries} "
+                f"attempts)", events)
+        return events
+
+    def reset_window(self) -> None:
+        """Clear the loss-spike rolling window: after a
+        rollback the restored trajectory replays rounds whose losses will
+        re-enter the window -- keeping the poisoned run's tail would both
+        double-count and skew the median the replay is judged against.
+        ``fired`` is untouched: it is the run's full trip history."""
+        self._losses.clear()

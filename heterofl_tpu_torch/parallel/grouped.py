@@ -98,6 +98,13 @@ client grows to about 3e-3 over a round, so a resumed run would not equal
 an uninterrupted one.  With them it does, bit for bit, as on every other
 path of the port; the headline round costs about 7% more on an H100
 (PERF.md).
+
+**Observability and its guards** (ref grouped.py:530-577, :688, :928-955):
+the poison and the quarantine gate act on each level's ``[G, n_l]`` rows
+before they are summed (a row gated to zero count, its values selected to
+zero); the probes read the merged global sums after the codec.  The K=1
+round refuses the probes and the poison with the reference's messages;
+the superstep (and the stream store's one-round superstep) runs both.
 """
 
 from __future__ import annotations
@@ -108,6 +115,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from ..chaos.inject import poison_hits
 from ..compress import make_codec, resolve_codec_cfg
 from ..compress.codecs import compressed_sum
 from ..fed.core import combine_counted, level_index_map, round_seed, snap_to_levels
@@ -141,8 +149,10 @@ class Level:
         self.scaler_rate = self.model.meta["scaler_rate"]
         # the dense sub-model trains at width rate 1: its only width mask
         level_cfg = dict(cfg, model_rate=[cfg["global_model_rate"]], model_split_mode="fix",
-                         wire_codec="dense", schedule=None,  # the engine compresses and
-                         client_failure_rate=0.0)           # schedules, not its levels
+                         wire_codec="dense", schedule=None,  # the engine compresses,
+                         client_failure_rate=0.0,           # schedules and observes,
+                         telemetry="off", watchdog=None,    # not its levels
+                         quarantine="off", chaos_poison=None)
         self.engine = RoundEngine(self.model, level_cfg, device)
         self.spec = self.engine.spec
         self.ld = row_stride(self.spec.total)
@@ -242,6 +252,7 @@ class GroupedRoundEngine(FlatParams):
                                                             error_feedback=ef)
         self._resid = None
         self._init_sched(cfg)
+        self._init_obs(cfg)
         # the superstep's captured batched steps, one a (level, G) met, their
         # static buffers and generators
         self.graphs = StepGraphs(device)
@@ -444,13 +455,15 @@ class GroupedRoundEngine(FlatParams):
                     lm_draws: Optional[Callable[[int, int], Dict[str, Any]]] = None,
                     rates: Optional[Sequence[float]] = None,
                     aug_draws: Optional[Callable[[int, int], Tuple[Any, Any]]] = None,
-                    step_limits=None, alive=None
+                    step_limits=None, alive=None, epoch: Optional[int] = None
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One round from the global flat params ``P``, under cuDNN's
         deterministic algorithms; arguments, hooks and results as
         ``RoundEngine.train_round``'s (no codec: a lossy one is refused, as
         the reference's K=1 round refuses it; nor buffered aggregation,
-        refused with the reference's message, grouped.py:682-686)."""
+        the probes or the chaos poison, each refused with the reference's
+        message, grouped.py:682-694 and :534-539).  The quarantine gate
+        runs, its row under ``obs_gate``."""
         if self.lossy:
             raise ValueError(
                 f"wire_codec={self.cfg['wire_codec']!r} with the grouped strategy needs the fused "
@@ -463,6 +476,19 @@ class GroupedRoundEngine(FlatParams):
                 "superstep (set superstep_rounds > 1 or client_store="
                 "'stream'): the K=1 host-orchestrated path combines in its "
                 "own program and has no scan carry to buffer")
+        if self._obs_on:
+            raise ValueError(
+                "telemetry='on' with the grouped strategy needs the fused "
+                "superstep (set superstep_rounds > 1 or client_store="
+                "'stream'): the K=1 path splits the round across L+1 "
+                "host-orchestrated programs with no shared round core to "
+                "probe")
+        if self._poison is not None:
+            raise ValueError(
+                "chaos_poison with the grouped strategy needs the "
+                "fused superstep (superstep_rounds > 1 or client_store"
+                "='stream'): the K=1 host-orchestrated path does not "
+                "thread the round epoch into its level programs")
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
@@ -497,6 +523,7 @@ class GroupedRoundEngine(FlatParams):
         lr_t = torch.full((), float(lr), dtype=torch.float32, device=dev)
         sums: Dict[float, Tuple[torch.Tensor, torch.Tensor]] = {}
         acc = torch.zeros((len(user_idx), 3), dtype=torch.float32, device=dev)
+        oks, gpos = ([], []) if self._quarantine.enabled else (None, None)
         for rate in sorted(by_level, reverse=True):
             lv, pos = self.levels[rate], by_level[rate]
             users = np.maximum(user_idx[pos], 0).tolist()
@@ -518,13 +545,29 @@ class GroupedRoundEngine(FlatParams):
             cm = lv.count_masks(data[-1][uids])
             if not valid[pos].all():  # padding and failed rows count nothing
                 cm = cm * torch.from_numpy(valid[pos].astype(np.float32)).to(dev)[:, None]
+            trained, cm, ok = self._guard(trained, self._level_ref(P, lv), cm, None)
+            if ok is not None:
+                oks.append(ok)
+                gpos += pos
             sums[rate] = ((trained * cm).sum(0), cm.sum(0))
             acc[torch.as_tensor(pos, dtype=torch.int64).to(dev)] = acc_l
         ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
               "rate": rates_abs * valid}
         if codec_slots is None:
             codec_slots = self.codec_slots(rates_abs[None])
-        return self._merge(P, sums, round_seed, len(user_idx), codec_noise, codec_slots), ms
+        new_P, summed, counts = self._merge(P, sums, round_seed, len(user_idx), codec_noise,
+                                            codec_slots)
+        obs = self._round_obs(P, new_P, summed, counts,
+                              self._gate_row(oks, gpos, len(user_idx), dev), limits, total)
+        if obs is not None:
+            ms.update(obs)
+        return new_P, ms
+
+    def _level_ref(self, P: torch.Tensor, lv: Level) -> Optional[torch.Tensor]:
+        """The params a level's rows trained from (the global ``P`` at its
+        entries), which the gate's norm bound measures against; None when
+        the gate has no bound."""
+        return None if self._quarantine.max_norm is None else P.index_select(0, lv.idx)
 
     def level_slots(self, rate_schedule) -> int:
         """A level's slots over the ``[k, A]`` rates of a superstep, as the
@@ -584,7 +627,8 @@ class GroupedRoundEngine(FlatParams):
         return [(off, self.levels[rate].spec) for rate, (_, off) in self._map_codecs.items()]
 
     def _merge(self, P: torch.Tensor, sums: Dict[float, Tuple[torch.Tensor, torch.Tensor]],
-               rseed: int, n_clients: int, codec_noise=None, cmax: int = 1) -> torch.Tensor:
+               rseed: int, n_clients: int, codec_noise=None, cmax: int = 1
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The round's new global params from each trained level's sliced
         counted sums ``{rate: (s_l, c_l)}``: added into zero global
         buffers at the level's entries, levels in descending rate (the
@@ -597,7 +641,8 @@ class GroupedRoundEngine(FlatParams):
         it is added; a dense level adds its float32 sums.  ``codec_noise``:
         the uniform codec's int8 noise, or under a map ``{rate: draw}`` (an
         int8 level's noise ``[n_l]``, a topk level's block offset), test
-        hooks replacing the draws from ``rseed``."""
+        hooks replacing the draws from ``rseed``.  Returns ``(new P, summed,
+        counts)``, the merged global sums the combine read (decoded)."""
         summed = torch.zeros_like(P)
         counts = torch.zeros_like(P)
         lossy = self.codec_map is not None and n_clients > 0
@@ -624,7 +669,7 @@ class GroupedRoundEngine(FlatParams):
             counts.index_add_(0, lv.idx, c_l)
         if lossy:
             self._resid = new_resid
-            return combine_counted(P, summed, counts)
+            return combine_counted(P, summed, counts), summed, counts
         return self._aggregate(P, summed, counts, rseed, n_clients, codec_noise, cmax=cmax)
 
     # -- the superstep: k rounds, each level's batched steps replayed ---------
@@ -754,19 +799,23 @@ class GroupedRoundEngine(FlatParams):
         st["perms"].copy_(self._level_perms(gens, st["sm"], raw_perms).reshape(len(gens), -1))
 
     def _replayed_round(self, P: torch.Tensor, user_idx: np.ndarray, rates_abs: np.ndarray,
-                        data, rseed: int, plan, cmax: int, epoch_perms=None, codec_noise=None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
-        """One round of the superstep: per level, in descending rate, the
-        eager set-up of its G clients, their batched steps replayed (up to
-        the level's largest budget), their counted sums added at the
-        level's entries; then the codec (its grid sized for ``cmax``
-        clients) and the counted average -> ``(new P, [A, 3] device sums,
-        reported rates)``.  ``plan``: the round's valid slots and its
-        :class:`LevelPlan` s; hooks as :meth:`train_superstep`'s, this
-        round's."""
-        valid, levels = plan
+                        data, rseed: int, plan, cmax: int, epoch_perms=None, codec_noise=None,
+                        epoch: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray, Optional[Dict]]:
+        """One round (number ``epoch``) of the superstep: per level, in
+        descending rate, the eager set-up of its G clients, their batched
+        steps replayed (up to the level's largest budget), the poison and
+        the gate on their rows (ref grouped.py:530-577), their counted sums
+        added at the level's entries; then the codec (its grid sized for
+        ``cmax`` clients), the counted average and the probes -> ``(new P,
+        [A, 3] device sums, reported rates, obs rows or None)``.  ``plan``:
+        the round's valid slots, budgets and :class:`LevelPlan` s; hooks as
+        :meth:`train_superstep`'s, this round's."""
+        valid, limits, levels = plan
         sums: Dict[float, Tuple[torch.Tensor, torch.Tensor]] = {}
         acc = torch.zeros((len(user_idx), 3), dtype=torch.float32, device=P.device)
+        hits = None if self._poison is None else poison_hits(self._poison, epoch, user_idx)
+        oks, gpos = ([], []) if self._quarantine.enabled else (None, None)
         for lp in levels:
             lv = self.levels[lp.rate]
             step, st, gens = self.level_step(lv, len(lp.pos), P, data, lp.lim is not None)
@@ -778,14 +827,22 @@ class GroupedRoundEngine(FlatParams):
             cm = lv.count_masks(data[-1][lp.rows])
             if lp.valid is not None:
                 cm = cm * lp.valid[:, None]
-            sums[lp.rate] = ((st["p"][:, :lv.spec.total] * cm).sum(0), cm.sum(0))
+            trained, cm, ok = self._guard(
+                st["p"][:, :lv.spec.total], self._level_ref(P, lv), cm,
+                None if hits is None else hits[lp.pos])
+            if ok is not None:
+                oks.append(ok)
+                gpos += lp.pos
+            sums[lp.rate] = ((trained * cm).sum(0), cm.sum(0))
             acc[lp.pos_dev] = st["acc"]
-        return (self._merge(P, sums, rseed, len(user_idx), codec_noise, cmax), acc,
-                rates_abs * valid)
+        new_P, summed, counts = self._merge(P, sums, rseed, len(user_idx), codec_noise, cmax)
+        return new_P, acc, rates_abs * valid, self._round_obs(
+            P, new_P, summed, counts, self._gate_row(oks, gpos, len(user_idx), P.device), limits,
+            self.total_steps(data))
 
     def _plans(self, seed: int, epoch0: int, users: np.ndarray, rates: np.ndarray, data,
                device: torch.device, step_limits=None, alive=None, rows=None):
-        """Each round's ``(valid slots, [LevelPlan])``: its slots' plan
+        """Each round's ``(valid slots, budgets, [LevelPlan])``: its slots' plan
         (:meth:`slot_plan` at the round's seed) and its levels in
         descending rate; the data rows (``rows [k, A]``, default the users,
         ``-1`` as 0), positions, budgets and valid rows of the whole
@@ -823,7 +880,7 @@ class GroupedRoundEngine(FlatParams):
                     rate, pos, uids.tolist(), seg[0], seg[1],
                     seg[2] if gate else None, int(limits[pos].max()) if gate else total,
                     None if valid[pos].all() else seg[3].to(torch.float32)))
-            out.append((valid, rnd))
+            out.append((valid, limits, rnd))
         return out
 
     def stage_cohort(self, store: ClientStore, user_schedule, rate_schedule) -> StagedCohort:
@@ -896,7 +953,7 @@ class GroupedRoundEngine(FlatParams):
                 lambda P, r, u, rates, rseed: self._replayed_round(
                     P, u, rates, data, rseed, plans[r], cmax,
                     None if epoch_perms is None else epoch_perms[r],
-                    None if codec_noise is None else codec_noise[r]))
+                    None if codec_noise is None else codec_noise[r], epoch0 + r))
         finally:
             torch.backends.cudnn.deterministic = deterministic
             if cohort is not None:

@@ -52,6 +52,14 @@ With ``client_store='stream'`` a superstep reads a cohort
 (:meth:`RoundEngine.stage_cohort`, ``parallel/staging.py``) instead of the
 ``[U, ...]`` stacks: a client's data is its slot's row of the cohort
 (``rows``), the same steps on the same bytes.
+
+Observability and its guards (``obs/``, ``chaos/``; ref round_engine.py:
+926-1030): a ``chaos_poison`` (round, uid) makes that client's trained
+params NaN, then ``quarantine`` gates each client's update before the sum
+(``FlatParams._guard``); after the aggregation ``telemetry`` adds the
+round's probes on the device (``FlatParams._round_obs``).  Their rows ride
+the round's (the superstep's) one fetch and are finished on the host
+(``obs.split_probes``).  With all of them off a round runs as before.
 """
 
 from __future__ import annotations
@@ -62,6 +70,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..chaos import resolve_poison_cfg
+from ..chaos.inject import poison_hits, poison_updates
 from ..compress import make_codec, resolve_codec_cfg
 from ..config import resolve_prefetch_depth
 from ..compress.codecs import compressed_sum
@@ -69,6 +79,10 @@ from ..data.datasets import DATASET_STATS
 from ..fed.core import client_alive, combine_counted, round_rates, round_seed, to_width_rates
 from ..models.base import FedModel
 from ..models.spec import label_vector, param_mask
+from ..obs import QuarantineSpec, obs_levels, resolve_quarantine_cfg, resolve_telemetry_cfg, \
+    split_probes
+from ..obs.hist import stale_hist
+from ..obs.probes import quarantine_gate, round_probes, segment_ends
 from ..ops.augment import augment_cifar, normalize_image
 from ..ops.fused_update import FlatSpec, fused_sgd_flat, make_scal, resolve_fused_mode
 from ..sched import ScheduleSpec, resolve_schedule_cfg
@@ -149,15 +163,29 @@ def superstep_schedules(user_schedule, rate_schedule, lrs, k: int):
     return users, rates, lrs
 
 
-def assemble_superstep(host, rates, eval_epochs, fused_eval):
+def assemble_superstep(host, rates, eval_epochs, fused_eval, levels=()):
     """The fetched superstep as the experiment loop reads it: k per-round dicts
     (``loss_sum``, ``score_sum``, ``n`` per client, ``rate``), or
-    ``{"train": [...], "eval": [...]}`` when a round evaluated."""
+    ``{"train": [...], "eval": [...]}`` when a round evaluated.  With probes
+    or the quarantine gate (``host["obs"]``, one dict of ``obs_*`` rows a
+    round) each round is finished by ``obs.split_probes`` (a gated slot's
+    row and rate read 0) and the records ride under ``"obs"``."""
     rounds = [{"loss_sum": a[:, 0], "score_sum": a[:, 1], "n": a[:, 2], "rate": rates[r]}
               for r, a in enumerate(host["train"])]
-    if not eval_epochs:
+    obs = host.get("obs")
+    if obs is not None:
+        records = []
+        for r, o in enumerate(obs):
+            rounds[r], rec = split_probes({**rounds[r], **o}, levels)
+            records.append(rec)
+    if not eval_epochs and obs is None:
         return rounds
-    return {"train": rounds, "eval": fused_eval.assemble(host["eval"], eval_epochs)}
+    out = {"train": rounds}
+    if obs is not None:
+        out["obs"] = records
+    if eval_epochs:
+        out["eval"] = fused_eval.assemble(host["eval"], eval_epochs)
+    return out
 
 
 class FlatParams:
@@ -173,12 +201,87 @@ class FlatParams:
     sched: ScheduleSpec = ScheduleSpec()
     failure_rate = 0.0
     _sched_buf: Optional[torch.Tensor] = None  # [2, total] staleness carry
+    _obs_on = _obs_hist = False
+    _quarantine: QuarantineSpec = QuarantineSpec()
+    _poison: Optional[np.ndarray] = None
+    _seg_ends: Optional[torch.Tensor] = None
 
     def _init_sched(self, cfg: Dict[str, Any]) -> None:
         """The scheduler of ``cfg`` (``schedule``, ``client_failure_rate``)."""
         self.sched = resolve_schedule_cfg(cfg)
         self.failure_rate = float(cfg.get("client_failure_rate", 0.0) or 0.0)
         self._sched_buf = None
+
+    # -- observability: probes, the quarantine gate, the poison ----------------
+
+    def _init_obs(self, cfg: Dict[str, Any]) -> None:
+        """The probes (``telemetry``), the quarantine gate and the chaos
+        poison of ``cfg`` (ref round_engine.py:455-477); all off leaves every
+        round as it was: no tensor, no launch, no fetched byte more."""
+        tele = resolve_telemetry_cfg(cfg)
+        self._obs_on, self._obs_hist = tele.probes, tele.hist
+        self.obs_levels = obs_levels(cfg)
+        self._quarantine = resolve_quarantine_cfg(cfg)
+        self._poison = resolve_poison_cfg(cfg)
+
+    @property
+    def observing(self) -> bool:
+        """Whether a round's metrics carry ``obs_*`` rows (probes or gate)."""
+        return self._obs_on or self._quarantine.enabled
+
+    def _guard(self, trained: torch.Tensor, ref: torch.Tensor, cm: torch.Tensor,
+               hits: Optional[np.ndarray]):
+        """A client's (or a level's rows') update on its way to the sum (ref
+        round_engine.py:926-960): the chaos poison on the matched rows
+        (``hits``), then the quarantine gate -- its count mask times the gate
+        and its trained values selected to zero where gated, so ``NaN * 0``
+        cannot reach the sum -> ``(trained, cm, gate or None)``.  A round
+        where the gate trips nothing is the ungated round bit for bit."""
+        if hits is not None:
+            trained = poison_updates(trained, hits)
+        if not self._quarantine.enabled:
+            return trained, cm, None
+        ok = quarantine_gate(trained, ref, cm, self._quarantine.max_norm)
+        okc = ok if trained.dim() == 1 else ok[:, None]
+        return torch.where(okc, trained, 0.0), cm * okc.to(cm.dtype), ok
+
+    def _round_obs(self, P: torch.Tensor, new_P: torch.Tensor, summed: torch.Tensor,
+                   counts: torch.Tensor, gate: Optional[torch.Tensor] = None,
+                   limits: Optional[np.ndarray] = None, total: int = 1
+                   ) -> Optional[Dict[str, Any]]:
+        """The round's ``obs_*`` rows (ref round_engine.py:1008-1030): the
+        gate row (float32 ``[A]``, 1 where the update passed), the device
+        probes after the aggregation (``obs.probes.round_probes`` on the
+        post-codec sums and the new carries) and, under ``'hist'``, the
+        staleness carry's histogram and (with a deadline) each slot's step
+        fraction from the planned budgets ``limits`` (host).  None when
+        neither probes nor gate are on."""
+        obs: Dict[str, Any] = {}
+        if gate is not None:
+            obs["obs_gate"] = gate
+        if self._obs_on:
+            if self._seg_ends is None:
+                self._seg_ends = segment_ends(self.spec, P.device)
+            buf = self._sched_buf if self.sched.buffered else None
+            obs.update(round_probes(self._seg_ends, P, new_P, summed, counts,
+                                    self._resid if self.lossy else None, buf))
+            if self._obs_hist:
+                obs["obs_hist_stale"] = stale_hist(buf, P.device)
+                if self.sched.has_deadline and limits is not None:
+                    obs["obs_steps"] = np.asarray(limits, np.float32) / np.float32(total)
+        return obs or None
+
+    @staticmethod
+    def _gate_row(oks, pos, n_slots: int, device: torch.device) -> Optional[torch.Tensor]:
+        """The gate row ``[n_slots]`` (float32): the gates ``oks`` (device
+        bools, scalars or rows) at the slots ``pos``, 1 elsewhere."""
+        if oks is None:
+            return None
+        gate = torch.ones(n_slots, dtype=torch.float32, device=device)
+        if pos:
+            gate[torch.as_tensor(pos, dtype=torch.int64).to(device)] = \
+                torch.cat([o.reshape(-1) for o in oks]).to(torch.float32)
+        return gate
 
     def flatten(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self.spec.flatten({k: v.detach() for k, v in params.items()}).to(self.device)
@@ -283,27 +386,34 @@ class FlatParams:
         """The superstep's round loop, shared by the engines: round r writes
         ``lrs[r]`` into the steps' static scalar ``lr``, runs
         ``round_fn(P, r, users, rates, round seed) -> (P, [A, 3] sums,
-        reported rates)``, and evaluates where ``eval_mask[r]`` fires; device
-        marks around each round and evaluation time them."""
+        reported rates, obs rows or None)``, and evaluates where
+        ``eval_mask[r]`` fires; device marks around each round and
+        evaluation time them.  The rounds' ``obs_*`` rows ride the one fetch
+        (under ``"obs"``, only when probes or the gate are on)."""
         eval_mask = normalize_eval_mask(eval_mask, k, fused_eval)
         users, rates, lrs = superstep_schedules(user_schedule, rate_schedule, lrs, k)
         lrs_dev = torch.from_numpy(lrs).to(P.device)
-        train, evals, timers, reported = [], [], {"train": [], "eval": []}, []
+        train, evals, timers, reported, obs = [], [], {"train": [], "eval": []}, [], []
         for r in range(k):
             t0 = maybe_event(P.device)
             lr.copy_(lrs_dev[r])
-            P, acc, rate_r = round_fn(P, r, users[r], rates[r], round_seed(seed, epoch0 + r))
+            P, acc, rate_r, obs_r = round_fn(P, r, users[r], rates[r],
+                                             round_seed(seed, epoch0 + r))
             train.append(acc)
             reported.append(rate_r)
+            obs.append(obs_r)
             t1 = maybe_event(P.device)
             timers["train"].append((t0, t1))
             if eval_mask is not None and eval_mask[r]:
                 evals.append(fused_eval.run(P, epoch0 + r))
                 timers["eval"].append((t1, maybe_event(P.device)))
         eval_epochs = [epoch0 + r for r in range(k) if eval_mask and eval_mask[r]]
+        tree, levels = {"train": train, "eval": evals}, self.obs_levels
+        if self.observing:
+            tree["obs"] = obs
         return P, PendingMetrics(
-            {"train": train, "eval": evals},
-            lambda host: assemble_superstep(host, reported, eval_epochs, fused_eval), timers)
+            tree, lambda host: assemble_superstep(host, reported, eval_epochs, fused_eval,
+                                                  levels), timers)
 
     # -- the streamed cohort ------------------------------------------------
 
@@ -336,7 +446,7 @@ class FlatParams:
 
     def _aggregate(self, P, summed, counts, round_seed: int, n_slots: int,
                    codec_noise=None, topk_offset=None, cmax: Optional[int] = None
-                   ) -> torch.Tensor:
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The round's new global params: the counted sums through the wire
         codec (encode, sum, decode, the residual carried; its grid sized for
         ``cmax`` clients, default the round's ``n_slots``, padding and
@@ -344,7 +454,9 @@ class FlatParams:
         whenever the round has slots, then the counted average with the
         stale fallback -- or under buffered aggregation
         (``sched.buffer.buffered_combine``) the buffered update of the
-        previous round, this round's sums buffered."""
+        previous round, this round's sums buffered.  Returns ``(new P,
+        summed, counts)``, the sums as the combine read them (dequantised
+        under a codec), which the probes read."""
         if self.codec is not None and n_slots:
             draw = {"int8": codec_noise, "topk": topk_offset}.get(self.codec.name)
             if draw is None:
@@ -356,10 +468,10 @@ class FlatParams:
             if self._sched_buf is None:
                 self._sched_buf = torch.zeros((2, self.spec.total), dtype=torch.float32,
                                               device=P.device)
-            P, self._sched_buf = buffered_combine(P, self._sched_buf, summed, counts,
-                                                  self.sched.staleness)
-            return P
-        return combine_counted(P, summed, counts)
+            new_P, self._sched_buf = buffered_combine(P, self._sched_buf, summed, counts,
+                                                      self.sched.staleness)
+            return new_P, summed, counts
+        return combine_counted(P, summed, counts), summed, counts
 
 
 class RoundEngine(FlatParams):
@@ -391,6 +503,7 @@ class RoundEngine(FlatParams):
         self.codec = make_codec(name, self.spec, 1, error_feedback=ef)
         self._resid = None
         self._init_sched(cfg)
+        self._init_obs(cfg)
         self._label_axes = [(k, s.label_axis) for k, s in model.specs.items()
                             if s.label_axis is not None]
         # flat width masks (and the group norms' channel masks) per width
@@ -620,7 +733,7 @@ class RoundEngine(FlatParams):
                     lm_draws: Optional[Callable[[int, int], Dict[str, Any]]] = None,
                     rates: Optional[Sequence[float]] = None,
                     aug_draws: Optional[Callable[[int, int], Tuple[Any, Any]]] = None,
-                    step_limits=None, alive=None
+                    step_limits=None, alive=None, epoch: Optional[int] = None
                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One round from the global flat params ``P``.
 
@@ -648,7 +761,15 @@ class RoundEngine(FlatParams):
         (flat layout of ``self.spec``); ``topk_offset`` the topk codec's
         block offset; ``lm_draws(uid, t)`` an LM client's corruption and
         dropout draws of local step ``t``; ``step_limits`` and ``alive``
-        (slot order) the deadline budgets and the survivors."""
+        (slot order) the deadline budgets and the survivors.
+
+        ``epoch``: the round's number, which ``chaos_poison`` matches.  With
+        probes or the quarantine gate on, the metrics also hold the round's
+        ``obs_*`` rows (:meth:`_round_obs`; device tensors, and the host step
+        fractions), which ``obs.split_probes`` finishes once fetched."""
+        if self._poison is not None and epoch is None:
+            raise ValueError("chaos_poison needs epoch= on train_round (the "
+                             "K=1 program matches poisons by (round, uid))")
         lm_all = data[-1]
         user_idx = np.asarray(user_idx, np.int64).reshape(-1)
         rates_abs = cohort_rates(self.cfg, user_idx, round_seed, rates)
@@ -658,7 +779,9 @@ class RoundEngine(FlatParams):
         lr_t = torch.full((), float(lr), dtype=torch.float32, device=P.device)
         summed = torch.zeros_like(P)
         counts = torch.zeros_like(P)
-        rows = []
+        hits = None if self._poison is None else poison_hits(self._poison, epoch, user_idx)
+        oks = [] if self._quarantine.enabled else None
+        rows, pos = [], []
         for slot, uid in enumerate(user_idx.tolist()):
             if not valid[slot]:
                 rows.append(P.new_zeros(3))
@@ -677,14 +800,25 @@ class RoundEngine(FlatParams):
                     None if aug_draws is None else (lambda t, u=uid: aug_draws(u, t)),
                     step_limit=limit)
             cm = self.count_mask_flat(wr, lm_all[uid])
+            trained, cm, ok = self._guard(trained, P, cm,
+                                          None if hits is None else hits[slot:slot + 1])
+            if ok is not None:
+                oks.append(ok)
+                pos.append(slot)
             summed += trained * cm
             counts += cm
             rows.append(acc)
         acc = torch.stack(rows) if rows else P.new_zeros((0, 3))
         ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
               "rate": rates_abs * valid}
-        return self._aggregate(P, summed, counts, round_seed, len(rows), codec_noise,
-                               topk_offset), ms
+        new_P, summed, counts = self._aggregate(P, summed, counts, round_seed, len(rows),
+                                                codec_noise, topk_offset)
+        obs = self._round_obs(P, new_P, summed, counts,
+                              self._gate_row(oks, pos, len(rows), P.device), limits,
+                              self.total_steps(data))
+        if obs is not None:
+            ms.update(obs)
+        return new_P, ms
 
     # -- the superstep: k rounds, each client's steps replayed ---------------
 
@@ -781,22 +915,25 @@ class RoundEngine(FlatParams):
 
     def _replayed_round(self, P: torch.Tensor, user_idx: np.ndarray, rates_abs: np.ndarray,
                         data, rseed: int, rows=None, epoch_perms=None, codec_noise=None,
-                        step_limits=None, alive=None
-                        ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
-        """One round of the superstep: per client the eager set-up, then its
-        steps replayed (up to its budget, :meth:`slot_plan`; a padding or
-        failed slot is skipped with a zero row); aggregation (and the codec)
-        on the device as :meth:`train_round` -> ``(new P, [A, 3] device
-        sums, reported rates)``.  ``rows``: each slot's row of ``data``
+                        step_limits=None, alive=None, epoch: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray, Optional[Dict]]:
+        """One round (number ``epoch``) of the superstep: per client the eager
+        set-up, then its steps replayed (up to its budget, :meth:`slot_plan`;
+        a padding or failed slot is skipped with a zero row); the poison and
+        the gate, aggregation (and the codec) and the probes on the device
+        as :meth:`train_round` -> ``(new P, [A, 3] device sums, reported
+        rates, obs rows or None)``.  ``rows``: each slot's row of ``data``
         (default its user id); hooks as :meth:`train_superstep`'s, this
         round's."""
-        valid, limits = self.slot_plan(user_idx, rseed, self.total_steps(data), step_limits,
-                                       alive)
+        total = self.total_steps(data)
+        valid, limits = self.slot_plan(user_idx, rseed, total, step_limits, alive)
         wrs = to_width_rates(rates_abs, self.cfg)
         summed = torch.zeros_like(P)
         counts = torch.zeros_like(P)
         rows = user_idx if rows is None else rows
-        sums = []
+        hits = None if self._poison is None else poison_hits(self._poison, epoch, user_idx)
+        oks = [] if self._quarantine.enabled else None
+        sums, pos = [], []
         for slot, uid in enumerate(user_idx.tolist()):
             if not valid[slot]:
                 sums.append(P.new_zeros(3))
@@ -808,12 +945,19 @@ class RoundEngine(FlatParams):
             for _ in range(min(st["steps"], int(limits[slot]))):
                 step.replay()
             cm = self.count_mask_flat(wr, data[-1][row])
-            summed += st["p"] * cm
+            trained, cm, ok = self._guard(st["p"], P, cm,
+                                          None if hits is None else hits[slot:slot + 1])
+            if ok is not None:
+                oks.append(ok)
+                pos.append(slot)
+            summed += trained * cm
             counts += cm
             sums.append(st["acc"].clone())
         acc = torch.stack(sums) if sums else P.new_zeros((0, 3))
-        return (self._aggregate(P, summed, counts, rseed, len(sums), codec_noise), acc,
-                rates_abs * valid)
+        new_P, summed, counts = self._aggregate(P, summed, counts, rseed, len(sums), codec_noise)
+        return new_P, acc, rates_abs * valid, self._round_obs(
+            P, new_P, summed, counts, self._gate_row(oks, pos, len(sums), P.device), limits,
+            total)
 
     def stage_cohort(self, store: ClientStore, user_schedule, rate_schedule=None
                      ) -> StagedCohort:
@@ -876,7 +1020,7 @@ class RoundEngine(FlatParams):
                 P, seed, epoch0, k, user_schedule, rate_schedule, lrs, eval_mask, fused_eval,
                 st["lr"], lambda P, r, users, rates, rseed: self._replayed_round(
                     P, users, rates, data, rseed, hook(rows, r), hook(epoch_perms, r),
-                    hook(codec_noise, r), hook(step_limits, r), hook(alive, r)))
+                    hook(codec_noise, r), hook(step_limits, r), hook(alive, r), epoch0 + r))
         finally:
             if cohort is not None:
                 cohort.release()

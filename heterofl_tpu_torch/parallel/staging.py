@@ -1,7 +1,8 @@
-"""Deferred metric fetch, and the streaming client store with its cohort
-stager.
+"""Deferred metric fetch, the experiment loop's phase timer, and the streaming
+client store with its cohort stager.
 
-Port of ``heterofl_tpu/parallel/staging.py`` (:363-669).  A round or a
+Port of ``heterofl_tpu/parallel/staging.py`` (:306-669; :class:`PhaseTimer`
+from :306-360).  A round or a
 superstep leaves its metric sums on the device; :meth:`PendingMetrics.fetch`
 packs every leaf into one buffer on the device and copies it to the host
 once, so a superstep of k rounds (and its evaluations) costs one
@@ -29,6 +30,8 @@ same ring runs with plain host tensors and synchronous copies.
 
 from __future__ import annotations
 
+import time
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -104,6 +107,35 @@ class PendingMetrics:
                             for k, pairs in self._timers.items()}
             self._timers = {}
         return self._host
+
+
+class PhaseTimer:
+    """Host-clock phase accounting of the experiment loop (ref parallel/staging.py:
+    306-360): phases are free-form names (the loop's ``sample``, the
+    cohort draw; ``stage``, a streamed cohort's gather and copy;
+    ``dispatch``, the engine's call returning; ``fetch``, the metrics'
+    copy to the host and their assembly), each one's seconds summed in
+    ``totals`` and its count in ``calls``.  ``trace``: a
+    :class:`~..obs.trace.TraceRecorder`, when attached, files every finished
+    phase as a complete event on the run's timeline (one clock,
+    ``perf_counter``)."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+        self.calls: Dict[str, int] = {}
+        self.trace = None
+
+    @contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.calls[name] = self.calls.get(name, 0) + 1
+            if self.trace is not None:
+                self.trace.complete(name, t0, dt, cat="phase")
 
 
 def _elapsed(a, b) -> float:

@@ -28,7 +28,11 @@ draws from are registered with the graph
 offsets from the generator's state at replay time and advances it by what
 the step consumed -- a replay draws what the eager step would draw from
 the same state, and two replays draw different numbers.  The engine
-reseeds those generators per client.
+reseeds those generators per client.  The garbage collector runs just
+before a capture and is paused during it (:func:`gc_paused`): an engine's
+graphs sit in a reference cycle (a step keeps its function, which keeps
+the engine), and collecting a dead engine mid-capture would destroy its
+graphs there -- an API call the capture forbids, which invalidates it.
 
 Launch counts: a wrapper counts its launch when it is called, and during a
 capture it is called but launches nothing; so the counts a capture adds
@@ -43,7 +47,9 @@ no eager fallback: a capture that fails raises.
 
 from __future__ import annotations
 
+import gc
 import time
+from contextlib import contextmanager
 from typing import Callable, Dict, Hashable, List, Optional, Sequence
 
 import torch
@@ -66,6 +72,21 @@ _COUNTERS = (fused_norm.LAUNCHES, fused_update.LAUNCHES, quant.LAUNCHES)
 
 def _snapshot() -> List[Dict[str, int]]:
     return [dict(c) for c in _COUNTERS]
+
+
+@contextmanager
+def gc_paused():
+    """Collect the garbage now, then pause the collector for the block (a
+    CUDA graph capture; PyTorch's ``torch.cuda.graph`` no longer collects
+    before capturing)."""
+    enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def reset_stats() -> None:
@@ -136,7 +157,7 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+        with gc_paused(), torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             fn()
         torch.cuda.synchronize(self.device)
         STATS["pool_bytes"] += torch.cuda.memory_reserved(self.device) - reserved

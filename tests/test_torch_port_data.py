@@ -49,12 +49,15 @@ def test_process_control_matches_reference(control, data_name, model_name):
 def test_unported_keys_raise_naming_the_key():
     cfg = PC.default_cfg()
     cfg["control"] = PC.parse_control_name("1_100_0.1_iid_fix_a1_bn_1_1")
-    for key, value in (("data_placement", "sharded"), ("telemetry", "on"),
-                       ("level_placement", "slices"), ("world_size", 2),
-                       ("quarantine", "on")):
+    for key, value in (("data_placement", "sharded"), ("arms", {"lr": [0.1, 0.2]}),
+                       ("level_placement", "slices"), ("world_size", 2)):
         bad = dict(cfg, **{key: value})
         with pytest.raises(NotImplementedError, match=key):
             PC.process_control(bad)
+    # observability and its guards are ported
+    done = PC.process_control(dict(cfg, telemetry="hist", quarantine="on", ledger="on",
+                                   watchdog={"action": "rollback"}, chaos_poison=[[1, 2]]))
+    assert (done["telemetry"], done["quarantine"], done["ledger"]) == ("hist", "on", "on")
     # the streaming store and the schedule commitment are ported
     done = PC.process_control(dict(cfg, client_store="stream", sample_horizon=1))
     assert (done["client_store"], done["sample_horizon"]) == ("stream", 1)

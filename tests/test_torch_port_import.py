@@ -82,4 +82,9 @@ def test_no_port_file_imports_jax_or_reference():
             "heterofl_tpu_torch/parallel/grouped.py", "heterofl_tpu_torch/fed/sliced.py",
             "heterofl_tpu_torch/fed/sampling.py", "heterofl_tpu_torch/parallel/staging.py",
             "heterofl_tpu_torch/parallel/step_graph.py", "heterofl_tpu_torch/sched/__init__.py",
-            "heterofl_tpu_torch/sched/deadline.py", "heterofl_tpu_torch/sched/buffer.py"} <= scanned
+            "heterofl_tpu_torch/sched/deadline.py", "heterofl_tpu_torch/sched/buffer.py",
+            "heterofl_tpu_torch/obs/__init__.py", "heterofl_tpu_torch/obs/probes.py",
+            "heterofl_tpu_torch/obs/hist.py", "heterofl_tpu_torch/obs/watchdog.py",
+            "heterofl_tpu_torch/obs/trace.py", "heterofl_tpu_torch/obs/ledger.py",
+            "heterofl_tpu_torch/obs/report.py", "heterofl_tpu_torch/chaos/__init__.py",
+            "heterofl_tpu_torch/chaos/inject.py"} <= scanned
