@@ -33,7 +33,7 @@ each prints its seconds:
    e, 2 steps each) against the CPU, and its local step timed; then the
    main paths, each into a fresh temporary ``output_dir``:
    ``heterofl_tpu_torch.entry.train_classifier_fed`` with the paper's
-   headline control on full-width ResNet-18, synthetic CIFAR10 at 10,000 of
+   headline control on full-width ResNet-18, synthetic CIFAR10 at 8,000 of
    its real 50,000 train images, ``pallas_norm=1``, ``fused_update=1``, one
    round (``ROUNDS``) with a checkpoint, sBN and Local/Global evaluation,
    local epochs cut to ``--local-epochs`` (default 1; the control's own is
@@ -190,7 +190,23 @@ each prints its seconds:
    runs, bit for bit; (c) ``chaos_poison`` under the gate, masked and
    grouped: finite params, ``quarantined`` the poisoned count; (d) a
    poisoned run under ``watchdog={'action': 'rollback'}`` recovering;
-13. the ``kernels`` JSON line (launches from the int8 path, the batched
+13. experiment arms and the chaos drill, at the headline's full width on
+   ``ARMS_SIZES`` (a local step a client): (a) the masked superstep of two
+   rounds as E=2 arms (seeds ``[None, 1]``, learning-rate scales ``[1,
+   0.5]``) through ``ArmsExperiment``, arm 0 against the plain run and
+   arm 1 against its solo arms run bit for bit, one ``host_fetch`` a
+   superstep, rows 1-3 replayed E times the solo run's, the E-arm
+   superstep's device seconds beside the plain and solo ones, all under
+   ``--wire_codec int8``; (b) the same for the grouped engine (dense) and
+   rows 1b-3b; (c) the masked int8 arms' round 2 resumed from the round-1
+   blob equal to the uninterrupted run (params and per-arm residuals),
+   quantise-and-pack a round an arm; (d) the chaos drill
+   (``chaos.drill``): kills at superstep, fetch and checkpoint, masked (K
+   2) and grouped (K 1), a prefetch kill under the stream store and a
+   corrupted live blob falling back a generation, each resume equal to
+   the uninterrupted run bit for bit; the poison drill in ``quarantine``
+   and ``rollback`` modes; all under cuDNN's deterministic algorithms;
+14. the ``kernels`` JSON line (launches from the int8 path, the batched
    kernels' from the grouped path; per path in ``launches_by_path``, and
    the superstep's launches from replays -- a graph's captured launches
    times its replays -- in ``replayed_launches_by_path``), then the ``ok``
@@ -220,11 +236,12 @@ TAG = f"0_CIFAR10_label_resnet18_{HEADLINE}"
 CENTRAL = "1_1_1_none_fix_a1_bn_1_1"  # the centralised baseline, full width
 CENTRAL_TAG = f"0_CIFAR10_label_resnet18_{CENTRAL}"
 CENTRAL_EPOCHS = 1
-# the vision paths' synthetic CIFAR10: 10,000 of the real 50,000-image train
-# set (100 steps a round, 1,000 sBN forwards; cut for the script's time, from
-# 25,000 when the bf16, im2col and codec-map phases came, and from 15,000
-# when phase 12 came), the real 10,000-image test set
-SIZES = {"train": 10000, "test": 10000}
+# the vision paths' synthetic CIFAR10: 8,000 of the real 50,000-image train
+# set (80 steps a round, 800 sBN forwards; cut for the script's time, from
+# 25,000 when the bf16, im2col and codec-map phases came, from 15,000 when
+# phase 12 came, and from 10,000 when phase 13 came), the real 10,000-image
+# test set
+SIZES = {"train": 8000, "test": 10000}
 BATCH = 10
 CENTRAL_BATCH = 100
 # ResNet-18 on 32x32 CIFAR at batch 10: (rows M = N*H*W, channels C, BN
@@ -271,7 +288,7 @@ TOL_LM_ROUND = 1e-3     # max |params| difference, card LM round vs CPU LM round
 # the sixth slice: dynamic rates on data read from disk, the group norms and
 # the bottleneck ResNet.  The dataset files are written in their real
 # on-disk formats from a seed: CIFAR10 as the python-pickle batches, cut in
-# depth to the vision paths' 10,000 training images (five batches of 2,000)
+# depth to the vision paths' 8,000 training images (five batches of 1,600)
 # and the real 10,000 test images; EMNIST balanced as gzip IDX, cut from
 # 112,800 / 18,800 images to EMNIST_SIZES.
 DYNAMIC = "1_100_0.1_iid_dynamic_a1-b1-c1-d1-e1_bn_1_1"
@@ -3852,6 +3869,199 @@ def obs_rollback_path(torch, counters, out_dir: str, off_history):
     return n, rep
 
 
+ARMS_SIZES = {"train": 1000, "test": 100}  # phase 13: a step a client, at full width
+ARMS_ROUNDS = 2  # one superstep of two rounds, evaluated after the second
+ARMS_SPEC = {"count": 2, "seeds": [None, 1], "lr_scales": [1.0, 0.5]}
+ARMS_SOLO = {"count": 1, "seeds": [1], "lr_scales": [0.5]}
+DRILL_ROUNDS = 4  # the masked drills: supersteps of two, as the drill's own federation
+DRILL_MASKED = {"kills": [{"point": "superstep", "at": 2}, {"point": "fetch", "at": 2},
+                          {"point": "checkpoint", "at": 2}]}
+# the grouped plan, three rounds at K=1: a kill before the third checkpoint
+# write, the live blob corrupted (the resume falls back a generation), then
+# a kill at a dispatch and one at a fetch
+DRILL_GROUPED = {"kills": [{"point": "checkpoint", "at": 3}, {"point": "superstep", "at": 5},
+                           {"point": "fetch", "at": 5}],
+                 "corrupt": [{"which": "checkpoint", "mode": "flip", "generation": 0}]}
+DRILL_GROUPED_ROUNDS = 3
+ROWS = {"masked": ("bn_fwd", "bn_bwd", "fused_sgd"),
+        "grouped": ("bn_fwd_batched", "bn_bwd_batched", "fused_sgd_batched")}
+
+
+def arms_argv(out_dir: str, rounds: int, *extra):
+    """The headline control's flags on ``ARMS_SIZES``: ``rounds`` rounds in
+    supersteps of two, one local epoch, evaluated every second round."""
+    return ["--control_name", HEADLINE, "--synthetic", "1", "--synthetic_sizes",
+            json.dumps(ARMS_SIZES), "--pallas_norm", "1", "--fused_update", "1",
+            "--eval_interval", str(SS_ROUNDS), "--superstep_rounds", str(SS_ROUNDS),
+            "--output_dir", out_dir,
+            "--override", json.dumps({"num_epochs": {"global": rounds, "local": 1}}), *extra]
+
+
+def arms_run(torch, counters, argv, what: str):
+    """One run of ``FedExperiment`` (no ``--arms``) or ``ArmsExperiment``
+    on the entry's flags, the counters, the replay record and a count of
+    ``staging.host_fetch`` calls set to 0 just before it and read just
+    after -> (result, experiment, host seconds, launches, replayed, fetches,
+    the graphs' record: captures and pool bytes)."""
+    from heterofl_tpu_torch.entry.common import ArmsExperiment, FedExperiment, parse_cfg
+    from heterofl_tpu_torch.parallel import staging, step_graph
+
+    cfg = parse_cfg("chip_smoke", "resnet18", "CIFAR10", argv)
+    fetches, host_fetch = [0], staging.host_fetch
+
+    def counted(tree):
+        fetches[0] += 1
+        return host_fetch(tree)
+
+    say(f"{what}: {' '.join(argv)}")
+    step_graph.reset_stats()
+    zero(counters)
+    staging.host_fetch = counted
+    t0 = time.time()
+    try:
+        exp = (ArmsExperiment if cfg.get("arms") else FedExperiment)(cfg, 0)
+        res = exp.run()
+        torch.cuda.synchronize()
+    finally:
+        staging.host_fetch = host_fetch
+    return (res, exp, time.time() - t0, read(counters), dict(step_graph.REPLAYED), fetches[0],
+            dict(step_graph.STATS))
+
+
+def arms_path(torch, counters, out_dir: str, strategy: str):
+    """Phase 13a (masked, under ``--wire_codec int8``) and 13b (grouped,
+    dense): the headline at full width, one superstep of ``ARMS_ROUNDS``
+    rounds, plain, as E=2 arms (seeds [None, 1], scales [1, 0.5]) and as
+    arm 1's solo arms run, under cuDNN's deterministic algorithms: arm 0
+    equals the plain run bit for bit, arm 1 its solo run (params; masked:
+    the per-arm residuals); one ``host_fetch`` a superstep; rows 1-3 (1b-3b)
+    replayed E times the solo run's (the arms loop over their clients'
+    captured steps); the E-arm superstep's device seconds beside the plain
+    and solo runs' (each run's first superstep: its captures included).
+    Masked also (13c): quantise-and-pack a round an arm, and round 2
+    resumed from the round-1 blob of an arms run equal to the uninterrupted
+    arms run (params, residuals) -> {path: (launches, replayed)}."""
+    import numpy as np
+
+    from heterofl_tpu_torch.chaos.drill import deterministic_cudnn
+
+    runs, codec = {}, ("--wire_codec", "int8") if strategy == "masked" else ()
+    E = ARMS_SPEC["count"]
+    with deterministic_cudnn():
+        for name, more in (("plain", ()), ("arms", ("--arms", json.dumps(ARMS_SPEC))),
+                           ("solo", ("--arms", json.dumps(ARMS_SOLO)))):
+            argv = arms_argv(os.path.join(out_dir, strategy, name), ARMS_ROUNDS, "--strategy",
+                             strategy, *codec, *more)
+            runs[name] = arms_run(torch, counters, argv, f"arms {strategy} ({name})")
+        if strategy == "masked":
+            cut = os.path.join(out_dir, strategy, "cut")
+            more = ("--strategy", strategy, *codec, "--arms", json.dumps(ARMS_SPEC))
+            arms_run(torch, counters, arms_argv(cut, 1, *more), "arms int8 (round 1)")
+            runs["resumed"] = arms_run(torch, counters, arms_argv(cut, ARMS_ROUNDS, *more,
+                                                                  "--resume_mode", "1"),
+                                       "arms int8 (round 2 resumed)")
+    plain, arms, solo = (runs[n][0] for n in ("plain", "arms", "solo"))
+    arm0 = all(torch.equal(arms["params"][0][k], v) for k, v in plain["params"].items())
+    arm1 = all(torch.equal(arms["params"][1][k], v) for k, v in solo["params"][0].items())
+    differ = not all(torch.equal(arms["params"][0][k], v) for k, v in arms["params"][1].items())
+    rep = {n: runs[n][4] for n in ("arms", "solo")}
+    rows = ROWS[strategy]
+    times = all(rep["arms"].get(k, 0) == E * rep["solo"].get(k, 0) > 0 for k in rows)
+    fetches = {n: runs[n][5] for n in ("plain", "arms", "solo")}
+    plain_s = sum(r["seconds"] + (r.get("eval_seconds") or 0.0) for r in plain["history"])
+    arms_s, solo_s = runs["arms"][1].dispatch_seconds[-1], runs["solo"][1].dispatch_seconds[-1]
+    ok = arm0 and arm1 and differ and times and all(n == ARMS_ROUNDS // SS_ROUNDS
+                                                    for n in fetches.values())
+    msg = ""
+    if strategy == "masked":
+        resumed = runs["resumed"][0]
+        resid = arms["wire_resid"]
+        res_same = all(torch.equal(resumed["params"][e][k], v) for e in range(E)
+                       for k, v in arms["params"][e].items()) \
+            and np.array_equal(resumed["wire_resid"], resid)
+        resid_arm = np.array_equal(resid[0], plain["wire_resid"]) and np.array_equal(
+            resid[1], solo["wire_resid"][0])
+        quant = (runs["arms"][3]["quant_pack"], runs["resumed"][3]["quant_pack"])
+        ok = ok and res_same and resid_arm and resid.shape == (E, 1, plain["wire_resid"].size) \
+            and quant == (E * ARMS_ROUNDS, E)
+        msg = (f"; residuals {resid.shape}, arm 0 == plain and arm 1 == solo {resid_arm}; "
+               f"quant_pack {quant[0]} (E={E}, {ARMS_ROUNDS} rounds), {quant[1]} (round 2 "
+               f"resumed); round 2 resumed == uninterrupted (params, residuals) {res_same}")
+    say(f"arms {strategy}: runs {runs['plain'][2]:.1f} s plain, {runs['arms'][2]:.1f} s E=2, "
+        f"{runs['solo'][2]:.1f} s solo (host clock); arm 0 == plain {arm0}, arm 1 == solo "
+        f"{arm1}, arms differ {differ}; host_fetch calls {fetches}; replayed {rows}: arms "
+        f"{[rep['arms'].get(k) for k in rows]}, solo {[rep['solo'].get(k) for k in rows]}; the "
+        f"superstep (two rounds, an evaluation, its captures) E=2 {arms_s:.4f} s, plain "
+        f"{plain_s:.4f} s + solo {solo_s:.4f} s = {plain_s + solo_s:.4f} s (device clock); "
+        f"captures and graph pools: " + ", ".join(
+            f"{n} {runs[n][6]['captures']} / {runs[n][6]['pool_bytes'] / 2 ** 20:.1f} MB"
+            for n in ("plain", "arms", "solo")) + msg)
+    if not ok:
+        raise AssertionError(f"arms {strategy}: an arm is not its solo run, a superstep fetched "
+                             f"more than once, the launches are not E times the solo run's, or "
+                             f"the resumed arms are not the uninterrupted ones")
+    return {f"arms_{strategy}": (runs["arms"][3], rep["arms"]),
+            f"arms_{strategy}_solo": (runs["solo"][3], rep["solo"])}
+
+
+def drill_path(torch, counters, out_dir: str):
+    """Phase 13d: ``chaos.drill`` on the card at the headline's full width
+    (``ARMS_SIZES``, evaluated after the last round): masked,
+    ``DRILL_MASKED`` (kills at a superstep, a fetch and a checkpoint write;
+    the resumes capture their steps anew) over ``DRILL_ROUNDS`` rounds in
+    supersteps of two; a prefetch kill under ``client_store='stream'``
+    against the masked plan's uninterrupted run (a streamed run equals the
+    eager one bit for bit, phase 11); grouped, ``DRILL_GROUPED`` over
+    ``DRILL_GROUPED_ROUNDS`` rounds at K=1 -- a kill before the third
+    checkpoint write, the live blob corrupted (the resume falls back a
+    generation with the warning), then kills at a dispatch and a fetch;
+    each resumed run equal to the uninterrupted one bit for bit; the
+    poison drill in ``quarantine`` and ``rollback`` -> {path: (launches,
+    replayed)}."""
+    from heterofl_tpu_torch.chaos import resolve_fault_plan
+    from heterofl_tpu_torch.chaos.drill import reference_params, run_kill_drill, run_poison_drill
+    from heterofl_tpu_torch.parallel import step_graph
+
+    kw = {"device": "cuda", "control": HEADLINE, "data_name": "CIFAR10",
+          "model_name": "resnet18", "sizes": ARMS_SIZES}
+
+    def over(rounds, **more):
+        return {"num_epochs": {"global": rounds, "local": 1}, "pallas_norm": True,
+                "eval_interval": rounds, "batch_size": {"train": BATCH, "test": 50}, **more}
+
+    out = {}
+    zero(counters)
+    step_graph.reset_stats()
+    masked_ref = reference_params(over(DRILL_ROUNDS), os.path.join(out_dir, "masked"), **kw)
+    cases = (("drill_masked", DRILL_MASKED, over(DRILL_ROUNDS), masked_ref),
+             ("drill_stream_prefetch", {"kills": [{"point": "prefetch", "at": 2}]},
+              over(DRILL_ROUNDS, client_store="stream"), masked_ref),
+             ("drill_grouped", DRILL_GROUPED,
+              over(DRILL_GROUPED_ROUNDS, strategy="grouped", superstep_rounds=1), None),
+             ("drill_quarantine", "quarantine", over(DRILL_ROUNDS), None),
+             ("drill_rollback", "rollback", over(DRILL_ROUNDS), None))
+    for path, plan, cfg_over, ref in cases:
+        if path != "drill_masked":  # the masked plan's count takes in its reference run
+            zero(counters)
+            step_graph.reset_stats()
+        root = os.path.join(out_dir, path)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if isinstance(plan, dict):
+                rep = run_kill_drill(resolve_fault_plan(plan), cfg_over, root, reference=ref,
+                                     **kw)
+            else:
+                rep = run_poison_drill(plan, cfg_over, root, **kw)
+        torch.cuda.synchronize()
+        rep["fallback_warnings"] = sum("checkpoint-corrupt" in str(w.message) for w in caught)
+        say(f"{path}: " + json.dumps({k: v for k, v in rep.items() if k != "plan"}))
+        corrupt = path != "drill_grouped" or (rep["corruptions"] and rep["fallback_warnings"])
+        if not (rep["ok"] and corrupt):
+            raise AssertionError(f"{path}: the drill's contract does not hold: {rep}")
+        out[path] = (read(counters), dict(step_graph.REPLAYED))
+    return out
+
+
 class Phases:
     """Seconds of each phase, printed as each ends."""
 
@@ -4103,6 +4313,14 @@ def main() -> int:
         for path, (n, rep) in obs_paths.items():
             by_path[path], replayed_by_path[path] = n, rep
         phases.done("obs: probes, histograms, ledger, trace and profile; the gate; a rollback")
+        # 13. experiment arms and the chaos drill
+        arms_paths = arms_path(torch, counters, os.path.join(tmp, "arms"), "masked")
+        arms_paths.update(arms_path(torch, counters, os.path.join(tmp, "arms"), "grouped"))
+        arms_paths.update(drill_path(torch, counters, os.path.join(tmp, "drill")))
+        for path, (n, rep) in arms_paths.items():
+            by_path[path], replayed_by_path[path] = n, rep
+        phases.done("arms: masked int8 and grouped against the plain and solo runs, resumed; "
+                    "the chaos drill")
     say(f"stream: staging a cohort at {POP_USERS[-1]:,} users {pop_nums['ratio']:.3f}x the host "
         f"seconds at {POP_USERS[0]:,}; prefetches ended with the device busy: "
         + ", ".join(f"depth {d} {n['busy']}" for d, n in ring_nums.items()))

@@ -43,6 +43,11 @@ the end of :func:`process_control`.
 ``obs.resolve_ledger_cfg``, ``obs.resolve_quarantine_cfg`` and
 ``chaos.resolve_poison_cfg`` check them with the reference's messages, in
 the reference's order, at the end of :func:`process_control`.
+
+``arms`` runs E experiment arms in one superstep (``multi/``,
+``entry.common.ArmsExperiment``); ``multi.resolve_arms_cfg`` checks it, and
+its cross-field refusals, last, as the reference's ``process_control``
+does (heterofl_tpu/config.py:571-594).
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import torch
 from .chaos import resolve_poison_cfg
 from .compress import resolve_codec_cfg
 from .fed.sampling import resolve_sampler_cfg
+from .multi import resolve_arms_cfg
 from .obs import resolve_ledger_cfg, resolve_quarantine_cfg, resolve_telemetry_cfg
 from .sched import resolve_schedule_cfg
 
@@ -187,6 +193,10 @@ DEFAULT_CFG: Dict[str, Any] = {
     # [[round, uid], ...]: those client updates are made NaN before
     # aggregation (chaos/), how the quarantine and the rollback are proved
     "chaos_poison": None,
+    # experiment arms (multi/): None, an int count, or {"count": E, "seeds":
+    # [None | int, ...], "lr_scales": [...]} -- E arms of the run trained in
+    # one superstep by entry.common.ArmsExperiment (resolve_arms_cfg)
+    "arms": None,
     "override": {},
 }
 
@@ -195,7 +205,6 @@ DEFAULT_CFG: Dict[str, Any] = {
 UNPORTED: Dict[str, Any] = {
     "world_size": 1,
     "data_placement": "replicated",
-    "arms": None,
     # the grouped engine's per-level device partition needs several GPUs
     "level_placement": "span",
 }
@@ -445,6 +454,7 @@ def process_control(cfg: Dict[str, Any]) -> Dict[str, Any]:
     resolve_quarantine_cfg(cfg)
     resolve_checkpoint_keep(cfg)
     resolve_poison_cfg(cfg)
+    resolve_arms_cfg(cfg)
     return cfg
 
 

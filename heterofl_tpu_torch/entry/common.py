@@ -85,11 +85,24 @@ spans and events in a :class:`~..obs.trace.TraceRecorder`;
 checkpoint generation with salted seed streams
 (:meth:`FedExperiment._recover_rollback`), up to ``max_retries`` times
 before it aborts.
+
+A chaos drill (``chaos/``; ref common.py:692-700, 739, 850, 953, 1009,
+1589) attaches a ``FaultInjector`` as :attr:`FedExperiment.chaos`; the loop
+checks it at its boundaries (:meth:`FedExperiment._chaos`): before a train
+dispatch (``superstep``, a K=1 round's too), before each metrics fetch
+(``fetch``), before the checkpoint write (``checkpoint``) and before a
+streamed cohort's prefetch (``prefetch``).  Its ``ChaosKill`` is a
+``BaseException``: nothing on these paths catches it.
+
+:class:`ArmsExperiment` (``multi/``; ref common.py:1603-1853) runs the E
+arms of ``cfg['arms']`` in one superstep a dispatch; the one-trajectory
+loop refuses an arms cfg.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import os
@@ -108,10 +121,12 @@ from ..data import (bptt_windows, fetch_dataset, label_split_masks, process_data
                     split_dataset, stack_client_shards, stack_client_token_rows, stack_windows)
 from ..data.datasets import DATASET_STATS
 from ..data.stats import dataset_stats
-from ..fed.core import (round_seed, round_users, superstep_rate_schedule,  # noqa: F401
-                        superstep_user_schedule, validate_width_geometry)
+from ..fed.core import (arm_stream_seeds, round_seed, round_users,  # noqa: F401
+                        superstep_rate_schedule, superstep_user_schedule,
+                        validate_width_geometry)
 from ..fed.sampling import ScheduleCommitment, resolve_sampler_cfg
 from ..models import make_model
+from ..multi import resolve_arms_cfg
 from ..sched import resolve_schedule_cfg
 from ..fed.sliced import SlicedFederation
 from ..parallel import Evaluator, GroupedRoundEngine, RoundEngine
@@ -274,8 +289,21 @@ class FedExperiment:
     """One federated experiment (one seed): data staging, engine,
     evaluator, logger and the checkpoint loop."""
 
+    #: whether the loop runs experiment arms (:class:`ArmsExperiment`)
+    _arms_capable = False
+
     def __init__(self, cfg: Dict[str, Any], seed: int):
         C.check_ported(cfg)
+        # experiment arms (multi/): this loop runs one trajectory; an arms cfg
+        # needs the multiplexed loop (ref entry/common.py:528-540)
+        self.arms_spec = resolve_arms_cfg(cfg)
+        if self.arms_spec is not None and not self._arms_capable:
+            raise ValueError(
+                "cfg['arms'] needs the multiplexed driver loop: run the "
+                "sweep front-end (python -m heterofl_tpu_torch.multi.sweep) or "
+                "construct entry.common.ArmsExperiment directly -- the "
+                "single-trajectory FedExperiment loop cannot thread "
+                "per-arm checkpoints/logs")
         self.seed = seed
         self.device = resolve_device(cfg)
         self.rng = np.random.default_rng(seed)
@@ -357,6 +385,9 @@ class FedExperiment:
         self._rollback_attempts = 0  # since the last clean checkpoint
         self._first_done = self._profiled = False  # profile_dir: the first steady dispatch
         self.profile_path: Optional[str] = None
+        # a chaos drill's FaultInjector (chaos/), attached by the drill; None
+        # outside drills, where each boundary's check is one attribute test
+        self.chaos = None
 
     @property
     def _supersteps(self) -> bool:
@@ -536,6 +567,7 @@ class FedExperiment:
         queue where a draw would read state not yet fetched."""
         if not self.stream_prefetch:
             return
+        self._chaos("prefetch")
         last = self.cfg["num_epochs"]["global"]
         e = self._next_cohorts[-1][0] + self._next_cohorts[-1][1] if self._next_cohorts \
             else epoch0
@@ -563,6 +595,13 @@ class FedExperiment:
                            self.num_active, self.sampler, self.rng,
                            self.sched.avail_row(epoch))
 
+    def _chaos(self, point: str) -> None:
+        """A chaos drill's kill check at the loop boundary ``point`` (ref
+        entry/common.py:692-697): raises :class:`~..chaos.ChaosKill` where
+        the attached plan schedules a death; nothing outside drills."""
+        if self.chaos is not None:
+            self.chaos.check(point)
+
     def train_round(self, P: torch.Tensor, epoch: int, lr: float) -> torch.Tensor:
         """One round from the global flat params ``P``: the cohort, then
         local training and aggregation, the engine drawing the cohort's
@@ -571,6 +610,7 @@ class FedExperiment:
         rows) go through the metrics pipeline (fetched now at
         ``metrics_fetch_every`` 1) and are logged when fetched
         (:meth:`_log_k1`)."""
+        self._chaos("superstep")  # the K=1 dispatch boundary
         with self.phase_timer.phase("sample"):
             user_idx = self.sample_users(epoch)
         t0 = time.time()
@@ -584,6 +624,7 @@ class FedExperiment:
         pending = PendingMetrics({k: v for k, v in ms.items() if torch.is_tensor(v)},
                                  lambda fetched, host=host: dict(fetched, **host))
         tag = {"epoch": epoch, "lr": lr, "users": user_idx, "t0": t0}
+        self._chaos("fetch")
         with self.phase_timer.phase("fetch"):
             due = self.metrics_pipe.push(tag, pending)  # the fetch waits for the last kernel
         for tag, sums in due:
@@ -597,6 +638,8 @@ class FedExperiment:
 
     def _drain_metrics(self) -> None:
         """Log every round whose metrics the pipeline still holds."""
+        if len(self.metrics_pipe):
+            self._chaos("fetch")
         with self.phase_timer.phase("fetch"):
             due = self.metrics_pipe.flush()
         for tag, out in due:
@@ -827,6 +870,7 @@ class FedExperiment:
         when ``eval_interval`` divides it, and the run's last), then the
         engine's ``train_superstep``; its metrics go through the pipeline
         and are logged round by round when fetched (:meth:`_log_superstep`)."""
+        self._chaos("superstep")
         cfg = self.cfg
         last = cfg["num_epochs"]["global"]
         lrs = superstep_lrs(self.scheduler, epoch0, k)
@@ -864,6 +908,7 @@ class FedExperiment:
             self._profile_stop(prof)
         tag = {"epoch0": epoch0, "k": k, "users": users, "lrs": lrs, "t0": t0,
                "pending": pending}
+        self._chaos("fetch")
         with self.phase_timer.phase("fetch"):
             due = self.metrics_pipe.push(tag, pending)
         for tag, out in due:
@@ -929,8 +974,8 @@ class FedExperiment:
     # -- the error-feedback residual in a blob: the reference's [clients,
     # slots, total] carry in its flat layout (under a per-level map, each
     # lossy level's columns in that level's sliced layout), one participant
-    def _resid_to_blob(self) -> Optional[np.ndarray]:
-        resid = self.engine.wire_resid_host()
+    def _resid_to_blob(self, resid=None) -> Optional[np.ndarray]:
+        resid = self.engine.wire_resid_host() if resid is None else resid
         if resid is None:
             return None
         return np.concatenate([flat_to_jax(resid[:, off:off + spec.total], spec.shapes,
@@ -1188,6 +1233,7 @@ class FedExperiment:
             rec = self.history[-1]
         else:  # the round's metrics are still in the pipeline: its record takes this later
             rec = self._checkpoint_recs.setdefault(epoch, {"epoch": epoch})
+        self._chaos("checkpoint")
         with self._trace_span("checkpoint", {"epoch": int(epoch)}):
             write_checkpoint(cfg["output_dir"], self.tag, blob, self.checkpoint_keep, is_best,
                              rec)
@@ -1196,6 +1242,254 @@ class FedExperiment:
         # rollback budget for the next incident
         self._rollback_attempts = 0
         return P, pivot, epoch + 1
+
+
+class ArmsExperiment(FedExperiment):
+    """The multiplexed loop (ref entry/common.py:1603-1853): the E arms of
+    ``cfg['arms']`` (``multi/``) trained in one superstep a dispatch, on the
+    base experiment's data, engine and evaluation operands.  Where the arms
+    surface on the host it keeps one of each per arm: the initial params
+    (from the arm's stream root, so the identity arm inits as a solo run),
+    the ``perm`` stream under the masked engine (the identity arm a copy of
+    the run's, the others seeded from their roots; the grouped engine's
+    shared schedule draws from the run's), the ReduceLROnPlateau state
+    (stepped on the arm's own fused Global loss), the watchdog, the best
+    pivot and an exportable checkpoint ``{tag}_arms{E}_a{e}`` beside the
+    multiplexed resume blob ``{tag}_arms{E}``.  The log holds a
+    ``{"tag": "arms", "event": "train" | "eval", "arm": e, ...}`` line per
+    arm and round.  Every iteration is a superstep (``superstep_rounds``
+    K, the last clamped), its metrics fetched at once: one copy for every
+    arm; a resume starts at a superstep boundary.  The watchdog's
+    ``rollback`` is refused."""
+
+    _arms_capable = True
+
+    def __init__(self, cfg: Dict[str, Any], seed: int):
+        super().__init__(cfg, seed)
+        if self.arms_spec is None:
+            raise ValueError("ArmsExperiment needs cfg['arms'] (an int "
+                             "count or a {count, seeds, lr_scales} dict)")
+        E = self.arms_spec.count
+        self._plateau = isinstance(self.scheduler, PlateauScheduler)
+        self._arm_scheds = [make_scheduler(self.cfg) for _ in range(E)] \
+            if self._plateau else None
+        # the spike detector's window is a trajectory's: one watchdog an arm
+        self._arm_watchdogs = [Watchdog(self.obs_spec.watchdog) for _ in range(E)] \
+            if self.watchdog is not None else None
+        if self.obs_spec.watchdog is not None \
+                and self.obs_spec.watchdog.action == "rollback":
+            raise ValueError(
+                "watchdog action='rollback' cannot combine with arms yet: "
+                "one arm's trip would roll every arm back, and the "
+                "multiplexed loop has no per-arm recovery (a ROADMAP "
+                "follow-on); use 'warn'/'abort' for arms runs")
+        self.arm_seeds = arm_stream_seeds(seed, self.arms_spec.seeds)
+        self.arm_rngs: List[np.random.Generator] = []
+        # each dispatch's seconds, its rounds' and evaluations' (device clock
+        # on a GPU, from marks recorded on the stream)
+        self.dispatch_seconds: List[float] = []
+
+    def _arms_tag(self) -> str:
+        return f"{self.tag}_arms{self.arms_spec.count}"
+
+    def _arm_tag(self, e: int) -> str:
+        return f"{self._arms_tag()}_a{e}"
+
+    def _init_params(self) -> torch.Tensor:
+        """The arms' initial flat params ``[E, n]``: arm e's model initialised
+        from its stream root, as a run with that seed initialises its own."""
+        rows = []
+        for s in self.arm_seeds:
+            model = self.model if s == self.seed else \
+                make_model(self.cfg).init_(torch.Generator().manual_seed(s))
+            rows.append(self.engine.flatten(model.params()))
+        return torch.stack(rows)
+
+    def _arm_lrs(self, epoch0: int, k: int) -> np.ndarray:
+        """``[E, k]`` float32: each arm's schedule (its own plateau state,
+        or the shared schedule) times its ``lr_scale``."""
+        return np.stack([superstep_lrs(self._arm_scheds[e] if self._plateau else self.scheduler,
+                                       epoch0, k) * np.float32(scale)
+                         for e, scale in enumerate(self.arms_spec.lr_scales)])
+
+    def _dispatch(self, Ps: torch.Tensor, epoch0: int, k: int, mask):
+        """One multiplexed superstep -> ``(new params [E, n], pending
+        metrics, the cohorts, the [E, k] learning rates)``: the masked
+        engine's cohorts and rates drawn on each arm's stream, the grouped
+        engine's one schedule on the run's (ref entry/common.py:1691-1720)."""
+        self._chaos("superstep")
+        cfg, E = self.cfg, self.arms_spec.count
+        fused = self._fused_eval(None) if any(mask) else None
+        lrs = self._arm_lrs(epoch0, k)
+        draw = lambda seed, rng: superstep_user_schedule(  # noqa: E731
+            seed, epoch0, k, cfg["num_users"], self.num_active, self.sampler, rng, self.sched)
+        with self.phase_timer.phase("sample"):
+            if C.resolve_strategy_cfg(cfg) == "grouped":
+                users = draw(self.stream_seed, self.rng)
+                rates = superstep_rate_schedule(self.stream_seed, epoch0, k, cfg, users)
+            else:
+                users = np.stack([draw(self.arm_seeds[e], self.arm_rngs[e]) for e in range(E)])
+                rates = np.stack([superstep_rate_schedule(self.arm_seeds[e], epoch0, k, cfg,
+                                                          users[e]) for e in range(E)])
+        with self.phase_timer.phase("dispatch"):
+            Ps, pending = self.engine.train_superstep(Ps, self.stream_seed, epoch0, k,
+                                                      self.train_data, users, rates, lrs,
+                                                      mask if fused else None, fused)
+        return Ps, pending, users, lrs
+
+    def _observe_arm(self, e: int, epoch: int, probes: Dict[str, Any], ms) -> None:
+        """:meth:`FedExperiment._observe` of arm ``e``: its ``probes`` event
+        carries ``arm``, and its own watchdog checks it (ref
+        entry/common.py:1659-1681)."""
+        logger = self.logger
+        loss = None
+        n = float(np.sum(ms["n"]))
+        if n > 0:
+            loss = float(np.sum(ms["loss_sum"])) / n
+        logger.emit({"event": "probes", "arm": e, "epoch": int(epoch), "loss": loss, **probes})
+        if self._arm_watchdogs is not None:
+            try:
+                self._arm_watchdogs[e].check(epoch, probes=probes, loss=loss,
+                                             emit=lambda ev: logger.emit({**ev, "arm": e}))
+            except WatchdogError:
+                logger.flush()  # the abort's evidence on disk before the unwind
+                raise
+
+    def _log_arms(self, out, epoch0: int, k: int, users, lrs, dt: float, history,
+                  seconds: List[float]):
+        """Log one fetched superstep of every arm (``seconds``: its rounds',
+        arm after arm) -> each arm's evaluated Global metrics (None where
+        the superstep did not evaluate)."""
+        E, logger = self.arms_spec.count, self.logger
+        evaluated: List[Optional[Dict[str, float]]] = [None] * E
+        for e, arm_out in enumerate(out["arms"]):
+            rounds = arm_out["train"] if isinstance(arm_out, dict) else arm_out
+            evals = {ev["epoch"]: ev for ev in arm_out.get("eval", [])} \
+                if isinstance(arm_out, dict) else {}
+            probes = arm_out.get("obs") if isinstance(arm_out, dict) else None
+            cohort = users[e] if np.asarray(users).ndim == 3 else users
+            for r in range(k):
+                epoch, ms = epoch0 + r, rounds[r]
+                if probes:
+                    self._observe_arm(e, epoch, probes[r], ms)
+                n = float(np.sum(ms["n"]))
+                named = summarize_sums(ms, kind=self.kind)
+                rec = {"event": "train", "arm": e, "epoch": epoch, "lr": float(lrs[e][r]),
+                       "loss": float(np.sum(ms["loss_sum"])) / n if n > 0 else None, "n": n,
+                       "dt": dt / (k * E)}
+                logger.emit(rec, tag="arms")
+                score = METRICS[self.kind][1]
+                history[e].append({**rec, "seconds": seconds[e * k + r],
+                                   "users": np.asarray(cohort[r]).tolist(),
+                                   "user_rates": np.asarray(ms["rate"]).tolist(),
+                                   score.lower(): named.get(f"Local-{score}", 0.0)})
+                ev = evals.get(epoch)
+                if ev is None:
+                    continue
+                g = summarize_sums(ev["global"], prefix="Global-", kind=self.kind)
+                if self.kind == "vision" and ev["local"]:
+                    g.update(summarize_sums(ev["local"]))
+                logger.emit({"event": "eval", "arm": e, "epoch": epoch,
+                             **{kk: float(v) for kk, v in g.items()}}, tag="arms")
+                history[e][-1].update(g)
+                evaluated[e] = g
+                if self._plateau:  # the arm's own test Global loss, as a solo run's
+                    self._arm_scheds[e].step_metric(g.get("Global-Loss", 0.0))
+        return evaluated
+
+    def _arms_resid_to_blob(self) -> Optional[np.ndarray]:
+        """The arms' residuals ``[E, 1, slots, total]``, each an arm's carry
+        in a solo blob's layout; None before the first compressed round."""
+        resid = self.engine.wire_resid_host()
+        return None if resid is None else np.stack([self._resid_to_blob(r) for r in resid])
+
+    def run(self, pivot_metric: str = "Global-Accuracy", pivot_mode: str = "max"
+            ) -> Dict[str, Any]:
+        """Resume the multiplexed blob (per ``resume_mode``), then train
+        every arm to ``num_epochs.global``, a checkpoint an arm and the
+        multiplexed blob at every superstep boundary -> ``{"params": [arm
+        e's params], "history": [arm e's round records], "pivots",
+        "wire_resid", "arms", "data_split", "label_split"}``."""
+        cfg, E = self.cfg, self.arms_spec.count
+        tag = self._arms_tag()
+        blob = resume(cfg["output_dir"], tag, cfg["resume_mode"])
+        if blob and blob.get("data_split") is not None:
+            data_split, label_split = blob["data_split"], blob["label_split"]
+        else:
+            data_split, label_split = self.make_splits()
+        self.stage(data_split, label_split)
+        self.logger = logger = Logger(os.path.join(cfg["output_dir"], "runs", f"train_{tag}"),
+                                      use_tensorboard=bool(cfg.get("use_tensorboard")))
+        # each identity arm replays the run's perm stream from here (after the split)
+        self.arm_rngs = [copy.deepcopy(self.rng) if s is None else np.random.default_rng(a)
+                         for s, a in zip(self.arms_spec.seeds, self.arm_seeds)]
+        Ps = self._init_params()
+        epoch = 1
+        pivots = [-math.inf if pivot_mode == "max" else math.inf] * E
+        if blob:
+            Ps = torch.stack([self.engine.flatten(params_from_jax(p, self.perms))
+                              for p in blob["params"]])
+            epoch = blob.get("epoch", 1)
+            pivots = list(blob.get("arm_pivots", pivots))
+            if blob.get("wire_resid") is not None and self.engine.lossy:
+                self.engine.set_wire_resid(np.stack([self._resid_from_blob(r)
+                                                     for r in blob["wire_resid"]]))
+            for sch, st in zip(self._arm_scheds or [], blob.get("arm_scheds") or []):
+                sch.load_state_dict(st)
+            if blob.get("sampler_state") is not None:
+                self.rng.bit_generator.state = blob["sampler_state"]
+            for rng, st in zip(self.arm_rngs, blob.get("arm_sampler_states") or []):
+                rng.bit_generator.state = st
+        last, K = cfg["num_epochs"]["global"], self.superstep_rounds
+        history: List[List[Dict[str, Any]]] = [[] for _ in range(E)]
+        while epoch <= last:
+            k = min(K, last - epoch + 1)
+            mask = [(epoch + r) % self.eval_interval == 0 or epoch + r == last for r in range(k)]
+            t0 = time.time()
+            Ps, pending, users, lrs = self._dispatch(Ps, epoch, k, mask)
+            self._chaos("fetch")
+            with self.phase_timer.phase("fetch"):
+                out = pending.fetch()  # one copy for every arm
+            dt = time.time() - t0
+            secs = pending.seconds
+            self.dispatch_seconds.append(sum(secs["train"]) + sum(secs["eval"]))
+            logger.safe(True)
+            evaluated = self._log_arms(out, epoch, k, users, lrs, dt, history, secs["train"])
+            epoch_end = epoch + k - 1
+            host = Ps.cpu()
+            arm_params = [params_to_jax(self.engine.unflatten(host[e]), self.perms)
+                          for e in range(E)]
+            self._chaos("checkpoint")
+            keep, base = self.checkpoint_keep, {kk: v for kk, v in cfg.items() if kk != "vocab"}
+            for e in range(E):
+                g = evaluated[e]
+                cur = g.get(pivot_metric) if g else None
+                is_best = pivot_improves(cur, pivots[e], pivot_mode)
+                if is_best:
+                    pivots[e] = cur
+                # arm e's exportable checkpoint: its params and stream identity
+                save_checkpoint(checkpoint_path(cfg["output_dir"], self._arm_tag(e)),
+                                {"cfg": base, "arm": e, "arm_seed": self.arms_spec.seeds[e],
+                                 "lr_scale": self.arms_spec.lr_scales[e], "epoch": epoch_end + 1,
+                                 "params": arm_params[e], "pivot": pivots[e]}, keep=keep)
+                if is_best:
+                    copy_best(cfg["output_dir"], self._arm_tag(e))
+            save_checkpoint(checkpoint_path(cfg["output_dir"], tag), {
+                "cfg": base, "epoch": epoch_end + 1, "data_split": data_split,
+                "label_split": label_split, "params": arm_params, "arm_pivots": pivots,
+                "wire_resid": self._arms_resid_to_blob(),
+                "arm_scheds": [sch.state_dict() for sch in self._arm_scheds]
+                if self._arm_scheds else None,
+                "sampler_state": self.rng.bit_generator.state,
+                "arm_sampler_states": [rng.bit_generator.state for rng in self.arm_rngs]},
+                keep=keep)
+            logger.safe(False)
+            epoch = epoch_end + 1
+        return {"params": [{kk: v.clone() for kk, v in self.engine.unflatten(Ps[e]).items()}
+                           for e in range(E)],
+                "history": history, "pivots": pivots, "arms": self.arms_spec,
+                "wire_resid": self.engine.wire_resid_host(), "data_split": data_split,
+                "label_split": label_split}
 
 
 def run_main(description: str, model_default: str, data_default: str,

@@ -30,13 +30,13 @@ takes the next k draws of that same stream; the reference's superstep draws
 ``jax.random.permutation`` there instead, which torch cannot reproduce.
 A schedule's availability row filters either draw (:func:`round_users`),
 and :func:`client_alive` draws the round's failures from the port's own
-stream.
+stream.  An experiment arm roots its draws at :func:`arm_stream_seed`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +79,32 @@ def round_rates(round_seed: int, cfg: Dict[str, Any],
     the one definition of the rate stream, used by the experiment loop and
     by the round engine when it is handed no rates."""
     return sample_model_rates(rate_generator(round_seed), cfg, user_idx)
+
+
+#: salt of the per-arm stream derivation (the reference's ``ARM_STREAM_SALT``)
+ARM_STREAM_SALT = 0x4152
+
+
+def arm_stream_seed(seed: int, arm_seed: Optional[int]) -> int:
+    """The root of an experiment arm's seed stream (``multi/``): ``seed``
+    itself for the identity arm (``arm_seed`` None), else a function of
+    (``seed``, :data:`ARM_STREAM_SALT`, ``arm_seed``).  Every per-round draw
+    of the arm (its cohort under ``prp``, its dynamic rates, its clients'
+    generators, deadline budgets and failures) descends from it through
+    :func:`round_seed`, as a run's from its seed, so an arm replays a solo
+    run with the same root, and the identity arm replays the unbatched run.
+    The reference folds the seed into the host key
+    (``fold_in(fold_in(key, ARM_STREAM_SALT), s)``, fed/core.py:108-124),
+    which torch does not reproduce."""
+    if arm_seed is None:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), ARM_STREAM_SALT, int(arm_seed)]
+                                      ).generate_state(1)[0])
+
+
+def arm_stream_seeds(seed: int, arm_seeds: Sequence[Optional[int]]) -> List[int]:
+    """:func:`arm_stream_seed` of each arm, in arm order."""
+    return [arm_stream_seed(seed, s) for s in arm_seeds]
 
 
 def round_seed(seed: int, epoch: int) -> int:

@@ -184,7 +184,12 @@ class Evaluator:
 class FusedEval:
     """The evaluation inside a superstep: :meth:`run` evaluates flat params
     ``P`` at an epoch into device sums, :meth:`assemble` turns the fetched
-    sums into the host path's results."""
+    sums into the host path's results.  Under experiment arms each arm's
+    rounds call :meth:`run` on that arm's params against these same staged
+    operands and captured forwards (the reference's ``_ArmsFusedEval``,
+    round_engine.py:153-200): nothing is staged or captured again an arm,
+    and :meth:`run` returns new tensors, so one arm's sums are not
+    overwritten by the next's before the superstep's fetch."""
 
     def __init__(self, evaluator: Evaluator, spec: FlatSpec, sbn_batches, local_eval,
                  global_eval):

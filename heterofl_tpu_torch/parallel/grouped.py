@@ -105,6 +105,13 @@ before they are summed (a row gated to zero count, its values selected to
 zero); the probes read the merged global sums after the codec.  The K=1
 round refuses the probes and the poison with the reference's messages;
 the superstep (and the stream store's one-round superstep) runs both.
+
+**Experiment arms** (``multi/``; ref grouped.py:960-1010): the superstep
+takes the arms' params ``[E, n]``; the ``[k, A]`` schedules, and so each
+round's levels, are shared by the arms, each arm's stream draws its
+clients' generators, budgets and failures, and the arms train one after
+another through the same captured (level, G) steps (dense codec only,
+no probes or gate, as the reference refuses them).
 """
 
 from __future__ import annotations
@@ -253,6 +260,7 @@ class GroupedRoundEngine(FlatParams):
         self._resid = None
         self._init_sched(cfg)
         self._init_obs(cfg)
+        self._init_arms(cfg)
         # the superstep's captured batched steps, one a (level, G) met, their
         # static buffers and generators
         self.graphs = StepGraphs(device)
@@ -464,6 +472,7 @@ class GroupedRoundEngine(FlatParams):
         the probes or the chaos poison, each refused with the reference's
         message, grouped.py:682-694 and :534-539).  The quarantine gate
         runs, its row under ``obs_gate``."""
+        self._refuse_arms_k1()
         if self.lossy:
             raise ValueError(
                 f"wire_codec={self.cfg['wire_codec']!r} with the grouped strategy needs the fused "
@@ -938,23 +947,61 @@ class GroupedRoundEngine(FlatParams):
         hooks, which replace a draw from the round seed, one entry a round:
         ``epoch_perms[r]`` ``{uid: [E, N]}`` raw permutations,
         ``codec_noise[r]`` the int8 codec's noise, ``step_limits[r]`` and
-        ``alive[r]`` the deadline budgets and the survivors in slot order."""
-        data, user_schedule, rate_schedule, rows = self._cohort_args(
-            "grouped", k, data, user_schedule, rate_schedule, cohort)
-        users, rates, lrs = superstep_schedules(user_schedule, rate_schedule, lrs, k)
+        ``alive[r]`` the deadline budgets and the survivors in slot order.
+
+        Under ``cfg['arms']`` (dense codec only; ref grouped.py:960-1010):
+        ``P`` is the arms' params ``[E, n]`` and ``lrs`` ``[E, k]`` (or the
+        shared ``[k]``, scaled per arm); the ``[k, A]`` schedules, and so
+        each round's levels and the codec's grid, are shared by the arms,
+        while each arm's stream (``fed.core.arm_stream_seed`` of ``seed``)
+        draws its clients' generators, deadline budgets and failures.  The
+        arms train one after another, each level's G clients of an arm in
+        one launch of kernels 1b/2b/3b, as in a solo run; the hooks take a
+        leading arm index."""
+        if self.arms is not None and cohort is not None:
+            raise ValueError(
+                "arms need the eager data path: a staged cohort holds "
+                "ONE schedule's shards, and per-arm cohorts would "
+                "multiply the staged bytes by E (a ROADMAP follow-on)")
         deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            plans = self._plans(seed, epoch0, users, rates, data, P.device, step_limits, alive,
-                                rows)
-            cmax = self.codec_slots(rates)
-            return self._superstep(
-                P, seed, epoch0, k, users, rates, lrs, eval_mask, fused_eval, self._lr,
-                lambda P, r, u, rates, rseed: self._replayed_round(
-                    P, u, rates, data, rseed, plans[r], cmax,
-                    None if epoch_perms is None else epoch_perms[r],
-                    None if codec_noise is None else codec_noise[r], epoch0 + r))
+            if self.arms is None:
+                data, user_schedule, rate_schedule, rows = self._cohort_args(
+                    "grouped", k, data, user_schedule, rate_schedule, cohort)
+                P, tree, assemble, timers = self._superstep_arm(
+                    P, seed, epoch0, k, data, user_schedule, rate_schedule, lrs, eval_mask,
+                    fused_eval, epoch_perms, codec_noise, step_limits, alive, rows)
+                return P, PendingMetrics(tree, assemble, timers)
+            if np.asarray(user_schedule).ndim != 2 or np.asarray(rate_schedule).ndim != 2:
+                raise ValueError("grouped arms share one [k, A] user and rate schedule (the "
+                                 "level-grouped slots are the arms'), not one an arm")
+
+            def hook(h, e):
+                return None if h is None else h[e]
+
+            return self._arms_superstep(
+                P, seed, k, user_schedule, rate_schedule, lrs,
+                lambda e, Pe, aseed, u, rt, lrs_e: self._superstep_arm(
+                    Pe, aseed, epoch0, k, data, u, rt, lrs_e, eval_mask, fused_eval,
+                    hook(epoch_perms, e), hook(codec_noise, e), hook(step_limits, e),
+                    hook(alive, e), None))
         finally:
             torch.backends.cudnn.deterministic = deterministic
             if cohort is not None:
                 cohort.release()
+
+    def _superstep_arm(self, P, seed, epoch0, k, data, user_schedule, rate_schedule, lrs,
+                       eval_mask, fused_eval, epoch_perms, codec_noise, step_limits, alive, rows):
+        """One trajectory's rounds of :meth:`train_superstep` (the run's, or
+        an arm's on its stream root ``seed``) -> the superstep's parts
+        (``_superstep_parts``)."""
+        users, rates, lrs = superstep_schedules(user_schedule, rate_schedule, lrs, k)
+        plans = self._plans(seed, epoch0, users, rates, data, P.device, step_limits, alive, rows)
+        cmax = self.codec_slots(rates)
+        return self._superstep_parts(
+            P, seed, epoch0, k, users, rates, lrs, eval_mask, fused_eval, self._lr,
+            lambda P, r, u, rates, rseed: self._replayed_round(
+                P, u, rates, data, rseed, plans[r], cmax,
+                None if epoch_perms is None else epoch_perms[r],
+                None if codec_noise is None else codec_noise[r], epoch0 + r))

@@ -60,12 +60,22 @@ params NaN, then ``quarantine`` gates each client's update before the sum
 round's probes on the device (``FlatParams._round_obs``).  Their rows ride
 the round's (the superstep's) one fetch and are finished on the host
 (``obs.split_probes``).  With all of them off a round runs as before.
+
+Experiment arms (``multi/``; ref round_engine.py:278-300, 483-520,
+1131-1420, 1686-1761): with ``cfg['arms']`` the superstep takes the arms'
+params stacked ``[E, n]`` and trains the arms one after another
+(:meth:`FlatParams._arms_superstep`), arm e on its own stream
+(``fed.core.arm_stream_seed``), cohorts, rates and learning rates, with its
+own wire-codec residual and its own probe and gate rows, every arm's
+clients replaying the same captured steps (arm e's params copied into the
+static buffers as any client's are); every arm's metrics ride ONE fetch.
+The K=1 round refuses arms, as the reference's does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,8 +86,10 @@ from ..compress import make_codec, resolve_codec_cfg
 from ..config import resolve_prefetch_depth
 from ..compress.codecs import compressed_sum
 from ..data.datasets import DATASET_STATS
-from ..fed.core import client_alive, combine_counted, round_rates, round_seed, to_width_rates
+from ..fed.core import (arm_stream_seeds, client_alive, combine_counted, round_rates, round_seed,
+                        to_width_rates)
 from ..models.base import FedModel
+from ..multi import ArmsSpec, resolve_arms_cfg
 from ..models.spec import label_vector, param_mask
 from ..obs import QuarantineSpec, obs_levels, resolve_quarantine_cfg, resolve_telemetry_cfg, \
     split_probes
@@ -205,6 +217,8 @@ class FlatParams:
     _quarantine: QuarantineSpec = QuarantineSpec()
     _poison: Optional[np.ndarray] = None
     _seg_ends: Optional[torch.Tensor] = None
+    arms: Optional[ArmsSpec] = None
+    _arm_resid: Optional[List[Optional[torch.Tensor]]] = None  # each arm's EF carry
 
     def _init_sched(self, cfg: Dict[str, Any]) -> None:
         """The scheduler of ``cfg`` (``schedule``, ``client_failure_rate``)."""
@@ -316,15 +330,25 @@ class FlatParams:
     def wire_resid_host(self) -> Optional[np.ndarray]:
         """Host copy of the residual carry (:meth:`resid_shape`; for a
         checkpoint); None under ``dense`` or before the first compressed
-        round."""
+        round.  Under arms each arm's, stacked ``[E, *resid_shape]``."""
+        if self.arms is not None:
+            if any(r is None for r in self._arm_resid):
+                return None
+            return torch.stack(self._arm_resid).cpu().numpy()
         return None if self._resid is None else self._resid.cpu().numpy()
 
     def set_wire_resid(self, arr) -> None:
-        """Restore the residual carry (from a checkpoint) onto the device."""
+        """Restore the residual carry (from a checkpoint) onto the device
+        (under arms ``[E, *resid_shape]``, a carry an arm)."""
         host = torch.as_tensor(np.asarray(arr, np.float32))
         want = tuple(self.resid_shape())
+        if self.arms is not None:
+            want = (self.arms.count,) + want
         if tuple(host.shape) != want:
             raise ValueError(f"wire residual of shape {tuple(host.shape)}, want {want}")
+        if self.arms is not None:
+            self._arm_resid = list(host.to(self.device).unbind(0))
+            return
         self._resid = host.to(self.device)
 
     # -- the buffered aggregation's staleness carry (ref sched/buffer.py) --
@@ -348,6 +372,82 @@ class FlatParams:
         from zeros unless they are restored first."""
         self._resid = None
         self._sched_buf = None
+        if self.arms is not None:
+            self._arm_resid = [None] * self.arms.count
+
+    # -- experiment arms (multi/) -----------------------------------------
+
+    def _init_arms(self, cfg: Dict[str, Any]) -> None:
+        """The arms of ``cfg`` (``multi.resolve_arms_cfg``, whose refusals
+        -- a streamed store, buffered aggregation, under ``grouped`` a lossy
+        codec, probes or the gate -- apply to an engine made directly too);
+        each arm's residual carry starts empty."""
+        self.arms = resolve_arms_cfg(cfg)
+        self._arm_resid = None if self.arms is None else [None] * self.arms.count
+
+    def _refuse_arms_k1(self) -> None:
+        """The K=1 round under arms: refused, with the reference's message
+        (round_engine.py:1794-1798)."""
+        if self.arms is not None:
+            raise ValueError(
+                "arms need the fused superstep (train_superstep): the K=1 "
+                "train_round path is the host-loop reference twin, which "
+                "the arms axis would fork per arm -- set superstep_rounds "
+                ">= 1 through the superstep API")
+
+    def arm_lrs(self, lrs, k: int) -> np.ndarray:
+        """The arms' learning rates, float32 ``[E, k]``: ``lrs`` itself when
+        it is ``[E, k]`` (each arm's own, as under ReduceLROnPlateau), else
+        the shared ``[k]`` schedule times each arm's ``lr_scale`` (float32
+        products, so a scale of 1 leaves the schedule's bits)."""
+        lrs = np.asarray(lrs, np.float32)
+        E = self.arms.count
+        if lrs.ndim == 2:
+            if lrs.shape != (E, k):
+                raise ValueError(f"arms learning rates of shape {lrs.shape}; want [E={E}, k={k}] "
+                                 f"or the shared [k]")
+            return lrs
+        return np.stack([lrs.reshape(-1) * np.float32(s) for s in self.arms.lr_scales])
+
+    def _arms_superstep(self, Ps: torch.Tensor, seed: int, k: int, user_schedule,
+                        rate_schedule, lrs, run_arm) -> Tuple[torch.Tensor, PendingMetrics]:
+        """The arms' superstep: the arms one after another, arm e from its
+        row ``Ps[e]`` of the stacked ``[E, n]`` params, on its stream root
+        (``fed.core.arm_stream_seed`` of ``seed``), with its cohorts and
+        rates (``user_schedule`` / ``rate_schedule`` ``[E, k, A]``, or one
+        ``[k, A]`` the arms share), its learning rates (:meth:`arm_lrs`) and
+        its residual carry; ``run_arm(e, P, arm seed, users, rates, lrs)``
+        runs one arm's rounds -> :meth:`_superstep_parts`.  Returns the new
+        params ``[E, n]`` and ONE :class:`~.staging.PendingMetrics` holding
+        every arm's sums: its fetch is one copy, yielding ``{"arms": [arm
+        e's superstep result]}``; its timers hold the arms' rounds and
+        evaluations, arm after arm."""
+        E = self.arms.count
+        if Ps.dim() != 2 or Ps.shape[0] != E:
+            raise ValueError(f"arms params of shape {tuple(Ps.shape)}; want [E={E}, n]")
+        seeds = arm_stream_seeds(seed, self.arms.seeds)
+        lrs = self.arm_lrs(lrs, k)
+
+        def per_arm(sched, e):
+            sched = np.asarray(sched)
+            return sched[e] if sched.ndim == 3 else sched
+
+        news, trees, assembles, timers = [], [], [], {"train": [], "eval": []}
+        for e in range(E):
+            self._resid = self._arm_resid[e]
+            try:
+                P, tree, assemble, tm = run_arm(e, Ps[e], seeds[e], per_arm(user_schedule, e),
+                                                per_arm(rate_schedule, e), lrs[e])
+            finally:
+                self._arm_resid[e], self._resid = self._resid, None
+            news.append(P)
+            trees.append(tree)
+            assembles.append(assemble)
+            for key in timers:
+                timers[key] += tm[key]
+        return torch.stack(news), PendingMetrics(
+            {"arms": trees},
+            lambda host: {"arms": [a(h) for a, h in zip(assembles, host["arms"])]}, timers)
 
     # -- the scheduler's slots --------------------------------------------
 
@@ -380,16 +480,22 @@ class FlatParams:
             limits = np.full(user_idx.shape, total_steps, np.int64)
         return valid, np.where(valid, np.minimum(limits, total_steps), 0)
 
-    def _superstep(self, P: torch.Tensor, seed: int, epoch0: int, k: int, user_schedule,
-                   rate_schedule, lrs, eval_mask, fused_eval, lr: torch.Tensor, round_fn
-                   ) -> Tuple[torch.Tensor, PendingMetrics]:
+    def _superstep(self, *args) -> Tuple[torch.Tensor, PendingMetrics]:
+        """:meth:`_superstep_parts` as ``(new P, its PendingMetrics)``."""
+        P, tree, assemble, timers = self._superstep_parts(*args)
+        return P, PendingMetrics(tree, assemble, timers)
+
+    def _superstep_parts(self, P: torch.Tensor, seed: int, epoch0: int, k: int, user_schedule,
+                         rate_schedule, lrs, eval_mask, fused_eval, lr: torch.Tensor, round_fn):
         """The superstep's round loop, shared by the engines: round r writes
         ``lrs[r]`` into the steps' static scalar ``lr``, runs
         ``round_fn(P, r, users, rates, round seed) -> (P, [A, 3] sums,
         reported rates, obs rows or None)``, and evaluates where
         ``eval_mask[r]`` fires; device marks around each round and
         evaluation time them.  The rounds' ``obs_*`` rows ride the one fetch
-        (under ``"obs"``, only when probes or the gate are on)."""
+        (under ``"obs"``, only when probes or the gate are on) -> ``(new P,
+        device tree, assemble, timers)``, the parts of a
+        :class:`~.staging.PendingMetrics`."""
         eval_mask = normalize_eval_mask(eval_mask, k, fused_eval)
         users, rates, lrs = superstep_schedules(user_schedule, rate_schedule, lrs, k)
         lrs_dev = torch.from_numpy(lrs).to(P.device)
@@ -411,9 +517,8 @@ class FlatParams:
         tree, levels = {"train": train, "eval": evals}, self.obs_levels
         if self.observing:
             tree["obs"] = obs
-        return P, PendingMetrics(
-            tree, lambda host: assemble_superstep(host, reported, eval_epochs, fused_eval,
-                                                  levels), timers)
+        return P, tree, lambda host: assemble_superstep(host, reported, eval_epochs, fused_eval,
+                                                        levels), timers
 
     # -- the streamed cohort ------------------------------------------------
 
@@ -504,6 +609,7 @@ class RoundEngine(FlatParams):
         self._resid = None
         self._init_sched(cfg)
         self._init_obs(cfg)
+        self._init_arms(cfg)
         self._label_axes = [(k, s.label_axis) for k, s in model.specs.items()
                             if s.label_axis is not None]
         # flat width masks (and the group norms' channel masks) per width
@@ -767,6 +873,7 @@ class RoundEngine(FlatParams):
         probes or the quarantine gate on, the metrics also hold the round's
         ``obs_*`` rows (:meth:`_round_obs`; device tensors, and the host step
         fractions), which ``obs.split_probes`` finishes once fetched."""
+        self._refuse_arms_k1()
         if self._poison is not None and epoch is None:
             raise ValueError("chaos_poison needs epoch= on train_round (the "
                              "K=1 program matches poisons by (round, uid))")
@@ -1007,13 +1114,36 @@ class RoundEngine(FlatParams):
         the cohort's, ``rate_schedule`` to its rates); the cohort is released
         once the superstep's reads are enqueued.  The steps are the eager
         stacks' steps on the same rows, so the result is the same bit for
-        bit."""
+        bit.
+
+        Under ``cfg['arms']`` (:meth:`FlatParams._arms_superstep`): ``P`` is
+        the arms' params ``[E, n]``, ``seed`` the run's stream root (each
+        arm's own derived from it), ``user_schedule`` and ``rate_schedule``
+        ``[E, k, A]`` (or ``[k, A]`` shared), ``lrs`` ``[E, k]`` (or the
+        shared ``[k]``, scaled per arm); the hooks take a leading arm index
+        (``epoch_perms[e][r]``, ...); the result is ``[E, n]`` and the fetch
+        ``{"arms": [...]}``."""
+        def hook(h, r):
+            return None if h is None else h[r]
+
+        if self.arms is not None:
+            if cohort is not None:
+                raise ValueError(
+                    "arms need the eager data path: a staged cohort holds "
+                    "ONE schedule's shards, and per-arm cohorts would "
+                    "multiply the staged bytes by E (a ROADMAP follow-on)")
+            st = self._slots(P[0], data)
+            return self._arms_superstep(
+                P, seed, k, user_schedule, rate_schedule, lrs,
+                lambda e, Pe, aseed, users, rates, lrs_e: self._superstep_parts(
+                    Pe, aseed, epoch0, k, users, rates, lrs_e, eval_mask, fused_eval, st["lr"],
+                    lambda P, r, u, rt, rseed: self._replayed_round(
+                        P, u, rt, data, rseed, None, hook(hook(epoch_perms, e), r),
+                        hook(hook(codec_noise, e), r), hook(hook(step_limits, e), r),
+                        hook(hook(alive, e), r), epoch0 + r)))
         data, user_schedule, rate_schedule, rows = self._cohort_args(
             "masked", k, data, user_schedule, rate_schedule, cohort)
         st = self._slots(P, data)
-
-        def hook(h, r):
-            return None if h is None else h[r]
 
         try:
             return self._superstep(

@@ -49,11 +49,15 @@ def test_process_control_matches_reference(control, data_name, model_name):
 def test_unported_keys_raise_naming_the_key():
     cfg = PC.default_cfg()
     cfg["control"] = PC.parse_control_name("1_100_0.1_iid_fix_a1_bn_1_1")
-    for key, value in (("data_placement", "sharded"), ("arms", {"lr": [0.1, 0.2]}),
-                       ("level_placement", "slices"), ("world_size", 2)):
+    for key, value in (("data_placement", "sharded"), ("level_placement", "slices"),
+                       ("world_size", 2)):
         bad = dict(cfg, **{key: value})
         with pytest.raises(NotImplementedError, match=key):
             PC.process_control(bad)
+    # experiment arms are ported: validated with the reference's messages
+    assert PC.process_control(dict(cfg, arms=2))["arms"] == 2
+    with pytest.raises(ValueError, match="Not valid arms keys"):
+        PC.process_control(dict(cfg, arms={"lr": [0.1, 0.2]}))
     # observability and its guards are ported
     done = PC.process_control(dict(cfg, telemetry="hist", quarantine="on", ledger="on",
                                    watchdog={"action": "rollback"}, chaos_poison=[[1, 2]]))

@@ -87,4 +87,34 @@ def test_no_port_file_imports_jax_or_reference():
             "heterofl_tpu_torch/obs/hist.py", "heterofl_tpu_torch/obs/watchdog.py",
             "heterofl_tpu_torch/obs/trace.py", "heterofl_tpu_torch/obs/ledger.py",
             "heterofl_tpu_torch/obs/report.py", "heterofl_tpu_torch/chaos/__init__.py",
-            "heterofl_tpu_torch/chaos/inject.py"} <= scanned
+            "heterofl_tpu_torch/chaos/inject.py", "heterofl_tpu_torch/chaos/drill.py",
+            "heterofl_tpu_torch/multi/__init__.py", "heterofl_tpu_torch/multi/sweep.py"} <= scanned
+
+
+def test_python_m_tools_load_no_jax_and_no_reference(tmp_path):
+    """The ``python -m`` tools of the chaos harness and the arms, run to
+    their end in a fresh interpreter (the drill's CPU run, the sweep's dry
+    run), leave no ``jax`` and no ``heterofl_tpu`` module in
+    ``sys.modules``; ``multi/`` alone neither."""
+    runs = [("heterofl_tpu_torch.chaos.drill", ["--device", "cpu", "--json", "--out",
+                                                 str(tmp_path / "drill")]),
+            ("heterofl_tpu_torch.multi.sweep", ["--device", "cpu", "--dry_run", "1", "--grid",
+                                                '{"seed": [0, 1], "wire_codec": ["dense"]}']),
+            ("heterofl_tpu_torch.multi", None)]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    for mod, argv in runs:
+        run = f"importlib.import_module({mod!r})" if argv is None else (
+            f"sys.argv = [{mod!r}] + {argv!r}\n"
+            "try:\n"
+            f"    runpy.run_module({mod!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code")
+        code = ("import importlib, runpy, sys\n" + run + "\n"
+                "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+                "('jax', 'jaxlib', 'heterofl_tpu'))\n"
+                "print('BAD', len(bad), bad[:5])\n")
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             cwd=ROOT, env=env, timeout=300)
+        assert out.returncode == 0, (mod, out.stderr[-2000:])
+        assert "BAD 0 []" in out.stdout, (mod, out.stdout[-500:])
