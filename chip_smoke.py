@@ -206,7 +206,22 @@ each prints its seconds:
    corrupted live blob falling back a generation, each resume equal to
    the uninterrupted run bit for bit; the poison drill in ``quarantine``
    and ``rollback`` modes; all under cuDNN's deterministic algorithms;
-14. the ``kernels`` JSON line (launches from the int8 path, the batched
+14. the model profile and the runtime audit: (a)
+   ``analysis.process`` over the result bundles the earlier phases' test
+   entries wrote, each aggregate equal to its bundle's logged metric and
+   in the csv; (b) ``analysis.summary.make_summary`` at full width on the
+   card for the headline ResNet-18, the MNIST conv twin and the
+   transformer, levels a-e, ``num_params`` equal to the CPU's
+   ``fed.core.level_param_table`` and ``FlopCounterMode``'s forward FLOPs
+   on the card equal to the CPU's, each level's params, FLOPs a step and
+   wire bytes printed; (c) ``python -m heterofl_tpu_torch.staticcheck
+   --device cuda --flagship --diff-baseline`` in-process with zero
+   findings against ``baseline.json``'s ``cuda`` section (launches a
+   replayed step, captures, graph pool and peak MB, wire bytes of each
+   program printed; every kernel launched under it); (d) the model FLOP
+   rate of a replayed masked level-a step (``level_flop_table`` over its
+   device ms) beside the card's name and power limit;
+15. the ``kernels`` JSON line (launches from the int8 path, the batched
    kernels' from the grouped path; per path in ``launches_by_path``, and
    the superstep's launches from replays -- a graph's captured launches
    times its replays -- in ``replayed_launches_by_path``), then the ``ok``
@@ -491,46 +506,11 @@ def kernels_per_call(fn, calls: int = 20):
 
 def graph_kernels(fn) -> int:
     """Kernels one call of ``fn`` launches, counted as the kernel nodes of
-    its capture in a CUDA graph -- CUDA's own list
-    (``cuGraphGetNodes``, ``cuGraphNodeGetType``; memsets and copies not
-    counted), exact where a profiler trace can lose records.  A warm-up
-    call runs on a side stream first."""
-    import ctypes
+    its capture in a CUDA graph (``heterofl_tpu_torch.staticcheck.kernels.
+    graph_kernels``; exact where a profiler trace can lose records)."""
+    from heterofl_tpu_torch.staticcheck.kernels import graph_kernels as count
 
-    import torch
-
-    from heterofl_tpu_torch.parallel.step_graph import gc_paused
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with gc_paused(), torch.cuda.graph(graph):
-        fn()
-    cuda = ctypes.CDLL("libcuda.so.1")
-    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.POINTER(ctypes.c_size_t)]
-    cuda.cuGraphGetNodes.restype = ctypes.c_int
-    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-    cuda.cuGraphNodeGetType.restype = ctypes.c_int
-    raw, num = graph.raw_cuda_graph(), ctypes.c_size_t(0)
-    rc = cuda.cuGraphGetNodes(raw, None, ctypes.byref(num))  # the count
-    nodes = (ctypes.c_void_p * num.value)()
-    if rc == 0:
-        rc = cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(num))  # the nodes
-    if rc != 0:
-        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
-    kinds = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        rc = cuda.cuGraphNodeGetType(node, ctypes.byref(kind))
-        if rc != 0:
-            raise RuntimeError(f"cuGraphNodeGetType failed: CUresult {rc}")
-        kinds.append(kind.value)
-    return kinds.count(0)  # CU_GRAPH_NODE_TYPE_KERNEL
+    return count(fn)
 
 
 #: the device kernel that each launch counter counts, one a counted call
@@ -4062,6 +4042,185 @@ def drill_path(torch, counters, out_dir: str):
     return out
 
 
+# --- the model profile and the runtime audit --------------------------------------
+
+#: phase 14's models: the headline ResNet-18, the MNIST conv twin, the
+#: transformer (synthetic WikiText2's 512-token vocabulary)
+PROFILE_MODELS = (("resnet18", "CIFAR10"), ("conv", "MNIST"), ("transformer", "WikiText2"))
+FLOP_RATE_REPLAYS = 50  # replays of the level-a step timed for its FLOP rate
+
+
+def profile_cfg(model_name: str, data_name: str):
+    """The headline control at full width for ``model_name`` on
+    ``data_name``, the BN kernels on, with the dataset's fields set."""
+    from heterofl_tpu_torch import config as C
+
+    if model_name == "transformer":
+        return lm_cfg()
+    cfg = C.default_cfg()
+    cfg.update(control=C.parse_control_name(HEADLINE), model_name=model_name,
+               data_name=data_name, pallas_norm=True)
+    cfg = C.process_control(cfg)
+    cfg["classes_size"] = 10
+    return cfg
+
+
+def profile_phase(torch, out_dir: str) -> dict:
+    """(a) ``analysis.summary.make_summary`` at full width on the card for
+    each of :data:`PROFILE_MODELS`, levels a-e: ``num_params`` equal to the
+    CPU's ``fed.core.level_param_table``, the forward's FLOPs
+    (``FlopCounterMode``) on the card equal to the same count on the CPU;
+    each level's params, training FLOPs a step (``level_flop_table``) and
+    wire bytes a round (dense and int8, ``level_codec_byte_table``)
+    printed -> ``{model: {level: row}}``."""
+    from heterofl_tpu_torch.analysis.summary import make_summary, profile_model
+    from heterofl_tpu_torch.fed.core import (level_codec_byte_table, level_flop_table,
+                                             level_param_table)
+
+    out = {}
+    for model_name, data_name in PROFILE_MODELS:
+        cfg = dict(profile_cfg(model_name, data_name), output_dir=out_dir)
+        summ = make_summary(cfg, rates=list(LEVELS), device="cuda")
+        params, flops = level_param_table(cfg, LEVELS), level_flop_table(cfg, LEVELS)
+        dense, int8 = (level_codec_byte_table(cfg, c, LEVELS) for c in ("dense", "int8"))
+        rows = {}
+        for mode, rate, n, fwd, _mb in summ["rows"]:
+            cpu = profile_model(cfg, rate, device="cpu")
+            src = summ["results"][mode]["flops_source"]
+            if n != params[rate] or fwd != cpu["num_flops"] or src != "torch_flop_counter":
+                raise AssertionError(f"profile {model_name} level {mode}: params {n} against the "
+                                     f"table's {params[rate]}, forward FLOPs {fwd} on the card "
+                                     f"against {cpu['num_flops']} on the CPU ({src})")
+            rows[mode] = {"params": n, "forward_flops": fwd, "step_flops": flops[rate],
+                          "wire_dense": dense[rate], "wire_int8": int8[rate]}
+            say(f"profile {model_name} level {mode} (rate {rate:g}): {n:,} params, forward "
+                f"{fwd:.6e} FLOPs at batch {cfg['batch_size']['train']} (card == CPU), a "
+                f"training step {flops[rate]:.6e} FLOPs (level_flop_table), wire a round "
+                f"{dense[rate]:,} B dense, {int8[rate]:,} B int8")
+        out[model_name] = rows
+    return out
+
+
+def audit_phase(torch, counters, out_path: str):
+    """(b) ``python -m heterofl_tpu_torch.staticcheck --device cuda
+    --flagship --diff-baseline`` in-process: zero findings and no ratchet
+    regression against ``baseline.json``'s ``cuda`` section; each
+    program's launches a replayed step, captures, graph pool and peak MB
+    and wire bytes printed; every kernel of rows 1-4 and 1b-3b launched ->
+    ``(launches, replayed, report)``."""
+    from heterofl_tpu_torch.parallel import step_graph
+    from heterofl_tpu_torch.staticcheck.__main__ import main as staticcheck
+
+    zero(counters)
+    step_graph.reset_stats()
+    rc = staticcheck(["--device", "cuda", "--flagship", "--diff-baseline", "--out", out_path])
+    torch.cuda.synchronize()
+    launches, replayed = read(counters), dict(step_graph.REPLAYED)
+    with open(out_path) as f:
+        report = json.load(f)
+    for name, p in report["programs"].items():
+        mem = p.get("memory") or {}
+        say(f"audit {name}: launches a replayed step {p['launches']}; graphs {p['graphs']}, "
+            f"captures {p['captures']}, recompile {p['recompile']}; host_fetch "
+            f"{p['host_fetches']}; wire by level {p['wire']['levels']} (table sum "
+            f"{p['wire']['level_bytes']:,} B); peak {mem.get('peak_mb')} MB, pool {mem.get('pool_mb')} MB "
+            f"(ceilings {mem['budget']['peak_budget'] / 2 ** 20:.1f} / "
+            f"{mem['budget']['pool_budget'] / 2 ** 20:.1f} MB)")
+    fb = report["flop_budget"]
+    say(f"audit FLOP shares (tol {fb['tol']}): measured {fb['measured_shares']}, analytic "
+        f"{fb['analytic_shares']}; wire frontier {report['wire_frontier']}")
+    say(f"audit: launches {launches}; ratchet {json.dumps(report['ratchet'])[:2000]}")
+    if rc != 0:
+        raise AssertionError(f"staticcheck --device cuda --flagship --diff-baseline exited {rc}: "
+                             f"{[f for p in report['programs'].values() for f in p['findings']]}"
+                             f" {report['flop_budget'].get('findings')} {report['lint']}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"audit: a kernel never launched under the audit: {launches}")
+    return launches, replayed, report
+
+
+def flop_rate_phase(torch) -> dict:
+    """(d) A replayed masked level-a step of the headline at full width:
+    ``level_flop_table[a]`` over its device ms (CUDA events around
+    :data:`FLOP_RATE_REPLAYS` replays, the step counter reset before each)
+    -- a number for PERF.md, not a metric."""
+    from heterofl_tpu_torch.entry.common import FedExperiment
+    from heterofl_tpu_torch.fed.core import level_flop_table
+    from heterofl_tpu_torch.staticcheck.audit import default_audit_cfg
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rate_") as tmp:
+        cfg = default_audit_cfg(True, "cuda", output_dir=tmp, superstep_rounds=2)
+        exp = FedExperiment(cfg, 0)
+        exp.stage(*exp.make_splits())
+        eng = exp.engine
+        P = eng.flatten(exp.model.params())
+        step, st = eng.client_step(1.0, P, exp.train_data)
+        eng.stage_client(st, P, 1.0, 0, exp.train_data, 1)
+        for _ in range(3):
+            st["t"].zero_()
+            step.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(FLOP_RATE_REPLAYS):
+            st["t"].zero_()
+            step.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / FLOP_RATE_REPLAYS
+        flops = level_flop_table(exp.cfg, [1.0])[1.0]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    rate = flops / (ms * 1e-3)
+    say(f"FLOP rate: a replayed masked level-a headline step (batch {cfg['batch_size']['train']})"
+        f" {ms:.4f} ms on the device clock, {flops:.6e} FLOPs (level_flop_table), "
+        f"{rate / 1e12:.3f} TFLOP/s on {smi}")
+    return {"step_ms": ms, "step_flops": flops, "tflops": rate / 1e12, "card": smi}
+
+
+def process_phase(tmp: str) -> dict:
+    """(c) ``analysis.process`` over the result bundles the earlier phases'
+    test entries wrote (every ``<tmp>/*/result/*.pkl``): each directory's
+    rows aggregated and its csv written; each aggregate's mean equal to
+    the bundle's logged metric, and the csv holding it -> ``{dir: rows}``."""
+    import glob
+    import pickle
+
+    from heterofl_tpu_torch import config as C
+    from heterofl_tpu_torch.analysis import process
+
+    dirs = sorted({os.path.dirname(os.path.dirname(p))
+                   for p in glob.glob(os.path.join(tmp, "*", "result", "*.pkl"))})
+    out = {}
+    for d in dirs:
+        rows = process.load_results(d)
+        agg = process.aggregate(rows)
+        csv_path = process.export_table(agg, d)
+        with open(csv_path) as f:
+            csv = f.read()
+        for r in rows:
+            with open(os.path.join(d, "result", f"{r['tag']}.pkl"), "rb") as f:
+                bundle = pickle.load(f)
+            hist = bundle.get("logger_history", {})
+            logged = {k: float(v[-1]) for k, v in ((k[5:], v) for k, v in hist.items()
+                                                   if k.startswith("test/")) if v}
+            logged.update({k: float(v) for k, v in bundle.get("metrics", {}).items()})
+            key = "_".join([r["data_name"], r["subset"], r["model_name"]]
+                           + [r[k] for k in C.CONTROL_KEYS])
+            mean = agg[key]["mean"]
+            bad = {m: (mean.get(m), logged[m]) for m in mean if mean[m] != logged.get(m)}
+            if not mean or bad or agg[key]["n_seeds"] != 1:
+                raise AssertionError(f"process {d}: aggregate {mean} against the bundle's "
+                                     f"logged {logged}: {bad}")
+            if not all(f"{v:.6g}" in csv for v in mean.values()):
+                raise AssertionError(f"process {d}: the csv lacks {mean}")
+            say(f"process {os.path.basename(d)}: {r['tag']} aggregated {mean} == logged "
+                f"(n_seeds 1) -> {csv_path}")
+        out[d] = len(rows)
+    if not out:
+        raise AssertionError("process: no result bundle from the earlier phases")
+    return out
+
+
 class Phases:
     """Seconds of each phase, printed as each ends."""
 
@@ -4321,6 +4480,14 @@ def main() -> int:
             by_path[path], replayed_by_path[path] = n, rep
         phases.done("arms: masked int8 and grouped against the plain and solo runs, resumed; "
                     "the chaos drill")
+        # 14. the profile and the audit
+        process_rows = process_phase(tmp)
+        profile = profile_phase(torch, os.path.join(tmp, "profile"))
+        by_path["audit"], replayed_by_path["audit"], audit = audit_phase(
+            torch, counters, os.path.join(tmp, "staticcheck.json"))
+        flop_rate = flop_rate_phase(torch)
+        phases.done("profile and audit: make_summary, staticcheck --flagship, process, the "
+                    "FLOP rate")
     say(f"stream: staging a cohort at {POP_USERS[-1]:,} users {pop_nums['ratio']:.3f}x the host "
         f"seconds at {POP_USERS[0]:,}; prefetches ended with the device busy: "
         + ", ".join(f"depth {d} {n['busy']}" for d, n in ring_nums.items()))
@@ -4329,6 +4496,10 @@ def main() -> int:
         f"{obs_nums['probe_ms']:.4f} ms a round; the tail round's device seconds off "
         f"{obs_nums['superstep_s_off']:.4f}, hist {obs_nums['superstep_s_hist']:.4f} (device "
         f"clock); update_norm against the fetched params {obs_nums['norm_rel']:.2e} relative")
+    say(f"profile and audit: {len(audit['programs'])} programs audited with no finding; "
+        f"results aggregated in {len(process_rows)} directories; headline level a "
+        f"{profile['resnet18']['a']['params']:,} params, {profile['resnet18']['a']['step_flops']:.6e}"
+        f" FLOPs a step, {flop_rate['tflops']:.3f} TFLOP/s replayed ({flop_rate['card']})")
     say("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phases.secs.items())
         + f"; total {time.time() - phases.t0:.1f} s")
 

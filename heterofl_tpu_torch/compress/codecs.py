@@ -116,6 +116,7 @@ class Int8Codec(WireCodec):
 
     def draw(self, round_seed: int, device: torch.device, index: int = 0) -> torch.Tensor:
         """The rounding noise ``u ~ U[0, 1)``, float32 ``[total]``."""
+        # staticcheck: allow(no-fresh-rng) seeded on the next line from the round seed
         gen = torch.Generator(device=device)
         gen.manual_seed(codec_seed(round_seed, QUANT_NOISE_SALT, index))
         return torch.rand(self.spec.total, generator=gen, dtype=torch.float32, device=device)
@@ -202,6 +203,7 @@ class TopKCodec(WireCodec):
         """The shipped block's flat offset: drawn on the host from the round
         seed alone (the same for every participant)."""
         gen = torch.Generator().manual_seed(codec_seed(round_seed, TOPK_BLOCK_SALT))
+        # staticcheck: allow(no-float-coercion) a host generator's draw, once a round
         b = int(torch.randint(0, self.blocks, (), generator=gen))
         return min(b * self.block_len, self.spec.total - self.block_len)
 

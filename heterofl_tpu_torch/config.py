@@ -5,7 +5,10 @@ both rate modes (``fix`` and ``dynamic``).  ``DEFAULT_CFG``
 holds the keys this package reads, plus the keys of features it does not
 port yet, pinned to the value that turns each feature off.  Setting any of
 those to another value raises ``NotImplementedError`` naming the key
-(:func:`check_ported`), so nothing is silently ignored.
+(:func:`check_ported`), so nothing is silently ignored -- but for the
+reference's own inert keys (``shuffle``, ``num_workers``,
+``metric_name``, ``log_interval``, ``save_format``, ``param_dtype``),
+which the reference accepts and reads nowhere, and this package likewise.
 
 Differences from the reference's defaults: ``device`` is ``"cuda"`` (the
 reference's is ``"tpu"``), and ``sampler`` is ``"perm"`` -- the numpy
@@ -90,6 +93,19 @@ DEFAULT_CFG: Dict[str, Any] = {
     "data_name": "CIFAR10",
     "subset": "label",
     "batch_size": {"train": 128, "test": 128},
+    # accepted and ignored, as in the reference, which reads none of them
+    # (heterofl_tpu/config.py:72-133): the stacks are shuffled by the
+    # round's permutation stream, nothing loads in worker processes, the
+    # metrics and the log cadence are fixed, params are float32
+    # (compute_dtype narrows the operands), and save_format is the figure
+    # format of the original's process.py (analysis/process.py takes
+    # --save_format itself)
+    "shuffle": {"train": True, "test": False},
+    "num_workers": 0,
+    "metric_name": {"train": ["Loss", "Accuracy"], "test": ["Loss", "Accuracy"]},
+    "log_interval": 0.25,
+    "save_format": "pdf",
+    "param_dtype": "float32",
     "model_name": "resnet18",
     "optimizer_name": "Adam",
     "lr": 3.0e-4,
@@ -98,7 +114,12 @@ DEFAULT_CFG: Dict[str, Any] = {
     "scheduler_name": "None",
     "step_size": 1,
     "milestones": [100, 150],
+    # ReduceLROnPlateau's patience and relative threshold, and the floor of
+    # ReduceLROnPlateau and CosineAnnealingLR (heterofl_tpu/config.py:83-86)
+    "patience": 10,
+    "threshold": 1.0e-3,
     "factor": 0.5,
+    "min_lr": 1.0e-4,
     "init_seed": 0,
     "num_experiments": 1,
     "num_epochs": 200,

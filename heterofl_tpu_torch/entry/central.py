@@ -192,8 +192,10 @@ class CentralExperiment:
                  ) -> Tuple[Dict[str, Any], Dict[str, float]]:
         """sBN over the train set (vision), then the test set at ``epoch``
         (the LM's draws are seeded from it) -> ``(bn_state, sums)``."""
-        bn = {} if self.kind == "transformer" else \
-            self.evaluator.sbn_stats(params, *self.sbn_batches)
+        # staticcheck: allow(no-host-eval-in-driver) the centralised epoch's evaluation
+        bn = {} if self.kind == "transformer" else self.evaluator.sbn_stats(
+            params, *self.sbn_batches)
+        # staticcheck: allow(no-host-eval-in-driver) the centralised epoch's evaluation
         return bn, self.evaluator.eval_global(params, bn, *self.global_eval, epoch=epoch)
 
     def _opt_to_blob(self, opt: Dict[str, Any]) -> Dict[str, Any]:

@@ -821,12 +821,15 @@ class FedExperiment:
         if self.streaming:
             self._ensure_eval_staged()
         if self.kind == "vision":
+            # staticcheck: allow(no-host-eval-in-driver) the K=1 host evaluation
             bn = self.evaluator.sbn_stats(params, *self.sbn_batches)
             local_eval = self.local_eval if self.eval_cohort is None else self._to_device(
                 self._local_cohort_operands(epoch // self.eval_interval))
+            # staticcheck: allow(no-host-eval-in-driver) the K=1 host evaluation
             local = self.evaluator.eval_users(params, bn, *local_eval)
             named = summarize_sums(local)
             logger.append(named, "test", n=float(np.sum(local["n"])))
+        # staticcheck: allow(no-host-eval-in-driver) the K=1 host evaluation
         g = self.evaluator.eval_global(params, bn, *self.global_eval, epoch=epoch)
         named_global = summarize_sums(g, prefix="Global-", kind=self.kind)
         logger.append(named_global, "test", n=g["n"])

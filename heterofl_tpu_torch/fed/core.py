@@ -5,7 +5,9 @@ Port of ``heterofl_tpu/fed/core.py``: ``sample_model_rates``/
 ``round_rates`` (core.py:33-58, :145), the cohort draw ``round_users`` and
 the superstep's ``[k, A]`` schedules (:155-251), ``validate_width_geometry``
 (:63-85), ``snap_to_levels`` (:254-281), ``to_width_rates`` and
-``combine_counted`` (:442-473), and the sliced strategy's
+``combine_counted`` (:442-473), the per-level FLOP, parameter and
+wire-byte tables (``level_flop_table`` ... ``level_flop_shares``,
+:277-440; built on ``analysis.summary.module_table``), and the sliced strategy's
 ``active_indices``/``extract_sliced``/``embed_sliced`` (:555-607) on the
 port's tensor axes (OIHW conv, ``[out, in]`` linear).  The round engines
 work in the flat domain (one buffer per tree, ops/fused_update.FlatSpec),
@@ -234,6 +236,135 @@ def validate_width_geometry(model, cfg: Dict[str, Any]) -> None:
                     f"pick embedding_size so embedding*rate is a multiple-safe "
                     f"size (e.g. embedding_size*min_rate >= num_heads and "
                     f"head_dim divisible by 1/min_rate)")
+
+
+#: module_table rows whose backward pass re-runs the contraction twice
+#: (grad wrt inputs + grad wrt weights); everything else (norms, relu,
+#: pools) back-propagates at about 1x its forward
+_MATMUL_LIKE = ("conv", "linear", "shortcut", "mha", "ff.l", "dec.l",
+                "embedding", "qk", "av")
+
+#: optimizer + width/label masking + clipping cost per parameter per step
+#: (SGD momentum update, weight decay, mask multiply, global-norm terms)
+_OPT_FLOPS_PER_PARAM = 10.0
+
+#: bytes per parameter element on the wire and in device memory: params,
+#: update sums and count masks are all float32 (compute_dtype only narrows
+#: the operands)
+PARAM_ITEMSIZE = 4
+
+
+def _level_rates(cfg: Dict[str, Any], rates: Optional[list]) -> List[float]:
+    if rates is None:
+        return sorted({float(r) for r in cfg["model_rate"]}, reverse=True)
+    return [float(r) for r in rates]
+
+
+def level_flop_table(cfg: Dict[str, Any], rates: Optional[list] = None) -> Dict[float, float]:
+    """Analytic per-client per-local-step training FLOPs at each level of
+    the rate table, the one source of level FLOP budgets (ref
+    fed/core.py:290-339): from :func:`~..analysis.summary.module_table`,
+    forward = 2x MACs, backward = 2x forward for the matmul-like modules
+    and 1x for the elementwise ones, plus :data:`_OPT_FLOPS_PER_PARAM` a
+    parameter and the width-independent data preparation (normalise; CIFAR
+    also crops and flips).  A model, not a measurement: compare shares
+    (:func:`level_flop_shares`)."""
+    from ..analysis.summary import module_table
+
+    grate = cfg["global_model_rate"]
+    bs = cfg["batch_size"]["train"] if isinstance(cfg["batch_size"], dict) \
+        else cfg["batch_size"]
+    prep = 0.0
+    if cfg.get("data_shape"):
+        h, w, c = cfg["data_shape"]
+        prep = 2.0 * bs * h * w * c
+        if str(cfg.get("data_name", "")).startswith("CIFAR"):
+            prep *= 3.0
+    out: Dict[float, float] = {}
+    for r in _level_rates(cfg, rates):
+        fwd = bwd = 0.0
+        nparam = 0
+        for name, _insz, _outsz, p, macs in module_table(cfg, r / grate, bs):
+            fl = 2.0 * macs
+            fwd += fl
+            bwd += fl * (2.0 if any(t in name for t in _MATMUL_LIKE) else 1.0)
+            nparam += p
+        out[r] = fwd + bwd + _OPT_FLOPS_PER_PARAM * nparam + prep
+    return out
+
+
+def level_param_table(cfg: Dict[str, Any], rates: Optional[list] = None) -> Dict[float, int]:
+    """Per-level parameter counts of the sliced sub-model, a count view of
+    :func:`level_byte_table` (ref fed/core.py:347-354)."""
+    return {r: v["param_bytes"] // PARAM_ITEMSIZE
+            for r, v in level_byte_table(cfg, rates).items()}
+
+
+def level_byte_table(cfg: Dict[str, Any], rates: Optional[list] = None,
+                     itemsize: int = PARAM_ITEMSIZE) -> Dict[float, Dict[str, int]]:
+    """Per level (ref fed/core.py:357-390): ``param_bytes``, the sliced
+    sub-model's parameters; ``wire_bytes``, the dense round's reduced
+    payload at that level, the update sums and the count masks, both
+    param-shaped float32; ``activation_bytes``, a local step's forward
+    outputs at the training batch (:func:`~..analysis.summary.module_table`
+    output sizes x float32).  The wire numbers are exact for the port's
+    rounds, so ``staticcheck`` holds the payload to them by equality."""
+    from ..analysis.summary import module_table
+
+    grate = cfg["global_model_rate"]
+    out: Dict[float, Dict[str, int]] = {}
+    for r in _level_rates(cfg, rates):
+        rows = module_table(cfg, r / grate)
+        nparam = int(sum(row[3] for row in rows))
+        act = int(sum(int(np.prod(row[2])) for row in rows))
+        out[r] = {"param_bytes": nparam * itemsize, "wire_bytes": 2 * nparam * itemsize,
+                  "activation_bytes": act * itemsize}
+    return out
+
+
+def level_codec_byte_table(cfg: Dict[str, Any], codec: str, rates: Optional[list] = None,
+                           n_leaves: int = 0) -> Dict[float, int]:
+    """Per-level wire bytes of one round under ``codec`` (ref
+    fed/core.py:393-410): the level's flat element count priced by
+    :func:`~..compress.codec_payload_bytes`, the one bytes formula.
+    ``n_leaves`` only moves ``signsgd``'s scale vector."""
+    from ..compress import codec_payload_bytes
+
+    return {r: codec_payload_bytes(codec, n, n_leaves)
+            for r, n in level_param_table(cfg, rates).items()}
+
+
+def level_codec_map_byte_table(cfg: Dict[str, Any], codec_map: Dict[float, str],
+                               rates: Optional[list] = None,
+                               n_leaves: int = 0) -> Dict[float, int]:
+    """Per-level wire bytes of one grouped round under a per-level codec
+    map (ref fed/core.py:413-437): level ``r`` moves its sliced element
+    count priced by its own codec; the round moves the sum.  A level the
+    map lacks raises ``ValueError``."""
+    from ..compress import codec_payload_bytes
+
+    table = level_param_table(cfg, rates)
+    missing = set(table) - {float(r) for r in codec_map}
+    if missing:
+        raise ValueError(f"codec map misses levels {sorted(missing)}: every "
+                         f"level in the rate table needs a codec")
+    return {r: codec_payload_bytes(codec_map[float(r)], n, n_leaves)
+            for r, n in table.items()}
+
+
+def level_flop_shares(cfg: Dict[str, Any], weights: Optional[Dict[float, float]] = None,
+                      rates: Optional[list] = None) -> Dict[float, float]:
+    """Each level's share of the FLOPs, ``weight x`` :func:`level_flop_table`
+    normalised to sum to 1 (ref fed/core.py:440-452); uniform weights by
+    default."""
+    table = level_flop_table(cfg, rates)
+    w = {r: 1.0 for r in table} if weights is None \
+        else {float(r): float(v) for r, v in weights.items()}
+    raw = {r: w.get(r, 0.0) * f for r, f in table.items()}
+    tot = sum(raw.values())
+    if tot <= 0.0:
+        raise ValueError(f"level FLOP shares degenerate: weights {w}")
+    return {r: v / tot for r, v in raw.items()}
 
 
 def to_width_rates(model_rates, cfg: Dict[str, Any]) -> np.ndarray:

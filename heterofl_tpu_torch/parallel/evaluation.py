@@ -132,6 +132,7 @@ class Evaluator:
         for u in range(x.shape[0]):
             for t in range(x.shape[1]):
                 acc[u] += self._batch_metrics(params, bn_state, x[u, t], y[u, t], m[u, t], lm[u])
+        # staticcheck: allow(no-device-get) the host evaluation's one read
         host = acc.cpu().numpy()
         return {"loss_sum": host[:, 0], "score_sum": host[:, 1], "n": host[:, 2]}
 
@@ -157,6 +158,7 @@ class Evaluator:
             x, y, w = batched
             for t in range(x.shape[0]):
                 acc += self._batch_metrics(params, bn_state, x[t], y[t], w[t])
+        # staticcheck: allow(no-device-get) the host evaluation's one read
         loss_sum, score_sum, n = acc.tolist()
         return {"loss_sum": loss_sum, "score_sum": score_sum, "n": n}
 
@@ -208,6 +210,7 @@ class FusedEval:
         self.bn: BnState = {}
         self.acc_local = torch.zeros((self.n_users, 3), dtype=torch.float32, device=dev)
         self.acc_global = torch.zeros(3, dtype=torch.float32, device=dev)
+        # staticcheck: allow(no-fresh-rng) seeded from the epoch at each run
         self.gen = torch.Generator(device=dev)
 
     def set_local(self, local) -> None:

@@ -377,6 +377,7 @@ class GroupedRoundEngine(FlatParams):
         if lim is None:
             return total, None
         lim = np.asarray(lim, np.int64)
+        # staticcheck: allow(no-float-coercion) numpy budgets
         return min(total, int(lim.max(initial=0))), torch.from_numpy(lim).to(device)
 
     # -- one batched step: shared by the eager loops above and the captured steps
@@ -523,9 +524,11 @@ class GroupedRoundEngine(FlatParams):
         rates_abs = cohort_rates(self.cfg, user_idx, round_seed, rates)
         total = self.total_steps(data)
         valid, limits = self.slot_plan(user_idx, round_seed, total, step_limits, alive)
+        # staticcheck: allow(no-float-coercion) numpy limits
         gate = bool((limits < total).any())  # a slot sits out or stops early
         snapped = snap_to_levels(rates_abs, self.levels)
         by_level: Dict[float, List[int]] = {}
+        # staticcheck: allow(no-device-get) a numpy array
         for pos, r in enumerate(snapped.tolist()):
             by_level.setdefault(r, []).append(pos)
         dev = P.device
@@ -535,6 +538,7 @@ class GroupedRoundEngine(FlatParams):
         oks, gpos = ([], []) if self._quarantine.enabled else (None, None)
         for rate in sorted(by_level, reverse=True):
             lv, pos = self.levels[rate], by_level[rate]
+            # staticcheck: allow(no-device-get) a numpy array
             users = np.maximum(user_idx[pos], 0).tolist()
             gens = [torch.Generator(device=dev).manual_seed(client_seed(round_seed, u))
                     for u in users]
@@ -768,6 +772,7 @@ class GroupedRoundEngine(FlatParams):
         its static buffers and its generators."""
         st = self._slots(lv, G, P, data, gate)
         while len(self._ggens) < G:
+            # staticcheck: allow(no-fresh-rng) seeded per client in stage_level
             self._ggens.append(torch.Generator(device=P.device))
         gens = self._ggens[:G]
         body = self._counted_level_step_lm if self.is_lm else self._counted_level_step
@@ -868,6 +873,7 @@ class GroupedRoundEngine(FlatParams):
                 None if alive is None else alive[r])
             snapped = snap_to_levels(rates[r], self.levels)
             by_level: Dict[float, List[int]] = {}
+            # staticcheck: allow(no-device-get) a numpy array
             for pos, rate in enumerate(snapped.tolist()):
                 by_level.setdefault(rate, []).append(pos)
             levels = [(rate, by_level[rate], np.maximum(users[r][by_level[rate]], 0))
@@ -877,6 +883,7 @@ class GroupedRoundEngine(FlatParams):
                 host += [rows[r][pos], np.asarray(pos, np.int64), limits[pos], valid[pos]]
         flat = torch.from_numpy(np.concatenate(host).astype(np.int64)).to(device) if host \
             else None
+        # staticcheck: allow(no-float-coercion) numpy limits
         gate = any(bool((limits < total).any()) for _, limits, _ in plans)
         out, off = [], 0
         for valid, limits, levels in plans:
@@ -886,7 +893,9 @@ class GroupedRoundEngine(FlatParams):
                 seg = [flat[off + i * G:off + (i + 1) * G] for i in range(4)]
                 off += 4 * G
                 rnd.append(LevelPlan(
+                    # staticcheck: allow(no-device-get) a numpy array
                     rate, pos, uids.tolist(), seg[0], seg[1],
+                    # staticcheck: allow(no-float-coercion) numpy limits
                     seg[2] if gate else None, int(limits[pos].max()) if gate else total,
                     None if valid[pos].all() else seg[3].to(torch.float32)))
             out.append((valid, limits, rnd))

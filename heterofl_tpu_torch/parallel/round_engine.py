@@ -334,7 +334,9 @@ class FlatParams:
         if self.arms is not None:
             if any(r is None for r in self._arm_resid):
                 return None
+            # staticcheck: allow(no-device-get) the checkpoint's copy, at a boundary
             return torch.stack(self._arm_resid).cpu().numpy()
+        # staticcheck: allow(no-device-get) the checkpoint's copy, at a boundary
         return None if self._resid is None else self._resid.cpu().numpy()
 
     def set_wire_resid(self, arr) -> None:
@@ -357,6 +359,7 @@ class FlatParams:
         """Host copy of the staleness buffer ``[2, total]`` (for a
         checkpoint); None under ``sync`` or before the first buffered
         round."""
+        # staticcheck: allow(no-device-get) the checkpoint's copy, at a boundary
         return None if self._sched_buf is None else self._sched_buf.cpu().numpy()
 
     def set_sched_buf(self, arr) -> None:
@@ -618,6 +621,7 @@ class RoundEngine(FlatParams):
         # device before any round starts (a copy mid-round would wait for
         # the device)
         self._masks: Dict[float, torch.Tensor] = {}
+        # staticcheck: allow(no-device-get) a numpy array
         for wr in sorted(set(to_width_rates(cfg["model_rate"], cfg).tolist())):
             self.param_mask_flat(wr)
             model.prepare_width(wr, device)
@@ -625,6 +629,7 @@ class RoundEngine(FlatParams):
         # buffers (made at the first superstep) and their generator
         self.graphs = StepGraphs(device)
         self._st: Optional[Dict[str, torch.Tensor]] = None
+        # staticcheck: allow(no-fresh-rng) seeded per client in stage_client
         self._ggen = torch.Generator(device=device)
         self._stager = None
 
@@ -889,10 +894,12 @@ class RoundEngine(FlatParams):
         hits = None if self._poison is None else poison_hits(self._poison, epoch, user_idx)
         oks = [] if self._quarantine.enabled else None
         rows, pos = [], []
+        # staticcheck: allow(no-device-get) a numpy array
         for slot, uid in enumerate(user_idx.tolist()):
             if not valid[slot]:
                 rows.append(P.new_zeros(3))
                 continue
+            # staticcheck: allow(no-fresh-rng) seeded on the next line
             gen = torch.Generator(device=P.device)
             gen.manual_seed(client_seed(round_seed, uid))
             wr, limit = float(wrs[slot]), int(limits[slot])
@@ -1041,6 +1048,7 @@ class RoundEngine(FlatParams):
         hits = None if self._poison is None else poison_hits(self._poison, epoch, user_idx)
         oks = [] if self._quarantine.enabled else None
         sums, pos = [], []
+        # staticcheck: allow(no-device-get) a numpy array
         for slot, uid in enumerate(user_idx.tolist()):
             if not valid[slot]:
                 sums.append(P.new_zeros(3))

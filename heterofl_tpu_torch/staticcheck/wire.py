@@ -1,0 +1,97 @@
+"""The wire on one GPU: the bytes a round reduces (ref staticcheck/wire.py).
+
+On one device there is no collective, so "the wire" is the payload the
+round's reduction takes: the masked engine's summed update and count
+buffers, the codec's packed lanes (the int8 codec's value and count
+words), and under a per-level codec map the grouped engine's per-level
+payloads (``parallel/grouped.py::_merge``).  The audit records each
+payload's ``nbytes`` as the round builds it and :func:`check_wire` holds
+them to :func:`~..fed.core.level_codec_byte_table` (or, level by level,
+:func:`~..fed.core.level_codec_map_byte_table`) **by equality**: a widened
+buffer, a smuggled dtype or a second payload shows up as bytes.  The
+int8 payload stays at or under 25% of dense (:func:`codec_frontier`,
+the reference's ``wire-frontier``).  The reference's "one all-reduce a
+round" and reshard rules need several devices and wait for the
+multi-GPU port.
+
+Torch-free: the analytic records need no device.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+def ring_allreduce_bytes(payload_bytes: int, participants: int) -> int:
+    """Per-participant traffic of a bidirectional-ring all-reduce, ``2 (p -
+    1) / p x payload``; zero for one participant."""
+    if participants <= 1:
+        return 0
+    return int(round(2.0 * (participants - 1) / participants * payload_bytes))
+
+
+def codec_round_wire(codec: str, payload_bytes: int, dense_bytes: int,
+                     participants: int = 1) -> Dict[str, Any]:
+    """The compressed round's wire record; ``payload_bytes`` from
+    :func:`~..fed.core.level_codec_byte_table` (ref wire.py:243-260)."""
+    return {"format": codec, "payload_bytes_per_round": int(payload_bytes),
+            "dense_bytes_per_round": int(dense_bytes),
+            "ratio_vs_dense": round(payload_bytes / dense_bytes, 6),
+            "reduction_x": round(dense_bytes / payload_bytes, 3),
+            "ring_allreduce_bytes_per_device": ring_allreduce_bytes(payload_bytes, participants),
+            "participants": int(participants)}
+
+
+def dense_round_wire(param_bytes: int, participants: int = 1,
+                     count_bytes: Optional[int] = None) -> Dict[str, Any]:
+    """The dense round's wire record: the update sums plus the count masks,
+    both param-shaped float32 (ref wire.py:263-281)."""
+    if count_bytes is None:
+        count_bytes = param_bytes
+    payload = param_bytes + count_bytes
+    return {"format": "dense-f32", "param_bytes": int(param_bytes),
+            "count_bytes": int(count_bytes), "payload_bytes_per_round": int(payload),
+            "ring_allreduce_bytes_per_device": ring_allreduce_bytes(payload, participants),
+            "participants": int(participants)}
+
+
+def check_wire(rep, wire: Dict[str, Any], expected: Dict[float, int]) -> None:
+    """Hold one program's recorded payloads to the analytic table by
+    equality (``rep`` a :class:`~.report.ProgramReport`).
+
+    ``wire['levels']`` maps each level (its rate as a string) to the bytes
+    its payload moved in each reduction the program made; ``expected``
+    maps the rate to the table's bytes.  Every recorded reduction of a
+    level must move exactly its table's bytes (``wire-budget``); a program
+    that reduced nothing, or a level the table does not know, fails too.
+    ``wire['level_bytes']`` is the table's bytes summed over the levels the
+    program reduced (one round's payload when every round reduces them
+    all)."""
+    levels = wire.get("levels") or {}
+    if not levels:
+        rep.fail("wire-budget", "the program reduced no payload: the wire audit saw "
+                 "nothing")
+        return
+    for key, seen in sorted(levels.items()):
+        want = expected.get(float(key))
+        if want is None:
+            rep.fail("wire-budget", f"level {key} reduced {seen} bytes, and the table has "
+                     f"no such level")
+            continue
+        bad = sorted({b for b in seen if b != want})
+        if bad:
+            rep.fail("wire-budget", f"level {key}: a round's payload is {bad} bytes, the "
+                     f"table's is exactly {want} (the update sums and counts, or the "
+                     f"codec's lanes, at this level's element count)")
+    wire["level_bytes"] = sum(expected[float(k)] for k in levels if float(k) in expected)
+
+
+def codec_frontier(dense_bytes: int, payloads: Dict[str, int]) -> Dict[str, Any]:
+    """Each lossy codec's payload against dense at the headline's widths
+    (ref audit.py:1202-1240); ``ok`` is False when the int8 payload passes
+    25% of dense, with the reference's slack of one padded lane word a
+    packed stream (``4 x int8 <= dense + 32``)."""
+    sec: Dict[str, Any] = {"ok": True, "dense_bytes": int(dense_bytes), "codecs": {
+        name: {"payload_bytes_per_round": int(b), "ratio_vs_dense": round(b / dense_bytes, 6),
+               "reduction_x": round(dense_bytes / b, 3)} for name, b in payloads.items()}}
+    sec["ok"] = 4 * payloads["int8"] <= dense_bytes + 32
+    return sec

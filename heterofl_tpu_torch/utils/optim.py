@@ -141,14 +141,14 @@ def make_scheduler(cfg: Dict[str, Any]) -> Callable[[int], float]:
     if name == "CosineAnnealingLR":
         ne = cfg["num_epochs"]
         tmax = ne["global"] if isinstance(ne, dict) else ne
-        eta_min = cfg.get("min_lr", 0.0)
+        eta_min = cfg["min_lr"]
         return lambda step: eta_min + (base - eta_min) * (1 + math.cos(math.pi * (step - 1) / tmax)) / 2
     if name == "CyclicLR":
         up = 2000  # torch's default step_size_up, triangular
         return lambda step: base + (10 * base - base) * _triangle((step - 1) / up)
     if name == "ReduceLROnPlateau":
-        return PlateauScheduler(base, factor, cfg.get("patience", 10),
-                                cfg.get("threshold", 1e-3), cfg.get("min_lr", 0.0))
+        return PlateauScheduler(base, factor, cfg["patience"], cfg["threshold"],
+                                cfg["min_lr"])
     raise ValueError("Not valid scheduler name")
 
 

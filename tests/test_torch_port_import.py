@@ -88,7 +88,16 @@ def test_no_port_file_imports_jax_or_reference():
             "heterofl_tpu_torch/obs/trace.py", "heterofl_tpu_torch/obs/ledger.py",
             "heterofl_tpu_torch/obs/report.py", "heterofl_tpu_torch/chaos/__init__.py",
             "heterofl_tpu_torch/chaos/inject.py", "heterofl_tpu_torch/chaos/drill.py",
-            "heterofl_tpu_torch/multi/__init__.py", "heterofl_tpu_torch/multi/sweep.py"} <= scanned
+            "heterofl_tpu_torch/multi/__init__.py", "heterofl_tpu_torch/multi/sweep.py",
+            "heterofl_tpu_torch/analysis/__init__.py", "heterofl_tpu_torch/analysis/summary.py",
+            "heterofl_tpu_torch/analysis/process.py", "heterofl_tpu_torch/analysis/make.py",
+            "heterofl_tpu_torch/staticcheck/__init__.py",
+            "heterofl_tpu_torch/staticcheck/__main__.py",
+            "heterofl_tpu_torch/staticcheck/report.py", "heterofl_tpu_torch/staticcheck/rules.py",
+            "heterofl_tpu_torch/staticcheck/wire.py", "heterofl_tpu_torch/staticcheck/memory.py",
+            "heterofl_tpu_torch/staticcheck/kernels.py",
+            "heterofl_tpu_torch/staticcheck/audit.py",
+            "heterofl_tpu_torch/staticcheck/ratchet.py"} <= scanned
 
 
 def test_python_m_tools_load_no_jax_and_no_reference(tmp_path):
@@ -118,3 +127,41 @@ def test_python_m_tools_load_no_jax_and_no_reference(tmp_path):
                              cwd=ROOT, env=env, timeout=300)
         assert out.returncode == 0, (mod, out.stderr[-2000:])
         assert "BAD 0 []" in out.stdout, (mod, out.stdout[-500:])
+
+
+def test_analysis_and_staticcheck_tools_load_no_jax_and_no_reference(tmp_path):
+    """The ``python -m`` tools of the analysis and the audit, run to their
+    end in a fresh interpreter in an empty directory (the profiler on the
+    CPU, the aggregation of an empty output, the grid generator, the lint,
+    and the CPU audit against the committed baseline), leave no ``jax``
+    and no ``heterofl_tpu`` module in ``sys.modules``."""
+    out = str(tmp_path / "out")
+    runs = [("heterofl_tpu_torch.analysis.summary",
+             ["--device", "cpu", "--control_name", "1_10_0.5_iid_fix_a1-e1_bn_1_1",
+              "--data_name", "MNIST", "--model_name", "conv", "--synthetic", "1",
+              "--synthetic_sizes", '{"train": 40, "test": 20}', "--output_dir", out,
+              "--override", '{"conv": {"hidden_size": [4, 8]}}']),
+            ("heterofl_tpu_torch.analysis.process",
+             ["--output_dir", out, "--xlsx", "0", "--figures", "0"]),
+            ("heterofl_tpu_torch.analysis.make", ["--model", "conv", "--gpus", "0,1"]),
+            ("heterofl_tpu_torch.staticcheck", ["--lint-only"]),
+            ("heterofl_tpu_torch.staticcheck", ["--device", "cpu", "--diff-baseline"])]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    for mod, argv in runs:
+        code = ("import runpy, sys\n"
+                f"sys.argv = [{mod!r}] + {argv!r}\n"
+                "try:\n"
+                f"    runpy.run_module({mod!r}, run_name='__main__')\n"
+                "except SystemExit as e:\n"
+                "    assert not e.code, e.code\n"
+                "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+                "('jax', 'jaxlib', 'heterofl_tpu'))\n"
+                "print('BAD', len(bad), bad[:5])\n")
+        res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             cwd=tmp_path, env=env, timeout=300)
+        assert res.returncode == 0, (mod, argv, res.stderr[-2000:])
+        assert "BAD 0 []" in res.stdout, (mod, res.stdout[-500:])
+    assert (tmp_path / "out" / "result" / "MNIST_conv_a.pkl").exists()
+    assert (tmp_path / "out" / "result.csv").exists()
+    assert (tmp_path / "train_conv_iid.sh").exists()

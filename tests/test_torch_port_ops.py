@@ -218,7 +218,7 @@ def test_schedulers_match_reference():
     from heterofl_tpu_torch.utils import make_scheduler
 
     base = {"lr": 0.1, "factor": 0.1, "milestones": [150, 250], "step_size": 30,
-            "num_epochs": {"global": 400, "local": 5}}
+            "num_epochs": {"global": 400, "local": 5}, "min_lr": 1e-4}
     for name in ("None", "StepLR", "MultiStepLR", "ExponentialLR", "CosineAnnealingLR",
                  "CyclicLR"):
         cfg = dict(base, scheduler_name=name)

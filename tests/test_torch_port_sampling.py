@@ -111,7 +111,7 @@ def test_superstep_lrs_equal_the_rounds(name):
     to float32 as the K=1 round rounds it; Plateau holds its rate for the
     superstep."""
     cfg = {"scheduler_name": name, "lr": 0.1, "factor": 0.1, "milestones": [3, 5],
-           "num_epochs": {"global": 8}}
+           "num_epochs": {"global": 8}, "patience": 10, "threshold": 1e-3, "min_lr": 1e-4}
     sched = make_scheduler(cfg)
     lrs = superstep_lrs(sched, 2, 5)
     if isinstance(sched, PlateauScheduler):
