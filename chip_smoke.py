@@ -221,7 +221,34 @@ each prints its seconds:
    program printed; every kernel launched under it); (d) the model FLOP
    rate of a replayed masked level-a step (``level_flop_table`` over its
    device ms) beside the card's name and power limit;
-15. the ``kernels`` JSON line (launches from the int8 path, the batched
+15. the clients mesh axis (``parallel/mesh.py``, ``parallel/pod.py``), at
+   full width on ``MESH_SIZES`` (a local step a client): (a) the
+   headline masked path -- K=1 and a superstep of two rounds, dense and
+   int8 -- without a process group and then as rank 0 of a one-rank NCCL
+   group (the entries joining it as under torchrun), equal bit for bit
+   under cuDNN's deterministic algorithms (cohorts, logs, params,
+   residual), each NCCL run's collectives counted (one all-reduce a round
+   and one an sBN and a Global pass, one gather a round's or a
+   superstep's rows and one a Local pass); (b) the round's one all-reduce
+   at the flagship's payloads -- the dense ``[2, 11,172,170]`` float32 and
+   the int8 codec's packed words -- timed on CUDA events through the
+   wrapper and bare, with its bytes, and its kernels' names from a
+   profiler trace where NCCL launches any; (c) two gloo ranks sharing the
+   card (``chip_smoke.py --mesh-rank``, spawned as torchrun would; NCCL
+   across two GPUs where the machine has them), each running the headline
+   entry of (a) -- K=1 and superstep, dense and int8, one output
+   directory, a checkpoint shard a rank -- then the pod probe's rank: each
+   run's ranks equal bit for bit (params and logged losses), the dense
+   runs within ``RANKS_ATOL`` of (a)'s one-rank runs (the int8 runs are
+   another quantisation at two ranks, each rank its own grid and noise:
+   their distance is printed, their residual rows must differ), one
+   all-reduce a round and a pass on each rank, each kernel launched on
+   each rank; the probe's ranks bit for bit equal, within ``RANKS_ATOL``
+   of the probe alone (run in this process), the sharded checkpoint read
+   back, each rank's round seconds on the host clock beside the one-rank
+   run's (two ranks sharing one GPU: not a scaling figure), and whether
+   gloo all-reduces a CUDA tensor itself;
+16. the ``kernels`` JSON line (launches from the int8 path, the batched
    kernels' from the grouped path; per path in ``launches_by_path``, and
    the superstep's launches from replays -- a graph's captured launches
    times its replays -- in ``replayed_launches_by_path``), then the ``ok``
@@ -3849,6 +3876,11 @@ def obs_rollback_path(torch, counters, out_dir: str, off_history):
     return n, rep
 
 
+MESH_SIZES = {"train": 1000, "test": 200}  # phase 15: a local step a client
+MESH_ROUNDS = 2  # K=1 rounds, or one superstep of two
+MESH_RUNS = tuple((codec, k) for codec in ("dense", "int8") for k in (1, MESH_ROUNDS))
+MESH_RANKS = 2  # phase 15c: the entry and the probe at two ranks
+MESH_RANK_TIMEOUT = 300  # seconds for the ranks' whole spawn
 ARMS_SIZES = {"train": 1000, "test": 100}  # phase 13: a step a client, at full width
 ARMS_ROUNDS = 2  # one superstep of two rounds, evaluated after the second
 ARMS_SPEC = {"count": 2, "seeds": [None, 1], "lr_scales": [1.0, 0.5]}
@@ -4235,10 +4267,292 @@ class Phases:
         say(f"phase {name}: {self.secs[name]:.1f} s")
 
 
+def mesh_argv(out_dir: str, codec: str, k: int):
+    """Phase 15's headline flags: ``MESH_SIZES``, ``MESH_ROUNDS`` rounds of
+    one local epoch, K=1 or one superstep, evaluated after the last."""
+    return ["--control_name", HEADLINE, "--synthetic", "1", "--synthetic_sizes",
+            json.dumps(MESH_SIZES), "--pallas_norm", "1", "--fused_update", "1",
+            "--wire_codec", codec, "--superstep_rounds", str(k),
+            "--eval_interval", str(MESH_ROUNDS), "--output_dir", out_dir,
+            "--override", json.dumps({"num_epochs": {"global": MESH_ROUNDS, "local": 1}})]
+
+
+def all_reduce_timing(torch, spec, P) -> dict:
+    """Phase 15b, inside the one-rank NCCL group: the round's one
+    all-reduce at the flagship's dense payload and its int8 payload, timed
+    on CUDA events through ``Mesh.all_reduce_sum`` (the pack into one
+    buffer included) and bare (``dist.all_reduce`` of the packed buffer),
+    with the bytes each moves; the kernels a bare dense all-reduce runs,
+    by name, from a profiler trace."""
+    import torch.distributed as dist
+
+    from heterofl_tpu_torch.compress import make_codec
+    from heterofl_tpu_torch.parallel import mesh as M
+
+    mesh = M.make_mesh(0, device=torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = spec.total
+    summed = torch.randn(n, generator=gen, device="cuda")
+    counts = torch.randint(0, 11, (n,), generator=gen, device="cuda").to(torch.float32)
+    codec = make_codec("int8", spec, mesh.size)
+    resid = torch.zeros((1, n), device="cuda")
+    noise = torch.rand(n, generator=gen, device="cuda")
+    payload, _ = codec.encode(summed, counts, resid, P, noise, 10)
+    out = {}
+    for name, tensors in (("dense", [summed, counts]), ("int8", list(payload.values()))):
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        buf = torch.cat([t.reshape(-1) for t in tensors])
+        wrap = time_ms(lambda: mesh.all_reduce_sum(tensors))
+        bare = time_ms(lambda: dist.all_reduce(buf))
+        out[name] = {"bytes": nbytes, "wrapper_ms": wrap, "bare_ms": bare,
+                     "shapes": [list(t.shape) for t in tensors],
+                     "dtypes": sorted({str(t.dtype) for t in tensors})}
+        say(f"mesh: the round's all-reduce, {name} payload {[list(t.shape) for t in tensors]} "
+            f"{out[name]['dtypes']} = {nbytes:,} bytes: {wrap:.4f} ms through the wrapper (the "
+            f"pack included), {bare:.4f} ms bare (CUDA events, one-rank NCCL group)")
+    buf = torch.cat([summed, counts])
+    prof, _ = trace(lambda: dist.all_reduce(buf))
+    names = sorted({e for e in device_events(prof)})
+    out["dense"]["trace_device_names"] = names
+    say(f"mesh: a bare dense all-reduce on one NCCL rank ran on the card: "
+        f"{names or 'nothing (no kernel, no copy)'}")
+    return out
+
+
+def mesh_name(codec: str, k: int) -> str:
+    return f"mesh_{'k1' if k == 1 else 'superstep'}_{codec}"
+
+
+def flat_params(params):
+    """An entry result's params, host float32, concatenated in sorted-key
+    order."""
+    import numpy as np
+
+    return np.concatenate([params[n].detach().cpu().numpy().ravel() for n in sorted(params)])
+
+
+def mesh_collectives_ok(colls: dict, k: int) -> bool:
+    """One all-reduce a round and one an sBN and a Global pass; one gather a
+    round's (K=1) or a superstep's rows and one a Local pass."""
+    return colls["all_reduce"] == MESH_ROUNDS + 2 and \
+        colls["gather"] == (MESH_ROUNDS if k == 1 else 1) + 1
+
+
+def mesh_rank_main(torch, out_dir: str, backend: str) -> None:
+    """One rank of phase 15c (``chip_smoke.py --mesh-rank OUT_DIR``, started
+    with torchrun's variables by ``parallel/pod.py::_spawn``): joins the
+    ``backend`` group on the card, runs the headline entry at each of
+    ``MESH_RUNS`` as every rank runs it under torchrun (one output
+    directory, a shard a rank), each run's collectives and launches counted
+    from 0, then the pod probe's rank (``pod.child_main``, which leaves the
+    group).  Writes each run's params as ``<run>_rank<r>.npy`` and
+    ``mesh_rank<r>.json``."""
+    import hashlib
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.ops import fused_norm, fused_update, quant
+    from heterofl_tpu_torch.parallel import mesh as M
+    from heterofl_tpu_torch.parallel import pod
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    if not M.initialize_distributed(backend, "cuda"):
+        raise AssertionError("mesh rank: started without torchrun's variables")
+    rank = dist.get_rank()
+    counters = (fused_norm.LAUNCHES, fused_update.LAUNCHES, quant.LAUNCHES)
+    out = {"rank": rank, "backend": dist.get_backend()}
+    for codec, k in MESH_RUNS:
+        what = mesh_name(codec, k)
+        M.reset_counts()
+        res, secs, launches, _ = counted_run(
+            torch, counters, train_classifier_fed.main,
+            mesh_argv(os.path.join(out_dir, "entry", what), codec, k), f"mesh rank {rank}: {what}")
+        np.save(os.path.join(out_dir, f"{what}_rank{rank}.npy"), flat_params(res["params"]))
+        resid = res["wire_resid"]
+        out[what] = {"seconds": secs, "collectives": dict(M.COLLECTIVES), "launches": launches,
+                     "loss": [h["loss"] for h in res["history"]],
+                     "resid_sha256": None if resid is None else hashlib.sha256(
+                         np.ascontiguousarray(resid).tobytes()).hexdigest()}
+    pod.child_main(os.path.join(out_dir, "probe"), backend=backend, device="cuda")
+    with open(os.path.join(out_dir, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_ranks_check(torch, out_dir: str, plain_flat: dict, plain_loss: dict) -> dict:
+    """Phase 15c: ``MESH_RANKS`` ranks on the card (gloo sharing one GPU;
+    NCCL across two where the machine has them), each running
+    :func:`mesh_rank_main`; then the probe alone in this process.  Holds
+    every run's ranks bit for bit equal (params and logged losses), the
+    dense runs' params within ``RANKS_ATOL`` of the one-rank run's, the
+    int8 runs' residual rows apart (each rank's own noise), each rank's
+    collectives one all-reduce a round, and the probe as
+    ``pod.compare_probes`` does -> numbers and each rank's launches."""
+    import numpy as np
+
+    from heterofl_tpu_torch.parallel import pod
+
+    gpus = torch.cuda.device_count()
+    backend = "nccl" if gpus >= MESH_RANKS else "gloo"
+    t0 = time.time()
+    pod._spawn([sys.executable, os.path.abspath(__file__), "--mesh-rank", out_dir,
+                "--mesh-backend", backend], MESH_RANKS, MESH_RANK_TIMEOUT, gpus)
+    spawn_s = time.time() - t0
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"mesh_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    nums = {"backend": backend, "spawn_s": spawn_s, "runs": {}}
+    launches = {}
+    for codec, k in MESH_RUNS:
+        what = mesh_name(codec, k)
+        flats = [np.load(os.path.join(out_dir, f"{what}_rank{r}.npy")) for r in range(MESH_RANKS)]
+        equal = all(np.array_equal(f, flats[0]) for f in flats[1:]) and \
+            all(rk[what]["loss"] == ranks[0][what]["loss"] for rk in ranks)
+        diff = float(np.max(np.abs(flats[0].astype(np.float64) - plain_flat[what])))
+        run = {"ranks_equal": equal, "vs_one_rank": diff,
+               "finite": bool(np.isfinite(flats[0]).all()),
+               "seconds": [rk[what]["seconds"] for rk in ranks],
+               "collectives": [rk[what]["collectives"] for rk in ranks],
+               "loss": ranks[0][what]["loss"], "loss_one_rank": plain_loss[what]}
+        nums["runs"][what] = run
+        say(f"mesh: {what} at {MESH_RANKS} {backend} ranks on the card through the entry: ranks "
+            f"equal bit for bit {equal}, max |params - one rank| {diff:.3e}, losses "
+            f"{run['loss']} (one rank {plain_loss[what]}), seconds {run['seconds']}, "
+            f"collectives {run['collectives']}")
+        bad = [f"rank {rk['rank']} collectives {rk[what]['collectives']}" for rk in ranks
+               if not mesh_collectives_ok(rk[what]["collectives"], k)]
+        for rk in ranks:
+            n = rk[what]["launches"]
+            launches[f"{what}_{MESH_RANKS}ranks_rank{rk['rank']}"] = n
+            if n["fused_sgd"] <= 0 or n["bn_fwd"] <= 0 or \
+                    (n["quant_pack"] > 0) != (codec == "int8"):
+                bad.append(f"rank {rk['rank']} launches {n}")
+        if not (equal and run["finite"]):
+            bad.append("the ranks' params or losses differ, or are not finite")
+        if codec == "dense" and not diff <= pod.RANKS_ATOL:
+            bad.append(f"params {diff:.3e} from the one-rank run (RANKS_ATOL {pod.RANKS_ATOL})")
+        if codec == "int8" and len({rk[what]["resid_sha256"] for rk in ranks}) != MESH_RANKS:
+            bad.append("the ranks' residual rows are equal (each rank's own noise expected)")
+        if bad:
+            raise AssertionError(f"mesh: {what} at {MESH_RANKS} ranks: {bad}")
+    many, one = os.path.join(out_dir, "probe"), os.path.join(out_dir, "probe_one")
+    res = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(many, f"pod_result_p{r}.json")) as f:
+            res.append(json.load(f))
+    threads = torch.get_num_threads()
+    try:
+        res1 = pod.child_main(one, device="cuda")  # the probe alone, in this process
+    finally:
+        torch.set_num_threads(threads)
+    probe = pod.compare_probes(many, res, one, [res1])
+    nums["probe"] = probe
+    for r, rr in enumerate(res):
+        launches[f"mesh_probe_rank{r}"] = rr["launches"]
+    return {"nums": nums, "launches": launches, "ranks": ranks}
+
+
+def mesh_phase(torch, counters, out_dir: str, spec, P):
+    """Phase 15 (the module docstring) -> ({path: launches}, {path:
+    replayed launches}, numbers)."""
+    import torch.distributed as dist
+
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.parallel import mesh as M
+    from heterofl_tpu_torch.parallel.pod import RANKS_ATOL, _free_port
+
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs, name = MESH_RUNS, mesh_name
+    plain, launches, replayed, nums = {}, {}, {}, {}
+    try:
+        for codec, k in runs:
+            plain[name(codec, k)], _, _, _ = counted_run(
+                torch, counters, train_classifier_fed.main,
+                mesh_argv(os.path.join(out_dir, "plain", name(codec, k)), codec, k),
+                f"mesh: {name(codec, k)} without a process group")
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(_free_port())}
+        saved = {v: os.environ.get(v) for v in env}
+        os.environ.update(env)
+        try:
+            if not M.initialize_distributed(device="cuda") or dist.get_backend() != "nccl":
+                raise AssertionError("mesh: no one-rank NCCL group joined")
+            for codec, k in runs:
+                what = name(codec, k)
+                M.reset_counts()
+                res, secs, launches[what], replayed[what] = counted_run(
+                    torch, counters, train_classifier_fed.main,
+                    mesh_argv(os.path.join(out_dir, "nccl", what), codec, k),
+                    f"mesh: {what} as rank 0 of a one-rank NCCL group")
+                colls = dict(M.COLLECTIVES)
+                say(f"mesh: {what}: {secs:.1f} s, collectives {colls}; launches "
+                    f"{launches[what]}")
+                if not mesh_collectives_ok(colls, k):
+                    raise AssertionError(f"mesh: {what} made collectives {colls}")
+                if not same_run(torch, res, plain[what]):
+                    raise AssertionError(f"mesh: {what} under the one-rank NCCL group is not "
+                                         f"the run without a group bit for bit")
+                if launches[what]["fused_sgd"] <= 0 or launches[what]["bn_fwd"] <= 0 or \
+                        (launches[what]["quant_pack"] > 0) != (codec == "int8"):
+                    raise AssertionError(f"mesh: {what}: launches {launches[what]}")
+                say(f"mesh: {what} under the one-rank NCCL group equals the run without a "
+                    f"group bit for bit (cohorts, logs, params, residual)")
+            nums["all_reduce"] = all_reduce_timing(torch, spec, P)
+        finally:
+            M.shutdown_distributed()
+            for v, old in saved.items():
+                if old is None:
+                    os.environ.pop(v, None)
+                else:
+                    os.environ[v] = old
+        plain_flat = {w: flat_params(r["params"]) for w, r in plain.items()}
+        plain_loss = {w: [h["loss"] for h in r["history"]] for w, r in plain.items()}
+        del plain
+        torch.cuda.empty_cache()
+        two = mesh_ranks_check(torch, os.path.join(out_dir, "ranks"), plain_flat, plain_loss)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    launches.update(two["launches"])
+    probe, backend = two["nums"]["probe"], two["nums"]["backend"]
+    r2, r1 = probe["results"], probe["one_rank"][0]
+    say(f"mesh: the two-rank spawn (the entry at {len(MESH_RUNS)} settings, then the probe) "
+        f"took {two['nums']['spawn_s']:.1f} s")
+    say(f"mesh: the pod probe at two {backend} ranks: ranks equal bit for bit "
+        f"{probe['ranks_equal']}, against one rank {probe['vs_one_rank']} (params within "
+        f"{RANKS_ATOL}: {probe['within_tolerance']}), all-reduces a round "
+        f"{probe['all_reduce_per_round']}, sharded checkpoint read back "
+        f"{probe['sharded_ckpt_ok']}; round seconds (host clock) "
+        f"{[r['superstep_s'] / r['k'] for r in r2]} at two ranks, {r1['superstep_s'] / r1['k']} "
+        f"at one; gloo all-reduces a CUDA tensor itself: "
+        f"{[r.get('gloo_cuda_direct') for r in r2]}; foreign modules "
+        f"{[r['foreign_modules'] for r in r2]}")
+    if not (probe["ranks_equal"] and probe["within_tolerance"] and probe["sharded_ckpt_ok"]
+            and all(x == 1 for x in probe["all_reduce_per_round"])
+            and not any(r["foreign_modules"] for r in r2)):
+        raise AssertionError(f"mesh: the pod probe failed: "
+                             f"{ {k: v for k, v in probe.items() if k != 'one_rank'} }")
+    say(f"mesh: the probe's launches a rank over its two supersteps: "
+        f"{[res['launches'] for res in r2]}; one rank {r1['launches']}")
+    nums["probe"] = {"backend": backend, "vs_one_rank": probe["vs_one_rank"],
+                     "round_s_two": [r["superstep_s"] / r["k"] for r in r2],
+                     "round_s_one": r1["superstep_s"] / r1["k"],
+                     "gloo_cuda_direct": [r.get("gloo_cuda_direct") for r in r2]}
+    nums["ranks"] = {w: {k: v for k, v in run.items() if k != "loss_one_rank"}
+                     for w, run in two["nums"]["runs"].items()}
+    return launches, replayed, nums
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--local-epochs", type=int, default=1,
                         help="local epochs of the main paths (the control's own is 5)")
+    parser.add_argument("--mesh-rank", metavar="OUT_DIR", default=None,
+                        help="run one rank of phase 15c into OUT_DIR (started by phase 15 "
+                             "itself, with torchrun's variables)")
+    parser.add_argument("--mesh-backend", choices=("gloo", "nccl"), default="gloo")
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -4248,6 +4562,9 @@ def main() -> int:
               "device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if args.mesh_rank:
+        mesh_rank_main(torch, args.mesh_rank, args.mesh_backend)
+        return 0
     from heterofl_tpu_torch import config as C
     from heterofl_tpu_torch.compress import codecs
     from heterofl_tpu_torch.models import make_model, param_mask
@@ -4488,6 +4805,16 @@ def main() -> int:
         flop_rate = flop_rate_phase(torch)
         phases.done("profile and audit: make_summary, staticcheck --flagship, process, the "
                     "FLOP rate")
+        # 15. the clients mesh axis
+        P = spec.flatten(dict(model.named_parameters())).detach().cuda()
+        mesh_n, mesh_rep, mesh_nums = mesh_phase(torch, counters, os.path.join(tmp, "mesh"),
+                                                 spec, P)
+        del P
+        by_path.update(mesh_n)
+        replayed_by_path.update(mesh_rep)
+        phases.done("mesh: the headline under a one-rank NCCL group against no group, the "
+                    "round's all-reduce timed, the headline entry and the pod probe at two "
+                    "ranks")
     say(f"stream: staging a cohort at {POP_USERS[-1]:,} users {pop_nums['ratio']:.3f}x the host "
         f"seconds at {POP_USERS[0]:,}; prefetches ended with the device busy: "
         + ", ".join(f"depth {d} {n['busy']}" for d, n in ring_nums.items()))

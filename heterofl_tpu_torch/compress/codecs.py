@@ -4,10 +4,10 @@ Port of ``heterofl_tpu/compress/codecs.py``.  A codec turns one
 participant's flat ``(sums, counts)`` contribution -- the layout of
 :class:`~..ops.fused_update.FlatSpec`, leaves in sorted-key order -- into a
 payload, and decodes the payload summed over participants back to flat sums
-and counts.  :func:`compressed_sum` is the one-GPU form of the reference's
-``compressed_psum``: encode, the sum over participants, decode.  With one
-participant the sum is the payload itself; the multi-GPU slice puts an
-``all_reduce`` between the two steps.
+and counts.  :func:`compressed_sum` is the reference's ``compressed_psum``:
+encode, the sum over participants (one ``all_reduce`` of the packed
+payload over the mesh's ranks, ``parallel/mesh.py``), decode.  With one
+participant the sum is the payload itself.
 
 The contract every codec keeps:
 
@@ -229,15 +229,22 @@ class TopKCodec(WireCodec):
 
 
 def compressed_sum(codec: WireCodec, P: torch.Tensor, summed: torch.Tensor,
-                   counts: torch.Tensor, resid: torch.Tensor, draw, cmax: int
+                   counts: torch.Tensor, resid: torch.Tensor, draw, cmax: int, mesh=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Encode -> sum over participants -> decode: the compressed form of
-    the round's reduction of flat ``(summed, counts)``.  ``resid`` is the
-    ``[resid_slots, total]`` error-feedback carry, ``draw`` the codec's
-    round input (:meth:`WireCodec.draw`), ``cmax`` the clients this
-    participant summed (it sizes the int8 grid and the count lanes).
-    Returns ``(sums, counts, new_resid)``."""
+    the round's reduction of flat ``(summed, counts)`` (ref
+    ``compressed_psum``, codecs.py:290-309).  ``resid`` is this
+    participant's ``[resid_slots, total]`` error-feedback carry, ``draw``
+    the codec's round input (:meth:`WireCodec.draw`, this participant's),
+    ``cmax`` the clients a participant sums at most (it sizes the int8 grid
+    and the count lanes).  ``mesh`` (``parallel/mesh.py``) all-reduces the
+    packed payload in one collective and every rank decodes the sum; None
+    (one participant, no collective) decodes the payload itself.  Returns
+    ``(sums, counts, new_resid)``."""
     payload, new_resid = codec.encode(summed, counts, resid, P, draw, cmax)
-    agg: Dict[str, torch.Tensor] = payload  # one participant: the sum is its payload
+    agg: Dict[str, torch.Tensor] = payload
+    if mesh is not None:
+        names = list(payload)
+        agg = dict(zip(names, mesh.all_reduce_sum([payload[k] for k in names])))
     sums, cnts = codec.decode(agg, P, draw, cmax)
     return sums, cnts, new_resid

@@ -80,6 +80,9 @@ STRATEGIES = ("masked", "grouped", "sliced")
 
 #: the client stores (heterofl_tpu/config.py:49)
 CLIENT_STORES = ("eager", "stream")
+#: the data and level placements (heterofl_tpu/config.py:48-49)
+DATA_PLACEMENTS = ("replicated", "sharded")
+LEVEL_PLACEMENTS = ("span", "slices")
 
 MNIST_LIKE = ("MNIST", "FashionMNIST", "EMNIST")
 CIFAR_LIKE = ("CIFAR10", "CIFAR100")
@@ -218,17 +221,29 @@ DEFAULT_CFG: Dict[str, Any] = {
     # [None | int, ...], "lr_scales": [...]} -- E arms of the run trained in
     # one superstep by entry.common.ArmsExperiment (resolve_arms_cfg)
     "arms": None,
+    # the clients mesh axis (parallel/mesh.py): every rank of the process
+    # group torchrun launches (0), as the reference's every device; any
+    # other count must be the world size, and a data or arms axis is not
+    # ported (ROADMAP Queue 1 item 5)
+    "mesh": {"clients": 0, "data": 1},
+    # accepted and ignored, as in the reference, which reads it only in
+    # analysis/compare_reference.py: the world is the process group's
+    "world_size": 1,
+    # "replicated": every rank holds every user's train shard; "sharded":
+    # rank r holds only its block of users (the user axis padded to a
+    # multiple of the ranks) and trains the cohort's users it holds
+    "data_placement": "replicated",
     "override": {},
 }
 
 #: keys of reference features this package does not port yet, each with the
 #: value that turns its feature off (heterofl_tpu/config.py:57-355)
 UNPORTED: Dict[str, Any] = {
-    "world_size": 1,
-    "data_placement": "replicated",
     # the grouped engine's per-level device partition needs several GPUs
     "level_placement": "span",
 }
+#: the ROADMAP item of each key in UNPORTED
+UNPORTED_ITEM = {"level_placement": "ROADMAP Queue 1 item 5, grouped and slices on the mesh"}
 DEFAULT_CFG.update(copy.deepcopy(UNPORTED))
 
 
@@ -287,7 +302,8 @@ def check_ported(cfg: Dict[str, Any]) -> None:
         if key in cfg and cfg[key] != off:
             raise NotImplementedError(
                 f"cfg[{key!r}] = {cfg[key]!r} is not ported to heterofl_tpu_torch "
-                f"yet (only {off!r} is)")
+                f"yet (only {off!r} is; {UNPORTED_ITEM[key]})")
+    resolve_placement_cfg(cfg)
     parse_compute_dtype(cfg.get("compute_dtype"))
     parse_conv_impl(cfg.get("conv_impl"))
     parse_scan_unroll(cfg)
@@ -476,7 +492,104 @@ def process_control(cfg: Dict[str, Any]) -> Dict[str, Any]:
     resolve_checkpoint_keep(cfg)
     resolve_poison_cfg(cfg)
     resolve_arms_cfg(cfg)
+    resolve_mesh_cfg(cfg)
     return cfg
+
+
+def launched_world_size() -> int:
+    """The number of ranks this process runs among: the joined process
+    group's size, else torchrun's ``WORLD_SIZE`` (1 without it)."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1") or 1)
+
+
+def resolve_placement_cfg(cfg: Dict[str, Any]) -> Tuple[str, str]:
+    """Validate ``cfg['data_placement']`` and ``cfg['level_placement']``
+    and return them, with the reference's checks and messages
+    (heterofl_tpu/config.py:609-650): an unknown placement, ``sharded``
+    with ``grouped``, ``slices`` with another engine than ``grouped``, and
+    either placement knob with ``sliced`` raise ``ValueError``."""
+    strategy = resolve_strategy_cfg(cfg)
+    dp = cfg.get("data_placement", "replicated") or "replicated"
+    lp = cfg.get("level_placement", "span") or "span"
+    if dp not in DATA_PLACEMENTS:
+        raise ValueError(f"Not valid data_placement: {dp!r} "
+                         f"(one of {DATA_PLACEMENTS})")
+    if lp not in LEVEL_PLACEMENTS:
+        raise ValueError(f"Not valid level_placement: {lp!r} "
+                         f"(one of {LEVEL_PLACEMENTS})")
+    if strategy == "grouped" and dp == "sharded":
+        raise ValueError(
+            "Not valid data_placement='sharded' with strategy='grouped': "
+            "a level's clients span the whole clients axis, so the grouped "
+            "engine packs slot schedules from the replicated store; use "
+            "strategy='masked' for sharded placement")
+    if lp == "slices" and strategy != "grouped":
+        raise ValueError(
+            f"Not valid level_placement='slices' with strategy="
+            f"{strategy!r}: the slices partition assigns each rate level "
+            f"its own clients-axis device rows, which only the grouped "
+            f"engine's per-level dense programs consume")
+    if strategy == "sliced" and dp != "replicated":
+        raise ValueError(
+            f"Not valid data_placement={dp!r} with strategy='sliced': the "
+            f"host-orchestrated debug twin replays the reference loop and "
+            f"ignores device placement -- the knob would silently no-op")
+    return dp, lp
+
+
+#: what the clients mesh axis does not carry yet at a world of several
+#: ranks: (the cfg's test, what it is, its ROADMAP item)
+MESH_REFUSALS = (
+    (lambda c: resolve_strategy_cfg(c) == "grouped", "strategy='grouped'",
+     "ROADMAP Queue 1 item 5, grouped and slices on the mesh"),
+    (lambda c: resolve_strategy_cfg(c) == "sliced", "strategy='sliced'",
+     "ROADMAP Queue 1 item 5, grouped and slices on the mesh"),
+    (lambda c: (c.get("level_placement") or "span") == "slices", "level_placement='slices'",
+     "ROADMAP Queue 1 item 5, grouped and slices on the mesh"),
+    (lambda c: (c.get("client_store") or "eager") == "stream", "client_store='stream'",
+     "ROADMAP Queue 1 item 5, the stream store on the mesh"),
+    (lambda c: c.get("arms") is not None, "arms",
+     "ROADMAP Queue 1 item 5, the arms axis"),
+    (lambda c: (c.get("telemetry") or "off") != "off" or (c.get("quarantine") or "off") != "off"
+     or c.get("chaos_poison") is not None or c.get("watchdog") is not None,
+     "telemetry, quarantine, watchdog or chaos_poison",
+     "ROADMAP Queue 1 item 5, observability on the mesh"),
+)
+
+
+def resolve_mesh_cfg(cfg: Dict[str, Any], world: Optional[int] = None) -> Dict[str, int]:
+    """Validate ``cfg['mesh']`` and return it with its defaults: ``clients``
+    (0: every rank) and ``data`` and ``arms`` (1), each an int >= 0 (the
+    axes themselves are checked by ``parallel.mesh.make_mesh``).  At a
+    world of several ranks (``world``, default :func:`launched_world_size`)
+    each option the clients axis does not carry yet raises
+    ``NotImplementedError`` naming its ROADMAP item: nothing silently runs
+    on one rank instead."""
+    spec = dict(cfg.get("mesh") or {})
+    bad = sorted(set(spec) - {"clients", "data", "arms"})
+    if bad:
+        raise ValueError(f"Not valid mesh keys {bad} (clients, data, arms)")
+    out = {"clients": spec.get("clients", 0), "data": spec.get("data", 1),
+           "arms": spec.get("arms", 1)}
+    for k, v in out.items():
+        if v is None:
+            out[k] = 0 if k == "clients" else 1
+        elif not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            raise ValueError(f"Not valid mesh {k}: {v!r} (an int >= 0)")
+    world = launched_world_size() if world is None else int(world)
+    if world > 1:
+        for test, what, item in MESH_REFUSALS:
+            if test(cfg):
+                raise NotImplementedError(
+                    f"{what} at a world of {world} ranks: the clients mesh axis does not "
+                    f"carry it yet ({item}); run it on one rank")
+    return out
 
 
 def resolve_store_cfg(cfg: Dict[str, Any]) -> str:

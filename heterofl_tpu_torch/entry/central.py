@@ -282,6 +282,10 @@ def run_central_main(description: str, model_default: str, data_default: str,
     """Parse flags (the control's split forced to ``none``), loop the seeds,
     run the experiments."""
     cfg = parse_cfg(description, model_default, data_default, argv, data_split_mode="none")
+    if C.launched_world_size() > 1:
+        raise NotImplementedError(
+            "the centralised baseline runs on one rank: launch it without torchrun (the "
+            "clients mesh axis is the federated entries', ROADMAP Queue 1 item 5)")
     results = []
     for i in range(cfg["num_experiments"]):
         exp = CentralExperiment(cfg, cfg["init_seed"] + i)

@@ -97,6 +97,21 @@ streamed cohort's prefetch (``prefetch``).  Its ``ChaosKill`` is a
 :class:`ArmsExperiment` (``multi/``; ref common.py:1603-1853) runs the E
 arms of ``cfg['arms']`` in one superstep a dispatch; the one-trajectory
 loop refuses an arms cfg.
+
+The clients mesh axis (``parallel/mesh.py``; ref common.py:120-140,
+240-255, 1070-1082, 1290, 1345, 1405, 1588-1594, 1828, 1859-1861): under
+``torchrun --nproc_per_node=N`` :func:`run_main` joins the process group
+(:func:`~..parallel.mesh.initialize_distributed`) and
+:class:`FedExperiment` builds the mesh from ``cfg['mesh']``; every rank
+runs the same loop on the same host streams, trains its slots of each
+round and reads the same reduced params and gathered metric rows.  Only
+rank 0 writes the log, the ledger, the trace, the profile, the best copy
+and the checkpoint's header; each rank writes its shard of a checkpoint
+whose residual has a row a rank (``utils/checkpoint.py``,
+:func:`write_checkpoint`), and a resumed run checks that every rank
+resumed rank 0's epoch (:func:`check_multihost_resume`).  Under
+``data_placement='sharded'`` each rank stages only its block of users'
+train shards.
 """
 
 from __future__ import annotations
@@ -130,6 +145,8 @@ from ..multi import resolve_arms_cfg
 from ..sched import resolve_schedule_cfg
 from ..fed.sliced import SlicedFederation
 from ..parallel import Evaluator, GroupedRoundEngine, RoundEngine
+from ..parallel.mesh import initialize_distributed, mesh_of_cfg, single_mesh
+from ..parallel.round_engine import shard_client_data
 from ..obs import obs_levels, resolve_ledger_cfg, resolve_quarantine_cfg, \
     resolve_telemetry_cfg, split_probes
 from ..obs.ledger import ClientLedger
@@ -138,7 +155,8 @@ from ..obs.watchdog import RETRY_SALT, Watchdog, WatchdogError, WatchdogRollback
 from ..parallel.staging import ClientStore, MetricsPipeline, PendingMetrics, PhaseTimer
 from ..utils import (Logger, PlateauScheduler, checkpoint_path, copy_best, make_scheduler,
                      resume, save_checkpoint, summarize_sums)
-from ..utils.checkpoint import iter_verified_generations
+from ..utils.checkpoint import (dense_from_blocks, is_shard_marker, iter_verified_generations,
+                                rank_block_marker, save_checkpoint_sharded)
 from ..utils.metrics import METRICS
 from ..utils.optim import superstep_lrs
 
@@ -265,24 +283,45 @@ def tree_finite(tree) -> bool:
 
 
 def write_checkpoint(output_dir: str, tag: str, make_blob: Callable[[], Dict[str, Any]],
-                     keep: int, is_best: bool, rec: Dict[str, Any]) -> None:
+                     keep: int, is_best: bool, rec: Dict[str, Any], mesh=None) -> None:
     """Durably write ``make_blob()`` as the live checkpoint (``keep``
     generations) and, when ``is_best``, copy it to ``_best.pkl``; the
     write's seconds (the blob's host copy included) and megabytes and the
-    copy's seconds go into the round's (epoch's) record ``rec``."""
+    copy's seconds go into the round's (epoch's) record ``rec``.  On a
+    mesh of several ranks (``mesh``) every rank calls it: each writes its
+    shard, rank 0 the header and the best copy
+    (``utils.checkpoint.save_checkpoint_sharded``)."""
     t0 = time.time()
     path = checkpoint_path(output_dir, tag)
-    save_checkpoint(path, make_blob(), keep=keep)
+    sharded = save_checkpoint_sharded(path, make_blob(), keep=keep, mesh=mesh)
     rec["checkpoint_seconds"] = time.time() - t0
     rec["checkpoint_mb"] = os.path.getsize(path) / 1e6
     rec["best_seconds"] = None
-    if is_best:
+    lead = mesh is None or mesh.rank == 0
+    if is_best and lead:
         t0 = time.time()
-        copy_best(output_dir, tag)
+        copy_best(output_dir, tag, sharded)
         rec["best_seconds"] = time.time() - t0
     best = "" if rec["best_seconds"] is None else f", best copy {rec['best_seconds']:.3f}s"
-    print(f"Model: {tag}  Checkpoint Epoch: {rec['epoch']}  {rec['checkpoint_mb']:.1f} MB "
-          f"in {rec['checkpoint_seconds']:.3f}s{best}", flush=True)
+    if lead:
+        print(f"Model: {tag}  Checkpoint Epoch: {rec['epoch']}  {rec['checkpoint_mb']:.1f} MB "
+              f"in {rec['checkpoint_seconds']:.3f}s{best}", flush=True)
+
+
+def check_multihost_resume(blob: Optional[Dict[str, Any]], mesh=None) -> int:
+    """The resumed epoch every rank agrees on (ref entry/common.py:120-140):
+    rank 0's, broadcast; a rank that resumed another raises (its
+    ``output_dir`` is not the one rank 0 reads).  On one rank, its own."""
+    mine = int(blob.get("epoch", 0) if blob else 0)
+    if mesh is None or not mesh.distributed:
+        return mine
+    epoch0 = mesh.broadcast_int(mine)
+    if mine != epoch0:
+        raise RuntimeError(
+            f"resume state differs across hosts (process 0 at epoch "
+            f"{epoch0}, this host at {mine}): output_dir must be a "
+            f"shared filesystem for multi-host resume")
+    return epoch0
 
 
 class FedExperiment:
@@ -291,6 +330,8 @@ class FedExperiment:
 
     #: whether the loop runs experiment arms (:class:`ArmsExperiment`)
     _arms_capable = False
+    #: the clients mesh axis: one rank until ``__init__`` builds it from the cfg
+    mesh = single_mesh(torch.device("cpu"))
 
     def __init__(self, cfg: Dict[str, Any], seed: int):
         C.check_ported(cfg)
@@ -305,7 +346,11 @@ class FedExperiment:
                 "single-trajectory FedExperiment loop cannot thread "
                 "per-arm checkpoints/logs")
         self.seed = seed
-        self.device = resolve_device(cfg)
+        # the clients mesh axis (parallel/mesh.py): one rank without a group
+        self.mesh = mesh_of_cfg(cfg, resolve_device(cfg))
+        self.device = self.mesh.device
+        self.lead = self.mesh.rank == 0  # the rank that writes logs and evidence
+        self.placement = C.resolve_placement_cfg(cfg)[0]
         self.rng = np.random.default_rng(seed)
         dataset = fetch_dataset(cfg["data_name"], cfg["data_dir"], synthetic=cfg["synthetic"],
                                 seed=seed, synthetic_sizes=cfg.get("synthetic_sizes"),
@@ -321,8 +366,9 @@ class FedExperiment:
         self.perms = self.model.jax_perms()
         engine = {"masked": RoundEngine, "grouped": GroupedRoundEngine,
                   "sliced": SlicedFederation}[C.resolve_strategy_cfg(cfg)]
-        self.engine = engine(self.model, cfg, self.device)
-        self.evaluator = Evaluator(self.model, cfg, self.device, seed=seed)
+        self.engine = engine(self.model, cfg, self.device, **(
+            {"mesh": self.mesh} if engine is RoundEngine else {}))
+        self.evaluator = Evaluator(self.model, cfg, self.device, seed=seed, mesh=self.mesh)
         self.eval_interval = max(1, int(cfg.get("eval_interval", 1) or 1))
         self.checkpoint_keep = C.resolve_checkpoint_keep(cfg)
         self.scheduler = make_scheduler(cfg)
@@ -362,7 +408,8 @@ class FedExperiment:
                              f"outside [0, num_users={cfg['num_users']}]")
         # the training log (opens its files only inside a run's rounds)
         self.logger = Logger(os.path.join(cfg["output_dir"], "runs", f"train_{self.tag}"),
-                             use_tensorboard=bool(cfg.get("use_tensorboard")))
+                             use_tensorboard=bool(cfg.get("use_tensorboard")),
+                             quiet=not self.lead)
         self.history: List[Dict[str, Any]] = []  # one record per round this run trained
         self.bn_state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}  # the last sBN pass's
         # observability and its guards (obs/, chaos/; their refusals raise in
@@ -376,7 +423,7 @@ class FedExperiment:
         self.watchdog = Watchdog(self.obs_spec.watchdog) \
             if self.obs_spec.probes and self.obs_spec.watchdog is not None else None
         self.ledger = ClientLedger(cfg["num_users"], self.obs_levels) \
-            if resolve_ledger_cfg(cfg).enabled else None
+            if resolve_ledger_cfg(cfg).enabled and self.lead else None
         self.tracer: Optional[TraceRecorder] = None
         self.phase_timer = PhaseTimer()
         # the root of the round-seed stream (cohorts under prp, rates,
@@ -402,6 +449,16 @@ class FedExperiment:
     def _to_device(self, arrays) -> Tuple[torch.Tensor, ...]:
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in arrays)
 
+    def _train_to_device(self, arrays) -> Tuple[torch.Tensor, ...]:
+        """The per-user train stacks onto the device: all of them, or under
+        ``sharded`` placement only this rank's block of users
+        (:func:`~..parallel.round_engine.shard_client_data`)."""
+        if self.placement != "sharded":
+            return self._to_device(arrays)
+        block = shard_client_data(tuple(torch.from_numpy(np.ascontiguousarray(a))
+                                        for a in arrays), self.mesh.size, self.mesh.rank)
+        return tuple(t.clone().to(self.device) for t in block)
+
     def stage(self, data_split, label_split) -> None:
         """Every user's train shard and the evaluation operands onto the
         device, once; with the stream store only the population's index
@@ -423,14 +480,14 @@ class FedExperiment:
         if self.kind == "transformer":
             rows = stack_client_token_rows(tr.token, data_split["train"], list(range(users)))
             lm = label_split_masks(label_split, users, cfg["num_tokens"])
-            self.train_data = self._to_device((rows, lm))
+            self.train_data = self._train_to_device((rows, lm))
             te = self.dataset["test"]
             self.global_eval = self._to_device(stack_windows(bptt_windows(te.token, cfg["bptt"]),
                                                              cfg["bptt"]))
             return
         x, y, m = stack_client_shards(tr.data, tr.target, data_split["train"], list(range(users)))
         lm = label_split_masks(label_split, users, cfg["classes_size"])
-        self.train_data = self._to_device((x, y, m, lm))
+        self.train_data = self._train_to_device((x, y, m, lm))
         sbn, local, glob = stage_eval_operands(cfg, tr, self.dataset["test"],
                                                data_split["test"], lm)
         self.sbn_batches = self._to_device(sbn)
@@ -778,7 +835,8 @@ class FedExperiment:
         activity on a GPU) of the first steady dispatch -- the second round
         or superstep a run trains, past the captures of the first (ref
         entry/common.py:706-712) -> the running profiler or None."""
-        if not self.cfg.get("profile_dir") or not self._first_done or self._profiled:
+        if not self.cfg.get("profile_dir") or not self._first_done or self._profiled \
+                or not self.lead:
             return None
         from torch.profiler import ProfilerActivity, profile
 
@@ -977,20 +1035,31 @@ class FedExperiment:
     # -- the error-feedback residual in a blob: the reference's [clients,
     # slots, total] carry in its flat layout (under a per-level map, each
     # lossy level's columns in that level's sliced layout), one participant
-    def _resid_to_blob(self, resid=None) -> Optional[np.ndarray]:
+    # (a row a rank: on a mesh of several ranks, this rank's row as a
+    # shard-blocks marker, the checkpoint's per-rank shard)
+    def _resid_to_blob(self, resid=None):
         resid = self.engine.wire_resid_host() if resid is None else resid
         if resid is None:
             return None
-        return np.concatenate([flat_to_jax(resid[:, off:off + spec.total], spec.shapes,
-                                           self.perms)
-                               for off, spec in self.engine.resid_segments()], 1)[None]
+        row = np.concatenate([flat_to_jax(resid[:, off:off + spec.total], spec.shapes,
+                                          self.perms)
+                              for off, spec in self.engine.resid_segments()], 1)
+        if self.mesh.size > 1:
+            return rank_block_marker(row, self.mesh.rank, self.mesh.size)
+        return row[None]
 
     def _resid_from_blob(self, arr) -> np.ndarray:
+        if is_shard_marker(arr):
+            arr = dense_from_blocks(arr)
         arr = np.asarray(arr, np.float32)
-        if arr.ndim != 3 or arr.shape[0] != 1:
+        n = self.mesh.size
+        if arr.ndim != 3 or arr.shape[0] != n:
             raise ValueError(f"checkpointed wire residual of shape {arr.shape}: the port runs "
-                             f"one participant and restores a [1, slots, total] carry")
-        return np.concatenate([flat_from_jax(arr[0][:, off:off + spec.total], spec.shapes,
+                             f"one participant and restores a [1, slots, total] carry"
+                             + ("" if n == 1 else f" (a [{n}, slots, total] one, a row a rank, "
+                                                  f"on {n} ranks)"))
+        row = arr[self.mesh.rank]
+        return np.concatenate([flat_from_jax(row[:, off:off + spec.total], spec.shapes,
                                              self.perms)
                                for off, spec in self.engine.resid_segments()], 1)
 
@@ -1017,12 +1086,13 @@ class FedExperiment:
         self._commitment = ScheduleCommitment(self.sampler_spec.horizon) \
             if self.sampler_spec.committed else None
         blob = resume(cfg["output_dir"], self.tag, cfg["resume_mode"])
+        check_multihost_resume(blob, self.mesh)
         if blob and blob.get("data_split") is not None:
             data_split, label_split = blob["data_split"], blob["label_split"]
         else:
             data_split, label_split = self.make_splits()
         self.stage(data_split, label_split)
-        if self.obs_spec.trace_dir and self.tracer is None:
+        if self.obs_spec.trace_dir and self.tracer is None and self.lead:
             self.tracer = TraceRecorder(os.path.join(self.obs_spec.trace_dir, self.tag))
             self.phase_timer.trace = self.tracer
         P = self.engine.flatten(self.model.params())
@@ -1239,7 +1309,7 @@ class FedExperiment:
         self._chaos("checkpoint")
         with self._trace_span("checkpoint", {"epoch": int(epoch)}):
             write_checkpoint(cfg["output_dir"], self.tag, blob, self.checkpoint_keep, is_best,
-                             rec)
+                             rec, self.mesh)
         logger.reset()
         # a clean iteration ending in a durable checkpoint re-arms the
         # rollback budget for the next incident
@@ -1500,10 +1570,13 @@ def run_main(description: str, model_default: str, data_default: str,
              argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     """Parse flags, loop the seeds, run the experiments."""
     cfg = parse_cfg(description, model_default, data_default, argv)
+    # under torchrun: join the process group (a no-op without its variables)
+    initialize_distributed(device=resolve_device(cfg).type)
     results = []
     for i in range(cfg["num_experiments"]):
         exp = FedExperiment(cfg, cfg["init_seed"] + i)
-        print(f"Experiment: {exp.tag}", flush=True)
+        if exp.lead:
+            print(f"Experiment: {exp.tag}", flush=True)
         results.append(exp.run(pivot_metric, pivot_mode))
     return results
 

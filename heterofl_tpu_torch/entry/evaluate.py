@@ -16,6 +16,7 @@ import os
 import pickle
 from typing import Any, Dict, List, Optional
 
+from .. import config as C
 from ..convert import params_from_jax
 from ..utils import Logger, checkpoint_path, load_checkpoint, summarize_sums
 from .central import CentralExperiment
@@ -88,4 +89,8 @@ def run_test_main(description: str, model_default: str, data_default: str,
                   argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     """Parse flags, loop the seeds, evaluate each seed's best checkpoint."""
     cfg = parse_cfg(description, model_default, data_default, argv)
+    if C.launched_world_size() > 1:
+        raise NotImplementedError(
+            "the test entries evaluate a checkpoint on one rank: launch them without torchrun "
+            "(ROADMAP Queue 1 item 5)")
     return [evaluate_experiment(cfg, cfg["init_seed"] + i) for i in range(cfg["num_experiments"])]

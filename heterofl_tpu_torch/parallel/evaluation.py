@@ -33,6 +33,19 @@ device until the superstep's one fetch and equal :meth:`Evaluator.sbn_stats`,
 bit.  A rolling Local-eval window (``eval_cohort``) is copied into the same
 device operands (:meth:`FusedEval.set_local`), so no forward is captured
 again per window.
+
+On the clients mesh axis (``parallel/mesh.py``; ref evaluation.py:73-104,
+161-208, 232-262) each pass is sharded over the ranks as the reference
+shards it over its mesh: the sBN pass takes the rank's contiguous block of
+train batches and reduces the moment sums and the batch count in one
+all-reduce; Local takes the rank's block of users, whose rows reach every
+rank in one gather; Global takes the rank's block of test batches (LM
+windows) and reduces its three sums in one all-reduce.  One collective a
+pass, outside the captured forwards.  A rank's LM windows start where its
+block does: the corruption draws of the windows before it are drawn and
+dropped first (:meth:`Evaluator._skip_windows`), so every window is
+corrupted as the one-rank pass corrupts it.  On one rank a pass is what it
+was.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ import torch
 
 from ..models.base import FedModel
 from ..ops.fused_update import FlatSpec
+from .mesh import Mesh, single_mesh
 from .round_engine import norm_stats_tensors, prep_image
 from .step_graph import StepGraphs, device_counter
 
@@ -69,14 +83,41 @@ def eval_generator(seed: int, epoch: int, device: torch.device) -> torch.Generat
 
 class Evaluator:
     """Evaluation programs of one (model, cfg, device); ``seed`` is the
-    experiment's (the LM's corruption draws descend from it)."""
+    experiment's (the LM's corruption draws descend from it), ``mesh`` the
+    clients axis each pass is sharded over (default one rank)."""
 
     def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device,
-                 seed: int = 0):
+                 seed: int = 0, mesh: Optional[Mesh] = None):
         self.model, self.device, self.seed = model, device, seed
+        self.mesh = single_mesh(device) if mesh is None else mesh
         self.is_lm = model.meta["kind"] == "transformer"
         if not self.is_lm:
             self.norm = norm_stats_tensors(cfg, device)
+
+    def reduce_sums(self, tensors) -> None:
+        """Sum ``tensors`` over the mesh in place, in one all-reduce."""
+        tensors = list(tensors)
+        for dst, src in zip(tensors, self.mesh.all_reduce_sum(tensors)):
+            if src is not dst:
+                dst.copy_(src)
+
+    def gather_users(self, rows: torch.Tensor, users: int) -> torch.Tensor:
+        """Every rank's block of per-user rows ``[hi - lo, 3]`` -> the
+        ``[users, 3]`` rows on every rank, in one gather (each block padded
+        to ``ceil(users / ranks)`` rows)."""
+        per = -(-users // self.mesh.size) if users else 0
+        if rows.shape[0] < per:
+            rows = torch.cat([rows, rows.new_zeros((per - rows.shape[0],) + rows.shape[1:])])
+        return self.mesh.gather_rows(rows)[:users]
+
+    def _skip_windows(self, gen: torch.Generator, windows: int, rows: torch.Tensor) -> None:
+        """Draw and drop the corruption draws of ``windows`` LM test windows
+        shaped as ``rows`` (``[R, bptt]``): a rank whose block starts at
+        window ``lo`` starts its generator where the one-rank pass is
+        there (``models/transformer.py``: one ``[R, bptt]`` draw a window
+        in evaluation)."""
+        for _ in range(windows):
+            torch.rand(tuple(rows.shape), generator=gen, device=rows.device)
 
     def _img(self, x_u8: torch.Tensor) -> torch.Tensor:
         """uint8 NHWC batch -> normalised NCHW view (channels_last memory)."""
@@ -93,8 +134,14 @@ class Evaluator:
             return {}
         sums: Dict[str, list] = {}
         n = torch.zeros((), dtype=torch.float32, device=self.device)
-        for t in range(x_batches.shape[0]):
+        lo, hi = self.mesh.block(x_batches.shape[0])
+        for t in range(lo, hi):
             self._sbn_batch(params, x_batches[t], w_batches[t], sums, n)
+        if not sums:  # a rank with no batch: the sites' shapes, then zeros
+            self._sbn_batch(params, x_batches[0], w_batches[0], sums, n)
+            for x in [n] + [x for mv in sums.values() for x in mv]:
+                x.zero_()
+        self.reduce_sums([x for mv in sums.values() for x in mv] + [n])
         d = n.clamp_min(1.0)
         return {site: (m / d, v / d) for site, (m, v) in sums.items()}
 
@@ -128,10 +175,13 @@ class Evaluator:
         """"Local" metric sums per user: batched test shards ``x [U, S, B,
         H, W, C]``, ``y``/``m`` ``[U, S, B]``, label masks ``lm [U,
         classes]`` -> ``{loss_sum, score_sum, n}``, each ``[U]``."""
-        acc = torch.zeros((x.shape[0], 3), dtype=torch.float32, device=self.device)
-        for u in range(x.shape[0]):
+        lo, hi = self.mesh.block(x.shape[0])
+        acc = torch.zeros((hi - lo, 3), dtype=torch.float32, device=self.device)
+        for u in range(lo, hi):
             for t in range(x.shape[1]):
-                acc[u] += self._batch_metrics(params, bn_state, x[u, t], y[u, t], m[u, t], lm[u])
+                acc[u - lo] += self._batch_metrics(params, bn_state, x[u, t], y[u, t], m[u, t],
+                                                   lm[u])
+        acc = self.gather_users(acc, x.shape[0])
         # staticcheck: allow(no-device-get) the host evaluation's one read
         host = acc.cpu().numpy()
         return {"loss_sum": host[:, 0], "score_sum": host[:, 1], "n": host[:, 2]}
@@ -146,18 +196,22 @@ class Evaluator:
         with the corruption drawn from :func:`eval_generator` at ``epoch``
         (``draws(t)``, a test hook, gives window ``t``'s instead)."""
         acc = torch.zeros(3, dtype=torch.float32, device=self.device)
+        lo, hi = self.mesh.block(batched[0].shape[0])
         if self.is_lm:
             rows, w = batched
             gen = eval_generator(self.seed, epoch, self.device)
+            if draws is None:
+                self._skip_windows(gen, lo, rows[0])
             rows_n = torch.full((), float(rows.shape[1]), dtype=torch.float32,
                                 device=self.device)
-            for t in range(rows.shape[0]):
+            for t in range(lo, hi):
                 acc += self._lm_window(params, rows[t], w[t], rows_n, gen,
                                        None if draws is None else draws(t))
         else:
             x, y, w = batched
-            for t in range(x.shape[0]):
+            for t in range(lo, hi):
                 acc += self._batch_metrics(params, bn_state, x[t], y[t], w[t])
+        self.reduce_sums([acc])
         # staticcheck: allow(no-device-get) the host evaluation's one read
         loss_sum, score_sum, n = acc.tolist()
         return {"loss_sum": loss_sum, "score_sum": score_sum, "n": n}
@@ -199,8 +253,26 @@ class FusedEval:
         self.ev, self.spec = ev, spec
         self.has_sbn = (not ev.is_lm and sbn_batches is not None and ev.model.norm == "bn")
         self.has_local = not ev.is_lm and local_eval is not None
-        self.sbn, self.local, self.glob = sbn_batches, local_eval, global_eval
-        self.n_users = int(local_eval[0].shape[0]) if self.has_local else 0
+        # each pass reads this rank's block of its operands; on several
+        # ranks the batch (user) axis is first padded with zero-weight
+        # batches (users) to a multiple of the ranks, as the reference pads
+        # it over its mesh, so every rank replays the same captured forwards
+        mesh = ev.mesh
+
+        def block(ops):
+            n = ops[0].shape[0]
+            if n % mesh.size:
+                pad = mesh.size - n % mesh.size
+                ops = tuple(torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+                            for a in ops)
+            lo, hi = mesh.block(ops[0].shape[0])
+            return lo, tuple(a[lo:hi] for a in ops)
+
+        self.sbn = block(sbn_batches)[1] if self.has_sbn else sbn_batches
+        self.glob_lo, self.glob = block(global_eval)
+        self.users = int(local_eval[0].shape[0]) if self.has_local else 0
+        self.local = block(local_eval)[1] if self.has_local else local_eval
+        self.n_users = int(self.local[0].shape[0]) if self.has_local else 0
         self.graphs = StepGraphs(dev)
         self.P = torch.zeros(spec.total, dtype=torch.float32, device=dev)
         self.params = spec.unflatten(self.P)
@@ -270,16 +342,19 @@ class FusedEval:
         self.t += 1
 
     def _replay(self, key: str, body, batches: int, zero=(), generators=(),
-                seed: Optional[int] = None) -> None:
+                seed: Optional[int] = None, skip=None) -> None:
         """Capture ``body`` at ``key`` on first use (its warm-up writes into
         the sums), then zero the sums ``zero`` and the counter, reseed the
-        generators, and replay it ``batches`` times."""
+        generators (and run ``skip``: a rank's dropped draws), and replay it
+        ``batches`` times."""
         step = self.graphs.get(key, body, self.t.zero_, generators)
         for z in zero:
             z.zero_()
         self.t.zero_()
         for gen in generators:
             gen.manual_seed(seed)
+        if skip is not None:
+            skip()
         for _ in range(batches):
             step.replay()
 
@@ -294,6 +369,7 @@ class FusedEval:
                 self._sbn_batch()
             self._replay("sbn", self._sbn_batch, self.sbn[0].shape[0],
                          [self.n] + [x for mv in self.sums.values() for x in mv])
+            self.ev.reduce_sums([x for mv in self.sums.values() for x in mv] + [self.n])
             d = self.n.clamp_min(1.0)
             if not self.bn:
                 self.bn.update({site: (torch.empty_like(m), torch.empty_like(v))
@@ -306,9 +382,14 @@ class FusedEval:
         if self.has_local:
             self._replay("local", self._local_batch, self.n_users * self.local[0].shape[1],
                          [self.acc_local])
-            out["local"] = self.acc_local.clone()
+            out["local"] = self.ev.gather_users(self.acc_local, self.users).clone()
+        skip = None
+        if self.ev.is_lm and self.glob_lo:
+            skip = lambda: self.ev._skip_windows(self.gen, self.glob_lo,  # noqa: E731
+                                                 self.glob[0][0])
         self._replay("global", self._global_batch, self.glob[0].shape[0], [self.acc_global],
-                     [self.gen] if self.ev.is_lm else (), eval_seed(self.ev.seed, epoch))
+                     [self.gen] if self.ev.is_lm else (), eval_seed(self.ev.seed, epoch), skip)
+        self.ev.reduce_sums([self.acc_global])
         out["global"] = self.acc_global.clone()
         return out
 

@@ -70,6 +70,24 @@ own wire-codec residual and its own probe and gate rows, every arm's
 clients replaying the same captured steps (arm e's params copied into the
 static buffers as any client's are); every arm's metrics ride ONE fetch.
 The K=1 round refuses arms, as the reference's does.
+
+The clients mesh axis (``parallel/mesh.py``; ref round_engine.py:215-240,
+965-985, 1166-1167, 1431-1451, 1566-1600): at a world of n ranks a round's
+slots are laid out as the reference lays them over its ``clients`` axis
+(:func:`rank_slots`) -- ``ceil(A / n)`` a rank in schedule order, in
+contiguous blocks, the padding slots training nothing; under
+``data_placement='sharded'`` each rank holds only its block of users'
+shards (:func:`shard_client_data`) and trains the cohort's users it holds.
+Rank r trains only its slots (a client's draws stay keyed by
+``client_seed(round_seed, uid)``, so it trains the same way on whichever
+rank holds it), then the round's ``(summed, counts)`` go out in ONE
+``Mesh.all_reduce_sum`` (:meth:`FlatParams._aggregate`, K=1 and the
+superstep alike); under a wire codec each rank encodes its partial sums
+with its own residual row and rounding noise (participant index = rank),
+the packed payload is all-reduced once and every rank decodes it.  The
+per-slot metric rows reach every rank in one ``Mesh.gather_rows`` a round
+(a superstep: one for its k rounds), back in schedule order.  Without a
+process group the mesh is one rank, and a round is what it was.
 """
 
 from __future__ import annotations
@@ -101,6 +119,7 @@ from ..sched import ScheduleSpec, resolve_schedule_cfg
 from ..sched.buffer import buffered_combine
 from ..sched.deadline import deadline_steps
 from ..utils.optim import clip_by_global_norm, sgd_update
+from .mesh import Mesh, block_bounds, single_mesh
 from .staging import ClientStore, CohortStager, PendingMetrics, StagedCohort
 from .step_graph import StepGraphs, device_counter, maybe_event
 
@@ -140,6 +159,50 @@ def cohort_rates(cfg: Dict[str, Any], user_idx: np.ndarray, round_seed: int,
     if out.shape != user_idx.shape:
         raise ValueError(f"{out.size} rates for {user_idx.size} users")
     return out
+
+
+def rank_slots(users: np.ndarray, size: int, placement: str = "replicated",
+               users_per_rank: int = 0, bucket: bool = False
+               ) -> Tuple[List[List[np.ndarray]], int]:
+    """The slot layout of ``[k, A]`` cohorts over ``size`` ranks ->
+    ``(positions, per)``: ``positions[r][rank]`` the schedule positions of
+    round r that rank trains, ``per`` the slots a rank (the codec's
+    ``cmax``, the reference's per-device slot count).  ``replicated``:
+    ``ceil(A / size)`` consecutive positions a rank (ref
+    round_engine.py:1827-1831, 1450); ``sharded``: the positions of the
+    users a rank holds (user ``u`` on rank ``u // users_per_rank``; a
+    ``-1`` slot on none), ``per`` the most any rank holds in a round, at
+    least 1, rounded up to a power of two over a superstep (``bucket``;
+    ref round_engine.py:1583-1600, 1814-1822)."""
+    users = np.asarray(users, np.int64)
+    k, a = users.shape
+    if placement == "sharded":
+        owner = np.where(users >= 0, users // max(1, users_per_rank), -1)
+        pos = [[np.flatnonzero(owner[r] == d) for d in range(size)] for r in range(k)]
+        per = max([1] + [len(p) for row in pos for p in row])
+        if bucket:
+            per = 1 << (per - 1).bit_length()
+        return pos, per
+    per = -(-a // size) if a else 0
+    blocks = [np.arange(*block_bounds(a, size, d)) for d in range(size)]
+    return [blocks for _ in range(k)], per
+
+
+def shard_client_data(data: Tuple[torch.Tensor, ...], size: int, rank: int
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Rank ``rank``'s block of the per-user stacks under ``sharded``
+    placement (ref round_engine.py:215-240): the user axis padded with
+    empty users to a multiple of ``size``, then its ``rank``-th block of
+    ``U_pad / size`` users -- each rank holds only its users' shards."""
+    u = int(data[0].shape[0])
+    pad = (-u) % size
+    per = (u + pad) // size
+    out = []
+    for arr in data:
+        if pad:
+            arr = torch.cat([arr, arr.new_zeros((pad,) + tuple(arr.shape[1:]))])
+        out.append(arr[rank * per:(rank + 1) * per])
+    return tuple(out)
 
 
 def client_seed(round_seed: int, uid: int) -> int:
@@ -219,6 +282,10 @@ class FlatParams:
     _seg_ends: Optional[torch.Tensor] = None
     arms: Optional[ArmsSpec] = None
     _arm_resid: Optional[List[Optional[torch.Tensor]]] = None  # each arm's EF carry
+    #: the clients axis the round reduces over (None: no reduction, the
+    #: grouped engine and the sliced twin, which run on one rank)
+    mesh: Optional[Mesh] = None
+    placement = "replicated"
 
     def _init_sched(self, cfg: Dict[str, Any]) -> None:
         """The scheduler of ``cfg`` (``schedule``, ``client_failure_rate``)."""
@@ -483,21 +550,24 @@ class FlatParams:
             limits = np.full(user_idx.shape, total_steps, np.int64)
         return valid, np.where(valid, np.minimum(limits, total_steps), 0)
 
-    def _superstep(self, *args) -> Tuple[torch.Tensor, PendingMetrics]:
+    def _superstep(self, *args, **kw) -> Tuple[torch.Tensor, PendingMetrics]:
         """:meth:`_superstep_parts` as ``(new P, its PendingMetrics)``."""
-        P, tree, assemble, timers = self._superstep_parts(*args)
+        P, tree, assemble, timers = self._superstep_parts(*args, **kw)
         return P, PendingMetrics(tree, assemble, timers)
 
     def _superstep_parts(self, P: torch.Tensor, seed: int, epoch0: int, k: int, user_schedule,
-                         rate_schedule, lrs, eval_mask, fused_eval, lr: torch.Tensor, round_fn):
+                         rate_schedule, lrs, eval_mask, fused_eval, lr: torch.Tensor, round_fn,
+                         finish=None):
         """The superstep's round loop, shared by the engines: round r writes
         ``lrs[r]`` into the steps' static scalar ``lr``, runs
         ``round_fn(P, r, users, rates, round seed) -> (P, [A, 3] sums,
         reported rates, obs rows or None)``, and evaluates where
         ``eval_mask[r]`` fires; device marks around each round and
         evaluation time them.  The rounds' ``obs_*`` rows ride the one fetch
-        (under ``"obs"``, only when probes or the gate are on) -> ``(new P,
-        device tree, assemble, timers)``, the parts of a
+        (under ``"obs"``, only when probes or the gate are on);
+        ``finish(train)``, when given, turns the rounds' sums into what is
+        fetched (the mesh's gather of the ranks' rows) -> ``(new P, device
+        tree, assemble, timers)``, the parts of a
         :class:`~.staging.PendingMetrics`."""
         eval_mask = normalize_eval_mask(eval_mask, k, fused_eval)
         users, rates, lrs = superstep_schedules(user_schedule, rate_schedule, lrs, k)
@@ -517,6 +587,8 @@ class FlatParams:
                 evals.append(fused_eval.run(P, epoch0 + r))
                 timers["eval"].append((t1, maybe_event(P.device)))
         eval_epochs = [epoch0 + r for r in range(k) if eval_mask and eval_mask[r]]
+        if finish is not None:
+            train = finish(train)
         tree, levels = {"train": train, "eval": evals}, self.obs_levels
         if self.observing:
             tree["obs"] = obs
@@ -555,11 +627,13 @@ class FlatParams:
     def _aggregate(self, P, summed, counts, round_seed: int, n_slots: int,
                    codec_noise=None, topk_offset=None, cmax: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The round's new global params: the counted sums through the wire
-        codec (encode, sum, decode, the residual carried; its grid sized for
-        ``cmax`` clients, default the round's ``n_slots``, padding and
-        failed slots included, as the reference's ``user_glob.shape[0]``)
-        whenever the round has slots, then the counted average with the
+        """The round's new global params: the counted sums reduced over the
+        mesh -- through the wire codec (encode, all-reduce the payload,
+        decode, this rank's residual carried; its grid sized for ``cmax``
+        clients, default the round's ``n_slots``, padding and failed slots
+        included, as the reference's ``user_glob.shape[0]``, a rank's slots
+        at several ranks) whenever the round has slots, else in one
+        all-reduce of ``(summed, counts)`` -- then the counted average with the
         stale fallback -- or under buffered aggregation
         (``sched.buffer.buffered_combine``) the buffered update of the
         previous round, this round's sums buffered.  Returns ``(new P,
@@ -568,10 +642,14 @@ class FlatParams:
         if self.codec is not None and n_slots:
             draw = {"int8": codec_noise, "topk": topk_offset}.get(self.codec.name)
             if draw is None:
-                draw = self.codec.draw(round_seed, P.device)
+                draw = self.codec.draw(round_seed, P.device,
+                                       0 if self.mesh is None else self.mesh.rank)
             summed, counts, self._resid = compressed_sum(
                 self.codec, P, summed, counts, self._ensure_resid(P.device), draw,
-                n_slots if cmax is None else cmax)
+                n_slots if cmax is None else cmax, self.mesh)
+        elif self.mesh is not None:
+            # the round's one collective: the update sums and counts, one buffer
+            summed, counts = self.mesh.all_reduce_sum([summed, counts])
         if self.sched.buffered:
             if self._sched_buf is None:
                 self._sched_buf = torch.zeros((2, self.spec.total), dtype=torch.float32,
@@ -586,8 +664,12 @@ class RoundEngine(FlatParams):
     """Local training and counted aggregation of one round, for one
     (model, cfg, device)."""
 
-    def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device):
+    def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device,
+                 mesh: Optional[Mesh] = None):
         self.model, self.cfg, self.device = model, cfg, device
+        # the clients axis (parallel/mesh.py): one rank without a group
+        self.mesh = single_mesh(device) if mesh is None else mesh
+        self.placement = cfg.get("data_placement", "replicated") or "replicated"
         self.global_rate = cfg["global_model_rate"]
         ne = cfg["num_epochs"]
         self.local_epochs = ne["local"] if isinstance(ne, dict) else 1
@@ -605,10 +687,10 @@ class RoundEngine(FlatParams):
         self.momentum = float(cfg.get("momentum", 0.0))
         self.weight_decay = float(cfg.get("weight_decay", 0.0))
         self.spec = FlatSpec.of(dict(model.named_parameters()))
-        # wire codec: one participant (one GPU); 'dense' builds no codec and
-        # no residual, and leaves the round as it was
+        # wire codec: a participant a rank of the mesh; 'dense' builds no
+        # codec and no residual, and leaves the round as it was
         name, ef = resolve_codec_cfg(cfg)
-        self.codec = make_codec(name, self.spec, 1, error_feedback=ef)
+        self.codec = make_codec(name, self.spec, self.mesh.size, error_feedback=ef)
         self._resid = None
         self._init_sched(cfg)
         self._init_obs(cfg)
@@ -654,6 +736,74 @@ class RoundEngine(FlatParams):
             view[axis] = leaf.shape[axis]
             leaf.mul_(label_vector(label_mask, leaf.shape[axis]).reshape(view))
         return cm
+
+    # -- the clients mesh axis ----------------------------------------------
+
+    def _layout(self, users: np.ndarray, data, bucket: bool = False
+                ) -> Tuple[List[List[np.ndarray]], int]:
+        """:func:`rank_slots` of ``[k, A]`` cohorts over this engine's mesh
+        (a sharded rank's users the rows of its ``data`` block)."""
+        return rank_slots(users, self.mesh.size, self.placement,
+                          int(data[0].shape[0]) if self.placement == "sharded" else 0, bucket)
+
+    def _data_row(self, uid: int, data) -> int:
+        """The row of ``data`` holding user ``uid``'s shard: the user id, or
+        under ``sharded`` its place in this rank's block."""
+        if self.placement != "sharded":
+            return uid
+        return uid - self.mesh.rank * int(data[0].shape[0])
+
+    def _check_sharded(self, data) -> None:
+        """Under ``sharded``, ``data`` must be this rank's block of the
+        padded user axis (ref round_engine.py:1808-1813)."""
+        if self.placement != "sharded":
+            return
+        n, users = self.mesh.size, int(self.cfg["num_users"])
+        u_pad = int(data[0].shape[0]) * n
+        if u_pad != -(-users // n) * n:
+            raise ValueError(
+                f"sharded placement needs the user axis ({u_pad}) padded to a multiple of "
+                f"the clients axis ({n}); use shard_client_data")
+
+    @staticmethod
+    def _to_schedule(gathered: torch.Tensor, positions: Sequence[np.ndarray], per: int,
+                     a: int) -> torch.Tensor:
+        """Rows gathered in rank order (``per`` a rank) back at their ``a``
+        schedule positions, zeros where no rank trained the slot; the rows
+        themselves where they are in schedule order already (one rank)."""
+        src = np.full(a, -1, np.int64)
+        for r, p in enumerate(positions):
+            src[p] = r * per + np.arange(len(p))
+        if gathered.shape[0] == a and np.array_equal(src, np.arange(a)):
+            return gathered
+        out = gathered.new_zeros((a,) + tuple(gathered.shape[1:]))
+        keep = np.flatnonzero(src >= 0)
+        if keep.size:
+            dev = gathered.device
+            out[torch.from_numpy(keep).to(dev)] = gathered[torch.from_numpy(src[keep]).to(dev)]
+        return out
+
+    def _collect_rows(self, local: Sequence[torch.Tensor], positions: Sequence[np.ndarray],
+                      per: int, a: int) -> torch.Tensor:
+        """The round's ``[A, 3]`` per-slot rows from each rank's ``local``
+        rows (its slots' in order, zero-padded to ``per``): one
+        ``Mesh.gather_rows``, then :meth:`_to_schedule`.  On one rank the
+        rows are ``local`` stacked, as before."""
+        rows = torch.stack(list(local)) if local else torch.zeros((0, 3), device=self.device)
+        if len(local) < per:
+            rows = torch.cat([rows, rows.new_zeros((per - len(local), 3))])
+        return self._to_schedule(self.mesh.gather_rows(rows), positions, per, a)
+
+    def _collect_superstep(self, train: List[torch.Tensor], layout, a: int
+                           ) -> List[torch.Tensor]:
+        """The superstep's k rounds of local ``[per, 3]`` rows -> k ``[A,
+        3]`` rows in schedule order, through ONE ``Mesh.gather_rows`` of the
+        stacked ``[k, per, 3]``."""
+        positions, per = layout
+        k, mesh = len(train), self.mesh
+        g = mesh.gather_rows(torch.stack(train)).view(mesh.size, k, per, 3)
+        return [self._to_schedule(g[:, r].reshape(mesh.size * per, 3), positions[r], per, a)
+                for r in range(k)]
 
     # -- one client --------------------------------------------------------
 
@@ -883,6 +1033,7 @@ class RoundEngine(FlatParams):
             raise ValueError("chaos_poison needs epoch= on train_round (the "
                              "K=1 program matches poisons by (round, uid))")
         lm_all = data[-1]
+        self._check_sharded(data)
         user_idx = np.asarray(user_idx, np.int64).reshape(-1)
         rates_abs = cohort_rates(self.cfg, user_idx, round_seed, rates)
         valid, limits = self.slot_plan(user_idx, round_seed, self.total_steps(data),
@@ -893,27 +1044,30 @@ class RoundEngine(FlatParams):
         counts = torch.zeros_like(P)
         hits = None if self._poison is None else poison_hits(self._poison, epoch, user_idx)
         oks = [] if self._quarantine.enabled else None
+        (positions,), per = self._layout(user_idx[None], data)
         rows, pos = [], []
+        # this rank's slots, in schedule order
         # staticcheck: allow(no-device-get) a numpy array
-        for slot, uid in enumerate(user_idx.tolist()):
+        for slot in positions[self.mesh.rank].tolist():
+            uid = int(user_idx[slot])
             if not valid[slot]:
                 rows.append(P.new_zeros(3))
                 continue
             # staticcheck: allow(no-fresh-rng) seeded on the next line
             gen = torch.Generator(device=P.device)
             gen.manual_seed(client_seed(round_seed, uid))
-            wr, limit = float(wrs[slot]), int(limits[slot])
+            wr, limit, row = float(wrs[slot]), int(limits[slot]), self._data_row(uid, data)
             if self.is_lm:
                 draws = None if lm_draws is None else (lambda t, u=uid: lm_draws(u, t))
-                trained, acc = self.local_train_lm(P, wr, data[0][uid], lm_all[uid], gen, lr_t,
+                trained, acc = self.local_train_lm(P, wr, data[0][row], lm_all[row], gen, lr_t,
                                                    draws, step_limit=limit)
             else:
                 trained, acc = self.local_train(
-                    P, wr, data[0][uid], data[1][uid], data[2][uid], lm_all[uid], gen, lr_t,
+                    P, wr, data[0][row], data[1][row], data[2][row], lm_all[row], gen, lr_t,
                     None if epoch_perms is None else epoch_perms[uid],
                     None if aug_draws is None else (lambda t, u=uid: aug_draws(u, t)),
                     step_limit=limit)
-            cm = self.count_mask_flat(wr, lm_all[uid])
+            cm = self.count_mask_flat(wr, lm_all[row])
             trained, cm, ok = self._guard(trained, P, cm,
                                           None if hits is None else hits[slot:slot + 1])
             if ok is not None:
@@ -922,13 +1076,13 @@ class RoundEngine(FlatParams):
             summed += trained * cm
             counts += cm
             rows.append(acc)
-        acc = torch.stack(rows) if rows else P.new_zeros((0, 3))
+        new_P, summed, counts = self._aggregate(P, summed, counts, round_seed, len(user_idx),
+                                                codec_noise, topk_offset, cmax=per)
+        acc = self._collect_rows(rows, positions, per, len(user_idx))
         ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
               "rate": rates_abs * valid}
-        new_P, summed, counts = self._aggregate(P, summed, counts, round_seed, len(rows),
-                                                codec_noise, topk_offset)
         obs = self._round_obs(P, new_P, summed, counts,
-                              self._gate_row(oks, pos, len(rows), P.device), limits,
+                              self._gate_row(oks, pos, len(user_idx), P.device), limits,
                               self.total_steps(data))
         if obs is not None:
             ms.update(obs)
@@ -1029,31 +1183,40 @@ class RoundEngine(FlatParams):
 
     def _replayed_round(self, P: torch.Tensor, user_idx: np.ndarray, rates_abs: np.ndarray,
                         data, rseed: int, rows=None, epoch_perms=None, codec_noise=None,
-                        step_limits=None, alive=None, epoch: int = 0
+                        step_limits=None, alive=None, epoch: int = 0, mine=None,
+                        per: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray, Optional[Dict]]:
         """One round (number ``epoch``) of the superstep: per client the eager
         set-up, then its steps replayed (up to its budget, :meth:`slot_plan`;
         a padding or failed slot is skipped with a zero row); the poison and
         the gate, aggregation (and the codec) and the probes on the device
-        as :meth:`train_round` -> ``(new P, [A, 3] device sums, reported
-        rates, obs rows or None)``.  ``rows``: each slot's row of ``data``
-        (default its user id); hooks as :meth:`train_superstep`'s, this
+        as :meth:`train_round` -> ``(new P, [per, 3] device sums of this
+        rank's slots, reported rates, obs rows or None)``.  ``rows``: each
+        slot's row of ``data`` (default its user id, or its place in a
+        sharded rank's block); ``mine`` and ``per``: this rank's slot
+        positions and the slots a rank (:meth:`_layout`; default the
+        round's own layout); hooks as :meth:`train_superstep`'s, this
         round's."""
         total = self.total_steps(data)
         valid, limits = self.slot_plan(user_idx, rseed, total, step_limits, alive)
         wrs = to_width_rates(rates_abs, self.cfg)
         summed = torch.zeros_like(P)
         counts = torch.zeros_like(P)
-        rows = user_idx if rows is None else rows
         hits = None if self._poison is None else poison_hits(self._poison, epoch, user_idx)
         oks = [] if self._quarantine.enabled else None
+        if mine is None:
+            (positions,), per = self._layout(user_idx[None], data)
+            mine = positions[self.mesh.rank]
         sums, pos = [], []
+        # this rank's slots, in schedule order
         # staticcheck: allow(no-device-get) a numpy array
-        for slot, uid in enumerate(user_idx.tolist()):
+        for slot in np.asarray(mine).tolist():
+            uid = int(user_idx[slot])
             if not valid[slot]:
                 sums.append(P.new_zeros(3))
                 continue
-            wr, row = float(wrs[slot]), int(rows[slot])
+            wr = float(wrs[slot])
+            row = self._data_row(uid, data) if rows is None else int(rows[slot])
             step, st = self.client_step(wr, P, data)
             self.stage_client(st, P, wr, row, data, client_seed(rseed, uid),
                               None if epoch_perms is None else epoch_perms[uid])
@@ -1068,10 +1231,16 @@ class RoundEngine(FlatParams):
             summed += trained * cm
             counts += cm
             sums.append(st["acc"].clone())
+        a = len(user_idx)
+        if per is None:
+            per = a
+        if len(sums) < per:  # this rank's padding slots
+            sums += [P.new_zeros(3) for _ in range(per - len(sums))]
         acc = torch.stack(sums) if sums else P.new_zeros((0, 3))
-        new_P, summed, counts = self._aggregate(P, summed, counts, rseed, len(sums), codec_noise)
+        new_P, summed, counts = self._aggregate(P, summed, counts, rseed, a, codec_noise,
+                                                cmax=per)
         return new_P, acc, rates_abs * valid, self._round_obs(
-            P, new_P, summed, counts, self._gate_row(oks, pos, len(sums), P.device), limits,
+            P, new_P, summed, counts, self._gate_row(oks, pos, a, P.device), limits,
             total)
 
     def stage_cohort(self, store: ClientStore, user_schedule, rate_schedule=None
@@ -1151,14 +1320,24 @@ class RoundEngine(FlatParams):
                         hook(hook(alive, e), r), epoch0 + r)))
         data, user_schedule, rate_schedule, rows = self._cohort_args(
             "masked", k, data, user_schedule, rate_schedule, cohort)
+        if cohort is None:
+            self._check_sharded(data)
         st = self._slots(P, data)
+        users = np.asarray(user_schedule, np.int64)
+        # a cohort's rows are its slots: laid out as the reference's
+        # streamed cohort, ceil(A / n) a rank whatever the placement
+        layout = self._layout(users, data, bucket=True) if cohort is None \
+            else rank_slots(users, self.mesh.size)
+        positions, per = layout
 
         try:
             return self._superstep(
                 P, seed, epoch0, k, user_schedule, rate_schedule, lrs, eval_mask, fused_eval,
                 st["lr"], lambda P, r, users, rates, rseed: self._replayed_round(
                     P, users, rates, data, rseed, hook(rows, r), hook(epoch_perms, r),
-                    hook(codec_noise, r), hook(step_limits, r), hook(alive, r), epoch0 + r))
+                    hook(codec_noise, r), hook(step_limits, r), hook(alive, r), epoch0 + r,
+                    positions[r][self.mesh.rank], per),
+                finish=lambda train: self._collect_superstep(train, layout, users.shape[1]))
         finally:
             if cohort is not None:
                 cohort.release()

@@ -28,7 +28,18 @@ identical host inputs, and watches it run:
     tolerances and with strict monotonicity;
 (e) **wire bytes by equality** (:mod:`.wire`) and the int8 frontier;
 (f) **memory** under the analytic ceiling (:mod:`.memory`): on the card
-    the program's peak allocated bytes and its graph pool's growth.
+    the program's peak allocated bytes and its graph pool's growth;
+(g) **collectives** (ref audit.py:1243-1420, "exactly one psum a round"):
+    the masked engine's rounds reduce over the clients mesh axis, so each
+    dispatch makes exactly one ``Mesh.all_reduce_sum`` a round and one
+    ``Mesh.gather_rows`` (a K=1 round's rows, a superstep's k rounds'),
+    read from ``parallel/mesh.py``'s counters (the payload each moves is
+    check (e)'s); the record carries the payload's bytes and the ring
+    all-reduce's bytes a rank at the mesh's size
+    (:func:`.wire.ring_allreduce_bytes`); then one evaluation after the
+    dispatches, host and (a superstep program) fused, makes one all-reduce
+    an sBN and a Global pass and one gather a Local pass.  The grouped
+    engine is not on the mesh and reduces nothing over it.
 
 Programs: the masked and grouped engines at K=1 and in the superstep
 (K=2); dense, int8 and the grouped per-level codec map; ``telemetry``
@@ -57,11 +68,12 @@ from ..fed.core import (_MATMUL_LIKE, level_byte_table, level_codec_byte_table,
                         level_codec_map_byte_table, level_flop_shares, level_flop_table,
                         round_seed, superstep_rate_schedule, superstep_user_schedule)
 from ..models import make_model
+from ..parallel import mesh as mesh_mod
 from ..parallel import staging, step_graph
 from .kernels import step_launches
 from .memory import analytic_budget, check_memory
 from .report import AuditReport, ProgramReport
-from .wire import check_wire, codec_frontier
+from .wire import check_wire, codec_frontier, ring_allreduce_bytes
 
 #: the FLOP-share tolerance (max relative error of a level's measured
 #: share against the analytic one): 2% at the headline's widths, where the
@@ -338,11 +350,14 @@ def audit_program(spec: Program, device: torch.device, flagship: bool, out_dir: 
         base_alloc = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
     pool0 = step_graph.STATS["pool_bytes"]
-    seen = []
+    seen, colls = [], []
     for _ in range(2):
         cap0 = step_graph.STATS["captures"]
+        c0, b0 = dict(mesh_mod.COLLECTIVES), dict(mesh_mod.COLLECTIVE_BYTES)
         P, fetches, users, rates = _dispatch(exp, spec, P0)
         seen.append((len(eng.graphs.steps), step_graph.STATS["captures"] - cap0, fetches))
+        colls.append({k: mesh_mod.COLLECTIVES[k] - c0[k] for k in c0}
+                     | {f"{k}_bytes": mesh_mod.COLLECTIVE_BYTES[k] - b0[k] for k in b0})
     if cuda:
         torch.cuda.synchronize(device)
         peak = torch.cuda.max_memory_allocated(device) - base_alloc
@@ -381,6 +396,8 @@ def audit_program(spec: Program, device: torch.device, flagship: bool, out_dir: 
     # (e) wire bytes by equality
     rep.wire = {"levels": rec.levels}
     check_wire(rep, rep.wire, _expected_wire(spec, exp.cfg))
+    # (g) collectives over the clients mesh axis
+    check_collectives(rep, spec, exp, colls)
     # (f) memory
     mem_budget = _program_budget(spec, exp, rates)
     rep.memory = {"budget": mem_budget}
@@ -389,7 +406,60 @@ def audit_program(spec: Program, device: torch.device, flagship: bool, out_dir: 
         rep.memory.update(peak_bytes=int(peak), pool_bytes=int(pool),
                           peak_mb=round(peak / 2 ** 20, 3), pool_mb=round(pool / 2 ** 20, 3))
         check_memory(rep, rep.memory, mem_budget)
+    if spec.strategy == "masked":  # (g) the evaluation's collectives, last
+        check_eval_collectives(rep, exp, P, spec.k > 1, out_dir)
     return rep
+
+
+def check_collectives(rep: ProgramReport, spec: Program, exp, colls: List[Dict[str, int]]
+                      ) -> None:
+    """Check (g) of one program from its two dispatches' collective counts
+    ``colls`` (``parallel/mesh.py``'s counters' differences)."""
+    mesh = exp.mesh
+    worst = max(colls, key=lambda c: (c["all_reduce"], c["gather"]))
+    per_round = worst["all_reduce"] / spec.k
+    payload = worst["all_reduce_bytes"] // max(1, worst["all_reduce"])
+    rep.collectives = {"all_reduce_per_round": per_round, "gathers": worst["gather"],
+                       "payload_bytes_per_round": payload, "participants": mesh.size,
+                       "ring_allreduce_bytes_per_device": ring_allreduce_bytes(payload,
+                                                                               mesh.size),
+                       "on_mesh": spec.strategy == "masked"}
+    if spec.strategy != "masked":
+        if worst["all_reduce"] or worst["gather"]:
+            rep.fail("collective-budget", f"the {spec.strategy} engine is not on the mesh, "
+                     f"yet a dispatch made {worst['all_reduce']} all-reduce(s) and "
+                     f"{worst['gather']} gather(s)")
+        return
+    if any(c["all_reduce"] != spec.k for c in colls):
+        rep.fail("collective-budget", f"{[c['all_reduce'] for c in colls]} all-reduces in "
+                 f"the two dispatches of {spec.k} round(s): exactly one a round (the round's "
+                 f"update sums and counts, or the codec's payload, in one buffer)")
+    if any(c["gather"] != 1 for c in colls):
+        rep.fail("collective-budget", f"{[c['gather'] for c in colls]} gathers in the two "
+                 f"dispatches: exactly one a dispatch (the slots' metric rows)")
+
+
+def check_eval_collectives(rep: ProgramReport, exp, P: torch.Tensor, fused: bool,
+                           out_dir: str) -> None:
+    """Check (g) of the evaluation after a program's dispatches: the host
+    evaluation (and, for a superstep program, the fused one) makes one
+    all-reduce an sBN and a Global pass and one gather a Local pass (the
+    LM: one all-reduce, its Global pass)."""
+    from ..utils.logger import Logger
+
+    lm = exp.kind == "transformer"
+    want = {"all_reduce": 1 if lm else 2, "gather": 0 if lm else 1}
+    runs = [("eval_host", lambda: exp.evaluate(P, EPOCH0, Logger(out_dir, quiet=True)))]
+    if fused:
+        runs.append(("eval_fused", lambda: exp._fused_eval().run(P, EPOCH0)))
+    for what, run in runs:
+        c0 = dict(mesh_mod.COLLECTIVES)
+        run()
+        got = {k: mesh_mod.COLLECTIVES[k] - c0[k] for k in want}
+        rep.collectives[what] = got
+        if got != want:
+            rep.fail("collective-budget", f"{what}: {got} collectives, want {want} (one "
+                     f"all-reduce an sBN and a Global pass, one gather a Local pass)")
 
 
 def level_step_flops(cfg: Dict[str, Any], rate: float, device: torch.device) -> float:

@@ -44,6 +44,9 @@ class ProgramReport:
     #: device memory: peak allocated and graph pool MB (card), and the
     #: analytic ceiling they are held to (``memory.py``)
     memory: Optional[Dict[str, Any]] = None
+    #: the clients mesh axis's collectives a dispatch (``parallel/mesh.py``'s
+    #: counters): all-reduces a round, gathers, the payload's ring bytes
+    collectives: Optional[Dict[str, Any]] = None
 
     def fail(self, rule: str, message: str) -> None:
         self.ok = False

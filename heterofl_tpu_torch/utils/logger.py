@@ -19,9 +19,12 @@ from typing import Dict, Iterable, List
 
 
 class Logger:
-    def __init__(self, log_path: str, use_tensorboard: bool = False):
+    def __init__(self, log_path: str, use_tensorboard: bool = False, quiet: bool = False):
         self.log_path = log_path
         self.use_tensorboard = use_tensorboard
+        # quiet: keep the running means and history, write nothing (a rank
+        # other than 0 of a run on the clients mesh axis)
+        self.quiet = quiet
         self.writer = None
         self._jsonl = None
         self._tb_warned = False
@@ -33,6 +36,8 @@ class Logger:
 
     # -- lifecycle ----------------------------------------------------
     def safe(self, write: bool) -> None:
+        if write and self.quiet:
+            return
         if write:
             os.makedirs(self.log_path, exist_ok=True)
             self._jsonl = open(os.path.join(self.log_path, "log.jsonl"), "a")
@@ -110,7 +115,8 @@ class Logger:
         line_items = list(info) if isinstance(info, list) else ([str(info)] if info else [])
         line_items[2:2] = parts
         line = "  ".join(line_items) if line_items else "  ".join(parts)
-        print(line, flush=True)
+        if not self.quiet:
+            print(line, flush=True)
         if self.writer is not None:
             name = f"{tag}/info"
             self.iterator[name] += 1

@@ -165,3 +165,36 @@ def test_analysis_and_staticcheck_tools_load_no_jax_and_no_reference(tmp_path):
     assert (tmp_path / "out" / "result" / "MNIST_conv_a.pkl").exists()
     assert (tmp_path / "out" / "result.csv").exists()
     assert (tmp_path / "train_conv_iid.sh").exists()
+
+
+def test_mesh_and_pod_probe_load_no_jax_and_no_reference(tmp_path):
+    """The clients mesh axis: ``parallel/mesh.py`` and ``parallel/pod.py`` are
+    scanned, and ``python -m heterofl_tpu_torch.parallel.pod --spawn 2`` runs
+    to its end in a fresh interpreter (two gloo ranks and the one-rank run,
+    compared; exit 0) with no ``jax`` and no ``heterofl_tpu`` module in the
+    parent's ``sys.modules`` nor in any rank's (each rank records its own)."""
+    import json
+
+    scanned = {os.path.relpath(f, ROOT).replace(os.sep, "/") for f in _port_files()}
+    assert {"heterofl_tpu_torch/parallel/mesh.py", "heterofl_tpu_torch/parallel/pod.py"} \
+        <= scanned
+    mod, out = "heterofl_tpu_torch.parallel.pod", str(tmp_path / "pod")
+    code = ("import runpy, sys\n"
+            f"sys.argv = [{mod!r}, {out!r}, '--spawn', '2']\n"
+            "try:\n"
+            f"    runpy.run_module({mod!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'heterofl_tpu'))\n"
+            "print('BAD', len(bad), bad[:5])\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=tmp_path, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "BAD 0 []" in res.stdout, res.stdout[-500:]
+    for sub, n in (("ranks2", 2), ("ranks1", 1)):
+        for r in range(n):
+            with open(os.path.join(out, sub, f"pod_result_p{r}.json")) as f:
+                assert json.load(f)["foreign_modules"] == []
