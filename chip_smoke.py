@@ -33,7 +33,7 @@ each prints its seconds:
    e, 2 steps each) against the CPU, and its local step timed; then the
    main paths, each into a fresh temporary ``output_dir``:
    ``heterofl_tpu_torch.entry.train_classifier_fed`` with the paper's
-   headline control on full-width ResNet-18, synthetic CIFAR10 at 8,000 of
+   headline control on full-width ResNet-18, synthetic CIFAR10 at 4,000 of
    its real 50,000 train images, ``pallas_norm=1``, ``fused_update=1``, one
    round (``ROUNDS``) with a checkpoint, sBN and Local/Global evaluation,
    local epochs cut to ``--local-epochs`` (default 1; the control's own is
@@ -65,12 +65,12 @@ each prints its seconds:
    CPU (draws made on the CPU and injected); then
    ``train_transformer_fed`` with ``LM_CONTROL`` at full width (E 256, 8
    heads, FFN 512, 4 layers, bptt 64) on synthetic WikiText2 at its quoted
-   2,088,628 / 245,569 tokens -- two rounds (``LM_ROUNDS``) of 327 local
+   1,044,314 / 245,569 tokens -- two rounds (``LM_ROUNDS``) of 164 local
    steps each, a checkpoint and a Global evaluation (384 windows of [10,
    64]) each round; the same entry resumed for a third round (``--resume_mode 1``,
    from the checkpoint's params bit for bit); ``test_transformer_fed``
    reproducing the best checkpoint's logged Global-Perplexity; one int8
-   round; the centralised ``train_transformer`` (one epoch of 327 steps of
+   round; the centralised ``train_transformer`` (one epoch of 164 steps of
    [100, 64]) and ``test_transformer``.  The ``<mask>`` row of the token
    embedding must keep its initial value through every round, and no LM
    path may launch a batch-norm kernel;
@@ -248,7 +248,28 @@ each prints its seconds:
    back, each rank's round seconds on the host clock beside the one-rank
    run's (two ranks sharing one GPU: not a scaling figure), and whether
    gloo all-reduces a CUDA tensor itself;
-16. the ``kernels`` JSON line (launches from the int8 path, the batched
+16. the grouped engine on the clients mesh axis (``parallel/grouped.py``
+   over ``parallel/mesh.py``), at phase 15's depth and full width: (a) the
+   grouped headline -- K=1 and a superstep of two rounds dense, and the
+   superstep under ``CODEC_MAP`` -- without a process group and then as
+   rank 0 of a one-rank NCCL group, equal bit for bit, one all-reduce a
+   round (the map's every level at once) and a pass, the batched kernels
+   launched and no one-client kernel; then two gloo ranks sharing the card
+   (``chip_smoke.py --gmesh-rank``; NCCL across two GPUs where the machine
+   has them), each running: (b) the grouped headline superstep under
+   ``span``, on rank 0 inside a profiler trace whose hand-written kernels
+   equal the launch counters; (c) ``GMESH_SLICES`` under ``slices`` with
+   ``strict_placement``, each rank training only its own level (its
+   captured steps' levels recorded); (d) the entry under ``CODEC_MAP`` over
+   two supersteps, uninterrupted and resumed from the first's sharded
+   checkpoint, equal bit for bit, the ranks' residual rows apart; each
+   payload's all-reduce timed on CUDA events with its payload, reduced and
+   ring bytes; (e) the grouped slices pod probe's rank: each run's ranks
+   equal bit for bit, (b) and (c) within ``RANKS_ATOL`` of the one-rank
+   span runs, one all-reduce a round on each rank, the batched kernels on
+   each rank, and the probe as phase 15's; (f) NCCL between two GPUs is
+   (b)-(e)'s backend where the machine has them;
+17. the ``kernels`` JSON line (launches from the int8 path, the batched
    kernels' from the grouped path; per path in ``launches_by_path``, and
    the superstep's launches from replays -- a graph's captured launches
    times its replays -- in ``replayed_launches_by_path``), then the ``ok``
@@ -278,12 +299,12 @@ TAG = f"0_CIFAR10_label_resnet18_{HEADLINE}"
 CENTRAL = "1_1_1_none_fix_a1_bn_1_1"  # the centralised baseline, full width
 CENTRAL_TAG = f"0_CIFAR10_label_resnet18_{CENTRAL}"
 CENTRAL_EPOCHS = 1
-# the vision paths' synthetic CIFAR10: 8,000 of the real 50,000-image train
-# set (80 steps a round, 800 sBN forwards; cut for the script's time, from
+# the vision paths' synthetic CIFAR10: 4,000 of the real 50,000-image train
+# set (40 steps a round, 400 sBN forwards; cut for the script's time, from
 # 25,000 when the bf16, im2col and codec-map phases came, from 15,000 when
-# phase 12 came, and from 10,000 when phase 13 came), the real 10,000-image
-# test set
-SIZES = {"train": 8000, "test": 10000}
+# phase 12 came, from 10,000 when phase 13 came, and from 8,000 when phase
+# 16 came), the real 10,000-image test set
+SIZES = {"train": 4000, "test": 10000}
 BATCH = 10
 CENTRAL_BATCH = 100
 # ResNet-18 on 32x32 CIFAR at batch 10: (rows M = N*H*W, channels C, BN
@@ -315,13 +336,15 @@ SHARE_ROUND_INT8 = 0.02       # int8 round: share of entries allowed one grid st
 TOL_EVAL_LOSS = 1e-4
 TOL_EVAL_ACC = 0.05
 # the masked LM: the control of the paper's WikiText2 runs, full width;
-# synthetic WikiText2 at the token counts quoted for WikiText2
+# synthetic WikiText2 at half the train tokens quoted for WikiText2 (cut in
+# depth from 2,088,628 when phase 16 came: 164 steps a round instead of
+# 327) and its quoted test tokens
 LM_CONTROL = "1_100_0.01_iid_fix_a1-b1-c1-d1-e1_bn_1_1"
 LM_TAG = f"0_WikiText2_label_transformer_{LM_CONTROL}"
 LM_CENTRAL_TAG = f"0_WikiText2_label_transformer_{CENTRAL}"
-LM_SIZES = {"train": 2088628, "test": 245569}
+LM_SIZES = {"train": 1044314, "test": 245569}
 LM_N = 2454528          # the full-width transformer's parameters (vocabulary 512)
-LM_STEPS = 327          # ceil(20,886 tokens a user / bptt 64)
+LM_STEPS = math.ceil(LM_SIZES["train"] // 100 / 64)  # 164: 10,443 tokens a user, bptt 64
 LM_ROUNDS = 2  # cut from 3 for the superstep paths' time
 # the card-vs-CPU LM rounds: (user, tokens of its row): level a over 10
 # windows, level e over 2 (lm_round_phase says why)
@@ -330,7 +353,7 @@ TOL_LM_ROUND = 1e-3     # max |params| difference, card LM round vs CPU LM round
 # the sixth slice: dynamic rates on data read from disk, the group norms and
 # the bottleneck ResNet.  The dataset files are written in their real
 # on-disk formats from a seed: CIFAR10 as the python-pickle batches, cut in
-# depth to the vision paths' 8,000 training images (five batches of 1,600)
+# depth to the vision paths' 4,000 training images (five batches of 800)
 # and the real 10,000 test images; EMNIST balanced as gzip IDX, cut from
 # 112,800 / 18,800 images to EMNIST_SIZES.
 DYNAMIC = "1_100_0.1_iid_dynamic_a1-b1-c1-d1-e1_bn_1_1"
@@ -3886,6 +3909,9 @@ ARMS_ROUNDS = 2  # one superstep of two rounds, evaluated after the second
 ARMS_SPEC = {"count": 2, "seeds": [None, 1], "lr_scales": [1.0, 0.5]}
 ARMS_SOLO = {"count": 1, "seeds": [1], "lr_scales": [0.5]}
 DRILL_ROUNDS = 4  # the masked drills: supersteps of two, as the drill's own federation
+# the poison drills: the poison at round 3 (``chaos.drill.run_poison_drill``)
+# and no round after it (cut from DRILL_ROUNDS when phase 16 came)
+DRILL_POISON_ROUNDS = 3
 DRILL_MASKED = {"kills": [{"point": "superstep", "at": 2}, {"point": "fetch", "at": 2},
                           {"point": "checkpoint", "at": 2}]}
 # the grouped plan, three rounds at K=1: a kill before the third checkpoint
@@ -4050,8 +4076,8 @@ def drill_path(torch, counters, out_dir: str):
               over(DRILL_ROUNDS, client_store="stream"), masked_ref),
              ("drill_grouped", DRILL_GROUPED,
               over(DRILL_GROUPED_ROUNDS, strategy="grouped", superstep_rounds=1), None),
-             ("drill_quarantine", "quarantine", over(DRILL_ROUNDS), None),
-             ("drill_rollback", "rollback", over(DRILL_ROUNDS), None))
+             ("drill_quarantine", "quarantine", over(DRILL_POISON_ROUNDS), None),
+             ("drill_rollback", "rollback", over(DRILL_POISON_ROUNDS), None))
     for path, plan, cfg_over, ref in cases:
         if path != "drill_masked":  # the masked plan's count takes in its reference run
             zero(counters)
@@ -4375,7 +4401,8 @@ def mesh_rank_main(torch, out_dir: str, backend: str) -> None:
                      "loss": [h["loss"] for h in res["history"]],
                      "resid_sha256": None if resid is None else hashlib.sha256(
                          np.ascontiguousarray(resid).tobytes()).hexdigest()}
-    pod.child_main(os.path.join(out_dir, "probe"), backend=backend, device="cuda")
+    pod.child_main(os.path.join(out_dir, "probe"), backend=backend, device="cuda",
+                   engine="masked")
     with open(os.path.join(out_dir, f"mesh_rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -4444,7 +4471,7 @@ def mesh_ranks_check(torch, out_dir: str, plain_flat: dict, plain_loss: dict) ->
             res.append(json.load(f))
     threads = torch.get_num_threads()
     try:
-        res1 = pod.child_main(one, device="cuda")  # the probe alone, in this process
+        res1 = pod.child_main(one, device="cuda", engine="masked")  # the probe alone, here
     finally:
         torch.set_num_threads(threads)
     probe = pod.compare_probes(many, res, one, [res1])
@@ -4545,12 +4572,381 @@ def mesh_phase(torch, counters, out_dir: str, spec, P):
     return launches, replayed, nums
 
 
+# --- phase 16: the grouped engine on the clients mesh axis ------------------------------
+
+#: phase 16c's two-level control: level a on rank 0, level b on rank 1
+GMESH_SLICES = "1_100_0.1_iid_fix_a1-b1_bn_1_1"
+#: phase 16a's one-rank runs of the grouped headline: (name, codec, K)
+GMESH_RUNS = (("k1_dense", "dense", 1), ("superstep_dense", "dense", MESH_ROUNDS),
+              ("superstep_map", json.dumps(CODEC_MAP), MESH_ROUNDS))
+#: phase 16d: the map's entry over two supersteps, uninterrupted and cut after one
+GMESH_MAP_ROUNDS = 2 * MESH_ROUNDS
+GMESH_ALL_REDUCE_CALLS = 3  # timed calls of each payload's all-reduce on each rank
+BATCHED = ("bn_fwd_batched", "bn_bwd_batched", "fused_sgd_batched")
+ONE_CLIENT = ("bn_fwd", "bn_bwd", "fused_sgd")
+
+
+def gmesh_argv(out_dir: str, codec: str, k: int, rounds: int = MESH_ROUNDS,
+               control: str = HEADLINE, *extra):
+    """Phase 16's flags: :func:`mesh_argv`'s with ``--strategy grouped``,
+    ``rounds`` rounds evaluated after the last, on ``control``."""
+    argv = mesh_argv(out_dir, codec, k) + ["--strategy", "grouped", *extra]
+    argv[argv.index("--control_name") + 1] = control
+    argv[argv.index("--eval_interval") + 1] = str(rounds)
+    argv[argv.index("--override") + 1] = json.dumps({"num_epochs": {"global": rounds,
+                                                                    "local": 1}})
+    return argv
+
+
+def gmesh_collectives_ok(colls: dict, rounds: int, k: int) -> bool:
+    """One all-reduce a round (the per-level map's payload too) and one an
+    sBN and a Global pass of the one evaluation, after the last round; one
+    gather a round's (K=1) or a superstep's rows and one a Local pass."""
+    gathers = (rounds if k == 1 else rounds // k) + 1
+    return colls["all_reduce"] == rounds + 2 and colls["gather"] == gathers
+
+
+def rank_all_reduce_ms(torch, mesh, tensors, calls: int = GMESH_ALL_REDUCE_CALLS) -> float:
+    """The median ms (CUDA events) of ``Mesh.all_reduce_sum`` of
+    ``tensors`` on this rank over ``calls`` calls after one warm-up; every
+    rank makes the same calls."""
+    mesh.all_reduce_sum(tensors)
+    times = []
+    for _ in range(calls):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        mesh.all_reduce_sum(tensors)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def gmesh_payloads(torch, device) -> dict:
+    """The round's all-reduce payloads at two ranks on the headline:
+    dense, the merged ``[2, n]`` float32 sums and counts; under
+    ``CODEC_MAP``, every level's (a dense level's float32 sliced sums and
+    counts, a lossy level's codec lanes at two participants), as the
+    grouped engine's one all-reduce carries them."""
+    from heterofl_tpu_torch import config as C
+    from heterofl_tpu_torch.compress import make_codec, normalize_codec_map
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.ops.fused_update import FlatSpec
+
+    cfg = C.default_cfg()
+    cfg["control"] = C.parse_control_name(HEADLINE)
+    cfg = C.process_control(cfg)
+    cfg["classes_size"] = 10
+    n = FlatSpec.of(dict(make_model(cfg).named_parameters())).total
+    dense = [torch.zeros(n, device=device), torch.zeros(n, device=device)]
+    payload = []
+    for rate, name in sorted(normalize_codec_map(CODEC_MAP).items(), reverse=True):
+        spec = FlatSpec.of(dict(make_model(cfg, rate).named_parameters()))
+        if name == "dense":
+            payload += [torch.zeros(spec.total, device=device)] * 2
+        else:
+            payload += list(make_codec(name, spec, MESH_RANKS).zero_payload(device).values())
+    return {"dense": dense, "map": payload}
+
+
+def gmesh_rank_main(torch, out_dir: str, backend: str) -> None:
+    """One rank of phase 16 (``chip_smoke.py --gmesh-rank OUT_DIR``, started
+    with torchrun's variables by ``parallel/pod.py::_spawn``): joins the
+    ``backend`` group on the card and runs, each with its launches and
+    collectives counted from 0: (b) the grouped headline superstep under
+    ``span``, on rank 0 inside a profiler trace whose hand-written kernels
+    must equal the counters (a trace that lost records is taken again, on
+    every rank, up to ``TRACE_TRIES``); (c) ``GMESH_SLICES`` under
+    ``slices`` with ``strict_placement``, each rank's trained levels
+    recorded; (d) the entry under ``CODEC_MAP`` over ``GMESH_MAP_ROUNDS``
+    rounds, uninterrupted, cut after one superstep and resumed; each
+    payload's all-reduce timed; (e) the grouped slices probe's rank, which
+    leaves the group.  Writes each run's params as ``<run>_rank<r>.npy``
+    and ``gmesh_rank<r>.json``."""
+    import hashlib
+
+    import numpy as np
+
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.ops import fused_norm, fused_update, quant
+    from heterofl_tpu_torch.parallel import mesh as M
+    from heterofl_tpu_torch.parallel import pod
+    from heterofl_tpu_torch.parallel.grouped import GroupedRoundEngine
+    from heterofl_tpu_torch.staticcheck.wire import ring_allreduce_bytes
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    if not M.initialize_distributed(backend, "cuda"):
+        raise AssertionError("grouped mesh rank: started without torchrun's variables")
+    mesh = M.make_mesh(0, device=torch.device("cuda"))
+    rank = mesh.rank
+    counters = (fused_norm.LAUNCHES, fused_update.LAUNCHES, quant.LAUNCHES)
+    out = {"rank": rank, "backend": mesh.backend}
+    trained, level_step = [], GroupedRoundEngine.level_step
+
+    def recording(self, lv, G, *a, **k):  # the levels this rank's steps train
+        trained.append(next(r for r, v in self.levels.items() if v is lv))
+        return level_step(self, lv, G, *a, **k)
+
+    def run(what, argv, traced=False):
+        for attempt in range(1, TRACE_TRIES + 1):
+            M.reset_counts()
+            trained.clear()
+            argv_a = list(argv)
+            if traced:  # a fresh output directory each attempt
+                i = argv_a.index("--output_dir") + 1
+                argv_a[i] = f"{argv_a[i]}_{attempt}"
+            holder = {}
+
+            def go():
+                holder["r"] = counted_run(torch, counters, train_classifier_fed.main, argv_a,
+                                          f"grouped mesh rank {rank}: {what}")
+
+            prof = trace(go)[0] if traced and rank == 0 else go()
+            res, secs, launches, replayed = holder["r"]
+            colls = dict(M.COLLECTIVES)
+            coll_bytes = dict(M.COLLECTIVE_BYTES)
+            got = traced_kernels(prof) if prof is not None else None
+            ok = got is None or all(got[k] == launches.get(k, 0) for k in KERNEL_OF)
+            if traced and not mesh.broadcast_int(int(ok)):
+                if rank == 0 and any(got[k] > launches.get(k, 0) for k in KERNEL_OF):
+                    raise AssertionError(f"{what}: the trace counted {got} kernels, more than "
+                                         f"the launch counters' {launches}")
+                say(f"{what}: trace {attempt} counted {got}, not the counters' {launches}")
+                continue
+            break
+        else:
+            raise AssertionError(f"{what}: no trace counted the launches {launches}")
+        np.save(os.path.join(out_dir, f"{what}_rank{rank}.npy"), flat_params(res["params"]))
+        resid = res["wire_resid"]
+        rounds = len(res["history"])
+        out[what] = {"seconds": secs, "round_s_host": secs / max(1, rounds),
+                     "collectives": colls,
+                     "payload_bytes_per_round": coll_bytes["all_reduce"],
+                     "launches": launches, "replayed": replayed, "traced": got,
+                     "trained_levels": sorted(set(trained), reverse=True),
+                     "loss": [h["loss"] for h in res["history"]],
+                     "epochs": [h["epoch"] for h in res["history"]],
+                     "resid_sha256": None if resid is None else hashlib.sha256(
+                         np.ascontiguousarray(resid).tobytes()).hexdigest()}
+        say(f"grouped mesh rank {rank}: {what}: {secs:.1f} s, collectives {colls}, launches "
+            f"{launches}, levels trained {out[what]['trained_levels']}")
+
+    GroupedRoundEngine.level_step = recording
+    try:
+        run("span_superstep", gmesh_argv(os.path.join(out_dir, "entry", "span"), "dense",
+                                         MESH_ROUNDS), traced=True)
+        run("slices_superstep", gmesh_argv(
+            os.path.join(out_dir, "entry", "slices"), "dense", MESH_ROUNDS, MESH_ROUNDS,
+            GMESH_SLICES, "--level_placement", "slices", "--strict_placement", "1"))
+        cmap = json.dumps(CODEC_MAP)
+        for what, rounds, resume, sub in (("map_full", GMESH_MAP_ROUNDS, 0, "map_full"),
+                                          ("map_part", MESH_ROUNDS, 0, "map_cut"),
+                                          ("map_resumed", GMESH_MAP_ROUNDS, 1, "map_cut")):
+            run(what, gmesh_argv(os.path.join(out_dir, "entry", sub), cmap, MESH_ROUNDS,
+                                 rounds, HEADLINE, "--resume_mode", str(resume)))
+    finally:
+        GroupedRoundEngine.level_step = level_step
+    timing = {}
+    for name, tensors in gmesh_payloads(torch, mesh.device).items():
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        reduced = M.reduce_buffer_bytes(tensors)
+        timing[name] = {"ms": rank_all_reduce_ms(torch, mesh, tensors), "payload_bytes": nbytes,
+                        "reduced_bytes": reduced,
+                        "ring_bytes": ring_allreduce_bytes(reduced, mesh.size)}
+    out["all_reduce"] = timing
+    pod.child_main(os.path.join(out_dir, "probe"), backend=backend, device="cuda",
+                   engine="grouped")
+    with open(os.path.join(out_dir, f"gmesh_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def gmesh_ranks_check(torch, out_dir: str, plain_flat: dict) -> dict:
+    """Phase 16b-f: ``MESH_RANKS`` ranks on the card (gloo sharing one GPU;
+    NCCL across two where the machine has them), each running
+    :func:`gmesh_rank_main`; then the probe alone in this process.  Holds
+    each run's ranks bit for bit equal, the span and slices supersteps
+    within ``RANKS_ATOL`` of the one-rank span runs, one all-reduce a round
+    on each rank, each rank's batched kernels (and no one-client kernel),
+    under slices each rank training only its own level, the map's resumed
+    run equal to the uninterrupted one bit for bit with residual rows
+    apart, and the probe as ``pod.compare_probes`` does -> numbers and each
+    rank's launches."""
+    import numpy as np
+
+    from heterofl_tpu_torch.parallel import pod
+
+    gpus = torch.cuda.device_count()
+    backend = "nccl" if gpus >= MESH_RANKS else "gloo"
+    t0 = time.time()
+    pod._spawn([sys.executable, os.path.abspath(__file__), "--gmesh-rank", out_dir,
+                "--mesh-backend", backend], MESH_RANKS, MESH_RANK_TIMEOUT, gpus)
+    spawn_s = time.time() - t0
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"gmesh_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    flats = {w: [np.load(os.path.join(out_dir, f"{w}_rank{r}.npy")) for r in range(MESH_RANKS)]
+             for w in ("span_superstep", "slices_superstep", "map_full", "map_resumed")}
+    nums = {"backend": backend, "spawn_s": spawn_s, "runs": {}}
+    launches, bad = {}, []
+    for what in ("span_superstep", "slices_superstep", "map_full", "map_part", "map_resumed"):
+        recs = [rk[what] for rk in ranks]
+        equal = all(rec["loss"] == recs[0]["loss"] for rec in recs) and (
+            what not in flats or all(np.array_equal(f, flats[what][0]) for f in flats[what]))
+        k_rounds = len(recs[0]["epochs"])
+        for rk, rec in zip(ranks, recs):
+            launches[f"gmesh_{what}_rank{rk['rank']}"] = rec["launches"]
+            n = rec["launches"]
+            if not gmesh_collectives_ok(rec["collectives"], k_rounds, MESH_ROUNDS):
+                bad.append(f"{what} collectives {rec['collectives']}")
+            if min(n[k] for k in BATCHED) <= 0 or any(n[k] for k in ONE_CLIENT) or \
+                    (n["quant_pack"] > 0) != what.startswith("map"):
+                bad.append(f"{what} launches {n}")
+        if not equal:
+            bad.append(f"{what}: the ranks' params or losses differ")
+        run = {"ranks_equal": equal, "seconds": [r["seconds"] for r in recs],
+               "round_s_host": [r["round_s_host"] for r in recs],
+               "collectives": [r["collectives"] for r in recs],
+               "payload_bytes": [r["payload_bytes_per_round"] for r in recs],
+               "levels": [r["trained_levels"] for r in recs], "loss": recs[0]["loss"]}
+        ref = {"span_superstep": "superstep_dense", "slices_superstep": "slices_span"}.get(what)
+        if ref is not None:
+            run["vs_one_rank"] = float(np.max(np.abs(flats[what][0].astype(np.float64)
+                                                     - plain_flat[ref])))
+            if not run["vs_one_rank"] <= pod.RANKS_ATOL:
+                bad.append(f"{what}: params {run['vs_one_rank']:.3e} from the one-rank span run")
+        nums["runs"][what] = run
+        say(f"grouped mesh: {what} at {MESH_RANKS} {backend} ranks: ranks equal {equal}, "
+            f"levels trained a rank {run['levels']}, against one rank "
+            f"{run.get('vs_one_rank')}, losses {run['loss']}, seconds {run['seconds']} "
+            f"(host clock; a round {run['round_s_host']}), collectives {run['collectives']}, "
+            f"all-reduce payload bytes a run {run['payload_bytes']}")
+    span = ranks[0]["span_superstep"]
+    say(f"grouped mesh: span superstep on rank 0: launch counters {span['launches']}, the "
+        f"profiler trace's kernels {span['traced']}")
+    levels = [rk["slices_superstep"]["trained_levels"] for rk in ranks]
+    if levels != [[1.0], [0.5]]:
+        bad.append(f"slices: the ranks trained levels {levels}, not [[1.0], [0.5]]")
+    full, res = flats["map_full"], flats["map_resumed"]
+    same = all(np.array_equal(a, b) for a, b in zip(full, res)) and all(
+        rk["map_full"]["resid_sha256"] == rk["map_resumed"]["resid_sha256"]
+        and rk["map_full"]["loss"][MESH_ROUNDS:] == rk["map_resumed"]["loss"] for rk in ranks)
+    apart = len({rk["map_full"]["resid_sha256"] for rk in ranks}) == MESH_RANKS
+    nums["map_resumed_equal"], nums["map_resid_rows_apart"] = same, apart
+    say(f"grouped mesh: the map's entry resumed at the superstep boundary == uninterrupted "
+        f"(params, residual rows, losses) {same}; the ranks' residual rows apart {apart}")
+    if not (same and apart):
+        bad.append("the map's resumed run is not the uninterrupted one, or the ranks' rows match")
+    nums["all_reduce"] = [rk["all_reduce"] for rk in ranks]
+    for rk in ranks:
+        for name, t in rk["all_reduce"].items():
+            say(f"grouped mesh: rank {rk['rank']}: the round's all-reduce, {name} payload "
+                f"{t['payload_bytes']:,} bytes ({t['reduced_bytes']:,} as reduced; ring "
+                f"{t['ring_bytes']:,} bytes a rank): {t['ms']:.4f} ms (CUDA events, through the "
+                f"wrapper, {backend})")
+    many, one = os.path.join(out_dir, "probe"), os.path.join(out_dir, "probe_one")
+    pres = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(many, f"pod_result_p{r}.json")) as f:
+            pres.append(json.load(f))
+    threads = torch.get_num_threads()
+    try:
+        res1 = pod.child_main(one, device="cuda", engine="grouped")  # alone, here
+    finally:
+        torch.set_num_threads(threads)
+    probe = pod.compare_probes(many, pres, one, [res1])
+    nums["probe"] = {k: v for k, v in probe.items() if k not in ("results", "one_rank")}
+    say(f"grouped mesh: the grouped slices probe at two {backend} ranks: "
+        f"{json.dumps(nums['probe'])}; round seconds (host clock) "
+        f"{[r['superstep_s'] / r['k'] for r in pres]} at two ranks, "
+        f"{res1['superstep_s'] / res1['k']} at one (span)")
+    for r, rr in enumerate(pres):
+        launches[f"gmesh_probe_rank{r}"] = rr["launches"]
+    if not (probe["ranks_equal"] and probe["within_tolerance"] and probe["sharded_ckpt_ok"]
+            and all(x == 1 for x in probe["all_reduce_per_round"])
+            and probe["placements"] == ["slices"] * MESH_RANKS
+            and not any(r["foreign_modules"] for r in pres)):
+        bad.append(f"the grouped probe: {nums['probe']}")
+    if bad:
+        raise AssertionError(f"grouped mesh at {MESH_RANKS} ranks: {bad}")
+    return {"nums": nums, "launches": launches}
+
+
+def gmesh_phase(torch, counters, out_dir: str):
+    """Phase 16 (the module docstring) -> ({path: launches}, numbers)."""
+    import torch.distributed as dist
+
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.parallel import mesh as M
+    from heterofl_tpu_torch.parallel.pod import _free_port
+
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    plain, launches, nums = {}, {}, {}
+    try:
+        for name, codec, k in GMESH_RUNS:
+            plain[name], _, _, _ = counted_run(
+                torch, counters, train_classifier_fed.main,
+                gmesh_argv(os.path.join(out_dir, "plain", name), codec, k),
+                f"grouped mesh: {name} without a process group")
+        plain["slices_span"], _, _, _ = counted_run(
+            torch, counters, train_classifier_fed.main,
+            gmesh_argv(os.path.join(out_dir, "plain", "slices_span"), "dense", MESH_ROUNDS,
+                       MESH_ROUNDS, GMESH_SLICES),
+            "grouped mesh: the slices control under span without a process group")
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(_free_port())}
+        saved = {v: os.environ.get(v) for v in env}
+        os.environ.update(env)
+        try:
+            if not M.initialize_distributed(device="cuda") or dist.get_backend() != "nccl":
+                raise AssertionError("grouped mesh: no one-rank NCCL group joined")
+            for name, codec, k in GMESH_RUNS:
+                what = f"gmesh_nccl_{name}"
+                M.reset_counts()
+                res, secs, launches[what], _ = counted_run(
+                    torch, counters, train_classifier_fed.main,
+                    gmesh_argv(os.path.join(out_dir, "nccl", name), codec, k),
+                    f"grouped mesh: {name} as rank 0 of a one-rank NCCL group")
+                colls, n = dict(M.COLLECTIVES), launches[what]
+                say(f"grouped mesh: {name}: {secs:.1f} s, collectives {colls}; launches {n}")
+                if not gmesh_collectives_ok(colls, MESH_ROUNDS, k):
+                    raise AssertionError(f"grouped mesh: {name} made collectives {colls}")
+                if not same_run(torch, res, plain[name]):
+                    raise AssertionError(f"grouped mesh: {name} under the one-rank NCCL group "
+                                         f"is not the run without a group bit for bit")
+                if min(n[c] for c in BATCHED) <= 0 or any(n[c] for c in ONE_CLIENT) or \
+                        (n["quant_pack"] > 0) != (name == "superstep_map"):
+                    raise AssertionError(f"grouped mesh: {name}: launches {n}")
+                say(f"grouped mesh: {name} under the one-rank NCCL group equals the run without "
+                    f"a group bit for bit (cohorts, logs, params, residual)")
+        finally:
+            M.shutdown_distributed()
+            for v, old in saved.items():
+                if old is None:
+                    os.environ.pop(v, None)
+                else:
+                    os.environ[v] = old
+        plain_flat = {w: flat_params(r["params"]) for w, r in plain.items()}
+        del plain
+        torch.cuda.empty_cache()
+        two = gmesh_ranks_check(torch, os.path.join(out_dir, "ranks"), plain_flat)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    launches.update(two["launches"])
+    nums.update(two["nums"])
+    return launches, nums
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--local-epochs", type=int, default=1,
                         help="local epochs of the main paths (the control's own is 5)")
     parser.add_argument("--mesh-rank", metavar="OUT_DIR", default=None,
                         help="run one rank of phase 15c into OUT_DIR (started by phase 15 "
+                             "itself, with torchrun's variables)")
+    parser.add_argument("--gmesh-rank", metavar="OUT_DIR", default=None,
+                        help="run one rank of phase 16 into OUT_DIR (started by phase 16 "
                              "itself, with torchrun's variables)")
     parser.add_argument("--mesh-backend", choices=("gloo", "nccl"), default="gloo")
     args = parser.parse_args()
@@ -4564,6 +4960,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if args.mesh_rank:
         mesh_rank_main(torch, args.mesh_rank, args.mesh_backend)
+        return 0
+    if args.gmesh_rank:
+        gmesh_rank_main(torch, args.gmesh_rank, args.mesh_backend)
         return 0
     from heterofl_tpu_torch import config as C
     from heterofl_tpu_torch.compress import codecs
@@ -4815,6 +5214,11 @@ def main() -> int:
         phases.done("mesh: the headline under a one-rank NCCL group against no group, the "
                     "round's all-reduce timed, the headline entry and the pod probe at two "
                     "ranks")
+        # 16. the grouped engine on the clients mesh axis
+        gmesh_n, gmesh_nums = gmesh_phase(torch, counters, os.path.join(tmp, "gmesh"))
+        by_path.update(gmesh_n)
+        phases.done("grouped mesh: the grouped headline under a one-rank NCCL group against no "
+                    "group; span, slices, the map resumed and the grouped probe at two ranks")
     say(f"stream: staging a cohort at {POP_USERS[-1]:,} users {pop_nums['ratio']:.3f}x the host "
         f"seconds at {POP_USERS[0]:,}; prefetches ended with the device busy: "
         + ", ".join(f"depth {d} {n['busy']}" for d, n in ring_nums.items()))

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from . import (COUNT_LANE_BITS, SIGN_LANE_BITS, TOPK_BLOCKS, VALUE_LANE_BITS,
-               codec_payload_bytes, resid_slots)
+               codec_payload_bytes, lane_words, resid_slots)
 from ..ops.quant import pack_lanes, quantize_pack, unpack_lanes
 
 #: seed salts of the codec streams (the reference's)
@@ -64,6 +64,18 @@ class WireCodec:
     def draw(self, round_seed: int, device: torch.device, index: int = 0):
         """The round's random input of the codec (None: it has none)."""
         return None
+
+    def zero_payload(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        """The identity payload (ref codecs.py:78-89): what a rank that
+        does not encode sends into the shared all-reduce, all zeros, so
+        the sum decodes as the encoding ranks' alone -- provided the codec
+        counts only those as ``participants`` (the grouped engine's
+        ``slices`` per-level map)."""
+        raise NotImplementedError
+
+    def _count_zeros(self, device: torch.device) -> torch.Tensor:
+        return torch.zeros(lane_words(self.spec.total, COUNT_LANE_BITS), dtype=torch.int32,
+                           device=device)
 
     def _leaf_expand(self, per_leaf: torch.Tensor) -> torch.Tensor:
         """``[n_leaves]`` -> flat ``[total]``, each leaf's value over its
@@ -114,6 +126,10 @@ class Int8Codec(WireCodec):
         self.bias = self.levels // 2
         self.qmax = self.bias - 1
 
+    def zero_payload(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        return {"q": torch.zeros(lane_words(self.spec.total, VALUE_LANE_BITS), dtype=torch.int32,
+                                 device=device), "c": self._count_zeros(device)}
+
     def draw(self, round_seed: int, device: torch.device, index: int = 0) -> torch.Tensor:
         """The rounding noise ``u ~ U[0, 1)``, float32 ``[total]``."""
         # staticcheck: allow(no-fresh-rng) seeded on the next line from the round seed
@@ -155,6 +171,12 @@ class SignSGDCodec(WireCodec):
             raise ValueError(
                 f"signsgd wire codec supports at most {(1 << SIGN_LANE_BITS) - 1} participants "
                 f"on the reduction axis (got {self.p}): the sign lanes would carry")
+
+    def zero_payload(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        return {"b": torch.zeros(lane_words(self.spec.total, SIGN_LANE_BITS), dtype=torch.int32,
+                                 device=device),
+                "s": torch.zeros(len(self.spec.names), dtype=torch.float32, device=device),
+                "c": self._count_zeros(device)}
 
     def _leaf_means(self, x: torch.Tensor) -> torch.Tensor:
         ax = x.abs()
@@ -198,6 +220,10 @@ class TopKCodec(WireCodec):
             raise ValueError(f"topk wire codec needs at least {self.blocks} flat elements "
                              f"(got {spec.total})")
         self.block_len = -(-spec.total // self.blocks)
+
+    def zero_payload(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        return {"v": torch.zeros(self.block_len, dtype=torch.float32, device=device),
+                "c": torch.zeros(self.block_len, dtype=torch.float32, device=device)}
 
     def draw(self, round_seed: int, device: torch.device, index: int = 0) -> int:
         """The shipped block's flat offset: drawn on the host from the round

@@ -233,17 +233,25 @@ DEFAULT_CFG: Dict[str, Any] = {
     # rank r holds only its block of users (the user axis padded to a
     # multiple of the ranks) and trains the cohort's users it holds
     "data_placement": "replicated",
+    # the grouped engine's level placement: "span" (every level over every
+    # rank) or "slices" (each level over its own block of ranks, sized by
+    # its expected FLOP share); slice_align n > 0 lays the blocks out in
+    # chunks of ranks / n ranks, and strict_placement raises where a slices
+    # table cannot be laid out instead of falling back to span (the
+    # reference reads the last two through cfg.get, heterofl_tpu/parallel/
+    # grouped.py:279, :325)
+    "level_placement": "span",
+    "slice_align": 0,
+    "strict_placement": False,
     "override": {},
 }
 
 #: keys of reference features this package does not port yet, each with the
-#: value that turns its feature off (heterofl_tpu/config.py:57-355)
-UNPORTED: Dict[str, Any] = {
-    # the grouped engine's per-level device partition needs several GPUs
-    "level_placement": "span",
-}
+#: value that turns its feature off (heterofl_tpu/config.py:57-355); none is
+#: left, and a key put here is refused by :func:`check_ported`
+UNPORTED: Dict[str, Any] = {}
 #: the ROADMAP item of each key in UNPORTED
-UNPORTED_ITEM = {"level_placement": "ROADMAP Queue 1 item 5, grouped and slices on the mesh"}
+UNPORTED_ITEM: Dict[str, str] = {}
 DEFAULT_CFG.update(copy.deepcopy(UNPORTED))
 
 
@@ -513,7 +521,9 @@ def resolve_placement_cfg(cfg: Dict[str, Any]) -> Tuple[str, str]:
     and return them, with the reference's checks and messages
     (heterofl_tpu/config.py:609-650): an unknown placement, ``sharded``
     with ``grouped``, ``slices`` with another engine than ``grouped``, and
-    either placement knob with ``sliced`` raise ``ValueError``."""
+    either placement knob with ``sliced`` raise ``ValueError``; so do a
+    ``slice_align`` other than an int >= 0 and a ``strict_placement`` other
+    than a bool (the reference takes either as it comes)."""
     strategy = resolve_strategy_cfg(cfg)
     dp = cfg.get("data_placement", "replicated") or "replicated"
     lp = cfg.get("level_placement", "span") or "span"
@@ -540,18 +550,20 @@ def resolve_placement_cfg(cfg: Dict[str, Any]) -> Tuple[str, str]:
             f"Not valid data_placement={dp!r} with strategy='sliced': the "
             f"host-orchestrated debug twin replays the reference loop and "
             f"ignores device placement -- the knob would silently no-op")
+    align = cfg.get("slice_align") or 0
+    if not isinstance(align, int) or isinstance(align, bool) or align < 0:
+        raise ValueError(f"Not valid slice_align: {align!r} (an int >= 0)")
+    if not isinstance(cfg.get("strict_placement") or False, bool):
+        raise ValueError(f"Not valid strict_placement: {cfg['strict_placement']!r} (a bool)")
     return dp, lp
 
 
 #: what the clients mesh axis does not carry yet at a world of several
 #: ranks: (the cfg's test, what it is, its ROADMAP item)
 MESH_REFUSALS = (
-    (lambda c: resolve_strategy_cfg(c) == "grouped", "strategy='grouped'",
-     "ROADMAP Queue 1 item 5, grouped and slices on the mesh"),
-    (lambda c: resolve_strategy_cfg(c) == "sliced", "strategy='sliced'",
-     "ROADMAP Queue 1 item 5, grouped and slices on the mesh"),
-    (lambda c: (c.get("level_placement") or "span") == "slices", "level_placement='slices'",
-     "ROADMAP Queue 1 item 5, grouped and slices on the mesh"),
+    (lambda c: c.get("strategy") == "grouped" and c.get("model_name") == "transformer",
+     "strategy='grouped' with model_name='transformer'",
+     "ROADMAP Queue 1 item 5, the grouped LM on the mesh"),
     (lambda c: (c.get("client_store") or "eager") == "stream", "client_store='stream'",
      "ROADMAP Queue 1 item 5, the stream store on the mesh"),
     (lambda c: c.get("arms") is not None, "arms",

@@ -111,7 +111,11 @@ whose residual has a row a rank (``utils/checkpoint.py``,
 :func:`write_checkpoint`), and a resumed run checks that every rank
 resumed rank 0's epoch (:func:`check_multihost_resume`).  Under
 ``data_placement='sharded'`` each rank stages only its block of users'
-train shards.
+train shards.  The masked and grouped engines train over the mesh (the
+grouped one under either level placement; its checkpoint's header holds
+its ranks, placement and slices table, and a resume under another layout
+is refused by name, :func:`check_mesh_layout`); every rank runs the sliced
+twin whole.
 """
 
 from __future__ import annotations
@@ -324,6 +328,24 @@ def check_multihost_resume(blob: Optional[Dict[str, Any]], mesh=None) -> int:
     return epoch0
 
 
+def check_mesh_layout(blob: Optional[Dict[str, Any]], layout: Optional[Dict[str, Any]]
+                      ) -> None:
+    """Refuse to resume a grouped run's checkpoint under another layout
+    over the clients axis: ``blob['mesh_layout']`` (written by the run that
+    saved it) against this run's ``layout``, each field by name -- the
+    ranks, the level placement, the slices table.  A blob without one (an
+    older checkpoint, another engine's) resumes as before."""
+    saved = (blob or {}).get("mesh_layout")
+    if saved is None or layout is None:
+        return
+    for key in ("ranks", "level_placement", "slices"):
+        if saved.get(key) != layout.get(key):
+            raise ValueError(
+                f"resume: the checkpoint's grouped engine ran with {key}={saved.get(key)!r}, "
+                f"this run has {key}={layout.get(key)!r}; resume at the checkpoint's ranks and "
+                f"placement ({saved})")
+
+
 class FedExperiment:
     """One federated experiment (one seed): data staging, engine,
     evaluator, logger and the checkpoint loop."""
@@ -366,8 +388,10 @@ class FedExperiment:
         self.perms = self.model.jax_perms()
         engine = {"masked": RoundEngine, "grouped": GroupedRoundEngine,
                   "sliced": SlicedFederation}[C.resolve_strategy_cfg(cfg)]
+        # the masked and grouped engines train over the mesh; every rank runs
+        # the sliced twin whole
         self.engine = engine(self.model, cfg, self.device, **(
-            {"mesh": self.mesh} if engine is RoundEngine else {}))
+            {} if engine is SlicedFederation else {"mesh": self.mesh}))
         self.evaluator = Evaluator(self.model, cfg, self.device, seed=seed, mesh=self.mesh)
         self.eval_interval = max(1, int(cfg.get("eval_interval", 1) or 1))
         self.checkpoint_keep = C.resolve_checkpoint_keep(cfg)
@@ -1032,6 +1056,17 @@ class FedExperiment:
         logger.write("test", [k.split("/", 1)[1] for k in logger.mean if k.startswith("test/")])
         return named
 
+    def mesh_layout(self) -> Optional[Dict[str, Any]]:
+        """The grouped engine's layout over the clients axis, which its
+        checkpoint's header records (None for the other engines): the
+        ranks, the level placement in force and its slices table (each
+        level's ``[lo, hi)`` ranks)."""
+        eng = self.engine
+        if not isinstance(eng, GroupedRoundEngine):
+            return None
+        return {"ranks": self.mesh.size, "level_placement": eng.level_placement,
+                "slices": {f"{rate:g}": list(lh) for rate, lh in eng.slices.items()}}
+
     # -- the error-feedback residual in a blob: the reference's [clients,
     # slots, total] carry in its flat layout (under a per-level map, each
     # lossy level's columns in that level's sliced layout), one participant
@@ -1087,6 +1122,7 @@ class FedExperiment:
             if self.sampler_spec.committed else None
         blob = resume(cfg["output_dir"], self.tag, cfg["resume_mode"])
         check_multihost_resume(blob, self.mesh)
+        check_mesh_layout(blob, self.mesh_layout())
         if blob and blob.get("data_split") is not None:
             data_split, label_split = blob["data_split"], blob["label_split"]
         else:
@@ -1285,6 +1321,7 @@ class FedExperiment:
             pivot = cur  # before saving, so a resumed run keeps it
         # a rollback restores the permutation stream's boundary, K=1 too
         rollback = self.watchdog is not None and self.watchdog.spec.action == "rollback"
+        layout = self.mesh_layout()  # the grouped engine's, in the header
         blob = lambda: {  # noqa: E731
             "cfg": {k: v for k, v in cfg.items() if k != "vocab"},
             "epoch": epoch + 1,
@@ -1294,6 +1331,7 @@ class FedExperiment:
             "bn_state": self.bn_state,
             "wire_resid": self._resid_to_blob(),
             "sched_buf": self._sched_buf_to_blob(),
+            **({"mesh_layout": layout} if layout is not None else {}),
             "ledger": self.ledger.state_dict() if self.ledger is not None else None,
             "pivot": pivot,
             "logger_history": dict(logger.history),

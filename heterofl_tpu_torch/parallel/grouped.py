@@ -1,8 +1,8 @@
-"""The grouped round engine on one GPU: each level's clients batched through
-its dense sub-model.
+"""The grouped round engine: each level's clients batched through its dense
+sub-model, on one GPU or over the ranks of the clients mesh axis.
 
-Port of ``heterofl_tpu/parallel/grouped.py`` (``GroupedRoundEngine.
-train_round``, ``level_placement='span'``, one round a dispatch).  The
+Port of ``heterofl_tpu/parallel/grouped.py`` (``GroupedRoundEngine``, both
+level placements, one round a dispatch or a superstep).  The
 masked engine (round_engine.py) trains every client at full width with
 masks, one after another; this engine:
 
@@ -106,6 +106,36 @@ zero); the probes read the merged global sums after the codec.  The K=1
 round refuses the probes and the poison with the reference's messages;
 the superstep (and the stream store's one-round superstep) runs both.
 
+**The clients mesh axis** (``parallel/mesh.py``; ref grouped.py:266-397,
+:581-621, :722-741, :1013-1213, :1305-1352).  At a world of n ranks each
+level's clients are cut into contiguous blocks of ``ceil(G / ranks)``
+(:meth:`GroupedRoundEngine._block`; the reference packs them the same way
+under ``P("clients")``, its count bucketed to a power of two, here not) over
+the level's ranks: every rank under ``level_placement='span'``; under
+``'slices'`` the level's own block of ranks (:func:`static_mesh_slices`,
+sized by the level's expected FLOP share, in chunks of one rank, or of
+``n / slice_align`` ranks), so each rank runs one level.  A slices table
+that cannot be laid out (one level, fewer ranks than levels -- always so on
+one rank -- or a ``slice_align`` that does not divide the ranks) falls back
+to ``span`` with a structured warning, or raises under
+``strict_placement``.  Rank r trains its block of each level as one batched
+launch of kernels 1b/2b/3b; a client's draws stay keyed by its user, so it
+trains the same way on whichever rank holds it.  The round then makes ONE
+``Mesh.all_reduce_sum``: of the merged global ``(summed, counts)`` dense
+or under the uniform codec (its payload, each rank encoding its own sums
+with its own residual row and noise), or under the per-level map of every
+level's payload at once (a dense level's sliced sums, a lossy level's
+lanes; under ``slices`` a rank sends its identity payload for the levels
+it does not run, and each lossy codec counts the level's ranks as its
+participants).  That is the reference's fused-superstep contract, also in
+the K=1 round, where the reference makes one psum a level
+(``_level_prog``): a deliberate difference, the levels' sums associating
+across the ranks in one buffer.  Each rank's metric rows (its levels'
+blocks in order) reach every rank in one ``Mesh.gather_rows`` a round (a
+superstep: one for its k rounds).  Without a process group the mesh is
+one rank, and a round is what it was; so is every rank's twin under
+``fed/sliced.py``.  The stream store and arms stay on one rank.
+
 **Experiment arms** (``multi/``; ref grouped.py:960-1010): the superstep
 takes the arms' params ``[E, n]``; the ``[k, A]`` schedules, and so each
 round's levels, are shared by the arms, each arm's stream draws its
@@ -116,7 +146,9 @@ no probes or gate, as the reference refuses them).
 
 from __future__ import annotations
 
+import json
 import math
+import warnings
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -124,8 +156,8 @@ import torch
 
 from ..chaos.inject import poison_hits
 from ..compress import make_codec, resolve_codec_cfg
-from ..compress.codecs import compressed_sum
-from ..fed.core import combine_counted, level_index_map, round_seed, snap_to_levels
+from ..fed.core import (combine_counted, level_flop_table, level_index_map, round_seed,
+                        snap_to_levels)
 from ..models import make_model
 from ..models.base import FedModel
 from ..models.spec import label_vector
@@ -134,6 +166,7 @@ from ..ops.fused_update import FlatSpec, fused_sgd_batched
 from ..ops.layers import clients_in_channels
 from .round_engine import (FlatParams, RoundEngine, client_seed, cohort_rates,
                            superstep_schedules)
+from .mesh import Mesh, block_bounds, single_mesh
 from .staging import ClientStore, PendingMetrics, StagedCohort
 from .step_graph import StepGraphs, device_counter
 
@@ -142,6 +175,64 @@ def row_stride(n: int) -> int:
     """The row stride of a level's ``[G, ld]`` buffers: ``n`` rounded up to
     a multiple of 4, so every client's row starts 16-byte aligned."""
     return -(-n // 4) * 4
+
+
+def clients_row_chunks(n: int, align: int = 0) -> Optional[List[Tuple[int, int]]]:
+    """The contiguous rank chunks a level boundary may land on (ref
+    grouped.py:287-334): every rank alone -- a rank is one process holding
+    one device, so a chunk is one rank -- or, with ``slice_align`` ``align >
+    0``, ``n / align`` contiguous ranks a chunk, as on the reference's
+    one-process mesh (None when ``align`` does not divide ``n``).  A chunk
+    of several ranks needs no host alignment here: every rank joins the
+    same one all-reduce, whatever level it trains."""
+    if align > 0:
+        if n % align:
+            return None
+        unit = n // align
+        return [(i * unit, (i + 1) * unit) for i in range(align)]
+    return [(i, i + 1) for i in range(n)]
+
+
+def static_mesh_slices(cfg: Dict[str, Any], level_rates: Sequence[float], n: int
+                       ) -> Tuple[Dict[float, Tuple[int, int]], str]:
+    """Each level's block of ranks ``[lo, hi)`` over ``n`` ranks, in
+    proportion to its expected FLOP share (ref grouped.py:336-397): fix
+    mode weighs a level by its users, dynamic mode by its proportion, both
+    times :func:`~..fed.core.level_flop_table`; every level gets at least one
+    chunk (:func:`clients_row_chunks`), the floor's overshoot comes off the
+    largest block, and the leftovers go to the most loaded level.  Returns
+    ``(slices, "")``, or ``({}, reason)`` when no partition exists."""
+    level_rates = sorted((float(r) for r in level_rates), reverse=True)
+    if len(level_rates) <= 1:
+        return {}, "a single level leaves nothing to slice"
+    chunks = clients_row_chunks(n, int(cfg.get("slice_align") or 0))
+    if chunks is None:
+        return {}, (f"slice_align={cfg.get('slice_align')} does not divide the {n} ranks of "
+                    f"the clients axis")
+    if len(chunks) < len(level_rates):
+        return {}, (f"{len(chunks)} clients rows cannot host {len(level_rates)} levels (each "
+                    f"level needs at least one)")
+    if cfg["model_split_mode"] == "fix":
+        vec = np.asarray(cfg["model_rate"], np.float64)
+        # staticcheck: allow(no-float-coercion) a numpy count of the config's users
+        weights = [float((vec == r).sum()) for r in level_rates]
+    else:
+        order = {float(r): i for i, r in enumerate(cfg["model_rate"])}
+        weights = [float(cfg["proportion"][order[r]]) for r in level_rates]
+    table = level_flop_table(cfg, level_rates)
+    shares = np.maximum(np.array([w * table[r] for w, r in zip(weights, level_rates)],
+                                 np.float64), 1e-9)
+    units = len(chunks)
+    rows = np.maximum(1, np.floor(shares / shares.sum() * units)).astype(int)
+    while rows.sum() > units:  # the floor of one can overshoot
+        rows[int(np.argmax(np.where(rows > 1, rows, -1)))] -= 1
+    while rows.sum() < units:  # leftovers to the most loaded level
+        rows[int(np.argmax(shares / rows))] += 1
+    out, lo = {}, 0
+    for r, k in zip(level_rates, rows):
+        out[r] = (chunks[lo][0], chunks[lo + int(k) - 1][1])
+        lo += int(k)
+    return out, ""
 
 
 class Level:
@@ -225,11 +316,12 @@ class Level:
 
 
 class LevelPlan(NamedTuple):
-    """One level's slots in one round of the superstep: its rate, the
-    slots' positions in the round and their users (``-1`` slots as user 0,
-    the reference's ``max(uid, 0)``), their rows of the data stacks on the
-    device (the users themselves in the eager stacks, their slots in a
-    cohort's), the positions on the device, each row's step budget on the
+    """This rank's block of one level's slots in one round of the
+    superstep: its rate, the slots' positions in the round and their users
+    (``-1`` slots as user 0, the reference's ``max(uid, 0)``), their rows
+    of the data stacks on the device (the users themselves in the eager
+    stacks, their slots in a cohort's), their rows of this rank's metric
+    rows on the device, each row's step budget on the
     device (None: the step gates no row), the steps the level replays (its
     largest budget), and its rows' validity as float32 on the device
     (None: every row counts)."""
@@ -248,14 +340,18 @@ class GroupedRoundEngine(FlatParams):
     """Local training and counted aggregation of one round, each level's
     clients batched, for one (global model, cfg, device)."""
 
-    def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device):
+    def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device,
+                 mesh: Optional[Mesh] = None):
         # a lossy codec (or per-level map) is refused at superstep_rounds 1
         name, ef = resolve_codec_cfg(dict(cfg, strategy="grouped"))
         self.model, self.cfg, self.device = model, cfg, device
+        # the clients axis (parallel/mesh.py): one rank without a group
+        self.mesh = single_mesh(device) if mesh is None else mesh
         self.is_lm = model.meta["kind"] == "transformer"
         self.spec = FlatSpec.of(dict(model.named_parameters()))
         self.codec_map = name if isinstance(name, dict) else None
-        self.codec = None if self.codec_map else make_codec(name, self.spec, 1,
+        # a participant a rank of the mesh, as the masked engine's codec
+        self.codec = None if self.codec_map else make_codec(name, self.spec, self.mesh.size,
                                                             error_feedback=ef)
         self._resid = None
         self._init_sched(cfg)
@@ -270,6 +366,16 @@ class GroupedRoundEngine(FlatParams):
         self.levels: Dict[float, Level] = {
             rate: Level(cfg, rate, model, self.spec, device)
             for rate in sorted({float(r) for r in cfg["model_rate"]}, reverse=True)}
+        # the level placement: every level over every rank ('span'), or each
+        # level over its own block of ranks ('slices', self.slices)
+        self.level_placement = cfg.get("level_placement", "span") or "span"
+        if self.level_placement not in ("span", "slices"):
+            raise ValueError(f"Not valid level_placement: {self.level_placement!r}")
+        self.slices: Dict[float, Tuple[int, int]] = {}
+        if self.level_placement == "slices":
+            self.slices, reason = static_mesh_slices(cfg, list(self.levels), self.mesh.size)
+            if not self.slices:
+                self._refuse_slices(reason)
         self._map_codecs: Dict[float, Tuple[Any, int]] = {}
         self._total_lossy = 0
         if self.codec_map is not None:
@@ -282,6 +388,71 @@ class GroupedRoundEngine(FlatParams):
             self.bptt = eng0.bptt
         else:
             self.norm, self.augment = eng0.norm, eng0.augment
+
+    # -- the clients mesh axis ----------------------------------------------
+
+    def _refuse_slices(self, reason: str) -> None:
+        """A slices placement that cannot be honoured (ref grouped.py:
+        266-285): a structured warning and ``span``, or ``ValueError``
+        under ``cfg['strict_placement']``."""
+        detail = json.dumps({"event": "slices-fallback", "reason": reason,
+                             "clients_rows": self.mesh.size, "processes": self.mesh.size},
+                            sort_keys=True)
+        if self.cfg.get("strict_placement"):
+            raise ValueError(f"level_placement='slices' cannot be honoured and strict_placement "
+                             f"is set: {reason} ({detail})")
+        warnings.warn(f"level_placement='slices' falling back to 'span': {reason} ({detail})")
+        self.level_placement = "span"
+
+    def _by_level(self, rates: np.ndarray) -> List[Tuple[float, List[int]]]:
+        """A round's slots grouped by level after snapping their rates onto
+        the level table: ``(rate, schedule positions)``, descending rate."""
+        by_level: Dict[float, List[int]] = {}
+        # staticcheck: allow(no-device-get) a numpy array
+        for pos, r in enumerate(snap_to_levels(rates, self.levels).tolist()):
+            by_level.setdefault(r, []).append(pos)
+        return [(rate, by_level[rate]) for rate in sorted(by_level, reverse=True)]
+
+    def level_ranks(self, rate: float) -> Tuple[int, int]:
+        """The ranks ``[lo, hi)`` that train level ``rate``: every rank
+        under ``span``, the level's block under ``slices``."""
+        return self.slices[rate] if self.slices else (0, self.mesh.size)
+
+    def _block(self, rate: float, n: int, rank: Optional[int] = None) -> Tuple[int, int]:
+        """Rank ``rank``'s (default this rank's) contiguous block ``[a, b)``
+        of a level's ``n`` slots: ``ceil(n / ranks)`` a rank over the
+        level's ranks (the reference's slots under ``P("clients")``, not
+        bucketed), empty off them."""
+        rank = self.mesh.rank if rank is None else rank
+        lo, hi = self.level_ranks(rate)
+        if not lo <= rank < hi:
+            return 0, 0
+        return block_bounds(n, hi - lo, rank - lo)
+
+    def _rank_rows(self, levels: Sequence[Tuple[float, Sequence[int]]]) -> List[List[int]]:
+        """Each rank's metric rows of one round (``levels``: each level's
+        rate and schedule positions, descending rate): the positions it
+        trains, level by level, each level's block in order."""
+        rows: List[List[int]] = [[] for _ in range(self.mesh.size)]
+        for rate, pos in levels:
+            for d in range(self.mesh.size):
+                a, b = self._block(rate, len(pos), d)
+                rows[d] += list(pos[a:b])
+        return rows
+
+    def _collect(self, train: List[torch.Tensor], rows: List[List[List[int]]], a: int
+                 ) -> List[torch.Tensor]:
+        """The k rounds' ``[A, 3]`` metric rows in schedule order from each
+        rank's ``[m, 3]`` rows of every round (``rows[r][rank]`` their
+        positions, :meth:`_rank_rows`): ONE ``Mesh.gather_rows`` of the
+        stacked ``[k, m, 3]`` (under arms, which stay on one rank, the rows
+        themselves), then ``RoundEngine._to_schedule`` a round."""
+        local = torch.stack(train)
+        g = local if self.arms is not None else self.mesh.gather_rows(local)
+        k, m = local.shape[0], local.shape[1]
+        g = g.view(self.mesh.size, k, m, 3)
+        return [RoundEngine._to_schedule(g[:, r].reshape(self.mesh.size * m, 3), rows[r], m, a)
+                for r in range(k)]
 
     # -- one level's clients ------------------------------------------------
 
@@ -526,18 +697,20 @@ class GroupedRoundEngine(FlatParams):
         valid, limits = self.slot_plan(user_idx, round_seed, total, step_limits, alive)
         # staticcheck: allow(no-float-coercion) numpy limits
         gate = bool((limits < total).any())  # a slot sits out or stops early
-        snapped = snap_to_levels(rates_abs, self.levels)
-        by_level: Dict[float, List[int]] = {}
-        # staticcheck: allow(no-device-get) a numpy array
-        for pos, r in enumerate(snapped.tolist()):
-            by_level.setdefault(r, []).append(pos)
+        levels = self._by_level(rates_abs)
+        rows = self._rank_rows(levels)
         dev = P.device
         lr_t = torch.full((), float(lr), dtype=torch.float32, device=dev)
         sums: Dict[float, Tuple[torch.Tensor, torch.Tensor]] = {}
-        acc = torch.zeros((len(user_idx), 3), dtype=torch.float32, device=dev)
+        # this rank's metric rows, its levels' blocks one after another
+        acc = torch.zeros((max(len(r) for r in rows), 3), dtype=torch.float32, device=dev)
+        off = 0
         oks, gpos = ([], []) if self._quarantine.enabled else (None, None)
-        for rate in sorted(by_level, reverse=True):
-            lv, pos = self.levels[rate], by_level[rate]
+        for rate, all_pos in levels:
+            a, b = self._block(rate, len(all_pos))
+            if a == b:
+                continue
+            lv, pos = self.levels[rate], all_pos[a:b]
             # staticcheck: allow(no-device-get) a numpy array
             users = np.maximum(user_idx[pos], 0).tolist()
             gens = [torch.Generator(device=dev).manual_seed(client_seed(round_seed, u))
@@ -563,13 +736,15 @@ class GroupedRoundEngine(FlatParams):
                 oks.append(ok)
                 gpos += pos
             sums[rate] = ((trained * cm).sum(0), cm.sum(0))
-            acc[torch.as_tensor(pos, dtype=torch.int64).to(dev)] = acc_l
-        ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
-              "rate": rates_abs * valid}
+            acc[off:off + len(pos)] = acc_l
+            off += len(pos)
         if codec_slots is None:
             codec_slots = self.codec_slots(rates_abs[None])
         new_P, summed, counts = self._merge(P, sums, round_seed, len(user_idx), codec_noise,
                                             codec_slots)
+        (acc,) = self._collect([acc], [rows], len(user_idx))
+        ms = {"loss_sum": acc[:, 0], "score_sum": acc[:, 1], "n": acc[:, 2],
+              "rate": rates_abs * valid}
         obs = self._round_obs(P, new_P, summed, counts,
                               self._gate_row(oks, gpos, len(user_idx), dev), limits, total)
         if obs is not None:
@@ -583,25 +758,29 @@ class GroupedRoundEngine(FlatParams):
         return None if self._quarantine.max_norm is None else P.index_select(0, lv.idx)
 
     def level_slots(self, rate_schedule) -> int:
-        """A level's slots over the ``[k, A]`` rates of a superstep, as the
-        reference's one-device span layout counts them (ref grouped.py:
-        1305-1335): the most clients any level holds in any of the k
-        rounds, rounded up to a power of two.  A per-level map sizes each
-        lossy level's grid for it (ref grouped.py:1103-1159,
-        ``encode(..., per_dev)``)."""
+        """A level's slots a rank over the ``[k, A]`` rates of a superstep,
+        as the reference's layout counts them (ref grouped.py:1305-1335):
+        the most clients a rank of any level holds in any of the k rounds
+        (``ceil(G / ranks)`` over the level's ranks), at least 1, rounded
+        up to a power of two.  A per-level map sizes each lossy level's
+        grid for it (ref grouped.py:1103-1159, ``encode(..., per_dev)``)."""
         need = 1
         for row in np.asarray(rate_schedule, np.float32):
-            snapped = snap_to_levels(row, self.levels)
-            need = max([need] + [int(np.sum(snapped == rate)) for rate in self.levels])
+            for rate, pos in self._by_level(row):
+                lo, hi = self.level_ranks(rate)
+                need = max(need, -(-len(pos) // (hi - lo)))
         return 1 << (need - 1).bit_length()
 
     def codec_slots(self, rate_schedule) -> int:
         """The clients one wire codec's grid is sized for over the ``[k,
-        A]`` rates of a superstep (ref grouped.py:900): every level of the
-        engine times :meth:`level_slots`; under a per-level map, a level's
-        own :meth:`level_slots`."""
+        A]`` rates of a superstep (ref grouped.py:900): :meth:`level_slots`
+        times the levels a rank runs (every level under ``span``, its own
+        under ``slices``); under a per-level map, a level's own
+        :meth:`level_slots`."""
         slots = self.level_slots(rate_schedule)
-        return slots if self.codec_map is not None else len(self.levels) * slots
+        if self.codec_map is not None:
+            return slots
+        return (1 if self.slices else len(self.levels)) * slots
 
     # -- the per-level wire-codec map -----------------------------------------
 
@@ -612,10 +791,12 @@ class GroupedRoundEngine(FlatParams):
     def _map_layout(self, ef: bool) -> None:
         """The per-level map's layout (ref grouped.py:399-444): its keys
         must be the level table; each lossy level gets a codec over its
-        sliced flat layout (the level model's) and the offset of its
-        columns in ONE residual ``[2, total_lossy]``, lossy levels in
-        descending rate (row 1 only written by ``topk``).  A map of dense
-        levels only is ``dense`` (``resolve_codec_cfg``)."""
+        sliced flat layout (the level model's), its participants the ranks
+        that encode it (every rank under ``span``, the level's block under
+        ``slices``, the other ranks sending its identity payload), and the
+        offset of its columns in ONE residual ``[2, total_lossy]``, lossy
+        levels in descending rate (row 1 only written by ``topk``).  A map
+        of dense levels only is ``dense`` (``resolve_codec_cfg``)."""
         if set(self.codec_map) != set(self.levels):
             raise ValueError(
                 f"per-level wire_codec map keys {sorted(self.codec_map)} do not match the "
@@ -625,7 +806,9 @@ class GroupedRoundEngine(FlatParams):
         for rate, lv in self.levels.items():
             name = self.codec_map[rate]
             if name != "dense":
-                self._map_codecs[rate] = (make_codec(name, lv.spec, 1, error_feedback=ef), off)
+                lo, hi = self.level_ranks(rate)
+                self._map_codecs[rate] = (make_codec(name, lv.spec, hi - lo, error_feedback=ef),
+                                          off)
                 off += lv.spec.total
         self._total_lossy = off
 
@@ -642,48 +825,101 @@ class GroupedRoundEngine(FlatParams):
     def _merge(self, P: torch.Tensor, sums: Dict[float, Tuple[torch.Tensor, torch.Tensor]],
                rseed: int, n_clients: int, codec_noise=None, cmax: int = 1
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The round's new global params from each trained level's sliced
-        counted sums ``{rate: (s_l, c_l)}``: added into zero global
-        buffers at the level's entries, levels in descending rate (the
-        reference's ``merge``), then the uniform codec (its grid sized for
-        ``cmax`` clients) and the counted average.  Under a per-level map
-        (ref grouped.py:1103-1159) every lossy level -- trained or not, as
-        the reference runs every level's slots -- encodes its sliced sums
-        with its residual under its own codec on a grid sized for ``cmax``
-        slots and the global params at its entries, and is decoded before
-        it is added; a dense level adds its float32 sums.  ``codec_noise``:
-        the uniform codec's int8 noise, or under a map ``{rate: draw}`` (an
-        int8 level's noise ``[n_l]``, a topk level's block offset), test
-        hooks replacing the draws from ``rseed``.  Returns ``(new P, summed,
-        counts)``, the merged global sums the combine read (decoded)."""
+        """The round's new global params from this rank's trained levels'
+        sliced counted sums ``{rate: (s_l, c_l)}``, in ONE all-reduce over
+        the mesh.  Dense or under the uniform codec: the sums added into
+        zero global buffers at each level's entries, levels in descending
+        rate (the reference's ``merge``), then reduced, compressed (its
+        grid sized for ``cmax`` clients) and averaged by
+        :meth:`FlatParams._aggregate`.  Under a per-level map (ref
+        grouped.py:1013-1162): every level's payload goes into the one
+        all-reduce (:meth:`_reduce_levels`) -- a dense level its float32
+        sums, a lossy level its codec's lanes, encoded from its sums (zeros
+        where this rank trained none of its clients, as the reference runs
+        every level's slots) with this rank's residual columns and noise on
+        a grid sized for ``cmax`` slots and the global params at its
+        entries, by each rank the level runs on (the others send its
+        identity payload) -- then each level is decoded and added.
+        ``codec_noise``: the uniform codec's int8 noise, or under a map
+        ``{rate: draw}`` (an int8 level's noise ``[n_l]``, a topk level's
+        block offset), test hooks replacing this rank's draws from
+        ``rseed``.  Returns ``(new P, summed, counts)``, the merged global
+        sums the combine read (decoded)."""
+        if self.codec_map is None or not n_clients:
+            summed = torch.zeros_like(P)
+            counts = torch.zeros_like(P)
+            for rate, lv in self.levels.items():  # descending rate
+                if rate in sums:
+                    summed.index_add_(0, lv.idx, sums[rate][0])
+                    counts.index_add_(0, lv.idx, sums[rate][1])
+            return self._aggregate(P, summed, counts, rseed, n_clients, codec_noise, cmax=cmax)
+        resid = self._ensure_resid(P.device)
+        new_resid = torch.zeros_like(resid)
         summed = torch.zeros_like(P)
         counts = torch.zeros_like(P)
-        lossy = self.codec_map is not None and n_clients > 0
-        if lossy:
-            resid = self._ensure_resid(P.device)
-            new_resid = torch.zeros_like(resid)
+        # one process: the all-reduce is the identity, so each level is
+        # decoded and added as it is encoded and only its payload waits (an
+        # untrained dense level adds nothing); over ranks every level waits
+        # for the one all-reduce, a lossy level with its params ``P_l``
+        now = not self.mesh.distributed
+        parts, held = [], []
         for rate, lv in self.levels.items():  # descending rate
-            if rate in sums:
-                s_l, c_l = sums[rate]
-            elif lossy and rate in self._map_codecs:
-                s_l = c_l = torch.zeros(lv.spec.total, dtype=P.dtype, device=P.device)
-            else:
+            lossy = rate in self._map_codecs
+            if now and not lossy and rate not in sums:
                 continue
-            if lossy and rate in self._map_codecs:
+            n = lv.spec.total
+            s_l, c_l = sums[rate] if rate in sums else (P.new_zeros(n), P.new_zeros(n))
+            draw = P_l = None
+            if not lossy:
+                payload = {"s": s_l, "c": c_l}
+            else:
                 cobj, off = self._map_codecs[rate]
-                n, slots = lv.spec.total, cobj.resid_slots
+                lo, hi = self.level_ranks(rate)
+                P_l = P.index_select(0, lv.idx)
                 draw = None if codec_noise is None else codec_noise.get(rate)
-                if draw is None:
-                    draw = cobj.draw(rseed, P.device)
-                s_l, c_l, new_resid[:slots, off:off + n] = compressed_sum(
-                    cobj, P.index_select(0, lv.idx), s_l, c_l, resid[:slots, off:off + n],
-                    draw, cmax)
-            summed.index_add_(0, lv.idx, s_l)
-            counts.index_add_(0, lv.idx, c_l)
-        if lossy:
-            self._resid = new_resid
-            return combine_counted(P, summed, counts), summed, counts
-        return self._aggregate(P, summed, counts, rseed, n_clients, codec_noise, cmax=cmax)
+                if lo <= self.mesh.rank < hi:
+                    if draw is None:
+                        draw = cobj.draw(rseed, P.device, self.mesh.rank)
+                    slots = cobj.resid_slots
+                    payload, new_resid[:slots, off:off + n] = cobj.encode(
+                        s_l, c_l, resid[:slots, off:off + n], P_l, draw, cmax)
+                else:  # the level's identity payload; its decode reads the topk block alone
+                    payload = cobj.zero_payload(P.device)
+                    if draw is None and cobj.name == "topk":
+                        draw = cobj.draw(rseed, P.device, self.mesh.rank)
+            parts.append((rate, payload))
+            if now:
+                self._add_level(summed, counts, rate, payload, P_l, draw, cmax)
+            else:
+                held.append((P_l, draw))
+        reduced = self._reduce_levels(parts)
+        if not now:
+            for (rate, _), agg, (P_l, draw) in zip(parts, reduced, held):
+                self._add_level(summed, counts, rate, agg, P_l, draw, cmax)
+        self._resid = new_resid
+        return combine_counted(P, summed, counts), summed, counts
+
+    def _add_level(self, summed, counts, rate: float, agg: Dict[str, torch.Tensor], P_l, draw,
+                   cmax: int) -> None:
+        """Add a level's summed payload at its entries: a dense level's sums,
+        a lossy level's decoded from its params ``P_l``."""
+        lv = self.levels[rate]
+        if rate in self._map_codecs:
+            s_l, c_l = self._map_codecs[rate][0].decode(agg, P_l, draw, cmax)
+        else:
+            s_l, c_l = agg["s"], agg["c"]
+        summed.index_add_(0, lv.idx, s_l)
+        counts.index_add_(0, lv.idx, c_l)
+
+    def _reduce_levels(self, payloads: Sequence[Tuple[float, Dict[str, torch.Tensor]]]
+                       ) -> List[Dict[str, torch.Tensor]]:
+        """Every level's payload (``(rate, {name: tensor})``, descending
+        rate) summed over the ranks in ONE ``Mesh.all_reduce_sum`` (the
+        reference's one psum bind of the payload tree, grouped.py:1077-1079,
+        :1137-1140) -> each level's summed payload."""
+        flat = [t for _, payload in payloads for t in payload.values()]
+        out = iter(self.mesh.all_reduce_sum(flat))
+        return [{name: next(out) for name in payload} for _, payload in payloads]
 
     # -- the superstep: k rounds, each level's batched steps replayed ---------
 
@@ -820,14 +1056,16 @@ class GroupedRoundEngine(FlatParams):
         descending rate, the eager set-up of its G clients, their batched
         steps replayed (up to the level's largest budget), the poison and
         the gate on their rows (ref grouped.py:530-577), their counted sums
-        added at the level's entries; then the codec (its grid sized for
-        ``cmax`` clients), the counted average and the probes -> ``(new P,
-        [A, 3] device sums, reported rates, obs rows or None)``.  ``plan``:
-        the round's valid slots, budgets and :class:`LevelPlan` s; hooks as
+        added at the level's entries; then the round's one all-reduce, the
+        codec (its grid sized for ``cmax`` clients), the counted average
+        and the probes -> ``(new P, [m, 3] device sums of this rank's rows,
+        reported rates, obs rows or None)``.  ``plan``: the round's valid
+        slots, budgets, this rank's :class:`LevelPlan` s and ``m``, the
+        rows a rank of the superstep (:meth:`_plans`); hooks as
         :meth:`train_superstep`'s, this round's."""
-        valid, limits, levels = plan
+        valid, limits, levels, m = plan
         sums: Dict[float, Tuple[torch.Tensor, torch.Tensor]] = {}
-        acc = torch.zeros((len(user_idx), 3), dtype=torch.float32, device=P.device)
+        acc = torch.zeros((m, 3), dtype=torch.float32, device=P.device)
         hits = None if self._poison is None else poison_hits(self._poison, epoch, user_idx)
         oks, gpos = ([], []) if self._quarantine.enabled else (None, None)
         for lp in levels:
@@ -856,31 +1094,37 @@ class GroupedRoundEngine(FlatParams):
 
     def _plans(self, seed: int, epoch0: int, users: np.ndarray, rates: np.ndarray, data,
                device: torch.device, step_limits=None, alive=None, rows=None):
-        """Each round's ``(valid slots, budgets, [LevelPlan])``: its slots' plan
-        (:meth:`slot_plan` at the round's seed) and its levels in
-        descending rate; the data rows (``rows [k, A]``, default the users,
-        ``-1`` as 0), positions, budgets and valid rows of the whole
-        superstep go to the device in one copy.  The steps gate their rows
-        by the budgets when some slot of the superstep sits out or stops
-        early, and run as without a scheduler otherwise."""
+        """Each round's ``(valid slots, budgets, [LevelPlan], m)`` and each
+        round's rows of every rank (:meth:`_rank_rows`): its slots' plan
+        (:meth:`slot_plan` at the round's seed) and this rank's block of
+        each of its levels in descending rate (:meth:`_block`; a level with
+        no slot here has no plan), ``m`` the most rows a rank holds in any
+        round; the data rows (``rows [k, A]``, default the users, ``-1`` as
+        0), row offsets, budgets and valid rows of the whole superstep go
+        to the device in one copy.  The steps gate their rows by the
+        budgets when some slot of the superstep sits out or stops early,
+        and run as without a scheduler otherwise."""
         if rows is None:
             rows = np.maximum(users, 0)
-        total, plans, host = self.total_steps(data), [], []
+        total, plans, host, rank_rows = self.total_steps(data), [], [], []
         for r in range(users.shape[0]):
             valid, limits = self.slot_plan(
                 users[r], round_seed(seed, epoch0 + r), total,
                 None if step_limits is None else step_limits[r],
                 None if alive is None else alive[r])
-            snapped = snap_to_levels(rates[r], self.levels)
-            by_level: Dict[float, List[int]] = {}
-            # staticcheck: allow(no-device-get) a numpy array
-            for pos, rate in enumerate(snapped.tolist()):
-                by_level.setdefault(rate, []).append(pos)
-            levels = [(rate, by_level[rate], np.maximum(users[r][by_level[rate]], 0))
-                      for rate in sorted(by_level, reverse=True)]
+            by_level = self._by_level(rates[r])
+            rank_rows.append(self._rank_rows(by_level))
+            levels, off = [], 0
+            for rate, all_pos in by_level:
+                a, b = self._block(rate, len(all_pos))
+                if a == b:
+                    continue
+                pos = all_pos[a:b]
+                levels.append((rate, pos, np.maximum(users[r][pos], 0)))
+                host += [rows[r][pos], np.arange(off, off + len(pos)), limits[pos], valid[pos]]
+                off += len(pos)
             plans.append((valid, limits, levels))
-            for _, pos, _ in levels:
-                host += [rows[r][pos], np.asarray(pos, np.int64), limits[pos], valid[pos]]
+        m = max(len(mine) for rr in rank_rows for mine in rr) if rank_rows else 0
         flat = torch.from_numpy(np.concatenate(host).astype(np.int64)).to(device) if host \
             else None
         # staticcheck: allow(no-float-coercion) numpy limits
@@ -898,8 +1142,8 @@ class GroupedRoundEngine(FlatParams):
                     # staticcheck: allow(no-float-coercion) numpy limits
                     seg[2] if gate else None, int(limits[pos].max()) if gate else total,
                     None if valid[pos].all() else seg[3].to(torch.float32)))
-            out.append((valid, limits, rnd))
-        return out
+            out.append((valid, limits, rnd, m))
+        return out, rank_rows
 
     def stage_cohort(self, store: ClientStore, user_schedule, rate_schedule) -> StagedCohort:
         """Gather and commit one superstep's cohort from ``store`` in the
@@ -910,7 +1154,12 @@ class GroupedRoundEngine(FlatParams):
         power of two, the slots left over ``-1`` (user 0's shard, never
         read); each level's rows are contiguous.  Through the engine's
         cohort ring, O(k x L x per x shard) bytes whatever the population;
-        call it for superstep N+1 right after superstep N is dispatched."""
+        call it for superstep N+1 right after superstep N is dispatched.
+        One rank only: the stream store is not on the mesh yet."""
+        if self.mesh.size > 1:
+            raise NotImplementedError(
+                "client_store='stream' at several ranks: the clients mesh axis does not carry "
+                "it yet (ROADMAP Queue 1 item 5, the stream store on the mesh)")
         users = np.asarray(user_schedule, np.int64)
         rates = np.asarray(rate_schedule, np.float32)
         if users.shape != rates.shape or users.ndim != 2:
@@ -1006,11 +1255,13 @@ class GroupedRoundEngine(FlatParams):
         an arm's on its stream root ``seed``) -> the superstep's parts
         (``_superstep_parts``)."""
         users, rates, lrs = superstep_schedules(user_schedule, rate_schedule, lrs, k)
-        plans = self._plans(seed, epoch0, users, rates, data, P.device, step_limits, alive, rows)
+        plans, rank_rows = self._plans(seed, epoch0, users, rates, data, P.device, step_limits,
+                                       alive, rows)
         cmax = self.codec_slots(rates)
         return self._superstep_parts(
             P, seed, epoch0, k, users, rates, lrs, eval_mask, fused_eval, self._lr,
             lambda P, r, u, rates, rseed: self._replayed_round(
                 P, u, rates, data, rseed, plans[r], cmax,
                 None if epoch_perms is None else epoch_perms[r],
-                None if codec_noise is None else codec_noise[r], epoch0 + r))
+                None if codec_noise is None else codec_noise[r], epoch0 + r),
+            finish=lambda train: self._collect(train, rank_rows, users.shape[1]))

@@ -148,6 +148,15 @@ def block_bounds(n: int, size: int, rank: int) -> Tuple[int, int]:
     return lo, min(n, lo + per)
 
 
+def reduce_buffer_bytes(tensors: Sequence[torch.Tensor]) -> int:
+    """The bytes of the one buffer :meth:`Mesh.all_reduce_sum` reduces for
+    ``tensors`` at several ranks: their own bytes, but 8 for each int32
+    word of a mixed float32 / int32 payload (its two halves in float32)."""
+    mixed = len({t.dtype for t in tensors}) > 1
+    return sum(t.numel() * (8 if mixed and t.dtype == torch.int32 else t.element_size())
+               for t in tensors)
+
+
 @dataclass
 class Mesh:
     """The ``clients`` axis: this process's ``rank`` of ``size``, the
@@ -172,31 +181,46 @@ class Mesh:
         """The sum over the ranks of each tensor, in ONE collective: the
         tensors are packed into one contiguous buffer (``[2, total]`` for the
         round's update sums and counts), reduced, and returned as views of
-        it in their shapes.  Tensors of one dtype reduce in it; a mix (the
-        signsgd payload: int32 lanes and float32 scales) reduces in float64,
-        which holds the int32 words' sums exactly (they wrap back to int32
-        as the reference's int32 ``psum`` does) and the few scales' sums of
-        float32 values.  Without a group the tensors come back as they
-        are."""
+        it in their shapes.  Tensors of one dtype reduce in it.  A mix of
+        float32 and int32 (the signsgd payload's lanes and scales, the
+        grouped engine's per-level payloads) reduces in float32: the floats
+        at their own width, each int32 word as its two 16-bit halves, whose
+        sums over at most 256 ranks float32 holds exactly; the halves are
+        joined and wrap to int32 as the reference's int32 ``psum`` does.
+        Without a group the tensors come back as they are."""
         COLLECTIVES["all_reduce"] += 1
         COLLECTIVE_BYTES["all_reduce"] += sum(t.numel() * t.element_size() for t in tensors)
         if not self.distributed:
             return list(tensors)
         dtypes = {t.dtype for t in tensors}
-        wide = torch.float64 if len(dtypes) > 1 else tensors[0].dtype
-        buf = torch.cat([t.reshape(-1).to(wide) for t in tensors])
+        if len(dtypes) == 1:
+            buf = torch.cat([t.reshape(-1) for t in tensors])
+            _dist().all_reduce(buf, group=self.group)
+            return [part.view(t.shape) for part, t in zip(buf.split([t.numel() for t in tensors]),
+                                                          tensors)]
+        if not dtypes <= {torch.float32, torch.int32} or self.size > 256:
+            raise ValueError(f"a mixed all-reduce takes float32 and int32 over at most 256 "
+                             f"ranks (got {sorted(map(str, dtypes))} over {self.size})")
+        parts = []
+        for t in tensors:
+            flat = t.reshape(-1)
+            if t.dtype == torch.int32:  # low and high halves, each exact in float32
+                parts += [(flat & 0xFFFF).to(torch.float32), (flat >> 16).to(torch.float32)]
+            else:
+                parts.append(flat)
+        buf = torch.cat(parts)
         _dist().all_reduce(buf, group=self.group)
         out, off = [], 0
         for t in tensors:
-            part = buf[off:off + t.numel()]
-            off += t.numel()
-            if part.dtype != t.dtype:
-                if t.dtype.is_floating_point:
-                    part = part.to(t.dtype)
-                else:  # wrap to the lane words' width, as an int32 sum does
-                    half = 1 << (torch.iinfo(t.dtype).bits - 1)
-                    part = ((part.to(torch.int64) + half) % (2 * half) - half).to(t.dtype)
-            out.append(part.view(t.shape))
+            n = t.numel()
+            if t.dtype == torch.int32:
+                lo, hi = buf[off:off + n].to(torch.int64), buf[off + n:off + 2 * n].to(torch.int64)
+                word = (hi * 65536 + lo + 2 ** 31) % 2 ** 32 - 2 ** 31
+                out.append(word.to(torch.int32).view(t.shape))
+                off += 2 * n
+            else:
+                out.append(buf[off:off + n].view(t.shape))
+                off += n
         return out
 
     def gather_rows(self, rows: torch.Tensor) -> torch.Tensor:

@@ -1,29 +1,31 @@
-"""The pod probe: the masked engine on a real multi-process group.
+"""The pod probe: the grouped engine's slices superstep (or the masked
+engine's) on a real multi-process group.
 
 Port of ``heterofl_tpu/parallel/pod.py`` (``child_main``,
 ``run_pod_probe``, ``bitwise_match``, ``_free_port``).  Each child process
 joins the ``torch.distributed`` group (:func:`~.mesh.initialize_distributed`,
 from the variables torchrun would set), builds the clients mesh over every
-rank, trains a K-round superstep of the masked engine on a small synthetic
-federation, times a second superstep, writes a sharded checkpoint (each
-rank its own residual row, rank 0 the header) and reads it back.  Every
-rank writes its params and per-round metrics as ``.npz`` under
-``rank<r>/`` (:func:`rank_dir`) and ``pod_result_p<rank>.json`` with the
-collectives and kernel launches it counted over both supersteps and its
-timings.  :func:`run_pod_probe` spawns the children; :func:`bitwise_match`
-compares two ranks' files bit for bit and :func:`compare_probes` holds a
-run at several ranks against the one-process run.
+rank, trains a K-round superstep on a small synthetic federation, times a
+second superstep, writes a sharded checkpoint (each rank its own residual
+row, rank 0 the header) and reads it back.  The engine is the reference's
+(pod.py:94-160): the grouped engine under ``level_placement='slices'`` with
+``strict_placement`` on :data:`PROBE_CONTROL`'s two levels, each level on
+its own block of ranks, its slices table recorded; ``--engine masked`` runs
+the masked engine instead.  Every rank writes its params and per-round
+metrics as ``.npz`` under ``rank<r>/`` (:func:`rank_dir`) and
+``pod_result_p<rank>.json`` with the collectives and kernel launches it
+counted over both supersteps and its timings.  :func:`run_pod_probe`
+spawns the children; :func:`bitwise_match` compares two ranks' files bit
+for bit and :func:`compare_probes` holds a run at several ranks against
+the one-process run -- for the grouped engine that run is ``span``, the
+one placement one rank can lay out (the reference pins the slices table
+on one process with ``slice_align``, which needs several devices there).
 
 Run it as ``python -m heterofl_tpu_torch.parallel.pod OUT_DIR --spawn 2``
 (two ranks and the one-process run, compared; ``--backend gloo --device
 cuda`` puts two ranks on one GPU, where NCCL refuses to: gloo reduces the
 CUDA buffers itself, :func:`gloo_cuda_check`), or as one child under
 torchrun.
-
-Deliberate difference: the reference's probe runs the grouped engine's
-``level_placement='slices'`` superstep (its ``PROBE_CONTROL``, pod.py:
-38-56); that placement comes with the grouped engine on the mesh (ROADMAP
-Queue 1 item 5), so this probe runs the masked engine on the same control.
 
 :func:`_spawn` starts any command as the ranks of one group, as torchrun
 would (the tests' rounds, evaluations and entries; ``chip_smoke.py``'s
@@ -45,6 +47,8 @@ import numpy as np
 #: the probe's federation: two levels, 8 users, 4 a round
 PROBE_CONTROL = "1_8_0.5_iid_fix_a1-b1_bn_1_1"
 PROBE_USERS = 8
+#: the probe's engines: the reference's grouped slices superstep, and the masked one
+PROBE_ENGINES = ("grouped", "masked")
 #: ranks against the one-process run: the round's sums associate by rank
 #: ((c0 + c1) + (c2 + c3) against ((c0 + c1) + c2) + c3), a float32
 #: rounding apart, which k local-SGD rounds carry into the params
@@ -120,16 +124,20 @@ def _launch_counters():
 
 
 def child_main(out_dir: str, k: int = 2, num_active: int = 4, backend: Optional[str] = None,
-               device: str = "cpu", codec: str = "dense") -> Dict[str, Any]:
+               device: str = "cpu", codec: str = "dense", engine: str = "grouped"
+               ) -> Dict[str, Any]:
     """One rank of the probe (or the one-process run, without torchrun's
     variables) -> its result dict, also written as
-    ``pod_result_p<rank>.json``."""
+    ``pod_result_p<rank>.json``.  ``engine='grouped'`` runs the grouped
+    engine under ``slices`` with ``strict_placement`` at several ranks (its
+    slices table under ``"slices"``) and under ``span`` on one."""
     import torch
 
     from ..models import make_model
     from ..utils.checkpoint import (dense_from_blocks, is_shard_marker, load_checkpoint_sharded,
                                     rank_block_marker, save_checkpoint_sharded)
     from . import mesh as M
+    from .grouped import GroupedRoundEngine
     from .round_engine import RoundEngine
 
     torch.set_num_threads(1)
@@ -138,12 +146,22 @@ def child_main(out_dir: str, k: int = 2, num_active: int = 4, backend: Optional[
     M.initialize_distributed(backend, device)
     mesh = M.make_mesh(0, device=torch.device(device))
     out: Dict[str, Any] = {"process": mesh.rank, "processes": mesh.size,
-                           "backend": mesh.backend, "k": k, "codec": codec}
+                           "backend": mesh.backend, "k": k, "codec": codec, "engine": engine}
     if mesh.backend == "gloo" and mesh.device.type == "cuda":
         out["gloo_cuda_direct"] = gloo_cuda_check(mesh)
     cfg = probe_cfg(device=device, codec=codec)
     model = make_model(cfg).init_(torch.Generator().manual_seed(0)).to(mesh.device)
-    eng = RoundEngine(model, cfg, mesh.device, mesh)
+    if engine == "grouped":
+        sliced = mesh.size > 1
+        cfg.update(strategy="grouped", level_placement="slices" if sliced else "span",
+                   strict_placement=sliced)
+        eng = GroupedRoundEngine(model, cfg, mesh.device, mesh)
+        out["placement"] = eng.level_placement
+        out["slices"] = {f"{r:g}": list(lh) for r, lh in eng.slices.items()}
+    elif engine == "masked":
+        eng = RoundEngine(model, cfg, mesh.device, mesh)
+    else:
+        raise ValueError(f"Not valid probe engine: {engine!r} (one of {PROBE_ENGINES})")
     data = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device)
                  for a in probe_data(cfg))
     P = eng.flatten(model.params())
@@ -268,12 +286,14 @@ def _spawn(argv: List[str], n_processes: int, timeout_s: int, gpus: int = 0) -> 
 
 def run_pod_probe(out_dir: str, n_processes: int = 2, k: int = 2, num_active: int = 4,
                   backend: Optional[str] = None, device: str = "cpu", codec: str = "dense",
-                  timeout_s: int = 600, gpus: int = 0) -> List[Dict[str, Any]]:
+                  timeout_s: int = 600, gpus: int = 0, engine: str = "grouped"
+                  ) -> List[Dict[str, Any]]:
     """Spawn ``n_processes`` probe children over one group (1: the
     one-process run, no group) -> their result dicts, by rank."""
     os.makedirs(out_dir, exist_ok=True)
     argv = [sys.executable, "-m", "heterofl_tpu_torch.parallel.pod", out_dir, "--k", str(k),
-            "--active", str(num_active), "--device", device, "--codec", codec]
+            "--active", str(num_active), "--device", device, "--codec", codec,
+            "--engine", engine]
     if backend:
         argv += ["--backend", backend]
     _spawn(argv, n_processes, timeout_s, gpus)
@@ -320,7 +340,8 @@ def compare_probes(many: str, res: List[Dict[str, Any]], one: str,
     diffs, "within_tolerance", "sharded_ckpt_ok", "results",
     "one_rank"}``: every rank's params and metrics bit for bit rank 0's
     (:func:`bitwise_match`), one all-reduce a round, rank 0's params within
-    :data:`RANKS_ATOL` of the one-process run's."""
+    :data:`RANKS_ATOL` of the one-process run's; each rank's placement and
+    rank 0's slices table (the grouped engine's)."""
     base = rank_dir(many, 0)
     diff = max_abs_diff(base, rank_dir(one, 0))
     return {"ranks_equal": all(bitwise_match(base, rank_dir(many, r["process"]))["match"]
@@ -328,32 +349,36 @@ def compare_probes(many: str, res: List[Dict[str, Any]], one: str,
             "all_reduce_per_round": [r["all_reduce_per_round"] for r in res],
             "vs_one_rank": diff, "within_tolerance": diff["params"] <= RANKS_ATOL,
             "sharded_ckpt_ok": all(r["sharded_ckpt_ok"] for r in res),
+            "placements": [r.get("placement") for r in res], "slices": res[0].get("slices"),
             "results": res, "one_rank": res1}
 
 
 def probe_ranks(out_dir: str, n_processes: int = 2, backend: Optional[str] = None,
                 device: str = "cpu", codec: str = "dense", k: int = 2,
-                timeout_s: int = 600, gpus: int = 0) -> Dict[str, Any]:
+                timeout_s: int = 600, gpus: int = 0, engine: str = "grouped") -> Dict[str, Any]:
     """The probe at ``n_processes`` ranks and alone, compared
     (:func:`compare_probes`)."""
     many, one = os.path.join(out_dir, f"ranks{n_processes}"), os.path.join(out_dir, "ranks1")
     res = run_pod_probe(many, n_processes, k=k, backend=backend, device=device, codec=codec,
-                        timeout_s=timeout_s, gpus=gpus)
-    res1 = run_pod_probe(one, 1, k=k, device=device, codec=codec, timeout_s=timeout_s)
+                        timeout_s=timeout_s, gpus=gpus, engine=engine)
+    res1 = run_pod_probe(one, 1, k=k, device=device, codec=codec, timeout_s=timeout_s,
+                         engine=engine)
     return compare_probes(many, res, one, res1)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     import argparse
 
-    ap = argparse.ArgumentParser(description="The pod probe: the masked engine on a "
-                                 "multi-process torch.distributed group.")
+    ap = argparse.ArgumentParser(description="The pod probe: the grouped engine's slices "
+                                 "superstep (or the masked engine's) on a multi-process "
+                                 "torch.distributed group.")
     ap.add_argument("out_dir", nargs="?")
     ap.add_argument("--k", type=int, default=2)
     ap.add_argument("--active", type=int, default=4)
     ap.add_argument("--backend", choices=("nccl", "gloo"), default=None)
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--codec", default="dense")
+    ap.add_argument("--engine", choices=PROBE_ENGINES, default="grouped")
     ap.add_argument("--spawn", type=int, default=0,
                     help="run the probe at this many ranks and alone, and compare")
     a = ap.parse_args(argv)
@@ -363,14 +388,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         import torch
 
         gpus = torch.cuda.device_count() if a.device == "cuda" else 0
-        res = probe_ranks(a.out_dir, a.spawn, a.backend, a.device, a.codec, a.k, gpus=gpus)
+        res = probe_ranks(a.out_dir, a.spawn, a.backend, a.device, a.codec, a.k, gpus=gpus,
+                          engine=a.engine)
         print(json.dumps({k: v for k, v in res.items() if k not in ("results", "one_rank")},
                          sort_keys=True))
         ok = res["ranks_equal"] and res["within_tolerance"] and res["sharded_ckpt_ok"] and \
-            all(n == 1 for n in res["all_reduce_per_round"])
+            all(n == 1 for n in res["all_reduce_per_round"]) and \
+            (a.engine != "grouped" or a.spawn < 2 or
+             all(p == "slices" for p in res["placements"]))
         return 0 if ok else 1
-    print(json.dumps(child_main(a.out_dir, a.k, a.active, a.backend, a.device, a.codec),
-                     sort_keys=True))
+    print(json.dumps(child_main(a.out_dir, a.k, a.active, a.backend, a.device, a.codec,
+                                a.engine), sort_keys=True))
     return 0
 
 

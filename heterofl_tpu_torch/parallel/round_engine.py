@@ -283,7 +283,7 @@ class FlatParams:
     arms: Optional[ArmsSpec] = None
     _arm_resid: Optional[List[Optional[torch.Tensor]]] = None  # each arm's EF carry
     #: the clients axis the round reduces over (None: no reduction, the
-    #: grouped engine and the sliced twin, which run on one rank)
+    #: sliced twin, which every rank runs whole)
     mesh: Optional[Mesh] = None
     placement = "replicated"
 

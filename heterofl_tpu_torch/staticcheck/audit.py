@@ -30,16 +30,16 @@ identical host inputs, and watches it run:
 (f) **memory** under the analytic ceiling (:mod:`.memory`): on the card
     the program's peak allocated bytes and its graph pool's growth;
 (g) **collectives** (ref audit.py:1243-1420, "exactly one psum a round"):
-    the masked engine's rounds reduce over the clients mesh axis, so each
-    dispatch makes exactly one ``Mesh.all_reduce_sum`` a round and one
-    ``Mesh.gather_rows`` (a K=1 round's rows, a superstep's k rounds'),
-    read from ``parallel/mesh.py``'s counters (the payload each moves is
-    check (e)'s); the record carries the payload's bytes and the ring
-    all-reduce's bytes a rank at the mesh's size
+    both engines' rounds reduce over the clients mesh axis, so each
+    dispatch makes exactly one ``Mesh.all_reduce_sum`` a round (the
+    grouped engine's under a per-level map too: every level's payload in
+    one buffer) and one ``Mesh.gather_rows`` (a K=1 round's rows, a
+    superstep's k rounds'), read from ``parallel/mesh.py``'s counters (the
+    payload each moves is check (e)'s); the record carries the payload's
+    bytes and the ring all-reduce's bytes a rank at the mesh's size
     (:func:`.wire.ring_allreduce_bytes`); then one evaluation after the
     dispatches, host and (a superstep program) fused, makes one all-reduce
-    an sBN and a Global pass and one gather a Local pass.  The grouped
-    engine is not on the mesh and reduces nothing over it.
+    an sBN and a Global pass and one gather a Local pass.
 
 Programs: the masked and grouped engines at K=1 and in the superstep
 (K=2); dense, int8 and the grouped per-level codec map; ``telemetry``
@@ -56,7 +56,7 @@ import fnmatch
 import gc
 import tempfile
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -190,7 +190,9 @@ class _Recorder:
     def __init__(self, eng, top: float):
         self.steps: Dict[Any, Tuple[Callable, Callable, tuple]] = {}
         self.levels: Dict[str, List[int]] = {}
-        self.payload: List[torch.Tensor] = []
+        #: the dtypes of the payloads' tensors (not the tensors: holding
+        #: them would add every round's payload to the peak the audit reads)
+        self.dtypes: Set[torch.dtype] = set()
         graphs_get = eng.graphs.get
 
         def get(key, fn, reset, generators=()):
@@ -200,19 +202,15 @@ class _Recorder:
         eng.graphs.get = get
         if eng.codec is not None:
             self._wrap_encode(eng.codec, top)
-        if hasattr(eng, "_merge"):  # grouped: each level's payload
-            for rate, (cobj, _off) in eng._map_codecs.items():
-                self._wrap_encode(cobj, rate)
-            merge = eng._merge
+        if getattr(eng, "codec_map", None) is not None:  # grouped: each level's payload
+            reduce_levels = eng._reduce_levels
 
-            def rec_merge(P, sums, *a, **kw):
-                if eng.codec is None:
-                    for rate, (s, c) in sums.items():
-                        if rate not in eng._map_codecs:  # a dense level's sliced sums
-                            self._add(rate, [s, c])
-                return merge(P, sums, *a, **kw)
+            def rec_reduce(payloads):
+                for rate, payload in payloads:
+                    self._add(rate, list(payload.values()))
+                return reduce_levels(payloads)
 
-            eng._merge = rec_merge
+            eng._reduce_levels = rec_reduce
         elif eng.codec is None:
             aggregate = eng._aggregate
 
@@ -226,7 +224,7 @@ class _Recorder:
     def _add(self, rate: float, tensors: List[torch.Tensor]) -> None:
         self.levels.setdefault(f"{float(rate):g}", []).append(
             int(sum(t.nbytes for t in tensors)))
-        self.payload.extend(tensors)
+        self.dtypes.update(t.dtype for t in tensors)
 
     def _wrap_encode(self, codec, rate: float) -> None:
         encode = codec.encode
@@ -311,8 +309,6 @@ def _expected_wire(spec: Program, cfg: Dict[str, Any]) -> Dict[float, int]:
     if isinstance(codec, dict):
         return level_codec_map_byte_table(cfg, {float(k): v for k, v in codec.items()})
     table = level_codec_byte_table(cfg, codec)
-    if spec.strategy == "grouped" and codec == "dense":
-        return table  # each trained level's sliced sums and counts
     top = max(table)
     return {top: table[top]}
 
@@ -362,10 +358,11 @@ def audit_program(spec: Program, device: torch.device, flagship: bool, out_dir: 
         torch.cuda.synchronize(device)
         peak = torch.cuda.max_memory_allocated(device) - base_alloc
     # (a) float64 and the superstep's fetches
-    watched = [("params", P), ("payload", rec.payload),
-               ("step buffers", getattr(eng, "_st", None)), ("staged stacks", exp.train_data)]
-    for what, obj in watched:
-        if any(t.dtype == torch.float64 for t in _tensors(obj)):
+    watched = [("params", {t.dtype for t in _tensors(P)}), ("payload", rec.dtypes),
+               ("step buffers", {t.dtype for t in _tensors(getattr(eng, "_st", None))}),
+               ("staged stacks", {t.dtype for t in _tensors(exp.train_data)})]
+    for what, dtypes in watched:
+        if torch.float64 in dtypes:
             rep.fail("float64", f"a float64 tensor in the round's {what}")
     if spec.k > 1:
         rep.host_fetches = max(s[2] for s in seen)
@@ -406,8 +403,7 @@ def audit_program(spec: Program, device: torch.device, flagship: bool, out_dir: 
         rep.memory.update(peak_bytes=int(peak), pool_bytes=int(pool),
                           peak_mb=round(peak / 2 ** 20, 3), pool_mb=round(pool / 2 ** 20, 3))
         check_memory(rep, rep.memory, mem_budget)
-    if spec.strategy == "masked":  # (g) the evaluation's collectives, last
-        check_eval_collectives(rep, exp, P, spec.k > 1, out_dir)
+    check_eval_collectives(rep, exp, P, spec.k > 1, out_dir)  # (g) the evaluation's, last
     return rep
 
 
@@ -423,13 +419,7 @@ def check_collectives(rep: ProgramReport, spec: Program, exp, colls: List[Dict[s
                        "payload_bytes_per_round": payload, "participants": mesh.size,
                        "ring_allreduce_bytes_per_device": ring_allreduce_bytes(payload,
                                                                                mesh.size),
-                       "on_mesh": spec.strategy == "masked"}
-    if spec.strategy != "masked":
-        if worst["all_reduce"] or worst["gather"]:
-            rep.fail("collective-budget", f"the {spec.strategy} engine is not on the mesh, "
-                     f"yet a dispatch made {worst['all_reduce']} all-reduce(s) and "
-                     f"{worst['gather']} gather(s)")
-        return
+                       "on_mesh": True}
     if any(c["all_reduce"] != spec.k for c in colls):
         rep.fail("collective-budget", f"{[c['all_reduce'] for c in colls]} all-reduces in "
                  f"the two dispatches of {spec.k} round(s): exactly one a round (the round's "

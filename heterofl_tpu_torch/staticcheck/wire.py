@@ -1,18 +1,19 @@
-"""The wire on one GPU: the bytes a round reduces (ref staticcheck/wire.py).
+"""The wire: the bytes a round's one all-reduce carries over the clients
+mesh axis (ref staticcheck/wire.py).
 
-On one device there is no collective, so "the wire" is the payload the
-round's reduction takes: the masked engine's summed update and count
-buffers, the codec's packed lanes (the int8 codec's value and count
-words), and under a per-level codec map the grouped engine's per-level
-payloads (``parallel/grouped.py::_merge``).  The audit records each
+The payload is what the round reduces: the merged global update and
+count buffers (the masked engine's, and the grouped engine's dense round),
+the codec's packed lanes (the int8 codec's value and count words), and
+under a per-level codec map every level's payload in the grouped engine's
+one all-reduce (a dense level's sliced sums and counts, a lossy level's
+lanes; ``parallel/grouped.py::_reduce_levels``).  The audit records each
 payload's ``nbytes`` as the round builds it and :func:`check_wire` holds
 them to :func:`~..fed.core.level_codec_byte_table` (or, level by level,
 :func:`~..fed.core.level_codec_map_byte_table`) **by equality**: a widened
 buffer, a smuggled dtype or a second payload shows up as bytes.  The
 int8 payload stays at or under 25% of dense (:func:`codec_frontier`,
-the reference's ``wire-frontier``).  The reference's "one all-reduce a
-round" and reshard rules need several devices and wait for the
-multi-GPU port.
+the reference's ``wire-frontier``); :func:`ring_allreduce_bytes` prices
+the payload on a ring of the mesh's ranks.
 
 Torch-free: the analytic records need no device.
 """

@@ -99,14 +99,18 @@ def limited_threads(deterministic: bool = False) -> Iterator[None]:
 
 
 def thread_limit_fixture(deterministic: bool = False):
-    """An autouse pytest fixture that runs each test of the module that
+    """An autouse, module-scoped pytest fixture that runs the module that
     binds it under :func:`limited_threads`::
 
         few_threads = thread_limit_fixture()
-    """
+
+    Module-scoped, so the module's own module-scoped fixtures (a reference
+    run computed once for several tests) run under it too: pytest sets up
+    a scope's autouse fixtures before its other fixtures, while a
+    function-scoped limit would start only after them."""
     import pytest  # the tests' dependency, not the package's
 
-    @pytest.fixture(autouse=True)
+    @pytest.fixture(scope="module", autouse=True)
     def _limited_threads():
         with limited_threads(deterministic):
             yield

@@ -110,7 +110,7 @@ def test_process_control_validates_arms(arms):
     """``arms`` is ported (out of ``UNPORTED``) and validated last, as the
     reference's ``process_control`` does."""
     assert "arms" not in PC.UNPORTED and PC.DEFAULT_CFG["arms"] is None
-    assert "level_placement" in PC.UNPORTED
+    assert "level_placement" not in PC.UNPORTED  # the grouped engine on the mesh
     assert not {"world_size", "data_placement"} & set(PC.UNPORTED)  # the clients mesh axis
 
     def run(mod):

@@ -46,12 +46,21 @@ def test_process_control_matches_reference(control, data_name, model_name):
         assert port[k] == ref[k], k
 
 
-def test_unported_keys_raise_naming_the_key():
+def test_unported_keys_raise_naming_the_key(monkeypatch):
     cfg = PC.default_cfg()
     cfg["control"] = PC.parse_control_name("1_100_0.1_iid_fix_a1_bn_1_1")
-    bad = dict(cfg, level_placement="slices")
-    with pytest.raises(NotImplementedError, match="level_placement"):
+    # every reference key is ported; the mechanism still refuses a key put
+    # in UNPORTED, naming it and its ROADMAP item
+    assert PC.UNPORTED == {}
+    monkeypatch.setitem(PC.UNPORTED, "level_placement", "span")
+    monkeypatch.setitem(PC.UNPORTED_ITEM, "level_placement", "ROADMAP item x")
+    bad = dict(cfg, level_placement="slices", strategy="grouped")
+    with pytest.raises(NotImplementedError, match="level_placement.*ROADMAP item x"):
         PC.process_control(bad)
+    monkeypatch.delitem(PC.UNPORTED, "level_placement")
+    assert PC.process_control(bad)["level_placement"] == "slices"
+    with pytest.raises(ValueError, match="level_placement='slices' with strategy='masked'"):
+        PC.process_control(dict(cfg, level_placement="slices"))
     # the clients mesh axis: sharded placement and the inert world_size are ported
     for key, value in (("data_placement", "sharded"), ("world_size", 2)):
         assert PC.process_control(dict(cfg, **{key: value}))[key] == value

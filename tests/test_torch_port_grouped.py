@@ -370,8 +370,9 @@ def test_grouped_lm_round_equals_masked_without_dropout():
 def test_grouped_refusals_match_reference():
     """A lossy codec with ``grouped`` at K=1 and a codec with ``sliced`` are
     refused by both packages (``ValueError``, the reference experiment loop's
-    reasons); so is an unknown strategy; ``level_placement='slices'`` (a
-    mesh of several GPUs) is not ported; the engines refuse a codec too."""
+    reasons); so is an unknown strategy; ``level_placement='slices'`` is
+    accepted with ``grouped`` and refused with another strategy, in both
+    packages; the engines refuse a codec too."""
     base = {"wire_codec": "int8"}
     for strategy, match in (("grouped", "K=1 host-orchestrated path"), ("sliced", "sliced")):
         cfg = dict(base, strategy=strategy)
@@ -391,8 +392,11 @@ def test_grouped_refusals_match_reference():
         RC.resolve_strategy_cfg(dict(cfg, strategy="banded"))
     with pytest.raises(ValueError, match="strategy"):
         PC.process_control(dict(cfg, strategy="banded"))
-    with pytest.raises(NotImplementedError, match="level_placement"):
-        PC.process_control(dict(cfg, strategy="grouped", level_placement="slices"))
+    assert PC.process_control(dict(cfg, strategy="grouped", level_placement="slices"))[
+        "level_placement"] == "slices"
+    for mod in (PC, RC):
+        with pytest.raises(ValueError, match="level_placement='slices' with strategy='sliced'"):
+            mod.resolve_placement_cfg(dict(cfg, strategy="sliced", level_placement="slices"))
     pcfg = dict(_cfg(PC, CONV), wire_codec="int8")
     model = make_model(pcfg)
     for engine, match in ((GroupedRoundEngine, "K=1 host-orchestrated path"),

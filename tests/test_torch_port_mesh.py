@@ -29,7 +29,7 @@ few_threads = thread_limit_fixture()
 def _cfg(mod, **over):
     cfg = mod.default_cfg()
     cfg["control"] = mod.parse_control_name("1_8_0.5_iid_fix_a1-b1_bn_1_1")
-    cfg.update(data_name="MNIST", model_name="conv", **over)
+    cfg.update({"data_name": "MNIST", "model_name": "conv", **over})
     return cfg
 
 
@@ -37,8 +37,9 @@ def _cfg(mod, **over):
 
 def test_mesh_keys_take_the_reference_defaults():
     """``mesh`` has the reference's default and a CLI flag; ``world_size``
-    and ``data_placement`` are out of ``UNPORTED``; ``level_placement``
-    stays there, its refusal naming its ROADMAP item."""
+    and ``data_placement`` are out of ``UNPORTED``, and so is
+    ``level_placement`` (the grouped engine on the mesh): ``slices`` with
+    ``grouped`` is accepted."""
     from heterofl_tpu_torch.entry.common import build_cli, cfg_from_args
 
     assert PC.DEFAULT_CFG["mesh"] == RC.DEFAULT_CFG["mesh"] == {"clients": 0, "data": 1}
@@ -46,8 +47,9 @@ def test_mesh_keys_take_the_reference_defaults():
         assert key not in PC.UNPORTED and PC.DEFAULT_CFG[key] == RC.DEFAULT_CFG[key]
     done = PC.process_control(_cfg(PC, world_size=4, data_placement="sharded"))
     assert (done["world_size"], done["data_placement"]) == (4, "sharded")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        PC.process_control(_cfg(PC, strategy="grouped", level_placement="slices"))
+    assert "level_placement" not in PC.UNPORTED
+    assert PC.process_control(_cfg(PC, strategy="grouped", level_placement="slices"))[
+        "level_placement"] == "slices"
     args = build_cli("t").parse_args(["--mesh", '{"clients": 2}', "--data_placement", "sharded",
                                       "--world_size", "2"])
     cfg = cfg_from_args(args)
@@ -76,8 +78,10 @@ def test_resolve_placement_matches_reference(case):
     assert run(PC) == run(RC)
 
 
-REFUSED = [({"strategy": "grouped"}, "grouped and slices"),
-           ({"strategy": "sliced"}, "grouped and slices"),
+REFUSED = [({"strategy": "grouped", "arms": 2, "superstep_rounds": 2}, "the arms axis"),
+           ({"strategy": "grouped", "client_store": "stream"}, "the stream store"),
+           ({"strategy": "grouped", "data_name": "WikiText2", "model_name": "transformer"},
+            "the grouped LM"),
            ({"client_store": "stream"}, "the stream store"),
            ({"arms": 2}, "the arms axis"),
            ({"telemetry": "on"}, "observability"),
@@ -113,9 +117,15 @@ def test_world_of_ranks_refuses_the_one_rank_entries(entry, monkeypatch):
 
 def test_world_of_ranks_accepts_what_the_axis_carries(monkeypatch):
     """The masked engine, K=1 and the superstep, every codec, the
-    scheduler, both samplers and sharded placement run at two ranks."""
+    scheduler, both samplers and sharded placement run at two ranks; so do
+    the grouped engine under either level placement, K=1 and the
+    superstep with a per-level map, and the sliced twin."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     for over in ({}, {"superstep_rounds": 2, "wire_codec": "int8"}, {"wire_codec": "signsgd"},
+                 {"strategy": "grouped"}, {"strategy": "sliced"},
+                 {"strategy": "grouped", "level_placement": "slices", "strict_placement": True},
+                 {"strategy": "grouped", "superstep_rounds": 2,
+                  "wire_codec": {"1": "int8", "0.5": "dense"}},
                  {"wire_codec": "topk"}, {"sampler": "prp", "data_placement": "sharded"},
                  {"schedule": {"kind": "uniform", "aggregation": "buffered"}},
                  {"client_failure_rate": 0.2}, {"mesh": {"clients": 2, "data": 1}}):
@@ -451,13 +461,13 @@ def test_audit_counts_one_all_reduce_a_round(tmp_path, name):
     training round and one gather a dispatch, K=1 and the superstep, each
     moving the wire table's bytes, and one all-reduce an sBN and a Global
     pass and one gather a Local pass of the host (and fused) evaluation;
-    the grouped engine none.  A round that reduces twice is a finding."""
+    the grouped engine's alike.  A round that reduces twice is a finding."""
     from heterofl_tpu_torch.staticcheck import audit
 
     spec = next(p for p in audit.PROGRAMS if p.name == name)
     rep = audit.audit_program(spec, torch.device("cpu"), False, str(tmp_path))
     assert rep.ok, rep.findings
-    want = 0 if spec.strategy == "grouped" else 1
+    want = 1
     assert rep.collectives["all_reduce_per_round"] == want
     assert rep.collectives["participants"] == 1
     if want:

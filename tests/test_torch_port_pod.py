@@ -1,6 +1,8 @@
-"""The clients mesh axis of the PyTorch/CUDA port at two ranks: each case
-spawns gloo ranks on the CPU (``torch_port_ranks.run_ranks``, one process
-a rank with its own free port and a timeout of its own).
+"""The clients mesh axis of the PyTorch/CUDA port at two ranks: gloo ranks on
+the CPU (``torch_port_ranks.run_ranks``, one process a rank with its own
+free port and a timeout of its own), every case's job in turn in ONE spawn
+of two ranks and its one-rank runs in one spawn of one (:func:`spawned`),
+under deterministic algorithms.
 
 * one masked round -- conv dense, conv int8, the LM -- against the JAX
   package's ``RoundEngine`` on ``make_mesh(2, 1)``, the reference's draws
@@ -100,41 +102,47 @@ def _assert_matches_reference(case, out, r_new, r_ms):
     np.testing.assert_array_equal(ms["rate"], r_ms["rate"][:len(ms["rate"])])
 
 
-def test_conv_round_at_two_ranks_matches_reference_mesh(tmp_path):
-    """The conv round (levels a, b, c, e; a user with padding batches) at two
-    gloo ranks, each training its two slots, against the reference's round on
-    ``make_mesh(2, 1)`` with its epoch permutations; the ranks equal bit for
-    bit; the two-rank round within ``RANKS_ATOL`` of the one-rank round."""
+def _conv_case():
     rcfg, pcfg = _cfg(RC), _cfg(PC)
     arrays = _data()
     params, r_new, r_ms, _ = _reference(rcfg, arrays, USERS)
     perms, _ = reference_draws(jax.random.key(KEY), USERS, rcfg["num_epochs"]["local"],
                                arrays[0].shape[1])
-    job = _round_job(pcfg, params, arrays, USERS, epoch_perms=perms)
-    outs = run_ranks(job, 2, str(tmp_path / "two"))
+    return _round_job(pcfg, params, arrays, USERS, epoch_perms=perms), (r_new, r_ms)
+
+
+def test_conv_round_at_two_ranks_matches_reference_mesh(spawned):
+    """The conv round (levels a, b, c, e; a user with padding batches) at two
+    gloo ranks, each training its two slots, against the reference's round on
+    ``make_mesh(2, 1)`` with its epoch permutations; the ranks equal bit for
+    bit; the two-rank round within ``RANKS_ATOL`` of the one-rank round."""
+    outs, (r_new, r_ms) = spawned["conv"]
     _assert_ranks_equal("conv round, 2 ranks", outs)
     _assert_matches_reference("conv round, 2 ranks vs make_mesh(2, 1)", outs[0], r_new, r_ms)
     assert outs[0]["collectives"]["all_reduce"] == 1 and outs[0]["collectives"]["gather"] == 1
-    (one,) = run_ranks(job, 1, str(tmp_path / "one"))
+    one = spawned["one"]["conv"]
     assert_close("conv round: 2 ranks vs 1 rank, params", outs[0]["flat"], one["flat"],
                  rtol=0, atol=RANKS_ATOL)
     for k in ("loss_sum", "score_sum", "n"):  # a slot trains on one rank, as on one
         np.testing.assert_array_equal(outs[0]["round"][k], one["round"][k])
 
 
-def test_conv_round_sharded_placement_at_two_ranks(tmp_path):
-    """``data_placement='sharded'``: each rank holds users ``[2r, 2r + 2)``
-    and trains the cohort's users it holds (the reference's owner packing);
-    the params are the reference's sharded round's on ``make_mesh(2, 1)``,
-    the metric rows the replicated round's, in schedule order."""
+def _sharded_case():
     rcfg, pcfg = _cfg(RC), dict(_cfg(PC), data_placement="sharded")
     arrays = _data()
     users = np.array([3, 0, 2, 1])  # owners 1, 0, 1, 0
     params, r_new, r_ms, _ = _reference(rcfg, arrays, users, sharded=True)
     perms, _ = reference_draws(jax.random.key(KEY), users, rcfg["num_epochs"]["local"],
                                arrays[0].shape[1])
-    outs = run_ranks(_round_job(pcfg, params, arrays, users, epoch_perms=perms), 2,
-                     str(tmp_path / "sharded"))
+    return _round_job(pcfg, params, arrays, users, epoch_perms=perms), (r_new, r_ms)
+
+
+def test_conv_round_sharded_placement_at_two_ranks(spawned):
+    """``data_placement='sharded'``: each rank holds users ``[2r, 2r + 2)``
+    and trains the cohort's users it holds (the reference's owner packing);
+    the params are the reference's sharded round's on ``make_mesh(2, 1)``,
+    the metric rows the replicated round's, in schedule order."""
+    outs, (r_new, r_ms) = spawned["sharded"]
     _assert_ranks_equal("sharded conv round", outs)
     assert_close("sharded conv round vs the reference's sharded round: params",
                  _flat(outs[0]["params"]), _flat(r_new), rtol=0, atol=5e-5)
@@ -145,23 +153,14 @@ def test_conv_round_sharded_placement_at_two_ranks(tmp_path):
         assert_close(f"sharded conv round: {k}", ms[k][order], r_ms[k], rtol=1e-4, atol=1e-4)
 
 
-def test_int8_round_at_two_ranks_matches_reference_mesh(tmp_path):
-    """The int8 codec at two ranks: each rank encodes its partial sums with
-    its own residual row and the reference's noise of its device
-    (``uniform(fold_in(fold_in(key, 9173), d))``), the packed payload is
-    all-reduced once and both decode it.  Contract (the one-device int8
-    round's): params within 5e-5 but at most 2% of entries one grid step
-    ``s_leaf / count`` apart; each rank's residual within 2 x 5e-5 but at
-    most 2% of entries one step ``s_leaf`` apart; ``n`` exactly; the ranks
-    equal bit for bit."""
+def _int8_case():
     rcfg, pcfg = dict(_cfg(RC), wire_codec="int8"), dict(_cfg(PC), wire_codec="int8")
     arrays = _data()
     params, r_new, r_ms, r_resid = _reference(rcfg, arrays, USERS)
     rspec = RFlatSpec({k: v.shape for k, v in params.items()})
     model = make_model(pcfg)
     model.load_state_dict(params_from_jax(params))
-    peng = RoundEngine(model, pcfg, torch.device("cpu"))
-    spec = peng.spec
+    spec = RoundEngine(model, pcfg, torch.device("cpu")).spec
 
     def to_port(ref_flat):
         leaves = {k: np.asarray(v) for k, v in rspec.unflatten(jnp.asarray(ref_flat)).items()}
@@ -172,8 +171,31 @@ def test_int8_round_at_two_ranks_matches_reference_mesh(tmp_path):
         jax.random.fold_in(jax.random.fold_in(key, QUANT_NOISE_SALT), d), (rspec.total,),
         jnp.float32))).numpy() for d in range(2)])
     perms, _ = reference_draws(key, USERS, rcfg["num_epochs"]["local"], arrays[0].shape[1])
-    outs = run_ranks(_round_job(pcfg, params, arrays, USERS, epoch_perms=perms,
-                                codec_noise=noise), 2, str(tmp_path / "int8"))
+    return (_round_job(pcfg, params, arrays, USERS, epoch_perms=perms, codec_noise=noise),
+            (r_new, r_ms, r_resid, params, arrays))
+
+
+def test_int8_round_at_two_ranks_matches_reference_mesh(spawned):
+    """The int8 codec at two ranks: each rank encodes its partial sums with
+    its own residual row and the reference's noise of its device
+    (``uniform(fold_in(fold_in(key, 9173), d))``), the packed payload is
+    all-reduced once and both decode it.  Contract (the one-device int8
+    round's): params within 5e-5 but at most 2% of entries one grid step
+    ``s_leaf / count`` apart; each rank's residual within 2 x 5e-5 but at
+    most 2% of entries one step ``s_leaf`` apart; ``n`` exactly; the ranks
+    equal bit for bit."""
+    outs, (r_new, r_ms, r_resid, params, arrays) = spawned["int8"]
+    pcfg = dict(_cfg(PC), wire_codec="int8")
+    rspec = RFlatSpec({k: v.shape for k, v in params.items()})
+    model = make_model(pcfg)
+    model.load_state_dict(params_from_jax(params))
+    peng = RoundEngine(model, pcfg, torch.device("cpu"))
+    spec = peng.spec
+
+    def to_port(ref_flat):
+        leaves = {k: np.asarray(v) for k, v in rspec.unflatten(jnp.asarray(ref_flat)).items()}
+        return spec.flatten(params_from_jax(leaves))
+
     _assert_ranks_equal("int8 round, 2 ranks", outs)
     P = peng.flatten(model.params())
     s = make_codec("int8", spec, 2).scale_flat(P, 2)
@@ -195,11 +217,7 @@ def test_int8_round_at_two_ranks_matches_reference_mesh(tmp_path):
     assert not np.array_equal(outs[0]["resid"], outs[1]["resid"])
 
 
-def test_lm_round_at_two_ranks_matches_reference_mesh(tmp_path, ref_model):  # noqa: F811
-    """The masked LM round (levels a, b, c, e) at two ranks against the
-    reference's on ``make_mesh(2, 1)``, each client's corruption and dropout
-    draws the reference's: params atol 5e-5, sums 1e-4, ``n`` exactly; the
-    ranks equal bit for bit."""
+def _lm_case(ref_model):  # noqa: F811
     _, _, rp = ref_model
     rcfg, pcfg = lm_cfg(RC), lm_cfg(PC)
     rows, lm = _round_data()
@@ -215,11 +233,18 @@ def test_lm_round_at_two_ranks_matches_reference_mesh(tmp_path, ref_model):  # n
              for i, u in enumerate(USERS) for t in range(steps)}
     job = dict(kind="round", cfg=pcfg, params=rp, data=(rows, lm), users=USERS, lr=LM_LR,
                lm_draws=draws)
-    outs = run_ranks(job, 2, str(tmp_path / "lm"))
+    return job, ({k: np.asarray(v) for k, v in r_new.items()},
+                 {k: np.asarray(v) for k, v in r_ms.items()})
+
+
+def test_lm_round_at_two_ranks_matches_reference_mesh(spawned):
+    """The masked LM round (levels a, b, c, e) at two ranks against the
+    reference's on ``make_mesh(2, 1)``, each client's corruption and dropout
+    draws the reference's: params atol 5e-5, sums 1e-4, ``n`` exactly; the
+    ranks equal bit for bit."""
+    outs, (r_new, r_ms) = spawned["lm"]
     _assert_ranks_equal("LM round, 2 ranks", outs)
-    _assert_matches_reference("LM round, 2 ranks vs make_mesh(2, 1)", outs[0],
-                              {k: np.asarray(v) for k, v in r_new.items()},
-                              {k: np.asarray(v) for k, v in r_ms.items()})
+    _assert_matches_reference("LM round, 2 ranks vs make_mesh(2, 1)", outs[0], r_new, r_ms)
 
 
 def _eval_operands(cfg, users=3):
@@ -236,7 +261,30 @@ def _eval_operands(cfg, users=3):
                                split["test"], lm)
 
 
-def test_sharded_evaluation_matches_one_rank(tmp_path, ref_model):  # noqa: F811
+def _eval_cases(ref_model):  # noqa: F811
+    """The vision evaluation's job and the LM Global pass's."""
+    from heterofl_tpu_torch.convert import params_to_jax
+    from heterofl_tpu_torch.data import bptt_windows, stack_windows
+    from heterofl_tpu_torch.data.datasets import synthetic_lm
+    from heterofl_tpu_torch.data.pipeline import batchify
+
+    pcfg = _cfg(PC)
+    model = make_model(pcfg)
+    params = {k: v.detach() for k, v in model.init_(
+        torch.Generator().manual_seed(0)).named_parameters()}
+    sbn, local, glob = _eval_operands(pcfg)
+    job = dict(kind="eval", cfg=pcfg, params=params_to_jax(params), sbn=sbn, local=local,
+               epoch=2)
+    job["global"] = glob
+    _, _, rp = ref_model
+    tok = synthetic_lm("WikiText2", "test", 4 * 70, 50, 5).token
+    wins = stack_windows(bptt_windows(batchify(tok, 4), BPTT), BPTT)
+    lm_job = dict(kind="eval", cfg=lm_cfg(PC), params=rp, sbn=None, epoch=3)
+    lm_job["global"] = wins
+    return job, lm_job
+
+
+def test_sharded_evaluation_matches_one_rank(spawned):
     """sBN, Local and Global at two ranks (each its block of train batches,
     users and test batches; one collective a pass) against one rank: the
     BN statistics and Global sums within rtol 1e-5 / atol 1e-6 (two partial
@@ -244,18 +292,7 @@ def test_sharded_evaluation_matches_one_rank(tmp_path, ref_model):  # noqa: F811
     computed whole on one rank, on those statistics); the LM's Global sums
     (each rank's windows corrupted as on one rank) within rtol 1e-6; fused
     == host bit for bit on every rank."""
-    pcfg = _cfg(PC)
-    model = make_model(pcfg)
-    params = {k: v.detach() for k, v in model.init_(
-        torch.Generator().manual_seed(0)).named_parameters()}
-    from heterofl_tpu_torch.convert import params_to_jax
-
-    sbn, local, glob = _eval_operands(pcfg)
-    job = dict(kind="eval", cfg=pcfg, params=params_to_jax(params), sbn=sbn, local=local,
-               epoch=2)
-    job["global"] = glob
-    two = run_ranks(job, 2, str(tmp_path / "two"))
-    (one,) = run_ranks(job, 1, str(tmp_path / "one"))
+    two, one = spawned["eval"][0], spawned["one"]["eval"]
     assert two[0]["collectives"]["all_reduce"] == 4 and two[0]["collectives"]["gather"] == 2
     for case, out in (("one rank", one), ("rank 0", two[0]), ("rank 1", two[1])):
         f = out["fused"]
@@ -272,17 +309,7 @@ def test_sharded_evaluation_matches_one_rank(tmp_path, ref_model):  # noqa: F811
                      atol=1e-6)
         np.testing.assert_array_equal(two[0]["local"][k], two[1]["local"][k])
     # the LM's Global pass: the corruption of a rank's windows is one rank's
-    from heterofl_tpu_torch.data import bptt_windows, stack_windows
-    from heterofl_tpu_torch.data.datasets import synthetic_lm
-    from heterofl_tpu_torch.data.pipeline import batchify
-
-    _, _, rp = ref_model
-    tok = synthetic_lm("WikiText2", "test", 4 * 70, 50, 5).token
-    wins = stack_windows(bptt_windows(batchify(tok, 4), BPTT), BPTT)
-    job = dict(kind="eval", cfg=lm_cfg(PC), params=rp, sbn=None, epoch=3)
-    job["global"] = wins
-    two = run_ranks(job, 2, str(tmp_path / "lm2"))
-    (one,) = run_ranks(job, 1, str(tmp_path / "lm1"))
+    two, one = spawned["eval_lm"][0], spawned["one"]["eval_lm"]
     for k in ("loss_sum", "score_sum", "n"):
         assert_close(f"sharded LM Global {k}", two[1]["global"][k], one["global"][k],
                      rtol=1e-6, atol=0)
@@ -299,18 +326,46 @@ def _entry_argv(out_dir, rounds, resume=0):
                                       "conv": {"hidden_size": [4, 8]}})]
 
 
-def test_entry_at_two_ranks_resumes_bit_for_bit(tmp_path):
+@pytest.fixture(scope="module")
+def spawned(ref_model, tmp_path_factory):  # noqa: F811
+    """Every case's reference side and its runs: ONE spawn of two ranks
+    running each case's job, then the entry uninterrupted, cut and resumed;
+    ONE spawn of one rank running the one-rank jobs -> ``{case: (the two
+    ranks' results, the reference side)}``, ``"one"``: the one-rank
+    results, ``"entry"``: the entry's dirs and results."""
+    out = tmp_path_factory.mktemp("pod")
+    cases = {"conv": _conv_case(), "sharded": _sharded_case(), "int8": _int8_case(),
+             "lm": _lm_case(ref_model)}
+    job, lm_job = _eval_cases(ref_model)
+    cases["eval"], cases["eval_lm"] = (job, None), (lm_job, None)
+    full, part = str(out / "full"), str(out / "part")
+    entry = dict(kind="entry", entry="train_classifier_fed")
+    entries = {"full": dict(entry, argv=_entry_argv(full, 4)),
+               "part": dict(entry, argv=_entry_argv(part, 2)),
+               "resumed": dict(entry, argv=_entry_argv(part, 4, resume=1))}
+    names = list(cases) + list(entries)
+    two = run_ranks(dict(kind="seq", deterministic=True,
+                         jobs=[cases[n][0] for n in cases] + list(entries.values())), 2,
+                    str(out / "two"))
+    ones = ["conv", "eval", "eval_lm"]
+    (one,) = run_ranks(dict(kind="seq", deterministic=True, jobs=[cases[n][0] for n in ones]),
+                       1, str(out / "one"))
+    res = {n: ([rk["results"][i] for rk in two], cases[n][1] if n in cases else None)
+           for i, n in enumerate(names)}
+    res["one"] = dict(zip(ones, one["results"]))
+    res["entry"] = {"full": full, "dir": str(out / "two")}
+    return res
+
+
+def test_entry_at_two_ranks_resumes_bit_for_bit(spawned):
     """``train_classifier_fed`` at two ranks (int8, a residual row a rank;
     supersteps of two rounds): 4 rounds uninterrupted against 2 rounds then
     a resumed superstep (each rank restoring its row from the sharded
     checkpoint) -- params, residual rows and round records bit for bit;
     every rank ends with the same params; only rank 0 writes the log (one
     record a round) and prints it; each rank writes its shard file."""
-    full, part = str(tmp_path / "full"), str(tmp_path / "part")
-    job = dict(kind="entry", entry="train_classifier_fed", deterministic=True)
-    a = run_ranks(dict(job, argv=_entry_argv(full, 4)), 2, str(tmp_path / "a"))
-    run_ranks(dict(job, argv=_entry_argv(part, 2)), 2, str(tmp_path / "b"))
-    b = run_ranks(dict(job, argv=_entry_argv(part, 4, resume=1)), 2, str(tmp_path / "c"))
+    a, b = spawned["full"][0], spawned["resumed"][0]
+    full = spawned["entry"]["full"]
     for r in range(2):
         for k in a[r]["params"]:
             np.testing.assert_array_equal(a[r]["params"][k], b[r]["params"][k], err_msg=k)
@@ -323,7 +378,7 @@ def test_entry_at_two_ranks_resumes_bit_for_bit(tmp_path):
     with open(log) as f:
         train = [json.loads(line) for line in f if '"tag": "train"' in line]
     assert len(train) == 4
-    outs = [open(os.path.join(str(tmp_path / "a"), f"rank{r}.out")).read() for r in range(2)]
+    outs = [open(os.path.join(spawned["entry"]["dir"], f"rank{r}.out")).read() for r in range(2)]
     assert "Train Epoch" in outs[0] and "Train Epoch" not in outs[1]
     model = os.path.join(full, "model")
     assert sorted(os.path.basename(p)[-15:] for p in glob.glob(os.path.join(

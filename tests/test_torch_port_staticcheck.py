@@ -116,10 +116,13 @@ def test_cpu_audit_is_green_and_equals_the_baseline(cpu_report):
     for name, p in progs.items():
         assert p.host_fetches == (1 if "/k2" in name else None), name
     assert progs["masked/k2-hist"].launches == progs["masked/k2"].launches != {}
-    # the int8 payload is the codec's lanes; grouped dense moves each level's sums
+    # the int8 payload is the codec's lanes; grouped dense moves the merged
+    # global sums and counts in its one all-reduce, the map every level's
     assert progs["masked/k2-int8"].wire["level_bytes"] * 3.9 < \
         progs["masked/k2"].wire["level_bytes"]
-    assert len(progs["grouped/k2"].wire["levels"]) == 5
+    assert len(progs["grouped/k2"].wire["levels"]) == 1
+    assert progs["grouped/k2"].wire["level_bytes"] == progs["masked/k2"].wire["level_bytes"]
+    assert len(progs["grouped/k2-map"].wire["levels"]) == 5
     assert cpu_report.flop_budget["ok"] and cpu_report.wire_frontier["ok"]
 
 
@@ -216,7 +219,25 @@ def test_wire_records_equal_reference():
     assert sec["codecs"] == ref["codecs"]
 
 
-def test_cli_codes_and_ratchet(tmp_path, monkeypatch, capsys):
+def test_cli_codes_and_ratchet(tmp_path, monkeypatch, capsys, cpu_report):
+    """The CLI's exit codes and files.  Its full audits are the module's
+    (``cpu_report``: the audit is deterministic, and the CLI's own run of it
+    is the import test's); the lowered budget's finding comes from a real
+    audit of the program whose budget was lowered."""
+    import copy
+
+    from heterofl_tpu_torch.staticcheck import audit
+
+    real = audit.run_audit
+
+    def run_audit(device="cpu", flagship=False, budget=None, **kw):
+        assert (device, flagship, kw) == ("cpu", False, {})
+        steps = (((budget or {}).get("programs") or {}).get("masked/k2") or {}).get("launches")
+        if steps and steps != cpu_report.programs["masked/k2"].launches:
+            return real(device, flagship, budget=budget, only="masked/k2")
+        return copy.deepcopy(cpu_report)
+
+    monkeypatch.setattr(audit, "run_audit", run_audit)
     monkeypatch.chdir(tmp_path)
     pinned = tmp_path / "pinned.json"
     out = tmp_path / "report.json"

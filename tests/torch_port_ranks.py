@@ -1,5 +1,7 @@
 """Work a rank for the two-rank tests: :func:`run_ranks` runs a job (a
-masked round with its draws handed in, an evaluation, an entry) as
+masked or grouped round with its draws handed in, a grouped superstep, an
+evaluation, an entry, the pod probe's rank, or several of them in turn on
+one group) as
 ``n`` gloo ranks on the CPU, one process a rank started as torchrun
 would start it (``heterofl_tpu_torch.parallel.pod._spawn``: torchrun's
 variables, a free port each run, a timeout of its own), and returns each
@@ -109,6 +111,85 @@ def _eval_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
     return out
 
 
+def grouped_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
+    """A grouped round of ``job['cfg']`` (or, with ``job['engine']``
+    ``'sliced'``, the sliced twin's, which every rank runs whole) from
+    reference-layout ``params`` on ``data`` -> the new params (reference
+    layout and flat), the metric sums (K=1: one round's dict; ``k``: the
+    superstep's rounds), the residual, the placement and its slices table.
+    K=1 (``users``, ``epoch_perms`` ``{uid: [E, N]}``) or, with ``k``, one
+    superstep of the ``[k, A]`` ``users`` and ``rates`` at ``seed`` from
+    ``epoch0`` (default 1), its draws handed in where given: ``epoch_perms``
+    a round each, ``codec_noise`` a rank each, a round each; with
+    ``first_round`` also the params after round 1 alone on the superstep's
+    grid (``first``), which size round 2's grid step.  Also the one-rank
+    run, called in the test's process with a one-rank mesh."""
+    from heterofl_tpu_torch.convert import params_from_jax, params_to_jax
+    from heterofl_tpu_torch.fed.sliced import SlicedFederation
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.parallel import GroupedRoundEngine
+
+    cfg = job["cfg"]
+    model = make_model(cfg)
+    perms = model.jax_perms()
+    model.load_state_dict(params_from_jax(job["params"], perms))
+    model = model.to(mesh.device)
+    if job.get("engine") == "sliced":
+        eng = SlicedFederation(model, cfg, mesh.device)
+    else:
+        eng = GroupedRoundEngine(model, cfg, mesh.device, mesh)
+    data = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device) for a in job["data"])
+    P = eng.flatten(model.params())
+    out: Dict[str, Any] = {}
+    if job.get("k"):
+        k, eperms, noise = job["k"], job.get("epoch_perms"), job.get("codec_noise")
+        if noise is not None:  # this rank's, a round each: int8 noise, or {rate: noise}
+            dev = lambda a: torch.from_numpy(a).to(mesh.device)  # noqa: E731
+            noise = [{r: dev(a) for r, a in n.items()} if isinstance(n, dict) else dev(n)
+                     for n in noise[mesh.rank]]
+        if job.get("first_round"):  # round 1 alone on the superstep's grid
+            P1, _ = eng._train_round(P.clone(), job["lr"], job["users"][0], data, 0, eperms[0],
+                                     None, job["rates"][0], None, codec_noise=noise[0],
+                                     codec_slots=eng.codec_slots(job["rates"]))
+            eng.reset_carries()
+            out["first"] = _host(P1)
+        P, pend = eng.train_superstep(P, job["seed"], job.get("epoch0", 1), k, data,
+                                      job["users"], job["rates"],
+                                      np.full(k, job["lr"], np.float32), epoch_perms=eperms,
+                                      codec_noise=noise)
+        rounds = [{n: np.asarray(v) for n, v in r.items()} for r in pend.fetch()]
+    else:
+        P, ms = eng.train_round(P, job["lr"], job["users"], data, round_seed=0,
+                                epoch_perms=job.get("epoch_perms"))
+        rounds = {n: (_host(v) if torch.is_tensor(v) else v) for n, v in ms.items()}
+    return dict(out, round=rounds, params=params_to_jax(eng.unflatten(P), perms), flat=_host(P),
+                resid=eng.wire_resid_host(), placement=getattr(eng, "level_placement", None),
+                slices=dict(getattr(eng, "slices", {})))
+
+
+def _seq_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
+    """Each job of ``job['jobs']`` in turn on the same group (a probe,
+    which leaves the group, only last) -> their results, each with the
+    collectives it made."""
+    from heterofl_tpu_torch.parallel import mesh as M
+
+    out = []
+    for sub in job["jobs"]:
+        M.reset_counts()
+        res = JOBS[sub["kind"]](dict(sub, out_dir=job["out_dir"]), mesh, torch)
+        res["collectives"] = dict(M.COLLECTIVES)
+        out.append(res)
+    return {"results": out}
+
+
+def _probe_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
+    """The pod probe's rank (``pod.child_main``, the grouped slices
+    superstep), which leaves the group at its end."""
+    from heterofl_tpu_torch.parallel import pod
+
+    return pod.child_main(os.path.join(job["out_dir"], "probe"), backend="gloo", device="cpu")
+
+
 def _entry_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
     """The federated entry's ``main(job['argv'])`` (every rank) -> its
     result's params, history and residual."""
@@ -123,7 +204,8 @@ def _entry_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
 def job_main(path: str) -> None:
     """One rank of :func:`run_ranks`: join the group, run the job
     (``deterministic``: under ``torch.use_deterministic_algorithms``),
-    pickle its result to ``rank<r>.pkl``."""
+    pickle its result to ``rank<r>.pkl`` with the collectives it made and
+    the modules of ``jax``, ``jaxlib`` and ``heterofl_tpu`` it loaded."""
     import torch
 
     from heterofl_tpu_torch.parallel import mesh as M
@@ -136,12 +218,17 @@ def job_main(path: str) -> None:
     M.initialize_distributed(device="cpu")
     mesh = M.make_mesh(0, device=torch.device("cpu"))
     M.reset_counts()
-    fn = {"round": _round_job, "eval": _eval_job, "entry": _entry_job}[job["kind"]]
-    out = fn(job, mesh, torch)
+    out = JOBS[job["kind"]](job, mesh, torch)
     out["collectives"] = dict(M.COLLECTIVES)
+    out["foreign_modules"] = sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "heterofl_tpu"))
     with open(os.path.join(job["out_dir"], f"rank{mesh.rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     M.shutdown_distributed()
+
+
+JOBS = {"round": _round_job, "eval": _eval_job, "entry": _entry_job, "grouped": grouped_job,
+        "seq": _seq_job, "probe": _probe_job}
 
 
 if __name__ == "__main__":
