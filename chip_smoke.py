@@ -33,7 +33,7 @@ each prints its seconds:
    e, 2 steps each) against the CPU, and its local step timed; then the
    main paths, each into a fresh temporary ``output_dir``:
    ``heterofl_tpu_torch.entry.train_classifier_fed`` with the paper's
-   headline control on full-width ResNet-18, synthetic CIFAR10 at 4,000 of
+   headline control on full-width ResNet-18, synthetic CIFAR10 at 3,000 of
    its real 50,000 train images, ``pallas_norm=1``, ``fused_update=1``, one
    round (``ROUNDS``) with a checkpoint, sBN and Local/Global evaluation,
    local epochs cut to ``--local-epochs`` (default 1; the control's own is
@@ -65,10 +65,11 @@ each prints its seconds:
    CPU (draws made on the CPU and injected); then
    ``train_transformer_fed`` with ``LM_CONTROL`` at full width (E 256, 8
    heads, FFN 512, 4 layers, bptt 64) on synthetic WikiText2 at its quoted
-   1,044,314 / 245,569 tokens -- two rounds (``LM_ROUNDS``) of 164 local
-   steps each, a checkpoint and a Global evaluation (384 windows of [10,
-   64]) each round; the same entry resumed for a third round (``--resume_mode 1``,
-   from the checkpoint's params bit for bit); ``test_transformer_fed``
+   1,044,314 / 122,785 tokens (half the quoted test tokens) -- two rounds
+   (``LM_ROUNDS``) of 164 local steps each, a checkpoint and a Global
+   evaluation (192 windows of [10, 64]) each round; the same entry
+   resumed for a third round (``--resume_mode 1``, from the checkpoint's
+   params bit for bit); ``test_transformer_fed``
    reproducing the best checkpoint's logged Global-Perplexity; one int8
    round; the centralised ``train_transformer`` (one epoch of 164 steps of
    [100, 64]) and ``test_transformer``.  The ``<mask>`` row of the token
@@ -137,7 +138,7 @@ each prints its seconds:
    equal bit for bit, params and the concatenated residual), and the
    quantise-and-pack kernel held and timed at its int8 levels' sliced n;
 10. the client scheduler (``--schedule``, ``--client_failure_rate``), its
-   paths cut to ``SCENARIO_SIZES`` (five steps a client, one evaluation a
+   paths cut to ``SCENARIO_SIZES`` (four steps a client, one evaluation a
    run): (a) the fused SGD with ``has`` 0 leaves its buffers bit for bit,
    and kernel 3b at (level a, G 2) and (level e, G 4) with ``has`` rows
    ``[1, 0, ...]`` leaves the gated rows bit for bit and gives the live row
@@ -269,8 +270,35 @@ each prints its seconds:
    span runs, one all-reduce a round on each rank, the batched kernels on
    each rank, and the probe as phase 15's; (f) NCCL between two GPUs is
    (b)-(e)'s backend where the machine has them;
-17. the ``kernels`` JSON line (launches from the int8 path, the batched
-   kernels' from the grouped path; per path in ``launches_by_path``, and
+17. the data mesh axis (``parallel/mesh.py``'s ``data`` axis,
+   ``parallel/ring_attention.py``, ``parallel/long_context.py``): (a) the
+   synchronised batch norm's four kernels (``bn_sync_stats``,
+   ``bn_sync_apply``, ``bn_sync_bwd_reduce``, ``bn_sync_bwd_apply``)
+   against their plain versions at the headline ResNet-18's BN shapes at
+   batch 5 (a data rank's half) and 10 (``TOL_SYNC``), a group of one
+   through the split pair against ``bn_fwd_cuda``/``bn_bwd_cuda``
+   (``TOL_BN``), each timed (call and CUDA-graph replay) beside its plain
+   version and the aten op of PyTorch's SyncBatchNorm that does its work
+   (``batch_norm_stats``, unweighted, ``batch_norm_elemt``,
+   ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``: timed
+   here, used nowhere in the port); (b) two gloo ranks sharing the card on
+   the mesh ``(1, 2)`` (``chip_smoke.py --data-rank``), each running the
+   headline entry at phase 15's depth -- K=1 dense, K=1 int8 and a
+   superstep of two rounds -- each data rank taking 5 of every batch of 10
+   with BN synchronised over the pair: the ranks equal bit for bit, within
+   ``TOL_DATA_RANKS`` of phase 15's one-rank runs (the same draws: the
+   split draws over the whole batch; int8 within ``DATA_INT8_SHARE`` of
+   its entries, a grid step), the four kernels launched and
+   ``bn_fwd`` not, the clients axis's one all-reduce a round, the data
+   axis's one all-reduce a step and two a BN site, rank 0's first run
+   inside a profiler trace whose kernels by name equal its counters; (c)
+   the masked LM round at ``(1, 2)`` (dropout 0, ring attention) and
+   ``SeqParallelLM.forward`` / ``train_step`` against one rank with dense
+   attention, within ``TOL_DATA_LM``; (d) NCCL between two GPUs where the
+   machine has them, else the reason printed;
+18. the ``kernels`` JSON line (launches from the int8 path, the batched
+   kernels' from the grouped path, the synchronised pair's from 17b's
+   rank 0; per path in ``launches_by_path``, and
    the superstep's launches from replays -- a graph's captured launches
    times its replays -- in ``replayed_launches_by_path``), then the ``ok``
    JSON line last.
@@ -299,12 +327,14 @@ TAG = f"0_CIFAR10_label_resnet18_{HEADLINE}"
 CENTRAL = "1_1_1_none_fix_a1_bn_1_1"  # the centralised baseline, full width
 CENTRAL_TAG = f"0_CIFAR10_label_resnet18_{CENTRAL}"
 CENTRAL_EPOCHS = 1
-# the vision paths' synthetic CIFAR10: 4,000 of the real 50,000-image train
-# set (40 steps a round, 400 sBN forwards; cut for the script's time, from
+# the vision paths' synthetic CIFAR10: 3,000 of the real 50,000-image train
+# set (30 steps a round, 300 sBN forwards; cut for the script's time, from
 # 25,000 when the bf16, im2col and codec-map phases came, from 15,000 when
-# phase 12 came, from 10,000 when phase 13 came, and from 8,000 when phase
-# 16 came), the real 10,000-image test set
-SIZES = {"train": 4000, "test": 10000}
+# phase 12 came, from 10,000 when phase 13 came, from 8,000 when phase 16
+# came, and from 4,000 when phase 17 came), and 5,000 of the real
+# 10,000-image test set (cut when phase 17 came: each evaluation's Global
+# and Local passes halved)
+SIZES = {"train": 3000, "test": 5000}
 BATCH = 10
 CENTRAL_BATCH = 100
 # ResNet-18 on 32x32 CIFAR at batch 10: (rows M = N*H*W, channels C, BN
@@ -331,18 +361,19 @@ TOL_ROUND = 1e-3              # max |params| difference, card round vs CPU round
 SHARE_ROUND_INT8 = 0.02       # int8 round: share of entries allowed one grid step apart
 # a checkpoint evaluated again against the value its training log holds
 # (the same params and data; cuDNN may pick other algorithms in another
-# process): loss within 1e-4 relative, accuracy within 0.05 points (5 of
-# the 10,000 test images)
+# process): loss within 1e-4 relative, accuracy within 0.05 points (2.5 of
+# the 5,000 test images)
 TOL_EVAL_LOSS = 1e-4
 TOL_EVAL_ACC = 0.05
 # the masked LM: the control of the paper's WikiText2 runs, full width;
 # synthetic WikiText2 at half the train tokens quoted for WikiText2 (cut in
 # depth from 2,088,628 when phase 16 came: 164 steps a round instead of
-# 327) and its quoted test tokens
+# 327) and half its quoted test tokens (245,569 until phase 17 came: 192
+# evaluation windows instead of 384)
 LM_CONTROL = "1_100_0.01_iid_fix_a1-b1-c1-d1-e1_bn_1_1"
 LM_TAG = f"0_WikiText2_label_transformer_{LM_CONTROL}"
 LM_CENTRAL_TAG = f"0_WikiText2_label_transformer_{CENTRAL}"
-LM_SIZES = {"train": 1044314, "test": 245569}
+LM_SIZES = {"train": 1044314, "test": 122785}
 LM_N = 2454528          # the full-width transformer's parameters (vocabulary 512)
 LM_STEPS = math.ceil(LM_SIZES["train"] // 100 / 64)  # 164: 10,443 tokens a user, bptt 64
 LM_ROUNDS = 2  # cut from 3 for the superstep paths' time
@@ -353,8 +384,8 @@ TOL_LM_ROUND = 1e-3     # max |params| difference, card LM round vs CPU LM round
 # the sixth slice: dynamic rates on data read from disk, the group norms and
 # the bottleneck ResNet.  The dataset files are written in their real
 # on-disk formats from a seed: CIFAR10 as the python-pickle batches, cut in
-# depth to the vision paths' 4,000 training images (five batches of 800)
-# and the real 10,000 test images; EMNIST balanced as gzip IDX, cut from
+# depth to the vision paths' 3,000 training images (five batches of 600)
+# and 5,000 test images; EMNIST balanced as gzip IDX, cut from
 # 112,800 / 18,800 images to EMNIST_SIZES.
 DYNAMIC = "1_100_0.1_iid_dynamic_a1-b1-c1-d1-e1_bn_1_1"
 DYN_TAG = f"0_CIFAR10_label_resnet18_{DYNAMIC}"
@@ -392,9 +423,10 @@ IM2COL_SIZES = {"train": 2000, "test": 1000}  # the im2col rounds: two steps a c
 TOL_IM2COL = 1e-3  # max |params| difference, im2col round vs direct round (as TOL_ROUND)
 # the per-level map: a dense level, two int8 levels and the other two codecs
 CODEC_MAP = {"1": "dense", "0.5": "int8", "0.25": "int8", "0.125": "signsgd", "0.0625": "topk"}
-# the client scheduler's paths (phase 10): depth cut to 50 train images a client (5 steps a
-# client, a local epoch), 1,000 test images and one evaluation a run; full widths
-SCENARIO_SIZES = {"train": 5000, "test": 1000}
+# the client scheduler's paths (phase 10): depth cut to 40 train images a client (4 steps a
+# client, a local epoch; 5 until phase 17 needed the time), 1,000 test images and one
+# evaluation a run; full widths
+SCENARIO_SIZES = {"train": 4000, "test": 1000}
 SCENARIO_ROUNDS = 3  # a superstep of two and the clamped tail of one
 SCENARIO_MIN_FRAC = 0.5
 SCENARIO_FAIL = 0.1
@@ -508,14 +540,16 @@ TRACE_PAD = 8
 PAD_KERNEL = "spin_kernel"
 
 
-def trace(fn):
+def trace(fn, cpu: bool = True):
     """``fn()`` run and the card synchronised inside a ``torch.profiler``
     trace, after :data:`TRACE_PAD` empty kernels -> (the profile, the run's
-    host-clock ms)."""
+    host-clock ms); ``cpu=False`` records the card's activity alone (a
+    whole entry run's host operators cost the trace tens of seconds)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         for _ in range(TRACE_PAD):
             torch.cuda._sleep(1)
         torch.cuda.synchronize()
@@ -527,9 +561,14 @@ def trace(fn):
 
 
 def device_events(prof) -> list:
-    """The names of the card's records in a trace, the pad left out."""
-    return [e.name for e in prof.events()
-            if "CUDA" in str(e.device_type) and PAD_KERNEL not in e.name]
+    """The names of the card's records in a trace, the pad left out, read
+    from the profiler's raw records (``prof.events()`` builds the whole
+    event tree first: tens of seconds over a traced entry run)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and PAD_KERNEL not in e.name()]
 
 
 def kernels_per_call(fn, calls: int = 20):
@@ -567,7 +606,10 @@ def graph_kernels(fn) -> int:
 KERNEL_OF = {"bn_fwd": "bn_fwd_kernel", "bn_bwd": "bn_bwd_kernel",
              "bn_fwd_batched": "bn_fwd_batched_kernel", "bn_bwd_batched": "bn_bwd_batched_kernel",
              "fused_sgd": "sgd_apply", "fused_sgd_batched": "sgd_batched_(?:persistent|cluster)",
-             "quant_pack": "quant_pack"}
+             "quant_pack": "quant_pack", "bn_sync_stats": "bn_sync_stats_kernel",
+             "bn_sync_apply": "bn_sync_apply_kernel",
+             "bn_sync_bwd_reduce": "bn_sync_bwd_reduce_kernel",
+             "bn_sync_bwd_apply": "bn_sync_bwd_apply_kernel"}
 
 
 def traced_kernels(prof) -> dict:
@@ -4569,6 +4611,8 @@ def mesh_phase(torch, counters, out_dir: str, spec, P):
                      "gloo_cuda_direct": [r.get("gloo_cuda_direct") for r in r2]}
     nums["ranks"] = {w: {k: v for k, v in run.items() if k != "loss_one_rank"}
                      for w, run in two["nums"]["runs"].items()}
+    # the one-rank runs, which phase 17 holds its (1, 2) runs against
+    nums["one_rank"] = {w: (plain_flat[w], plain_loss[w]) for w in plain_flat}
     return launches, replayed, nums
 
 
@@ -4938,6 +4982,395 @@ def gmesh_phase(torch, counters, out_dir: str):
     return launches, nums
 
 
+# --- phase 17: the data mesh axis ---------------------------------------------------------
+
+#: the synchronised batch norm's four kernels (csrc/bn.cu), in path order
+SYNC_KERNELS = ("bn_sync_stats", "bn_sync_apply", "bn_sync_bwd_reduce", "bn_sync_bwd_apply")
+#: phase 17a's batches: a data rank's half of the headline's batch of 10, and the whole
+SYNC_BATCHES = (5, 10)
+#: kernel against plain: (atol, rtol) of y and dx; the relative error of the
+#: channel sums (the same float32 sums over M rows in another order)
+TOL_SYNC = {"y": (1e-4, 1e-4), "dx": (1e-4, 1e-4), "sums_rel": 1e-5}
+#: phase 17b/c: the data axis's two gloo ranks sharing the card
+DATA_MESH = {"clients": 1, "data": 2}
+DATA_RUNS = (("k1_dense", "dense", 1), ("k1_int8", "int8", 1),
+             ("superstep_dense", "dense", MESH_ROUNDS))
+DATA_RANK_TIMEOUT = 300
+#: the (1, 2) headline against one rank, max |params| difference: each BN
+#: site's moments are the same one-pass sums in another order (the split
+#: pair's two halves, against the one-client kernel's cluster order), which
+#: a round carries into the params (1.96e-5 measured on an H100)
+TOL_DATA_RANKS = 1e-4
+#: int8 at (1, 2) against one rank: the same grid and noise (the clients
+#: row is the codec's one participant), but a sum a rounding apart can round
+#: to the next grid step: at most this share of entries past TOL_DATA_RANKS
+#: (the tests' one-grid-step contract, tests/test_torch_port_pod.py)
+DATA_INT8_SHARE = 0.02
+#: the LM at (1, 2) against one rank: ring attention's online softmax and the
+#: reduced gradient associate otherwise than the dense chain, which the
+#: round's steps carry into the params (the card-vs-CPU LM round's bound,
+#: TOL_LM_ROUND)
+TOL_DATA_LM = 1e-3
+DATA_LM_USERS = (0, 1)
+DATA_LM_TOKENS = 320  # five windows of 64 a client
+DATA_LM_SIZES = {"train": 40000, "test": 4000}  # 400 tokens a user
+
+
+def sync_bn_check(torch, fused_norm, gen, M: int, C: int, P: int):
+    """The four synchronised kernels against their plain versions on the
+    same inputs at ``[M, C]`` (a sample of weight 0 included), and a group
+    of one through the split pair against ``bn_fwd_cuda``/``bn_bwd_cuda``
+    -> (inputs, max abs error by kernel)."""
+    x2 = torch.randn(M, C, generator=gen, device="cuda") * 2 + 0.5
+    w = torch.ones(M // P, device="cuda")
+    w[-1] = 0.0
+    g = torch.randn(C, generator=gen, device="cuda")
+    b = torch.randn(C, generator=gen, device="cuda")
+    dy = torch.randn(M, C, generator=gen, device="cuda")
+    err = {}
+
+    def rel(what, a, bb):
+        e = float((a - bb).abs().max())
+        scale = float(bb.abs().max())
+        if not e <= TOL_SYNC["sums_rel"] * max(scale, 1e-30):
+            raise AssertionError(f"{what} [{M}, {C}]: {e:.3e} against {scale:.3e} (relative "
+                                 f"{TOL_SYNC['sums_rel']})")
+        return e
+
+    loc_p = fused_norm.bn_sync_stats_plain(x2, w, P)
+    err["bn_sync_stats"] = rel("bn_sync_stats", fused_norm.bn_sync_stats_cuda(x2, w, P), loc_p)
+    y_p, st_p = fused_norm.bn_sync_apply_plain(x2, g, b, loc_p)
+    y_k, st_k = fused_norm.bn_sync_apply_cuda(x2, g, b, loc_p)
+    err["bn_sync_apply"] = max(check_close(f"bn_sync_apply y [{M}, {C}]", y_k, y_p,
+                                           *TOL_SYNC["y"]),
+                               check_close(f"bn_sync_apply stats [{M}, {C}]", st_k, st_p,
+                                           *TOL_SYNC["y"]))
+    r_p = fused_norm.bn_sync_bwd_reduce_plain(x2, dy, st_p)
+    err["bn_sync_bwd_reduce"] = rel("bn_sync_bwd_reduce",
+                                    fused_norm.bn_sync_bwd_reduce_cuda(x2, dy, st_p), r_p)
+    dx_p = fused_norm.bn_sync_bwd_apply_plain(x2, w, P, g, dy, st_p, r_p)
+    err["bn_sync_bwd_apply"] = check_close(
+        f"bn_sync_bwd_apply dx [{M}, {C}]",
+        fused_norm.bn_sync_bwd_apply_cuda(x2, w, P, g, dy, st_p, r_p), dx_p, *TOL_SYNC["dx"])
+    # a group of one: the split pair end to end against the one-client kernels
+    y1, st1 = fused_norm.bn_fwd_cuda(x2, w, P, g, b)
+    ys, sts = fused_norm.bn_sync_apply_cuda(x2, g, b, fused_norm.bn_sync_stats_cuda(x2, w, P))
+    check_close(f"group of one y [{M}, {C}]", ys, y1, *TOL_BN["y"])
+    dx1, _, _ = fused_norm.bn_bwd_cuda(x2, w, P, g, dy, st1)
+    dxs = fused_norm.bn_sync_bwd_apply_cuda(x2, w, P, g, dy, sts,
+                                            fused_norm.bn_sync_bwd_reduce_cuda(x2, dy, sts))
+    check_close(f"group of one dx [{M}, {C}]", dxs, dx1, *TOL_BN["dx"])
+    return (x2, w, g, b, dy, loc_p, st_p, r_p), err
+
+
+def sync_bn_phase(torch, fused_norm) -> dict:
+    """Phase 17a: the four synchronised kernels held against their plain
+    versions at the headline ResNet-18's BN shapes at batch 5 (a data
+    rank's half) and 10, and timed: per kernel the totals of one training
+    step's sites at each batch (``b<batch>_*``; the kernel's call and
+    device time, its plain version's, the yardstick aten op of PyTorch's
+    SyncBatchNorm, the byte or operation bound), the launch counters put
+    back after, so the main path's counts start from 0."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(17)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
+    tot = {k: {"err": 0.0} for k in SYNC_KERNELS}
+    for batch in SYNC_BATCHES:
+        for k in SYNC_KERNELS:
+            tot[k].update({f"b{batch}_{key}": 0.0 for key in keys + ("bytes", "ops")})
+        for M10, C, sites in BN_SHAPES:
+            M, P = M10 * batch // BATCH, M10 // BATCH
+            (x2, w, g, b, dy, loc, st, red), err = sync_bn_check(torch, fused_norm, gen, M, C, P)
+            for k, e in err.items():
+                tot[k]["err"] = max(tot[k]["err"], e)
+            x4 = x2.view(batch, 1, P, C).permute(0, 3, 1, 2)
+            dy4 = dy.view(batch, 1, P, C).permute(0, 3, 1, 2)
+            mean, inv = st[0].contiguous(), st[1].contiguous()
+            count = torch.full((1,), M, dtype=torch.int32, device="cuda")
+            calls = {
+                "bn_sync_stats": (lambda: fused_norm.bn_sync_stats_cuda(x2, w, P),
+                                  lambda: fused_norm.bn_sync_stats_plain(x2, w, P),
+                                  lambda: torch.batch_norm_stats(x4, 1e-5)),
+                "bn_sync_apply": (lambda: fused_norm.bn_sync_apply_cuda(x2, g, b, loc),
+                                  lambda: fused_norm.bn_sync_apply_plain(x2, g, b, loc),
+                                  lambda: torch.batch_norm_elemt(x4, g, b, mean, inv, 1e-5)),
+                "bn_sync_bwd_reduce": (
+                    lambda: fused_norm.bn_sync_bwd_reduce_cuda(x2, dy, st),
+                    lambda: fused_norm.bn_sync_bwd_reduce_plain(x2, dy, st),
+                    lambda: torch.batch_norm_backward_reduce(dy4, x4, mean, inv, g, True, True,
+                                                             True)),
+                "bn_sync_bwd_apply": (
+                    lambda: fused_norm.bn_sync_bwd_apply_cuda(x2, w, P, g, dy, st, red),
+                    lambda: fused_norm.bn_sync_bwd_apply_plain(x2, w, P, g, dy, st, red),
+                    lambda: torch.batch_norm_backward_elemt(dy4, x4, mean, inv, g, red[0],
+                                                            red[1], count)),
+            }
+            # least bytes (each input read once, each output written once) and operations
+            nbytes = {"bn_sync_stats": 4 * (M * C + batch + 3 * C),
+                      "bn_sync_apply": 4 * (2 * M * C + 8 * C),
+                      "bn_sync_bwd_reduce": 4 * (2 * M * C + 5 * C),
+                      "bn_sync_bwd_apply": 4 * (3 * M * C + batch + 6 * C)}
+            nops = {"bn_sync_stats": 6 * M * C, "bn_sync_apply": 4 * M * C,
+                    "bn_sync_bwd_reduce": 5 * M * C, "bn_sync_bwd_apply": 10 * M * C}
+            for k, (kern, plain, lib) in calls.items():
+                t = {"ms": time_ms(kern), "device_ms": graph_ms(kern),
+                     "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+                     "bound_ms": max(nbytes[k] / BW, nops[k] / F32) * 1e3}
+                say(f"  {k} [{M}, {C}] x{sites}: call {t['ms'] * 1e3:.2f} us, device "
+                    f"{t['device_ms'] * 1e3:.2f} us (plain {t['plain_ms'] * 1e3:.2f}, aten "
+                    f"{t['library_ms'] * 1e3:.2f}); bound {t['bound_ms'] * 1e3:.2f} us")
+                for key in keys:
+                    tot[k][f"b{batch}_{key}"] += sites * t[key]
+                tot[k][f"b{batch}_bytes"] += sites * nbytes[k]
+                tot[k][f"b{batch}_ops"] += sites * nops[k]
+        for k, r in tot.items():
+            say(f"{k}, a training step at batch {batch} ({BN_SITES} sites): call "
+                f"{r[f'b{batch}_ms']:.4f} ms, device {r[f'b{batch}_device_ms']:.4f} ms, plain "
+                f"{r[f'b{batch}_plain_ms']:.4f} ms, aten {r[f'b{batch}_library_ms']:.4f} ms; "
+                f"bound {r[f'b{batch}_bound_ms']:.4f} ms; max abs err {r['err']:.3e}")
+    for k in fused_norm.SYNC_LAUNCHES:
+        fused_norm.SYNC_LAUNCHES[k] = 0
+    return tot
+
+
+def data_argv(out_dir: str, codec: str, k: int):
+    """Phase 17b's flags: phase 15's headline flags on the ``(1, 2)`` mesh."""
+    return mesh_argv(out_dir, codec, k) + ["--mesh", json.dumps(DATA_MESH)]
+
+
+def data_lm_cfg():
+    """Phase 17c's LM: the full-width transformer of the LM control, dropout 0."""
+    cfg = lm_cfg()
+    cfg["transformer"] = dict(cfg["transformer"], dropout=0.0)
+    return cfg
+
+
+def data_lm_runs(torch, mesh, dense: bool) -> dict:
+    """Phase 17c on ``mesh``: one masked LM round of ``DATA_LM_USERS`` on
+    their first ``DATA_LM_TOKENS`` tokens (draws from each client's
+    generator), then ``SeqParallelLM.forward`` and one ``train_step`` on a
+    ``[4, bptt]`` batch -- the ring over the mesh's data axis, or
+    (``dense``, one rank) the model's dense attention -> params and
+    losses, host arrays."""
+    from heterofl_tpu_torch.data import batchify, fetch_dataset
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.parallel import RoundEngine
+    from heterofl_tpu_torch.parallel.long_context import SeqParallelLM
+
+    cfg = data_lm_cfg()
+    dev = mesh.device
+    tok = fetch_dataset("WikiText2", synthetic=True,
+                        synthetic_sizes=DATA_LM_SIZES)["train"].token
+    rows = torch.from_numpy(batchify(tok, 100)[:, None, :DATA_LM_TOKENS]).to(dev)
+    lm = torch.ones((100, cfg["num_tokens"]), device=dev)
+    model = make_model(cfg).init_(torch.Generator().manual_seed(0)).to(dev)
+    eng = RoundEngine(model, cfg, dev, mesh)
+    P = eng.flatten(model.params())
+    new, ms = eng.train_round(P, cfg["lr"], list(DATA_LM_USERS), (rows, lm), 0)
+    seq = SeqParallelLM(cfg, mesh, dense=dense)
+    params = seq.init(torch.Generator().manual_seed(1))
+    labels = rows[:4, 0, :cfg["bptt"]].contiguous()
+    loss = seq.forward(params, labels, torch.Generator(device=dev).manual_seed(5))
+    p2, _, step_loss = seq.train_step(params, seq.init_opt(params), labels, cfg["lr"],
+                                      torch.Generator(device=dev).manual_seed(6))
+    flat = torch.cat([p2[k].reshape(-1) for k in sorted(p2)])
+    return {"round": new.cpu().numpy(), "loss_sum": ms["loss_sum"].cpu().numpy().tolist(),
+            "seq_loss": float(loss), "seq_step_loss": float(step_loss),
+            "seq_params": flat.detach().cpu().numpy()}
+
+
+def data_rank_main(torch, out_dir: str, backend: str) -> None:
+    """One rank of phase 17b/c (``chip_smoke.py --data-rank OUT_DIR``,
+    started with torchrun's variables by ``parallel/pod.py::_spawn``): joins
+    the ``backend`` group on the card and runs the headline entry at each
+    of ``DATA_RUNS`` on the ``(1, 2)`` mesh, each run's launches and
+    collectives counted from 0 -- the first on rank 0 inside a profiler
+    trace whose hand-written kernels must equal the counters (taken again,
+    on every rank, up to ``TRACE_TRIES``) -- then phase 17c's LM round and
+    ``SeqParallelLM``.  Writes each run's params as ``<run>_rank<r>.npy``
+    and ``data_rank<r>.json``."""
+    import hashlib
+
+    import numpy as np
+
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.ops import fused_norm, fused_update, quant
+    from heterofl_tpu_torch.parallel import mesh as M
+
+    t_enter = time.time()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    if not M.initialize_distributed(backend, "cuda"):
+        raise AssertionError("data mesh rank: started without torchrun's variables")
+    mesh = M.make_mesh(0, DATA_MESH["data"], device=torch.device("cuda"))
+    rank = mesh.world_rank
+    counters = (fused_norm.LAUNCHES, fused_norm.SYNC_LAUNCHES, fused_update.LAUNCHES,
+                quant.LAUNCHES)
+    out = {"rank": rank, "backend": mesh.backend}
+    for n, (what, codec, k) in enumerate(DATA_RUNS):
+        traced = n == 0
+        for attempt in range(1, TRACE_TRIES + 1):
+            M.reset_counts()
+            argv = data_argv(os.path.join(out_dir, "entry", f"{what}_{attempt}"), codec, k)
+            holder = {}
+
+            def go():
+                holder["r"] = counted_run(torch, counters, train_classifier_fed.main, argv,
+                                          f"data mesh rank {rank}: {what}")
+
+            prof = trace(go, cpu=False)[0] if traced and rank == 0 else go()
+            res, secs, launches, _ = holder["r"]
+            colls, dcolls = dict(M.COLLECTIVES), dict(M.DATA_COLLECTIVES)
+            got = traced_kernels(prof) if prof is not None else None
+            ok = got is None or all(got[kk] == launches.get(kk, 0) for kk in KERNEL_OF)
+            if traced and not mesh.broadcast_int(int(ok)):
+                if rank == 0 and any(got[kk] > launches.get(kk, 0) for kk in KERNEL_OF):
+                    raise AssertionError(f"{what}: the trace counted {got} kernels, more than "
+                                         f"the launch counters' {launches}")
+                say(f"{what}: trace {attempt} counted {got}, not the counters' {launches}")
+                continue
+            break
+        else:
+            raise AssertionError(f"{what}: no trace counted the launches {launches}")
+        np.save(os.path.join(out_dir, f"{what}_rank{rank}.npy"), flat_params(res["params"]))
+        resid = res["wire_resid"]
+        out[what] = {"seconds": secs, "collectives": colls, "data_collectives": dcolls,
+                     "launches": launches, "traced": got,
+                     "loss": [h["loss"] for h in res["history"]],
+                     "resid_sha256": None if resid is None else hashlib.sha256(
+                         np.ascontiguousarray(resid).tobytes()).hexdigest()}
+        say(f"data mesh rank {rank}: {what}: {secs:.1f} s, collectives {colls}, data axis "
+            f"{dcolls}, launches {launches}")
+    M.reset_counts()
+    t0 = time.time()
+    lm = data_lm_runs(torch, mesh, dense=False)
+    torch.cuda.synchronize()
+    out["lm"] = {"seconds": time.time() - t0, "data_collectives": dict(M.DATA_COLLECTIVES),
+                 "loss_sum": lm["loss_sum"], "seq_loss": lm["seq_loss"],
+                 "seq_step_loss": lm["seq_step_loss"]}
+    np.save(os.path.join(out_dir, f"lm_round_rank{rank}.npy"), lm["round"])
+    np.save(os.path.join(out_dir, f"lm_seq_rank{rank}.npy"), lm["seq_params"])
+    out["t_enter"], out["t_exit"] = t_enter, time.time()
+    with open(os.path.join(out_dir, f"data_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    M.shutdown_distributed()
+
+
+def data_phase(torch, counters, out_dir: str, one_rank=None):
+    """Phase 17b-d (the module docstring): the one-rank runs (phase 15's
+    ``one_rank``, ``{mesh_name: (flat params, losses)}``, the same entry
+    runs without a process group; made here where not given), the two
+    ranks spawned (gloo sharing the card; NCCL across two GPUs where the
+    machine has them) -> ({path: launches}, numbers)."""
+    import numpy as np
+
+    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.ops import fused_norm
+    from heterofl_tpu_torch.parallel import mesh as M
+    from heterofl_tpu_torch.parallel import pod
+
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    counters = tuple(counters) + (fused_norm.SYNC_LAUNCHES,)
+    plain, launches, nums = {}, {}, {"runs": {}}
+    t0 = time.time()
+    try:
+        for what, codec, k in DATA_RUNS:
+            if one_rank is not None:
+                plain[what] = one_rank[mesh_name(codec, k)]
+                continue
+            res, secs, launches[f"data_one_rank_{what}"], _ = counted_run(
+                torch, counters, train_classifier_fed.main,
+                mesh_argv(os.path.join(out_dir, "one", what), codec, k),
+                f"data mesh: {what} on one rank")
+            plain[what] = (flat_params(res["params"]), [h["loss"] for h in res["history"]])
+            del res
+        one_lm = data_lm_runs(torch, M.single_mesh(torch.device("cuda")), dense=True)
+        torch.cuda.empty_cache()
+        say(f"data mesh: the one-rank runs took {time.time() - t0:.1f} s")
+        gpus = torch.cuda.device_count()
+        backend = "nccl" if gpus >= 2 else "gloo"
+        if backend == "gloo":
+            say(f"data mesh: {gpus} GPU on this machine: the two ranks share it over gloo "
+                f"(NCCL cannot put two ranks on one GPU); phase 17d, NCCL between two GPUs, "
+                f"needs a machine with two or more")
+        t0 = time.time()
+        pod._spawn([sys.executable, os.path.abspath(__file__), "--data-rank", out_dir,
+                    "--mesh-backend", backend], 2, DATA_RANK_TIMEOUT, gpus)
+        nums["spawn_s"], nums["backend"] = time.time() - t0, backend
+        say(f"data mesh: the two ranks' spawn took {nums['spawn_s']:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"data_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    say(f"data mesh: the ranks started {[r['t_enter'] - t0 for r in ranks]} s into the spawn "
+        f"and left their work {[t0 + nums['spawn_s'] - r['t_exit'] for r in ranks]} s before "
+        f"its end")
+    per = 1 + 2 * BN_SITES
+    for what, codec, k in DATA_RUNS:
+        flats = [np.load(os.path.join(out_dir, f"{what}_rank{r}.npy")) for r in range(2)]
+        equal = np.array_equal(flats[0], flats[1]) and \
+            ranks[0][what]["loss"] == ranks[1][what]["loss"] and \
+            ranks[0][what]["resid_sha256"] == ranks[1][what]["resid_sha256"]
+        dev = np.abs(flats[0].astype(np.float64) - plain[what][0])
+        diff, share = float(np.max(dev)), float(np.mean(dev > TOL_DATA_RANKS))
+        close = diff <= TOL_DATA_RANKS if codec != "int8" else share <= DATA_INT8_SHARE
+        run = {"ranks_equal": equal, "vs_one_rank": diff, "share_past_tol": share,
+               "loss": ranks[0][what]["loss"],
+               "loss_one_rank": plain[what][1], "seconds": [rk[what]["seconds"] for rk in ranks],
+               "collectives": ranks[0][what]["collectives"],
+               "data_collectives": ranks[0][what]["data_collectives"]}
+        nums["runs"][what] = run
+        grid = f" (at most {DATA_INT8_SHARE:g}: grid steps)" if codec == "int8" else ""
+        say(f"data mesh: {what} at (1, 2) on two {backend} ranks: ranks equal bit for bit "
+            f"{equal}, max |params - one rank| {diff:.3e}, share past {TOL_DATA_RANKS:g} "
+            f"{share:.2e}{grid}, "
+            f"losses {run['loss']} (one rank {run['loss_one_rank']}), seconds {run['seconds']}, "
+            f"collectives {run['collectives']}, data axis {run['data_collectives']}")
+        bad = []
+        for rk in ranks:
+            n, dc = rk[what]["launches"], rk[what]["data_collectives"]
+            launches[f"data_{what}_rank{rk['rank']}"] = n
+            if min(n[kk] for kk in SYNC_KERNELS) <= 0 or n["fused_sgd"] <= 0 or \
+                    n["bn_fwd"] != 0 or (n["quant_pack"] > 0) != (codec == "int8"):
+                bad.append(f"rank {rk['rank']} launches {n}")
+            if not mesh_collectives_ok(rk[what]["collectives"], k) or \
+                    dc["all_reduce"] % per or dc["all_reduce"] != n["fused_sgd"] * per:
+                bad.append(f"rank {rk['rank']} collectives {rk[what]['collectives']}, data {dc}")
+        traced = ranks[0][what]["traced"]
+        if traced is not None:  # each rank's counters against rank 0's trace, by kernel name
+            say(f"data mesh: {what}: rank 0's profiler trace counted {traced}")
+            bad += [f"rank {rk['rank']} counted {rk[what]['launches']}, the trace {traced}"
+                    for rk in ranks
+                    if any(rk[what]["launches"].get(kk, 0) != traced[kk] for kk in KERNEL_OF)]
+        if not (equal and np.isfinite(flats[0]).all() and close):
+            bad.append("the ranks differ, or are not finite, or are past the tolerance of one "
+                       "rank")
+        if bad:
+            raise AssertionError(f"data mesh: {what}: {bad}")
+    # 17c: the LM round and SeqParallelLM against one rank (dense attention)
+    lm_flats = [np.load(os.path.join(out_dir, f"lm_round_rank{r}.npy")) for r in range(2)]
+    seq_flats = [np.load(os.path.join(out_dir, f"lm_seq_rank{r}.npy")) for r in range(2)]
+    d_round = float(np.max(np.abs(lm_flats[0].astype(np.float64) - one_lm["round"])))
+    d_seq = float(np.max(np.abs(seq_flats[0].astype(np.float64) - one_lm["seq_params"])))
+    l0 = ranks[0]["lm"]
+    rel = max(abs(l0["seq_loss"] - one_lm["seq_loss"]) / abs(one_lm["seq_loss"]),
+              abs(l0["seq_step_loss"] - one_lm["seq_step_loss"]) / abs(one_lm["seq_step_loss"]))
+    nums["lm"] = {"round_vs_one_rank": d_round, "seq_params_vs_dense": d_seq,
+                  "seq_loss_rel": rel, "seconds": [rk["lm"]["seconds"] for rk in ranks],
+                  "data_collectives": l0["data_collectives"]}
+    say(f"data mesh: the LM round at (1, 2) (ring attention) against one rank: max |params| "
+        f"{d_round:.3e}; SeqParallelLM against dense attention: loss {l0['seq_loss']:.6f} "
+        f"({one_lm['seq_loss']:.6f}), step loss {l0['seq_step_loss']:.6f} "
+        f"({one_lm['seq_step_loss']:.6f}), max |params| {d_seq:.3e} (tolerance "
+        f"{TOL_DATA_LM:g}); data axis {l0['data_collectives']}")
+    if not (np.array_equal(lm_flats[0], lm_flats[1]) and np.array_equal(*seq_flats)
+            and d_round <= TOL_DATA_LM and d_seq <= TOL_DATA_LM and rel <= TOL_DATA_LM
+            and l0["data_collectives"]["ring_shift"] > 0):
+        raise AssertionError(f"data mesh: the LM at (1, 2): {nums['lm']}")
+    return launches, nums
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--local-epochs", type=int, default=1,
@@ -4947,6 +5380,9 @@ def main() -> int:
                              "itself, with torchrun's variables)")
     parser.add_argument("--gmesh-rank", metavar="OUT_DIR", default=None,
                         help="run one rank of phase 16 into OUT_DIR (started by phase 16 "
+                             "itself, with torchrun's variables)")
+    parser.add_argument("--data-rank", metavar="OUT_DIR", default=None,
+                        help="run one rank of phase 17 into OUT_DIR (started by phase 17 "
                              "itself, with torchrun's variables)")
     parser.add_argument("--mesh-backend", choices=("gloo", "nccl"), default="gloo")
     args = parser.parse_args()
@@ -4963,6 +5399,9 @@ def main() -> int:
         return 0
     if args.gmesh_rank:
         gmesh_rank_main(torch, args.gmesh_rank, args.mesh_backend)
+        return 0
+    if args.data_rank:
+        data_rank_main(torch, args.data_rank, args.mesh_backend)
         return 0
     from heterofl_tpu_torch import config as C
     from heterofl_tpu_torch.compress import codecs
@@ -5219,6 +5658,14 @@ def main() -> int:
         by_path.update(gmesh_n)
         phases.done("grouped mesh: the grouped headline under a one-rank NCCL group against no "
                     "group; span, slices, the map resumed and the grouped probe at two ranks")
+        # 17. the data mesh axis
+        sync = sync_bn_phase(torch, fused_norm)
+        phases.done("data mesh: the synchronised batch norm's four kernels held and timed")
+        data_n, data_nums = data_phase(torch, counters, os.path.join(tmp, "data"),
+                                       mesh_nums.pop("one_rank"))
+        by_path.update(data_n)
+        phases.done("data mesh: the headline at (1, 2) on two ranks against one, the LM round "
+                    "and SeqParallelLM against dense attention")
     say(f"stream: staging a cohort at {POP_USERS[-1]:,} users {pop_nums['ratio']:.3f}x the host "
         f"seconds at {POP_USERS[0]:,}; prefetches ended with the device busy: "
         + ", ".join(f"depth {d} {n['busy']}" for d, n in ring_nums.items()))
@@ -5305,6 +5752,22 @@ def main() -> int:
                         "launches_by_path": {p: c[name] for p, c in by_path.items()}})
         if r is sgd_b:
             kernels[-1]["kernels_per_call"] = sgd_b["kernels_per_call"]
+    for name, repl in zip(SYNC_KERNELS, ("heterofl_tpu/ops/layers.py:155",) * 2
+                          + ("heterofl_tpu/ops/layers.py:166",) * 2):
+        r = sync[name]
+        n = sum(by_path[f"data_{what}_rank0"][name] for what, _, _ in DATA_RUNS)
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the data mesh path")
+        kernels.append({"name": name, "route": "cuda", "source": "heterofl_tpu_torch/csrc/bn.cu",
+                        "replaces": repl, "launches": n, "max_abs_err": r["err"],
+                        "ms": r["b5_ms"], "plain_ms": r["b5_plain_ms"],
+                        "bound_ms": r["b5_bound_ms"],
+                        "bound_by": "bytes" if r["b5_bytes"] / BW >= r["b5_ops"] / F32
+                        else "operations",
+                        "library_ms": r["b5_library_ms"], "device_ms": r["b5_device_ms"],
+                        "batch10": {key: r[f"b10_{key}"] for key in
+                                    ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
+                        "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()}})
     for k in kernels:
         k["replayed_launches_by_path"] = {p: n.get(k["name"], 0)
                                           for p, n in replayed_by_path.items()}
@@ -5325,6 +5788,9 @@ def main() -> int:
         f"{bf16_graph['replayed_ms']:.3f} ms replayed (host clock), "
         f"{bf16_graph['kernels_per_step']:.1f} kernels a replayed step, device busy "
         f"{100 * bf16_graph['busy_share']:.1f}%")
+    say(f"data mesh: (1, 2) against one rank "
+        f"{[(w, r['vs_one_rank']) for w, r in data_nums['runs'].items()]}; the LM "
+        f"{data_nums['lm']}; spawn {data_nums['spawn_s']:.1f} s over {data_nums['backend']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -575,6 +575,15 @@ MESH_REFUSALS = (
 )
 
 
+#: what the data axis does not carry yet: (the cfg's test, what it is, its
+#: ROADMAP item), refused at ``data > 1`` whatever the world
+DATA_REFUSALS = (
+    (lambda c: c.get("strategy") in ("grouped", "sliced"),
+     "strategy='grouped' or 'sliced'",
+     "ROADMAP Queue 1 item 5, the grouped engine on the data axis"),
+)
+
+
 def resolve_mesh_cfg(cfg: Dict[str, Any], world: Optional[int] = None) -> Dict[str, int]:
     """Validate ``cfg['mesh']`` and return it with its defaults: ``clients``
     (0: every rank) and ``data`` and ``arms`` (1), each an int >= 0 (the
@@ -582,7 +591,10 @@ def resolve_mesh_cfg(cfg: Dict[str, Any], world: Optional[int] = None) -> Dict[s
     world of several ranks (``world``, default :func:`launched_world_size`)
     each option the clients axis does not carry yet raises
     ``NotImplementedError`` naming its ROADMAP item: nothing silently runs
-    on one rank instead."""
+    on one rank instead.  ``data > 1`` (the data axis, ``parallel/mesh.py``)
+    refuses the grouped engine and its sliced twin likewise, and a masked
+    LM needs ``bptt % data == 0`` (the reference's ``ValueError``,
+    round_engine.py:767-769)."""
     spec = dict(cfg.get("mesh") or {})
     bad = sorted(set(spec) - {"clients", "data", "arms"})
     if bad:
@@ -594,6 +606,16 @@ def resolve_mesh_cfg(cfg: Dict[str, Any], world: Optional[int] = None) -> Dict[s
             out[k] = 0 if k == "clients" else 1
         elif not isinstance(v, int) or isinstance(v, bool) or v < 0:
             raise ValueError(f"Not valid mesh {k}: {v!r} (an int >= 0)")
+    n_data = out["data"] or 1
+    if n_data > 1:
+        for test, what, item in DATA_REFUSALS:
+            if test(cfg):
+                raise NotImplementedError(
+                    f"{what} at mesh data={n_data}: the data axis does not carry it yet "
+                    f"({item}); run it at data=1")
+        if cfg.get("model_name") == "transformer" and cfg.get("bptt") and cfg["bptt"] % n_data:
+            raise ValueError(f"data axis size ({n_data}) must divide bptt={cfg['bptt']} "
+                             f"for sequence-parallel LM rounds")
     world = launched_world_size() if world is None else int(world)
     if world > 1:
         for test, what, item in MESH_REFUSALS:

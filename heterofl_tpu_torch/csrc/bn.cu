@@ -1019,6 +1019,177 @@ inline int bwd_batched(const float* x, const float* w, int P, int B, int Cg, con
             : go(bn_bwd_batched_kernel<false>, g_ready[7]);
 }
 
+
+// -- the synchronised batch norm, split at its all-reduces ------------------
+//
+// Replaces the XLA route the reference takes when a batch is split over its
+// data axis: heterofl_tpu/ops/layers.py::batch_norm(axis_name=) :155-172,
+// which norms.py:44-46 runs instead of the Pallas kernel because a psum
+// cannot sit inside a pallas_call.  Here the all-reduce sits between two
+// launches a direction (ops/fused_norm.py::_BatchNormSync):
+//
+//   forward   bn_sync_stats      x [M, C]          -> this rank's [3, C]
+//             (all-reduce of the [3, C] over the data group)
+//             bn_sync_apply      x + global [3, C] -> y [M, C], stats [3, C]
+//   backward  bn_sync_bwd_reduce x, dy, stats      -> this rank's [2, C]
+//             (all-reduce of the [2, C])
+//             bn_sync_bwd_apply  x, w, g, dy, stats + global [2, C] -> dx
+//
+// The one-pass moments of the reference's sync form: [3, C] holds
+// (sum w x, sum w x^2, sum w) over rows whose weight is positive (a select,
+// as bn_fwd's), mean = s1 / max(n, 1e-6), var = max(s2 / max(n, 1e-6) -
+// mean^2, 0); stats is bn_fwd's layout (mean, inv, max(n, 1e-6)).  The
+// backward's [2, C] is (sum dy, sum dy * xhat); dx is bn_bwd's formula in
+// its order, on the global sums.
+//
+// Design: a block owns 32 channels (one per lane, a warp reads 128
+// contiguous bytes of a row) and a chunk of rows (8 rows at once, one per
+// warp); grid (channel tiles, chunks), the chunks a pure function of (M, C)
+// (fused_norm.bn_sync_plan).  The reductions are deterministic: each thread
+// sums its rows in order, the 8 warps in order, and the chunks' partials
+// (a [chunks, k, C] workspace) in chunk order by the block that finishes
+// last, which an integer counter per channel tile elects and resets.  No
+// float atomic; the same bits every run.  Simple and correct first: these
+// launches are not fused with their neighbours yet.
+
+constexpr int kSyncLanes = 32;               // channels a block
+constexpr int kSyncRows = kThreads / 32;     // rows a block reads at once
+
+// Sum a block's per-thread values over its 8 warps (in order) and, across
+// the grid's chunks, over the chunks (in order): warp 0 of the block that
+// finishes last writes out[k * C + c].
+template <int K>
+__device__ void sync_reduce(float (&v)[K], float* part, unsigned* counter, float* out, int C,
+                            int c) {
+  __shared__ float sh[K][kSyncRows][kSyncLanes];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) sh[k][ty][lane] = v[k];
+  __syncthreads();
+  const int chunks = gridDim.y, q = blockIdx.y;
+  if (ty == 0 && c < C) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float a = 0.f;
+      for (int j = 0; j < kSyncRows; ++j) a += sh[k][j][lane];
+      if (chunks == 1)
+        out[(size_t)k * C + c] = a;
+      else
+        part[((size_t)q * K + k) * C + c] = a;
+    }
+  }
+  if (chunks == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&counter[blockIdx.x], 1u) == (unsigned)(chunks - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (ty == 0 && c < C) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float a = 0.f;
+      for (int j = 0; j < chunks; ++j) a += __ldcg(&part[((size_t)j * K + k) * C + c]);
+      out[(size_t)k * C + c] = a;
+    }
+  }
+  if (threadIdx.x == 0) counter[blockIdx.x] = 0u;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    bn_sync_stats_kernel(const float* __restrict__ x, const float* __restrict__ w, int P, int M,
+                         int C, int rows, float* part, unsigned* counter, float* out) {
+  const int c = blockIdx.x * kSyncLanes + (threadIdx.x & 31);
+  const int r0 = blockIdx.y * rows, r1 = min(M, r0 + rows);
+  float v[3] = {0.f, 0.f, 0.f};
+  if (c < C) {
+    for (int r = r0 + (threadIdx.x >> 5); r < r1; r += kSyncRows) {
+      const float wr = w[r / P];
+      const float xs = wr > 0.f ? x[(size_t)r * C + c] : 0.f;
+      v[0] += xs * wr;
+      v[1] += xs * xs * wr;
+      v[2] += wr;
+    }
+  }
+  sync_reduce<3>(v, part, counter, out, C, c);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    bn_sync_apply_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                         const float* __restrict__ b, const float* __restrict__ glob,
+                         float* __restrict__ y, float* __restrict__ stats, int M, int C, int rows,
+                         float eps) {
+  const int c = blockIdx.x * kSyncLanes + (threadIdx.x & 31);
+  if (c >= C) return;
+  const float d = fmaxf(glob[2 * C + c], 1e-6f);
+  const float mean = glob[c] / d;
+  const float var = fmaxf(glob[C + c] / d - mean * mean, 0.f);
+  const float inv = 1.f / sqrtf(var + eps);
+  const float gc = g[c], bc = b[c];
+  if (blockIdx.y == 0 && threadIdx.x < 32) {
+    stats[c] = mean;
+    stats[C + c] = inv;
+    stats[2 * C + c] = d;
+  }
+  const int r0 = blockIdx.y * rows, r1 = min(M, r0 + rows);
+  for (int r = r0 + (threadIdx.x >> 5); r < r1; r += kSyncRows) {
+    const size_t i = (size_t)r * C + c;
+    y[i] = (x[i] - mean) * inv * gc + bc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    bn_sync_bwd_reduce_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                              const float* __restrict__ stats, int M, int C, int rows,
+                              float* part, unsigned* counter, float* out) {
+  const int c = blockIdx.x * kSyncLanes + (threadIdx.x & 31);
+  const int r0 = blockIdx.y * rows, r1 = min(M, r0 + rows);
+  float v[2] = {0.f, 0.f};
+  if (c < C) {
+    const float mean = stats[c], inv = stats[C + c];
+    for (int r = r0 + (threadIdx.x >> 5); r < r1; r += kSyncRows) {
+      const size_t i = (size_t)r * C + c;
+      const float d = dy[i];
+      v[0] += d;
+      v[1] += d * ((x[i] - mean) * inv);
+    }
+  }
+  sync_reduce<2>(v, part, counter, out, C, c);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    bn_sync_bwd_apply_kernel(const float* __restrict__ x, const float* __restrict__ w, int P,
+                             const float* __restrict__ g, const float* __restrict__ dy,
+                             const float* __restrict__ stats, const float* __restrict__ glob,
+                             float* __restrict__ dx, int M, int C, int rows) {
+  const int c = blockIdx.x * kSyncLanes + (threadIdx.x & 31);
+  if (c >= C) return;
+  const float mean = stats[c], inv = stats[C + c], n = fmaxf(stats[2 * C + c], 1e-6f);
+  const float gc = g[c];
+  const float a = inv * gc, k = inv / n, gdb = gc * glob[c], gdg = gc * glob[C + c];
+  const int r0 = blockIdx.y * rows, r1 = min(M, r0 + rows);
+  for (int r = r0 + (threadIdx.x >> 5); r < r1; r += kSyncRows) {
+    const size_t i = (size_t)r * C + c;
+    const float wr = w[r / P];
+    const float xhat = (x[i] - mean) * inv;
+    dx[i] = a * dy[i] - wr * k * gdb - wr * xhat * k * gdg;
+  }
+}
+
+inline bool sync_plan_ok(int M, int C, int rows, int chunks) {
+  return M > 0 && C > 0 && rows >= 1 && chunks >= 1 && (long long)rows * chunks >= M &&
+         (long long)rows * (chunks - 1) < M;
+}
+
+inline int sync_launch(const void* kernel, int C, int chunks, void* stream, void** args) {
+  const dim3 grid((C + kSyncLanes - 1) / kSyncLanes, chunks, 1);
+  cudaError_t e = cudaLaunchKernel(kernel, grid, dim3(kThreads, 1, 1), args, 0,
+                                   static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1068,6 +1239,45 @@ int hfl_bn_floor(int tiles, int cluster, int smem, int pdl, void* stream) {
   if (tiles < 1 || cluster < 1 || cluster > kMaxCluster || smem < 0 || smem > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(bn_floor_kernel, g_ready[8], cluster, tiles, 1, smem, pdl != 0, stream);
+}
+
+// The synchronised batch norm's four launches (ops/fused_norm.py
+// bn_sync_*), each on the plan (rows, chunks) of fused_norm.bn_sync_plan(M,
+// C); part is a [chunks, K, C] workspace and counter [tiles] zeros (the
+// reductions leave them zero).
+int hfl_bn_sync_stats(const float* x, const float* w, int P, int M, int C, int rows, int chunks,
+                      float* part, unsigned* counter, float* out, void* stream) {
+  if (!sync_plan_ok(M, C, rows, chunks) || P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&x, &w, &P, &M, &C, &rows, &part, &counter, &out};
+  return sync_launch(reinterpret_cast<const void*>(bn_sync_stats_kernel), C, chunks, stream,
+                     args);
+}
+
+int hfl_bn_sync_apply(const float* x, const float* g, const float* b, const float* glob,
+                      float* y, float* stats, int M, int C, int rows, int chunks, float eps,
+                      void* stream) {
+  if (!sync_plan_ok(M, C, rows, chunks)) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&x, &g, &b, &glob, &y, &stats, &M, &C, &rows, &eps};
+  return sync_launch(reinterpret_cast<const void*>(bn_sync_apply_kernel), C, chunks, stream,
+                     args);
+}
+
+int hfl_bn_sync_bwd_reduce(const float* x, const float* dy, const float* stats, int M, int C,
+                           int rows, int chunks, float* part, unsigned* counter, float* out,
+                           void* stream) {
+  if (!sync_plan_ok(M, C, rows, chunks)) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&x, &dy, &stats, &M, &C, &rows, &part, &counter, &out};
+  return sync_launch(reinterpret_cast<const void*>(bn_sync_bwd_reduce_kernel), C, chunks,
+                     stream, args);
+}
+
+int hfl_bn_sync_bwd_apply(const float* x, const float* w, int P, const float* g,
+                          const float* dy, const float* stats, const float* glob, float* dx,
+                          int M, int C, int rows, int chunks, void* stream) {
+  if (!sync_plan_ok(M, C, rows, chunks) || P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&x, &w, &P, &g, &dy, &stats, &glob, &dx, &M, &C, &rows};
+  return sync_launch(reinterpret_cast<const void*>(bn_sync_bwd_apply_kernel), C, chunks,
+                     stream, args);
 }
 
 }  // extern "C"

@@ -301,7 +301,7 @@ def write_checkpoint(output_dir: str, tag: str, make_blob: Callable[[], Dict[str
     rec["checkpoint_seconds"] = time.time() - t0
     rec["checkpoint_mb"] = os.path.getsize(path) / 1e6
     rec["best_seconds"] = None
-    lead = mesh is None or mesh.rank == 0
+    lead = mesh is None or mesh.lead
     if is_best and lead:
         t0 = time.time()
         copy_best(output_dir, tag, sharded)
@@ -328,18 +328,28 @@ def check_multihost_resume(blob: Optional[Dict[str, Any]], mesh=None) -> int:
     return epoch0
 
 
-def check_mesh_layout(blob: Optional[Dict[str, Any]], layout: Optional[Dict[str, Any]]
-                      ) -> None:
+def check_mesh_layout(blob: Optional[Dict[str, Any]], layout: Optional[Dict[str, Any]],
+                      mesh=None) -> None:
     """Refuse to resume a grouped run's checkpoint under another layout
     over the clients axis: ``blob['mesh_layout']`` (written by the run that
     saved it) against this run's ``layout``, each field by name -- the
-    ranks, the level placement, the slices table.  A blob without one (an
-    older checkpoint, another engine's) resumes as before."""
+    ranks, the level placement, the slices table.  A run on a data axis
+    records its ``(clients, data)`` (``mesh``): a checkpoint resumes only
+    onto the same, and one without it (a data axis of 1) not onto a data
+    axis.  A blob without a layout (an older checkpoint, another engine's)
+    otherwise resumes as before."""
     saved = (blob or {}).get("mesh_layout")
+    if blob and mesh is not None:
+        have, want = (saved or {}).get("mesh"), [mesh.size, mesh.data_size]
+        if (have is not None and list(have) != want) or (have is None and want[1] > 1):
+            raise ValueError(
+                f"resume: the checkpoint was written at mesh (clients, data) = "
+                f"{tuple(have) if have is not None else '(any, 1)'}, this run is at "
+                f"{tuple(want)}; resume at the checkpoint's layout")
     if saved is None or layout is None:
         return
     for key in ("ranks", "level_placement", "slices"):
-        if saved.get(key) != layout.get(key):
+        if key in saved and saved.get(key) != layout.get(key):
             raise ValueError(
                 f"resume: the checkpoint's grouped engine ran with {key}={saved.get(key)!r}, "
                 f"this run has {key}={layout.get(key)!r}; resume at the checkpoint's ranks and "
@@ -371,7 +381,7 @@ class FedExperiment:
         # the clients mesh axis (parallel/mesh.py): one rank without a group
         self.mesh = mesh_of_cfg(cfg, resolve_device(cfg))
         self.device = self.mesh.device
-        self.lead = self.mesh.rank == 0  # the rank that writes logs and evidence
+        self.lead = self.mesh.lead  # the rank that writes logs and evidence
         self.placement = C.resolve_placement_cfg(cfg)[0]
         self.rng = np.random.default_rng(seed)
         dataset = fetch_dataset(cfg["data_name"], cfg["data_dir"], synthetic=cfg["synthetic"],
@@ -1058,11 +1068,14 @@ class FedExperiment:
 
     def mesh_layout(self) -> Optional[Dict[str, Any]]:
         """The grouped engine's layout over the clients axis, which its
-        checkpoint's header records (None for the other engines): the
-        ranks, the level placement in force and its slices table (each
-        level's ``[lo, hi)`` ranks)."""
+        checkpoint's header records: the ranks, the level placement in force
+        and its slices table (each level's ``[lo, hi)`` ranks); on a data
+        axis ``mesh``, the ``(clients, data)`` (None for the other engines at
+        a data axis of 1)."""
         eng = self.engine
         if not isinstance(eng, GroupedRoundEngine):
+            if self.mesh.data_size > 1:
+                return {"mesh": [self.mesh.size, self.mesh.data_size]}
             return None
         return {"ranks": self.mesh.size, "level_placement": eng.level_placement,
                 "slices": {f"{rate:g}": list(lh) for rate, lh in eng.slices.items()}}
@@ -1122,7 +1135,7 @@ class FedExperiment:
             if self.sampler_spec.committed else None
         blob = resume(cfg["output_dir"], self.tag, cfg["resume_mode"])
         check_multihost_resume(blob, self.mesh)
-        check_mesh_layout(blob, self.mesh_layout())
+        check_mesh_layout(blob, self.mesh_layout(), self.mesh)
         if blob and blob.get("data_split") is not None:
             data_split, label_split = blob["data_split"], blob["label_split"]
         else:

@@ -64,14 +64,16 @@ class ConvNet(FedModel):
 
     def forward(self, img, label, *, params=None, width_rate: float = 1.0,
                 scaler_rate: float = 1.0, label_mask=None, sample_weight=None,
-                bn_mode: str = "batch", bn_state=None, bn_collect=None):
+                bn_mode: str = "batch", bn_state=None, bn_collect=None, bn_group=None):
         """Forward on an NCHW (channels_last) batch -> ``(score [N,
         classes], mean loss)``.  ``width_rate`` gives the ``ln``/``gn`` sites
         their active channels; bn/in/none need no channel mask (masked
         channels hold ``g == b == 0``).
         ``bn_mode``/``bn_state`` pick the BN sites' mode and running
         statistics ``{site: (mean, var)}``; in ``"collect"`` mode each site's
-        ``(mean, unbiased var)`` goes into the dict ``bn_collect``."""
+        ``(mean, unbiased var)`` goes into the dict ``bn_collect``.
+        ``bn_group`` (a mesh whose data axis splits the batch) synchronises
+        the BN sites over its data group (``models/norms.py``)."""
         P = params if params is not None else self.params()
         x = img
         for i in range(self.n_blocks):
@@ -84,7 +86,8 @@ class ConvNet(FedModel):
                                sample_weight=sample_weight, use_fused=self.pallas_norm,
                                bn_mode=bn_mode,
                                bn_running=None if bn_state is None else bn_state.get(site),
-                               group_ops=self.group_ops(f"h{i}", width_rate, x.device))
+                               group_ops=self.group_ops(f"h{i}", width_rate, x.device),
+                               bn_group=bn_group)
             if st is not None and bn_collect is not None:
                 bn_collect[site] = st
             x = torch.relu(x)

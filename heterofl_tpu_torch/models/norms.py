@@ -11,7 +11,12 @@ statistics) or ``"collect"`` (the sBN pass).  ``pallas_norm=True`` routes
 counterpart of the reference's Pallas route, which takes only that mode and
 only ``bn``, norms.py:44-48); otherwise, in the other modes and for the
 other norms, plain PyTorch runs, the counterpart of the XLA path (the
-reference has no Pallas kernel for them).
+reference has no Pallas kernel for them).  ``bn_group`` (a
+``parallel.mesh.Mesh`` whose data axis splits the batch; ref norms.py:
+35-50's ``bn_axis``) makes a ``"batch"`` BN site synchronised over its data
+group (``fused_norm.batch_norm_sync``: its kernels on the card, its plain
+versions on the CPU), whatever ``pallas_norm`` says, as the reference
+bypasses Pallas there; None leaves every site as it was.
 
 :func:`apply_norm_clients` is a site of a level's G clients on the
 clients-in-channels activation ``[B, G*C, H, W]`` (the grouped engine):
@@ -51,7 +56,8 @@ def apply_norm(norm_type: str, x: torch.Tensor, g: Optional[torch.Tensor],
                b: Optional[torch.Tensor], sample_weight: Optional[torch.Tensor] = None,
                use_fused: bool = False, bn_mode: str = "batch",
                bn_running: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-               group_ops: Optional[Tuple[torch.Tensor, int, torch.Tensor]] = None):
+               group_ops: Optional[Tuple[torch.Tensor, int, torch.Tensor]] = None,
+               bn_group=None):
     """One norm site -> ``(y, collected (mean, var) or None)``.
     ``group_ops``: ``(mask [C], k, onehot [C, G])`` of the site's width
     group at the client's width (``FedModel.group_ops``), which ``ln`` and
@@ -60,6 +66,8 @@ def apply_norm(norm_type: str, x: torch.Tensor, g: Optional[torch.Tensor],
     if norm_type == "none":
         return x, None
     if norm_type == "bn":
+        if bn_group is not None and bn_mode == "batch":
+            return batch_norm(x, g, b, sample_weight=sample_weight, group=bn_group)
         if use_fused and bn_mode == "batch":
             return batch_norm_fused(x, g, b, sample_weight=sample_weight), None
         return batch_norm(x, g, b, sample_weight=sample_weight, mode=bn_mode,

@@ -103,10 +103,10 @@ class ResNet(FedModel):
 
     def forward(self, img, label, *, params=None, width_rate: float = 1.0,
                 scaler_rate: float = 1.0, label_mask=None, sample_weight=None,
-                bn_mode: str = "batch", bn_state=None, bn_collect=None):
+                bn_mode: str = "batch", bn_state=None, bn_collect=None, bn_group=None):
         """Forward on an NCHW (channels_last) batch -> ``(score [N,
         classes], mean loss)``; ``width_rate``, ``bn_mode``, ``bn_state`` and
-        ``bn_collect`` as in :meth:`~.conv.ConvNet.forward`."""
+        ``bn_collect`` and ``bn_group`` as in :meth:`~.conv.ConvNet.forward`."""
         P = params if params is not None else self.params()
 
         def norm_site(site, x):
@@ -115,7 +115,7 @@ class ResNet(FedModel):
                                bn_mode=bn_mode,
                                bn_running=None if bn_state is None else bn_state.get(site),
                                group_ops=self.group_ops(self.norm_sites[site], width_rate,
-                                                        x.device))
+                                                        x.device), bn_group=bn_group)
             if st is not None and bn_collect is not None:
                 bn_collect[site] = st
             return y

@@ -41,6 +41,16 @@ clients of one dense level model at once (the grouped engine): the
 embedding as a per-client gather, every linear layer and the attention as
 per-client batched products, each client's draws from its own generator
 (in the order of :meth:`Transformer.forward`) at the level's widths.
+
+A window split over ranks (the data axis; ref transformer.py:116-176):
+:meth:`Transformer.forward` takes this rank's ``S`` positions from
+``pos_offset`` of a ``seq_full`` window.  The corruption is drawn over the
+whole ``[N, seq_full]`` window and sliced at the offset, as the reference
+draws it; so is each dropout site's keep mask (the reference folds the
+offset into the dropout key instead: a deliberate difference, which keeps
+the ranks' generators in step and the split's draws the unsplit
+window's).  The position embedding is sliced at the offset; ``attn``
+replaces the attention (ring attention over the data group).
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..convert import Perms
 from ..ops.layers import (cross_entropy, cross_entropy_clients, embed, gelu, linear,
@@ -165,14 +176,24 @@ class Transformer(FedModel):
     def forward(self, label: torch.Tensor, *, params=None, width_rate: float = 1.0,
                 scaler_rate: float = 1.0, label_mask=None, sample_weight=None,
                 train: bool = True, gen: Optional[torch.Generator] = None,
-                draws: Optional[Draws] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                draws: Optional[Draws] = None, pos_offset: int = 0,
+                seq_full: Optional[int] = None, attn=None,
+                remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """Token windows ``label [N, S]`` -> ``(scores [N, S, V], weighted
         mean loss)``; ``sample_weight`` are the position weights ``[N, S]``.
         ``train`` turns on dropout and the Scaler; the corruption runs
         either way.  Draws come from ``draws`` where given, else from
-        ``gen``."""
+        ``gen``.  ``pos_offset`` / ``seq_full``: these ``S`` positions are
+        ``[pos_offset, pos_offset + S)`` of a ``seq_full`` window, whose
+        draws (and handed-in draws) are whole-window and sliced; ``attn(q,
+        k, v, temperature)`` replaces the attention.  ``remat``: each encoder
+        layer under ``torch.utils.checkpoint`` (the reference's
+        ``jax.checkpoint``), its dropout masks drawn before it, so the
+        recomputation replays them."""
         P = params if params is not None else self.params()
         N, S = label.shape
+        off = int(pos_offset)
+        S_full = S if seq_full is None else int(seq_full)
         H, dev = self.num_heads, label.device
         E = self.groups["emb"].size
         hd = E // H
@@ -180,16 +201,20 @@ class Transformer(FedModel):
         k_emb = float(self.groups["emb"].active_count(width_rate))
         temp = math.sqrt(math.floor(k_emb / H))
         draws = draws or {}
-        keeps = draws.get("keep", {})
+        keeps = dict(draws.get("keep", {}))
 
         def rand_mask(shape, p_true: float) -> torch.Tensor:
             return torch.rand(shape, generator=gen, device=dev) < p_true
+
+        def local(m: torch.Tensor) -> torch.Tensor:  # a whole-window draw -> these positions
+            return m[:, off:off + S] if m.shape[1] != S else m
 
         def dropout(x: torch.Tensor, site: int) -> torch.Tensor:
             if not train or self.dropout == 0.0:
                 return x
             keep = keeps.get(site)
-            keep = rand_mask(x.shape, 1.0 - self.dropout) if keep is None else keep.to(dev)
+            keep = local(rand_mask((N, S_full) + tuple(x.shape[2:]), 1.0 - self.dropout)
+                         if keep is None else keep.to(dev))
             return torch.where(keep, x / (1.0 - self.dropout), 0.0)
 
         def sc(x: torch.Tensor) -> torch.Tensor:
@@ -202,23 +227,36 @@ class Transformer(FedModel):
             return linear(x, P[f"{name}.w"], P[f"{name}.b"], self.compute_dtype)
 
         corrupt = draws.get("corrupt")
-        corrupt = rand_mask((N, S), self.mask_rate) if corrupt is None else corrupt.to(dev)
+        corrupt = local(rand_mask((N, S_full), self.mask_rate) if corrupt is None
+                        else corrupt.to(dev))
         src = torch.where(corrupt, self.num_tokens, label)
-        x = sc(embed(P["embedding.tok.w"], src)) + sc(P["embedding.pos.w"][:S])[None]
+        x = sc(embed(P["embedding.tok.w"], src)) + sc(P["embedding.pos.w"][off:off + S])[None]
         x = dropout(ln("embedding.norm", x), 0)
 
         def heads(t: torch.Tensor) -> torch.Tensor:  # [N, S, E] -> [N, H, S, hd]
             return t.reshape(N, S, H, hd).transpose(1, 2)
 
-        for i in range(self.num_layers):
+        def layer(x: torch.Tensor, i: int) -> torch.Tensor:
             p = f"enc{i}"
             q, k, v = (heads(sc(lin(f"{p}.mha.{h}", x))) for h in ("q", "k", "v"))
-            o = self._attention(q, k, v, temp).transpose(1, 2).reshape(N, S, E)
+            o = (self._attention(q, k, v, temp) if attn is None else
+                 attn(q, k, v, temp).to(torch.float32)).transpose(1, 2).reshape(N, S, E)
             o = sc(lin(f"{p}.mha.o", o))
             x = ln(f"{p}.norm1", x + dropout(o, 1 + 3 * i))
             h = dropout(gelu(sc(lin(f"{p}.ff.l1", x))), 2 + 3 * i)
             h = sc(lin(f"{p}.ff.l2", h))
-            x = ln(f"{p}.norm2", x + dropout(h, 3 + 3 * i))
+            return ln(f"{p}.norm2", x + dropout(h, 3 + 3 * i))
+
+        F = self.groups["ffn"].size
+        for i in range(self.num_layers):
+            if not remat:
+                x = layer(x, i)
+                continue
+            if train and self.dropout != 0.0:
+                for site, width in ((1 + 3 * i, E), (2 + 3 * i, F), (3 + 3 * i, E)):
+                    if site not in keeps:
+                        keeps[site] = rand_mask((N, S_full, width), 1.0 - self.dropout)
+            x = torch.utils.checkpoint.checkpoint(layer, x, i, use_reentrant=False)
         d = ln("dec.norm", gelu(sc(lin("dec.l1", x))))
         out = masked_logits(lin("dec.l2", d), label_mask, self.mask)
         return out, cross_entropy(out, label, sample_weight)

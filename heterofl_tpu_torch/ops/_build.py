@@ -55,6 +55,10 @@ _SIGNATURES = {
                                 _I, _I, _I, _P]),
     "hfl_quant_pack": (_I, [_P, _P, _P, _LL, _I, _I, _P, _P, _P]),
     "hfl_bn_floor": (_I, [_I, _I, _I, _I, _P]),
+    "hfl_bn_sync_stats": (_I, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "hfl_bn_sync_apply": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "hfl_bn_sync_bwd_reduce": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "hfl_bn_sync_bwd_apply": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 

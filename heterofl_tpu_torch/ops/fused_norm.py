@@ -28,6 +28,21 @@ column, never per tile.  One launch a direction replaces G, on the plan
 weights it needs in shared memory, and each launch is a programmatic
 dependent launch (:data:`BN_BATCHED_PDL`).
 
+The synchronised pair (:func:`batch_norm_sync`; the data axis, where a
+client's batch is split over ranks) is the reference's XLA sync form
+(``heterofl_tpu/ops/layers.py::batch_norm(axis_name=)`` :155-172, which
+its ``norms.py:44-46`` runs instead of Pallas) split at its all-reduces
+into four kernels of ``csrc/bn.cu``: :func:`bn_sync_stats` (this rank's
+``(sum w x, sum w x^2, sum w)`` ``[3, C]``), the all-reduce over the data
+group, :func:`bn_sync_apply` (``y`` and ``stats``), and backward
+:func:`bn_sync_bwd_reduce` (this rank's ``(sum dy, sum dy xhat)`` ``[2,
+C]``), the all-reduce, :func:`bn_sync_bwd_apply` (``dx``).  The ``dg`` and
+``db`` the gradient returns are this rank's LOCAL sums: the step's gradient
+all-reduce sums them once, as the reference's ``psum(grads)`` does.  With
+a group of one (or none) the plain versions are :func:`bn_fwd_plain` and
+:func:`bn_bwd_plain` bit for bit.  Their launches count in
+:data:`SYNC_LAUNCHES`.
+
 Semantics (pallas_norm.py:45-109): per-channel weighted moments over all
 rows in the ONE-pass form ``var = max(s2/n - mean^2, 0)``; rows whose
 sample weight is not positive are excluded from the sums by a select, not
@@ -48,6 +63,9 @@ from . import _build
 
 #: kernel launches per wrapper (CUDA only; the plain versions do not count)
 LAUNCHES = {"bn_fwd": 0, "bn_bwd": 0, "bn_fwd_batched": 0, "bn_bwd_batched": 0}
+#: launches of the synchronised batch norm's four kernels (the data axis)
+SYNC_LAUNCHES = {"bn_sync_stats": 0, "bn_sync_apply": 0, "bn_sync_bwd_reduce": 0,
+                 "bn_sync_bwd_apply": 0}
 
 # the kernels' fixed shape (csrc/bn.cu): threads per block, row iterations
 # a thread keeps in registers, channels per cluster at most, blocks per
@@ -452,3 +470,232 @@ def batch_norm_fused_clients(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                                      g.reshape(-1).contiguous(), b.reshape(-1).contiguous(),
                                      x2.shape[0] // n, eps)
     return y2.view(n, x.shape[2], x.shape[3], c).permute(0, 3, 1, 2)
+
+
+# -- the synchronised batch norm: four kernels, split at the all-reduces ------
+
+#: channels a block of the synchronised kernels owns, and rows it reads at once
+SYNC_LANES = 32
+SYNC_ROWS = BN_THREADS // 32
+# rows a chunk at least (8 a thread) and blocks a launch at most (two an SM
+# of an H100)
+_SYNC_MIN_ROWS = 64
+_SYNC_BLOCKS = 264
+
+
+class SyncPlan(NamedTuple):
+    """How one ``[M, C]`` synchronised batch norm is cut into blocks."""
+    tiles: int   # channel tiles of 32
+    chunks: int  # row chunks: a block a (tile, chunk)
+    rows: int    # rows a chunk (the last may hold fewer)
+
+
+@functools.lru_cache(maxsize=None)
+def bn_sync_plan(M: int, C: int) -> SyncPlan:
+    """The launch plan of the four synchronised kernels at ``[M, C]``, a
+    pure function of the shape (so the sums' order, and their bits, are
+    fixed per shape): chunks of at least 64 rows, at most 264 blocks."""
+    if M < 1 or C < 1:
+        raise ValueError(f"bn_sync_plan: empty batch norm [{M}, {C}]")
+    tiles = -(-C // SYNC_LANES)
+    chunks = max(1, min(M // _SYNC_MIN_ROWS, _SYNC_BLOCKS // tiles))
+    rows = -(-M // chunks)
+    return SyncPlan(tiles, -(-M // rows), rows)
+
+
+def bn_sync_stats_plain(x2: torch.Tensor, w: torch.Tensor, P: int) -> torch.Tensor:
+    """Plain version of ``bn_sync_stats``: ``x2 [M, C]``, ``w [M // P]`` ->
+    this rank's ``[3, C]`` (sum w x, sum w x^2, sum w) over the rows whose
+    weight is positive (:func:`bn_fwd_plain`'s sums)."""
+    wr = _row_weight(w, P)
+    xs = torch.where(wr > 0, x2, torch.zeros((), dtype=x2.dtype, device=x2.device))
+    s1 = (xs * wr).sum(0)
+    s2 = (xs * xs * wr).sum(0)
+    return torch.stack([s1, s2, wr.sum().expand_as(s1)])
+
+
+def bn_sync_apply_plain(x2: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                        glob: torch.Tensor, eps: float = 1e-5
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``bn_sync_apply``: the global ``[3, C]`` sums ->
+    ``(y2 [M, C], stats [3, C])`` (mean, inv, max(n, 1e-6))."""
+    n = glob[2].clamp_min(1e-6)
+    mean = glob[0] / n
+    var = (glob[1] / n - mean * mean).clamp_min(0.0)
+    inv = 1.0 / torch.sqrt(var + eps)
+    return (x2 - mean) * inv * g + b, torch.stack([mean, inv, n])
+
+
+def bn_sync_bwd_reduce_plain(x2: torch.Tensor, dy2: torch.Tensor, stats: torch.Tensor
+                             ) -> torch.Tensor:
+    """Plain version of ``bn_sync_bwd_reduce``: this rank's ``[2, C]``
+    (sum dy, sum dy xhat)."""
+    xhat = (x2 - stats[0]) * stats[1]
+    return torch.stack([dy2.sum(0), (dy2 * xhat).sum(0)])
+
+
+def bn_sync_bwd_apply_plain(x2: torch.Tensor, w: torch.Tensor, P: int, g: torch.Tensor,
+                            dy2: torch.Tensor, stats: torch.Tensor, glob: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain version of ``bn_sync_bwd_apply``: ``dx2`` from the global
+    ``[2, C]`` sums, :func:`bn_bwd_plain`'s formula."""
+    mean, inv, n = stats[0], stats[1], stats[2].clamp_min(1e-6)
+    wr = _row_weight(w, P)
+    xhat = (x2 - mean) * inv
+    db, dg = glob[0], glob[1]
+    return inv * g * dy2 - wr * (inv / n) * (g * db) - wr * xhat * (inv / n) * (g * dg)
+
+
+#: each CUDA device's chunk counters (the reductions leave them zero)
+_SYNC_COUNTERS = {}
+
+
+def _sync_counter(dev: torch.device, tiles: int) -> torch.Tensor:
+    c = _SYNC_COUNTERS.get(dev)
+    if c is None or c.numel() < tiles:
+        c = torch.zeros(max(tiles, 64), dtype=torch.int32, device=dev)
+        _SYNC_COUNTERS[dev] = c
+    return c
+
+
+def _sync_reduce_cuda(name: str, entry: str, args, x2, K: int, M: int, C: int) -> torch.Tensor:
+    pl = bn_sync_plan(M, C)
+    out = x2.new_empty((K, C))
+    part = x2.new_empty((pl.chunks, K, C))
+    counter = _sync_counter(x2.device, pl.tiles)
+    _build.check(getattr(_build.load(), entry)(
+        *args, M, C, pl.rows, pl.chunks, part.data_ptr(), counter.data_ptr(), out.data_ptr(),
+        _build.stream_of(x2)), name)
+    SYNC_LAUNCHES[name] += 1
+    return out
+
+
+def bn_sync_stats_cuda(x2, w, P: int) -> torch.Tensor:
+    """``bn_sync_stats`` (``csrc/bn.cu``) on CUDA tensors: one launch."""
+    _build.require_cuda("bn_sync_stats", x2, w)
+    M, C = x2.shape
+    _check_shapes("bn_sync_stats", x2, w, P, C)
+    return _sync_reduce_cuda("bn_sync_stats", "hfl_bn_sync_stats",
+                             (x2.data_ptr(), w.data_ptr(), P), x2, 3, M, C)
+
+
+def bn_sync_apply_cuda(x2, g, b, glob, eps: float = 1e-5):
+    """``bn_sync_apply`` (``csrc/bn.cu``) on CUDA tensors: one launch."""
+    _build.require_cuda("bn_sync_apply", x2, g, b, glob)
+    M, C = x2.shape
+    if g.numel() != C or b.numel() != C or glob.shape != (3, C):
+        raise ValueError(f"bn_sync_apply: g, b [C] and glob [3, C] for x2 {tuple(x2.shape)}")
+    pl = bn_sync_plan(M, C)
+    y2 = torch.empty_like(x2)
+    stats = x2.new_empty((3, C))
+    _build.check(_build.load().hfl_bn_sync_apply(
+        x2.data_ptr(), g.data_ptr(), b.data_ptr(), glob.data_ptr(), y2.data_ptr(),
+        stats.data_ptr(), M, C, pl.rows, pl.chunks, eps, _build.stream_of(x2)), "bn_sync_apply")
+    SYNC_LAUNCHES["bn_sync_apply"] += 1
+    return y2, stats
+
+
+def bn_sync_bwd_reduce_cuda(x2, dy2, stats) -> torch.Tensor:
+    """``bn_sync_bwd_reduce`` (``csrc/bn.cu``) on CUDA tensors: one launch."""
+    _build.require_cuda("bn_sync_bwd_reduce", x2, dy2, stats)
+    M, C = x2.shape
+    if dy2.shape != x2.shape or stats.shape != (3, C):
+        raise ValueError(f"bn_sync_bwd_reduce: dy2 {tuple(dy2.shape)} and stats "
+                         f"{tuple(stats.shape)} for x2 {tuple(x2.shape)}")
+    return _sync_reduce_cuda("bn_sync_bwd_reduce", "hfl_bn_sync_bwd_reduce",
+                             (x2.data_ptr(), dy2.data_ptr(), stats.data_ptr()), x2, 2, M, C)
+
+
+def bn_sync_bwd_apply_cuda(x2, w, P: int, g, dy2, stats, glob) -> torch.Tensor:
+    """``bn_sync_bwd_apply`` (``csrc/bn.cu``) on CUDA tensors: one launch."""
+    _build.require_cuda("bn_sync_bwd_apply", x2, w, g, dy2, stats, glob)
+    M, C = x2.shape
+    _check_shapes("bn_sync_bwd_apply", x2, w, P, C, g)
+    if dy2.shape != x2.shape or stats.shape != (3, C) or glob.shape != (2, C):
+        raise ValueError(f"bn_sync_bwd_apply: dy2 {tuple(dy2.shape)}, stats "
+                         f"{tuple(stats.shape)} and glob {tuple(glob.shape)} for x2 "
+                         f"{tuple(x2.shape)}")
+    pl = bn_sync_plan(M, C)
+    dx2 = torch.empty_like(x2)
+    _build.check(_build.load().hfl_bn_sync_bwd_apply(
+        x2.data_ptr(), w.data_ptr(), P, g.data_ptr(), dy2.data_ptr(), stats.data_ptr(),
+        glob.data_ptr(), dx2.data_ptr(), M, C, pl.rows, pl.chunks, _build.stream_of(x2)),
+        "bn_sync_bwd_apply")
+    SYNC_LAUNCHES["bn_sync_bwd_apply"] += 1
+    return dx2
+
+
+def bn_sync_stats(x2, w, P):
+    """Wrapper: plain version on the CPU, the kernel on CUDA."""
+    if x2.device.type == "cpu":
+        return bn_sync_stats_plain(x2, w, P)
+    return bn_sync_stats_cuda(x2, w, P)
+
+
+def bn_sync_apply(x2, g, b, glob, eps=1e-5):
+    """Wrapper: plain version on the CPU, the kernel on CUDA."""
+    if x2.device.type == "cpu":
+        return bn_sync_apply_plain(x2, g, b, glob, eps)
+    return bn_sync_apply_cuda(x2, g, b, glob, eps)
+
+
+def bn_sync_bwd_reduce(x2, dy2, stats):
+    """Wrapper: plain version on the CPU, the kernel on CUDA."""
+    if x2.device.type == "cpu":
+        return bn_sync_bwd_reduce_plain(x2, dy2, stats)
+    return bn_sync_bwd_reduce_cuda(x2, dy2, stats)
+
+
+def bn_sync_bwd_apply(x2, w, P, g, dy2, stats, glob):
+    """Wrapper: plain version on the CPU, the kernel on CUDA."""
+    if x2.device.type == "cpu":
+        return bn_sync_bwd_apply_plain(x2, w, P, g, dy2, stats, glob)
+    return bn_sync_bwd_apply_cuda(x2, w, P, g, dy2, stats, glob)
+
+
+def _data_sum(mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over ``mesh``'s data group (itself without one)."""
+    return t if mesh is None else mesh.all_reduce_sum([t], axis="data")[0]
+
+
+class _BatchNormSync(torch.autograd.Function):
+    """Differentiable ``[M, C]`` batch norm whose moments are summed over
+    the data group of ``mesh`` (``parallel.mesh.Mesh``; None: this rank
+    alone): stats, all-reduce ``[3, C]``, apply; backward: the partial
+    sums, all-reduce ``[2, C]``, dx.  ``dg`` and ``db`` are this rank's
+    local sums (the step's gradient all-reduce adds the other ranks')."""
+
+    @staticmethod
+    def forward(ctx, x2, w, g, b, P: int, eps: float, mesh):
+        y2, stats = bn_sync_apply(x2, g, b, _data_sum(mesh, bn_sync_stats(x2, w, P)), eps)
+        ctx.save_for_backward(x2, w, g, stats)
+        ctx.P, ctx.mesh = P, mesh
+        return y2
+
+    @staticmethod
+    def backward(ctx, dy2):
+        x2, w, g, stats = ctx.saved_tensors
+        dy2 = dy2.contiguous()
+        local = bn_sync_bwd_reduce(x2, dy2, stats)
+        dx2 = bn_sync_bwd_apply(x2, w, ctx.P, g, dy2, stats, _data_sum(ctx.mesh, local))
+        return dx2, None, local[1], local[0], None, None, None
+
+
+def batch_norm_sync(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                    sample_weight: Optional[torch.Tensor], mesh, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    """Batch-statistics normalisation of an NCHW (channels_last) or NC
+    tensor with the statistics of the whole batch split over ``mesh``'s
+    data group, through the synchronised kernels (their plain versions on
+    the CPU)."""
+    n, c = x.shape[0], x.shape[1]
+    x2 = (x.permute(0, 2, 3, 1) if x.ndim == 4 else x).reshape(-1, c).contiguous()
+    if sample_weight is None:
+        w = torch.ones(n, dtype=torch.float32, device=x.device)
+    else:
+        w = sample_weight.to(torch.float32).contiguous()
+    y2 = _BatchNormSync.apply(x2, w, g.contiguous(), b.contiguous(), x2.shape[0] // n, eps,
+                              mesh)
+    if x.ndim == 4:
+        return y2.view(n, x.shape[2], x.shape[3], c).permute(0, 3, 1, 2)
+    return y2

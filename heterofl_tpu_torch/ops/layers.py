@@ -111,7 +111,7 @@ def _channel_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
 def batch_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                sample_weight: Optional[torch.Tensor] = None, eps: float = 1e-5,
                mode: str = "batch",
-               running: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               running: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, group=None
                ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Static batch norm (momentum=None, per channel) of an NCHW or NC
     tensor -> ``(y, stats or None)``, the reference's ``mode``s
@@ -128,7 +128,17 @@ def batch_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
     Zero-weight samples are excluded by multiplying, as in the reference, so
     a non-finite value there reaches the statistics; the fused kernel path
-    (ops/fused_norm.py) excludes them with a select instead."""
+    (ops/fused_norm.py) excludes them with a select instead.
+
+    ``group`` (a ``parallel.mesh.Mesh``): synchronised BN over its data
+    group in ``"batch"`` mode (ref layers.py:155-172), the moments ``(sum
+    w x, sum w x^2, sum w)`` summed over the ranks in the one-pass form
+    ``var = max(s2/n - mean^2, 0)`` -- ``fused_norm.batch_norm_sync``,
+    whose wrappers take their plain versions on the CPU."""
+    if group is not None and mode == "batch":
+        from .fused_norm import batch_norm_sync
+
+        return batch_norm_sync(x, g, b, sample_weight, group, eps), None
     if mode == "running":
         mean, var = running
         y = (x - _channel_view(mean, x.ndim)) / torch.sqrt(_channel_view(var, x.ndim) + eps)

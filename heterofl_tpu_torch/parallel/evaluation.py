@@ -45,7 +45,10 @@ pass, outside the captured forwards.  A rank's LM windows start where its
 block does: the corruption draws of the windows before it are drawn and
 dropped first (:meth:`Evaluator._skip_windows`), so every window is
 corrupted as the one-rank pass corrupts it.  On one rank a pass is what it
-was.
+was.  With a data axis (ref evaluation.py:97-121, 262-283) every pass
+shards over all ranks as one flat axis, ``("clients", "data")`` flattened
+(``Mesh.flat``), with its one collective over the world group; the sBN
+pass has no synchronised batch norm.
 """
 
 from __future__ import annotations
@@ -84,12 +87,13 @@ def eval_generator(seed: int, epoch: int, device: torch.device) -> torch.Generat
 class Evaluator:
     """Evaluation programs of one (model, cfg, device); ``seed`` is the
     experiment's (the LM's corruption draws descend from it), ``mesh`` the
-    clients axis each pass is sharded over (default one rank)."""
+    mesh each pass is sharded over, all of its ranks as one axis (default
+    one rank)."""
 
     def __init__(self, model: FedModel, cfg: Dict[str, Any], device: torch.device,
                  seed: int = 0, mesh: Optional[Mesh] = None):
         self.model, self.device, self.seed = model, device, seed
-        self.mesh = single_mesh(device) if mesh is None else mesh
+        self.mesh = single_mesh(device) if mesh is None else mesh.flat()
         self.is_lm = model.meta["kind"] == "transformer"
         if not self.is_lm:
             self.norm = norm_stats_tensors(cfg, device)

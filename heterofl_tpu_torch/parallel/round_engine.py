@@ -88,6 +88,29 @@ the packed payload is all-reduced once and every rank decodes it.  The
 per-slot metric rows reach every rank in one ``Mesh.gather_rows`` a round
 (a superstep: one for its k rounds), back in schedule order.  Without a
 process group the mesh is one rank, and a round is what it was.
+
+The data mesh axis (``Mesh.data_size`` > 1; ref round_engine.py:637-815):
+the ranks of a clients row train the same slots, each on its share of
+every step.  Vision: rank ``d`` takes ids ``[d * b_loc, (d + 1) * b_loc)``
+of the step's B, ``b_loc = ceil(B / n_data)``, the ids padded with
+weight-0 repeats to ``b_loc * n_data``; ``n_glob`` is the whole batch's
+weight, taken before the split; the BN sites are synchronised over the
+data group (``fused_norm.batch_norm_sync``).  LM: rank ``d`` holds
+positions ``[d * s_loc, (d + 1) * s_loc)`` of every window, ``s_loc = bptt
+/ n_data``, its attention ring attention over the data group
+(``parallel/ring_attention.py``), its ``n_glob`` the reduced position
+weight.  Each step's packed gradient rides ONE all-reduce over the data
+group with ``[loss_sum, correct]`` (the LM: ``[loss_sum, n_loc]``), then
+the fused epilogue runs as on one rank; the round's aggregation stays one
+all-reduce over the clients group.  Every draw is made over the whole
+batch (window) on every rank of a row and sliced -- the epoch
+permutations, the augmentation, the LM's corruption and dropout -- so the
+ranks' generators stay in step and the split consumes the one-rank run's
+draws (a deliberate difference: the reference folds the data rank into the
+augmentation and dropout keys, ``fold_in(aug_key, d)``, ``fold_in(drop_base,
+off)``).  At data > 1 the superstep runs its steps eagerly (a step holds
+collectives, which gloo cannot put in a CUDA graph), with the same one
+fetch a superstep.
 """
 
 from __future__ import annotations
@@ -113,13 +136,14 @@ from ..obs import QuarantineSpec, obs_levels, resolve_quarantine_cfg, resolve_te
     split_probes
 from ..obs.hist import stale_hist
 from ..obs.probes import quarantine_gate, round_probes, segment_ends
-from ..ops.augment import augment_cifar, normalize_image
+from ..ops.augment import augment_cifar, augment_draws, normalize_image
 from ..ops.fused_update import FlatSpec, fused_sgd_flat, make_scal, resolve_fused_mode
 from ..sched import ScheduleSpec, resolve_schedule_cfg
 from ..sched.buffer import buffered_combine
 from ..sched.deadline import deadline_steps
 from ..utils.optim import clip_by_global_norm, sgd_update
 from .mesh import Mesh, block_bounds, single_mesh
+from .ring_attention import ring_attention
 from .staging import ClientStore, CohortStager, PendingMetrics, StagedCohort
 from .step_graph import StepGraphs, device_counter, maybe_event
 
@@ -675,8 +699,17 @@ class RoundEngine(FlatParams):
         self.local_epochs = ne["local"] if isinstance(ne, dict) else 1
         self.batch_size = cfg["batch_size"]["train"]
         self.is_lm = model.meta["kind"] == "transformer"
+        # the data axis: a client's batch (an LM window's positions) split
+        # over this row's data ranks
+        self.n_data = self.mesh.data_size
+        self._slice_idx: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
+        #: local steps run eagerly (the audit's data-axis budget)
+        self.local_steps = 0
         if self.is_lm:
             self.bptt = cfg["bptt"]
+            if self.bptt % self.n_data:
+                raise ValueError(f"data axis size ({self.n_data}) must divide "
+                                 f"bptt={self.bptt} for sequence-parallel LM rounds")
         else:
             self.norm = norm_stats_tensors(cfg, device)
             self.augment = cfg["data_name"].startswith("CIFAR")
@@ -709,7 +742,7 @@ class RoundEngine(FlatParams):
             model.prepare_width(wr, device)
         # the superstep's captured steps (one a width rate), their static
         # buffers (made at the first superstep) and their generator
-        self.graphs = StepGraphs(device)
+        self.graphs = StepGraphs(device, capture=self.n_data == 1)
         self._st: Optional[Dict[str, torch.Tensor]] = None
         # staticcheck: allow(no-fresh-rng) seeded per client in stage_client
         self._ggen = torch.Generator(device=device)
@@ -918,54 +951,116 @@ class RoundEngine(FlatParams):
         wpos[:, T:] = 0.0
         return wpos, wpos.view(R, S, self.bptt).sum((0, 2))
 
+    def _data_slice(self, B: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This data rank's rows of a batch of B (ref round_engine.py:
+        695-704): ``(src [b_loc], keep [b_loc])``, ``src`` the batch rows it
+        takes (a padded row repeats row ``j - B``) and ``keep`` 1 on real
+        rows, 0 on the padding."""
+        key = (B, device)
+        if key not in self._slice_idx:
+            b_loc = -(-B // self.n_data)
+            rows = self.mesh.data_rank * b_loc + torch.arange(b_loc)
+            self._slice_idx[key] = ((rows % B).to(device),
+                                    (rows < B).to(torch.float32).to(device))
+        return self._slice_idx[key]
+
     def _vision_step(self, st, wr: float, scaler_rate: float, mask: torch.Tensor,
                      gen: torch.Generator, xb, labels, w, draw=None) -> None:
         """One local step on the batch ``(xb, labels, w)``, in place on the
         client's ``st`` (``p``, ``buf``, ``g``, ``acc``; ``lr``, ``lm``);
-        ``draw``, when given, the augmentation's ``(offsets, flips)``."""
+        ``draw``, when given, the augmentation's ``(offsets, flips)``.  At
+        data > 1 this rank's slice of the batch (:meth:`_data_slice`; the
+        augmentation drawn for the whole batch, then sliced), BN
+        synchronised over the data group, and the gradient with ``[loss_sum,
+        correct]`` reduced over it in one all-reduce."""
         spec = self.spec
-        n_glob = w.sum()
+        n_glob = w.sum()  # the whole batch's weight, before any split
+        group = None
+        if self.n_data > 1:
+            group = self.mesh
+            if self.augment and draw is None:
+                draw = augment_draws(xb.shape[0], gen, xb.device)
+            src, keep = self._data_slice(w.shape[0], w.device)
+            xb, labels, w = xb[src], labels[src], w[src] * keep
+            draw = None if draw is None else tuple(a[src] for a in draw)
         img = self._prep(xb, gen, draw)
         leaves = {k: v.requires_grad_() for k, v in spec.unflatten(st["p"]).items()}
         score, loss = self.model(img, labels, params=leaves, width_rate=wr,
-                                 scaler_rate=scaler_rate, label_mask=st["lm"], sample_weight=w)
-        lsum = loss * n_glob  # weighted-SUM form, as the reference
+                                 scaler_rate=scaler_rate, label_mask=st["lm"], sample_weight=w,
+                                 bn_group=group)
+        # weighted-SUM form, as the reference
+        lsum = loss * (n_glob if group is None else w.sum())
         grads = torch.autograd.grad(lsum, [leaves[k] for k in spec.names])
         del leaves
         correct = ((score.detach().argmax(-1) == labels).to(torch.float32) * w).sum()
-        self._step(st["p"], st["buf"], st["g"], grads, mask, n_glob, st["lr"])
+        sums = None if group is None else torch.stack([lsum.detach(), correct])
+        sums = self._step(st["p"], st["buf"], st["g"], grads, mask, n_glob, st["lr"], sums)
         del grads
+        if sums is not None:
+            lsum, correct = sums[0], sums[1]
         st["acc"] += torch.stack([lsum.detach(), correct, n_glob])
+
+    def _ring(self, q, k, v, temp: float) -> torch.Tensor:
+        """Ring attention over this row's data group (the LM's split)."""
+        return ring_attention(q, k, v, self.mesh, temp)
 
     def _lm_step(self, st, wr: float, scaler_rate: float, mask: torch.Tensor,
                  gen: torch.Generator, lab, w, n_glob, draws=None) -> None:
         """One masked-LM local step on the window ``(lab, w)`` of weight sum
         ``n_glob``, in place on the client's ``st`` (as :meth:`_vision_step`'s,
-        and ``rows_n``); ``draws`` replaces the generator's."""
+        and ``rows_n``); ``draws`` replaces the generator's.  At data > 1
+        this rank's positions of the window, ring attention over the data
+        group, and the gradient with ``[loss_sum, n_loc]`` reduced over it
+        in one all-reduce, whose sum is ``n_glob``."""
         spec = self.spec
+        extra = {}
+        if self.n_data > 1:
+            s_loc = lab.shape[1] // self.n_data
+            off = self.mesh.data_rank * s_loc
+            lab, w = lab[:, off:off + s_loc], w[:, off:off + s_loc]
+            extra = {"pos_offset": off, "seq_full": s_loc * self.n_data, "attn": self._ring}
         leaves = {k: v.requires_grad_() for k, v in spec.unflatten(st["p"]).items()}
         _, loss = self.model(lab, params=leaves, width_rate=wr, scaler_rate=scaler_rate,
                              label_mask=st["lm"], sample_weight=w, train=True, gen=gen,
-                             draws=draws)
-        lsum = loss * n_glob  # weighted-SUM form, as the reference
+                             draws=draws, **extra)
+        n_loc = n_glob if not extra else w.sum()
+        lsum = loss * n_loc  # weighted-SUM form, as the reference
         grads = torch.autograd.grad(lsum, [leaves[k] for k in spec.names])
         del leaves
-        self._step(st["p"], st["buf"], st["g"], grads, mask, n_glob, st["lr"])
+        if extra:
+            lsum, n_glob = self._step(st["p"], st["buf"], st["g"], grads, mask, None, st["lr"],
+                                      torch.stack([lsum.detach(), n_loc]))
+        else:
+            self._step(st["p"], st["buf"], st["g"], grads, mask, n_glob, st["lr"])
         del grads
         wl = lsum.detach() / n_glob.clamp_min(1e-6)
         rows_n = st["rows_n"]
         st["acc"] += torch.stack([wl * rows_n, torch.exp(wl) * rows_n, rows_n])
 
-    def _step(self, p, buf, g, grads, mask, n_glob, lr) -> None:
+    def _step(self, p, buf, g, grads, mask, n_glob, lr, sums=None) -> Optional[torch.Tensor]:
         """The optimizer tail of one local step, in place on ``p`` and
         ``buf``: the fused epilogue over the flat buffers (its gradient
-        packed into ``g``), or the per-leaf chain."""
+        packed into ``g``), or the per-leaf chain.  With ``sums`` (the data
+        axis) the packed gradient and ``sums`` go out in ONE all-reduce over
+        the data group first (the reference chain unpacks the reduced
+        gradient into its leaves); ``n_glob`` None takes the reduced
+        ``sums[1]``.  Returns the reduced ``sums``."""
+        self.local_steps += 1  # eager calls only: a replayed step does not count
+        if sums is not None:
+            torch.cat([gr.reshape(-1) for gr in grads], out=g)
+            red, sums = self.mesh.all_reduce_sum([g, sums], axis="data")
+            g.copy_(red)
+            if n_glob is None:
+                n_glob = sums[1]
+            grads = [self.spec.leaf(g, k) for k in self.spec.names]
         if self.fused_mode is None:
             self._reference_step(p, buf, grads, mask, n_glob, lr)
         else:
-            torch.cat([gr.reshape(-1) for gr in grads], out=g)
+            if sums is None:
+                torch.cat([gr.reshape(-1) for gr in grads], out=g)
             fused_sgd_flat(g, p, buf, mask, make_scal(n_glob, lr), momentum=self.momentum,
                            weight_decay=self.weight_decay, max_norm=1.0)
+        return sums
 
     def _reference_step(self, p, buf, grads, mask, n_glob, lr, has=None) -> None:
         """``fused_update=False``: the unfused per-leaf optimizer chain

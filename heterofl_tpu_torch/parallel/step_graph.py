@@ -120,9 +120,11 @@ class StepGraphs:
     """The graphs of one engine on one device, keyed by what fixes their
     shapes and constants (a level, a level and its G, a batch shape)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, capture: bool = True):
         self.device = device
-        self.cuda = device.type == "cuda"
+        # capture=False: every step runs eagerly, as on the CPU (a step that
+        # holds a collective gloo cannot capture: the data axis)
+        self.cuda = device.type == "cuda" and capture
         self.steps: Dict[Hashable, Step] = {}
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
         self.stream = torch.cuda.Stream(device) if self.cuda else None

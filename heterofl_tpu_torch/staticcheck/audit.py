@@ -350,10 +350,13 @@ def audit_program(spec: Program, device: torch.device, flagship: bool, out_dir: 
     for _ in range(2):
         cap0 = step_graph.STATS["captures"]
         c0, b0 = dict(mesh_mod.COLLECTIVES), dict(mesh_mod.COLLECTIVE_BYTES)
+        d0, s0 = dict(mesh_mod.DATA_COLLECTIVES), getattr(eng, "local_steps", 0)
         P, fetches, users, rates = _dispatch(exp, spec, P0)
         seen.append((len(eng.graphs.steps), step_graph.STATS["captures"] - cap0, fetches))
         colls.append({k: mesh_mod.COLLECTIVES[k] - c0[k] for k in c0}
-                     | {f"{k}_bytes": mesh_mod.COLLECTIVE_BYTES[k] - b0[k] for k in b0})
+                     | {f"{k}_bytes": mesh_mod.COLLECTIVE_BYTES[k] - b0[k] for k in b0}
+                     | {f"data_{k}": mesh_mod.DATA_COLLECTIVES[k] - d0[k] for k in d0}
+                     | {"local_steps": getattr(eng, "local_steps", 0) - s0})
     if cuda:
         torch.cuda.synchronize(device)
         peak = torch.cuda.max_memory_allocated(device) - base_alloc
@@ -427,6 +430,40 @@ def check_collectives(rep: ProgramReport, spec: Program, exp, colls: List[Dict[s
     if any(c["gather"] != 1 for c in colls):
         rep.fail("collective-budget", f"{[c['gather'] for c in colls]} gathers in the two "
                  f"dispatches: exactly one a dispatch (the slots' metric rows)")
+    check_data_collectives(rep, exp.model, mesh.data_size, colls)
+
+
+def data_step_budget(model, n_data: int) -> Dict[str, int]:
+    """The data axis's collectives of one local step at ``n_data`` ranks
+    (none at 1): a vision step one all-reduce (its gradient and sums) and
+    two a BN site (the forward's moments, the backward's sums); an LM step
+    one all-reduce and ring attention's shifts, ``n - 1`` forward and ``n``
+    backward a layer."""
+    if n_data <= 1:
+        return {"all_reduce": 0, "ring_shift": 0}
+    if model.meta["kind"] == "transformer":
+        return {"all_reduce": 1, "ring_shift": model.num_layers * (2 * n_data - 1)}
+    sites = sum(k.endswith(".g") for k in model.specs) if model.norm == "bn" else 0
+    return {"all_reduce": 1 + 2 * sites, "ring_shift": 0}
+
+
+def check_data_collectives(rep: ProgramReport, model, n_data: int,
+                           colls: List[Dict[str, int]]) -> None:
+    """Check (g) over the data axis: each dispatch's data-group collectives
+    are its local steps times :func:`data_step_budget` (the shifts staged
+    through host memory recorded beside them)."""
+    per = data_step_budget(model, n_data)
+    rep.collectives["data_axis"] = {
+        "n_data": n_data, "per_step": per,
+        "dispatches": [{k: c.get(f"data_{k}", 0) for k in ("all_reduce", "ring_shift",
+                                                          "ring_shift_host")}
+                       | {"local_steps": c.get("local_steps", 0)} for c in colls]}
+    for c in colls:
+        got = {k: c.get(f"data_{k}", 0) for k in per}
+        want = {k: c.get("local_steps", 0) * v for k, v in per.items()}
+        if got != want:
+            rep.fail("collective-budget", f"data axis: {got} collectives over "
+                     f"{c.get('local_steps', 0)} local steps, want {want} ({per} a step)")
 
 
 def check_eval_collectives(rep: ProgramReport, exp, P: torch.Tensor, fused: bool,

@@ -365,13 +365,18 @@ def save_checkpoint_sharded(path: str, blob: Dict[str, Any], keep: int = 1,
     the header: the shards are on disk before the header names them, and no
     rank returns before it landed.  A blob with no marker (one rank, or no
     per-rank leaf) is the plain :func:`save_checkpoint` of rank 0.
-    ``mesh`` is ``parallel.mesh.Mesh`` (None: one rank).  Returns whether
-    shard files were written (:func:`copy_best`'s ``sharded``)."""
+    ``mesh`` is ``parallel.mesh.Mesh`` (None: one rank).  With a data axis
+    the ranks of a clients row hold the same blocks, so data column 0 of
+    each row writes the row's shard file and world rank 0 the header; the
+    barriers span the world.  Returns whether shard files were written
+    (:func:`copy_best`'s ``sharded``)."""
     rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    lead = mesh is None or mesh.lead
+    writes = mesh is None or mesh.data_rank == 0
     blocks: Dict[str, Any] = {}
     header = _split_shards(blob, blocks)
     if not blocks:
-        if rank == 0:
+        if lead:
             save_checkpoint(path, blob, keep)
         if mesh is not None:
             mesh.barrier()
@@ -379,12 +384,13 @@ def save_checkpoint_sharded(path: str, blob: Dict[str, Any], keep: int = 1,
     if stamp is None:
         stamp = f"e{blob.get('epoch', 0)}"
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    sp = shard_path(path, rank, size)
-    _rotate(sp, keep)
-    _write_durable(sp, _blob_bytes({"stamp": stamp, "process": rank, "blocks": blocks}))
+    if writes:
+        sp = shard_path(path, rank, size)
+        _rotate(sp, keep)
+        _write_durable(sp, _blob_bytes({"stamp": stamp, "process": rank, "blocks": blocks}))
     if mesh is not None:
         mesh.barrier()
-    if rank == 0:
+    if lead:
         header[SHARD_SET_KEY] = {"count": size, "stamp": stamp,
                                  "files": [os.path.basename(shard_path(path, j, size))
                                            for j in range(size)]}

@@ -70,6 +70,9 @@ TOOLS = [
     ("drill", "heterofl_tpu_torch.chaos.drill",
      ["--device", "cpu", "--json", "--out", "{out}/drill"], ""),
     ("pod", "heterofl_tpu_torch.parallel.pod", ["{out}/pod", "--spawn", "2"], "tools"),
+    ("ring_attention", "heterofl_tpu_torch.parallel.ring_attention", None, ""),
+    ("long_context", "heterofl_tpu_torch.parallel.long_context", None, ""),
+    ("data_rank", "chip_smoke", None, ""),
 ]
 
 
@@ -175,7 +178,9 @@ def test_no_port_file_imports_jax_or_reference():
             "heterofl_tpu_torch/staticcheck/wire.py", "heterofl_tpu_torch/staticcheck/memory.py",
             "heterofl_tpu_torch/staticcheck/kernels.py",
             "heterofl_tpu_torch/staticcheck/audit.py",
-            "heterofl_tpu_torch/staticcheck/ratchet.py", "tests/torch_port_ranks.py"} <= scanned
+            "heterofl_tpu_torch/staticcheck/ratchet.py", "tests/torch_port_ranks.py",
+            "heterofl_tpu_torch/parallel/ring_attention.py",
+            "heterofl_tpu_torch/parallel/long_context.py"} <= scanned
 
 
 def test_python_m_tools_load_no_jax_and_no_reference(tool_runs):
@@ -221,3 +226,16 @@ def test_mesh_and_pod_probe_load_no_jax_and_no_reference(tool_runs):
             assert res["foreign_modules"] == []
             assert (res["engine"], res["placement"]) == \
                 ("grouped", "slices" if n == 2 else "span")
+
+
+def test_data_axis_modules_load_no_jax_and_no_reference(tool_runs):
+    """The data axis's modules -- ring attention, ``SeqParallelLM`` -- and
+    ``chip_smoke.py``, whose ``--data-rank`` entry is phase 17's rank
+    (``data_rank_main``, beside ``data_lm_runs``), imported in a fresh
+    interpreter, leave no ``jax`` and no ``heterofl_tpu`` module in
+    ``sys.modules``."""
+    _, runs = tool_runs
+    _assert_clean(runs, ["ring_attention", "long_context", "data_rank"])
+    import chip_smoke
+
+    assert callable(chip_smoke.data_rank_main) and callable(chip_smoke.data_lm_runs)

@@ -139,8 +139,8 @@ def test_world_of_ranks_accepts_what_the_axis_carries(monkeypatch):
 def test_make_mesh_is_one_rank_without_a_group():
     """Without torchrun's variables nothing is joined; the mesh is rank 0 of
     1 on the device asked for; a clients count other than the world size
-    raises (the deliberate difference), a data or arms axis names its
-    ROADMAP item."""
+    raises (the deliberate difference), so does a data axis the world of
+    one rank cannot hold, and an arms axis names its ROADMAP item."""
     assert not M.initialize_distributed(device="cpu")
     mesh = M.make_mesh(0, device=torch.device("cpu"))
     assert (mesh.rank, mesh.size, mesh.distributed, mesh.device) == \
@@ -148,7 +148,7 @@ def test_make_mesh_is_one_rank_without_a_group():
     assert M.make_mesh(1).size == 1
     with pytest.raises(ValueError, match="each rank is one process"):
         M.make_mesh(2)
-    with pytest.raises(NotImplementedError, match="data axis"):
+    with pytest.raises(ValueError, match="data=2 does not divide the world"):
         M.make_mesh(0, 2)
     with pytest.raises(NotImplementedError, match="arms axis"):
         M.make_mesh(0, 1, 2)

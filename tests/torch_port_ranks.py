@@ -1,7 +1,8 @@
 """Work a rank for the two-rank tests: :func:`run_ranks` runs a job (a
-masked or grouped round with its draws handed in, a grouped superstep, an
-evaluation, an entry, the pod probe's rank, or several of them in turn on
-one group) as
+masked or grouped round with its draws handed in, a grouped or masked
+superstep, an evaluation, an entry, the pod probe's rank, the synchronised
+batch norm, ring attention, ``SeqParallelLM``, or several of them in turn
+on one group, each on a ``(clients, data)`` mesh of its own) as
 ``n`` gloo ranks on the CPU, one process a rank started as torchrun
 would start it (``heterofl_tpu_torch.parallel.pod._spawn``: torchrun's
 variables, a free port each run, a timeout of its own), and returns each
@@ -169,17 +170,118 @@ def grouped_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
 
 def _seq_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
     """Each job of ``job['jobs']`` in turn on the same group (a probe,
-    which leaves the group, only last) -> their results, each with the
+    which leaves the group, only last), a job with ``n_data`` on its own
+    ``(world / n_data, n_data)`` mesh -> their results, each with the
     collectives it made."""
     from heterofl_tpu_torch.parallel import mesh as M
 
     out = []
     for sub in job["jobs"]:
+        m = mesh if "n_data" not in sub else M.make_mesh(0, sub["n_data"],
+                                                          device=torch.device("cpu"))
         M.reset_counts()
-        res = JOBS[sub["kind"]](dict(sub, out_dir=job["out_dir"]), mesh, torch)
+        res = JOBS[sub["kind"]](dict(sub, out_dir=job["out_dir"]), m, torch)
         res["collectives"] = dict(M.COLLECTIVES)
+        res["data_collectives"] = dict(M.DATA_COLLECTIVES)
         out.append(res)
     return {"results": out}
+
+
+def _bn_sync_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
+    """The synchronised batch norm on this rank's data block of the NHWC
+    batch ``x`` (weights ``w``, cotangent ``dy``) -> its ``y``, and the
+    gradients of ``sum(y * dy)``: ``dx`` of its block, its LOCAL ``dg``
+    and ``db``."""
+    from heterofl_tpu_torch.ops.layers import batch_norm
+    from heterofl_tpu_torch.parallel.mesh import block_bounds
+
+    lo, hi = block_bounds(job["x"].shape[0], mesh.data_size, mesh.data_rank)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    x = t(job["x"][lo:hi]).permute(0, 3, 1, 2).requires_grad_()
+    g, b = t(job["g"]).requires_grad_(), t(job["b"]).requires_grad_()
+    y, _ = batch_norm(x, g, b, sample_weight=t(job["w"][lo:hi]), group=mesh)
+    dx, dg, db = torch.autograd.grad((y * t(job["dy"][lo:hi]).permute(0, 3, 1, 2)).sum(),
+                                     (x, g, b))
+    return {"y": _host(y.permute(0, 2, 3, 1)), "dx": _host(dx.permute(0, 2, 3, 1)),
+            "dg": _host(dg), "db": _host(db)}
+
+
+def _layout_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
+    """This rank's place on the mesh, its flat axis, and its world rank
+    summed over each axis and shifted round its data ring."""
+    t = torch.tensor([float(mesh.world_rank)])
+    flat = mesh.flat()
+    return {"coords": [mesh.rank, mesh.size, mesh.data_rank, mesh.data_size, mesh.world_rank,
+                       mesh.world_size, mesh.lead], "flat": [flat.rank, flat.size],
+            "sum_data": int(mesh.all_reduce_sum([t], axis="data")[0]),
+            "sum_clients": int(mesh.all_reduce_sum([t])[0]),
+            "sum_world": int(mesh.all_reduce_sum([t], axis="world")[0]),
+            "shifted": int(mesh.ring_shift([t])[0])}
+
+
+def _ring_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
+    """Ring attention of this rank's data block of ``q``, ``k``, ``v``
+    (``[h, S, d]``, split on S) -> its output and the gradients of the
+    whole sequence's ``sum(out ** 2)`` for its blocks (each rank
+    differentiates its own part; the ring carries the rest)."""
+    from heterofl_tpu_torch.parallel.mesh import block_bounds
+    from heterofl_tpu_torch.parallel.ring_attention import ring_attention
+
+    lo, hi = block_bounds(job["q"].shape[-2], mesh.data_size, mesh.data_rank)
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(job[n][..., lo:hi, :])).requires_grad_()
+               for n in "qkv")
+    out = ring_attention(q, k, v, mesh, job["temp"])
+    grads = torch.autograd.grad((out ** 2).sum(), (q, k, v))
+    return {"out": _host(out), "grads": [_host(g) for g in grads]}
+
+
+def _seqlm_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
+    """``SeqParallelLM`` of ``job['cfg']`` from reference-layout ``params``:
+    ``forward`` on ``labels`` with the whole-window corruption
+    ``draws['fwd']``, then ``train_step`` at ``lr`` with ``draws['step']``
+    -> the loss, the step's loss and new params (reference layout)."""
+    from heterofl_tpu_torch.convert import params_from_jax, params_to_jax
+    from heterofl_tpu_torch.parallel.long_context import SeqParallelLM
+
+    lm = SeqParallelLM(job["cfg"], mesh)
+    perms = lm.model.jax_perms()
+    params = {k: v.to(mesh.device) for k, v in params_from_jax(job["params"], perms).items()}
+    labels = torch.from_numpy(np.ascontiguousarray(job["labels"]))
+    dr = {k: {"corrupt": torch.from_numpy(v)} for k, v in job["draws"].items()}
+    loss = lm.forward(params, labels, draws=dr["fwd"])
+    new, _, step_loss = lm.train_step(params, lm.init_opt(params), labels, job["lr"],
+                                      draws=dr["step"])
+    return {"loss": float(loss), "step_loss": float(step_loss),
+            "params": params_to_jax({k: v.detach() for k, v in new.items()}, perms)}
+
+
+def _superstep_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
+    """The masked engine's ``train_superstep`` of ``k`` rounds (cohorts
+    ``users [k, A]`` at ``rates``) against the same rounds one after
+    another through ``train_round`` at each round's seed -> both flat
+    params and metric rows."""
+    from heterofl_tpu_torch.convert import params_from_jax
+    from heterofl_tpu_torch.fed.core import round_seed
+    from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.parallel.round_engine import RoundEngine
+
+    cfg, k = job["cfg"], job["k"]
+    model = make_model(cfg)
+    model.load_state_dict(params_from_jax(job["params"], model.jax_perms()))
+    eng = RoundEngine(model, cfg, mesh.device, mesh)
+    data = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in job["data"])
+    P0 = eng.flatten(model.params())
+    lrs = np.full(k, job["lr"], np.float32)
+    P, seq = P0.clone(), []
+    for r in range(k):
+        P, ms = eng.train_round(P, float(lrs[r]), job["users"][r], data, round_seed(0, 1 + r),
+                                rates=job["rates"][r])
+        seq.append({n: _host(ms[n]) for n in ("loss_sum", "score_sum", "n")})
+    P2, pend = eng.train_superstep(P0.clone(), 0, 1, k, data, job["users"], job["rates"], lrs)
+    fetched = pend.fetch()
+    return {"seq": _host(P), "superstep": _host(P2), "seq_rows": seq,
+            "superstep_rows": [{n: np.asarray(f[n]) for n in ("loss_sum", "score_sum", "n")}
+                               for f in fetched]}
 
 
 def _probe_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
@@ -216,19 +318,21 @@ def job_main(path: str) -> None:
     if job.get("deterministic"):
         torch.use_deterministic_algorithms(True)
     M.initialize_distributed(device="cpu")
-    mesh = M.make_mesh(0, device=torch.device("cpu"))
+    mesh = M.make_mesh(0, job.get("n_data", 1), device=torch.device("cpu"))
     M.reset_counts()
     out = JOBS[job["kind"]](job, mesh, torch)
     out["collectives"] = dict(M.COLLECTIVES)
+    out["data_collectives"] = dict(M.DATA_COLLECTIVES)
     out["foreign_modules"] = sorted(m for m in sys.modules
                                     if m.split(".")[0] in ("jax", "jaxlib", "heterofl_tpu"))
-    with open(os.path.join(job["out_dir"], f"rank{mesh.rank}.pkl"), "wb") as f:
+    with open(os.path.join(job["out_dir"], f"rank{mesh.world_rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     M.shutdown_distributed()
 
 
 JOBS = {"round": _round_job, "eval": _eval_job, "entry": _entry_job, "grouped": grouped_job,
-        "seq": _seq_job, "probe": _probe_job}
+        "seq": _seq_job, "probe": _probe_job, "bn_sync": _bn_sync_job, "ring": _ring_job,
+        "seqlm": _seqlm_job, "superstep": _superstep_job, "layout": _layout_job}
 
 
 if __name__ == "__main__":
