@@ -138,7 +138,7 @@ each prints its seconds:
    equal bit for bit, params and the concatenated residual), and the
    quantise-and-pack kernel held and timed at its int8 levels' sliced n;
 10. the client scheduler (``--schedule``, ``--client_failure_rate``), its
-   paths cut to ``SCENARIO_SIZES`` (four steps a client, one evaluation a
+   paths cut to ``SCENARIO_SIZES`` (three steps a client, one evaluation a
    run): (a) the fused SGD with ``has`` 0 leaves its buffers bit for bit,
    and kernel 3b at (level a, G 2) and (level e, G 4) with ``has`` rows
    ``[1, 0, ...]`` leaves the gated rows bit for bit and gives the live row
@@ -265,11 +265,14 @@ each prints its seconds:
    two supersteps, uninterrupted and resumed from the first's sharded
    checkpoint, equal bit for bit, the ranks' residual rows apart; each
    payload's all-reduce timed on CUDA events with its payload, reduced and
-   ring bytes; (e) the grouped slices pod probe's rank: each run's ranks
-   equal bit for bit, (b) and (c) within ``RANKS_ATOL`` of the one-rank
-   span runs, one all-reduce a round on each rank, the batched kernels on
-   each rank, and the probe as phase 15's; (f) NCCL between two GPUs is
-   (b)-(e)'s backend where the machine has them;
+   ring bytes; the grouped LM entry's one round at phase 7's flags (its
+   one client on rank 0), within ``RANKS_ATOL`` of phase 7's one-rank
+   round, kernel 3b launched on rank 0 only; (e) the grouped slices pod
+   probe's rank: each run's ranks equal bit for bit, (b) and (c) within
+   ``RANKS_ATOL`` of the one-rank span runs, one all-reduce a round on
+   each rank, the batched kernels on each rank, and the probe as phase
+   15's; (f) NCCL between two GPUs is (b)-(e)'s backend where the machine
+   has them;
 17. the data mesh axis (``parallel/mesh.py``'s ``data`` axis,
    ``parallel/ring_attention.py``, ``parallel/long_context.py``): (a) the
    synchronised batch norm's four kernels (``bn_sync_stats``,
@@ -281,24 +284,36 @@ each prints its seconds:
    version and the aten op of PyTorch's SyncBatchNorm that does its work
    (``batch_norm_stats``, unweighted, ``batch_norm_elemt``,
    ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``: timed
-   here, used nowhere in the port); (b) two gloo ranks sharing the card on
-   the mesh ``(1, 2)`` (``chip_smoke.py --data-rank``), each running the
-   headline entry at phase 15's depth -- K=1 dense, K=1 int8 and a
-   superstep of two rounds -- each data rank taking 5 of every batch of 10
-   with BN synchronised over the pair: the ranks equal bit for bit, within
-   ``TOL_DATA_RANKS`` of phase 15's one-rank runs (the same draws: the
-   split draws over the whole batch; int8 within ``DATA_INT8_SHARE`` of
-   its entries, a grid step), the four kernels launched and
-   ``bn_fwd`` not, the clients axis's one all-reduce a round, the data
-   axis's one all-reduce a step and two a BN site, rank 0's first run
-   inside a profiler trace whose kernels by name equal its counters; (c)
-   the masked LM round at ``(1, 2)`` (dropout 0, ring attention) and
-   ``SeqParallelLM.forward`` / ``train_step`` against one rank with dense
-   attention, within ``TOL_DATA_LM``; (d) NCCL between two GPUs where the
-   machine has them, else the reason printed;
+   here by call and by CUDA-graph replay, used nowhere in the port); the
+   batched pair of the grouped engine (``bn_sync_stats_batched``,
+   ``bn_sync_bwd_apply_batched``, with the shared apply and backward
+   reduce on the ``[M, G*C]`` columns) at batch 5 for levels a and e at G
+   = 2 and level c at G = 3 (a zero-weight sample) against their plain
+   versions, two calls equal bit for bit, at G = 1 equal to the one-client
+   kernels bit for bit, and timed the same way at levels a and e; (b) two
+   gloo ranks sharing the card on the mesh ``(1, 2)`` (``chip_smoke.py
+   --data-rank``), each running the headline entry at phase 15's depth --
+   K=1 dense, K=1 int8 and a superstep of two rounds, then with
+   ``--strategy grouped`` K=1 dense and a superstep of two -- each data
+   rank taking 5 of every batch of 10 with BN synchronised over the pair:
+   the ranks equal bit for bit, within ``TOL_DATA_RANKS`` of phase 15's
+   (masked) and phase 16's (grouped) one-rank runs, which are reused (the
+   same draws: the split draws over the whole batch; int8 within
+   ``DATA_INT8_SHARE`` of its entries, a grid step), the masked runs
+   launching the four kernels and not ``bn_fwd``, the grouped ones
+   1bs/2bs and 3b and neither 1b/2b nor the one-client pair's own, the
+   clients axis's one all-reduce a round, the data axis's one all-reduce
+   a step (a level step) and two a BN site, each engine's first run on
+   rank 0 inside a profiler trace whose kernels by name equal its
+   counters; (c) the masked and the grouped LM round at ``(1, 2)``
+   (dropout 0, ring attention; the grouped one's two users a level-a
+   batch of G = 2) and ``SeqParallelLM.forward`` / ``train_step`` against
+   one rank with dense attention, within ``TOL_DATA_LM``; (d) NCCL between
+   two GPUs where the machine has them, else the reason printed;
 18. the ``kernels`` JSON line (launches from the int8 path, the batched
    kernels' from the grouped path, the synchronised pair's from 17b's
-   rank 0; per path in ``launches_by_path``, and
+   rank 0, the batched synchronised pair's from 17b's grouped runs on rank
+   0; per path in ``launches_by_path``, and
    the superstep's launches from replays -- a graph's captured launches
    times its replays -- in ``replayed_launches_by_path``), then the ``ok``
    JSON line last.
@@ -423,10 +438,10 @@ IM2COL_SIZES = {"train": 2000, "test": 1000}  # the im2col rounds: two steps a c
 TOL_IM2COL = 1e-3  # max |params| difference, im2col round vs direct round (as TOL_ROUND)
 # the per-level map: a dense level, two int8 levels and the other two codecs
 CODEC_MAP = {"1": "dense", "0.5": "int8", "0.25": "int8", "0.125": "signsgd", "0.0625": "topk"}
-# the client scheduler's paths (phase 10): depth cut to 40 train images a client (4 steps a
-# client, a local epoch; 5 until phase 17 needed the time), 1,000 test images and one
-# evaluation a run; full widths
-SCENARIO_SIZES = {"train": 4000, "test": 1000}
+# the client scheduler's paths (phase 10): depth cut to 30 train images a client (3 steps a
+# client, a local epoch; 5 until phase 17 and 4 until phase 17's grouped runs needed the
+# time), 1,000 test images and one evaluation a run; full widths
+SCENARIO_SIZES = {"train": 3000, "test": 1000}
 SCENARIO_ROUNDS = 3  # a superstep of two and the clamped tail of one
 SCENARIO_MIN_FRAC = 0.5
 SCENARIO_FAIL = 0.1
@@ -609,7 +624,9 @@ KERNEL_OF = {"bn_fwd": "bn_fwd_kernel", "bn_bwd": "bn_bwd_kernel",
              "quant_pack": "quant_pack", "bn_sync_stats": "bn_sync_stats_kernel",
              "bn_sync_apply": "bn_sync_apply_kernel",
              "bn_sync_bwd_reduce": "bn_sync_bwd_reduce_kernel",
-             "bn_sync_bwd_apply": "bn_sync_bwd_apply_kernel"}
+             "bn_sync_bwd_apply": "bn_sync_bwd_apply_kernel",
+             "bn_sync_stats_batched": "bn_sync_stats_batched_kernel",
+             "bn_sync_bwd_apply_batched": "bn_sync_bwd_apply_batched_kernel"}
 
 
 def traced_kernels(prof) -> dict:
@@ -2386,7 +2403,7 @@ def grouped_lm_path(torch, counters, out_dir: str):
                                    ("loss", "perplexity", "Global-Perplexity")):
         raise AssertionError(f"grouped LM path: launches {launches} (expected {want}), {r}")
     mask_row_kept(torch, result["params"])
-    return launches
+    return launches, flat_params(result["params"])
 
 
 
@@ -4704,14 +4721,15 @@ def gmesh_rank_main(torch, out_dir: str, backend: str) -> None:
     ``slices`` with ``strict_placement``, each rank's trained levels
     recorded; (d) the entry under ``CODEC_MAP`` over ``GMESH_MAP_ROUNDS``
     rounds, uninterrupted, cut after one superstep and resumed; each
-    payload's all-reduce timed; (e) the grouped slices probe's rank, which
-    leaves the group.  Writes each run's params as ``<run>_rank<r>.npy``
-    and ``gmesh_rank<r>.json``."""
+    payload's all-reduce timed; the grouped LM entry's one round (phase
+    7's flags); (e) the grouped slices probe's rank, which leaves the
+    group.  Writes each run's params as ``<run>_rank<r>.npy`` and
+    ``gmesh_rank<r>.json``."""
     import hashlib
 
     import numpy as np
 
-    from heterofl_tpu_torch.entry import train_classifier_fed
+    from heterofl_tpu_torch.entry import train_classifier_fed, train_transformer_fed
     from heterofl_tpu_torch.ops import fused_norm, fused_update, quant
     from heterofl_tpu_torch.parallel import mesh as M
     from heterofl_tpu_torch.parallel import pod
@@ -4790,6 +4808,17 @@ def gmesh_rank_main(torch, out_dir: str, backend: str) -> None:
                                  rounds, HEADLINE, "--resume_mode", str(resume)))
     finally:
         GroupedRoundEngine.level_step = level_step
+    # the grouped LM entry, one round (phase 7's flags): its one client on rank 0
+    M.reset_counts()
+    res, secs, launches, _ = counted_run(
+        torch, counters, train_transformer_fed.main,
+        lm_argv(os.path.join(out_dir, "entry", "grouped_lm"), 1, "--strategy", "grouped"),
+        f"grouped mesh rank {rank}: the grouped LM entry")
+    np.save(os.path.join(out_dir, f"grouped_lm_rank{rank}.npy"), flat_params(res["params"]))
+    out["grouped_lm"] = {"seconds": secs, "launches": launches,
+                         "collectives": dict(M.COLLECTIVES),
+                         "loss": [h["loss"] for h in res["history"]]}
+    del res
     timing = {}
     for name, tensors in gmesh_payloads(torch, mesh.device).items():
         nbytes = sum(t.numel() * t.element_size() for t in tensors)
@@ -4804,7 +4833,7 @@ def gmesh_rank_main(torch, out_dir: str, backend: str) -> None:
         json.dump(out, f)
 
 
-def gmesh_ranks_check(torch, out_dir: str, plain_flat: dict) -> dict:
+def gmesh_ranks_check(torch, out_dir: str, plain_flat: dict, lm_one_rank) -> dict:
     """Phase 16b-f: ``MESH_RANKS`` ranks on the card (gloo sharing one GPU;
     NCCL across two where the machine has them), each running
     :func:`gmesh_rank_main`; then the probe alone in this process.  Holds
@@ -4813,8 +4842,10 @@ def gmesh_ranks_check(torch, out_dir: str, plain_flat: dict) -> dict:
     on each rank, each rank's batched kernels (and no one-client kernel),
     under slices each rank training only its own level, the map's resumed
     run equal to the uninterrupted one bit for bit with residual rows
-    apart, and the probe as ``pod.compare_probes`` does -> numbers and each
-    rank's launches."""
+    apart, the grouped LM entry's round (level a on rank 0, rank 1's block
+    empty) within ``RANKS_ATOL`` of phase 7's one-rank round
+    (``lm_one_rank``) with 3b and no BN kernel launched, and the probe as
+    ``pod.compare_probes`` does -> numbers and each rank's launches."""
     import numpy as np
 
     from heterofl_tpu_torch.parallel import pod
@@ -4868,6 +4899,26 @@ def gmesh_ranks_check(torch, out_dir: str, plain_flat: dict) -> dict:
     span = ranks[0]["span_superstep"]
     say(f"grouped mesh: span superstep on rank 0: launch counters {span['launches']}, the "
         f"profiler trace's kernels {span['traced']}")
+    lm_flats = [np.load(os.path.join(out_dir, f"grouped_lm_rank{r}.npy"))
+                for r in range(MESH_RANKS)]
+    d_lm = float(np.max(np.abs(lm_flats[0].astype(np.float64) - lm_one_rank)))
+    lm_runs = [rk["grouped_lm"] for rk in ranks]
+    nums["grouped_lm"] = {"vs_one_rank": d_lm, "loss": [r["loss"] for r in lm_runs],
+                          "seconds": [r["seconds"] for r in lm_runs],
+                          "collectives": [r["collectives"] for r in lm_runs]}
+    say(f"grouped mesh: the grouped LM entry's round at {MESH_RANKS} {backend} ranks: ranks "
+        f"equal {all(np.array_equal(f, lm_flats[0]) for f in lm_flats)}, against phase 7's "
+        f"one-rank round {d_lm:.3e} (tolerance {pod.RANKS_ATOL:g}); {json.dumps(nums['grouped_lm'])}")
+    for rk, rec in zip(ranks, lm_runs):
+        launches[f"gmesh_grouped_lm_rank{rk['rank']}"] = n = rec["launches"]
+        if any(n[k] for k in ("bn_fwd", "bn_bwd", "bn_fwd_batched", "bn_bwd_batched",
+                              "fused_sgd", "quant_pack")) or \
+                (n["fused_sgd_batched"] > 0) != (rk["rank"] == 0) or \
+                rec["collectives"]["all_reduce"] < 1:
+            bad.append(f"grouped LM rank {rk['rank']}: launches {n}, {rec['collectives']}")
+    if not (all(np.array_equal(f, lm_flats[0]) for f in lm_flats) and d_lm <= pod.RANKS_ATOL
+            and np.isfinite(lm_flats[0]).all()):
+        bad.append(f"grouped LM at {MESH_RANKS} ranks: {nums['grouped_lm']}")
     levels = [rk["slices_superstep"]["trained_levels"] for rk in ranks]
     if levels != [[1.0], [0.5]]:
         bad.append(f"slices: the ranks trained levels {levels}, not [[1.0], [0.5]]")
@@ -4916,8 +4967,10 @@ def gmesh_ranks_check(torch, out_dir: str, plain_flat: dict) -> dict:
     return {"nums": nums, "launches": launches}
 
 
-def gmesh_phase(torch, counters, out_dir: str):
-    """Phase 16 (the module docstring) -> ({path: launches}, numbers)."""
+def gmesh_phase(torch, counters, out_dir: str, lm_one_rank):
+    """Phase 16 (the module docstring); ``lm_one_rank`` phase 7's one-rank
+    grouped LM entry round's flat params, which phase 16's two ranks hold
+    theirs against -> ({path: launches}, numbers)."""
     import torch.distributed as dist
 
     from heterofl_tpu_torch.entry import train_classifier_fed
@@ -4972,9 +5025,12 @@ def gmesh_phase(torch, counters, out_dir: str):
                 else:
                     os.environ[v] = old
         plain_flat = {w: flat_params(r["params"]) for w, r in plain.items()}
+        # phase 17b holds its grouped (1, 2) runs against these one-rank runs
+        nums["one_rank"] = {w: (plain_flat[w], [h["loss"] for h in plain[w]["history"]])
+                            for w in ("k1_dense", "superstep_dense")}
         del plain
         torch.cuda.empty_cache()
-        two = gmesh_ranks_check(torch, os.path.join(out_dir, "ranks"), plain_flat)
+        two = gmesh_ranks_check(torch, os.path.join(out_dir, "ranks"), plain_flat, lm_one_rank)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
     launches.update(two["launches"])
@@ -4988,6 +5044,13 @@ def gmesh_phase(torch, counters, out_dir: str):
 SYNC_KERNELS = ("bn_sync_stats", "bn_sync_apply", "bn_sync_bwd_reduce", "bn_sync_bwd_apply")
 #: phase 17a's batches: a data rank's half of the headline's batch of 10, and the whole
 SYNC_BATCHES = (5, 10)
+#: phase 17a's batched pair (rows 1bs/2bs, the grouped engine on the data axis):
+#: the batched direction's four kernels, the batch, the (rate, G) held and timed
+SYNC_BATCHED_KERNELS = ("bn_sync_stats_batched", "bn_sync_apply", "bn_sync_bwd_reduce",
+                        "bn_sync_bwd_apply_batched")
+SYNC_BATCHED_BATCH = 5
+SYNC_BATCHED_HELD = ((1.0, 2), (0.0625, 2), (0.25, 3))
+SYNC_BATCHED_TIMED = ((1.0, 2), (0.0625, 2))
 #: kernel against plain: (atol, rtol) of y and dx; the relative error of the
 #: channel sums (the same float32 sums over M rows in another order)
 TOL_SYNC = {"y": (1e-4, 1e-4), "dx": (1e-4, 1e-4), "sums_rel": 1e-5}
@@ -4995,6 +5058,15 @@ TOL_SYNC = {"y": (1e-4, 1e-4), "dx": (1e-4, 1e-4), "sums_rel": 1e-5}
 DATA_MESH = {"clients": 1, "data": 2}
 DATA_RUNS = (("k1_dense", "dense", 1), ("k1_int8", "int8", 1),
              ("superstep_dense", "dense", MESH_ROUNDS))
+#: phase 17b's grouped runs at (1, 2): (name, codec, K, phase 16's one-rank run)
+DATA_GROUPED_RUNS = (("grouped_k1_dense", "dense", 1, "k1_dense"),
+                     ("grouped_superstep_dense", "dense", MESH_ROUNDS, "superstep_dense"))
+#: the kernels of the grouped engine on the data axis (1bs/2bs and 3b), and
+#: those it must not launch (the one-client pair's own, 1b/2b)
+GROUPED_DATA_KERNELS = ("bn_sync_stats_batched", "bn_sync_apply", "bn_sync_bwd_reduce",
+                        "bn_sync_bwd_apply_batched", "fused_sgd_batched")
+GROUPED_DATA_NOT = ("bn_sync_stats", "bn_sync_bwd_apply", "bn_fwd_batched", "bn_bwd_batched",
+                    "bn_fwd", "bn_bwd", "fused_sgd")
 DATA_RANK_TIMEOUT = 300
 #: the (1, 2) headline against one rank, max |params| difference: each BN
 #: site's moments are the same one-pass sums in another order (the split
@@ -5063,6 +5135,16 @@ def sync_bn_check(torch, fused_norm, gen, M: int, C: int, P: int):
     return (x2, w, g, b, dy, loc_p, st_p, r_p), err
 
 
+def sync_times(kern, plain, lib, nbytes: int, nops: int) -> dict:
+    """One synchronised kernel's numbers at one shape: its call and device
+    ms (CUDA events; CUDA-graph replay), its plain version's ms, the aten
+    yardstick's call and device ms, and its bound from the least bytes and
+    operations."""
+    return {"ms": time_ms(kern), "device_ms": graph_ms(kern), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(lib), "library_device_ms": graph_ms(lib),
+            "bound_ms": max(nbytes / BW, nops / F32) * 1e3, "bytes": nbytes, "ops": nops}
+
+
 def sync_bn_phase(torch, fused_norm) -> dict:
     """Phase 17a: the four synchronised kernels held against their plain
     versions at the headline ResNet-18's BN shapes at batch 5 (a data
@@ -5072,7 +5154,7 @@ def sync_bn_phase(torch, fused_norm) -> dict:
     SyncBatchNorm, the byte or operation bound), the launch counters put
     back after, so the main path's counts start from 0."""
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(17)
-    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")
     tot = {k: {"err": 0.0} for k in SYNC_KERNELS}
     for batch in SYNC_BATCHES:
         for k in SYNC_KERNELS:
@@ -5111,13 +5193,12 @@ def sync_bn_phase(torch, fused_norm) -> dict:
                       "bn_sync_bwd_apply": 4 * (3 * M * C + batch + 6 * C)}
             nops = {"bn_sync_stats": 6 * M * C, "bn_sync_apply": 4 * M * C,
                     "bn_sync_bwd_reduce": 5 * M * C, "bn_sync_bwd_apply": 10 * M * C}
-            for k, (kern, plain, lib) in calls.items():
-                t = {"ms": time_ms(kern), "device_ms": graph_ms(kern),
-                     "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
-                     "bound_ms": max(nbytes[k] / BW, nops[k] / F32) * 1e3}
+            for k, fns in calls.items():
+                t = sync_times(*fns, nbytes[k], nops[k])
                 say(f"  {k} [{M}, {C}] x{sites}: call {t['ms'] * 1e3:.2f} us, device "
                     f"{t['device_ms'] * 1e3:.2f} us (plain {t['plain_ms'] * 1e3:.2f}, aten "
-                    f"{t['library_ms'] * 1e3:.2f}); bound {t['bound_ms'] * 1e3:.2f} us")
+                    f"{t['library_ms'] * 1e3:.2f}, aten device "
+                    f"{t['library_device_ms'] * 1e3:.2f}); bound {t['bound_ms'] * 1e3:.2f} us")
                 for key in keys:
                     tot[k][f"b{batch}_{key}"] += sites * t[key]
                 tot[k][f"b{batch}_bytes"] += sites * nbytes[k]
@@ -5125,11 +5206,156 @@ def sync_bn_phase(torch, fused_norm) -> dict:
         for k, r in tot.items():
             say(f"{k}, a training step at batch {batch} ({BN_SITES} sites): call "
                 f"{r[f'b{batch}_ms']:.4f} ms, device {r[f'b{batch}_device_ms']:.4f} ms, plain "
-                f"{r[f'b{batch}_plain_ms']:.4f} ms, aten {r[f'b{batch}_library_ms']:.4f} ms; "
-                f"bound {r[f'b{batch}_bound_ms']:.4f} ms; max abs err {r['err']:.3e}")
+                f"{r[f'b{batch}_plain_ms']:.4f} ms, aten {r[f'b{batch}_library_ms']:.4f} ms "
+                f"(device {r[f'b{batch}_library_device_ms']:.4f} ms); bound "
+                f"{r[f'b{batch}_bound_ms']:.4f} ms; max abs err {r['err']:.3e}")
+    tot.update(sync_bn_batched_phase(torch, fused_norm, gen))
     for k in fused_norm.SYNC_LAUNCHES:
         fused_norm.SYNC_LAUNCHES[k] = 0
     return tot
+
+
+def sync_bn_batched_check(torch, fused_norm, gen, M: int, Cg: int, P: int, G: int):
+    """The batched synchronised pair (``bn_sync_stats_batched``,
+    ``bn_sync_bwd_apply_batched``) and the two kernels it shares with the
+    one-client pair (``bn_sync_apply``, ``bn_sync_bwd_reduce``) on G
+    clients' ``[M, G * Cg]`` columns against their plain versions (a
+    zero-weight sample in the last client), each kernel's two calls equal
+    bit for bit -> (inputs, max abs error by kernel)."""
+    C = G * Cg
+    x2 = torch.randn(M, C, generator=gen, device="cuda") * 2 + 0.5
+    w = torch.ones(G, M // P, device="cuda")
+    w[-1, -1] = 0.0
+    if G > 2:
+        w[0, 0] = 0.0
+    g = torch.randn(C, generator=gen, device="cuda")
+    b = torch.randn(C, generator=gen, device="cuda")
+    dy = torch.randn(M, C, generator=gen, device="cuda")
+    err = {}
+
+    def rel(what, a, bb):
+        e = float((a - bb).abs().max())
+        scale = float(bb.abs().max())
+        if not e <= TOL_SYNC["sums_rel"] * max(scale, 1e-30):
+            raise AssertionError(f"{what} [{M}, {G} x {Cg}]: {e:.3e} against {scale:.3e} "
+                                 f"(relative {TOL_SYNC['sums_rel']})")
+        return e
+
+    def twice(what, fn):
+        a, bb = fn(), fn()
+        if not same_bits(torch, a, bb):
+            raise AssertionError(f"{what} [{M}, {G} x {Cg}]: two calls differ")
+        return a
+
+    loc_p = fused_norm.bn_sync_stats_batched_plain(x2, w, P)
+    err["bn_sync_stats_batched"] = rel("bn_sync_stats_batched", twice(
+        "bn_sync_stats_batched", lambda: fused_norm.bn_sync_stats_batched_cuda(x2, w, P)), loc_p)
+    y_p, st_p = fused_norm.bn_sync_apply_plain(x2, g, b, loc_p)
+    y_k, st_k = fused_norm.bn_sync_apply_cuda(x2, g, b, loc_p)
+    err["bn_sync_apply"] = max(check_close(f"batched bn_sync_apply y [{M}, {G} x {Cg}]", y_k,
+                                           y_p, *TOL_SYNC["y"]),
+                               check_close(f"batched bn_sync_apply stats [{M}, {G} x {Cg}]",
+                                           st_k, st_p, *TOL_SYNC["y"]))
+    r_p = fused_norm.bn_sync_bwd_reduce_plain(x2, dy, st_p)
+    err["bn_sync_bwd_reduce"] = rel("batched bn_sync_bwd_reduce",
+                                    fused_norm.bn_sync_bwd_reduce_cuda(x2, dy, st_p), r_p)
+    dx_p = fused_norm.bn_sync_bwd_apply_batched_plain(x2, w, P, g, dy, st_p, r_p)
+    err["bn_sync_bwd_apply_batched"] = check_close(
+        f"bn_sync_bwd_apply_batched dx [{M}, {G} x {Cg}]",
+        twice("bn_sync_bwd_apply_batched", lambda: fused_norm.bn_sync_bwd_apply_batched_cuda(
+            x2, w, P, g, dy, st_p, r_p)), dx_p, *TOL_SYNC["dx"])
+    return (x2, w, g, b, dy, loc_p, st_p, r_p), err
+
+
+def sync_bn_batched_phase(torch, fused_norm, gen) -> dict:
+    """Phase 17a's batched pair (rows 1bs/2bs): at the headline ResNet-18's
+    BN shapes at batch 5, levels a and e at G = 2 and level c at G = 3 (a
+    zero-weight sample), the four kernels of the batched direction held
+    against their plain versions (:func:`sync_bn_batched_check`); at G = 1
+    each batched kernel against its one-client twin bit for bit (the same
+    plan and order of sums); then at ``SYNC_BATCHED_TIMED`` each kernel
+    timed by call and by CUDA-graph replay beside its plain version, its
+    byte (or operation) bound and the aten op of PyTorch's SyncBatchNorm
+    doing its work (call and device) -> ``{kernel: {"err", "<level>_<key>"}}``
+    (a training step's 17 sites)."""
+    batch = SYNC_BATCHED_BATCH
+    out = {k: {"err": 0.0} for k in SYNC_BATCHED_KERNELS}
+    for M10, C, _ in BN_SHAPES:
+        M, P = M10 * batch // BATCH, M10 // BATCH
+        for rate, G in SYNC_BATCHED_HELD:
+            _, err = sync_bn_batched_check(torch, fused_norm, gen, M, level_width(C, rate), P, G)
+            for k, e in err.items():
+                out[k]["err"] = max(out[k]["err"], e)
+        # G = 1: the batched kernels are the one-client ones bit for bit
+        x2 = torch.randn(M, C, generator=gen, device="cuda")
+        w = torch.ones(M // P, device="cuda")
+        w[-1] = 0.0
+        g, dy = torch.randn(C, generator=gen, device="cuda"), torch.randn(M, C, generator=gen,
+                                                                           device="cuda")
+        one = fused_norm.bn_sync_stats_cuda(x2, w, P)
+        bat = fused_norm.bn_sync_stats_batched_cuda(x2, w[None], P)
+        _, st = fused_norm.bn_sync_apply_cuda(x2, g, g, one)
+        red = fused_norm.bn_sync_bwd_reduce_cuda(x2, dy, st)
+        if not (same_bits(torch, one, bat) and same_bits(
+                torch, fused_norm.bn_sync_bwd_apply_cuda(x2, w, P, g, dy, st, red),
+                fused_norm.bn_sync_bwd_apply_batched_cuda(x2, w[None], P, g, dy, st, red))):
+            raise AssertionError(f"batched sync pair at G = 1 [{M}, {C}]: not the one-client "
+                                 f"kernels bit for bit")
+    say(f"batched sync pair: at G = 1 equal to the one-client kernels bit for bit at the "
+        f"{len(BN_SHAPES)} shapes; max abs err against plain "
+        f"{ {k: r['err'] for k, r in out.items()} }")
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+            "bytes", "ops")
+    for rate, G in SYNC_BATCHED_TIMED:
+        lvl = "a" if rate == 1.0 else "e"
+        for k in out:
+            out[k].update({f"{lvl}_{key}": 0.0 for key in keys})
+        for M10, C, sites in BN_SHAPES:
+            M, P, Cg = M10 * batch // BATCH, M10 // BATCH, level_width(C, rate)
+            (x2, w, g, b, dy, loc, st, red), _ = sync_bn_batched_check(
+                torch, fused_norm, gen, M, Cg, P, G)
+            CC = G * Cg
+            x4 = x2.view(batch, 1, P, CC).permute(0, 3, 1, 2)
+            dy4 = dy.view(batch, 1, P, CC).permute(0, 3, 1, 2)
+            mean, inv = st[0].contiguous(), st[1].contiguous()
+            count = torch.full((1,), M, dtype=torch.int32, device="cuda")
+            calls = {
+                "bn_sync_stats_batched": (
+                    lambda: fused_norm.bn_sync_stats_batched_cuda(x2, w, P),
+                    lambda: fused_norm.bn_sync_stats_batched_plain(x2, w, P),
+                    lambda: torch.batch_norm_stats(x4, 1e-5)),
+                "bn_sync_apply": (lambda: fused_norm.bn_sync_apply_cuda(x2, g, b, loc),
+                                  lambda: fused_norm.bn_sync_apply_plain(x2, g, b, loc),
+                                  lambda: torch.batch_norm_elemt(x4, g, b, mean, inv, 1e-5)),
+                "bn_sync_bwd_reduce": (
+                    lambda: fused_norm.bn_sync_bwd_reduce_cuda(x2, dy, st),
+                    lambda: fused_norm.bn_sync_bwd_reduce_plain(x2, dy, st),
+                    lambda: torch.batch_norm_backward_reduce(dy4, x4, mean, inv, g, True, True,
+                                                             True)),
+                "bn_sync_bwd_apply_batched": (
+                    lambda: fused_norm.bn_sync_bwd_apply_batched_cuda(x2, w, P, g, dy, st, red),
+                    lambda: fused_norm.bn_sync_bwd_apply_batched_plain(x2, w, P, g, dy, st, red),
+                    lambda: torch.batch_norm_backward_elemt(dy4, x4, mean, inv, g, red[0],
+                                                            red[1], count)),
+            }
+            # least bytes (each input read once, each output written once) and operations
+            nbytes = {"bn_sync_stats_batched": 4 * (M * CC + G * batch + 3 * CC),
+                      "bn_sync_apply": 4 * (2 * M * CC + 8 * CC),
+                      "bn_sync_bwd_reduce": 4 * (2 * M * CC + 5 * CC),
+                      "bn_sync_bwd_apply_batched": 4 * (3 * M * CC + G * batch + 6 * CC)}
+            nops = {"bn_sync_stats_batched": 6 * M * CC, "bn_sync_apply": 4 * M * CC,
+                    "bn_sync_bwd_reduce": 5 * M * CC, "bn_sync_bwd_apply_batched": 10 * M * CC}
+            for k, fns in calls.items():
+                t = sync_times(*fns, nbytes[k], nops[k])
+                for key in keys:
+                    out[k][f"{lvl}_{key}"] += sites * t[key]
+        for k, r in out.items():
+            say(f"{k}, batched, level {lvl} at G {G}, a training step at batch {batch} "
+                f"({BN_SITES} sites): call {r[f'{lvl}_ms']:.4f} ms, device "
+                f"{r[f'{lvl}_device_ms']:.4f} ms, plain {r[f'{lvl}_plain_ms']:.4f} ms, aten "
+                f"{r[f'{lvl}_library_ms']:.4f} ms (device {r[f'{lvl}_library_device_ms']:.4f} "
+                f"ms); bound {r[f'{lvl}_bound_ms']:.4f} ms")
+    return {f"batched_{k}" if k in SYNC_KERNELS else k: r for k, r in out.items()}
 
 
 def data_argv(out_dir: str, codec: str, k: int):
@@ -5147,13 +5373,14 @@ def data_lm_cfg():
 def data_lm_runs(torch, mesh, dense: bool) -> dict:
     """Phase 17c on ``mesh``: one masked LM round of ``DATA_LM_USERS`` on
     their first ``DATA_LM_TOKENS`` tokens (draws from each client's
-    generator), then ``SeqParallelLM.forward`` and one ``train_step`` on a
-    ``[4, bptt]`` batch -- the ring over the mesh's data axis, or
-    (``dense``, one rank) the model's dense attention -> params and
-    losses, host arrays."""
+    generator), the same round through the grouped engine (the two users
+    one level-a batch of G = 2), then ``SeqParallelLM.forward`` and one
+    ``train_step`` on a ``[4, bptt]`` batch -- the ring over the mesh's data
+    axis, or (``dense``, one rank) the model's dense attention -> params
+    and losses, host arrays."""
     from heterofl_tpu_torch.data import batchify, fetch_dataset
     from heterofl_tpu_torch.models import make_model
-    from heterofl_tpu_torch.parallel import RoundEngine
+    from heterofl_tpu_torch.parallel import GroupedRoundEngine, RoundEngine
     from heterofl_tpu_torch.parallel.long_context import SeqParallelLM
 
     cfg = data_lm_cfg()
@@ -5166,6 +5393,8 @@ def data_lm_runs(torch, mesh, dense: bool) -> dict:
     eng = RoundEngine(model, cfg, dev, mesh)
     P = eng.flatten(model.params())
     new, ms = eng.train_round(P, cfg["lr"], list(DATA_LM_USERS), (rows, lm), 0)
+    geng = GroupedRoundEngine(model, dict(cfg, strategy="grouped"), dev, mesh)
+    g_new, g_ms = geng.train_round(P, cfg["lr"], list(DATA_LM_USERS), (rows, lm), 0)
     seq = SeqParallelLM(cfg, mesh, dense=dense)
     params = seq.init(torch.Generator().manual_seed(1))
     labels = rows[:4, 0, :cfg["bptt"]].contiguous()
@@ -5174,6 +5403,8 @@ def data_lm_runs(torch, mesh, dense: bool) -> dict:
                                       torch.Generator(device=dev).manual_seed(6))
     flat = torch.cat([p2[k].reshape(-1) for k in sorted(p2)])
     return {"round": new.cpu().numpy(), "loss_sum": ms["loss_sum"].cpu().numpy().tolist(),
+            "grouped_round": g_new.cpu().numpy(),
+            "grouped_loss_sum": g_ms["loss_sum"].cpu().numpy().tolist(),
             "seq_loss": float(loss), "seq_step_loss": float(step_loss),
             "seq_params": flat.detach().cpu().numpy()}
 
@@ -5182,12 +5413,13 @@ def data_rank_main(torch, out_dir: str, backend: str) -> None:
     """One rank of phase 17b/c (``chip_smoke.py --data-rank OUT_DIR``,
     started with torchrun's variables by ``parallel/pod.py::_spawn``): joins
     the ``backend`` group on the card and runs the headline entry at each
-    of ``DATA_RUNS`` on the ``(1, 2)`` mesh, each run's launches and
-    collectives counted from 0 -- the first on rank 0 inside a profiler
-    trace whose hand-written kernels must equal the counters (taken again,
-    on every rank, up to ``TRACE_TRIES``) -- then phase 17c's LM round and
-    ``SeqParallelLM``.  Writes each run's params as ``<run>_rank<r>.npy``
-    and ``data_rank<r>.json``."""
+    of ``DATA_RUNS`` and, with ``--strategy grouped``, ``DATA_GROUPED_RUNS``
+    on the ``(1, 2)`` mesh, each run's launches and collectives counted
+    from 0 -- each engine's first on rank 0 inside a profiler trace whose
+    hand-written kernels must equal the counters (taken again, on every
+    rank, up to ``TRACE_TRIES``) -- then phase 17c's LM rounds (masked and
+    grouped) and ``SeqParallelLM``.  Writes each run's params as
+    ``<run>_rank<r>.npy`` and ``data_rank<r>.json``."""
     import hashlib
 
     import numpy as np
@@ -5205,11 +5437,14 @@ def data_rank_main(torch, out_dir: str, backend: str) -> None:
     counters = (fused_norm.LAUNCHES, fused_norm.SYNC_LAUNCHES, fused_update.LAUNCHES,
                 quant.LAUNCHES)
     out = {"rank": rank, "backend": mesh.backend}
-    for n, (what, codec, k) in enumerate(DATA_RUNS):
-        traced = n == 0
+    runs = [(what, codec, k, ()) for what, codec, k in DATA_RUNS] + \
+        [(what, codec, k, ("--strategy", "grouped")) for what, codec, k, _ in DATA_GROUPED_RUNS]
+    for what, codec, k, extra in runs:
+        traced = what in ("k1_dense", "grouped_k1_dense")
         for attempt in range(1, TRACE_TRIES + 1):
             M.reset_counts()
-            argv = data_argv(os.path.join(out_dir, "entry", f"{what}_{attempt}"), codec, k)
+            argv = data_argv(os.path.join(out_dir, "entry", f"{what}_{attempt}"), codec, k) + \
+                list(extra)
             holder = {}
 
             def go():
@@ -5244,9 +5479,10 @@ def data_rank_main(torch, out_dir: str, backend: str) -> None:
     lm = data_lm_runs(torch, mesh, dense=False)
     torch.cuda.synchronize()
     out["lm"] = {"seconds": time.time() - t0, "data_collectives": dict(M.DATA_COLLECTIVES),
-                 "loss_sum": lm["loss_sum"], "seq_loss": lm["seq_loss"],
-                 "seq_step_loss": lm["seq_step_loss"]}
+                 "loss_sum": lm["loss_sum"], "grouped_loss_sum": lm["grouped_loss_sum"],
+                 "seq_loss": lm["seq_loss"], "seq_step_loss": lm["seq_step_loss"]}
     np.save(os.path.join(out_dir, f"lm_round_rank{rank}.npy"), lm["round"])
+    np.save(os.path.join(out_dir, f"lm_grouped_rank{rank}.npy"), lm["grouped_round"])
     np.save(os.path.join(out_dir, f"lm_seq_rank{rank}.npy"), lm["seq_params"])
     out["t_enter"], out["t_exit"] = t_enter, time.time()
     with open(os.path.join(out_dir, f"data_rank{rank}.json"), "w") as f:
@@ -5254,9 +5490,10 @@ def data_rank_main(torch, out_dir: str, backend: str) -> None:
     M.shutdown_distributed()
 
 
-def data_phase(torch, counters, out_dir: str, one_rank=None):
+def data_phase(torch, counters, out_dir: str, one_rank=None, grouped_one_rank=None):
     """Phase 17b-d (the module docstring): the one-rank runs (phase 15's
-    ``one_rank``, ``{mesh_name: (flat params, losses)}``, the same entry
+    ``one_rank``, ``{mesh_name: (flat params, losses)}``, and phase 16's
+    ``grouped_one_rank``, ``{name: (flat params, losses)}``, the same entry
     runs without a process group; made here where not given), the two
     ranks spawned (gloo sharing the card; NCCL across two GPUs where the
     machine has them) -> ({path: launches}, numbers)."""
@@ -5283,6 +5520,16 @@ def data_phase(torch, counters, out_dir: str, one_rank=None):
                 f"data mesh: {what} on one rank")
             plain[what] = (flat_params(res["params"]), [h["loss"] for h in res["history"]])
             del res
+        for what, codec, k, one in DATA_GROUPED_RUNS:
+            if grouped_one_rank is not None:
+                plain[what] = grouped_one_rank[one]
+                continue
+            res, _, launches[f"data_one_rank_{what}"], _ = counted_run(
+                torch, counters, train_classifier_fed.main,
+                mesh_argv(os.path.join(out_dir, "one", what), codec, k) +
+                ["--strategy", "grouped"], f"data mesh: {what} on one rank")
+            plain[what] = (flat_params(res["params"]), [h["loss"] for h in res["history"]])
+            del res
         one_lm = data_lm_runs(torch, M.single_mesh(torch.device("cuda")), dense=True)
         torch.cuda.empty_cache()
         say(f"data mesh: the one-rank runs took {time.time() - t0:.1f} s")
@@ -5307,7 +5554,8 @@ def data_phase(torch, counters, out_dir: str, one_rank=None):
         f"and left their work {[t0 + nums['spawn_s'] - r['t_exit'] for r in ranks]} s before "
         f"its end")
     per = 1 + 2 * BN_SITES
-    for what, codec, k in DATA_RUNS:
+    grouped = {what for what, _, _, _ in DATA_GROUPED_RUNS}
+    for what, codec, k in DATA_RUNS + tuple(g[:3] for g in DATA_GROUPED_RUNS):
         flats = [np.load(os.path.join(out_dir, f"{what}_rank{r}.npy")) for r in range(2)]
         equal = np.array_equal(flats[0], flats[1]) and \
             ranks[0][what]["loss"] == ranks[1][what]["loss"] and \
@@ -5331,11 +5579,19 @@ def data_phase(torch, counters, out_dir: str, one_rank=None):
         for rk in ranks:
             n, dc = rk[what]["launches"], rk[what]["data_collectives"]
             launches[f"data_{what}_rank{rk['rank']}"] = n
-            if min(n[kk] for kk in SYNC_KERNELS) <= 0 or n["fused_sgd"] <= 0 or \
-                    n["bn_fwd"] != 0 or (n["quant_pack"] > 0) != (codec == "int8"):
+            if what in grouped:  # 1bs/2bs and 3b: a level step a fused_sgd_batched call
+                wrong = min(n[kk] for kk in GROUPED_DATA_KERNELS) <= 0 or \
+                    any(n[kk] for kk in GROUPED_DATA_NOT) or n["quant_pack"] > 0
+                steps = n["fused_sgd_batched"]
+            else:
+                wrong = min(n[kk] for kk in SYNC_KERNELS) <= 0 or n["fused_sgd"] <= 0 or \
+                    n["bn_fwd"] != 0 or (n["quant_pack"] > 0) != (codec == "int8") or \
+                    n["bn_sync_stats_batched"] or n["bn_sync_bwd_apply_batched"]
+                steps = n["fused_sgd"]
+            if wrong:
                 bad.append(f"rank {rk['rank']} launches {n}")
             if not mesh_collectives_ok(rk[what]["collectives"], k) or \
-                    dc["all_reduce"] % per or dc["all_reduce"] != n["fused_sgd"] * per:
+                    dc["all_reduce"] % per or dc["all_reduce"] != steps * per:
                 bad.append(f"rank {rk['rank']} collectives {rk[what]['collectives']}, data {dc}")
         traced = ranks[0][what]["traced"]
         if traced is not None:  # each rank's counters against rank 0's trace, by kernel name
@@ -5350,21 +5606,27 @@ def data_phase(torch, counters, out_dir: str, one_rank=None):
             raise AssertionError(f"data mesh: {what}: {bad}")
     # 17c: the LM round and SeqParallelLM against one rank (dense attention)
     lm_flats = [np.load(os.path.join(out_dir, f"lm_round_rank{r}.npy")) for r in range(2)]
+    glm_flats = [np.load(os.path.join(out_dir, f"lm_grouped_rank{r}.npy")) for r in range(2)]
     seq_flats = [np.load(os.path.join(out_dir, f"lm_seq_rank{r}.npy")) for r in range(2)]
     d_round = float(np.max(np.abs(lm_flats[0].astype(np.float64) - one_lm["round"])))
+    d_grouped = float(np.max(np.abs(glm_flats[0].astype(np.float64) - one_lm["grouped_round"])))
     d_seq = float(np.max(np.abs(seq_flats[0].astype(np.float64) - one_lm["seq_params"])))
     l0 = ranks[0]["lm"]
     rel = max(abs(l0["seq_loss"] - one_lm["seq_loss"]) / abs(one_lm["seq_loss"]),
               abs(l0["seq_step_loss"] - one_lm["seq_step_loss"]) / abs(one_lm["seq_step_loss"]))
-    nums["lm"] = {"round_vs_one_rank": d_round, "seq_params_vs_dense": d_seq,
+    nums["lm"] = {"round_vs_one_rank": d_round, "grouped_round_vs_one_rank": d_grouped,
+                  "seq_params_vs_dense": d_seq,
                   "seq_loss_rel": rel, "seconds": [rk["lm"]["seconds"] for rk in ranks],
                   "data_collectives": l0["data_collectives"]}
     say(f"data mesh: the LM round at (1, 2) (ring attention) against one rank: max |params| "
-        f"{d_round:.3e}; SeqParallelLM against dense attention: loss {l0['seq_loss']:.6f} "
+        f"{d_round:.3e}; the grouped LM round (G 2 at level a): {d_grouped:.3e}, losses "
+        f"{l0['grouped_loss_sum']} (one rank {one_lm['grouped_loss_sum']}); "
+        f"SeqParallelLM against dense attention: loss {l0['seq_loss']:.6f} "
         f"({one_lm['seq_loss']:.6f}), step loss {l0['seq_step_loss']:.6f} "
         f"({one_lm['seq_step_loss']:.6f}), max |params| {d_seq:.3e} (tolerance "
         f"{TOL_DATA_LM:g}); data axis {l0['data_collectives']}")
     if not (np.array_equal(lm_flats[0], lm_flats[1]) and np.array_equal(*seq_flats)
+            and np.array_equal(*glm_flats) and d_grouped <= TOL_DATA_LM
             and d_round <= TOL_DATA_LM and d_seq <= TOL_DATA_LM and rel <= TOL_DATA_LM
             and l0["data_collectives"]["ring_shift"] > 0):
         raise AssertionError(f"data mesh: the LM at (1, 2): {nums['lm']}")
@@ -5545,7 +5807,8 @@ def main() -> int:
         by_path["emnist_gn"], t_stats, t_stats_read = emnist_path(torch, counters, data_dir, tmp)
         phases.done("EMNIST path (gn, computed statistics)")
         by_path.update(lm_phases(torch, counters, tmp, phases))
-        by_path["lm_grouped"] = grouped_lm_path(torch, counters, os.path.join(tmp, "lm_grouped"))
+        by_path["lm_grouped"], lm_grouped_flat = grouped_lm_path(
+            torch, counters, os.path.join(tmp, "lm_grouped"))
         phases.done("grouped LM round")
         graph_nums = graph_check_phase(torch, tmp, args.local_epochs)
         phases.done("CUDA graph checks: replayed draws, a replayed epoch against eager")
@@ -5654,7 +5917,9 @@ def main() -> int:
                     "round's all-reduce timed, the headline entry and the pod probe at two "
                     "ranks")
         # 16. the grouped engine on the clients mesh axis
-        gmesh_n, gmesh_nums = gmesh_phase(torch, counters, os.path.join(tmp, "gmesh"))
+        gmesh_n, gmesh_nums = gmesh_phase(torch, counters, os.path.join(tmp, "gmesh"),
+                                          lm_grouped_flat)
+        del lm_grouped_flat
         by_path.update(gmesh_n)
         phases.done("grouped mesh: the grouped headline under a one-rank NCCL group against no "
                     "group; span, slices, the map resumed and the grouped probe at two ranks")
@@ -5662,7 +5927,7 @@ def main() -> int:
         sync = sync_bn_phase(torch, fused_norm)
         phases.done("data mesh: the synchronised batch norm's four kernels held and timed")
         data_n, data_nums = data_phase(torch, counters, os.path.join(tmp, "data"),
-                                       mesh_nums.pop("one_rank"))
+                                       mesh_nums.pop("one_rank"), gmesh_nums.pop("one_rank"))
         by_path.update(data_n)
         phases.done("data mesh: the headline at (1, 2) on two ranks against one, the LM round "
                     "and SeqParallelLM against dense attention")
@@ -5765,8 +6030,34 @@ def main() -> int:
                         "bound_by": "bytes" if r["b5_bytes"] / BW >= r["b5_ops"] / F32
                         else "operations",
                         "library_ms": r["b5_library_ms"], "device_ms": r["b5_device_ms"],
+                        "library_device_ms": r["b5_library_device_ms"],
                         "batch10": {key: r[f"b10_{key}"] for key in
-                                    ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
+                                    ("ms", "device_ms", "plain_ms", "library_ms",
+                                     "library_device_ms", "bound_ms")},
+                        "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()}})
+        if name in ("bn_sync_apply", "bn_sync_bwd_reduce"):  # on the batched columns too
+            r = sync[f"batched_{name}"]
+            kernels[-1]["batched"] = {f"level_{lvl}": {key: r[f"{lvl}_{key}"] for key in (
+                "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")}
+                for lvl in ("a", "e")}
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], r["err"])
+    # 1bs/2bs: the batched pair's own kernels, launched by 17b's grouped runs
+    for name, repl in (("bn_sync_stats_batched", "heterofl_tpu/ops/layers.py:155"),
+                       ("bn_sync_bwd_apply_batched", "heterofl_tpu/ops/layers.py:166")):
+        r = sync[name]
+        n = sum(by_path[f"data_{what}_rank0"][name] for what, _, _, _ in DATA_GROUPED_RUNS)
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was never launched on the grouped data path")
+        kernels.append({"name": name, "route": "cuda", "source": "heterofl_tpu_torch/csrc/bn.cu",
+                        "replaces": repl, "launches": n, "max_abs_err": r["err"],
+                        "ms": r["a_ms"], "plain_ms": r["a_plain_ms"], "bound_ms": r["a_bound_ms"],
+                        "bound_by": "bytes" if r["a_bytes"] / BW >= r["a_ops"] / F32
+                        else "operations",
+                        "library_ms": r["a_library_ms"], "device_ms": r["a_device_ms"],
+                        "library_device_ms": r["a_library_device_ms"],
+                        "level_e": {key: r[f"e_{key}"] for key in (
+                            "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                            "bound_ms")},
                         "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()}})
     for k in kernels:
         k["replayed_launches_by_path"] = {p: n.get(k["name"], 0)
@@ -5790,7 +6081,9 @@ def main() -> int:
         f"{100 * bf16_graph['busy_share']:.1f}%")
     say(f"data mesh: (1, 2) against one rank "
         f"{[(w, r['vs_one_rank']) for w, r in data_nums['runs'].items()]}; the LM "
-        f"{data_nums['lm']}; spawn {data_nums['spawn_s']:.1f} s over {data_nums['backend']}")
+        f"{data_nums['lm']}; spawn {data_nums['spawn_s']:.1f} s over {data_nums['backend']}; "
+        f"the grouped LM at two clients ranks {gmesh_nums['grouped_lm']['vs_one_rank']:.3e} "
+        f"from one")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -57,7 +57,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -561,9 +561,6 @@ def resolve_placement_cfg(cfg: Dict[str, Any]) -> Tuple[str, str]:
 #: what the clients mesh axis does not carry yet at a world of several
 #: ranks: (the cfg's test, what it is, its ROADMAP item)
 MESH_REFUSALS = (
-    (lambda c: c.get("strategy") == "grouped" and c.get("model_name") == "transformer",
-     "strategy='grouped' with model_name='transformer'",
-     "ROADMAP Queue 1 item 5, the grouped LM on the mesh"),
     (lambda c: (c.get("client_store") or "eager") == "stream", "client_store='stream'",
      "ROADMAP Queue 1 item 5, the stream store on the mesh"),
     (lambda c: c.get("arms") is not None, "arms",
@@ -576,12 +573,9 @@ MESH_REFUSALS = (
 
 
 #: what the data axis does not carry yet: (the cfg's test, what it is, its
-#: ROADMAP item), refused at ``data > 1`` whatever the world
-DATA_REFUSALS = (
-    (lambda c: c.get("strategy") in ("grouped", "sliced"),
-     "strategy='grouped' or 'sliced'",
-     "ROADMAP Queue 1 item 5, the grouped engine on the data axis"),
-)
+#: ROADMAP item), refused at ``data > 1`` whatever the world; empty, as
+#: every engine runs on it
+DATA_REFUSALS: Tuple[Tuple[Callable[[Dict[str, Any]], bool], str, str], ...] = ()
 
 
 def resolve_mesh_cfg(cfg: Dict[str, Any], world: Optional[int] = None) -> Dict[str, int]:
@@ -592,9 +586,9 @@ def resolve_mesh_cfg(cfg: Dict[str, Any], world: Optional[int] = None) -> Dict[s
     each option the clients axis does not carry yet raises
     ``NotImplementedError`` naming its ROADMAP item: nothing silently runs
     on one rank instead.  ``data > 1`` (the data axis, ``parallel/mesh.py``)
-    refuses the grouped engine and its sliced twin likewise, and a masked
-    LM needs ``bptt % data == 0`` (the reference's ``ValueError``,
-    round_engine.py:767-769)."""
+    refuses what :data:`DATA_REFUSALS` names likewise (nothing now), and an
+    LM, masked or grouped, needs ``bptt % data == 0`` (the reference's
+    ``ValueError``, round_engine.py:767-769)."""
     spec = dict(cfg.get("mesh") or {})
     bad = sorted(set(spec) - {"clients", "data", "arms"})
     if bad:

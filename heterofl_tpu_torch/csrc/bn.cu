@@ -1177,6 +1177,59 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The batched pair (ops/fused_norm.py bn_sync_*_batched; the grouped engine
+// on the data axis, a level's G clients in the [M, G * Cg] columns): the
+// kernels above with the weight read per column, w [G, B] (B = M / P) and
+// column c of client c / Cg.  bn_sync_apply and bn_sync_bwd_reduce read no
+// weight and serve the batched columns as they are.  The same plan, the
+// same per-thread, per-warp and chunk-ordered sums: at G = 1 (Cg = C) each
+// equals its one-client twin bit for bit.
+__global__ void __launch_bounds__(kThreads)
+    bn_sync_stats_batched_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                                 int P, int B, int Cg, int M, int C, int rows, float* part,
+                                 unsigned* counter, float* out) {
+  const int c = blockIdx.x * kSyncLanes + (threadIdx.x & 31);
+  const int r0 = blockIdx.y * rows, r1 = min(M, r0 + rows);
+  float v[3] = {0.f, 0.f, 0.f};
+  if (c < C) {
+    const float* wc = w + (size_t)(c / Cg) * B;
+    for (int r = r0 + (threadIdx.x >> 5); r < r1; r += kSyncRows) {
+      const float wr = wc[r / P];
+      const float xs = wr > 0.f ? x[(size_t)r * C + c] : 0.f;
+      v[0] += xs * wr;
+      v[1] += xs * xs * wr;
+      v[2] += wr;
+    }
+  }
+  sync_reduce<3>(v, part, counter, out, C, c);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    bn_sync_bwd_apply_batched_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                                     int P, int B, int Cg, const float* __restrict__ g,
+                                     const float* __restrict__ dy,
+                                     const float* __restrict__ stats,
+                                     const float* __restrict__ glob, float* __restrict__ dx,
+                                     int M, int C, int rows) {
+  const int c = blockIdx.x * kSyncLanes + (threadIdx.x & 31);
+  if (c >= C) return;
+  const float mean = stats[c], inv = stats[C + c], n = fmaxf(stats[2 * C + c], 1e-6f);
+  const float gc = g[c];
+  const float a = inv * gc, k = inv / n, gdb = gc * glob[c], gdg = gc * glob[C + c];
+  const float* wc = w + (size_t)(c / Cg) * B;
+  const int r0 = blockIdx.y * rows, r1 = min(M, r0 + rows);
+  for (int r = r0 + (threadIdx.x >> 5); r < r1; r += kSyncRows) {
+    const size_t i = (size_t)r * C + c;
+    const float wr = wc[r / P];
+    const float xhat = (x[i] - mean) * inv;
+    dx[i] = a * dy[i] - wr * k * gdb - wr * xhat * k * gdg;
+  }
+}
+
+inline bool sync_clients_ok(int M, int C, int P, int B, int Cg) {
+  return P >= 1 && B >= 1 && Cg >= 1 && C % Cg == 0 && (long long)B * P == M;
+}
+
 inline bool sync_plan_ok(int M, int C, int rows, int chunks) {
   return M > 0 && C > 0 && rows >= 1 && chunks >= 1 && (long long)rows * chunks >= M &&
          (long long)rows * (chunks - 1) < M;
@@ -1278,6 +1331,29 @@ int hfl_bn_sync_bwd_apply(const float* x, const float* w, int P, const float* g,
   void* args[] = {&x, &w, &P, &g, &dy, &stats, &glob, &dx, &M, &C, &rows};
   return sync_launch(reinterpret_cast<const void*>(bn_sync_bwd_apply_kernel), C, chunks,
                      stream, args);
+}
+
+// The batched synchronised pair: x [M, G * Cg] of G clients, w [G, B] (B =
+// M / P), on the plan of fused_norm.bn_sync_plan(M, G * Cg).
+int hfl_bn_sync_stats_batched(const float* x, const float* w, int P, int B, int Cg, int M,
+                              int C, int rows, int chunks, float* part, unsigned* counter,
+                              float* out, void* stream) {
+  if (!sync_plan_ok(M, C, rows, chunks) || !sync_clients_ok(M, C, P, B, Cg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&x, &w, &P, &B, &Cg, &M, &C, &rows, &part, &counter, &out};
+  return sync_launch(reinterpret_cast<const void*>(bn_sync_stats_batched_kernel), C, chunks,
+                     stream, args);
+}
+
+int hfl_bn_sync_bwd_apply_batched(const float* x, const float* w, int P, int B, int Cg,
+                                  const float* g, const float* dy, const float* stats,
+                                  const float* glob, float* dx, int M, int C, int rows,
+                                  int chunks, void* stream) {
+  if (!sync_plan_ok(M, C, rows, chunks) || !sync_clients_ok(M, C, P, B, Cg))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&x, &w, &P, &B, &Cg, &g, &dy, &stats, &glob, &dx, &M, &C, &rows};
+  return sync_launch(reinterpret_cast<const void*>(bn_sync_bwd_apply_batched_kernel), C,
+                     chunks, stream, args);
 }
 
 }  // extern "C"

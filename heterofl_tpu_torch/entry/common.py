@@ -111,11 +111,12 @@ whose residual has a row a rank (``utils/checkpoint.py``,
 :func:`write_checkpoint`), and a resumed run checks that every rank
 resumed rank 0's epoch (:func:`check_multihost_resume`).  Under
 ``data_placement='sharded'`` each rank stages only its block of users'
-train shards.  The masked and grouped engines train over the mesh (the
-grouped one under either level placement; its checkpoint's header holds
-its ranks, placement and slices table, and a resume under another layout
-is refused by name, :func:`check_mesh_layout`); every rank runs the sliced
-twin whole.
+train shards.  The masked and grouped engines train over the mesh, its data axis
+included (the grouped one under either level placement; its checkpoint's
+header holds its ranks, placement and slices table, and on a data axis
+the ``(clients, data)``; a resume under another layout is refused by
+name, :func:`check_mesh_layout`); every rank runs the sliced twin whole,
+at data > 1 too.
 """
 
 from __future__ import annotations
@@ -1070,15 +1071,16 @@ class FedExperiment:
         """The grouped engine's layout over the clients axis, which its
         checkpoint's header records: the ranks, the level placement in force
         and its slices table (each level's ``[lo, hi)`` ranks); on a data
-        axis ``mesh``, the ``(clients, data)`` (None for the other engines at
-        a data axis of 1)."""
+        axis, for every engine, ``mesh``, the ``(clients, data)`` (None for
+        the other engines at a data axis of 1)."""
         eng = self.engine
+        on_data = {"mesh": [self.mesh.size, self.mesh.data_size]} \
+            if self.mesh.data_size > 1 else {}
         if not isinstance(eng, GroupedRoundEngine):
-            if self.mesh.data_size > 1:
-                return {"mesh": [self.mesh.size, self.mesh.data_size]}
-            return None
+            return on_data or None
         return {"ranks": self.mesh.size, "level_placement": eng.level_placement,
-                "slices": {f"{rate:g}": list(lh) for rate, lh in eng.slices.items()}}
+                "slices": {f"{rate:g}": list(lh) for rate, lh in eng.slices.items()},
+                **on_data}
 
     # -- the error-feedback residual in a blob: the reference's [clients,
     # slots, total] carry in its flat layout (under a per-level map, each

@@ -15,6 +15,11 @@ against the one-client kernels end to end.  Slow by design (host copies a
 client); a lossy wire codec is refused (``compress.resolve_codec_cfg``),
 and so is a schedule other than lockstep (``sched.resolve_schedule_cfg``)
 and ``client_failure_rate`` (the reference's twin ignores the rate).
+On a mesh -- several clients ranks, a data axis, or both -- every rank
+runs the whole twin on its own device with no collective, as the
+reference's ``SlicedFederation`` builds its engines with ``mesh=None``
+(heterofl_tpu/fed/sliced.py:49), so each rank's round is the one-rank
+round bit for bit.
 """
 
 from __future__ import annotations

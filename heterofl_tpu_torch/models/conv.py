@@ -98,11 +98,13 @@ class ConvNet(FedModel):
         return out, cross_entropy(out, label, sample_weight)
 
     def forward_clients(self, img, label, G: int, *, params, scaler_rate: float = 1.0,
-                        label_mask=None, sample_weight=None):
+                        label_mask=None, sample_weight=None, bn_group=None):
         """Training forward of G clients at once: ``img [B, G*C_in, H, W]``
         clients-in-channels, ``label``/``sample_weight [G, B]``,
         ``label_mask [G, classes]``, ``params`` leaves ``[G, *shape]`` ->
-        ``(scores [G, B, classes], per-client mean loss [G])``."""
+        ``(scores [G, B, classes], per-client mean loss [G])``.  ``bn_group``
+        (a mesh whose data axis splits each client's batch) synchronises the
+        BN sites over its data group, as in :meth:`forward`."""
         P = params
         x = img
         for i in range(self.n_blocks):
@@ -113,7 +115,7 @@ class ConvNet(FedModel):
             site = f"block{i}.norm"
             x = apply_norm_clients(self.norm, x, P.get(f"{site}.g"), P.get(f"{site}.b"), G,
                                    sample_weight, self.pallas_norm,
-                                   self.clients_onehot(x.shape[1] // G, G, x.device))
+                                   self.clients_onehot(x.shape[1] // G, G, x.device), bn_group)
             x = torch.relu(x)
             if i < self.n_blocks - 1:
                 x = max_pool2(x)

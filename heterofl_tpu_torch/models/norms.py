@@ -21,7 +21,10 @@ bypasses Pallas there; None leaves every site as it was.
 :func:`apply_norm_clients` is a site of a level's G clients on the
 clients-in-channels activation ``[B, G*C, H, W]`` (the grouped engine):
 ``bn`` through the batched kernels (or its plain two-pass form per client
-when ``pallas_norm`` is off), ``in`` as is (per sample and channel), and
+when ``pallas_norm`` is off; with ``bn_group``, a mesh whose data axis
+splits each client's batch, synchronised over its data group through
+``fused_norm.batch_norm_sync_clients``, whatever ``pallas_norm`` says),
+``in`` as is (per sample and channel), and
 ``ln``/``gn`` over a block-diagonal channel-to-group map, so a group never
 straddles two clients.  The sub-models are dense, so every channel is
 active.
@@ -33,7 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops.fused_norm import batch_norm_fused, batch_norm_fused_clients
+from ..ops.fused_norm import batch_norm_fused, batch_norm_fused_clients, batch_norm_sync_clients
 from ..ops.layers import (batch_norm, batch_norm_clients, dynamic_group_norm,
                           group_onehot_clients, instance_norm)
 
@@ -81,14 +84,18 @@ def apply_norm(norm_type: str, x: torch.Tensor, g: Optional[torch.Tensor],
 def apply_norm_clients(norm_type: str, x: torch.Tensor, g: Optional[torch.Tensor],
                        b: Optional[torch.Tensor], G: int, sample_weight: torch.Tensor,
                        use_fused: bool = False,
-                       onehot: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       onehot: Optional[torch.Tensor] = None, bn_group=None) -> torch.Tensor:
     """One norm site of G clients: ``x [B, G*C, H, W]``, ``g``/``b [G, C]``,
     ``sample_weight [G, B]``; ``onehot`` the ``ln``/``gn`` block-diagonal
-    map (:func:`~..ops.layers.group_onehot_clients`, made when not given)."""
+    map (:func:`~..ops.layers.group_onehot_clients`, made when not given);
+    ``bn_group`` as in :func:`apply_norm` (``in``, ``ln``, ``gn`` and
+    ``none`` are per sample, so a split batch leaves them as they are)."""
     check_norm(norm_type)
     if norm_type == "none":
         return x
     if norm_type == "bn":
+        if bn_group is not None:
+            return batch_norm_sync_clients(x, g, b, sample_weight, bn_group)
         if use_fused:
             return batch_norm_fused_clients(x, g, b, sample_weight)
         return batch_norm_clients(x, g, b, sample_weight)

@@ -147,15 +147,16 @@ class ResNet(FedModel):
         return out, cross_entropy(out, label, sample_weight)
 
     def forward_clients(self, img, label, G: int, *, params, scaler_rate: float = 1.0,
-                        label_mask=None, sample_weight=None):
+                        label_mask=None, sample_weight=None, bn_group=None):
         """Training forward of G clients at once; arguments and results as
-        in :meth:`~.conv.ConvNet.forward_clients`."""
+        in :meth:`~.conv.ConvNet.forward_clients`, ``bn_group`` too."""
         P = params
 
         def norm_site(site, x):
             return apply_norm_clients(self.norm, x, P.get(f"{site}.g"), P.get(f"{site}.b"), G,
                                       sample_weight, self.pallas_norm,
-                                      self.clients_onehot(x.shape[1] // G, G, x.device))
+                                      self.clients_onehot(x.shape[1] // G, G, x.device),
+                                      bn_group)
 
         def sc(x):
             return scaler(x, scaler_rate) if self.scale else x

@@ -264,15 +264,23 @@ class Transformer(FedModel):
     def forward_clients(self, label: torch.Tensor, G: int, *, params, scaler_rate: float = 1.0,
                         label_mask=None, sample_weight=None,
                         gens: Optional[List[torch.Generator]] = None,
-                        draws: Optional[List[Draws]] = None
+                        draws: Optional[List[Draws]] = None, pos_offset: int = 0,
+                        seq_full: Optional[int] = None, attn=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Training forward of G clients at once at full width of this
         (dense level) model: ``label [G, N, S]``, ``sample_weight [G, N,
         S]``, ``label_mask [G, V]``, ``params`` leaves ``[G, *shape]``;
         client g's draws come from ``draws[g]`` where given, else from
-        ``gens[g]`` -> ``(scores [G, N, S, V], per-client mean loss [G])``."""
+        ``gens[g]`` -> ``(scores [G, N, S, V], per-client mean loss [G])``.
+        ``pos_offset`` / ``seq_full`` / ``attn`` as in :meth:`forward`: each
+        client's draws (and handed-in draws) are over the whole ``[N,
+        seq_full]`` window and sliced at the offset, so the generators of a
+        data group's ranks stay in step; ``attn(q, k, v, temperature)``
+        takes the G clients folded into its leading axes."""
         P = params
         _, N, S = label.shape
+        off = int(pos_offset)
+        S_full = S if seq_full is None else int(seq_full)
         H, dev = self.num_heads, label.device
         E = self.groups["emb"].size
         hd = E // H
@@ -284,12 +292,15 @@ class Transformer(FedModel):
             return torch.stack([torch.rand(shape, generator=gen, device=dev) < p_true
                                 for gen in gens])
 
+        def local(m: torch.Tensor) -> torch.Tensor:  # whole-window draws -> these positions
+            return m[:, :, off:off + S] if m.shape[2] != S else m
+
         def dropout(x: torch.Tensor, site: int) -> torch.Tensor:
             if self.dropout == 0.0:
                 return x
-            keep = rand_mask(x.shape[1:], 1.0 - self.dropout) if keeps is None else \
-                torch.stack([k[site] for k in keeps]).to(dev)
-            return torch.where(keep, x / (1.0 - self.dropout), 0.0)
+            keep = rand_mask((N, S_full) + tuple(x.shape[3:]), 1.0 - self.dropout) \
+                if keeps is None else torch.stack([k[site] for k in keeps]).to(dev)
+            return torch.where(local(keep), x / (1.0 - self.dropout), 0.0)
 
         def sc(x: torch.Tensor) -> torch.Tensor:
             return scaler(x, scaler_rate)
@@ -303,11 +314,11 @@ class Transformer(FedModel):
         def lin(name: str, x: torch.Tensor) -> torch.Tensor:
             return linear_clients(x, P[f"{name}.w"], P[f"{name}.b"], self.compute_dtype)
 
-        corrupt = rand_mask((N, S), self.mask_rate) if draws is None else \
-            torch.stack([d["corrupt"] for d in draws]).to(dev)
+        corrupt = local(rand_mask((N, S_full), self.mask_rate) if draws is None else
+                        torch.stack([d["corrupt"] for d in draws]).to(dev))
         src = torch.where(corrupt, self.num_tokens, label)
         tok = P["embedding.tok.w"][torch.arange(G, device=dev)[:, None, None], src]
-        x = sc(tok) + sc(P["embedding.pos.w"][:, :S])[:, None]
+        x = sc(tok) + sc(P["embedding.pos.w"][:, off:off + S])[:, None]
         x = dropout(ln("embedding.norm", x), 0)
 
         def heads(t: torch.Tensor) -> torch.Tensor:  # [G, N, S, E] -> [G, N, H, S, hd]
@@ -316,7 +327,8 @@ class Transformer(FedModel):
         for i in range(self.num_layers):
             p = f"enc{i}"
             q, k, v = (heads(sc(lin(f"{p}.mha.{h}", x))) for h in ("q", "k", "v"))
-            o = self._attention(q, k, v, temp).transpose(2, 3).reshape(G, N, S, E)
+            o = (self._attention(q, k, v, temp) if attn is None else
+                 attn(q, k, v, temp).to(torch.float32)).transpose(2, 3).reshape(G, N, S, E)
             o = sc(lin(f"{p}.mha.o", o))
             x = ln(f"{p}.norm1", x + dropout(o, 1 + 3 * i))
             h = dropout(gelu(sc(lin(f"{p}.ff.l1", x))), 2 + 3 * i)

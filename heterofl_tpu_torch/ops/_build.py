@@ -59,6 +59,9 @@ _SIGNATURES = {
     "hfl_bn_sync_apply": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
     "hfl_bn_sync_bwd_reduce": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
     "hfl_bn_sync_bwd_apply": (_I, [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "hfl_bn_sync_stats_batched": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]),
+    "hfl_bn_sync_bwd_apply_batched": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                           _I, _P]),
 }
 
 

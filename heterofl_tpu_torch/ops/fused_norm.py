@@ -43,6 +43,19 @@ a group of one (or none) the plain versions are :func:`bn_fwd_plain` and
 :func:`bn_bwd_plain` bit for bit.  Their launches count in
 :data:`SYNC_LAUNCHES`.
 
+The batched synchronised pair (:func:`batch_norm_sync_clients`; the
+grouped engine on the data axis, a level's G clients' ``[M, G*C]``
+columns, each client's batch split over the data group) adds two kernels:
+:func:`bn_sync_stats_batched` and :func:`bn_sync_bwd_apply_batched`, the
+one-client ones with the weight read per column, ``w[c // C, r // P]`` of
+``w [G, B]``, as the batched pair 1b/2b reads it.  ``bn_sync_apply`` and
+``bn_sync_bwd_reduce`` read no weight and serve the batched columns as
+they are, ``g``/``b`` flattened to ``[G*C]``; the plan is
+:func:`bn_sync_plan` of ``(M, G*C)``.  Two all-reduces a site serve all G
+clients: ``[3, G*C]`` forward, ``[2, G*C]`` backward.  At G = 1 each
+batched kernel equals its one-client twin bit for bit (the same plan and
+order of sums).
+
 Semantics (pallas_norm.py:45-109): per-channel weighted moments over all
 rows in the ONE-pass form ``var = max(s2/n - mean^2, 0)``; rows whose
 sample weight is not positive are excluded from the sums by a select, not
@@ -65,7 +78,8 @@ from . import _build
 LAUNCHES = {"bn_fwd": 0, "bn_bwd": 0, "bn_fwd_batched": 0, "bn_bwd_batched": 0}
 #: launches of the synchronised batch norm's four kernels (the data axis)
 SYNC_LAUNCHES = {"bn_sync_stats": 0, "bn_sync_apply": 0, "bn_sync_bwd_reduce": 0,
-                 "bn_sync_bwd_apply": 0}
+                 "bn_sync_bwd_apply": 0, "bn_sync_stats_batched": 0,
+                 "bn_sync_bwd_apply_batched": 0}
 
 # the kernels' fixed shape (csrc/bn.cu): threads per block, row iterations
 # a thread keeps in registers, channels per cluster at most, blocks per
@@ -663,11 +677,13 @@ class _BatchNormSync(torch.autograd.Function):
     the data group of ``mesh`` (``parallel.mesh.Mesh``; None: this rank
     alone): stats, all-reduce ``[3, C]``, apply; backward: the partial
     sums, all-reduce ``[2, C]``, dx.  ``dg`` and ``db`` are this rank's
-    local sums (the step's gradient all-reduce adds the other ranks')."""
+    local sums (the step's gradient all-reduce adds the other ranks').  A
+    ``[G, B]`` weight ``w`` takes the batched pair (G clients' columns)."""
 
     @staticmethod
     def forward(ctx, x2, w, g, b, P: int, eps: float, mesh):
-        y2, stats = bn_sync_apply(x2, g, b, _data_sum(mesh, bn_sync_stats(x2, w, P)), eps)
+        stats_fn = bn_sync_stats_batched if w.dim() == 2 else bn_sync_stats
+        y2, stats = bn_sync_apply(x2, g, b, _data_sum(mesh, stats_fn(x2, w, P)), eps)
         ctx.save_for_backward(x2, w, g, stats)
         ctx.P, ctx.mesh = P, mesh
         return y2
@@ -677,7 +693,8 @@ class _BatchNormSync(torch.autograd.Function):
         x2, w, g, stats = ctx.saved_tensors
         dy2 = dy2.contiguous()
         local = bn_sync_bwd_reduce(x2, dy2, stats)
-        dx2 = bn_sync_bwd_apply(x2, w, ctx.P, g, dy2, stats, _data_sum(ctx.mesh, local))
+        apply_fn = bn_sync_bwd_apply_batched if w.dim() == 2 else bn_sync_bwd_apply
+        dx2 = apply_fn(x2, w, ctx.P, g, dy2, stats, _data_sum(ctx.mesh, local))
         return dx2, None, local[1], local[0], None, None, None
 
 
@@ -699,3 +716,91 @@ def batch_norm_sync(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     if x.ndim == 4:
         return y2.view(n, x.shape[2], x.shape[3], c).permute(0, 3, 1, 2)
     return y2
+
+
+# -- the batched synchronised pair: a level's G clients on the data axis ------
+
+def bn_sync_stats_batched_plain(x2: torch.Tensor, w: torch.Tensor, P: int) -> torch.Tensor:
+    """Plain version of ``bn_sync_stats_batched``: ``x2 [M, G*C]``, ``w [G,
+    M // P]`` -> this rank's ``[3, G*C]``, each column's sums over its own
+    client's rows whose weight is positive (:func:`bn_sync_stats_plain`'s
+    sums, column by column)."""
+    C = x2.shape[1] // w.shape[0]
+    wr = _col_weight(w, P, C)
+    xs = torch.where(wr > 0, x2, torch.zeros((), dtype=x2.dtype, device=x2.device))
+    # each client's weight sum over its [M] rows, as the one-client sum
+    n = w.t().repeat_interleave(P, dim=0).sum(0).repeat_interleave(C)
+    return torch.stack([(xs * wr).sum(0), (xs * xs * wr).sum(0), n])
+
+
+def bn_sync_bwd_apply_batched_plain(x2: torch.Tensor, w: torch.Tensor, P: int,
+                                    g: torch.Tensor, dy2: torch.Tensor, stats: torch.Tensor,
+                                    glob: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``bn_sync_bwd_apply_batched``: ``dx2`` from the
+    global ``[2, G*C]`` sums, each column's weight its client's."""
+    mean, inv, n = stats[0], stats[1], stats[2].clamp_min(1e-6)
+    wr = _col_weight(w, P, x2.shape[1] // w.shape[0])
+    xhat = (x2 - mean) * inv
+    db, dg = glob[0], glob[1]
+    return inv * g * dy2 - wr * (inv / n) * (g * db) - wr * xhat * (inv / n) * (g * dg)
+
+
+def bn_sync_stats_batched_cuda(x2, w, P: int) -> torch.Tensor:
+    """``bn_sync_stats_batched`` (``csrc/bn.cu``) on CUDA tensors: one launch."""
+    _build.require_cuda("bn_sync_stats_batched", x2, w)
+    _check_batched("bn_sync_stats_batched", x2, w, P)
+    M, C = x2.shape
+    G, B = w.shape
+    return _sync_reduce_cuda("bn_sync_stats_batched", "hfl_bn_sync_stats_batched",
+                             (x2.data_ptr(), w.data_ptr(), P, B, C // G), x2, 3, M, C)
+
+
+def bn_sync_bwd_apply_batched_cuda(x2, w, P: int, g, dy2, stats, glob) -> torch.Tensor:
+    """``bn_sync_bwd_apply_batched`` (``csrc/bn.cu``) on CUDA tensors: one
+    launch."""
+    _build.require_cuda("bn_sync_bwd_apply_batched", x2, w, g, dy2, stats, glob)
+    _check_batched("bn_sync_bwd_apply_batched", x2, w, P, g)
+    M, C = x2.shape
+    G, B = w.shape
+    if dy2.shape != x2.shape or stats.shape != (3, C) or glob.shape != (2, C):
+        raise ValueError(f"bn_sync_bwd_apply_batched: dy2 {tuple(dy2.shape)}, stats "
+                         f"{tuple(stats.shape)} and glob {tuple(glob.shape)} for x2 "
+                         f"{tuple(x2.shape)}")
+    pl = bn_sync_plan(M, C)
+    dx2 = torch.empty_like(x2)
+    _build.check(_build.load().hfl_bn_sync_bwd_apply_batched(
+        x2.data_ptr(), w.data_ptr(), P, B, C // G, g.data_ptr(), dy2.data_ptr(),
+        stats.data_ptr(), glob.data_ptr(), dx2.data_ptr(), M, C, pl.rows, pl.chunks,
+        _build.stream_of(x2)), "bn_sync_bwd_apply_batched")
+    SYNC_LAUNCHES["bn_sync_bwd_apply_batched"] += 1
+    return dx2
+
+
+def bn_sync_stats_batched(x2, w, P):
+    """Wrapper: plain version on the CPU, the kernel on CUDA."""
+    if x2.device.type == "cpu":
+        return bn_sync_stats_batched_plain(x2, w, P)
+    return bn_sync_stats_batched_cuda(x2, w, P)
+
+
+def bn_sync_bwd_apply_batched(x2, w, P, g, dy2, stats, glob):
+    """Wrapper: plain version on the CPU, the kernel on CUDA."""
+    if x2.device.type == "cpu":
+        return bn_sync_bwd_apply_batched_plain(x2, w, P, g, dy2, stats, glob)
+    return bn_sync_bwd_apply_batched_cuda(x2, w, P, g, dy2, stats, glob)
+
+
+def batch_norm_sync_clients(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                            sample_weight: torch.Tensor, mesh, eps: float = 1e-5
+                            ) -> torch.Tensor:
+    """Batch-statistics normalisation of G clients' clients-in-channels
+    activation ``x [B, G*C, H, W]`` (channels_last), each client's
+    statistics over its batch split on ``mesh``'s data group, through the
+    batched synchronised kernels (their plain versions on the CPU):
+    ``g``/``b [G, C]``, ``sample_weight [G, B]``."""
+    n, c = x.shape[0], x.shape[1]
+    x2 = x.permute(0, 2, 3, 1).reshape(-1, c).contiguous()
+    y2 = _BatchNormSync.apply(x2, sample_weight.to(torch.float32).contiguous(),
+                              g.reshape(-1).contiguous(), b.reshape(-1).contiguous(),
+                              x2.shape[0] // n, eps, mesh)
+    return y2.view(n, x.shape[2], x.shape[3], c).permute(0, 3, 1, 2)

@@ -136,6 +136,27 @@ superstep: one for its k rounds).  Without a process group the mesh is
 one rank, and a round is what it was; so is every rank's twin under
 ``fed/sliced.py``.  The stream store and arms stay on one rank.
 
+**The data mesh axis** (``Mesh.data_size`` > 1; ref grouped.py:458-529,
+where ``_level_core`` vmaps the masked engine's local training, its
+``data_axis`` passed through): the ranks of a clients row train the same
+levels' blocks, each on its share of every step of every client, as the
+masked engine's step splits one client's (``round_engine.py``).  Vision:
+each client's ``n_glob`` is taken before the split, its augmentation drawn
+over the whole batch from its generator and sliced (``_data_slice``; the
+padding rows weigh 0), and BN is synchronised over the data group for the
+G clients at once (``fused_norm.batch_norm_sync_clients``: two
+all-reduces a site, kernels 1bs/2bs).  LM: this rank's ``bptt / data``
+positions of every window, each client's corruption and dropout drawn over
+the whole window and sliced, ring attention with the G clients folded into
+its leading axes (one ring a layer for the level).  A level step sends its
+packed ``g [G, ld]`` and the ``[G, 2]`` sums in ONE all-reduce over the
+data group, then kernel 3b runs as on one rank; the round's one
+all-reduce over the clients group is unchanged, each data column making
+its own.  At data > 1 the superstep's steps run eagerly (a step holds
+gloo collectives, which a CUDA graph cannot), with the same one fetch a
+superstep.  Under ``slices`` a level's slice is a block of clients rows
+with all their data columns.
+
 **Experiment arms** (``multi/``; ref grouped.py:960-1010): the superstep
 takes the arms' params ``[E, n]``; the ``[k, A]`` schedules, and so each
 round's levels, are shared by the arms, each arm's stream draws its
@@ -348,6 +369,11 @@ class GroupedRoundEngine(FlatParams):
         # the clients axis (parallel/mesh.py): one rank without a group
         self.mesh = single_mesh(device) if mesh is None else mesh
         self.is_lm = model.meta["kind"] == "transformer"
+        if self.is_lm:
+            self.bptt = cfg["bptt"]
+        # the data axis: each client's batch (an LM window's positions) split
+        # over this row's data ranks, a level's G clients at once
+        self._init_data_axis()
         self.spec = FlatSpec.of(dict(model.named_parameters()))
         self.codec_map = name if isinstance(name, dict) else None
         # a participant a rank of the mesh, as the masked engine's codec
@@ -358,8 +384,9 @@ class GroupedRoundEngine(FlatParams):
         self._init_obs(cfg)
         self._init_arms(cfg)
         # the superstep's captured batched steps, one a (level, G) met, their
-        # static buffers and generators
-        self.graphs = StepGraphs(device)
+        # static buffers and generators; at data > 1 they run eagerly (a step
+        # holds collectives, which gloo cannot put in a CUDA graph)
+        self.graphs = StepGraphs(device, capture=self.n_data == 1)
         self._st: Dict[Tuple[float, int], Dict[str, torch.Tensor]] = {}
         self._ggens: List[torch.Generator] = []
         self._lr = torch.zeros((), dtype=torch.float32, device=device)
@@ -384,9 +411,7 @@ class GroupedRoundEngine(FlatParams):
         self.local_epochs, self.batch_size = eng0.local_epochs, eng0.batch_size
         self.fused_mode, self.momentum, self.weight_decay = \
             eng0.fused_mode, eng0.momentum, eng0.weight_decay
-        if self.is_lm:
-            self.bptt = eng0.bptt
-        else:
+        if not self.is_lm:
             self.norm, self.augment = eng0.norm, eng0.augment
 
     # -- the clients mesh axis ----------------------------------------------
@@ -456,24 +481,38 @@ class GroupedRoundEngine(FlatParams):
 
     # -- one level's clients ------------------------------------------------
 
-    def _step(self, lv: Level, p, buf, g, grads, n_glob, lr, live=None) -> None:
+    def _step(self, lv: Level, p, buf, g, grads, n_glob, lr, live=None, sums=None
+              ) -> Optional[torch.Tensor]:
         """The optimizer tail of one step of G clients, in place on ``p``
         and ``buf`` ``[G, n_l]`` (views of ``[G, ld]`` rows): the batched
         fused epilogue (gradients packed client-major into ``g [G, ld]``),
         or each client's per-leaf chain.  A row steps where its batch has
-        weight and, with ``live [G]`` (bool), where it is live."""
-        G = p.shape[0]
+        weight and, with ``live [G]`` (bool), where it is live.  With
+        ``sums [G, 2]`` (the data axis) the packed gradient and ``sums`` go
+        out in ONE all-reduce over the data group first; ``n_glob`` None
+        takes the reduced ``sums[:, 1]``.  Returns the reduced ``sums``."""
+        self.local_steps += 1  # eager calls only: a replayed step does not count
+        G, n = p.shape[0], lv.spec.total
+        if sums is not None or self.fused_mode is not None:
+            torch.cat([gr.reshape(G, -1) for gr in grads] + lv.pad(G), dim=1, out=g)
+        if sums is not None:
+            red, sums = self.mesh.all_reduce_sum([g, sums], axis="data")
+            g.copy_(red)
+            if n_glob is None:
+                n_glob = sums[:, 1]
+            grads = [g[:, lv.spec.offsets[k]:lv.spec.offsets[k] + lv.spec.sizes[k]]
+                     .view((G,) + lv.spec.shapes[k]) for k in lv.spec.names]
         has = n_glob > 0 if live is None else (n_glob > 0) & live
         if self.fused_mode is None:
             for i in range(G):
                 lv.engine._reference_step(p[i], buf[i], [gr[i] for gr in grads], lv.mask,
                                           n_glob[i], lr, has[i])
-            return
-        torch.cat([gr.reshape(G, -1) for gr in grads] + lv.pad(G), dim=1, out=g)
+            return sums
         scal = torch.stack([n_glob.clamp_min(1e-6), lr.expand(G), has.to(torch.float32)],
                            dim=1)
-        fused_sgd_batched(g[:, :lv.spec.total], p, buf, lv.mask, scal, momentum=self.momentum,
+        fused_sgd_batched(g[:, :n], p, buf, lv.mask, scal, momentum=self.momentum,
                           weight_decay=self.weight_decay, max_norm=1.0)
+        return sums
 
     def local_train_level(self, lv: Level, P: torch.Tensor, uids: torch.Tensor, data,
                           gens: List[torch.Generator], lr: torch.Tensor,
@@ -579,9 +618,22 @@ class GroupedRoundEngine(FlatParams):
         ``g`` ``[G, ld]`` rows, ``acc``; ``lr``, ``lm``); ``draws`` the
         clients' augmentation ``(offsets, flips)`` instead of ``gens``;
         ``live [G]`` (bool, or None: all) gates each row's update and sums,
-        as the reference's deadline gates a step (round_engine.py:688-713)."""
+        as the reference's deadline gates a step (round_engine.py:688-713).
+        At data > 1 each client's slice of its batch (``_data_slice``; its
+        augmentation drawn for the whole batch, then sliced), BN synchronised
+        over the data group, and the packed gradient with the ``[G, 2]``
+        ``[loss_sum, correct]`` reduced over it in one all-reduce."""
         B, G = self.batch_size, len(gens)
-        n_glob = w.sum(1)
+        n_glob = w.sum(1)  # each client's whole batch's weight, before any split
+        group = None
+        if self.n_data > 1:
+            group = self.mesh
+            if self.augment and draws is None:
+                draws = [augment_draws(B, gen, xb.device) for gen in gens]
+            src, keep = self._data_slice(B, w.device)
+            xb, labels, w = xb[:, src], labels[:, src], w[:, src] * keep
+            draws = None if draws is None else [tuple(a[src] for a in d) for d in draws]
+            B = src.numel()
         if self.augment:
             if draws is None:
                 draws = [augment_draws(B, gen, xb.device) for gen in gens]
@@ -593,14 +645,18 @@ class GroupedRoundEngine(FlatParams):
         leaves = lv.leaves(st["p"].view(-1).index_select(0, lv.leaf_major(G)), G)
         score, loss = lv.model.forward_clients(
             clients_in_channels(img), labels, G, params=leaves,
-            scaler_rate=lv.scaler_rate, label_mask=st["lm"], sample_weight=w)
-        lsum = loss * n_glob  # weighted-SUM form, each client's own
+            scaler_rate=lv.scaler_rate, label_mask=st["lm"], sample_weight=w, bn_group=group)
+        lsum = loss * (n_glob if group is None else w.sum(1))  # weighted-SUM form, each client's
         grads = torch.autograd.grad(lsum.sum(), [leaves[k] for k in lv.spec.names])
         del leaves
         correct = ((score.detach().argmax(-1) == labels).to(torch.float32) * w).sum(1)
         n = lv.spec.total
-        self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"], live)
+        sums = None if group is None else torch.stack([lsum.detach(), correct], dim=1)
+        sums = self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"],
+                          live, sums)
         del grads
+        if sums is not None:
+            lsum, correct = sums[:, 0], sums[:, 1]
         sums = [lsum.detach(), correct, n_glob]
         if live is not None:
             gate = live.to(torch.float32)
@@ -611,17 +667,34 @@ class GroupedRoundEngine(FlatParams):
                        draws=None, live=None) -> None:
         """One batched step of G masked-LM clients on their windows ``(lab
         [G, R, bptt], w)`` of weight sums ``n_glob [G]``, in place on
-        ``st`` (as :meth:`_level_vision_step`'s, and ``rows_n``)."""
+        ``st`` (as :meth:`_level_vision_step`'s, and ``rows_n``).  At data
+        > 1 this rank's positions of every window, ring attention over the
+        data group (one ring for the G clients), and the packed gradient with
+        the ``[G, 2]`` ``[loss_sum, n_loc]`` reduced over it in one
+        all-reduce, whose sums are ``n_glob``."""
         G = len(gens)
+        extra = {}
+        if self.n_data > 1:
+            s_loc = lab.shape[2] // self.n_data
+            off = self.mesh.data_rank * s_loc
+            lab, w = lab[:, :, off:off + s_loc], w[:, :, off:off + s_loc]
+            extra = {"pos_offset": off, "seq_full": s_loc * self.n_data, "attn": self._ring}
         leaves = lv.leaves(st["p"].view(-1).index_select(0, lv.leaf_major(G)), G)
         _, loss = lv.model.forward_clients(
             lab, G, params=leaves, scaler_rate=lv.scaler_rate, label_mask=st["lm"],
-            sample_weight=w, gens=gens, draws=draws)
-        lsum = loss * n_glob
+            sample_weight=w, gens=gens, draws=draws, **extra)
+        n_loc = n_glob if not extra else w.sum((1, 2))
+        lsum = loss * n_loc
         grads = torch.autograd.grad(lsum.sum(), [leaves[k] for k in lv.spec.names])
         del leaves
         n = lv.spec.total
-        self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"], live)
+        if extra:
+            sums = self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, None,
+                              st["lr"], live, torch.stack([lsum.detach(), n_loc], dim=1))
+            lsum, n_glob = sums[:, 0], sums[:, 1]
+        else:
+            self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"],
+                       live)
         del grads
         wl = lsum.detach() / n_glob.clamp_min(1e-6)
         rows_n = st["rows_n"] if live is None else st["rows_n"] * live.to(torch.float32)

@@ -310,6 +310,37 @@ class FlatParams:
     #: sliced twin, which every rank runs whole)
     mesh: Optional[Mesh] = None
     placement = "replicated"
+    n_data = 1
+    #: local steps run eagerly (the audit's data-axis budget)
+    local_steps = 0
+
+    def _init_data_axis(self) -> None:
+        """The data axis of ``self.mesh``: a client's batch (an LM window's
+        positions) split over its row's data ranks; an LM's ``bptt`` must
+        split evenly (the reference's ``ValueError``)."""
+        self.n_data = self.mesh.data_size
+        self._slice_idx: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.local_steps = 0
+        if self.is_lm and self.bptt % self.n_data:
+            raise ValueError(f"data axis size ({self.n_data}) must divide "
+                             f"bptt={self.bptt} for sequence-parallel LM rounds")
+
+    def _data_slice(self, B: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This data rank's rows of a batch of B (ref round_engine.py:
+        695-704): ``(src [b_loc], keep [b_loc])``, ``src`` the batch rows it
+        takes (a padded row repeats row ``j - B``) and ``keep`` 1 on real
+        rows, 0 on the padding."""
+        key = (B, device)
+        if key not in self._slice_idx:
+            b_loc = -(-B // self.n_data)
+            rows = self.mesh.data_rank * b_loc + torch.arange(b_loc)
+            self._slice_idx[key] = ((rows % B).to(device),
+                                    (rows < B).to(torch.float32).to(device))
+        return self._slice_idx[key]
+
+    def _ring(self, q, k, v, temp: float) -> torch.Tensor:
+        """Ring attention over this row's data group (the LM's split)."""
+        return ring_attention(q, k, v, self.mesh, temp)
 
     def _init_sched(self, cfg: Dict[str, Any]) -> None:
         """The scheduler of ``cfg`` (``schedule``, ``client_failure_rate``)."""
@@ -699,18 +730,12 @@ class RoundEngine(FlatParams):
         self.local_epochs = ne["local"] if isinstance(ne, dict) else 1
         self.batch_size = cfg["batch_size"]["train"]
         self.is_lm = model.meta["kind"] == "transformer"
-        # the data axis: a client's batch (an LM window's positions) split
-        # over this row's data ranks
-        self.n_data = self.mesh.data_size
-        self._slice_idx: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
-        #: local steps run eagerly (the audit's data-axis budget)
-        self.local_steps = 0
         if self.is_lm:
             self.bptt = cfg["bptt"]
-            if self.bptt % self.n_data:
-                raise ValueError(f"data axis size ({self.n_data}) must divide "
-                                 f"bptt={self.bptt} for sequence-parallel LM rounds")
-        else:
+        # the data axis: a client's batch (an LM window's positions) split
+        # over this row's data ranks
+        self._init_data_axis()
+        if not self.is_lm:
             self.norm = norm_stats_tensors(cfg, device)
             self.augment = cfg["data_name"].startswith("CIFAR")
         # fix mode: every user's rate; dynamic: the rates are drawn per round
@@ -951,19 +976,6 @@ class RoundEngine(FlatParams):
         wpos[:, T:] = 0.0
         return wpos, wpos.view(R, S, self.bptt).sum((0, 2))
 
-    def _data_slice(self, B: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """This data rank's rows of a batch of B (ref round_engine.py:
-        695-704): ``(src [b_loc], keep [b_loc])``, ``src`` the batch rows it
-        takes (a padded row repeats row ``j - B``) and ``keep`` 1 on real
-        rows, 0 on the padding."""
-        key = (B, device)
-        if key not in self._slice_idx:
-            b_loc = -(-B // self.n_data)
-            rows = self.mesh.data_rank * b_loc + torch.arange(b_loc)
-            self._slice_idx[key] = ((rows % B).to(device),
-                                    (rows < B).to(torch.float32).to(device))
-        return self._slice_idx[key]
-
     def _vision_step(self, st, wr: float, scaler_rate: float, mask: torch.Tensor,
                      gen: torch.Generator, xb, labels, w, draw=None) -> None:
         """One local step on the batch ``(xb, labels, w)``, in place on the
@@ -999,10 +1011,6 @@ class RoundEngine(FlatParams):
         if sums is not None:
             lsum, correct = sums[0], sums[1]
         st["acc"] += torch.stack([lsum.detach(), correct, n_glob])
-
-    def _ring(self, q, k, v, temp: float) -> torch.Tensor:
-        """Ring attention over this row's data group (the LM's split)."""
-        return ring_attention(q, k, v, self.mesh, temp)
 
     def _lm_step(self, st, wr: float, scaler_rate: float, mask: torch.Tensor,
                  gen: torch.Generator, lab, w, n_glob, draws=None) -> None:

@@ -39,7 +39,10 @@ identical host inputs, and watches it run:
     bytes and the ring all-reduce's bytes a rank at the mesh's size
     (:func:`.wire.ring_allreduce_bytes`); then one evaluation after the
     dispatches, host and (a superstep program) fused, makes one all-reduce
-    an sBN and a Global pass and one gather a Local pass.
+    an sBN and a Global pass and one gather a Local pass.  On a data axis
+    (a mesh of ``data`` > 1, under torchrun) each dispatch's data-group
+    collectives are its eager local steps (a grouped level step counts
+    once for its G clients) times :func:`data_step_budget`, both engines.
 
 Programs: the masked and grouped engines at K=1 and in the superstep
 (K=2); dense, int8 and the grouped per-level codec map; ``telemetry``
@@ -438,7 +441,10 @@ def data_step_budget(model, n_data: int) -> Dict[str, int]:
     (none at 1): a vision step one all-reduce (its gradient and sums) and
     two a BN site (the forward's moments, the backward's sums); an LM step
     one all-reduce and ring attention's shifts, ``n - 1`` forward and ``n``
-    backward a layer."""
+    backward a layer.  A grouped level step is one such step for its G
+    clients at once (the engine's ``local_steps`` counts level steps): the
+    level model has the global model's sites and layers.  Their bytes:
+    ``staticcheck/wire.py::data_step_bytes``."""
     if n_data <= 1:
         return {"all_reduce": 0, "ring_shift": 0}
     if model.meta["kind"] == "transformer":

@@ -13,14 +13,16 @@ them to :func:`~..fed.core.level_codec_byte_table` (or, level by level,
 buffer, a smuggled dtype or a second payload shows up as bytes.  The
 int8 payload stays at or under 25% of dense (:func:`codec_frontier`,
 the reference's ``wire-frontier``); :func:`ring_allreduce_bytes` prices
-the payload on a ring of the mesh's ranks.
+the payload on a ring of the mesh's ranks; :func:`data_step_bytes` a
+local step's payloads over the data axis.
 
 Torch-free: the analytic records need no device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
+
 
 def ring_allreduce_bytes(payload_bytes: int, participants: int) -> int:
     """Per-participant traffic of a bidirectional-ring all-reduce, ``2 (p -
@@ -53,6 +55,18 @@ def dense_round_wire(param_bytes: int, participants: int = 1,
             "count_bytes": int(count_bytes), "payload_bytes_per_round": int(payload),
             "ring_allreduce_bytes_per_device": ring_allreduce_bytes(payload, participants),
             "participants": int(participants)}
+
+
+def data_step_bytes(rows: int, ld: int, bn_channels: Sequence[int] = ()) -> int:
+    """The float32 bytes one local step hands its all-reduces over the data
+    group (the data axis, ``parallel/mesh.py``): its packed gradient ``[rows,
+    ld]`` with its ``[rows, 2]`` sums in one buffer, and at each BN site of
+    ``C`` channels a client the moments ``[3, rows * C]`` forward and the
+    partial sums ``[2, rows * C]`` backward.  ``rows`` is 1 and ``ld`` the
+    flat size for the masked engine's step; a grouped level step has a row a
+    client and the level's row stride ``ld``.  An LM step (no BN site) adds
+    ring attention's shifts, which this does not count."""
+    return 4 * (rows * (ld + 2) + sum(5 * rows * int(c) for c in bn_channels))
 
 
 def check_wire(rep, wire: Dict[str, Any], expected: Dict[float, int]) -> None:

@@ -366,9 +366,9 @@ def save_checkpoint_sharded(path: str, blob: Dict[str, Any], keep: int = 1,
     rank returns before it landed.  A blob with no marker (one rank, or no
     per-rank leaf) is the plain :func:`save_checkpoint` of rank 0.
     ``mesh`` is ``parallel.mesh.Mesh`` (None: one rank).  With a data axis
-    the ranks of a clients row hold the same blocks, so data column 0 of
-    each row writes the row's shard file and world rank 0 the header; the
-    barriers span the world.  Returns whether shard files were written
+    the ranks of a clients row hold the same blocks (either engine's), so
+    data column 0 of each row writes the row's shard file and world rank 0
+    the header; the barriers span the world.  Returns whether shard files were written
     (:func:`copy_best`'s ``sharded``)."""
     rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
     lead = mesh is None or mesh.lead

@@ -155,29 +155,42 @@ def test_make_mesh_refuses_what_the_world_does_not_hold():
 
 
 @pytest.mark.parametrize("strategy", ["grouped", "sliced"])
-def test_config_refuses_the_grouped_engines_on_the_data_axis(strategy):
-    """``strategy='grouped'`` or ``'sliced'`` at ``data > 1`` raises
-    ``NotImplementedError`` naming its ROADMAP item; at data 1 it is
-    accepted."""
+def test_config_refuses_the_grouped_engines_on_the_data_axis(strategy, monkeypatch):
+    """The data axis carries the grouped engine and its sliced twin:
+    ``strategy='grouped'`` or ``'sliced'`` is accepted at data 1, at data 2
+    and at ``(2, 2)`` under a world of four (``DATA_REFUSALS`` is empty, the
+    grouped LM's refusal gone from ``MESH_REFUSALS``).  The refusal
+    mechanism stays: an entry of ``DATA_REFUSALS`` still raises
+    ``NotImplementedError`` naming its ROADMAP item at data > 1 only."""
     cfg = PC.default_cfg()
     cfg["control"] = PC.parse_control_name("1_8_0.5_iid_fix_a1-b1_bn_1_1")
     cfg.update(data_name="MNIST", model_name="conv", strategy=strategy)
-    PC.process_control(dict(cfg, mesh={"clients": 0, "data": 1}))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 5, the grouped engine on the data axis"):
-        PC.process_control(dict(cfg, mesh={"clients": 0, "data": 2}))
+    assert PC.DATA_REFUSALS == ()
+    for mesh in ({"clients": 0, "data": 1}, {"clients": 0, "data": 2}):
+        PC.process_control(dict(cfg, mesh=mesh))
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    done = PC.process_control(dict(cfg, mesh={"clients": 2, "data": 2}))
+    assert done["mesh"] == {"clients": 2, "data": 2}
+    monkeypatch.setattr(PC, "DATA_REFUSALS", ((lambda c: c.get("strategy") == strategy,
+                                               f"strategy={strategy!r}", "ROADMAP item x"),))
+    PC.process_control(dict(cfg, mesh={"clients": 4, "data": 1}))
+    with pytest.raises(NotImplementedError, match=f"strategy='{strategy}' at mesh data=2: "
+                                                  r"the data axis does not carry it yet \(ROADMAP"):
+        PC.process_control(dict(cfg, mesh={"clients": 2, "data": 2}))
 
 
 def test_config_refuses_a_window_the_data_axis_does_not_divide():
-    """A masked LM at ``data = 3`` with ``bptt`` 64 raises the reference's
-    ``ValueError`` (round_engine.py:767-769); ``data = 2`` is accepted."""
-    cfg = PC.default_cfg()
-    cfg["control"] = PC.parse_control_name("1_8_0.5_iid_fix_a1-b1_bn_1_1")
-    cfg.update(data_name="WikiText2", model_name="transformer")
-    PC.process_control(dict(cfg, mesh={"data": 2}))
-    with pytest.raises(ValueError, match=r"data axis size \(3\) must divide bptt=64 for "
-                                         r"sequence-parallel LM rounds"):
-        PC.process_control(dict(cfg, mesh={"data": 3}))
+    """An LM, masked or grouped, at ``data = 3`` with ``bptt`` 64 raises the
+    reference's ``ValueError`` (round_engine.py:767-769); ``data = 2`` is
+    accepted."""
+    for strategy in ("masked", "grouped"):
+        cfg = PC.default_cfg()
+        cfg["control"] = PC.parse_control_name("1_8_0.5_iid_fix_a1-b1_bn_1_1")
+        cfg.update(data_name="WikiText2", model_name="transformer", strategy=strategy)
+        PC.process_control(dict(cfg, mesh={"data": 2}))
+        with pytest.raises(ValueError, match=r"data axis size \(3\) must divide bptt=64 "
+                                             r"for sequence-parallel LM rounds"):
+            PC.process_control(dict(cfg, mesh={"data": 3}))
 
 
 # --- the synchronised batch norm ---------------------------------------------------------

@@ -231,7 +231,8 @@ def test_mesh_and_pod_probe_load_no_jax_and_no_reference(tool_runs):
 def test_data_axis_modules_load_no_jax_and_no_reference(tool_runs):
     """The data axis's modules -- ring attention, ``SeqParallelLM`` -- and
     ``chip_smoke.py``, whose ``--data-rank`` entry is phase 17's rank
-    (``data_rank_main``, beside ``data_lm_runs``), imported in a fresh
+    (``data_rank_main``, beside ``data_lm_runs``; the grouped runs and the
+    batched synchronised pair's phase too), imported in a fresh
     interpreter, leave no ``jax`` and no ``heterofl_tpu`` module in
     ``sys.modules``."""
     _, runs = tool_runs
@@ -239,3 +240,4 @@ def test_data_axis_modules_load_no_jax_and_no_reference(tool_runs):
     import chip_smoke
 
     assert callable(chip_smoke.data_rank_main) and callable(chip_smoke.data_lm_runs)
+    assert callable(chip_smoke.sync_bn_batched_phase) and chip_smoke.DATA_GROUPED_RUNS

@@ -78,10 +78,12 @@ def test_resolve_placement_matches_reference(case):
     assert run(PC) == run(RC)
 
 
+#: (cfg, ROADMAP item refused at a world of two; None: accepted there, a
+#: refusal lifted)
 REFUSED = [({"strategy": "grouped", "arms": 2, "superstep_rounds": 2}, "the arms axis"),
            ({"strategy": "grouped", "client_store": "stream"}, "the stream store"),
            ({"strategy": "grouped", "data_name": "WikiText2", "model_name": "transformer"},
-            "the grouped LM"),
+            None),
            ({"client_store": "stream"}, "the stream store"),
            ({"arms": 2}, "the arms axis"),
            ({"telemetry": "on"}, "observability"),
@@ -94,10 +96,17 @@ REFUSED = [({"strategy": "grouped", "arms": 2, "superstep_rounds": 2}, "the arms
 def test_world_of_ranks_refuses_what_the_axis_does_not_carry(case, monkeypatch):
     """Under a world of two ranks (torchrun's ``WORLD_SIZE``) each option the
     clients axis does not carry is refused at config time, naming its
-    ROADMAP item; on one rank it is accepted."""
+    ROADMAP item; on one rank it is accepted.  The grouped LM (item None)
+    is carried now: accepted at a world of two, on the clients axis and on
+    the data axis."""
     over, item = REFUSED[case]
     PC.process_control(_cfg(PC, **over))
     monkeypatch.setenv("WORLD_SIZE", "2")
+    if item is None:
+        for mesh in ({"clients": 2, "data": 1}, {"clients": 1, "data": 2}):
+            assert PC.process_control(_cfg(PC, mesh=mesh, **over))["mesh"] == mesh
+        assert not any("transformer" in what for _, what, _ in PC.MESH_REFUSALS)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item 5, {item}"):
         PC.process_control(_cfg(PC, **over))
 

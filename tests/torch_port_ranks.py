@@ -1,8 +1,9 @@
 """Work a rank for the two-rank tests: :func:`run_ranks` runs a job (a
 masked or grouped round with its draws handed in, a grouped or masked
 superstep, an evaluation, an entry, the pod probe's rank, the synchronised
-batch norm, ring attention, ``SeqParallelLM``, or several of them in turn
-on one group, each on a ``(clients, data)`` mesh of its own) as
+batch norm of one client or of a level's G clients, ring attention,
+``SeqParallelLM``, or several of them in turn on one group, each on a
+``(clients, data)`` mesh of its own) as
 ``n`` gloo ranks on the CPU, one process a rank started as torchrun
 would start it (``heterofl_tpu_torch.parallel.pod._spawn``: torchrun's
 variables, a free port each run, a timeout of its own), and returns each
@@ -123,8 +124,11 @@ def grouped_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
     ``epoch0`` (default 1), its draws handed in where given: ``epoch_perms``
     a round each, ``codec_noise`` a rank each, a round each; with
     ``first_round`` also the params after round 1 alone on the superstep's
-    grid (``first``), which size round 2's grid step.  Also the one-rank
-    run, called in the test's process with a one-rank mesh."""
+    grid (``first``), which size round 2's grid step.  K=1 also takes the
+    reference's whole-batch augmentation ``aug_draws`` ``{(uid, t):
+    (offsets, flips)}`` and LM draws ``lm_draws`` ``{(uid, t): draws}``.
+    Also the one-rank run, called in the test's process with a one-rank
+    mesh."""
     from heterofl_tpu_torch.convert import params_from_jax, params_to_jax
     from heterofl_tpu_torch.fed.sliced import SlicedFederation
     from heterofl_tpu_torch.models import make_model
@@ -160,8 +164,15 @@ def grouped_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
                                       codec_noise=noise)
         rounds = [{n: np.asarray(v) for n, v in r.items()} for r in pend.fetch()]
     else:
+        aug, lmd = job.get("aug_draws"), job.get("lm_draws")
+        hooks = {} if aug is None else {"aug_draws": lambda u, t: aug[u, t]}
+        if lmd is not None:
+            hooks["lm_draws"] = lambda u, t: {
+                k: ({s: torch.from_numpy(np.asarray(m)) for s, m in v.items()}
+                    if isinstance(v, dict) else torch.from_numpy(np.asarray(v)))
+                for k, v in lmd[u, t].items()}
         P, ms = eng.train_round(P, job["lr"], job["users"], data, round_seed=0,
-                                epoch_perms=job.get("epoch_perms"))
+                                epoch_perms=job.get("epoch_perms"), **hooks)
         rounds = {n: (_host(v) if torch.is_tensor(v) else v) for n, v in ms.items()}
     return dict(out, round=rounds, params=params_to_jax(eng.unflatten(P), perms), flat=_host(P),
                 resid=eng.wire_resid_host(), placement=getattr(eng, "level_placement", None),
@@ -183,6 +194,7 @@ def _seq_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
         res = JOBS[sub["kind"]](dict(sub, out_dir=job["out_dir"]), m, torch)
         res["collectives"] = dict(M.COLLECTIVES)
         res["data_collectives"] = dict(M.DATA_COLLECTIVES)
+        res["data_collective_bytes"] = dict(M.DATA_COLLECTIVE_BYTES)
         out.append(res)
     return {"results": out}
 
@@ -204,6 +216,43 @@ def _bn_sync_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
                                      (x, g, b))
     return {"y": _host(y.permute(0, 2, 3, 1)), "dx": _host(dx.permute(0, 2, 3, 1)),
             "dg": _host(dg), "db": _host(db)}
+
+
+def _bn_sync_clients_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
+    """The batched synchronised batch norm of G clients on this rank's data
+    block of ``x [G, N, H, W, C]`` (weights ``w [G, N]``, cotangent ``dy``),
+    as the grouped engine's clients-in-channels ``[n, G*C, H, W]`` -> its
+    ``y``, and the gradients of ``sum(y * dy)``: ``dx`` of its block, its
+    LOCAL ``dg`` and ``db`` ``[G, C]``, each in the input's layout; at G = 1
+    also the one-client ``batch_norm_sync``'s, which it must equal bit for
+    bit."""
+    from heterofl_tpu_torch.ops.fused_norm import batch_norm_sync, batch_norm_sync_clients
+    from heterofl_tpu_torch.parallel.mesh import block_bounds
+
+    G, N, H, W, C = job["x"].shape
+    lo, hi = block_bounds(N, mesh.data_size, mesh.data_rank)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+
+    def clients(a):  # [G, n, H, W, C] -> [n, G*C, H, W] (channels_last)
+        return a.permute(1, 2, 3, 0, 4).reshape(a.shape[1], H, W, G * C).permute(0, 3, 1, 2)
+
+    def back(a):  # the inverse
+        return a.permute(0, 2, 3, 1).reshape(a.shape[0], H, W, G, C).permute(3, 0, 1, 2, 4)
+
+    x = clients(t(job["x"][:, lo:hi])).detach().requires_grad_()
+    g, b = t(job["g"]).requires_grad_(), t(job["b"]).requires_grad_()
+    dy = clients(t(job["dy"][:, lo:hi]))
+    y = batch_norm_sync_clients(x, g, b, t(job["w"][:, lo:hi]), mesh)
+    dx, dg, db = torch.autograd.grad((y * dy).sum(), (x, g, b))
+    out = {"y": _host(back(y)), "dx": _host(back(dx)), "dg": _host(dg), "db": _host(db)}
+    if G == 1:
+        x1 = x.detach().requires_grad_()
+        g1, b1 = g.detach()[0].requires_grad_(), b.detach()[0].requires_grad_()
+        y1 = batch_norm_sync(x1, g1, b1, t(job["w"][0, lo:hi]), mesh)
+        dx1, dg1, db1 = torch.autograd.grad((y1 * dy).sum(), (x1, g1, b1))
+        out["one"] = {"y": _host(back(y1)), "dx": _host(back(dx1)), "dg": _host(dg1[None]),
+                      "db": _host(db1[None])}
+    return out
 
 
 def _layout_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
@@ -256,19 +305,22 @@ def _seqlm_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
 
 
 def _superstep_job(job: Dict[str, Any], mesh, torch) -> Dict[str, Any]:
-    """The masked engine's ``train_superstep`` of ``k`` rounds (cohorts
-    ``users [k, A]`` at ``rates``) against the same rounds one after
-    another through ``train_round`` at each round's seed -> both flat
-    params and metric rows."""
+    """The masked (or, with ``job['engine']`` ``'grouped'``, the grouped)
+    engine's ``train_superstep`` of ``k`` rounds (cohorts ``users [k, A]``
+    at ``rates``) against the same rounds one after another through
+    ``train_round`` at each round's seed -> both flat params and metric
+    rows."""
     from heterofl_tpu_torch.convert import params_from_jax
     from heterofl_tpu_torch.fed.core import round_seed
     from heterofl_tpu_torch.models import make_model
+    from heterofl_tpu_torch.parallel import GroupedRoundEngine
     from heterofl_tpu_torch.parallel.round_engine import RoundEngine
 
     cfg, k = job["cfg"], job["k"]
     model = make_model(cfg)
     model.load_state_dict(params_from_jax(job["params"], model.jax_perms()))
-    eng = RoundEngine(model, cfg, mesh.device, mesh)
+    engine = GroupedRoundEngine if job.get("engine") == "grouped" else RoundEngine
+    eng = engine(model, cfg, mesh.device, mesh)
     data = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in job["data"])
     P0 = eng.flatten(model.params())
     lrs = np.full(k, job["lr"], np.float32)
@@ -332,7 +384,8 @@ def job_main(path: str) -> None:
 
 JOBS = {"round": _round_job, "eval": _eval_job, "entry": _entry_job, "grouped": grouped_job,
         "seq": _seq_job, "probe": _probe_job, "bn_sync": _bn_sync_job, "ring": _ring_job,
-        "seqlm": _seqlm_job, "superstep": _superstep_job, "layout": _layout_job}
+        "seqlm": _seqlm_job, "superstep": _superstep_job, "layout": _layout_job,
+        "bn_sync_clients": _bn_sync_clients_job}
 
 
 if __name__ == "__main__":
