@@ -310,7 +310,21 @@ each prints its seconds:
    batch of G = 2) and ``SeqParallelLM.forward`` / ``train_step`` against
    one rank with dense attention, within ``TOL_DATA_LM``; (d) NCCL between
    two GPUs where the machine has them, else the reason printed;
-18. the ``kernels`` JSON line (launches from the int8 path, the batched
+18. the non-SGD optimizers in the federated engines (``utils/optim.py::
+   FlatOptimizer``; the optimizer's keys merged into the entry's one
+   ``--override``), under Adam at ``OPTIM_LR``: (a) the masked headline
+   at phase 15's depth, K=1 and one superstep of two rounds, equal bit for
+   bit under cuDNN's deterministic algorithms, rows 1-2 launched (the
+   superstep's from replays) and row 3 never; a grouped K=1 round (1b/2b,
+   never 3b); a masked LM round (no fused SGD); (b) the small conv round
+   on the card against the CPU within ``TOL_ROUND``; (c) a replayed
+   masked level-a headline step under SGD and under Adam: device ms
+   (CUDA events), kernels of its capture, the step graph's pool and the
+   peak allocated MB, the state's MB; a replayed level-a epoch (masked)
+   and a grouped (level a, G 2) one under Adam in a profiler trace whose
+   hand-written kernels by name equal the captured launches times the
+   replays -- rows 1-2 (1b/2b), and rows 3 and 3b at 0;
+19. the ``kernels`` JSON line (launches from the int8 path, the batched
    kernels' from the grouped path, the synchronised pair's from 17b's
    rank 0, the batched synchronised pair's from 17b's grouped runs on rank
    0; per path in ``launches_by_path``, and
@@ -325,6 +339,7 @@ Everything it measures is printed on standard output.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -555,16 +570,24 @@ TRACE_PAD = 8
 PAD_KERNEL = "spin_kernel"
 
 
-def trace(fn, cpu: bool = True):
+def trace(fn, cpu: bool = True, warm: bool = False):
     """``fn()`` run and the card synchronised inside a ``torch.profiler``
     trace, after :data:`TRACE_PAD` empty kernels -> (the profile, the run's
     host-clock ms); ``cpu=False`` records the card's activity alone (a
-    whole entry run's host operators cost the trace tens of seconds)."""
+    whole entry run's host operators cost the trace tens of seconds);
+    ``warm`` first runs ``fn()`` once in a warm-up cycle of the same
+    profiler, traced and discarded (the profiler's start-up loses
+    records)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    plan = schedule(wait=0, warmup=1, active=1, repeat=1) if warm else None
+    with profile(activities=acts, schedule=plan) as prof:
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         for _ in range(TRACE_PAD):
             torch.cuda._sleep(1)
         torch.cuda.synchronize()
@@ -572,6 +595,8 @@ def trace(fn, cpu: bool = True):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+        if warm:
+            prof.step()
     return prof, wall
 
 
@@ -641,19 +666,23 @@ def traced_as_captured(run, want: dict, what: str):
     """``run`` traced until the hand-written kernels counted by name in its
     trace (:func:`traced_kernels`) equal ``want``, the captured launches x
     replays: a trace that counts fewer lost records and is taken again, up
-    to :data:`TRACE_TRIES` in all; one that counts more fails at once (a
+    to :data:`TRACE_TRIES` in all, each again after a traced warm-up run
+    (:func:`trace`'s ``warm``); one that counts more fails at once (a
     profiler does not make records up) -> (the profile, the counts, the
     run's host-clock ms)."""
     if not want:
         raise AssertionError(f"{what}: the captured step holds no hand-written kernel")
     for attempt in range(1, TRACE_TRIES + 1):
-        prof, wall = trace(run)
+        prof, wall = trace(run, warm=attempt > 1)
         got = traced_kernels(prof)
         if all(got[k] == want.get(k, 0) for k in KERNEL_OF):
             return prof, got, wall
-        say(f"{what}: trace {attempt} of {TRACE_TRIES} counted {got} in "
-            f"{len(device_events(prof))} device records, not the captured launches x replays "
-            f"{want}")
+        names = device_events(prof)
+        at = {k: [i for i, n in enumerate(names) if re.search(rf"\b{pat}\b", n)]
+              for k, pat in KERNEL_OF.items() if want.get(k)}
+        say(f"{what}: trace {attempt} of {TRACE_TRIES} counted {got} in {len(names)} device "
+            f"records, not the captured launches x replays {want}; the counted kernels' "
+            f"places among the records {at}; the first records {names[:8]}")
         if any(got[k] > want.get(k, 0) for k in KERNEL_OF):
             break
     raise AssertionError(f"{what}: the kernels a replayed epoch ran {got} are not its captured "
@@ -927,11 +956,11 @@ def quant_phase(torch, quant, codecs, spec, P):
             "bytes": nbytes, "ops": nops, "library_ms": None}
 
 
-def small_round_phase(torch, wire_codec, norm="bn"):
+def small_round_phase(torch, wire_codec, norm="bn", optimizer="SGD"):
     """One small round of the port on the card (kernels) against the same
-    round on the CPU (plain versions): MNIST conv twin under ``norm``, epoch
-    permutations (and the int8 codec's noise) injected so both sides see
-    the same draws.
+    round on the CPU (plain versions): MNIST conv twin under ``norm`` and
+    ``optimizer`` (not SGD: at ``OPTIM_LR``), epoch permutations (and the
+    int8 codec's noise) injected so both sides see the same draws.
     Dense: params within ``TOL_ROUND``.  int8: the trained sums differ by
     float rounding, so entries may land one grid step apart: params within
     ``TOL_ROUND`` but a share ``SHARE_ROUND_INT8`` within one step
@@ -954,6 +983,8 @@ def small_round_phase(torch, wire_codec, norm="bn"):
     cfg["override"] = {"num_epochs": {"local": 2}, "conv": {"hidden_size": [16, 32]}}
     cfg = C.process_control(cfg)
     cfg["classes_size"] = 10
+    cfg["optimizer_name"] = optimizer
+    lr = 0.05 if optimizer == "SGD" else OPTIM_LR
     ds = fetch_dataset("MNIST", synthetic=True, synthetic_sizes={"train": 400, "test": 40})
     split, lsplit = split_dataset(ds, 4, "iid", np.random.default_rng(0), classes_size=10)
     arrays = stack_client_shards(ds["train"].data, ds["train"].target, split["train"],
@@ -972,7 +1003,7 @@ def small_round_phase(torch, wire_codec, norm="bn"):
         if eng.codec is not None:
             noise = torch.rand(eng.spec.total, generator=torch.Generator().manual_seed(5))
             noise = noise.to(dev)
-        new, ms = eng.train_round(P, 0.05, users, data, 0, epoch_perms=perms,
+        new, ms = eng.train_round(P, lr, users, data, 0, epoch_perms=perms,
                                   codec_noise=noise)
         out.append((new.cpu(), ms["loss_sum"].cpu(), eng.wire_resid_host()))
         if eng.codec is not None:
@@ -981,7 +1012,7 @@ def small_round_phase(torch, wire_codec, norm="bn"):
             s = eng.codec.scale_flat(P, len(users)).cpu()
     card, cpu = out
     dl = float((card[1] - cpu[1]).abs().max())
-    what = f"small round ({wire_codec}, {norm}), card vs CPU"
+    what = f"small round ({wire_codec}, {norm}, {optimizer}), card vs CPU"
     if wire_codec == "dense":
         d = float((card[0] - cpu[0]).abs().max())
         say(f"{what}: max |params diff| {d:.3e}, max |loss_sum diff| {dl:.3e} "
@@ -3549,6 +3580,11 @@ def population_phase(torch, counters, device: str = "cuda"):
         build_s = time.perf_counter() - t0
         sched = superstep_user_schedule(0, 1, SS_ROUNDS, users, POP_ACTIVE, "prp")
         rates = superstep_rate_schedule(0, 1, SS_ROUNDS, cfg, sched)
+        # the previous population's engine and cohort freed first: a
+        # collection during the first staging would free them there and
+        # cancel this cohort's bytes in the count
+        coh = None
+        gc.collect()
         before = allocated_now()
         host_s, copy_s, allocated = [], [], None
         for i in range(POP_STAGE_CALLS):
@@ -5633,6 +5669,213 @@ def data_phase(torch, counters, out_dir: str, one_rank=None, grouped_one_rank=No
     return launches, nums
 
 
+# --- phase 18: RMSprop, Adam and Adamax in the federated engines ---------------------
+
+#: phase 18's optimizer: Adam at a rate of its own (the headline's 0.1 is SGD's)
+OPTIM = "Adam"
+OPTIM_LR = 1e-3
+OPTIM_STEP_REPLAYS = 50  # replays of a level-a step timed under each optimizer
+OPTIM_STEP_SAMPLES = 3
+OPTIM_LM_SIZES = {"train": 128000, "test": 12288}  # 20 steps a client
+
+
+def optim_argv(out_dir: str, k: int, rounds: int = MESH_ROUNDS, *extra):
+    """Phase 15's headline flags under :data:`OPTIM`: the optimizer's keys
+    merged into the one ``--override`` (a second flag would replace it)."""
+    return ["--control_name", HEADLINE, "--synthetic", "1", "--synthetic_sizes",
+            json.dumps(MESH_SIZES), "--pallas_norm", "1", "--fused_update", "1",
+            "--superstep_rounds", str(k), "--eval_interval", str(rounds),
+            "--output_dir", out_dir, "--override",
+            json.dumps({"num_epochs": {"global": rounds, "local": 1},
+                        "optimizer_name": OPTIM, "lr": OPTIM_LR}), *extra]
+
+
+def finite_run(what: str, res, keys=("loss",), evaluated=()) -> None:
+    """Every round's ``keys`` and the last round's ``evaluated`` finite."""
+    hist = res["history"]
+    if not hist or not all(math.isfinite(r[k]) for r in hist for k in keys) or not all(
+            math.isfinite(hist[-1].get(k, float("nan"))) for k in evaluated):
+        raise AssertionError(f"{what}: expected finite {keys} and {evaluated}, got {hist}")
+
+
+def optim_step(torch, name: str, trace_epochs: bool = False) -> dict:
+    """(c) A replayed masked level-a headline step at full width (the
+    audit's flagship cfg) under ``name``: device ms over
+    :data:`OPTIM_STEP_REPLAYS` replays (CUDA events, the median of
+    :data:`OPTIM_STEP_SAMPLES`), kernels of its capture, the capture's pool
+    MB, the peak allocated MB, the optimizer state's MB; with
+    ``trace_epochs`` also a replayed level-a epoch (masked) and a grouped
+    one (level a, G 2) in a profiler trace whose hand-written kernels by
+    name must equal the captured launches times the replays."""
+    from heterofl_tpu_torch.entry.common import FedExperiment
+    from heterofl_tpu_torch.fed.core import round_seed
+    from heterofl_tpu_torch.parallel import GroupedRoundEngine, step_graph
+    from heterofl_tpu_torch.staticcheck.audit import default_audit_cfg
+    from heterofl_tpu_torch.staticcheck.kernels import graph_kernels as count_kernels
+
+    dev = torch.device("cuda")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_optim_") as tmp:
+        cfg = default_audit_cfg(True, "cuda", output_dir=tmp, superstep_rounds=2)
+        if name != "SGD":
+            cfg = dict(cfg, optimizer_name=name, lr=OPTIM_LR)
+        exp = FedExperiment(cfg, 0)
+        exp.stage(*exp.make_splits())
+        eng, data = exp.engine, exp.train_data
+        if (eng.fused_mode is None) != (name != "SGD") or eng.opt.name != name:
+            raise AssertionError(f"optim: the engine under {name} resolved fused mode "
+                                 f"{eng.fused_mode!r}")
+        P = eng.flatten(exp.model.params())
+        # garbage freed during the capture (torch.cuda.graph collects and
+        # empties the cache on entry) would count against the pool
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_graph.reset_stats()
+        step, st = eng.client_step(1.0, P, data)
+        out["pool_mb"] = step_graph.STATS["pool_bytes"] / 1e6
+        eng.stage_client(st, P, 1.0, 0, data, 1)
+        st["lr"].fill_(exp.cfg["lr"])
+        for _ in range(3):
+            st["t"].zero_()
+            step.replay()
+        samples = []
+        for _ in range(OPTIM_STEP_SAMPLES):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(OPTIM_STEP_REPLAYS):
+                st["t"].zero_()
+                step.replay()
+            end.record()
+            torch.cuda.synchronize()
+            samples.append(start.elapsed_time(end) / OPTIM_STEP_REPLAYS)
+        out["step_ms"] = statistics.median(samples)
+        out["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+        out["state_mb"] = sum(v.numel() * v.element_size() for v in st["opt"].values()) / 1e6
+        out["launches"] = {k: v for c in step.launches for k, v in c.items()}
+        out["kernels"] = count_kernels(step.fn, reset=st["t"].zero_, generators=[eng._ggen])
+        if out["launches"].get("fused_sgd", 0) != (1 if name == "SGD" else 0) or \
+                out["launches"].get("bn_fwd") != BN_SITES:
+            raise AssertionError(f"optim: a replayed {name} step launches {out['launches']}")
+        if not bool(torch.isfinite(st["p"]).all()):
+            raise AssertionError(f"optim: the replayed {name} steps' params are not finite")
+        if trace_epochs:
+            lr = torch.full((), OPTIM_LR, dtype=torch.float32, device=dev)
+
+            def masked_epoch():
+                eng.stage_client(st, P, 1.0, 0, data, 1)
+                st["lr"].copy_(lr)
+                for _ in range(st["steps"]):
+                    step.replay()
+            want = {k: v * st["steps"] for k, v in out["launches"].items()}
+            traced = {"masked": traced_as_captured(masked_epoch, want, f"optim {name} masked")[1]}
+            geng = GroupedRoundEngine(exp.model, dict(exp.cfg, strategy="grouped"), dev)
+            lv, users = geng.levels[1.0], [0, 1]
+            gstep, gst, gens = geng.level_step(lv, len(users), P, data)
+            glaunch = {k: v for c in gstep.launches for k, v in c.items()}
+            if glaunch.get("fused_sgd_batched", 0) or not glaunch.get("bn_fwd_batched"):
+                raise AssertionError(f"optim: a replayed grouped {name} step launches {glaunch}")
+
+            def grouped_epoch():
+                geng.stage_level(lv, gst, gens, P, torch.tensor(users, device=dev), users, data,
+                                 round_seed(0, 1))
+                geng._lr.copy_(lr)
+                for _ in range(gst["steps"]):
+                    gstep.replay()
+            gwant = {k: v * gst["steps"] for k, v in glaunch.items()}
+            traced["grouped"] = traced_as_captured(grouped_epoch, gwant,
+                                                   f"optim {name} grouped")[1]
+            out["traced"] = traced
+            out["captured_x_replays"] = {"masked": want, "grouped": gwant}
+            del geng
+        del exp, eng, data, P, st, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def optim_phase(torch, counters, out_dir: str):
+    """Phase 18 (the module docstring) -> ({path: launches}, {path:
+    replayed launches}, numbers)."""
+    from heterofl_tpu_torch.entry import train_classifier_fed, train_transformer_fed
+
+    launches, replayed, runs, nums = {}, {}, {}, {}
+    cudnn = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        # (a) the masked headline, K=1 and one superstep; a grouped K=1 round
+        for what, k in (("optim_k1", 1), ("optim_superstep", MESH_ROUNDS)):
+            runs[what], secs, launches[what], replayed[what] = counted_run(
+                torch, counters, train_classifier_fed.main,
+                optim_argv(os.path.join(out_dir, what), k), f"optim: {OPTIM} masked {what}")
+            say(f"optim: {what}: {secs:.1f} s; launches {launches[what]}, from replays "
+                f"{replayed[what]}")
+            finite_run(f"optim: {what}", runs[what], evaluated=("Global-Accuracy",))
+        if not same_run(torch, runs["optim_k1"], runs["optim_superstep"]):
+            raise AssertionError(f"optim: the {OPTIM} superstep is not its K=1 rounds bit for bit")
+        steps = MESH_ROUNDS * 10 * (MESH_SIZES["train"] // 100 // BATCH)  # 10 clients a round
+        for what in ("optim_k1", "optim_superstep"):
+            n = launches[what]
+            if n["bn_fwd"] < BN_SITES * steps or n["bn_bwd"] < BN_SITES * steps \
+                    or n["fused_sgd"] or n["quant_pack"] or any(n[k] for k in NO_BATCHED):
+                raise AssertionError(f"optim: {what} launches {n}")
+        rep = replayed["optim_superstep"]
+        if rep.get("bn_fwd", 0) != BN_SITES * steps or rep.get("fused_sgd", 0):
+            raise AssertionError(f"optim: the superstep's launches from replays {rep}")
+        say(f"optim: the {OPTIM} superstep equals its K=1 rounds bit for bit (cohorts, logs, "
+            f"params); losses {[r['loss'] for r in runs['optim_k1']['history']]}")
+        del runs
+        what = "optim_grouped_k1"
+        res, secs, launches[what], replayed[what] = counted_run(
+            torch, counters, train_classifier_fed.main,
+            optim_argv(os.path.join(out_dir, what), 1, 1, "--strategy", "grouped"),
+            f"optim: {OPTIM} grouped K=1")
+        finite_run(f"optim: {what}", res, evaluated=("Global-Accuracy",))
+        n = launches[what]
+        if not (n["bn_fwd_batched"] and n["bn_bwd_batched"]) or n["fused_sgd_batched"] \
+                or any(n[k] for k in ("bn_fwd", "bn_bwd", "fused_sgd", "quant_pack")):
+            raise AssertionError(f"optim: {what} launches {n}")
+        say(f"optim: {what}: {secs:.1f} s; launches {n}; loss {res['history'][0]['loss']:.6f}")
+        what = "optim_lm"
+        argv = ["--control_name", LM_CONTROL, "--synthetic", "1", "--synthetic_sizes",
+                json.dumps(OPTIM_LM_SIZES), "--fused_update", "1", "--eval_interval", "1",
+                "--output_dir", os.path.join(out_dir, what), "--override",
+                json.dumps({"num_epochs": {"global": 1, "local": 1}, "optimizer_name": OPTIM,
+                            "lr": OPTIM_LR})]
+        res, secs, launches[what], replayed[what] = counted_run(
+            torch, counters, train_transformer_fed.main, argv, f"optim: {OPTIM} masked LM")
+        finite_run(f"optim: {what}", res, ("loss", "perplexity"), ("Global-Perplexity",))
+        n = launches[what]
+        if any(n[k] for k in ("bn_fwd", "bn_bwd", "fused_sgd", "quant_pack", *NO_BATCHED)):
+            raise AssertionError(f"optim: {what} launches {n}")
+        mask_row_kept(torch, res["params"])
+        say(f"optim: {what}: {secs:.1f} s; launches {n}; perplexity "
+            f"{res['history'][0]['perplexity']:.3f}, Global-Perplexity "
+            f"{res['history'][0]['Global-Perplexity']:.3f}")
+        del res
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    # (b) the small round against the CPU
+    small_round_phase(torch, "dense", optimizer=OPTIM)
+    # (c) a replayed level-a step under SGD and under Adam
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    nums["step"] = {"SGD": optim_step(torch, "SGD"), OPTIM: optim_step(torch, OPTIM, True)}
+    for name, r in nums["step"].items():
+        say(f"optim: a replayed masked level-a headline step under {name}: {r['step_ms']:.4f} ms "
+            f"(device clock, median of {OPTIM_STEP_SAMPLES} x {OPTIM_STEP_REPLAYS} replays), "
+            f"{r['kernels']} kernels a replay (captured launches {r['launches']}), graph pool "
+            f"{r['pool_mb']:.1f} MB, peak allocated {r['peak_mb']:.1f} MB, optimizer state "
+            f"{r['state_mb']:.1f} MB; {card}")
+    r = nums["step"][OPTIM]
+    for kind in ("masked", "grouped"):
+        say(f"optim: {OPTIM} {kind} level-a epoch replayed: hand-written kernels counted by name "
+            f"in the trace {r['traced'][kind]}; captured launches x replays "
+            f"{r['captured_x_replays'][kind]}")
+    nums["card"] = card
+    return launches, replayed, nums
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--local-epochs", type=int, default=1,
@@ -5931,6 +6174,12 @@ def main() -> int:
         by_path.update(data_n)
         phases.done("data mesh: the headline at (1, 2) on two ranks against one, the LM round "
                     "and SeqParallelLM against dense attention")
+        # 18. the non-SGD optimizers
+        optim_n, optim_rep, optim_nums = optim_phase(torch, counters, os.path.join(tmp, "optim"))
+        by_path.update(optim_n)
+        replayed_by_path.update(optim_rep)
+        phases.done(f"optimizers: the {OPTIM} headline K=1 against its superstep, grouped and "
+                    f"LM rounds, a round against the CPU, a replayed step beside SGD's")
     say(f"stream: staging a cohort at {POP_USERS[-1]:,} users {pop_nums['ratio']:.3f}x the host "
         f"seconds at {POP_USERS[0]:,}; prefetches ended with the device busy: "
         + ", ".join(f"depth {d} {n['busy']}" for d, n in ring_nums.items()))

@@ -21,7 +21,8 @@ expression order; :data:`LAUNCHES` counts kernel launches.  With the clip
 not engaged the kernel's elementwise tail equals the plain chain bit for
 bit; with it engaged the norm is summed in another order (per block, not
 per leaf), so the scale may differ in the last ulp.  The per-leaf chain
-that ``fused_update=False`` runs instead is ``utils/optim.py``'s.
+that ``fused_update=False`` (and every optimizer but SGD) runs instead is
+``utils/optim.py``'s.
 
 The batched kernel (3b; :func:`fused_sgd_batched`, the kernel under
 ``jax.vmap`` over a level's clients, the grouped engine) takes ``g, p, buf
@@ -149,15 +150,17 @@ class FlatSpec:
 
 def resolve_fused_mode(cfg: Dict[str, Any], device: torch.device) -> Optional[str]:
     """``cfg['fused_update']`` -> ``"cuda"`` (the kernel), ``"plain"`` (its
-    plain version, CPU only) or None (the per-leaf reference chain).
+    plain version, CPU only) or None (the unfused chain: the clip per leaf,
+    then the configured optimizer over flat buffers,
+    ``utils.optim.FlatOptimizer``).
 
+    A non-SGD optimizer resolves to None before ``fused_update`` is read, as
+    the reference's does (the kernel is torch SGD's update).  For SGD,
     ``True`` (the default) resolves by device: the kernel on CUDA, the plain
     version on the CPU.  ``"cuda"`` asks for the kernel and raises off CUDA.
-    ``False`` keeps the unfused per-leaf chain, as the reference's does."""
+    ``False`` keeps the unfused chain, as the reference's does."""
     if cfg.get("optimizer_name", "SGD") != "SGD":
-        raise NotImplementedError(
-            f"optimizer_name={cfg['optimizer_name']!r} is not ported to "
-            f"heterofl_tpu_torch yet (SGD is)")
+        return None
     fu = cfg.get("fused_update", True)
     if fu is True:
         return "cuda" if device.type == "cuda" else "plain"

@@ -33,10 +33,12 @@ slots to powers of two to bound its compile cache (grouped.py:743); the
 port has no compile cache and runs exactly the level's clients -- the
 reference's padded slots add exact zeros, so the numbers are the same.
 
-**Layout, and what it costs a step.**  A level's params, momentum and
-gradient are client-major ``[G, ld]`` buffers (each client's flat buffer of
-n_l entries one contiguous row, rows padded to ``ld``, a multiple of 4, so
-each starts 16-byte aligned: ResNet-18's n_l are 2 mod 4), which the
+**Layout, and what it costs a step.**  A level's params, optimizer slots
+(SGD's momentum; RMSprop's, Adam's and Adamax's two slots, beside a ``[G]``
+step counter for the last two) and gradient are client-major ``[G, ld]``
+buffers (each client's flat buffer of n_l entries one contiguous row,
+rows padded to ``ld``, a multiple of 4, so each starts 16-byte aligned:
+ResNet-18's n_l are 2 mod 4), which the
 batched fused SGD (ops/fused_update.py, kernel 3b) needs for its
 per-client norm; it and the aggregation take the ``[:, :n_l]`` views, and
 no pad entry is read.  The batched forward needs each
@@ -285,9 +287,10 @@ class Level:
         self._pad: Dict[int, List[torch.Tensor]] = {}
 
     def buffers(self, P: torch.Tensor, G: int) -> Tuple[torch.Tensor, ...]:
-        """G clients' params (the global ``P`` at the level's entries),
-        momentum (zeros) and gradient buffers, each ``[G, ld]``; the pad
-        columns of params and momentum are zero."""
+        """G clients' params (the global ``P`` at the level's entries), a
+        zero buffer (the optimizer's first slot: SGD's momentum) and the
+        gradient buffer, each ``[G, ld]``; the pad columns of params and
+        the zero buffer are zero."""
         p = torch.zeros((G, self.ld), dtype=P.dtype, device=P.device)
         p[:, :self.spec.total] = P.index_select(0, self.idx)
         return p, torch.zeros_like(p), torch.empty_like(p)
@@ -409,8 +412,7 @@ class GroupedRoundEngine(FlatParams):
             self._map_layout(ef)
         eng0 = next(iter(self.levels.values())).engine
         self.local_epochs, self.batch_size = eng0.local_epochs, eng0.batch_size
-        self.fused_mode, self.momentum, self.weight_decay = \
-            eng0.fused_mode, eng0.momentum, eng0.weight_decay
+        self.fused_mode, self.opt = eng0.fused_mode, eng0.opt
         if not self.is_lm:
             self.norm, self.augment = eng0.norm, eng0.augment
 
@@ -481,16 +483,20 @@ class GroupedRoundEngine(FlatParams):
 
     # -- one level's clients ------------------------------------------------
 
-    def _step(self, lv: Level, p, buf, g, grads, n_glob, lr, live=None, sums=None
+    def _step(self, lv: Level, p, opt, g, grads, n_glob, lr, live=None, sums=None
               ) -> Optional[torch.Tensor]:
         """The optimizer tail of one step of G clients, in place on ``p``
-        and ``buf`` ``[G, n_l]`` (views of ``[G, ld]`` rows): the batched
-        fused epilogue (gradients packed client-major into ``g [G, ld]``),
-        or each client's per-leaf chain.  A row steps where its batch has
-        weight and, with ``live [G]`` (bool), where it is live.  With
-        ``sums [G, 2]`` (the data axis) the packed gradient and ``sums`` go
-        out in ONE all-reduce over the data group first; ``n_glob`` None
-        takes the reduced ``sums[:, 1]``.  Returns the reduced ``sums``."""
+        and the optimizer state ``opt`` (``[G, n_l]`` views of ``[G, ld]``
+        rows, a ``[G]`` counter): the batched fused SGD epilogue (gradients
+        packed client-major into ``g [G, ld]``), or the unfused chain --
+        each client's gradient clipped as the one-client chain clips it,
+        written into its row of ``g``, then the configured optimizer over
+        the ``[G, n_l]`` rows in one pass.  A row steps (params, slots and
+        counter) where its batch has weight and, with ``live [G]`` (bool),
+        where it is live.  With ``sums [G, 2]`` (the data axis) the packed
+        gradient and ``sums`` go out in ONE all-reduce over the data group
+        first; ``n_glob`` None takes the reduced ``sums[:, 1]``.  Returns the
+        reduced ``sums``."""
         self.local_steps += 1  # eager calls only: a replayed step does not count
         G, n = p.shape[0], lv.spec.total
         if sums is not None or self.fused_mode is not None:
@@ -505,13 +511,13 @@ class GroupedRoundEngine(FlatParams):
         has = n_glob > 0 if live is None else (n_glob > 0) & live
         if self.fused_mode is None:
             for i in range(G):
-                lv.engine._reference_step(p[i], buf[i], [gr[i] for gr in grads], lv.mask,
-                                          n_glob[i], lr, has[i])
+                lv.engine.clip_into(g[i, :n], [gr[i] for gr in grads], lv.mask, n_glob[i])
+            self.opt.update_(p, g[:, :n], opt, lr, has)
             return sums
         scal = torch.stack([n_glob.clamp_min(1e-6), lr.expand(G), has.to(torch.float32)],
                            dim=1)
-        fused_sgd_batched(g[:, :n], p, buf, lv.mask, scal, momentum=self.momentum,
-                          weight_decay=self.weight_decay, max_norm=1.0)
+        fused_sgd_batched(g[:, :n], p, opt["buf"], lv.mask, scal, momentum=self.opt.momentum,
+                          weight_decay=self.opt.weight_decay, max_norm=1.0)
         return sums
 
     def local_train_level(self, lv: Level, P: torch.Tensor, uids: torch.Tensor, data,
@@ -520,8 +526,8 @@ class GroupedRoundEngine(FlatParams):
                           aug: Optional[Callable[[int], List[Tuple[Any, Any]]]] = None,
                           lim: Optional[np.ndarray] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Local SGD of a level's G vision clients (``uids``) from the global
-        flat params ``P`` -> ``(trained [G, n_l], [G, 3] sums of loss,
+        """Local training of a level's G vision clients (``uids``) from the
+        global flat params ``P`` -> ``(trained [G, n_l], [G, 3] sums of loss,
         correct, n)``.  ``lim [G]`` (host int64, or None): each row's step
         budget -- step ``t`` of a row with ``t >= lim`` changes neither its
         params nor its sums, and the level stops after its largest budget.
@@ -531,9 +537,9 @@ class GroupedRoundEngine(FlatParams):
         B, G, dev = self.batch_size, len(gens), P.device
         x_all, y_all, sm_all, lm_all = data
         S = math.ceil(x_all.shape[1] / B)
-        p_rows, buf_rows, g = lv.buffers(P, G)
+        p_rows, zeros, g = lv.buffers(P, G)
         smu = sm_all[uids]
-        st = {"p": p_rows, "buf": buf_rows, "g": g, "lr": lr, "lm": lm_all[uids],
+        st = {"p": p_rows, "opt": self.opt.init(p_rows, zeros), "g": g, "lr": lr, "lm": lm_all[uids],
               "acc": torch.zeros((G, 3), dtype=torch.float32, device=dev)}
         perms = self._level_perms(gens, smu, raw_perms)
         wpad = lv.engine._pad_weights(x_all.shape[1], dev)
@@ -554,8 +560,8 @@ class GroupedRoundEngine(FlatParams):
                              draws: Optional[Callable[[int], List[Dict[str, Any]]]] = None,
                              lim: Optional[np.ndarray] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Local SGD of a level's G masked-LM clients on their token rows
-        -> ``(trained [G, n_l], [G, 3] sums of loss, score, n)``, as
+        """Local training of a level's G masked-LM clients on their token
+        rows -> ``(trained [G, n_l], [G, 3] sums of loss, score, n)``, as
         ``RoundEngine.local_train_lm``; ``lim`` as in
         :meth:`local_train_level`; ``draws(t)`` (test hook) gives each
         client's step-``t`` corruption and dropout draws."""
@@ -566,8 +572,8 @@ class GroupedRoundEngine(FlatParams):
         wpos, n_win = lv.engine._window_weights(R, T, dev)
         S = n_win.numel()
         rows_p = torch.nn.functional.pad(rows, (0, S * bptt - T))
-        p_rows, buf_rows, g = lv.buffers(P, G)
-        st = {"p": p_rows, "buf": buf_rows, "g": g, "lr": lr, "lm": lm_all[uids],
+        p_rows, zeros, g = lv.buffers(P, G)
+        st = {"p": p_rows, "opt": self.opt.init(p_rows, zeros), "g": g, "lr": lr, "lm": lm_all[uids],
               "acc": torch.zeros((G, 3), dtype=torch.float32, device=dev),
               "rows_n": torch.full((G,), float(R), dtype=torch.float32, device=dev)}
         steps, lim = self._budgets(self.local_epochs * S, lim, dev)
@@ -614,7 +620,7 @@ class GroupedRoundEngine(FlatParams):
     def _level_vision_step(self, lv: Level, st, gens: List[torch.Generator], xb, labels, w,
                            draws=None, live=None) -> None:
         """One batched step of G vision clients on their batches ``(xb [G,
-        B, ...], labels, w [G, B])``, in place on ``st`` (``p``, ``buf``,
+        B, ...], labels, w [G, B])``, in place on ``st`` (``p``, ``opt``,
         ``g`` ``[G, ld]`` rows, ``acc``; ``lr``, ``lm``); ``draws`` the
         clients' augmentation ``(offsets, flips)`` instead of ``gens``;
         ``live [G]`` (bool, or None: all) gates each row's update and sums,
@@ -652,8 +658,8 @@ class GroupedRoundEngine(FlatParams):
         correct = ((score.detach().argmax(-1) == labels).to(torch.float32) * w).sum(1)
         n = lv.spec.total
         sums = None if group is None else torch.stack([lsum.detach(), correct], dim=1)
-        sums = self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"],
-                          live, sums)
+        sums = self._step(lv, st["p"][:, :n], self.opt.rows(st["opt"], n), st["g"], grads,
+                          n_glob, st["lr"], live, sums)
         del grads
         if sums is not None:
             lsum, correct = sums[:, 0], sums[:, 1]
@@ -689,12 +695,12 @@ class GroupedRoundEngine(FlatParams):
         del leaves
         n = lv.spec.total
         if extra:
-            sums = self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, None,
-                              st["lr"], live, torch.stack([lsum.detach(), n_loc], dim=1))
+            sums = self._step(lv, st["p"][:, :n], self.opt.rows(st["opt"], n), st["g"], grads,
+                              None, st["lr"], live, torch.stack([lsum.detach(), n_loc], dim=1))
             lsum, n_glob = sums[:, 0], sums[:, 1]
         else:
-            self._step(lv, st["p"][:, :n], st["buf"][:, :n], st["g"], grads, n_glob, st["lr"],
-                       live)
+            self._step(lv, st["p"][:, :n], self.opt.rows(st["opt"], n), st["g"], grads, n_glob,
+                       st["lr"], live)
         del grads
         wl = lsum.detach() / n_glob.clamp_min(1e-6)
         rows_n = st["rows_n"] if live is None else st["rows_n"] * live.to(torch.float32)
@@ -999,7 +1005,8 @@ class GroupedRoundEngine(FlatParams):
     def _slots(self, lv: Level, G: int, P: torch.Tensor, data, gate: bool = False
                ) -> Dict[str, torch.Tensor]:
         """Static buffers of the captured step of G clients at level ``lv``
-        (made on first use): their ``[G, ld]`` params, momentum and
+        (made on first use): their ``[G, ld]`` params, optimizer state
+        (``[G, ld]`` slots and, for Adam and Adamax, a ``[G]`` counter) and
         gradient, their data, permutations (vision) or token rows (LM),
         sums and the step counter; with ``gate`` also each row's step
         budget (``lim``), which the step reads."""
@@ -1008,7 +1015,7 @@ class GroupedRoundEngine(FlatParams):
             return self._st[key]
         dev = P.device
         p = torch.zeros((G, lv.ld), dtype=P.dtype, device=dev)
-        st = {"p": p, "buf": torch.zeros_like(p), "g": torch.zeros_like(p),
+        st = {"p": p, "opt": self.opt.init(p), "g": torch.zeros_like(p),
               "acc": torch.zeros((G, 3), dtype=torch.float32, device=dev),
               "t": device_counter(dev), "lr": self._lr,
               "lm": torch.zeros((G,) + tuple(data[-1].shape[1:]), dtype=data[-1].dtype,
@@ -1094,9 +1101,10 @@ class GroupedRoundEngine(FlatParams):
                     raw_perms: Optional[List[np.ndarray]] = None,
                     lim: Optional[torch.Tensor] = None) -> None:
         """Eager set-up of a level's G clients into the static buffers: the
-        global params at the level's entries, zero momentum and sums, the
-        step counter at 0, the rows' budgets ``lim`` (a gated step), their
-        data (rows ``uids`` of the stacks) and (vision) their epoch
+        global params at the level's entries, a fresh optimizer state
+        (every slot and counter zero), zero sums, the step counter at 0, the
+        rows' budgets ``lim`` (a gated step), their data (rows ``uids`` of
+        the stacks) and (vision) their epoch
         permutations with real samples first, each client's generator
         reseeded for its user -- ``local_train_level``'s prologue
         (``raw_perms`` its hook)."""
@@ -1105,7 +1113,7 @@ class GroupedRoundEngine(FlatParams):
         n = lv.spec.total
         st["p"].zero_()
         st["p"][:, :n] = P.index_select(0, lv.idx)
-        st["buf"].zero_()
+        self.opt.reset(st["opt"])
         st["acc"].zero_()
         st["t"].zero_()
         if "lim" in st:

@@ -14,8 +14,10 @@ in a Python loop (batching them is later work), each through:
   buffer (weighted-SUM loss), the per-leaf gradients packed into one flat
   buffer, and the fused masked-SGD epilogue over the flat params, momentum,
   gradient and hoisted width mask (ops/fused_update.py) -- or, with
-  ``fused_update=False``, the per-leaf reference chain on views of the same
-  buffers;
+  ``fused_update=False`` or any other optimizer (RMSprop, Adam, Adamax),
+  the unfused chain: the clip per leaf, then the configured optimizer over
+  the flat params and its flat state (``utils.optim.FlatOptimizer``; fresh
+  for each client, as the reference's ``_opt_init`` per client);
 * a masked-LM client (:meth:`RoundEngine.local_train_lm`) instead runs
   ``E * ceil(T / bptt)`` steps over its token rows' bptt windows in order
   (zero position weights on the padded tail), through the same fused
@@ -141,7 +143,7 @@ from ..ops.fused_update import FlatSpec, fused_sgd_flat, make_scal, resolve_fuse
 from ..sched import ScheduleSpec, resolve_schedule_cfg
 from ..sched.buffer import buffered_combine
 from ..sched.deadline import deadline_steps
-from ..utils.optim import clip_by_global_norm, sgd_update
+from ..utils.optim import FlatOptimizer, clip_by_global_norm
 from .mesh import Mesh, block_bounds, single_mesh
 from .ring_attention import ring_attention
 from .staging import ClientStore, CohortStager, PendingMetrics, StagedCohort
@@ -742,8 +744,7 @@ class RoundEngine(FlatParams):
         self.fix_rates = np.asarray(cfg["model_rate"], np.float32) \
             if cfg["model_split_mode"] == "fix" else None
         self.fused_mode = resolve_fused_mode(cfg, device)
-        self.momentum = float(cfg.get("momentum", 0.0))
-        self.weight_decay = float(cfg.get("weight_decay", 0.0))
+        self.opt = FlatOptimizer(cfg)
         self.spec = FlatSpec.of(dict(model.named_parameters()))
         # wire codec: a participant a rank of the mesh; 'dense' builds no
         # codec and no residual, and leaves the round as it was
@@ -877,7 +878,7 @@ class RoundEngine(FlatParams):
                     aug: Optional[Callable[[int], Tuple[Any, Any]]] = None,
                     scaler_rate: Optional[float] = None, step_limit: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Local SGD of one client from the global flat params ``P`` ->
+        """Local training of one client from the global flat params ``P`` ->
         ``(trained flat params, [loss_sum, correct_sum, n] device sums)``.
         ``scaler_rate`` (default ``wr``): the Scaler's rate, which a dense
         level sub-model trained at ``wr = 1`` takes from its level (the
@@ -893,7 +894,7 @@ class RoundEngine(FlatParams):
         B, dev = self.batch_size, P.device
         S = math.ceil(x.shape[0] / B)
         mask = self.param_mask_flat(wr)
-        st = {"p": P * mask, "buf": torch.zeros_like(P), "g": torch.empty_like(P),
+        st = {"p": P * mask, "opt": self.opt.init(P), "g": torch.empty_like(P),
               "acc": torch.zeros(3, dtype=torch.float32, device=dev), "lr": lr, "lm": lm}
         perms = self._epoch_perms(gen, sm, raw_perms)
         wpad = self._pad_weights(x.shape[0], dev)
@@ -912,7 +913,7 @@ class RoundEngine(FlatParams):
                        draws: Optional[Callable[[int], Dict[str, Any]]] = None,
                        scaler_rate: Optional[float] = None, step_limit: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Local SGD of one masked-LM client on its token rows ``[R, T]``
+        """Local training of one masked-LM client on its token rows ``[R, T]``
         from the global flat params ``P`` -> ``(trained flat params,
         [loss_sum, score_sum, n] device sums)``.
 
@@ -929,7 +930,7 @@ class RoundEngine(FlatParams):
         S = n_win.numel()
         rows_p = torch.nn.functional.pad(rows, (0, S * bptt - T))
         mask = self.param_mask_flat(wr)
-        st = {"p": P * mask, "buf": torch.zeros_like(P), "g": torch.empty_like(P),
+        st = {"p": P * mask, "opt": self.opt.init(P), "g": torch.empty_like(P),
               "acc": torch.zeros(3, dtype=torch.float32, device=dev), "lr": lr, "lm": lm,
               "rows_n": torch.full((), float(R), dtype=torch.float32, device=dev)}
         steps = self.local_epochs * S
@@ -979,7 +980,7 @@ class RoundEngine(FlatParams):
     def _vision_step(self, st, wr: float, scaler_rate: float, mask: torch.Tensor,
                      gen: torch.Generator, xb, labels, w, draw=None) -> None:
         """One local step on the batch ``(xb, labels, w)``, in place on the
-        client's ``st`` (``p``, ``buf``, ``g``, ``acc``; ``lr``, ``lm``);
+        client's ``st`` (``p``, ``opt``, ``g``, ``acc``; ``lr``, ``lm``);
         ``draw``, when given, the augmentation's ``(offsets, flips)``.  At
         data > 1 this rank's slice of the batch (:meth:`_data_slice`; the
         augmentation drawn for the whole batch, then sliced), BN
@@ -1006,7 +1007,7 @@ class RoundEngine(FlatParams):
         del leaves
         correct = ((score.detach().argmax(-1) == labels).to(torch.float32) * w).sum()
         sums = None if group is None else torch.stack([lsum.detach(), correct])
-        sums = self._step(st["p"], st["buf"], st["g"], grads, mask, n_glob, st["lr"], sums)
+        sums = self._step(st["p"], st["opt"], st["g"], grads, mask, n_glob, st["lr"], sums)
         del grads
         if sums is not None:
             lsum, correct = sums[0], sums[1]
@@ -1036,23 +1037,24 @@ class RoundEngine(FlatParams):
         grads = torch.autograd.grad(lsum, [leaves[k] for k in spec.names])
         del leaves
         if extra:
-            lsum, n_glob = self._step(st["p"], st["buf"], st["g"], grads, mask, None, st["lr"],
+            lsum, n_glob = self._step(st["p"], st["opt"], st["g"], grads, mask, None, st["lr"],
                                       torch.stack([lsum.detach(), n_loc]))
         else:
-            self._step(st["p"], st["buf"], st["g"], grads, mask, n_glob, st["lr"])
+            self._step(st["p"], st["opt"], st["g"], grads, mask, n_glob, st["lr"])
         del grads
         wl = lsum.detach() / n_glob.clamp_min(1e-6)
         rows_n = st["rows_n"]
         st["acc"] += torch.stack([wl * rows_n, torch.exp(wl) * rows_n, rows_n])
 
-    def _step(self, p, buf, g, grads, mask, n_glob, lr, sums=None) -> Optional[torch.Tensor]:
-        """The optimizer tail of one local step, in place on ``p`` and
-        ``buf``: the fused epilogue over the flat buffers (its gradient
-        packed into ``g``), or the per-leaf chain.  With ``sums`` (the data
-        axis) the packed gradient and ``sums`` go out in ONE all-reduce over
-        the data group first (the reference chain unpacks the reduced
-        gradient into its leaves); ``n_glob`` None takes the reduced
-        ``sums[1]``.  Returns the reduced ``sums``."""
+    def _step(self, p, opt, g, grads, mask, n_glob, lr, sums=None) -> Optional[torch.Tensor]:
+        """The optimizer tail of one local step, in place on ``p`` and the
+        optimizer state ``opt``: the fused SGD epilogue over the flat
+        buffers (its gradient packed into ``g``), or the unfused chain of
+        the configured optimizer.  With ``sums`` (the data axis) the packed
+        gradient and ``sums`` go out in ONE all-reduce over the data group
+        first (the unfused chain unpacks the reduced gradient into its
+        leaves, in the order the clip reads them); ``n_glob`` None takes the
+        reduced ``sums[1]``.  Returns the reduced ``sums``."""
         self.local_steps += 1  # eager calls only: a replayed step does not count
         if sums is not None:
             torch.cat([gr.reshape(-1) for gr in grads], out=g)
@@ -1062,30 +1064,28 @@ class RoundEngine(FlatParams):
                 n_glob = sums[1]
             grads = [self.spec.leaf(g, k) for k in self.spec.names]
         if self.fused_mode is None:
-            self._reference_step(p, buf, grads, mask, n_glob, lr)
+            self.clip_into(g, grads, mask, n_glob)
+            self.opt.update_(p, g, opt, lr, n_glob > 0)  # an all-padding batch: no step
         else:
             if sums is None:
                 torch.cat([gr.reshape(-1) for gr in grads], out=g)
-            fused_sgd_flat(g, p, buf, mask, make_scal(n_glob, lr), momentum=self.momentum,
-                           weight_decay=self.weight_decay, max_norm=1.0)
+            fused_sgd_flat(g, p, opt["buf"], mask, make_scal(n_glob, lr),
+                           momentum=self.opt.momentum, weight_decay=self.opt.weight_decay,
+                           max_norm=1.0)
         return sums
 
-    def _reference_step(self, p, buf, grads, mask, n_glob, lr, has=None) -> None:
-        """``fused_update=False``: the unfused per-leaf optimizer chain
-        (ref round_engine.py:622-634) -- mean-normalise, width mask,
-        global-norm clip, SGD, ``has`` gate (default ``n_glob > 0``) -- in
-        place on leaf views of the flat ``p`` and ``buf``."""
+    def clip_into(self, g, grads, mask, n_glob) -> None:
+        """The unfused chain's gradient (ref round_engine.py:622-626):
+        mean-normalise, width mask and global-norm clip per leaf (the norm
+        summed leaf by leaf in sorted-key order), each clipped leaf written
+        into its segment of the flat ``g``, which the optimizer reads."""
         spec = self.spec
-        pt, bt, mt = spec.unflatten(p), spec.unflatten(buf), spec.unflatten(mask)
+        mt = spec.unflatten(mask)
         denom = n_glob.clamp_min(1e-6)
         gm = {k: (gr / denom) * mt[k] for k, gr in zip(spec.names, grads)}
         gm, _ = clip_by_global_norm(gm, 1.0)
-        new_p, new_b = sgd_update(pt, gm, bt, lr, self.momentum, self.weight_decay)
-        if has is None:
-            has = n_glob > 0  # all-padding batch: skip the step entirely
         for k in spec.names:
-            pt[k].copy_(torch.where(has, new_p[k], pt[k]))
-            bt[k].copy_(torch.where(has, new_b[k], bt[k]))
+            spec.leaf(g, k).copy_(gm[k])
 
     # -- one round ---------------------------------------------------------
 
@@ -1195,12 +1195,13 @@ class RoundEngine(FlatParams):
 
     def _slots(self, P: torch.Tensor, data) -> Dict[str, torch.Tensor]:
         """The captured steps' static buffers (made once): the client's
-        params, momentum, gradient, data, permutations, sums, the step
-        counter and the round's learning rate."""
+        params, optimizer state (its slots and, for Adam and Adamax, its
+        step counter on the device), gradient, data, permutations, sums,
+        the step counter and the round's learning rate."""
         if self._st is not None:
             return self._st
         dev = P.device
-        st = {"p": torch.empty_like(P), "buf": torch.empty_like(P), "g": torch.empty_like(P),
+        st = {"p": torch.empty_like(P), "opt": self.opt.init(P), "g": torch.empty_like(P),
               "acc": torch.zeros(3, dtype=torch.float32, device=dev),
               "t": device_counter(dev),
               "lr": torch.zeros((), dtype=torch.float32, device=dev),
@@ -1262,7 +1263,8 @@ class RoundEngine(FlatParams):
     def stage_client(self, st, P: torch.Tensor, wr: float, row: int, data, cseed: int,
                      raw_perms: Optional[np.ndarray] = None) -> None:
         """Eager set-up of one client into the static buffers: the masked
-        params, zero momentum and sums, the step counter at 0, its data
+        params, a fresh optimizer state (every slot and the optimizer's
+        counter zero), zero sums, the step counter at 0, its data
         (row ``row`` of the stacks: its user id in the eager stacks, its
         slot in a cohort's) and (vision) its epoch permutations with real
         samples first, drawn from the step's generator reseeded for the
@@ -1270,7 +1272,7 @@ class RoundEngine(FlatParams):
         gen = self._ggen
         gen.manual_seed(cseed)
         torch.mul(P, self.param_mask_flat(wr), out=st["p"])
-        st["buf"].zero_()
+        self.opt.reset(st["opt"])
         st["acc"].zero_()
         st["t"].zero_()
         st["lm"].copy_(data[-1][row])
